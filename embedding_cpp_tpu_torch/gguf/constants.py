@@ -1,0 +1,129 @@
+"""GGUF format constants (the subset the BERT embedding path reads).
+
+The same format semantics as the JAX package's `gguf/constants.py`: key
+names follow the GGUF BERT convention, tensor types follow ggml's
+`ggml_type` enum.  Kept as a copy so this package imports nothing of the
+JAX package.
+"""
+from __future__ import annotations
+
+import enum
+
+GGUF_MAGIC = b"GGUF"
+GGUF_DEFAULT_ALIGNMENT = 32
+GGUF_SUPPORTED_VERSIONS = (1, 2, 3)
+
+
+class GGUFValueType(enum.IntEnum):
+    """Metadata (kv) value types — GGUF spec."""
+
+    UINT8 = 0
+    INT8 = 1
+    UINT16 = 2
+    INT16 = 3
+    UINT32 = 4
+    INT32 = 5
+    FLOAT32 = 6
+    BOOL = 7
+    STRING = 8
+    ARRAY = 9
+    UINT64 = 10
+    INT64 = 11
+    FLOAT64 = 12
+
+
+class GGMLType(enum.IntEnum):
+    """Tensor dtypes as stored in the GGUF tensor directory."""
+
+    F32 = 0
+    F16 = 1
+    Q4_0 = 2
+    Q4_1 = 3
+    Q5_0 = 6
+    Q5_1 = 7
+    Q8_0 = 8
+    Q8_1 = 9
+    I8 = 24
+    I16 = 25
+    I32 = 26
+
+
+# Block geometry: (elements per block, bytes per block).
+QK4 = 32
+QK8 = 32
+GGML_TYPE_SIZES: dict[GGMLType, tuple[int, int]] = {
+    GGMLType.F32: (1, 4),
+    GGMLType.F16: (1, 2),
+    GGMLType.Q4_0: (QK4, 2 + QK4 // 2),  # f16 scale + 16 nibble bytes
+    GGMLType.Q4_1: (QK4, 4 + QK4 // 2),  # f16 scale + f16 min + 16 bytes
+    GGMLType.Q8_0: (QK8, 2 + QK8),  # f16 scale + 32 int8 codes
+    GGMLType.I8: (1, 1),
+    GGMLType.I16: (1, 2),
+    GGMLType.I32: (1, 4),
+}
+
+
+class GGUFFileType(enum.IntEnum):
+    """File-level quantization mode (`general.file_type`)."""
+
+    ALL_F32 = 0
+    MOSTLY_F16 = 1
+    MOSTLY_Q4_0 = 2
+    MOSTLY_Q4_1 = 3
+    MOSTLY_Q8_0 = 7
+
+
+FTYPE_TO_GGML = {
+    GGUFFileType.ALL_F32: GGMLType.F32,
+    GGUFFileType.MOSTLY_F16: GGMLType.F16,
+    GGUFFileType.MOSTLY_Q4_0: GGMLType.Q4_0,
+    GGUFFileType.MOSTLY_Q4_1: GGMLType.Q4_1,
+    GGUFFileType.MOSTLY_Q8_0: GGMLType.Q8_0,
+}
+
+ARCH = "bert"
+
+
+class Keys:
+    """kv key names read by the BERT path."""
+
+    ARCHITECTURE = "general.architecture"
+    ALIGNMENT = "general.alignment"
+    NAME = "general.name"
+    FILE_TYPE = "general.file_type"
+
+    CONTEXT_LENGTH = f"{ARCH}.context_length"
+    EMBEDDING_LENGTH = f"{ARCH}.embedding_length"
+    BLOCK_COUNT = f"{ARCH}.block_count"
+    FEED_FORWARD_LENGTH = f"{ARCH}.feed_forward_length"
+    HEAD_COUNT = f"{ARCH}.attention.head_count"
+    LAYER_NORM_EPS = f"{ARCH}.attention.layer_norm_epsilon"
+    POOLING_TYPE = f"{ARCH}.pooling_type"
+    NORMALIZE = f"{ARCH}.normalize_embeddings"
+    DENSE_OUT = f"{ARCH}.dense_feat_out"
+    DENSE_ACTIVATION = f"{ARCH}.dense_activation"
+    TOKEN_TYPE_COUNT = f"{ARCH}.token_type_count"
+    POSITION_OFFSET = f"{ARCH}.position_offset"
+    GELU = f"{ARCH}.gelu_variant"
+
+    TOKENIZER_LIST = "tokenizer.ggml.tokens"
+    TOKENIZER_UNK_ID = "tokenizer.ggml.unknown_token_id"
+    TOKENIZER_SEP_ID = "tokenizer.ggml.seperator_token_id"  # sic — GGUF spelling
+    TOKENIZER_PAD_ID = "tokenizer.ggml.padding_token_id"
+    TOKENIZER_CLS_ID = "tokenizer.ggml.cls_token_id"
+    TOKENIZER_JSON_BLOB = "blob.tokenizer.json"
+
+
+def ggml_nbytes(ggml_type: GGMLType, n_elements: int) -> int:
+    """Byte size of a tensor with `n_elements` of the given type."""
+    block_elems, block_bytes = GGML_TYPE_SIZES[ggml_type]
+    if n_elements % block_elems:
+        raise ValueError(
+            f"{ggml_type.name}: {n_elements} elements not divisible by "
+            f"block size {block_elems}"
+        )
+    return n_elements // block_elems * block_bytes
+
+
+def align_offset(offset: int, alignment: int = GGUF_DEFAULT_ALIGNMENT) -> int:
+    return (offset + alignment - 1) // alignment * alignment

@@ -1,0 +1,223 @@
+"""Batched, masked BERT encoder forward pass in PyTorch.
+
+The BERT path of the JAX package's `models/bert.py`, on dicts of tensors:
+matmuls run in the activation dtype (bf16 for throughput, f32 for parity)
+with f32 accumulation, while LayerNorm, softmax, pooling and the L2 norm
+accumulate in f32.  Every layer's six projections go through `linear`
+(quantized weights: the fused dequant-matmul kernel), and attention goes
+through the projection-layout kernel: its segment-masked form for packed
+rows, its key-bias form for plain padded batches, at every sequence length.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..ops.attention import MASK_BIAS, flash_attention_bse, flash_attention_packed_bse
+from ..ops.linear import layer_norm, linear
+from ..ops.qtensor import QTensor, gather_rows
+from .config import BertConfig
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclass(frozen=True)
+class ComputeOptions:
+    """Activation dtype ("float32" | "bfloat16"), and the encoding of the
+    returned embeddings: "float32", or "int8" — per-vector int8 codes with
+    their f32 scale packed in one uint8 array (`pack_output_i8`), a quarter
+    of the bytes to fetch."""
+
+    dtype: str = "float32"
+    output_dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.dtype not in _DTYPES:
+            raise ValueError(f"dtype {self.dtype!r} not in {sorted(_DTYPES)}")
+        if self.output_dtype not in ("float32", "int8"):
+            raise ValueError(f"output_dtype {self.output_dtype!r} not float32/int8")
+
+    @property
+    def tdtype(self) -> torch.dtype:
+        return _DTYPES[self.dtype]
+
+
+def embed_tokens(params: dict, ids: torch.Tensor, config: BertConfig,
+                 opts: ComputeOptions, positions: torch.Tensor | None = None
+                 ) -> torch.Tensor:
+    """word[ids] + token_type[0] + position[off + 0..S-1] (or the per-segment
+    `positions` of packed rows), then the embedding LayerNorm."""
+    emb = params["embeddings"]
+    s = ids.shape[-1]
+    off = config.pos_offset
+    word = emb["word"]
+    if isinstance(word, QTensor):
+        x = gather_rows(word, ids, dtype=torch.float32)
+    else:
+        x = word[ids].to(torch.float32)
+    if "token_type" in emb:
+        x = x + emb["token_type"][0].to(torch.float32)
+    if positions is None:
+        x = x + emb["position"][off : off + s].to(torch.float32)
+    else:
+        x = x + emb["position"][positions + off].to(torch.float32)
+    return layer_norm(x, emb["ln_scale"], emb["ln_bias"], config.layer_norm_eps,
+                      opts.tdtype)
+
+
+def _attention(x: torch.Tensor, lp: dict, mask_bias: torch.Tensor,
+               config: BertConfig, seg: torch.Tensor | None = None) -> torch.Tensor:
+    """softmax(q k^T / sqrt(d)) v over the projection layout, masked by the
+    key bias, or block-diagonal by segment for packed rows."""
+    q = linear(x, lp["q_w"], lp["q_b"])
+    k = linear(x, lp["k_w"], lp["k_b"])
+    v = linear(x, lp["v_w"], lp["v_b"])
+    if seg is not None:
+        return flash_attention_packed_bse(q, k, v, seg, config.n_head)
+    return flash_attention_bse(q, k, v, mask_bias, config.n_head)
+
+
+def encoder_layer(x: torch.Tensor, lp: dict, mask_bias: torch.Tensor,
+                  config: BertConfig, seg: torch.Tensor | None = None) -> torch.Tensor:
+    """One transformer block: attention + add&norm, GELU FFN + add&norm."""
+    att = _attention(x, lp, mask_bias, config, seg=seg)
+    eps = config.layer_norm_eps
+    x = linear(att, lp["o_w"], lp["o_b"], residual=x,
+               ln=(lp["ln_att_scale"], lp["ln_att_bias"], eps))
+    h = linear(x, lp["ffn_up_w"], lp["ffn_up_b"],
+               activation="gelu_tanh" if config.gelu == "tanh" else "gelu_erf")
+    return linear(h, lp["ffn_down_w"], lp["ffn_down_b"], residual=x,
+                  ln=(lp["ln_out_scale"], lp["ln_out_bias"], eps))
+
+
+def _run_layers(x: torch.Tensor, layers: dict, config: BertConfig, mask_bias,
+                seg=None) -> torch.Tensor:
+    for i in range(config.n_layer):
+        lp = {k: v[i] for k, v in layers.items()}
+        x = encoder_layer(x, lp, mask_bias, config, seg=seg)
+    return x
+
+
+def _l2_normalize(x: torch.Tensor) -> torch.Tensor:
+    norm = torch.sqrt(torch.sum(torch.square(x), dim=-1, keepdim=True))
+    return x / torch.clamp(norm, min=1e-12)
+
+
+def pool_normalize(x: torch.Tensor, mask: torch.Tensor, pooling: str = "mean",
+                   normalize: bool = True) -> torch.Tensor:
+    """Masked pooling over tokens (mean / cls / max) + optional L2 norm."""
+    xf = x.to(torch.float32)
+    m = mask.to(torch.float32)[..., None]
+    if pooling == "mean":
+        pooled = torch.sum(xf * m, dim=-2) / torch.clamp(torch.sum(m, dim=-2), min=1.0)
+    elif pooling == "cls":
+        pooled = xf[..., 0, :]
+    elif pooling == "max":
+        pooled = torch.amax(torch.where(m > 0, xf, -torch.inf), dim=-2)
+        pooled = torch.where(torch.isfinite(pooled), pooled, 0.0)
+    else:
+        raise ValueError(f"unknown pooling {pooling!r}")
+    return _l2_normalize(pooled) if normalize else pooled
+
+
+def pool_normalize_packed(x: torch.Tensor, seg: torch.Tensor, pos: torch.Tensor,
+                          n_seg: int, pooling: str = "mean",
+                          normalize: bool = True) -> torch.Tensor:
+    """Per-segment pooling over packed rows: [B, S, E] -> [B, n_seg, E].
+    Empty segment slots come out as zero vectors."""
+    b, s, e = x.shape
+    xf = x.to(torch.float32)
+    gids = torch.arange(n_seg, dtype=seg.dtype, device=seg.device)
+    onehot = (seg[:, :, None] == gids[None, None, :]).to(torch.float32)
+    if pooling == "mean":
+        sums = torch.einsum("bsg,bse->bge", onehot, xf)
+        counts = torch.sum(onehot, dim=1)[..., None]
+        pooled = sums / torch.clamp(counts, min=1.0)
+    elif pooling == "cls":
+        sel = onehot * (pos == 0).to(torch.float32)[:, :, None]
+        pooled = torch.einsum("bsg,bse->bge", sel, xf)
+    elif pooling == "max":
+        rows = torch.arange(b, dtype=seg.dtype, device=seg.device)[:, None]
+        flat = torch.where(seg >= 0, seg + n_seg * rows, b * n_seg).reshape(-1)
+        acc = torch.full((b * n_seg + 1, e), -torch.inf, device=x.device)
+        acc = acc.scatter_reduce(0, flat.long()[:, None].expand(-1, e),
+                                 xf.reshape(b * s, e), "amax")
+        pooled = acc[: b * n_seg].reshape(b, n_seg, e)
+        pooled = torch.where(torch.isfinite(pooled), pooled, 0.0)
+    else:
+        raise ValueError(f"unknown pooling {pooling!r}")
+    return _l2_normalize(pooled) if normalize else pooled
+
+
+def _output_head(pooled: torch.Tensor, params: dict, config: BertConfig) -> torch.Tensor:
+    """Optional sentence-transformers Dense projection (f32), then the L2
+    norm when the config asks for it."""
+    dense = params.get("dense")
+    y = pooled
+    if dense is not None:
+        y = pooled @ dense["w"] + dense["b"]
+        if config.dense_activation == "tanh":
+            y = torch.tanh(y)
+    return _l2_normalize(y) if config.normalize else y
+
+
+def quantize_output_i8(out: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-vector symmetric int8: codes = round(x / scale), scale =
+    amax / 127.  Returns (int8 codes [..., E], f32 scales [...])."""
+    amax = torch.amax(torch.abs(out), dim=-1)
+    scale = (amax / 127.0).to(torch.float32)
+    q = torch.round(out / torch.clamp(scale, min=1e-20)[..., None])
+    return q.to(torch.int8), scale
+
+
+def pack_output_i8(out: torch.Tensor) -> torch.Tensor:
+    """Codes and scale in ONE uint8 array [..., E+4]: the codes, then the
+    f32 scale's 4 little-endian bytes — one device->host fetch."""
+    q, scale = quantize_output_i8(out)
+    sb = scale.contiguous()[..., None].view(torch.uint8)
+    return torch.cat([q.view(torch.uint8), sb], dim=-1)
+
+
+def unpack_output_i8(packed) -> np.ndarray:
+    """Host-side decode of pack_output_i8: numpy [..., E+4] u8 -> f32 [..., E]."""
+    packed = np.ascontiguousarray(packed)
+    q = packed[..., :-4].view(np.int8)
+    scale = np.ascontiguousarray(packed[..., -4:]).view(np.float32)[..., 0]
+    return q.astype(np.float32) * scale[..., None]
+
+
+def _cast_output(out: torch.Tensor, opts: ComputeOptions) -> torch.Tensor:
+    return pack_output_i8(out) if opts.output_dtype == "int8" else out
+
+
+def bert_embed_batch(params: dict, ids: torch.Tensor, mask: torch.Tensor,
+                     config: BertConfig, opts: ComputeOptions = ComputeOptions(),
+                     gather_idx: torch.Tensor | None = None) -> torch.Tensor:
+    """Token ids [B, S] + validity mask [B, S] -> embeddings [B, n_embd]
+    (rows `gather_idx` only, when given), in the output encoding."""
+    x = embed_tokens(params, ids, config, opts)
+    mask_bias = torch.where(mask.to(torch.bool), 0.0, MASK_BIAS).to(torch.float32)
+    x = _run_layers(x, params["layers"], config, mask_bias)
+    pooled = pool_normalize(x, mask, config.pooling, normalize=False)
+    out = _output_head(pooled, params, config)
+    if gather_idx is not None:
+        out = out[gather_idx]
+    return _cast_output(out, opts)
+
+
+def bert_embed_packed(params: dict, ids: torch.Tensor, seg: torch.Tensor,
+                      pos: torch.Tensor, config: BertConfig,
+                      opts: ComputeOptions = ComputeOptions(), *, n_seg: int,
+                      gather_idx: torch.Tensor | None = None) -> torch.Tensor:
+    """Sequence-packed forward: ids/seg/pos [B, S] (seg -1 on padding, pos
+    the within-segment position) -> [B, n_seg, n_embd], or the flat slots
+    `gather_idx` of B*n_seg, in the output encoding."""
+    x = embed_tokens(params, ids, config, opts, positions=pos)
+    x = _run_layers(x, params["layers"], config, None, seg=seg)
+    pooled = pool_normalize_packed(x, seg, pos, n_seg, config.pooling, normalize=False)
+    out = _output_head(pooled, params, config)
+    if gather_idx is not None:
+        out = out.reshape(-1, out.shape[-1])[gather_idx]
+    return _cast_output(out, opts)

@@ -1,0 +1,61 @@
+"""Linear (dense / quantized) projection dispatch.
+
+`linear()` hides the weight representation from the model code, in the
+order of the JAX package's Pallas path (ops/linear.py): a QTensor weight
+goes through the fused dequant-matmul kernel (`q4_matmul`), which takes the
+bias and the activation in its f32 epilogue; the result is cast to the
+activation dtype, the residual is added in that dtype, and the LayerNorm
+tail runs in f32.  A dense weight takes a plain matmul with f32
+accumulation, the bias in f32, then the cast and the activation.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .q4_matmul import q4_matmul
+from .qtensor import QTensor
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float, out_dtype) -> torch.Tensor:
+    """(x - mean) / sqrt(var + eps) * scale + bias, computed in f32."""
+    xf = x.to(torch.float32)
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = torch.square(xf - mean).mean(dim=-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return (y * scale + bias).to(out_dtype)
+
+
+def _activate(y: torch.Tensor, activation: str | None) -> torch.Tensor:
+    if activation is None:
+        return y
+    if activation == "gelu_erf":
+        return F.gelu(y)
+    if activation == "gelu_tanh":
+        return F.gelu(y, approximate="tanh")
+    if activation == "silu":
+        return F.silu(y)
+    raise ValueError(f"unknown activation {activation!r}")
+
+
+def linear(x: torch.Tensor, w, b: torch.Tensor | None = None, *,
+           activation: str | None = None, residual: torch.Tensor | None = None,
+           ln: tuple | None = None) -> torch.Tensor:
+    """y = act(x @ w + b) [+ residual] [-> LayerNorm].  x: [..., K]; w: [K, N]
+    dense or QTensor; b: [N]; ln: (scale [N], bias [N], eps)."""
+    dtype = x.dtype
+    lead = x.shape[:-1]
+    if isinstance(w, QTensor):
+        y = q4_matmul(x.reshape(-1, x.shape[-1]), w, bias=b, activation=activation)
+        y = y.reshape(*lead, -1).to(dtype)
+    else:
+        y = torch.matmul(x.to(torch.float32), w.to(dtype).to(torch.float32))
+        if b is not None:
+            y = y + b.to(torch.float32)
+        y = _activate(y.to(dtype), activation)
+    if residual is not None:
+        y = y + residual
+    if ln is not None:
+        y = layer_norm(y, ln[0], ln[1], ln[2], dtype)
+    return y

@@ -1,0 +1,212 @@
+"""The embedding engine: model + tokenizer + batched forward on a device.
+
+The encode path of the JAX package's `runtime/engine.py`: tokenize ->
+plan (pack short sentences many to a row, bucket the rest by length) ->
+launch every batch -> fetch once -> scatter back to input order.  The
+engine runs on the GPU unless the caller passes `device="cpu"`; with no
+device given and no GPU present it raises instead of falling back.
+"""
+from __future__ import annotations
+
+import threading
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from ..gguf.constants import Keys
+from ..gguf.reader import GGUFReader
+from ..models.bert import (
+    ComputeOptions,
+    bert_embed_batch,
+    bert_embed_packed,
+    unpack_output_i8,
+)
+from ..models.config import BertConfig
+from ..models.params import load_params, params_to, random_params
+from ..tokenizer import SpecialIds, WordPieceTokenizer, frame_ids
+from .batching import (
+    DEFAULT_BATCH_BUCKETS,
+    DEFAULT_PACK_SEQ,
+    DEFAULT_SEQ_BUCKETS,
+    PackedSegBatch,
+    pack_batches,
+    pack_segments,
+)
+
+
+def resolve_device(device=None) -> torch.device:
+    """`device`, or the GPU when none is given; raises when none is given
+    and no GPU is present."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device available; pass device='cpu' to run on the CPU"
+            )
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+class Engine:
+    """Text -> L2-normalized embedding vectors."""
+
+    def __init__(
+        self,
+        params: dict,
+        config: BertConfig,
+        tokenizer=None,
+        special_ids: SpecialIds | None = None,
+        *,
+        opts: ComputeOptions | None = None,
+        device=None,
+        packing: str = "auto",
+    ):
+        self.device = resolve_device(device)
+        self.config = config
+        self.opts = opts or ComputeOptions()
+        self.tokenizer = tokenizer
+        self.special_ids = special_ids or SpecialIds(cls=101, sep=102, pad=0, unk=100)
+        self.seq_buckets = tuple(
+            b for b in DEFAULT_SEQ_BUCKETS if b <= config.n_ctx) or (config.n_ctx,)
+        self.batch_buckets = DEFAULT_BATCH_BUCKETS
+        # per-dispatch token budget: longer sequence buckets get fewer rows
+        self.max_batch_tokens = DEFAULT_BATCH_BUCKETS[-1] * 512
+        if packing not in ("auto", "never"):
+            raise ValueError(f"packing must be auto/never, got {packing!r}")
+        self.packing = packing
+        self.pack_seq = min(DEFAULT_PACK_SEQ, config.n_ctx)
+        self.pack_segs = max(8, self.pack_seq // 8)
+        # serializes planning + launches across threads (the server's
+        # executor threads share one engine)
+        self._lock = threading.Lock()
+        self.params = params_to(params, self.device)
+
+    # --- constructors -------------------------------------------------------
+    @classmethod
+    def from_gguf(cls, path: str, *, opts: ComputeOptions | None = None,
+                  device=None, **kw) -> "Engine":
+        device = resolve_device(device)
+        opts = opts or ComputeOptions()
+        with GGUFReader(path) as r:
+            params, config = load_params(r, dense_dtype=opts.tdtype, device=device)
+            blob = r.kv.get(Keys.TOKENIZER_JSON_BLOB)
+            tokenizer = WordPieceTokenizer(blob) if blob else None
+            special = SpecialIds.from_gguf_kv(r.kv)
+        return cls(params, config, tokenizer, special, opts=opts, device=device, **kw)
+
+    @classmethod
+    def synthetic(cls, config: BertConfig, ftype="f32", *, seed: int = 0,
+                  opts: ComputeOptions | None = None, device=None, **kw) -> "Engine":
+        """Random-weight engine with the synthetic WordPiece vocab (needs
+        n_vocab >= 242; smaller vocabs get no tokenizer)."""
+        from ..tokenizer.testvocab import build_tokenizer_json
+
+        device = resolve_device(device)
+        opts = opts or ComputeOptions()
+        params = random_params(config, ftype, seed=seed, dense_dtype=opts.tdtype,
+                               device=device)
+        tokenizer = special = None
+        try:
+            blob = build_tokenizer_json(config.n_vocab)
+        except ValueError:  # vocab too small for the synthetic word list
+            pass
+        else:
+            tokenizer = WordPieceTokenizer(blob)
+            special = SpecialIds(cls=2, sep=3, pad=0, unk=1)
+        return cls(params, config, tokenizer, special, opts=opts, device=device, **kw)
+
+    # --- tokenize -----------------------------------------------------------
+    def tokenize_batch(self, texts: Sequence[str]) -> list[list[int]]:
+        """Tokenize + frame each text ([CLS] .. [SEP], cut at n_ctx)."""
+        if self.tokenizer is None:
+            raise RuntimeError("engine has no tokenizer (model without blob kv)")
+        return [frame_ids(ids, self.special_ids, self.config.n_ctx)
+                for ids in self.tokenizer.encode_batch(list(texts))]
+
+    # --- forward ------------------------------------------------------------
+    def _pack_plan(self, token_lists: Sequence[Sequence[int]]) -> list[int]:
+        """Indices of sentences to route through the sequence-packed path
+        (the rest go through plain length-bucketed batching)."""
+        if self.packing == "never":
+            return []
+        # auto: packing pays off when many short sentences would otherwise
+        # spread over several dispatches; long sentences already fill rows
+        short = [i for i, t in enumerate(token_lists) if len(t) <= self.pack_seq // 4]
+        return short if len(short) >= 32 else []
+
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(self.device)
+
+    def _dispatch(self, token_lists: Sequence[Sequence[int]]) -> list:
+        """Plan and launch every batch; returns [(batch, device_result)].
+        Caller holds self._lock."""
+        n = len(token_lists)
+        pack_idx = self._pack_plan(token_lists)
+        pack_set = set(pack_idx)
+        rest = [i for i in range(n) if i not in pack_set]
+        packed_batches = (
+            pack_segments([token_lists[i] for i in pack_idx], pack_idx,
+                          self.special_ids.pad, seq_len=self.pack_seq,
+                          n_seg=self.pack_segs)
+            if pack_idx else []
+        )
+        batches = pack_batches(
+            [token_lists[i] for i in rest], self.special_ids.pad,
+            seq_buckets=self.seq_buckets, batch_buckets=self.batch_buckets,
+            max_seq=self.config.n_ctx, max_tokens=self.max_batch_tokens,
+        )
+        for batch in batches:
+            batch.positions = [rest[i] for i in batch.positions]
+        pending = []
+        with torch.inference_mode():
+            for pb in packed_batches:
+                out = bert_embed_packed(
+                    self.params, self._tensor(pb.ids), self._tensor(pb.seg),
+                    self._tensor(pb.pos), self.config, self.opts, n_seg=pb.n_seg,
+                    # the flat slots of real sentences: padding never leaves
+                    gather_idx=self._tensor(pb.slots.astype(np.int64)),
+                )
+                pending.append((pb, out))
+            for batch in batches:
+                n_real = len(batch.positions)
+                gidx = None
+                if n_real < batch.ids.shape[0]:
+                    gidx = self._tensor(np.arange(n_real))
+                out = bert_embed_batch(
+                    self.params, self._tensor(batch.ids), self._tensor(batch.mask),
+                    self.config, self.opts, gather_idx=gidx,
+                )
+                pending.append((batch, out))
+        return pending
+
+    def embed_tokens(self, token_lists: Sequence[Sequence[int]]) -> np.ndarray:
+        """Token-id lists -> [n, n_embd] f32.  Every batch is launched
+        before the first fetch, and the results cross to the host once;
+        the fetch waits outside the lock, so another caller's launches
+        queue behind this call's work meanwhile."""
+        out = np.empty((len(token_lists), self.n_embd), dtype=np.float32)
+        with self._lock:
+            pending = self._dispatch(token_lists)
+            if not pending:
+                return out
+            joined = torch.cat([v for _, v in pending], dim=0)
+        host = joined.cpu().numpy()
+        if host.dtype == np.uint8:  # int8 output: packed codes + scales
+            host = unpack_output_i8(host)
+        off = 0
+        for batch, vecs in pending:
+            rows = batch.orig if isinstance(batch, PackedSegBatch) else batch.positions
+            out[rows] = host[off : off + len(rows)]
+            off += vecs.shape[0]
+        return out
+
+    def encode(self, texts: str | Sequence[str]) -> np.ndarray:
+        """Texts -> [n, n_embd] L2-normalized f32 embeddings."""
+        if isinstance(texts, str):
+            texts = [texts]
+        return self.embed_tokens(self.tokenize_batch(texts))
+
+    @property
+    def n_embd(self) -> int:
+        """Output embedding width: the Dense head's width when present."""
+        return self.config.dense_out or self.config.n_embd

@@ -1,0 +1,59 @@
+"""The port and chip_smoke.py import neither jax nor anything of the JAX
+package `embedding_cpp_tpu`: checked in a fresh interpreter and by a scan of
+every import statement in their sources."""
+import ast
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+PKG = REPO / "embedding_cpp_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "embedding_cpp_tpu")
+
+_PROBE = """
+import importlib, json, pkgutil, sys
+sys.path.insert(0, {repo!r})
+import embedding_cpp_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "embedding_cpp_tpu"))
+print(json.dumps({{"modules": names, "bad": bad}}))
+"""
+
+
+def test_importing_everything_loads_no_jax():
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE.format(repo=str(REPO))],
+        capture_output=True, text=True, timeout=120, cwd=str(REPO),
+    )
+    assert out.returncode == 0, out.stderr
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result["bad"] == []
+    assert "embedding_cpp_tpu_torch.runtime.server" in result["modules"]
+    assert "embedding_cpp_tpu_torch.ops.q4_matmul" in result["modules"]
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(encoding="utf-8"))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", "") in (
+                "import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            roots.add(str(node.args[0].value).split(".")[0])
+    return roots
+
+
+def test_sources_import_no_jax():
+    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 15
+    offenders = {str(f.relative_to(REPO)): sorted(_imported_roots(f) & set(FORBIDDEN))
+                 for f in files}
+    assert {f: r for f, r in offenders.items() if r} == {}

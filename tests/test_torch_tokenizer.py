@@ -1,0 +1,69 @@
+"""The port's pure-Python WordPiece tokenizer and framing against the JAX
+package's: the committed golden ids, added-token splitting, the synthetic
+tokenizer.json, and CLS/SEP framing."""
+import json
+import random
+from pathlib import Path
+
+import pytest
+
+from embedding_cpp_tpu.tokenizer.base import SpecialIds as JSpecialIds
+from embedding_cpp_tpu.tokenizer.base import frame_ids as jax_frame_ids
+from embedding_cpp_tpu.tokenizer.testvocab import build_tokenizer_json as jax_build_json
+from embedding_cpp_tpu.tokenizer.wordpiece import WordPieceTokenizer as JWordPiece
+from embedding_cpp_tpu_torch.tokenizer import SpecialIds, WordPieceTokenizer, frame_ids
+from embedding_cpp_tpu_torch.tokenizer.testvocab import build_tokenizer_json
+
+HERE = Path(__file__).resolve().parent
+ALPHABET = ("abc def ghi,.!? Ünïcödé 中文 \t\n\x00� the quick brown fox "
+            "[CLS] [SEP] [MASK]x  ##ing ")
+
+
+def test_committed_golden_ids():
+    tok = WordPieceTokenizer((HERE / "golden_tokenizer.json").read_bytes())
+    entries = json.loads((HERE / "golden_tokens.json").read_text())["entries"]
+    for e in entries:
+        assert tok.encode(e["text"]) == e["ids"], e["text"]
+
+
+@pytest.mark.parametrize("n_vocab", [300, 1000])
+def test_synthetic_tokenizer_json_is_byte_identical(n_vocab):
+    assert build_tokenizer_json(n_vocab) == jax_build_json(n_vocab)
+
+
+def _with_added_tokens() -> bytes:
+    spec = json.loads(jax_build_json(1000))
+    spec["added_tokens"] = [
+        {"id": 2, "content": "[CLS]", "single_word": False, "lstrip": False,
+         "rstrip": False, "normalized": False, "special": True},
+        {"id": 3, "content": "[SEP]", "single_word": False, "lstrip": True,
+         "rstrip": True, "normalized": False, "special": True},
+        {"id": 4, "content": "[MASK]", "single_word": True, "lstrip": True,
+         "rstrip": False, "normalized": False, "special": True},
+    ]
+    return json.dumps(spec).encode()
+
+
+@pytest.mark.parametrize("blob", ["synthetic", "added_tokens"])
+def test_fuzzed_encodes_match_jax(blob):
+    data = jax_build_json(1000) if blob == "synthetic" else _with_added_tokens()
+    ours, theirs = WordPieceTokenizer(data), JWordPiece(data)
+    rng = random.Random(0)
+    for _ in range(1500):
+        text = "".join(rng.choice(ALPHABET) for _ in range(rng.randint(0, 48)))
+        assert ours.encode(text) == theirs.encode(text), repr(text)
+
+
+@pytest.mark.parametrize("n", [0, 3, 6, 7, 20])
+def test_framing_matches_jax(n):
+    ids = list(range(10, 10 + n)) + [0, 55]  # a pad id stops the copy
+    ours = frame_ids(ids, SpecialIds(cls=2, sep=3, pad=0, unk=1), 8)
+    theirs = jax_frame_ids(ids, JSpecialIds(cls=2, sep=3, pad=0, unk=1), 8)
+    assert ours == theirs and len(ours) <= 8 and ours[-1] == 3
+
+
+def test_unsupported_tokenizer_json_raises():
+    spec = json.loads(jax_build_json(300))
+    spec["model"]["type"] = "BPE"
+    with pytest.raises(ValueError):
+        WordPieceTokenizer(json.dumps(spec))
