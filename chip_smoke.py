@@ -4,23 +4,39 @@
     python3 chip_smoke.py [--out-dir DIR]   # from the repo root, on a machine
                                             # with an NVIDIA H100 and nvcc
 
-Phases, in order, each printing one JSON line:
-  device   the card (nvidia-smi name and power limit); TF32 switched off
-  build    both CUDA sources compiled from csrc/ with nvcc (sm_90a)
-  kernels  each kernel against its plain PyTorch version on the card at the
-           main path's shapes, with CUDA-event times, bounds and the
-           PyTorch library call that computes the same function
-  main     Engine.embed_tokens at MiniLM-L6 full width (384 wide, 6 layers,
-           12 heads; Q4_0 weights from a seed, bf16 activations) over the
-           2758-sentence STSB-profile corpus, packed and plain, f32 and int8
-           output, with the kernels' launch counts, the check against the
-           port's own f32 CPU path, sentences/s and in-device forward ms
-  profile  torch.profiler kernel times of one packed [32, 512] forward
-  server   the TCP server over the GPU engine: one raw text, one TPE2 batch
-then the `kernels` summary line, and last {"ok": true, "device": {...}}.
-Any failure raises and exits non-zero before the last line.  Nothing of
-JAX or of the JAX package is imported.  With --out-dir, the ptxas log and
-the profiler tables are written there.
+Phases, in order, each printing JSON lines:
+  device    the card (nvidia-smi name and power limit); TF32 switched off
+  build     every CUDA source compiled from csrc/ with nvcc (sm_90a), in parallel
+  kernels   each kernel against its plain PyTorch version on the card at the
+            main paths' shapes, with CUDA-event times, bounds and the PyTorch
+            library call that computes the same function: K1 q4_matmul at
+            MiniLM-L6's and ModernBERT's linears (with the GeGLU prologue),
+            the projection-layout attention K2/K3 at both models' heads
+            (12 of 32, 12 of 64) and K4 (position bias), the long-row K5 and
+            the sliding-window K7 (ModernBERT)
+  main      Engine.embed_tokens at MiniLM-L6 full width (384 wide, 6 layers,
+            12 heads; Q4_0 weights from a seed, bf16 activations) over the
+            2758-sentence STSB-profile corpus, packed and plain, f32 and int8
+            output, with the kernels' launch counts, the check against the
+            port's own f32 CPU path, sentences/s and in-device forward ms
+  modernbert_main  the same corpus through ModernBERT-base at full width and
+            depth (768 wide, 22 layers, 12 heads of 64, GeGLU 1152, window
+            128), packed and plain: launch counts, sentences/s, in-device
+            forward ms at [32, 512]
+  modernbert_long  8 documents of 8192 tokens: one [8, 8192] forward through
+            K5 (global layers) and K7 (local layers): documents/s, in-device
+            forward ms
+  modernbert_vs_cpu  min cosine against the port's f32 CPU path: 256
+            sentences and 2 documents of 2048 tokens
+  profile   torch.profiler kernel times of the packed [32, 512] forwards
+            (MiniLM-L6, ModernBERT) and of the [8, 8192] ModernBERT forward
+  server    the TCP server over the GPU engine: one raw text, one TPE2 batch
+then the card's name and power limit, the `kernels` summary line (one entry
+per kernel and model: a model's launches beside the times at its shapes),
+and last {"ok": true, "device": {...}}.  Launch counts are set to 0 just before each
+path is driven and read just after.  Any failure raises and exits non-zero
+before the last line.  Nothing of JAX or of the JAX package is imported.
+With --out-dir, the ptxas log and the profiler tables are written there.
 """
 from __future__ import annotations
 
@@ -46,6 +62,8 @@ F32_ATOL = 1e-4  # the same f32 products summed in another order
 BF16_REL = 1e-2  # max|err| / max|ref|: an order difference flips one bf16 rounding
 COSINE_VS_CPU = 0.999  # bf16 GPU main path vs the port's f32 CPU path
 COSINE_SERVER = 0.9999  # wire replies vs engine.encode
+ATTENTION = ("attn_bse_packed", "attn_bse_keybias", "attn_bse_bias", "attn_bse_bias_packed",
+             "attn_long", "attn_local")
 
 # Published dense peaks by the name the card reports (NVIDIA data sheets):
 # memory bytes/s and bf16 tensor-core flop/s.
@@ -63,6 +81,15 @@ def emit(obj) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+def reset_counts(counters) -> None:
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+
+
+def read_counts(counters) -> dict:
+    return {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
 
 
 def peaks_for(name: str):
@@ -194,86 +221,141 @@ def _tolerance(dtype) -> str:
             else f"rel_err <= {BF16_REL}")
 
 
-def phase_kernels_q4(peaks) -> dict:
+# K1 linears per layer: (name, K, N, activation, launches per layer, prologue)
+MINILM_LINEARS = [("qkvo", 384, 384, None, 4, False), ("up", 384, 1536, "gelu_erf", 1, False),
+                  ("down", 1536, 384, None, 1, False)]
+MODERNBERT_LINEARS = [("qkvo", 768, 768, None, 4, False),
+                      ("up", 768, 1152, "gelu_erf", 1, False),
+                      ("gate", 768, 1152, None, 1, False), ("down", 1152, 768, None, 1, True)]
+
+
+def phase_kernels_q4(peaks, model: str, shapes, all_types: tuple, bias: bool,
+                     seed: int) -> dict:
+    """K1 at one model's linears per layer, M = 16384: every shape in Q4_0
+    bf16 (timed; the per-layer totals weight q/k/v/o by 4), the shapes in
+    `all_types` also in Q4_1/Q8_0 and f32, and a ragged M edge at the up
+    projection.  A prologue shape multiplies in the gated FFN's gate."""
     import torch
     import torch.nn.functional as F
 
     from embedding_cpp_tpu_torch.gguf import GGMLType
     from embedding_cpp_tpu_torch.gguf.quant import quantize
     from embedding_cpp_tpu_torch.ops import qtensor as tqt
-    from embedding_cpp_tpu_torch.ops.q4_matmul import (
-        dequant_weight,
-        q4_matmul,
-        q4_matmul_plain,
-    )
+    from embedding_cpp_tpu_torch.ops.q4_matmul import dequant_weight, q4_matmul, q4_matmul_plain
 
     dev = torch.device("cuda")
-    # one layer's linears at the packed main-path M: q, k, v, o, up, down
-    shapes = [("qkvo", 384, 384, None, 4), ("up", 384, 1536, "gelu_erf", 1),
-              ("down", 1536, 384, None, 1)]
-    gen = torch.Generator(device="cpu").manual_seed(0)
+
+    def weight(qtype, k, n, wseed):
+        w_np = np.random.default_rng(wseed).normal(scale=0.02, size=(n, k)).astype(np.float32)
+        raw = quantize(w_np, GGMLType[qtype])
+        w = (tqt.pack_q8_matmul(raw, (n, k)) if qtype == "Q8_0"
+             else tqt.pack_q4_matmul(raw, (n, k), GGMLType[qtype]))
+        return w.map(lambda t: t.to(dev))
+
+    gen = torch.Generator(device="cpu").manual_seed(seed)
     totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
               "t_bytes": 0.0, "t_ops": 0.0}
-    main_err = 0.0
-    cases = []
+    main_err, prologue_case = 0.0, None
     for qtype in ("Q4_0", "Q4_1", "Q8_0"):
         for dtype in (torch.bfloat16, torch.float32):
-            for name, k, n, act, per_layer in shapes:
-                w_np = np.random.default_rng(k * n).normal(
-                    scale=0.02, size=(n, k)).astype(np.float32)
-                raw = quantize(w_np, GGMLType[qtype])
-                w = (tqt.pack_q8_matmul(raw, (n, k)) if qtype == "Q8_0"
-                     else tqt.pack_q4_matmul(raw, (n, k), GGMLType[qtype]))
-                w = w.map(lambda t: t.to(dev))
+            main = qtype == "Q4_0" and dtype == torch.bfloat16  # the main path's
+            for name, k, n, act, per_layer, gated in shapes:
+                if not main and name not in all_types:
+                    continue
+                w = weight(qtype, k, n, k * n + seed)
                 x = torch.randn(M_TOKENS, k, generator=gen).to(dev, dtype)
-                bias = (torch.randn(n, generator=gen) * 0.1).to(dev)
-                got = q4_matmul(x, w, bias=bias, activation=act)
-                ref = q4_matmul_plain(x, w, bias, act)
+                g = torch.randn(M_TOKENS, k, generator=gen).to(dev, dtype) if gated else None
+                b = (torch.randn(n, generator=gen) * 0.1).to(dev) if bias else None
+                before = q4_matmul.prologue_launches
+                got = q4_matmul(x, w, bias=b, activation=act, prologue_mul=g)
+                check(q4_matmul.prologue_launches == before + gated, "prologue count")
+                ref = q4_matmul_plain(x, w, b, act, prologue_mul=g)
                 torch.cuda.synchronize()
                 err, rel = _rel_err(got, ref)
                 ok = _within(dtype, err, rel)
                 case = {"qtype": qtype, "dtype": str(dtype).split(".")[-1], "shape": name,
-                        "m": M_TOKENS, "k": k, "n": n, "act": act,
-                        "max_abs_err": err, "rel_err": rel,
-                        "tolerance": _tolerance(dtype), "ok": ok}
-                if qtype == "Q4_0" and dtype == torch.bfloat16:  # the main path's
+                        "m": M_TOKENS, "k": k, "n": n, "act": act, "prologue": gated,
+                        "max_abs_err": err, "rel_err": rel, "tolerance": _tolerance(dtype),
+                        "ok": ok}
+                if main:
                     main_err = max(main_err, err)
                     wd = dequant_weight(w, dtype)
-                    case["ms"] = gpu_ms(lambda: q4_matmul(x, w, bias=bias, activation=act))
-                    case["plain_ms"] = gpu_ms(lambda: q4_matmul_plain(x, w, bias, act),
-                                              samples=5, reps=1)
-                    lib = ((lambda: F.gelu(torch.addmm(bias.to(dtype), x, wd))) if act
-                           else (lambda: torch.addmm(bias.to(dtype), x, wd)))
+                    case["ms"] = gpu_ms(lambda: q4_matmul(x, w, bias=b, activation=act,
+                                                          prologue_mul=g))
+                    case["plain_ms"] = gpu_ms(
+                        lambda: q4_matmul_plain(x, w, b, act, prologue_mul=g),
+                        samples=5, reps=1)
+
+                    def lib():
+                        xx = x * g if gated else x
+                        y = torch.mm(xx, wd) if b is None else torch.addmm(b.to(dtype), xx, wd)
+                        return F.gelu(y) if act else y
+
                     case["library_ms"] = gpu_ms(lib)
-                    nbytes = (x.numel() * 2 + w.qs.numel() * w.qs.element_size()
-                              + w.scales.numel() * 4 + n * 4 + M_TOKENS * n * 2)
+                    nbytes = (x.numel() * 2 * (2 if gated else 1)
+                              + w.qs.numel() * w.qs.element_size() + w.scales.numel() * 4
+                              + (n * 4 if bias else 0) + M_TOKENS * n * 2)
                     flops = 2.0 * M_TOKENS * k * n
                     case["bound_ms"], case["bound_by"] = bound_ms(nbytes, flops, peaks)
                     for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
                         totals[key] += per_layer * case[key]
                     totals["t_bytes"] += per_layer * nbytes / peaks[0] * 1e3
                     totals["t_ops"] += per_layer * flops / peaks[1] * 1e3
-                cases.append(case)
-                emit({"phase": "kernel_check", "kernel": "q4_matmul", **case})
-                check(ok, f"q4_matmul {qtype} {dtype} {name}: err {err} rel {rel}")
+                    if gated:
+                        prologue_case = case
+                emit({"phase": "kernel_check", "kernel": "q4_matmul", "model": model, **case})
+                check(ok, f"q4_matmul {model} {qtype} {dtype} {name}: err {err} rel {rel}")
     # ragged M edge at the up-projection shape
+    _, k, n, act, _, _ = next(sh for sh in shapes if sh[0] == "up")
     m = M_TOKENS - 37
-    w_np = np.random.default_rng(1).normal(scale=0.02, size=(1536, 384)).astype(np.float32)
-    w = tqt.pack_q4_matmul(quantize(w_np, GGMLType.Q4_0), (1536, 384),
-                           GGMLType.Q4_0).map(lambda t: t.to(dev))
-    x = torch.randn(m, 384, generator=gen).to(dev, torch.bfloat16)
-    got = q4_matmul(x, w, activation="gelu_erf")
-    err, rel = _rel_err(got, q4_matmul_plain(x, w, None, "gelu_erf"))
-    emit({"phase": "kernel_check", "kernel": "q4_matmul", "qtype": "Q4_0",
-          "dtype": "bfloat16", "shape": "up-ragged", "m": m, "k": 384, "n": 1536,
+    w = weight("Q4_0", k, n, 1)
+    x = torch.randn(m, k, generator=gen).to(dev, torch.bfloat16)
+    err, rel = _rel_err(q4_matmul(x, w, activation=act), q4_matmul_plain(x, w, None, act))
+    emit({"phase": "kernel_check", "kernel": "q4_matmul", "model": model, "qtype": "Q4_0",
+          "dtype": "bfloat16", "shape": "up-ragged", "m": m, "k": k, "n": n,
           "max_abs_err": err, "rel_err": rel, "tolerance": _tolerance(torch.bfloat16),
           "ok": rel <= BF16_REL})
-    check(rel <= BF16_REL, f"q4_matmul ragged M: rel {rel}")
-    return {"max_abs_err": main_err, "per_layer": totals,
+    check(rel <= BF16_REL, f"q4_matmul {model} ragged M: rel {rel}")
+    return {"max_abs_err": main_err, "per_layer": totals, "prologue": prologue_case,
             "bound_by": "bytes" if totals["t_bytes"] >= totals["t_ops"] else "operations"}
 
 
-def phase_kernels_attention(peaks) -> dict:
+def _attention_case(kernel: str, fn, plain, lib, args, nbytes: float, flops: float,
+                    peaks, timed: bool, **shape) -> dict:
+    """One kernel check: the kernel against its plain version on the same
+    inputs; with `timed`, the kernel's, the plain version's and the library
+    call's ms beside the bound."""
+    import torch
+
+    got = fn(*args)
+    ref = plain(*args)
+    torch.cuda.synchronize()
+    err, rel = _rel_err(got, ref)
+    dtype = got.dtype
+    ok = _within(dtype, err, rel) and bool(torch.isfinite(got).all())
+    case = {**shape, "dtype": str(dtype).split(".")[-1], "max_abs_err": err, "rel_err": rel,
+            "tolerance": _tolerance(dtype), "ok": ok}
+    del got, ref
+    if timed:
+        case["ms"] = gpu_ms(lambda: fn(*args))
+        case["plain_ms"] = gpu_ms(lambda: plain(*args), samples=3, reps=1)
+        case["library_ms"] = gpu_ms(lib)
+        case["bound_ms"], case["bound_by"] = bound_ms(nbytes, flops, peaks)
+    emit({"phase": "kernel_check", "kernel": kernel, **case})
+    check(ok, f"{kernel} {shape} {dtype}: err {err} rel {rel}")
+    return case
+
+
+def _bse_heads(t, h: int):
+    """[B, S, H*d] -> contiguous [B, H, S, d] (SDPA's layout)."""
+    b, s, e = t.shape
+    return t.view(b, s, h, e // h).transpose(1, 2).contiguous()
+
+
+def phase_kernels_attention(peaks, model: str, h: int, d: int, seed: int) -> dict:
+    """K2/K3 (no position bias) at one model's heads: packed [32, 512]
+    segments; key bias at [32, 512], [512, 16] and [256, 32].  MiniLM-L6
+    runs them at 12 heads of 32, ModernBERT's global layers at 12 of 64."""
     import torch
     import torch.nn.functional as F
 
@@ -285,48 +367,25 @@ def phase_kernels_attention(peaks) -> dict:
     )
 
     dev = torch.device("cuda")
-    h, d = 12, 32
-    gen = torch.Generator(device="cpu").manual_seed(1)
-    rng = np.random.default_rng(0)
+    gen = torch.Generator(device="cpu").manual_seed(seed + 1)
+    rng = np.random.default_rng(seed)
     results = {}
 
-    def qkv(b, s, dtype):
-        return [torch.randn(b, s, h * d, generator=gen).to(dev, dtype) for _ in range(3)]
-
     def run(kernel, b, s, mask, dtype, seg_mask, timed):
-        q, k, v = qkv(b, s, dtype)
+        q, k, v = (torch.randn(b, s, h * d, generator=gen).to(dev, dtype) for _ in range(3))
         fn = flash_attention_packed_bse if seg_mask else flash_attention_bse
-        got = fn(q, k, v, mask, h)
-        ref = attention_bse_plain(q, k, v, mask, h, seg_mask)
-        torch.cuda.synchronize()
-        err, rel = _rel_err(got, ref)
-        ok = _within(dtype, err, rel) and bool(torch.isfinite(got).all())
-        case = {"b": b, "s": s, "h": h, "d": d, "dtype": str(dtype).split(".")[-1],
-                "max_abs_err": err, "rel_err": rel, "tolerance": _tolerance(dtype),
-                "ok": ok}
-        if timed:
-            case["ms"] = gpu_ms(lambda: fn(q, k, v, mask, h))
-            case["plain_ms"] = gpu_ms(lambda: attention_bse_plain(q, k, v, mask, h, seg_mask),
-                                      samples=5, reps=1)
-            qh, kh, vh = (t.view(b, s, h, d).transpose(1, 2).contiguous() for t in (q, k, v))
-            if seg_mask:
-                sdpa_mask = (mask[:, :, None] == mask[:, None, :])[:, None]
-            else:
-                sdpa_mask = mask.to(dtype)[:, None, None, :]
-            case["library_ms"] = gpu_ms(
-                lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=sdpa_mask))
-            nbytes = 4 * q.numel() * q.element_size() + mask.numel() * 4
-            flops = 4.0 * b * h * s * s * d
-            case["bound_ms"], case["bound_by"] = bound_ms(nbytes, flops, peaks)
-            case["exps"] = b * h * s * s
-        emit({"phase": "kernel_check", "kernel": kernel, **case})
-        check(ok, f"{kernel} b={b} s={s} {dtype}: err {err} rel {rel}")
-        return case
+        heads = [_bse_heads(t, h) for t in (q, k, v)]
+        lmask = ((mask[:, :, None] == mask[:, None, :])[:, None] if seg_mask
+                 else mask.to(dtype)[:, None, None, :])
+        return _attention_case(
+            kernel, lambda *a: fn(*a, h), lambda *a: attention_bse_plain(*a, h, seg_mask),
+            lambda: F.scaled_dot_product_attention(*heads, attn_mask=lmask), (q, k, v, mask),
+            4 * q.numel() * q.element_size() + mask.numel() * 4, 4.0 * b * h * s * s * d,
+            peaks, timed, model=model, b=b, s=s, h=h, d=d)
 
-    seg, _ = serving_segments(rng, 32, 512)
-    seg_t = torch.from_numpy(seg).to(dev)
+    seg = torch.from_numpy(serving_segments(rng, 32, 512)[0]).to(dev)
     for dtype in (torch.bfloat16, torch.float32):
-        c = run("attn_bse_packed", 32, 512, seg_t, dtype, True, dtype == torch.bfloat16)
+        c = run("attn_bse_packed", 32, 512, seg, dtype, True, dtype == torch.bfloat16)
         if dtype == torch.bfloat16:
             results["attn_bse_packed"] = c
     for b, s in ((32, 512), (512, 16), (256, 32)):
@@ -338,6 +397,137 @@ def phase_kernels_attention(peaks) -> dict:
             c = run("attn_bse_keybias", b, s, mask, dtype, False, timed)
             if timed:
                 results["attn_bse_keybias"] = c
+    return results
+
+
+def phase_kernels_bias(peaks) -> dict:
+    """K4 at ModernBERT's packed/plain shape [32, 512, 12x64]: the [1, S, S]
+    window bias of the local layers, and a per-head [12, S, S] bias (MPNet's
+    and T5's form), each plain (key bias) and packed (segments)."""
+    import torch
+    import torch.nn.functional as F
+
+    from embedding_cpp_tpu_torch.models.modernbert import window_bias
+    from embedding_cpp_tpu_torch.ops.attention import (
+        MASK_BIAS,
+        attention_bse_plain,
+        flash_attention_bias_bse,
+        flash_attention_bias_packed_bse,
+    )
+
+    dev = torch.device("cuda")
+    b, s, h, d = 32, 512, 12, 64
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    rng = np.random.default_rng(3)
+    seg = torch.from_numpy(serving_segments(rng, b, s)[0]).to(dev)
+    lens = torch.from_numpy(rng.integers(1, s + 1, size=b))
+    keyb = torch.where(torch.arange(s)[None, :] < lens[:, None], 0.0,
+                       MASK_BIAS).to(torch.float32).to(dev)
+    results = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (torch.randn(b, s, h * d, generator=gen).to(dev, dtype) for _ in range(3))
+        heads = [_bse_heads(t, h) for t in (q, k, v)]
+        for ph in (1, h):
+            pb = (window_bias(s, 128, dev) if ph == 1
+                  else torch.randn(h, s, s, generator=gen).to(dev))
+            timed = dtype == torch.bfloat16
+            nbytes = 4 * q.numel() * q.element_size() + b * s * 4 + pb.numel() * 4
+            flops = 4.0 * b * h * s * s * d
+            plain_mask = (keyb[:, None, None, :] + pb[None]).to(dtype)
+            allowed = (seg[:, :, None] == seg[:, None, :])[:, None]
+            packed_mask = torch.where(allowed, pb[None], MASK_BIAS).to(dtype)
+            for kernel, fn, mask, lmask, seg_mask in (
+                    ("attn_bse_bias", flash_attention_bias_bse, keyb, plain_mask, False),
+                    ("attn_bse_bias_packed", flash_attention_bias_packed_bse, seg,
+                     packed_mask, True)):
+                c = _attention_case(
+                    kernel, lambda *a: fn(*a, h),
+                    lambda *a: attention_bse_plain(a[0], a[1], a[2], a[3], h, seg_mask, a[4]),
+                    lambda: F.scaled_dot_product_attention(*heads, attn_mask=lmask),
+                    (q, k, v, mask, pb), nbytes, flops, peaks, timed,
+                    b=b, s=s, h=h, d=d, bias_heads=ph)
+                if timed and ph == 1:  # ModernBERT's form: the kernels line
+                    results[kernel] = c
+            del plain_mask, packed_mask
+    return results
+
+
+def phase_kernels_long(peaks) -> dict:
+    """K5 at [8, 8192, 12x64] bf16 with key padding, and with a [1, S, S]
+    window bias at S = 2048; K7 at [8, 8192, 12x64] bf16, window 128."""
+    import torch
+    import torch.nn.functional as F
+
+    from embedding_cpp_tpu_torch.models.modernbert import window_bias
+    from embedding_cpp_tpu_torch.ops.attention import (
+        MASK_BIAS,
+        attention_local_plain,
+        attention_long_plain,
+        flash_attention,
+        flash_attention_local,
+    )
+
+    dev = torch.device("cuda")
+    h, d, window = 12, 64, 128
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    rng = np.random.default_rng(4)
+    results = {}
+
+    def inputs(b, s, dtype):
+        q, k, v = (torch.randn(b, s, h, d, generator=gen).to(dev, dtype) for _ in range(3))
+        lens = torch.from_numpy(rng.integers(s // 2, s + 1, size=b))
+        lens[-1] = 0  # one fully padded row
+        keyb = torch.where(torch.arange(s)[None, :] < lens[:, None], 0.0,
+                           MASK_BIAS).to(torch.float32).to(dev)
+        return q, k, v, keyb
+
+    for dtype in (torch.bfloat16, torch.float32):
+        timed = dtype == torch.bfloat16
+        b, s = (8, 8192) if timed else (2, 4096)
+        q, k, v, keyb = inputs(b, s, dtype)
+        heads = [t.transpose(1, 2).contiguous() for t in (q, k, v)]
+        nbytes = 4 * q.numel() * q.element_size() + b * s * 4
+        c = _attention_case(
+            "attn_long", flash_attention, attention_long_plain,
+            lambda: F.scaled_dot_product_attention(
+                *heads, attn_mask=keyb[:, None, None, :].to(dtype)),
+            (q, k, v, keyb), nbytes, 4.0 * b * h * s * s * d, peaks, timed,
+            b=b, s=s, h=h, d=d)
+        if timed:
+            results["attn_long"] = c
+        # the visible pairs: |q - k| <= window/2 inside the sequence
+        pos = torch.arange(s)
+        pairs = float((torch.clamp(pos + window // 2, max=s - 1)
+                       - torch.clamp(pos - window // 2, min=0) + 1).sum())
+        lmask = None
+        if timed:
+            posd = pos.to(dev)
+            inwin = (posd[None, :] - posd[:, None]).abs() <= window // 2
+            lmask = torch.where(inwin[None, None], keyb[:, None, None, :],
+                                MASK_BIAS).to(dtype)
+        c = _attention_case(
+            "attn_local", lambda *a: flash_attention_local(*a, window),
+            lambda *a: attention_local_plain(*a, window),
+            (lambda: F.scaled_dot_product_attention(*heads, attn_mask=lmask)) if timed
+            else None,
+            (q, k, v, keyb), nbytes, 4.0 * b * h * pairs * d, peaks, timed,
+            b=b, s=s, h=h, d=d, window=window)
+        if timed:
+            results["attn_local"] = c
+        del q, k, v, heads, lmask
+        torch.cuda.empty_cache()
+    # K5 with ModernBERT's [1, S, S] window bias (the path of lengths
+    # without a window slice), at S = 2048
+    b, s = 8, 2048
+    q, k, v, keyb = inputs(b, s, torch.bfloat16)
+    pb = window_bias(s, window, dev)
+    heads = [t.transpose(1, 2).contiguous() for t in (q, k, v)]
+    lmask = (keyb[:, None, None, :] + pb[None]).to(torch.bfloat16)
+    results["attn_long_bias"] = _attention_case(
+        "attn_long", flash_attention, attention_long_plain,
+        lambda: F.scaled_dot_product_attention(*heads, attn_mask=lmask),
+        (q, k, v, keyb, pb), 4 * q.numel() * 2 + b * s * 4 + pb.numel() * 4,
+        4.0 * b * h * s * s * d, peaks, True, b=b, s=s, h=h, d=d, bias_heads=1)
     return results
 
 
@@ -381,11 +571,10 @@ def phase_main(counters) -> tuple:
 
     launches, outs = {}, {}
     for (packing, od), eng in engines.items():
-        for fn in counters.values():
-            fn.launches = 0
+        reset_counts(counters)
         outs[(packing, od)] = eng.embed_tokens(token_lists)
         torch.cuda.synchronize()
-        counts = {name: fn.launches for name, fn in counters.items()}
+        counts = read_counts(counters)
         forwards = _expected_forwards(eng, token_lists)
         launches[(packing, od)] = counts
         attn = counts["attn_bse_packed"] + counts["attn_bse_keybias"]
@@ -393,6 +582,7 @@ def phase_main(counters) -> tuple:
               "forwards": forwards, "launches": counts})
         check(counts["q4_matmul"] == 36 * forwards, f"{packing}/{od}: K1 {counts}")
         check(attn == 6 * forwards, f"{packing}/{od}: attention {counts}")
+        check(sum(counts[k] for k in ATTENTION) == attn, f"{packing}/{od}: {counts}")
         used = "attn_bse_packed" if packing == "auto" else "attn_bse_keybias"
         check(counts[used] > 0 and counts["q4_matmul"] > 0, f"{packing}/{od}: {counts}")
 
@@ -458,6 +648,168 @@ def phase_main(counters) -> tuple:
             total, token_lists)
 
 
+def _modernbert_counts_ok(counts: dict, forwards: int, packing: str, what: str) -> None:
+    """Per forward at S <= 1024: 154 K1 launches (22 with the prologue), 8
+    global layers on K2 (packed) or K3, 14 local layers on K4."""
+    glob, loc = (("attn_bse_packed", "attn_bse_bias_packed") if packing == "auto"
+                 else ("attn_bse_keybias", "attn_bse_bias"))
+    check(counts["q4_matmul"] == 154 * forwards, f"{what}: K1 {counts}")
+    check(counts["q4_matmul_prologue"] == 22 * forwards, f"{what}: K1 prologue {counts}")
+    check(counts[glob] == 8 * forwards and counts[loc] == 14 * forwards,
+          f"{what}: attention {counts}")
+    check(sum(counts[k] for k in ATTENTION) == 22 * forwards, f"{what}: attention {counts}")
+
+
+def phase_modernbert_main(counters, token_lists) -> tuple:
+    import torch
+
+    from embedding_cpp_tpu_torch import Engine
+    from embedding_cpp_tpu_torch.models import MODERNBERT_BASE, ComputeOptions
+    from embedding_cpp_tpu_torch.models.bert import bert_embed_batch, bert_embed_packed
+
+    # the `modernbert-base` preset: full width and depth, synthetic 1000-word vocab
+    config = replace(MODERNBERT_BASE, n_vocab=1000, name="modernbert-base-synthetic")
+    opts = ComputeOptions(dtype="bfloat16")
+    base = Engine.synthetic(config, "q4_0", seed=0, opts=opts, device="cuda")
+    engines = {packing: Engine(base.params, config, base.tokenizer, base.special_ids,
+                               opts=opts, device="cuda", packing=packing)
+               for packing in ("auto", "never")}
+    launches, outs = {}, {}
+    for packing, eng in engines.items():
+        reset_counts(counters)
+        outs[packing] = eng.embed_tokens(token_lists)
+        torch.cuda.synchronize()
+        counts = read_counts(counters)
+        forwards = _expected_forwards(eng, token_lists)
+        launches[packing] = counts
+        emit({"phase": "modernbert_launches", "packing": packing, "forwards": forwards,
+              "launches": counts})
+        _modernbert_counts_ok(counts, forwards, packing, f"modernbert {packing}")
+        out = outs[packing]
+        norms = np.linalg.norm(out, axis=-1)
+        check(np.isfinite(out).all() and out.shape == (len(token_lists), 768),
+              f"modernbert {packing}: output {out.shape}")
+        check(np.abs(norms - 1.0).max() <= 1e-3, f"modernbert {packing}: norms")
+
+    best = {key: float("inf") for key in engines}
+    for _ in range(5):
+        for key, eng in engines.items():
+            t0 = time.perf_counter()
+            eng.embed_tokens(token_lists)
+            best[key] = min(best[key], time.perf_counter() - t0)
+
+    rng = np.random.default_rng(1)
+    dev = torch.device("cuda")
+    ids = torch.from_numpy(rng.integers(4, config.n_vocab, (32, 512)).astype(np.int32)).to(dev)
+    mask = torch.ones(32, 512, dtype=torch.int32, device=dev)
+    seg_np, pos_np = serving_segments(rng, 32, 512)
+    pids = rng.integers(4, config.n_vocab, (32, 512)).astype(np.int32)
+    pids[seg_np < 0] = 0
+    pids, seg, pos = (torch.from_numpy(a).to(dev) for a in (pids, seg_np, pos_np))
+    with torch.inference_mode():
+        # a forward is ~700 launches: spin long enough to queue them
+        plain_ms = gpu_ms(lambda: bert_embed_batch(base.params, ids, mask, config, opts),
+                          samples=5, reps=2, spin=500_000_000)
+        packed_ms = gpu_ms(lambda: bert_embed_packed(base.params, pids, seg, pos, config,
+                                                     opts, n_seg=64),
+                           samples=5, reps=2, spin=500_000_000)
+    emit({"phase": "modernbert_main", "model": config.name, "weights": "q4_0",
+          "activations": "bfloat16", "sentences": len(token_lists),
+          "tokens": sum(len(t) for t in token_lists),
+          "sentences_per_sec": {p: len(token_lists) / t for p, t in best.items()},
+          "sentences_per_sec_packed": len(token_lists) / best["auto"],
+          "sentences_per_sec_plain": len(token_lists) / best["never"],
+          "forward_ms_in_device_b32_s512": plain_ms,
+          "packed_forward_ms_in_device_b32_s512": packed_ms,
+          "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+    total = {name: sum(c[name] for c in launches.values()) for name in counters}
+    return base, outs, total, (base.params, config, pids, seg, pos)
+
+
+def _documents(n: int, s: int, seed: int, special) -> list[list[int]]:
+    """Synthetic documents of exactly s tokens: [CLS] ids [SEP]."""
+    rng = np.random.default_rng(seed)
+    return [[special.cls] + rng.integers(4, 1000, s - 2).tolist() + [special.sep]
+            for _ in range(n)]
+
+
+def phase_modernbert_long(counters, base, out_dir) -> dict:
+    """8 documents of 8192 tokens: one [8, 8192] forward, 8 global layers on
+    K5 and 14 local layers on K7; its kernel times under torch.profiler."""
+    import torch
+
+    from embedding_cpp_tpu_torch.models import ComputeOptions
+    from embedding_cpp_tpu_torch.models.bert import bert_embed_batch
+
+    docs = _documents(8, 8192, seed=5, special=base.special_ids)
+    check(_expected_forwards(base, docs) == 1, "8 documents of 8192 tokens: one forward")
+    reset_counts(counters)
+    out = base.embed_tokens(docs)
+    torch.cuda.synchronize()
+    counts = read_counts(counters)
+    emit({"phase": "modernbert_long_launches", "forwards": 1, "launches": counts})
+    check(counts["q4_matmul"] == 154 and counts["q4_matmul_prologue"] == 22,
+          f"long: K1 {counts}")
+    check(counts["attn_long"] == 8 and counts["attn_local"] == 14, f"long: {counts}")
+    check(sum(counts[k] for k in ATTENTION) == 22, f"long: attention {counts}")
+    norms = np.linalg.norm(out, axis=-1)
+    check(np.isfinite(out).all() and np.abs(norms - 1.0).max() <= 1e-3, "long: output")
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        base.embed_tokens(docs)
+        best = min(best, time.perf_counter() - t0)
+    dev = torch.device("cuda")
+    ids = torch.tensor(docs, dtype=torch.int32, device=dev)
+    mask = torch.ones_like(ids)
+    with torch.inference_mode():
+        fwd_ms = gpu_ms(lambda: bert_embed_batch(base.params, ids, mask, base.config,
+                                                 ComputeOptions(dtype="bfloat16")),
+                        samples=3, reps=1, spin=500_000_000)
+        _, rows, table = _profiled(lambda: bert_embed_batch(
+            base.params, ids, mask, base.config, ComputeOptions(dtype="bfloat16")))
+    _save(out_dir, "profile_modernbert_long_forward.txt", table)
+    emit({"phase": "profile", "model": base.config.name, "what": "forward [8, 8192]",
+          "device_busy_ms": sum(r[1] for r in rows) / 1e3,
+          "top": [{"name": k[:80], "device_ms": us / 1e3, "calls": n}
+                  for k, us, n in rows[:8]]})
+    emit({"phase": "modernbert_long", "documents": len(docs), "tokens_per_document": 8192,
+          "documents_per_sec": len(docs) / best, "tokens_per_sec": 8 * 8192 / best,
+          "forward_ms_in_device_b8_s8192": fwd_ms,
+          "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+    return counts
+
+
+def phase_modernbert_vs_cpu(counters, base, outs, token_lists) -> dict:
+    """The bf16 GPU path against the port's own f32 CPU path (plain
+    versions) on the same weights: 256 corpus sentences, and 2 documents of
+    2048 tokens, which run K5/K7 on the card."""
+    import torch
+
+    from embedding_cpp_tpu_torch import Engine
+
+    cpu = Engine(base.params, base.config, base.tokenizer, base.special_ids, device="cpu")
+    ref = cpu.embed_tokens(token_lists[:256])
+
+    def min_cos(a, b):
+        return float(np.min(np.sum(a * b, -1) / np.linalg.norm(a, axis=-1)
+                            / np.linalg.norm(b, axis=-1)))
+
+    cos = {f"sentences/{p}": min_cos(outs[p][:256], ref) for p in outs}
+    docs = _documents(2, 2048, seed=6, special=base.special_ids)
+    reset_counts(counters)
+    got = base.embed_tokens(docs)
+    torch.cuda.synchronize()
+    counts = read_counts(counters)
+    check(counts["attn_long"] == 8 and counts["attn_local"] == 14, f"2048: {counts}")
+    cos["documents_2048"] = min_cos(got, cpu.embed_tokens(docs))
+    emit({"phase": "modernbert_vs_cpu", "sentences": 256, "documents": 2,
+          "document_tokens": 2048, "min_cosine": cos, "threshold": COSINE_VS_CPU,
+          "launches_2048": counts})
+    check(min(cos.values()) >= COSINE_VS_CPU, f"modernbert cosine vs CPU {cos}")
+    return counts
+
+
 def _profiled(fn):
     """Run `fn` under torch.profiler; returns (wall ms inside the profiled
     region, kernel rows [(name, device us, calls)] by device time, table)."""
@@ -479,7 +831,7 @@ def _profiled(fn):
     return wall_ms, rows, averages.table(sort_by=attr, row_limit=40)
 
 
-def phase_profile(forward_args, engine, token_lists, out_dir) -> None:
+def phase_profile(forward_args, engine, token_lists, out_dir, tag: str = "") -> None:
     import torch
 
     from embedding_cpp_tpu_torch.models import ComputeOptions
@@ -490,16 +842,17 @@ def phase_profile(forward_args, engine, token_lists, out_dir) -> None:
     with torch.inference_mode():
         _, rows, table = _profiled(
             lambda: bert_embed_packed(params, ids, seg, pos, config, opts, n_seg=64))
-    _save(out_dir, "profile_packed_forward.txt", table)
-    emit({"phase": "profile", "what": "packed forward [32, 512]",
+    _save(out_dir, f"profile_{tag}packed_forward.txt", table)
+    emit({"phase": "profile", "model": config.name, "what": "packed forward [32, 512]",
           "device_busy_ms": sum(r[1] for r in rows) / 1e3,
           "top": [{"name": k[:80], "device_ms": us / 1e3, "calls": n}
                   for k, us, n in rows[:10]]})
     # the whole serving call: device busy time against wall time
     wall_ms, rows, table = _profiled(lambda: engine.embed_tokens(token_lists))
-    _save(out_dir, "profile_embed_tokens.txt", table)
+    _save(out_dir, f"profile_{tag}embed_tokens.txt", table)
     busy_ms = sum(r[1] for r in rows) / 1e3
-    emit({"phase": "profile", "what": "embed_tokens, 2758 sentences, packed, f32 out",
+    emit({"phase": "profile", "model": config.name,
+          "what": "embed_tokens, 2758 sentences, packed",
           "wall_ms_under_profiler": wall_ms, "device_busy_ms": busy_ms,
           "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms)})
 
@@ -570,6 +923,20 @@ def phase_server(engine) -> None:
     check(min(cos_raw, cos_tpe2) >= COSINE_SERVER, "server replies differ from encode")
 
 
+def _entry(name: str, source: str, replaces: str, launches: int, c: dict, shape: str,
+           **extra) -> dict:
+    return {"name": name, "route": "cuda", "source": f"embedding_cpp_tpu_torch/csrc/{source}",
+            "replaces": f"embedding_cpp_tpu/ops/{replaces}", "launches": launches,
+            "max_abs_err": c["max_abs_err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
+            "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+            "library_ms": c["library_ms"], "shape": shape, **extra}
+
+
+def _timing(c: dict) -> dict:
+    return {k: c[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms")}
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -580,45 +947,80 @@ def main() -> None:
     name, smi, peaks = phase_device()
     import torch
 
-    from embedding_cpp_tpu_torch.ops.attention import (
-        flash_attention_bse,
-        flash_attention_packed_bse,
-    )
+    from embedding_cpp_tpu_torch.ops import attention as A
     from embedding_cpp_tpu_torch.ops.q4_matmul import q4_matmul
 
     phase_build(out_dir)
-    k1 = phase_kernels_q4(peaks)
-    attn = phase_kernels_attention(peaks)
-    counters = {"q4_matmul": q4_matmul, "attn_bse_packed": flash_attention_packed_bse,
-                "attn_bse_keybias": flash_attention_bse}
+    k1 = phase_kernels_q4(peaks, "minilm-l6", MINILM_LINEARS, ("qkvo", "up", "down"),
+                          bias=True, seed=0)
+    k1m = phase_kernels_q4(peaks, "modernbert-base", MODERNBERT_LINEARS, ("down",),
+                           bias=False, seed=2)
+    attn = phase_kernels_attention(peaks, "minilm-l6", 12, 32, seed=0)
+    attn_mb = phase_kernels_attention(peaks, "modernbert-base", 12, 64, seed=2)
+    attn.update(phase_kernels_bias(peaks))
+    attn.update(phase_kernels_long(peaks))
+    counters = {"q4_matmul": (q4_matmul, "launches"),
+                "q4_matmul_prologue": (q4_matmul, "prologue_launches"),
+                "attn_bse_packed": (A.flash_attention_packed_bse, "launches"),
+                "attn_bse_keybias": (A.flash_attention_bse, "launches"),
+                "attn_bse_bias": (A.flash_attention_bse, "bias_launches"),
+                "attn_bse_bias_packed": (A.flash_attention_packed_bse, "bias_launches"),
+                "attn_long": (A.flash_attention, "launches"),
+                "attn_local": (A.flash_attention_local, "launches")}
     engine, forward_args, launches, token_lists = phase_main(counters)
+    mb, mb_outs, mb_launches, mb_forward_args = phase_modernbert_main(counters, token_lists)
+    long_launches = phase_modernbert_long(counters, mb, out_dir)
+    phase_modernbert_vs_cpu(counters, mb, mb_outs, token_lists)
     phase_profile(forward_args, engine, token_lists, out_dir)
+    phase_profile(mb_forward_args, mb, token_lists, out_dir, tag="modernbert_")
     phase_server(engine)
 
-    per_layer = k1["per_layer"]
-    kernels = [{
-        "name": "q4_matmul", "route": "cuda",
-        "source": "embedding_cpp_tpu_torch/csrc/q4_matmul.cu",
-        "replaces": "embedding_cpp_tpu/ops/q4_matmul.py:126",
-        "launches": launches["q4_matmul"], "max_abs_err": k1["max_abs_err"],
-        "ms": per_layer["ms"], "plain_ms": per_layer["plain_ms"],
-        "bound_ms": per_layer["bound_ms"], "bound_by": k1["bound_by"],
-        "library_ms": per_layer["library_ms"],
-        "shape": "one layer's six linears (q,k,v,o 384->384; up 384->1536 + gelu_erf; "
-                 "down 1536->384) at M=16384, bf16, Q4_0",
-    }]
+    # each model's launches beside the times at that model's shapes
+    mb_total = {k: mb_launches[k] + long_launches[k] for k in counters}
+    k1_mb = {**k1m["per_layer"], "max_abs_err": k1m["max_abs_err"],
+             "bound_by": k1m["bound_by"]}
+    k1_mini = {**k1["per_layer"], "max_abs_err": k1["max_abs_err"],
+               "bound_by": k1["bound_by"]}
+    kernels = [
+        _entry("q4_matmul", "q4_matmul.cu", "q4_matmul.py:126", launches["q4_matmul"],
+               k1_mini, "MiniLM-L6: one layer's six linears (q,k,v,o 384->384; up "
+               "384->1536 + gelu_erf; down 1536->384) at M=16384, bf16, Q4_0",
+               model="minilm-l6"),
+        _entry("q4_matmul/modernbert", "q4_matmul.cu", "q4_matmul.py:126",
+               mb_total["q4_matmul"], k1_mb, "ModernBERT-base: one layer's seven linears "
+               "(q,k,v,o 768->768; up 768->1152 + gelu_erf; gate 768->1152; down "
+               "1152->768 with the prologue) at M=16384, bf16, Q4_0",
+               model="modernbert-base"),
+        _entry("q4_matmul_prologue", "q4_matmul.cu", "q4_matmul.py:214",
+               mb_total["q4_matmul_prologue"], k1m["prologue"],
+               "down 1152->768 with prologue_mul at M=16384, bf16, Q4_0",
+               model="modernbert-base")]
     for kname in ("attn_bse_packed", "attn_bse_keybias"):
+        for suffix, count, c in (("", launches[kname], attn[kname]),
+                                 ("/modernbert", mb_total[kname], attn_mb[kname])):
+            kernels.append(_entry(kname + suffix, "attention_bse.cu", "attention.py:213",
+                                  count, c, f"[{c['b']}, {c['s']}, {c['h']}*{c['d']}] bf16",
+                                  model=c["model"]))
+    for kname in ("attn_bse_bias", "attn_bse_bias_packed"):
         c = attn[kname]
-        kernels.append({
-            "name": kname, "route": "cuda",
-            "source": "embedding_cpp_tpu_torch/csrc/attention_bse.cu",
-            "replaces": "embedding_cpp_tpu/ops/attention.py:213",
-            "launches": launches[kname], "max_abs_err": c["max_abs_err"],
-            "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
-            "bound_by": c["bound_by"], "library_ms": c["library_ms"],
-            "shape": f"[{c['b']}, {c['s']}, {c['h']}*{c['d']}] bf16",
-        })
-    check(all(k["launches"] > 0 for k in kernels), "a kernel was never launched")
+        kernels.append(_entry(kname, "attention_bse.cu", "attention.py:213",
+                              mb_total[kname], c,
+                              f"[{c['b']}, {c['s']}, {c['h']}*{c['d']}] bf16, "
+                              "[1, S, S] window-128 bias", model="modernbert-base"))
+    c = attn["attn_long"]
+    kernels.append(_entry("attn_long", "attention_long.cu", "attention.py:26",
+                          mb_total["attn_long"], c,
+                          f"[{c['b']}, {c['s']}, {c['h']}*{c['d']}] bf16, key padding",
+                          model="modernbert-base",
+                          bias_case={**_timing(attn["attn_long_bias"]),
+                                     "shape": "[8, 2048, 12*64] bf16, [1, S, S] bias"}))
+    c = attn["attn_local"]
+    kernels.append(_entry("attn_local", "attention_long.cu", "attention.py:597",
+                          mb_total["attn_local"], c,
+                          f"[{c['b']}, {c['s']}, {c['h']}*{c['d']}] bf16, window 128",
+                          model="modernbert-base"))
+    check(all(k["launches"] > 0 for k in kernels),
+          f"a kernel was never launched: {launches} {mb_total}")
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,19 @@
 // Projection-layout masked attention for Hopper (sm_90a), plain C interface.
 //
 // Replaces the TPU kernel `_attn_bse_kernel` (embedding_cpp_tpu/ops/
-// attention.py) called through `_flash_attention_bse_call` in its two
-// bias-free variants:
+// attention.py) called through `_flash_attention_bse_call`, in all four
+// variants:
 //   SEG = true  (flash_attention_packed_bse): key k is visible to query q iff
 //               seg[q] == seg[k], else the score is -1e9.  Plain equality, so
 //               padding tokens (seg -1) attend to each other and stay finite.
 //   SEG = false (flash_attention_bse): an additive f32 key bias [B, S].
+// Either may add a position bias pbias [PH, S, S] f32 (PH = H, or 1 for a
+// head-invariant bias; head h reads pbias[h % PH]) after the scaling
+// (flash_attention_bias_bse / flash_attention_bias_packed_bse):
+//   key bias:  (s*scale + keybias) + pbias, each + rounded in f32;
+//   segments:  seg[q] == seg[k] ? s*scale + pbias : -1e9 (replaced, not added).
+// A block reads the bias rows of its 16 queries straight from device memory
+// (a PH = 1 bias at S = 512 is 1 MB and stays in L2).
 // q/k/v/o are [B, S, H*d] exactly as the projections produce them; head h is
 // the column slice h*d .. h*d+d, so there is no transpose on either side.
 //
@@ -85,8 +92,8 @@ __device__ __forceinline__ void load_rows(T* dst, int ld, const T* __restrict__ 
 template <typename T, int D, bool SEG>
 __global__ void __launch_bounds__(NTHREADS) attn_bse_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const float* __restrict__ bias, const int* __restrict__ seg, T* __restrict__ o,
-    int S, int H, float scale) {
+    const float* __restrict__ bias, const int* __restrict__ seg,
+    const float* __restrict__ pbias, T* __restrict__ o, int S, int H, int PH, float scale) {
   using L = Layout<T, D>;
   constexpr int LD = L::kRowLd;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -154,10 +161,16 @@ __global__ void __launch_bounds__(NTHREADS) attn_bse_kernel(
       continue;
     }
     const int segq = SEG ? seg[(size_t)b * S + qg] : 0;
+    const float* pb = pbias == nullptr ? nullptr : pbias + ((size_t)(h % PH) * S + qg) * S;
     auto masked = [&](int j) {
       const float s = __fmul_rn(srow[j], scale);
-      if constexpr (SEG) return seg[(size_t)b * S + j] == segq ? s : kMaskBias;
-      else return __fadd_rn(s, bias[(size_t)b * S + j]);
+      if constexpr (SEG) {
+        if (seg[(size_t)b * S + j] != segq) return kMaskBias;
+        return pb == nullptr ? s : __fadd_rn(s, pb[j]);
+      } else {
+        const float t = __fadd_rn(s, bias[(size_t)b * S + j]);
+        return pb == nullptr ? t : __fadd_rn(t, pb[j]);
+      }
     };
     float m = __int_as_float(0xff800000u);  // -inf
     for (int j = lane; j < S; j += 32) m = fmaxf(m, masked(j));
@@ -240,8 +253,9 @@ __global__ void __launch_bounds__(NTHREADS) attn_bse_kernel(
 }
 
 template <typename T, int D, bool SEG>
-int launch(const void* q, const void* k, const void* v, const void* mask, void* o,
-           int B, int S, int H, float scale, cudaStream_t st) {
+int launch(const void* q, const void* k, const void* v, const void* mask,
+           const float* pbias, void* o, int B, int S, int H, int PH, float scale,
+           cudaStream_t st) {
   const Layout<T, D> lay(S);
   if (lay.bytes > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -252,18 +266,20 @@ int launch(const void* q, const void* k, const void* v, const void* mask, void* 
   attn_bse_kernel<T, D, SEG><<<grid, NTHREADS, lay.bytes, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       SEG ? nullptr : static_cast<const float*>(mask),
-      SEG ? static_cast<const int*>(mask) : nullptr, static_cast<T*>(o), S, H, scale);
+      SEG ? static_cast<const int*>(mask) : nullptr, pbias, static_cast<T*>(o), S, H, PH,
+      scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, bool SEG>
-int dispatch_d(const void* q, const void* k, const void* v, const void* mask, void* o,
-               int B, int S, int H, int D, float scale, cudaStream_t st) {
+int dispatch_d(const void* q, const void* k, const void* v, const void* mask,
+               const float* pbias, void* o, int B, int S, int H, int D, int PH,
+               float scale, cudaStream_t st) {
   switch (D) {
-    case 16: return launch<T, 16, SEG>(q, k, v, mask, o, B, S, H, scale, st);
-    case 32: return launch<T, 32, SEG>(q, k, v, mask, o, B, S, H, scale, st);
-    case 64: return launch<T, 64, SEG>(q, k, v, mask, o, B, S, H, scale, st);
-    case 128: return launch<T, 128, SEG>(q, k, v, mask, o, B, S, H, scale, st);
+    case 16: return launch<T, 16, SEG>(q, k, v, mask, pbias, o, B, S, H, PH, scale, st);
+    case 32: return launch<T, 32, SEG>(q, k, v, mask, pbias, o, B, S, H, PH, scale, st);
+    case 64: return launch<T, 64, SEG>(q, k, v, mask, pbias, o, B, S, H, PH, scale, st);
+    case 128: return launch<T, 128, SEG>(q, k, v, mask, pbias, o, B, S, H, PH, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -272,18 +288,19 @@ int dispatch_d(const void* q, const void* k, const void* v, const void* mask, vo
 
 // q/k/v/o [B, S, H*D] (bf16 when is_bf16, else f32), contiguous and 16-byte
 // aligned.  mask: f32 key bias [B, S], or int32 segment ids [B, S] when
-// seg_mask.  D in {16, 32, 64, 128}, S <= 1024; `scale` multiplies the raw
-// scores (1/sqrt(D) rounded to f32 by the caller, as the reference rounds
-// it).  Returns cudaGetLastError() after the launch.
+// seg_mask.  pbias: f32 [PH, S, S] or null.  D in {16, 32, 64, 128},
+// S <= 1024; `scale` multiplies the raw scores (1/sqrt(D) rounded to f32 by
+// the caller, as the reference rounds it).  Returns cudaGetLastError()
+// after the launch.
 extern "C" int attn_bse_launch(const void* q, const void* k, const void* v,
-                               const void* mask, void* o, int B, int S, int H,
-                               int D, float scale, int is_bf16, int seg_mask,
-                               void* stream) {
+                               const void* mask, const float* pbias, void* o, int B,
+                               int S, int H, int D, int PH, float scale, int is_bf16,
+                               int seg_mask, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    return seg_mask ? dispatch_d<__nv_bfloat16, true>(q, k, v, mask, o, B, S, H, D, scale, st)
-                    : dispatch_d<__nv_bfloat16, false>(q, k, v, mask, o, B, S, H, D, scale, st);
+    return seg_mask ? dispatch_d<__nv_bfloat16, true>(q, k, v, mask, pbias, o, B, S, H, D, PH, scale, st)
+                    : dispatch_d<__nv_bfloat16, false>(q, k, v, mask, pbias, o, B, S, H, D, PH, scale, st);
   }
-  return seg_mask ? dispatch_d<float, true>(q, k, v, mask, o, B, S, H, D, scale, st)
-                  : dispatch_d<float, false>(q, k, v, mask, o, B, S, H, D, scale, st);
+  return seg_mask ? dispatch_d<float, true>(q, k, v, mask, pbias, o, B, S, H, D, PH, scale, st)
+                  : dispatch_d<float, false>(q, k, v, mask, pbias, o, B, S, H, D, PH, scale, st);
 }

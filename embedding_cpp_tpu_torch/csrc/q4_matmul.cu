@@ -1,8 +1,12 @@
 // Fused quantized dequant + matmul for Hopper (sm_90a), plain C interface.
 //
 // Replaces the TPU kernel `_q4_matmul_1d` (embedding_cpp_tpu/ops/q4_matmul.py,
-// the inner `kernel`): y = act(x @ dequant(W) + bias), epilogue in f32, with
-// the weight kept packed in device memory and dequantized on chip.
+// the inner `kernel`): y = act((x [* g]) @ dequant(W) + bias), epilogue in
+// f32, with the weight kept packed in device memory and dequantized on chip.
+// The optional prologue multiplicand g [M, K] (the gated FFN's gate, TPU
+// `prologue_mul`) is loaded beside each x tile and multiplied in before the
+// product: in f32, rounded once to x's dtype (a bf16 x bf16 product is exact
+// in f32, so this is the TPU's bf16 multiply).
 //
 // Layout (ops/qtensor.py): Q4 qs uint8 [K/2, N], block-local split-half
 // (within each 32-row block, byte-row j holds row j in the low nibble and row
@@ -96,7 +100,8 @@ constexpr int B_LD = BN + 8;
 constexpr int C_LD = BN + 4;  // f32 elements
 
 __global__ void __launch_bounds__(128) q4_matmul_bf16_kernel(
-    const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ qs,
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ g,
+    const uint8_t* __restrict__ qs,
     const float* __restrict__ scales, const float* __restrict__ mins,
     const float* __restrict__ bias, void* __restrict__ out, int M, int K, int N,
     int qtype, int act, int out_f32) {
@@ -114,11 +119,23 @@ __global__ void __launch_bounds__(128) q4_matmul_bf16_kernel(
     for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
 
   for (int k0 = 0; k0 < K; k0 += BK) {
-    // x tile [BM, 32]: 16-byte loads, ragged M edge zero-filled
+    // x tile [BM, 32] (times the g tile): 16-byte loads, ragged M edge
+    // zero-filled
     for (int i = tid; i < BM * BK / 8; i += 128) {
       const int r = i / (BK / 8), c = (i % (BK / 8)) * 8, gm = m0 + r;
       uint4 v = make_uint4(0, 0, 0, 0);
-      if (gm < M) v = *reinterpret_cast<const uint4*>(x + (size_t)gm * K + k0 + c);
+      if (gm < M) {
+        const size_t off = (size_t)gm * K + k0 + c;
+        v = *reinterpret_cast<const uint4*>(x + off);
+        if (g != nullptr) {
+          const uint4 gv = *reinterpret_cast<const uint4*>(g + off);
+          __nv_bfloat16* xe = reinterpret_cast<__nv_bfloat16*>(&v);
+          const __nv_bfloat16* ge = reinterpret_cast<const __nv_bfloat16*>(&gv);
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            xe[j] = __float2bfloat16_rn(__fmul_rn(__bfloat162float(xe[j]), __bfloat162float(ge[j])));
+        }
+      }
       *reinterpret_cast<uint4*>(&As[r * A_LD + c]) = v;
     }
     dequant_block<__nv_bfloat16, BN, 128>(Bs, B_LD, qs, scales, mins, k0 / QK, n0, N, qtype);
@@ -160,7 +177,7 @@ __global__ void __launch_bounds__(128) q4_matmul_bf16_kernel(
 constexpr int FBM = 64, FBN = 64;  // 256 threads, 4x4 outputs each
 
 __global__ void __launch_bounds__(256) q4_matmul_f32_kernel(
-    const float* __restrict__ x, const uint8_t* __restrict__ qs,
+    const float* __restrict__ x, const float* __restrict__ g, const uint8_t* __restrict__ qs,
     const float* __restrict__ scales, const float* __restrict__ mins,
     const float* __restrict__ bias, float* __restrict__ out, int M, int K, int N,
     int qtype, int act) {
@@ -172,7 +189,8 @@ __global__ void __launch_bounds__(256) q4_matmul_f32_kernel(
   for (int k0 = 0; k0 < K; k0 += BK) {
     for (int i = tid; i < FBM * BK; i += 256) {
       const int r = i / BK, c = i % BK, gm = m0 + r;
-      As[c][r] = gm < M ? x[(size_t)gm * K + k0 + c] : 0.0f;
+      const size_t off = (size_t)gm * K + k0 + c;
+      As[c][r] = gm >= M ? 0.0f : g != nullptr ? __fmul_rn(x[off], g[off]) : x[off];
     }
     dequant_block<float, FBN, 256>(Bs, FBN + 4, qs, scales, mins, k0 / QK, n0, N, qtype);
     __syncthreads();
@@ -204,11 +222,12 @@ __global__ void __launch_bounds__(256) q4_matmul_f32_kernel(
 
 }  // namespace
 
-// x [M, K] (bf16 when x_bf16, else f32), packed weight [K, N], optional
-// mins/bias (null when absent).  out [M, N]: f32 when out_f32 or x is f32,
-// else bf16.  Requires K % 32 == 0 and 16-byte aligned x.  Returns
+// x [M, K] (bf16 when x_bf16, else f32), optional prologue multiplicand g
+// [M, K] of x's type, packed weight [K, N], optional mins/bias (each null
+// when absent).  out [M, N]: f32 when out_f32 or x is f32,
+// else bf16.  Requires K % 32 == 0 and 16-byte aligned x and g.  Returns
 // cudaGetLastError() after the launch.
-extern "C" int q4_matmul_launch(const void* x, int x_bf16, const void* qs,
+extern "C" int q4_matmul_launch(const void* x, const void* g, int x_bf16, const void* qs,
                                 const float* scales, const float* mins,
                                 const float* bias, void* out, int out_f32, int M,
                                 int K, int N, int qtype, int act, void* stream) {
@@ -217,11 +236,13 @@ extern "C" int q4_matmul_launch(const void* x, int x_bf16, const void* qs,
   if (x_bf16) {
     dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
     q4_matmul_bf16_kernel<<<grid, 128, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), q, scales, mins, bias, out, M, K, N,
+        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(g), q,
+        scales, mins, bias, out, M, K, N,
         qtype, act, out_f32);
   } else {
     dim3 grid((N + FBN - 1) / FBN, (M + FBM - 1) / FBM);
-    q4_matmul_f32_kernel<<<grid, 256, 0, st>>>(static_cast<const float*>(x), q,
+    q4_matmul_f32_kernel<<<grid, 256, 0, st>>>(static_cast<const float*>(x),
+                                                static_cast<const float*>(g), q,
                                                 scales, mins, bias,
                                                 static_cast<float*>(out), M, K, N,
                                                 qtype, act);

@@ -1,4 +1,4 @@
-"""GGUF format constants (the subset the BERT embedding path reads).
+"""GGUF format constants (the subset the BERT and ModernBERT paths read).
 
 The same format semantics as the JAX package's `gguf/constants.py`: key
 names follow the GGUF BERT convention, tensor types follow ggml's
@@ -85,7 +85,8 @@ ARCH = "bert"
 
 
 class Keys:
-    """kv key names read by the BERT path."""
+    """kv key names read by the BERT and ModernBERT paths (every family
+    keeps the `bert.*` prefix; `general.architecture` names the family)."""
 
     ARCHITECTURE = "general.architecture"
     ALIGNMENT = "general.alignment"
@@ -105,6 +106,12 @@ class Keys:
     TOKEN_TYPE_COUNT = f"{ARCH}.token_type_count"
     POSITION_OFFSET = f"{ARCH}.position_offset"
     GELU = f"{ARCH}.gelu_variant"
+    # ModernBERT: RoPE bases (global / local layers), the global-layer
+    # period and the sliding-window width
+    ROPE_FREQ_BASE = f"{ARCH}.rope.freq_base"
+    ROPE_FREQ_BASE_LOCAL = f"{ARCH}.rope.freq_base_local"
+    GLOBAL_ATTN_EVERY = f"{ARCH}.attention.global_every_n_layers"
+    LOCAL_ATTN_WINDOW = f"{ARCH}.attention.local_window"
 
     TOKENIZER_LIST = "tokenizer.ggml.tokens"
     TOKENIZER_UNK_ID = "tokenizer.ggml.unknown_token_id"

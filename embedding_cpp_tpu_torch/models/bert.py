@@ -1,4 +1,5 @@
-"""Batched, masked BERT encoder forward pass in PyTorch.
+"""Batched, masked BERT encoder forward pass in PyTorch (ModernBERT
+configs dispatch to models/modernbert.py from the two entry points).
 
 The BERT path of the JAX package's `models/bert.py`, on dicts of tensors:
 matmuls run in the activation dtype (bf16 for throughput, f32 for parity)
@@ -197,6 +198,11 @@ def bert_embed_batch(params: dict, ids: torch.Tensor, mask: torch.Tensor,
                      gather_idx: torch.Tensor | None = None) -> torch.Tensor:
     """Token ids [B, S] + validity mask [B, S] -> embeddings [B, n_embd]
     (rows `gather_idx` only, when given), in the output encoding."""
+    if config.arch == "modernbert":
+        from .modernbert import modernbert_embed_batch
+
+        return modernbert_embed_batch(params, ids, mask, config, opts,
+                                      gather_idx=gather_idx)
     x = embed_tokens(params, ids, config, opts)
     mask_bias = torch.where(mask.to(torch.bool), 0.0, MASK_BIAS).to(torch.float32)
     x = _run_layers(x, params["layers"], config, mask_bias)
@@ -214,6 +220,11 @@ def bert_embed_packed(params: dict, ids: torch.Tensor, seg: torch.Tensor,
     """Sequence-packed forward: ids/seg/pos [B, S] (seg -1 on padding, pos
     the within-segment position) -> [B, n_seg, n_embd], or the flat slots
     `gather_idx` of B*n_seg, in the output encoding."""
+    if config.arch == "modernbert":
+        from .modernbert import modernbert_embed_packed
+
+        return modernbert_embed_packed(params, ids, seg, pos, config, opts,
+                                       n_seg=n_seg, gather_idx=gather_idx)
     x = embed_tokens(params, ids, config, opts, positions=pos)
     x = _run_layers(x, params["layers"], config, None, seg=seg)
     pooled = pool_normalize_packed(x, seg, pos, n_seg, config.pooling, normalize=False)

@@ -1,9 +1,11 @@
-"""Model hyperparameters for the BERT encoder path.
+"""Model hyperparameters for the BERT and ModernBERT encoder paths.
 
-The BERT (`arch="bert"`) fields of the JAX package's `BertConfig`, read
-from GGUF kv metadata the same way: n_vocab from the token list length,
-everything else from `bert.*` keys.  Other encoder families are not ported
-yet; a file that names one is refused instead of being run as BERT.
+The BERT (`arch="bert"`) and ModernBERT (`arch="modernbert"`) fields of
+the JAX package's `BertConfig`, read from GGUF kv metadata the same way:
+n_vocab from the token list length, everything else from `bert.*` keys,
+with per-family defaults for the keys a file leaves out.  Other encoder
+families are not ported yet; a file that names one is refused instead of
+being run as BERT.
 """
 from __future__ import annotations
 
@@ -12,6 +14,9 @@ from dataclasses import dataclass
 from ..gguf.constants import Keys
 
 ARCH = "bert"
+# per-family defaults: (n_token_types, layer_norm_eps).  ModernBERT has no
+# token-type or position table (RoPE), and eps 1e-5 (HF ModernBertConfig)
+_ARCH_DEFAULTS = {"bert": (2, 1e-12), "modernbert": (0, 1e-5)}
 
 
 @dataclass(frozen=True)
@@ -33,6 +38,14 @@ class BertConfig:
     dense_activation: str = "tanh"  # "tanh" | "identity"
     arch: str = ARCH
     pos_offset: int = 0
+    # ModernBERT (unused by BERT): layer i is global when
+    # i % global_attn_every == 0 and rotates by RoPE base rope_theta; every
+    # other layer attends within |q - k| <= local_window // 2 and rotates by
+    # local_rope_theta (rope_theta when 0)
+    rope_theta: float = 0.0
+    local_rope_theta: float = 0.0
+    global_attn_every: int = 0
+    local_window: int = 0
     name: str = ""
 
     @property
@@ -44,13 +57,17 @@ class BertConfig:
             raise ValueError(
                 f"n_embd {self.n_embd} not divisible by n_head {self.n_head}"
             )
-        if self.arch != ARCH:
+        if self.arch not in _ARCH_DEFAULTS:
             raise NotImplementedError(
-                f"architecture {self.arch!r} is not ported yet (only {ARCH!r})"
+                f"architecture {self.arch!r} is not ported yet "
+                f"(only {sorted(_ARCH_DEFAULTS)})"
             )
 
     @classmethod
     def from_gguf_kv(cls, kv: dict) -> "BertConfig":
+        # reference files say "bert" or nothing at all
+        arch = str(kv.get(Keys.ARCHITECTURE, ARCH))
+        ntt, eps = _ARCH_DEFAULTS.get(arch, _ARCH_DEFAULTS[ARCH])
         return cls(
             n_vocab=len(kv[Keys.TOKENIZER_LIST]),
             n_ctx=int(kv[Keys.CONTEXT_LENGTH]),
@@ -58,16 +75,19 @@ class BertConfig:
             n_layer=int(kv[Keys.BLOCK_COUNT]),
             n_head=int(kv[Keys.HEAD_COUNT]),
             n_ff=int(kv[Keys.FEED_FORWARD_LENGTH]),
-            layer_norm_eps=float(kv.get(Keys.LAYER_NORM_EPS, 1e-12)),
-            n_token_types=int(kv.get(Keys.TOKEN_TYPE_COUNT, 2)),
+            layer_norm_eps=float(kv.get(Keys.LAYER_NORM_EPS, eps)),
+            n_token_types=int(kv.get(Keys.TOKEN_TYPE_COUNT, ntt)),
             gelu=str(kv.get(Keys.GELU, "erf")),
             pooling=str(kv.get(Keys.POOLING_TYPE, "mean")),
             normalize=bool(kv.get(Keys.NORMALIZE, True)),
             dense_out=int(kv.get(Keys.DENSE_OUT, 0)),
             dense_activation=str(kv.get(Keys.DENSE_ACTIVATION, "tanh")),
-            # reference files say "bert" or nothing at all
-            arch=str(kv.get(Keys.ARCHITECTURE, ARCH)),
+            arch=arch,
             pos_offset=int(kv.get(Keys.POSITION_OFFSET, 0)),
+            rope_theta=float(kv.get(Keys.ROPE_FREQ_BASE, 0.0)),
+            local_rope_theta=float(kv.get(Keys.ROPE_FREQ_BASE_LOCAL, 0.0)),
+            global_attn_every=int(kv.get(Keys.GLOBAL_ATTN_EVERY, 0)),
+            local_window=int(kv.get(Keys.LOCAL_ATTN_WINDOW, 0)),
             name=str(kv.get(Keys.NAME, "")),
         )
 
@@ -76,4 +96,14 @@ class BertConfig:
 MINILM_L6 = BertConfig(
     n_vocab=30522, n_ctx=512, n_embd=384, n_layer=6, n_head=12, n_ff=1536,
     name="all-MiniLM-L6-v2",
+)
+# answerdotai/ModernBERT-base geometry, which gte-modernbert-base reuses
+# (gte pools cls): 22 layers, GeGLU FFN 1152, global attention every 3rd
+# layer, a 128-token sliding window elsewhere, 8192-token context
+MODERNBERT_BASE = BertConfig(
+    n_vocab=50368, n_ctx=8192, n_embd=768, n_layer=22, n_head=12, n_ff=1152,
+    n_token_types=0, arch="modernbert", layer_norm_eps=1e-5,
+    rope_theta=160000.0, local_rope_theta=10000.0,
+    global_attn_every=3, local_window=128, pooling="cls",
+    name="gte-modernbert-base",
 )

@@ -1,11 +1,12 @@
 """Parameter construction: GGUF files, raw state dicts or a JAX parameter
 tree -> dicts of torch tensors on a device.
 
-The BERT path of the JAX package's `models/params.py`: tensors are
-shape-checked against the schema, per-layer tensors are stacked on a
-leading layer axis, and quantized matmul weights and the word table stay
-packed in the QTensor layout (ops/qtensor.py) — weights stay 4- or 8-bit
-in device memory.
+The BERT and ModernBERT paths of the JAX package's `models/params.py`:
+tensors are shape-checked against the schema, per-layer tensors are
+stacked on a leading layer axis, and quantized matmul weights and the word
+table stay packed in the QTensor layout (ops/qtensor.py) — weights stay 4-
+or 8-bit in device memory.  ModernBERT's fused Wqkv and Wi split at load
+into q/k/v and up/gate.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..gguf.constants import FTYPE_TO_GGML, GGMLType, GGUFFileType
+from ..gguf.constants import FTYPE_TO_GGML, GGMLType, GGUFFileType, ggml_nbytes
 from ..gguf.quant import dequantize as gguf_dequantize
 from ..gguf.quant import quantize as gguf_quantize
 from ..ops.qtensor import (
@@ -37,6 +38,8 @@ FTYPE_NAMES = {
 }
 
 _MATMUL_KEYS = frozenset({"q_w", "k_w", "v_w", "o_w", "ffn_up_w", "ffn_down_w"})
+# fused [out, in] tensors split into equal out-row groups at load
+_SPLIT_KEYS = {"wqkv": ("q_w", "k_w", "v_w"), "wi": ("ffn_up_w", "ffn_gate_w")}
 
 
 class _TensorSource:
@@ -66,6 +69,24 @@ class _TensorSource:
         if gtype == GGMLType.Q8_0:
             return pack_q8_matmul(raw, actual)
         return self.dense(name, shape, dtype).T.contiguous()
+
+    def matmul_weight_split(self, name: str, shape: tuple, dtype,
+                            sections: int) -> list:
+        """A fused [out, in] weight split into `sections` equal out-row
+        groups, each in matmul orientation.  The quantized split is exact:
+        ggml blocks run along the contraction (in) axis, so every out-row
+        is a whole number of blocks."""
+        raw, gtype, (out, k) = self._raw(name, shape)
+        sub = out // sections
+        if gtype in Q4_TYPES or gtype == GGMLType.Q8_0:
+            rows = np.asarray(raw).reshape(out, ggml_nbytes(gtype, k))
+            parts = [np.ascontiguousarray(rows[j * sub:(j + 1) * sub]).reshape(-1)
+                     for j in range(sections)]
+            if gtype in Q4_TYPES:
+                return [pack_q4_matmul(p, (sub, k), gtype) for p in parts]
+            return [pack_q8_matmul(p, (sub, k)) for p in parts]
+        w = self.dense(name, shape, dtype)
+        return [w[j * sub:(j + 1) * sub].T.contiguous() for j in range(sections)]
 
     def gather_table(self, name: str, shape: tuple, dtype):
         raw, gtype, actual = self._raw(name, shape)
@@ -120,17 +141,30 @@ def build_params(source: _TensorSource, config: BertConfig, *,
             emb[key] = source.dense(name, shape, f32)
     per_layer: dict[str, list] = {}
     for i in range(config.n_layer):
-        for name, (key, shape_fn) in schema.layer_tensor_names(i).items():
+        for name, (key, shape_fn) in schema.layer_tensor_names(i, config).items():
             shape = shape_fn(config)
+            if key in _SPLIT_KEYS:
+                subkeys = _SPLIT_KEYS[key]
+                parts = source.matmul_weight_split(name, shape, dense_dtype,
+                                                   len(subkeys))
+                for subkey, v in zip(subkeys, parts):
+                    per_layer.setdefault(subkey, []).append(v)
+                continue
             if key in _MATMUL_KEYS:
                 v = source.matmul_weight(name, shape, dense_dtype)
             else:  # LayerNorm scales/biases and linear biases
                 v = source.dense(name, shape, f32)
             per_layer.setdefault(key, []).append(v)
+    if config.arch == "modernbert":
+        # layer 0 has no attention norm: a row of ones keeps the stack
+        # rectangular (the forward never reads it)
+        per_layer["ln_att_scale"].insert(0, torch.ones(config.n_embd, dtype=f32))
     params = {
         "embeddings": emb,
         "layers": {k: _stack(v) for k, v in per_layer.items()},
     }
+    for name, (key, shape_fn) in schema.extra_tensors(config).items():
+        params[key] = source.dense(name, shape_fn(config), f32)
     if config.dense_out:
         dense = {}
         for name, (key, shape_fn) in schema.DENSE_TENSORS.items():
@@ -176,8 +210,9 @@ def load_params(reader, config: BertConfig | None = None, *,
 
 
 def random_state_dict(config: BertConfig, seed: int = 0) -> dict[str, np.ndarray]:
-    """Random HF-style BERT state dict — the same numbers as the JAX
-    package's `random_state_dict` for the same config and seed."""
+    """Random HF-style state dict — the same numbers as the JAX package's
+    `random_state_dict` for the same config and seed (tensors drawn in the
+    same order: embeddings, layers, encoder-level extras, Dense head)."""
     rng = np.random.default_rng(seed)
 
     def init(shape):
@@ -193,7 +228,7 @@ def random_state_dict(config: BertConfig, seed: int = 0) -> dict[str, np.ndarray
         else:
             sd[name] = init(shape)
     for i in range(config.n_layer):
-        for name, (key, shape_fn) in schema.layer_tensor_names(i).items():
+        for name, (key, shape_fn) in schema.layer_tensor_names(i, config).items():
             shape = shape_fn(config)
             if key.startswith("ln_") and key.endswith("scale"):
                 sd[name] = np.ones(shape, np.float32)
@@ -201,6 +236,8 @@ def random_state_dict(config: BertConfig, seed: int = 0) -> dict[str, np.ndarray
                 sd[name] = np.zeros(shape, np.float32)
             else:
                 sd[name] = init(shape)
+    for name, (_, shape_fn) in schema.extra_tensors(config).items():
+        sd[name] = np.ones(shape_fn(config), np.float32)  # norm scales
     if config.dense_out:
         for name, (_, shape_fn) in schema.DENSE_TENSORS.items():
             sd[name] = init(shape_fn(config))

@@ -1,21 +1,34 @@
-"""Masked multi-head attention over the projection layout: the CUDA
-kernel's wrappers and its plain PyTorch version.
+"""Masked multi-head attention: the CUDA kernels' wrappers and their plain
+PyTorch versions.
 
-Kernel: `csrc/attention_bse.cu`, the Hopper port of the TPU kernel
-`_attn_bse_kernel` (embedding_cpp_tpu/ops/attention.py) as called through
-`_flash_attention_bse_call` by `flash_attention_packed_bse` (segment mask,
-packed rows) and `flash_attention_bse` (additive key bias, plain batches).
-q/k/v/o are [B, S, H*d] as the projections produce them; head h is the
-column slice h*d .. (h+1)*d, so no transpose happens on either side.  The
-kernel keeps a query tile's whole f32 score rows on chip and follows the
-reference's order: scale, mask, row max, exp, f32 row sum, e cast to v's
-dtype for the PV product (f32 accumulation), divide, cast.  What bounds it
-on an H100 and what the first version does about it is noted in the
-source.
+Projection layout (q/k/v/o [B, S, H*d], head h the column slice h*d ..
+(h+1)*d), kernel `csrc/attention_bse.cu`, the Hopper port of the TPU
+kernel `_attn_bse_kernel` (embedding_cpp_tpu/ops/attention.py) through
+`_flash_attention_bse_call`, for S <= 1024:
+  `flash_attention_packed_bse`  segment mask (packed rows)
+  `flash_attention_bse`         additive key bias (plain batches)
+either with an optional [PH, S, S] position bias (the JAX names
+`flash_attention_bias_bse` / `flash_attention_bias_packed_bse` delegate).
+A block keeps its query tile's whole f32 score rows on chip and follows
+the reference's order: scale, mask (and bias), row max, exp, f32 row sum,
+e cast to v's dtype for the PV product (f32 accumulation), divide, cast.
 
-The wrappers launch the kernel for CUDA tensors and run `attention_bse_plain`
-only for tensors on the CPU.  `flash_attention_packed_bse.launches` and
-`flash_attention_bse.launches` count kernel launches.
+Long rows (q/k/v/o [B, S, H, d], a free view of the projections), kernel
+`csrc/attention_long.cu`, for any S:
+  `flash_attention`        every key, key bias, optional position bias
+                           (TPU `_attn_kernel` via `_flash_attention` and
+                           `_flash_attention_bias`)
+  `flash_attention_local`  the sliding window over the TPU tile's key slice
+                           (TPU `_attn_local_kernel`)
+The same order of operations in two passes over the key tiles (row max,
+then exp / sum / PV), so nothing is rescaled.  What bounds each kernel on
+an H100 and what its first version does about it is noted in its source.
+
+Every wrapper launches its kernel for CUDA tensors, raises for what the
+kernel does not serve, and runs the plain version only for tensors on the
+CPU.  Each wrapper's `launches` counts its kernel launches; the two
+projection-layout wrappers count those with a position bias (K4) apart,
+in `bias_launches`.
 """
 from __future__ import annotations
 
@@ -28,68 +41,205 @@ from ._build import check, load
 MASK_BIAS = -1e9  # additive score for masked keys (finite, never -inf)
 MAX_SEQ = 1024  # a query tile's f32 score rows must fit in shared memory
 HEAD_DIMS = (16, 32, 64, 128)
+_PLAIN_CHUNK = 1 << 26  # score elements per chunk of the long plain version
+
+
+def fits_bias_bse(s: int, d: int) -> bool:
+    """True when the projection-layout kernel serves sequence length `s`
+    and head dim `d` (its bias rows stream from device memory, so the bias
+    adds no limit)."""
+    return 1 <= s <= MAX_SEQ and d in HEAD_DIMS
+
+
+def _pos_bias_heads(pos_bias: torch.Tensor, h: int) -> torch.Tensor:
+    """[PH, S, S] -> a [1, H|1, S, S] view that broadcasts over batch."""
+    if pos_bias.shape[0] not in (1, h):
+        raise ValueError(f"pos_bias heads {pos_bias.shape[0]} not in (1, {h})")
+    return pos_bias.to(torch.float32)[None]
 
 
 def attention_bse_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        mask: torch.Tensor, h: int, seg_mask: bool) -> torch.Tensor:
-    """The kernel's arithmetic in plain PyTorch.  mask: f32 key bias [B, S],
-    or int32 segment ids [B, S] when `seg_mask` (-1 on padding)."""
+                        mask: torch.Tensor, h: int, seg_mask: bool,
+                        pos_bias: torch.Tensor | None = None) -> torch.Tensor:
+    """The projection-layout kernel's arithmetic in plain PyTorch.  mask:
+    f32 key bias [B, S], or int32 segment ids [B, S] when `seg_mask` (-1
+    on padding); pos_bias: optional f32 [PH, S, S], PH in {1, H}."""
     b, s, e = q.shape
     d = e // h
     scale = 1.0 / (d**0.5)
 
     def heads(t):
-        return t.reshape(b, s, h, d).permute(0, 2, 1, 3).to(torch.float32)
+        return t.reshape(b, s, h, d).permute(0, 2, 1, 3)
 
-    scores = torch.matmul(heads(q), heads(k).transpose(-1, -2))  # [B,H,S,S] f32
+    scores = torch.matmul(heads(q).to(torch.float32),
+                          heads(k).to(torch.float32).transpose(-1, -2))  # [B,H,S,S]
     if seg_mask:
         allowed = (mask[:, :, None] == mask[:, None, :])[:, None]
-        scores = torch.where(allowed, scores * scale,
-                             torch.tensor(MASK_BIAS, dtype=torch.float32))
+        sc = scores * scale
+        if pos_bias is not None:
+            sc = sc + _pos_bias_heads(pos_bias, h)
+        scores = torch.where(allowed, sc, torch.tensor(MASK_BIAS, dtype=torch.float32))
     else:
         scores = scores * scale + mask.to(torch.float32)[:, None, None, :]
-    m = torch.amax(scores, dim=-1, keepdim=True)
-    ex = torch.exp(scores - m)
-    se = torch.sum(ex, dim=-1, keepdim=True)  # before ex is cast
-    acc = torch.matmul(ex.to(v.dtype).to(torch.float32), heads(v))
-    out = (acc / se).to(q.dtype)
+        if pos_bias is not None:
+            scores = scores + _pos_bias_heads(pos_bias, h)
+    out = _softmax_pv(scores, heads(v), q.dtype)
     return out.permute(0, 2, 1, 3).reshape(b, s, e)
 
 
-def _lib():
-    fn = load("attention_bse.cu").attn_bse_launch
+def _softmax_pv(scores: torch.Tensor, v: torch.Tensor, out_dtype) -> torch.Tensor:
+    """max, exp, f32 row sum before e is cast, e cast to v's dtype, f32
+    product, divide, cast (scores [..., Q, K] f32, v [..., K, d])."""
+    m = torch.amax(scores, dim=-1, keepdim=True)
+    ex = torch.exp(scores - m)
+    se = torch.sum(ex, dim=-1, keepdim=True)
+    acc = torch.matmul(ex.to(v.dtype).to(torch.float32), v.to(torch.float32))
+    return (acc / se).to(out_dtype)
+
+
+def attention_long_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         mask_bias: torch.Tensor,
+                         pos_bias: torch.Tensor | None = None) -> torch.Tensor:
+    """The long-row kernel's arithmetic in plain PyTorch: q/k/v [B, S, H,
+    d], mask_bias f32 [B, S], pos_bias optional f32 [PH, S, S] ->
+    [B, S, H, d].  Query rows go in chunks so [B, H, rows, S] stays small."""
+    b, s, h, d = q.shape
+    scale = 1.0 / (d**0.5)
+    kh = k.permute(0, 2, 1, 3).to(torch.float32)  # [B, H, S, d]
+    vh = v.permute(0, 2, 1, 3)
+    keyb = mask_bias.to(torch.float32)[:, None, None, :]
+    pb = None if pos_bias is None else _pos_bias_heads(pos_bias, h)
+    out = torch.empty_like(q)
+    rows = max(1, _PLAIN_CHUNK // max(1, b * h * s))
+    for r0 in range(0, s, rows):
+        qc = q[:, r0:r0 + rows].permute(0, 2, 1, 3).to(torch.float32)
+        scores = torch.matmul(qc, kh.transpose(-1, -2)) * scale + keyb
+        if pb is not None:
+            scores = scores + pb[:, :, r0:r0 + rows]
+        out[:, r0:r0 + rows] = _softmax_pv(scores, vh, q.dtype).permute(0, 2, 1, 3)
+    return out
+
+
+def local_window_tiles(s: int, window: int) -> tuple[int, int | None]:
+    """(tq, wmax) of the TPU sliding-window kernel: query tiles of tq rows
+    each score a slice of wmax keys; wmax is None when the slice would not
+    be narrower than the sequence (S % 128 != 0, or a short S), where the
+    reference takes the long-row kernel with an [S, S] window bias."""
+    if s % 128:
+        return 128, None
+    tq = 256 if s % 256 == 0 and s >= 2048 else 128
+    wmax = -(-(tq + window + 16) // 128) * 128
+    return tq, wmax if wmax < s else None
+
+
+def _local_slices(s: int, window: int, device) -> tuple[int, int, torch.Tensor]:
+    """(tq, wmax, kidx [S/tq, wmax]): the key indices of each TPU query
+    tile's slice, kstart = clip(((qs + (tq - wmax)//2)//8)*8, 0, S - wmax)."""
+    tq, wmax = local_window_tiles(s, window)
+    if wmax is None:
+        raise ValueError(f"no sliding-window slice for S={s}, window={window}")
+    qs = torch.arange(0, s, tq, device=device)
+    kstart = torch.clamp(torch.div(qs + (tq - wmax) // 2, 8, rounding_mode="floor") * 8,
+                         0, s - wmax)
+    return tq, wmax, kstart[:, None] + torch.arange(wmax, device=device)[None, :]
+
+
+def attention_local_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          mask_bias: torch.Tensor, window: int) -> torch.Tensor:
+    """The sliding-window kernel's arithmetic in plain PyTorch: each TPU
+    query tile scores only its slice's keys, s*scale + (|q - k| <= window/2
+    ? keybias : -1e9).  q/k/v [B, S, H, d] -> [B, S, H, d]."""
+    b, s, h, d = q.shape
+    scale = 1.0 / (d**0.5)
+    tq, wmax, kidx = _local_slices(s, window, q.device)
+    nt = s // tq
+    qpos = torch.arange(s, device=q.device).reshape(nt, tq)
+    inwin = (qpos[:, :, None] - kidx[:, None, :]).abs() <= window // 2  # [nt, tq, wmax]
+    keyb = mask_bias.to(torch.float32)[:, kidx]  # [B, nt, wmax]
+    add = torch.where(inwin[None], keyb[:, :, None, :],
+                      torch.tensor(MASK_BIAS, dtype=torch.float32, device=q.device))
+    qt = q.reshape(b, nt, tq, h, d).permute(0, 1, 3, 2, 4).to(torch.float32)
+    kt = k[:, kidx].permute(0, 1, 3, 4, 2).to(torch.float32)  # [B, nt, H, d, wmax]
+    vt = v[:, kidx].permute(0, 1, 3, 2, 4)  # [B, nt, H, wmax, d]
+    scores = torch.matmul(qt, kt) * scale + add[:, :, None]  # [B, nt, H, tq, wmax]
+    out = _softmax_pv(scores, vt, q.dtype)  # [B, nt, H, tq, d]
+    return out.permute(0, 1, 3, 2, 4).reshape(b, s, h, d)
+
+
+# --- launches ----------------------------------------------------------------
+
+def _bind(source: str, entry: str, argtypes):
+    fn = getattr(load(source), entry)
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, ctypes.c_float, i, i, p]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(q, k, v, mask, h: int, seg_mask: bool) -> torch.Tensor:
-    """Checks the operands and launches the kernel; returns o [B, S, H*d]."""
-    if q.shape != k.shape or q.shape != v.shape or q.dim() != 3:
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def _operands(ts, device):
+    """Contiguous, 16-byte aligned copies where needed, all on `device`."""
+    out = []
+    for t in ts:
+        if t is None:
+            out.append(None)
+            continue
+        if t.device != device:
+            raise ValueError("attention operands on different devices")
+        t = t.contiguous()
+        out.append(t.clone() if t.data_ptr() % 16 else t)
+    return out
+
+
+def _check_qkv(q, k, v, heads_last: bool, h: int | None = None) -> tuple[int, int, int, int]:
+    """(B, S, H, d) of q/k/v in [B, S, H*d] (heads_last False) or
+    [B, S, H, d] layout; raises on what the kernels do not serve."""
+    want = 4 if heads_last else 3
+    if q.shape != k.shape or q.shape != v.shape or q.dim() != want:
         raise ValueError(f"q/k/v shapes {q.shape} {k.shape} {v.shape}")
-    b, s, e = q.shape
-    if e % h or e // h not in HEAD_DIMS:
-        raise ValueError(f"head dim {e}/{h} not in {HEAD_DIMS}")
-    if not 1 <= s <= MAX_SEQ:
-        raise ValueError(f"sequence length {s} outside 1..{MAX_SEQ}")
+    if heads_last:
+        b, s, h, d = q.shape
+    else:
+        b, s, e = q.shape
+        if e % h:
+            raise ValueError(f"width {e} not divisible by {h} heads")
+        d = e // h
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
     if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise ValueError(f"q/k/v dtypes {q.dtype} {k.dtype} {v.dtype}")
+    return b, s, h, d
+
+
+def _check_pos_bias(pos_bias, h: int, s: int) -> None:
+    if pos_bias is not None and (pos_bias.dim() != 3 or pos_bias.shape[0] not in (1, h)
+                                 or pos_bias.shape[1:] != (s, s)
+                                 or pos_bias.dtype != torch.float32):
+        raise ValueError(f"pos_bias {tuple(pos_bias.shape)} {pos_bias.dtype}, "
+                         f"want (1|{h}, {s}, {s}) float32")
+
+
+def _launch_bse(q, k, v, mask, h: int, seg_mask: bool, pos_bias=None) -> torch.Tensor:
+    """Checks the operands and launches the projection-layout kernel."""
+    b, s, _, d = _check_qkv(q, k, v, False, h)
+    if not 1 <= s <= MAX_SEQ:
+        raise ValueError(f"sequence length {s} outside 1..{MAX_SEQ}")
     want = torch.int32 if seg_mask else torch.float32
     if mask.shape != (b, s) or mask.dtype != want:
         raise ValueError(f"mask {tuple(mask.shape)} {mask.dtype}, want ({b}, {s}) {want}")
-    ts = [t.contiguous() for t in (q, k, v, mask)]
-    if any(t.device != q.device for t in ts):
-        raise ValueError("attention operands on different devices")
-    ts = [t.clone() if t.data_ptr() % 16 else t for t in ts]
-    out = torch.empty_like(ts[0])
+    _check_pos_bias(pos_bias, h, s)
+    q, k, v, mask, pos_bias = _operands((q, k, v, mask, pos_bias), q.device)
+    out = torch.empty_like(q)
     if b == 0:
         return out
-    d = e // h
-    err = _lib()(
-        *(t.data_ptr() for t in ts), out.data_ptr(), b, s, h, d, 1.0 / (d**0.5),
+    err = _bind("attention_bse.cu", "attn_bse_launch",
+                [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P])(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+        None if pos_bias is None else pos_bias.data_ptr(), out.data_ptr(),
+        b, s, h, d, 1 if pos_bias is None else pos_bias.shape[0], 1.0 / (d**0.5),
         int(q.dtype == torch.bfloat16), int(seg_mask),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -97,33 +247,139 @@ def _launch(q, k, v, mask, h: int, seg_mask: bool) -> torch.Tensor:
     return out
 
 
-def flash_attention_bse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        mask_bias: torch.Tensor, h: int) -> torch.Tensor:
-    """Attention with an additive f32 key bias [B, S] (0 valid, -1e9
-    padding) over q/k/v [B, S, H*d] -> [B, S, H*d]."""
-    mask_bias = mask_bias.to(torch.float32)
+def _launch_long(q, k, v, mask_bias, pos_bias=None, window: int = 0) -> torch.Tensor:
+    """Checks the operands and launches the long-row kernel: every key
+    (window 0) or the sliding-window slices."""
+    b, s, h, d = _check_qkv(q, k, v, True)
+    if mask_bias.shape != (b, s) or mask_bias.dtype != torch.float32:
+        raise ValueError(f"mask_bias {tuple(mask_bias.shape)} {mask_bias.dtype}, "
+                         f"want ({b}, {s}) float32")
+    _check_pos_bias(pos_bias, h, s)
+    tq = wmax = 0
+    if window:
+        tq, wmax = local_window_tiles(s, window)
+        if wmax is None:
+            raise ValueError(f"no sliding-window slice for S={s}, window={window}")
+    q, k, v, mask_bias, pos_bias = _operands((q, k, v, mask_bias, pos_bias), q.device)
+    out = torch.empty_like(q)
+    if b == 0 or s == 0:
+        return out
+    err = _bind("attention_long.cu", "attn_long_launch",
+                [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P])(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_bias.data_ptr(),
+        None if pos_bias is None else pos_bias.data_ptr(), out.data_ptr(),
+        b, s, h, d, 1 if pos_bias is None else pos_bias.shape[0], 1.0 / (d**0.5),
+        int(q.dtype == torch.bfloat16), int(window > 0), tq, wmax, window,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    check(err, "attn_long_launch")
+    return out
+
+
+def _on_cuda(q: torch.Tensor, name: str) -> bool:
+    """False for CPU tensors (the plain version runs); True for CUDA
+    tensors (the kernel launches); raises for any other device."""
     if q.device.type == "cpu":
-        return attention_bse_plain(q, k, v, mask_bias, h, seg_mask=False)
+        return False
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_bse: unsupported device {q.device}")
-    out = _launch(q, k, v, mask_bias, h, seg_mask=False)
-    flash_attention_bse.launches += 1
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    return True
+
+
+def _count(fn, pos_bias) -> None:
+    """One launch of `fn`'s kernel: `bias_launches` with a position bias
+    (K4), else `launches` (K2/K3)."""
+    if pos_bias is None:
+        fn.launches += 1
+    else:
+        fn.bias_launches += 1
+
+
+def flash_attention_bse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        mask_bias: torch.Tensor, h: int,
+                        pos_bias: torch.Tensor | None = None) -> torch.Tensor:
+    """Attention with an additive f32 key bias [B, S] (0 valid, -1e9
+    padding) over q/k/v [B, S, H*d] -> [B, S, H*d]; an optional position
+    bias [PH, S, S] f32 (PH = H, or 1 when head-invariant) is added after
+    it: (s*scale + keybias) + pos_bias."""
+    mask_bias = mask_bias.to(torch.float32)
+    if pos_bias is not None:
+        pos_bias = pos_bias.to(torch.float32)
+    if not _on_cuda(q, "flash_attention_bse"):
+        return attention_bse_plain(q, k, v, mask_bias, h, False, pos_bias)
+    out = _launch_bse(q, k, v, mask_bias, h, False, pos_bias)
+    _count(flash_attention_bse, pos_bias)
     return out
 
 
 def flash_attention_packed_bse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                               seg: torch.Tensor, h: int) -> torch.Tensor:
+                               seg: torch.Tensor, h: int,
+                               pos_bias: torch.Tensor | None = None) -> torch.Tensor:
     """Segment-masked attention for packed rows: key k is visible to query q
-    iff seg[q] == seg[k] (seg [B, S] int32, -1 on padding)."""
+    iff seg[q] == seg[k] (seg [B, S] int32, -1 on padding).  An optional
+    position bias [PH, S, S] f32 built from absolute row offsets is added
+    to the visible pairs: seg[q] == seg[k] ? s*scale + pos_bias : -1e9
+    (valid for packed rows because within a segment the restart positions
+    are consecutive)."""
     seg = seg.to(torch.int32)
-    if q.device.type == "cpu":
-        return attention_bse_plain(q, k, v, seg, h, seg_mask=True)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_packed_bse: unsupported device {q.device}")
-    out = _launch(q, k, v, seg, h, seg_mask=True)
-    flash_attention_packed_bse.launches += 1
+    if pos_bias is not None:
+        pos_bias = pos_bias.to(torch.float32)
+    if not _on_cuda(q, "flash_attention_packed_bse"):
+        return attention_bse_plain(q, k, v, seg, h, True, pos_bias)
+    out = _launch_bse(q, k, v, seg, h, True, pos_bias)
+    _count(flash_attention_packed_bse, pos_bias)
     return out
 
 
-flash_attention_bse.launches = 0
-flash_attention_packed_bse.launches = 0
+def flash_attention_bias_bse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             mask_bias: torch.Tensor, pos_bias: torch.Tensor,
+                             h: int) -> torch.Tensor:
+    """`flash_attention_bse` with a position bias, in the JAX entry's
+    argument order."""
+    return flash_attention_bse(q, k, v, mask_bias, h, pos_bias)
+
+
+def flash_attention_bias_packed_bse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                    seg: torch.Tensor, pos_bias: torch.Tensor,
+                                    h: int) -> torch.Tensor:
+    """`flash_attention_packed_bse` with a position bias, in the JAX
+    entry's argument order."""
+    return flash_attention_packed_bse(q, k, v, seg, h, pos_bias)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    mask_bias: torch.Tensor,
+                    pos_bias: torch.Tensor | None = None) -> torch.Tensor:
+    """Masked attention over every key: q/k/v [B, S, H, d], mask_bias
+    [B, S] f32 (0 valid, -1e9 padding), optional pos_bias [H|1, S, S] f32
+    added after the key bias -> [B, S, H, d]."""
+    mask_bias = mask_bias.to(torch.float32)
+    if pos_bias is not None:
+        pos_bias = pos_bias.to(torch.float32)
+    if not _on_cuda(q, "flash_attention"):
+        return attention_long_plain(q, k, v, mask_bias, pos_bias)
+    out = _launch_long(q, k, v, mask_bias, pos_bias)
+    flash_attention.launches += 1
+    return out
+
+
+def flash_attention_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          mask_bias: torch.Tensor, window: int) -> torch.Tensor:
+    """Sliding-window attention (ModernBERT's local layers): key k is
+    visible to query q iff |q - k| <= window // 2 and k is valid, scored
+    over the TPU query tile's key slice.  q/k/v [B, S, H, d] with S a
+    multiple of 128 and the slice narrower than S (local_window_tiles)."""
+    mask_bias = mask_bias.to(torch.float32)
+    if not _on_cuda(q, "flash_attention_local"):
+        return attention_local_plain(q, k, v, mask_bias, window)
+    if window <= 0:
+        raise ValueError(f"window {window} must be positive")
+    out = _launch_long(q, k, v, mask_bias, window=window)
+    flash_attention_local.launches += 1
+    return out
+
+
+for _fn in (flash_attention_bse, flash_attention_packed_bse, flash_attention,
+            flash_attention_local):
+    _fn.launches = 0
+flash_attention_bse.bias_launches = flash_attention_packed_bse.bias_launches = 0

@@ -3,17 +3,19 @@
 `linear()` hides the weight representation from the model code, in the
 order of the JAX package's Pallas path (ops/linear.py): a QTensor weight
 goes through the fused dequant-matmul kernel (`q4_matmul`), which takes the
-bias and the activation in its f32 epilogue; the result is cast to the
+gated FFN's `prologue_mul` on its loaded x tiles and the bias and the
+activation in its f32 epilogue; the result is cast to the
 activation dtype, the residual is added in that dtype, and the LayerNorm
 tail runs in f32.  A dense weight takes a plain matmul with f32
-accumulation, the bias in f32, then the cast and the activation.
+accumulation (after the prologue multiply in the activation dtype), the
+bias in f32, then the cast and the activation.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from .q4_matmul import q4_matmul
+from .q4_matmul import prologue, q4_matmul
 from .qtensor import QTensor
 
 
@@ -41,16 +43,21 @@ def _activate(y: torch.Tensor, activation: str | None) -> torch.Tensor:
 
 def linear(x: torch.Tensor, w, b: torch.Tensor | None = None, *,
            activation: str | None = None, residual: torch.Tensor | None = None,
-           ln: tuple | None = None) -> torch.Tensor:
-    """y = act(x @ w + b) [+ residual] [-> LayerNorm].  x: [..., K]; w: [K, N]
-    dense or QTensor; b: [N]; ln: (scale [N], bias [N], eps)."""
+           ln: tuple | None = None,
+           prologue_mul: torch.Tensor | None = None) -> torch.Tensor:
+    """y = act((x [* prologue_mul]) @ w + b) [+ residual] [-> LayerNorm].
+    x, prologue_mul: [..., K]; w: [K, N] dense or QTensor; b: [N]; ln:
+    (scale [N], bias [N], eps)."""
     dtype = x.dtype
     lead = x.shape[:-1]
     if isinstance(w, QTensor):
-        y = q4_matmul(x.reshape(-1, x.shape[-1]), w, bias=b, activation=activation)
+        y = q4_matmul(x.reshape(-1, x.shape[-1]), w, bias=b, activation=activation,
+                      prologue_mul=None if prologue_mul is None
+                      else prologue_mul.reshape(-1, x.shape[-1]))
         y = y.reshape(*lead, -1).to(dtype)
     else:
-        y = torch.matmul(x.to(torch.float32), w.to(dtype).to(torch.float32))
+        xx = prologue(x, prologue_mul)
+        y = torch.matmul(xx.to(torch.float32), w.to(dtype).to(torch.float32))
         if b is not None:
             y = y + b.to(torch.float32)
         y = _activate(y.to(dtype), activation)

@@ -2,8 +2,11 @@
 wrapper and its plain PyTorch version.
 
 Kernel: `csrc/q4_matmul.cu`, the Hopper port of the TPU kernel
-`_q4_matmul_1d` (embedding_cpp_tpu/ops/q4_matmul.py): y = act(x @ dequant(W)
-+ bias), the epilogue in f32 on the accumulator, then one cast.  The weight
+`_q4_matmul_1d` (embedding_cpp_tpu/ops/q4_matmul.py): y = act((x [* g]) @
+dequant(W) + bias), the epilogue in f32 on the accumulator, then one cast.
+The optional prologue multiplicand g ([M, K], the gated FFN's gate) scales
+the loaded x tile before the product, rounded to x's dtype as the TPU
+kernel's `x_ref[:] * g_ref[:]` rounds it.  The weight
 stays packed 4- or 8-bit in device memory and is dequantized on chip, 32
 rows at a time, exactly as the TPU kernel's `_dequant_tile` does it.  bf16
 activations run on the tensor cores with f32 accumulation; f32 activations
@@ -12,7 +15,8 @@ version does about it is noted in the source.
 
 `q4_matmul` launches the kernel for a CUDA tensor and runs
 `q4_matmul_plain`, which repeats the kernel's arithmetic step by step, only
-for a tensor on the CPU.  `q4_matmul.launches` counts kernel launches.
+for a tensor on the CPU.  `q4_matmul.launches` counts kernel launches,
+`q4_matmul.prologue_launches` those of them with a prologue multiplicand.
 """
 from __future__ import annotations
 
@@ -66,12 +70,21 @@ def epilogue(y: torch.Tensor, bias: torch.Tensor | None,
     return y
 
 
+def prologue(x: torch.Tensor, g: torch.Tensor | None) -> torch.Tensor:
+    """x * g rounded once to x's dtype (exact in f32 for two bf16 inputs,
+    so one rounding equals the TPU's bf16 multiply)."""
+    if g is None:
+        return x
+    return (x.to(torch.float32) * g.to(torch.float32)).to(x.dtype)
+
+
 def q4_matmul_plain(x: torch.Tensor, w: QTensor, bias=None, activation=None,
-                    out_f32: bool = False) -> torch.Tensor:
-    """The kernel's arithmetic in plain PyTorch: bf16 (or f32) products
-    accumulated in f32, f32 epilogue, one cast."""
+                    out_f32: bool = False,
+                    prologue_mul: torch.Tensor | None = None) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch: the prologue multiply,
+    bf16 (or f32) products accumulated in f32, f32 epilogue, one cast."""
     wd = dequant_weight(w, x.dtype)
-    y = torch.matmul(x.to(torch.float32), wd.to(torch.float32))
+    y = torch.matmul(prologue(x, prologue_mul).to(torch.float32), wd.to(torch.float32))
     y = epilogue(y, bias, activation)
     return y if out_f32 else y.to(x.dtype)
 
@@ -80,12 +93,12 @@ def _lib():
     fn = load("q4_matmul.cu").q4_matmul_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, i, p]
+        fn.argtypes = [p, p, i, p, p, p, p, p, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _check_args(x: torch.Tensor, w: QTensor, activation) -> None:
+def _check_args(x: torch.Tensor, w: QTensor, activation, prologue_mul) -> None:
     if w.qtype not in QUANT_TYPES:
         raise ValueError(f"not a quantized tensor: {w.qtype}")
     if activation not in ACTIVATIONS:
@@ -97,16 +110,19 @@ def _check_args(x: torch.Tensor, w: QTensor, activation) -> None:
         raise ValueError(f"K = {k} is not a multiple of {QK4}")
     if (k, w.qs.shape[-1]) != tuple(w.shape) or w.qs.dim() != 2:
         raise ValueError(f"x {tuple(x.shape)} does not match weight {w.shape}")
+    if prologue_mul is not None and prologue_mul.shape != x.shape:
+        raise ValueError(f"prologue_mul {tuple(prologue_mul.shape)} != x {tuple(x.shape)}")
 
 
 def q4_matmul(x: torch.Tensor, w: QTensor, bias: torch.Tensor | None = None,
-              activation: str | None = None, out_f32: bool = False) -> torch.Tensor:
-    """x [M, K] @ packed w [K, N] -> act(. + bias) [M, N] in x.dtype (f32
-    with `out_f32`).  CPU tensors take the plain version; CUDA tensors
-    launch the kernel or raise."""
-    _check_args(x, w, activation)
+              activation: str | None = None, out_f32: bool = False,
+              prologue_mul: torch.Tensor | None = None) -> torch.Tensor:
+    """(x [M, K] [* prologue_mul [M, K]]) @ packed w [K, N] -> act(. +
+    bias) [M, N] in x.dtype (f32 with `out_f32`).  CPU tensors take the
+    plain version; CUDA tensors launch the kernel or raise."""
+    _check_args(x, w, activation, prologue_mul)
     if x.device.type == "cpu":
-        return q4_matmul_plain(x, w, bias, activation, out_f32)
+        return q4_matmul_plain(x, w, bias, activation, out_f32, prologue_mul)
     if x.device.type != "cuda":
         raise ValueError(f"q4_matmul: unsupported device {x.device}")
     if x.dtype not in (torch.bfloat16, torch.float32):
@@ -119,6 +135,13 @@ def q4_matmul(x: torch.Tensor, w: QTensor, bias: torch.Tensor | None = None,
     x = x.contiguous()
     if x.data_ptr() % 16:
         x = x.clone()
+    g = None
+    if prologue_mul is not None:
+        if prologue_mul.device != x.device or prologue_mul.dtype != x.dtype:
+            raise ValueError("q4_matmul: prologue_mul must match x's device and dtype")
+        g = prologue_mul.contiguous()
+        if g.data_ptr() % 16:
+            g = g.clone()
     qs, scales = w.qs.contiguous(), w.scales.contiguous()
     mins = None if w.mins is None else w.mins.contiguous()
     if bias is not None:
@@ -133,7 +156,8 @@ def q4_matmul(x: torch.Tensor, w: QTensor, bias: torch.Tensor | None = None,
     if m == 0:
         return out
     err = _lib()(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), qs.data_ptr(),
+        x.data_ptr(), None if g is None else g.data_ptr(),
+        int(x.dtype == torch.bfloat16), qs.data_ptr(),
         scales.data_ptr(), None if mins is None else mins.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(),
         int(f32_out), m, k, n, _QTYPE_CODE[w.qtype],
@@ -142,7 +166,10 @@ def q4_matmul(x: torch.Tensor, w: QTensor, bias: torch.Tensor | None = None,
     )
     check(err, "q4_matmul_launch")
     q4_matmul.launches += 1
+    if g is not None:
+        q4_matmul.prologue_launches += 1
     return out
 
 
 q4_matmul.launches = 0
+q4_matmul.prologue_launches = 0  # the launches that multiplied in a prologue

@@ -24,7 +24,7 @@ from ..models.bert import (
 )
 from ..models.config import BertConfig
 from ..models.params import load_params, params_to, random_params
-from ..tokenizer import SpecialIds, WordPieceTokenizer, frame_ids
+from ..tokenizer import SpecialIds, WordPieceTokenizer, frame_ids, load_tokenizer
 from .batching import (
     DEFAULT_BATCH_BUCKETS,
     DEFAULT_PACK_SEQ,
@@ -47,6 +47,19 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+def long_seq_buckets(n_ctx: int) -> tuple[int, ...]:
+    """The default length buckets up to n_ctx, extended in powers of two
+    past 512 for long-context encoders (ModernBERT: ..., 512, 1024, 2048,
+    4096, 8192), so long texts batch at their length instead of being cut
+    to the top default bucket."""
+    buckets = tuple(b for b in DEFAULT_SEQ_BUCKETS if b <= n_ctx) or (n_ctx,)
+    b = buckets[-1]
+    while b < n_ctx:
+        b = min(b * 2, n_ctx)
+        buckets += (b,)
+    return buckets
+
+
 class Engine:
     """Text -> L2-normalized embedding vectors."""
 
@@ -66,10 +79,10 @@ class Engine:
         self.opts = opts or ComputeOptions()
         self.tokenizer = tokenizer
         self.special_ids = special_ids or SpecialIds(cls=101, sep=102, pad=0, unk=100)
-        self.seq_buckets = tuple(
-            b for b in DEFAULT_SEQ_BUCKETS if b <= config.n_ctx) or (config.n_ctx,)
+        self.seq_buckets = long_seq_buckets(config.n_ctx)
         self.batch_buckets = DEFAULT_BATCH_BUCKETS
         # per-dispatch token budget: longer sequence buckets get fewer rows
+        # (8192-token rows batch 128 at a time, not 2048)
         self.max_batch_tokens = DEFAULT_BATCH_BUCKETS[-1] * 512
         if packing not in ("auto", "never"):
             raise ValueError(f"packing must be auto/never, got {packing!r}")
@@ -90,7 +103,7 @@ class Engine:
         with GGUFReader(path) as r:
             params, config = load_params(r, dense_dtype=opts.tdtype, device=device)
             blob = r.kv.get(Keys.TOKENIZER_JSON_BLOB)
-            tokenizer = WordPieceTokenizer(blob) if blob else None
+            tokenizer = load_tokenizer(blob) if blob else None
             special = SpecialIds.from_gguf_kv(r.kv)
         return cls(params, config, tokenizer, special, opts=opts, device=device, **kw)
 

@@ -3,8 +3,11 @@
 Marked `cuda`: without a GPU every test here skips.  On a machine with an
 H100 and nvcc:  python -m pytest tests/test_torch_cuda.py -q
 Edge shapes live here (ragged M, sequence lengths that are not multiples of
-the 16-row tiles, fully padded rows); chip_smoke.py checks the main-path
-shapes.
+the 16- and 64-row tiles, S = 1025, fully padded rows, head dims 32 and
+64, f32 and bf16) for K1 (with and without its prologue multiply), the
+projection-layout kernel with and without a position bias (K2-K4), the
+long-row kernel (K5) and the sliding-window kernel (K7); chip_smoke.py
+checks the main-path shapes.
 
 Tolerances: f32 1e-4 absolute (the same f32 products summed in another
 order); bf16 by relative error max|err| / max|ref| <= 1e-2 (an order
@@ -20,7 +23,13 @@ from embedding_cpp_tpu_torch.ops import qtensor as tqt
 from embedding_cpp_tpu_torch.ops.attention import (
     MASK_BIAS,
     attention_bse_plain,
+    attention_local_plain,
+    attention_long_plain,
+    flash_attention,
+    flash_attention_bias_bse,
+    flash_attention_bias_packed_bse,
     flash_attention_bse,
+    flash_attention_local,
     flash_attention_packed_bse,
 )
 from embedding_cpp_tpu_torch.ops.q4_matmul import q4_matmul, q4_matmul_plain
@@ -126,3 +135,101 @@ def test_attention_rejects_what_it_does_not_serve(dev):
     q, k, v = _qkv(1, 1032, 1, 32, torch.bfloat16, dev)
     with pytest.raises(ValueError):
         flash_attention_bse(q, k, v, torch.zeros(1, 1032, device=dev), 1)  # S > 1024
+
+
+@pytest.mark.parametrize("qtype", ["Q4_0", "Q4_1", "Q8_0"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n", [(64, 128, 128), (77, 1152, 768), (1, 32, 64),
+                                   (200, 384, 100)])
+def test_q4_matmul_prologue_matches_plain(dev, qtype, dtype, m, k, n):
+    w = _weight(qtype, k, n, dev, seed=3)
+    gen = torch.Generator(device="cpu").manual_seed(m + k)
+    x, g = (torch.randn(m, k, generator=gen).to(dev, dtype) for _ in range(2))
+    before = q4_matmul.launches
+    got = q4_matmul(x, w, prologue_mul=g)
+    assert q4_matmul.launches == before + 1
+    _close(got, q4_matmul_plain(x, w, prologue_mul=g), dtype)
+
+
+def _pos_bias(ph, s, dev, seed=0):
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    pb = torch.randn(ph, s, s, generator=gen)
+    pb[:, :, s // 2:] += MASK_BIAS * (torch.rand(ph, s, s - s // 2, generator=gen) < 0.3)
+    return pb.to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s,h,d", [(24, 4, 32), (100, 2, 64), (512, 12, 64), (1024, 2, 32)])
+@pytest.mark.parametrize("per_head", [False, True])
+def test_bias_kernels_match_plain(dev, dtype, s, h, d, per_head):
+    b = 3
+    q, k, v = _qkv(b, s, h, d, dtype, dev, seed=2)
+    pb = _pos_bias(h if per_head else 1, s, dev)
+    mask = torch.zeros(b, s, device=dev)
+    mask[1, max(1, s // 3):] = MASK_BIAS
+    mask[2, :] = MASK_BIAS  # every key padded
+    before = (flash_attention_bse.launches, flash_attention_bse.bias_launches)
+    got = flash_attention_bias_bse(q, k, v, mask, pb, h)
+    assert (flash_attention_bse.launches, flash_attention_bse.bias_launches) == (
+        before[0], before[1] + 1)
+    _close(got, attention_bse_plain(q, k, v, mask, h, False, pb), dtype)
+    seg = torch.full((b, s), -1, dtype=torch.int32)
+    seg[0, : s // 2], seg[0, s // 2 : s - 3] = 0, 1
+    seg[1, :] = 0
+    seg = seg.to(dev)  # row 2: all padding
+    before = flash_attention_packed_bse.bias_launches
+    got = flash_attention_bias_packed_bse(q, k, v, seg, pb, h)
+    assert flash_attention_packed_bse.bias_launches == before + 1
+    _close(got, attention_bse_plain(q, k, v, seg, h, True, pb), dtype)
+
+
+def _long_qkv(b, s, h, d, dtype, dev, seed=0):
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    return [torch.randn(b, s, h, d, generator=gen).to(dev, dtype) for _ in range(3)]
+
+
+def _long_mask(b, s, dev):
+    mask = torch.zeros(b, s, device=dev)
+    mask[1, max(1, s // 3):] = MASK_BIAS
+    mask[2, :] = MASK_BIAS  # every key padded
+    return mask
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s,h,d", [(100, 2, 32), (1025, 2, 64), (2048, 4, 64), (777, 3, 32)])
+@pytest.mark.parametrize("bias", [None, 1, "h"])
+def test_long_kernel_matches_plain(dev, dtype, s, h, d, bias):
+    b = 3
+    q, k, v = _long_qkv(b, s, h, d, dtype, dev, seed=s)
+    mask = _long_mask(b, s, dev)
+    pb = None if bias is None else _pos_bias(h if bias == "h" else 1, s, dev, seed=1)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, mask, pb)
+    assert flash_attention.launches == before + 1
+    _close(got, attention_long_plain(q, k, v, mask, pb), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s,h,d,window", [(1024, 2, 32, 128), (1024, 2, 64, 16),
+                                          (2048, 4, 64, 128), (4096, 2, 32, 128)])
+def test_local_kernel_matches_plain_row_for_row(dev, dtype, s, h, d, window):
+    b = 3
+    q, k, v = _long_qkv(b, s, h, d, dtype, dev, seed=s + window)
+    mask = _long_mask(b, s, dev)
+    before = flash_attention_local.launches
+    got = flash_attention_local(q, k, v, mask, window)
+    assert flash_attention_local.launches == before + 1
+    _close(got, attention_local_plain(q, k, v, mask, window), dtype)
+
+
+def test_long_kernels_reject_what_they_do_not_serve(dev):
+    q, k, v = _long_qkv(1, 1100, 2, 32, torch.bfloat16, dev)
+    with pytest.raises(ValueError):  # S % 128 != 0: no window slice
+        flash_attention_local(q, k, v, torch.zeros(1, 1100, device=dev), 128)
+    q, k, v = _long_qkv(1, 64, 2, 24, torch.bfloat16, dev)
+    with pytest.raises(ValueError):  # d = 24
+        flash_attention(q, k, v, torch.zeros(1, 64, device=dev))
+    q, k, v = _qkv(1, 128, 2, 32, torch.bfloat16, dev)
+    with pytest.raises(ValueError):  # a [3, S, S] bias for 2 heads
+        flash_attention_bias_bse(q, k, v, torch.zeros(1, 128, device=dev),
+                                 torch.zeros(3, 128, 128, device=dev), 2)

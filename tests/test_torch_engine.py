@@ -111,3 +111,42 @@ def test_pack_segments_matches_jax():
         for f in ("ids", "seg", "pos", "orig", "slots"):
             np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
         assert a.positions == b.positions and a.n_seg == b.n_seg
+
+
+@pytest.fixture(scope="module")
+def modernbert_engines(tmp_path_factory):
+    """A tiny-modernbert Q4_0 GGUF (byte-level BPE tokenizer.json) through
+    both engines."""
+    pytest.importorskip("tokenizers")
+    path = str(tmp_path_factory.mktemp("gguf") / "tiny-modernbert-q4_0.gguf")
+    make_test_model(path, "tiny-modernbert", "q4_0", seed=0)
+    return Engine.from_gguf(path, device="cpu"), JEngine.from_gguf(path)
+
+
+@pytest.mark.parametrize("texts", [PACKED, UNPACKED], ids=["packed", "unpacked"])
+def test_modernbert_encode_matches_jax(modernbert_engines, texts):
+    ours, theirs = modernbert_engines
+    assert ours.config.arch == "modernbert"
+    assert ours.tokenize_batch(texts) == theirs.tokenize_batch(texts)
+    got, ref = ours.encode(texts), theirs.encode(texts)
+    assert got.shape == ref.shape == (len(texts), 64)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=ATOL)
+
+
+def test_long_context_buckets_match_jax():
+    """n_ctx 8192: the default buckets extend in powers of two to the
+    context, as the JAX engine extends them."""
+    from dataclasses import replace
+
+    from embedding_cpp_tpu.models.config import MODERNBERT_BASE as J_MODERNBERT_BASE
+    from embedding_cpp_tpu_torch.models import MODERNBERT_BASE
+    from embedding_cpp_tpu_torch.runtime.engine import long_seq_buckets
+
+    theirs = JEngine({}, replace(J_MODERNBERT_BASE, n_vocab=1000))
+    ours = Engine({}, replace(MODERNBERT_BASE, n_vocab=1000), device="cpu")
+    assert ours.seq_buckets == theirs.seq_buckets == (
+        16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192)
+    assert ours.max_batch_tokens == theirs.max_batch_tokens
+    for n_ctx in (8, 100, 128, 512, 3000):
+        assert long_seq_buckets(n_ctx) == JEngine(
+            {}, replace(J_MODERNBERT_BASE, n_ctx=n_ctx)).seq_buckets

@@ -119,3 +119,57 @@ def test_cpu_tensors_never_launch_and_bad_shapes_raise():
         q4_matmul(torch.zeros(8, 96), tw)  # K does not match the weight
     with pytest.raises(ValueError):
         q4_matmul(torch.zeros(8, 128), tw, activation="relu")
+
+
+@pytest.mark.parametrize("qtype", ["Q4_0", "Q4_1", "Q8_0"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_prologue_mul_matches_pallas_kernel(qtype, dtype):
+    """The gated FFN's down projection: (x * g) @ W, the multiply in x's
+    dtype on the loaded tiles (JAX `_q4_matmul_1d` with prologue_mul; N a
+    multiple of 128 so JAX reaches that kernel)."""
+    m, k, n = 64, 256, 128
+    jw, tw = _weights(qtype, k, n)
+    x, bias = _inputs(m, k, n)
+    g = np.random.default_rng(2).normal(size=(m, k)).astype(np.float32)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    ref = jax_q4_matmul(jnp.asarray(x, jd), jw, bias=jnp.asarray(bias),
+                        prologue_mul=jnp.asarray(g, jd))
+    got = q4_matmul(torch.from_numpy(x).to(td), tw, bias=torch.from_numpy(bias),
+                    prologue_mul=torch.from_numpy(g).to(td))
+    assert got.dtype == td
+    ref = np.asarray(jnp.asarray(ref, jnp.float32))
+    got = got.to(torch.float32).numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, ref, rtol=0, atol=F32_ATOL)
+    else:
+        assert np.abs(got - ref).max() / np.abs(ref).max() <= BF16_REL
+
+
+def test_prologue_rounds_once_to_the_activation_dtype():
+    """bf16 x * bf16 g is exact in f32, so one rounding equals bf16's own
+    multiply."""
+    from embedding_cpp_tpu_torch.ops.q4_matmul import prologue
+
+    rng = np.random.default_rng(3)
+    x, g = (torch.from_numpy(rng.normal(size=(16, 64)).astype(np.float32)).to(torch.bfloat16)
+            for _ in range(2))
+    assert torch.equal(prologue(x, g), x * g)
+    assert prologue(x, None) is x
+    with pytest.raises(ValueError):
+        q4_matmul(torch.zeros(8, 128), _weights("Q4_0", 128, 128)[1],
+                  prologue_mul=torch.zeros(8, 64))
+
+
+def test_linear_prologue_on_dense_weights_matches_jax():
+    from embedding_cpp_tpu.ops.linear import linear as jax_linear
+    from embedding_cpp_tpu_torch.ops.linear import linear
+
+    rng = np.random.default_rng(4)
+    x, g = (rng.normal(size=(2, 8, 64)).astype(np.float32) for _ in range(2))
+    w = rng.normal(scale=0.05, size=(64, 32)).astype(np.float32)
+    res = rng.normal(size=(2, 8, 32)).astype(np.float32)
+    ref = jax_linear(jnp.asarray(x), jnp.asarray(w), residual=jnp.asarray(res),
+                     prologue_mul=jnp.asarray(g))
+    got = linear(torch.from_numpy(x), torch.from_numpy(w), residual=torch.from_numpy(res),
+                 prologue_mul=torch.from_numpy(g))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=F32_ATOL)

@@ -67,3 +67,43 @@ def test_unsupported_tokenizer_json_raises():
     spec["model"]["type"] = "BPE"
     with pytest.raises(ValueError):
         WordPieceTokenizer(json.dumps(spec))
+
+
+# --- byte-level BPE (RoBERTa / ModernBERT tokenizer.json) ----------------------
+
+BPE_ALPHABET = ("abc def ghi,.!? Café déjà vu — naïve résumé 中文 \t\n 123 42 "
+                "It's don't they'll we've I'm <s></s><mask> the quick brown fox ")
+
+
+@pytest.mark.parametrize("add_prefix_space", [False, True])
+def test_bpe_fuzzed_encodes_match_jax(add_prefix_space):
+    pytest.importorskip("tokenizers")
+    from embedding_cpp_tpu.tokenizer.bpe import ByteLevelBPETokenizer as JBPE
+    from embedding_cpp_tpu.tokenizer.testvocab import build_bpe_tokenizer_json
+
+    from embedding_cpp_tpu_torch.tokenizer import ByteLevelBPETokenizer
+
+    data = build_bpe_tokenizer_json(1000, add_prefix_space=add_prefix_space)
+    ours, theirs = ByteLevelBPETokenizer(data), JBPE(data)
+    rng = random.Random(1)
+    for _ in range(1000):
+        text = "".join(rng.choice(BPE_ALPHABET) for _ in range(rng.randint(0, 48)))
+        ids = ours.encode(text)
+        assert ids == theirs.encode(text), repr(text)
+        assert ours.decode(ids) == theirs.decode(ids)
+    assert ours.token_to_id("<mask>") == theirs.token_to_id("<mask>")
+
+
+def test_load_tokenizer_dispatches_on_model_type():
+    from embedding_cpp_tpu_torch.tokenizer import ByteLevelBPETokenizer, load_tokenizer
+
+    assert isinstance(load_tokenizer(jax_build_json(300)), WordPieceTokenizer)
+    spec = json.loads(jax_build_json(300))
+    spec["model"] = {"type": "BPE", "vocab": {"a": 0, "b": 1, "ab": 2}, "merges": ["a b"]}
+    spec["normalizer"] = None
+    spec["pre_tokenizer"] = {"type": "ByteLevel", "add_prefix_space": False}
+    bpe = load_tokenizer(json.dumps(spec))
+    assert isinstance(bpe, ByteLevelBPETokenizer) and bpe.encode("ab") == [2]
+    spec["model"]["type"] = "Unigram"
+    with pytest.raises(ValueError):
+        load_tokenizer(json.dumps(spec))
