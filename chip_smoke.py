@@ -13,7 +13,9 @@ Phases, in order, each printing JSON lines:
             MiniLM-L6's and ModernBERT's linears (with the GeGLU prologue),
             the projection-layout attention K2/K3 at both models' heads
             (12 of 32, 12 of 64) and K4 (position bias), the long-row K5 and
-            the sliding-window K7 (ModernBERT)
+            the sliding-window K7 (ModernBERT), K1 at DeBERTa-v3-base's linears
+            and the disentangled attention K9 (key bias) / K10 (segments)
+            at [32, 512, 12x64]
   main      Engine.embed_tokens at MiniLM-L6 full width (384 wide, 6 layers,
             12 heads; Q4_0 weights from a seed, bf16 activations) over the
             2758-sentence STSB-profile corpus, packed and plain, f32 and int8
@@ -28,9 +30,20 @@ Phases, in order, each printing JSON lines:
             forward ms
   modernbert_vs_cpu  min cosine against the port's f32 CPU path: 256
             sentences and 2 documents of 2048 tokens
+  deberta_main  DeBERTa-v3-base at full width and depth (768 wide, 12 layers,
+            12 heads of 64, FFN 3072, 256 buckets out to 512) with
+            mxbai-rerank-base-v1's one-logit gelu head: Engine.embed_tokens
+            over the corpus, packed (K10) and plain (K9), and
+            Engine.score_token_pairs over 256 query/passage pairs (K9):
+            launch counts, sentences/s, pairs/s, in-device forward ms at
+            [32, 512], cosine and logits (the card's bf16 and f32 paths)
+            against the port's CPU path; then K9 untimed at every [B, S]
+            those plain and score forwards gave it, and K10 at a short S
   profile   torch.profiler kernel times of the packed [32, 512] forwards
-            (MiniLM-L6, ModernBERT) and of the [8, 8192] ModernBERT forward
-  server    the TCP server over the GPU engine: one raw text, one TPE2 batch
+            (MiniLM-L6, ModernBERT, DeBERTa) and of the [8, 8192] ModernBERT
+            forward
+  server    the TCP server over the GPU engines: one raw text and one TPE2
+            batch (MiniLM-L6), one rerank frame (DeBERTa)
 then the card's name and power limit, the `kernels` summary line (one entry
 per kernel and model: a model's launches beside the times at its shapes),
 and last {"ok": true, "device": {...}}.  Launch counts are set to 0 just before each
@@ -42,6 +55,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import json
 import socket
 import struct
@@ -60,10 +74,26 @@ M_TOKENS = 32 * 512  # the packed main-path batch: 32 rows of 512 tokens
 # Tolerances of the kernel checks against the plain versions on the card.
 F32_ATOL = 1e-4  # the same f32 products summed in another order
 BF16_REL = 1e-2  # max|err| / max|ref|: an order difference flips one bf16 rounding
+# K9/K10: f32 within 1e-5; bf16 within one rounding step of outputs below 4
+# (2^-6) and 1% relative
+DEBERTA_F32_ATOL = 1e-5
+DEBERTA_BF16_ATOL = 1.6e-2
 COSINE_VS_CPU = 0.999  # bf16 GPU main path vs the port's f32 CPU path
+# cross-encoder logits against the port's f32 CPU path: the card's f32 path
+# (the kernels against their plain versions end to end) Pearson >= 0.999 and
+# the same top-1; the bf16 main path Pearson >= 0.99, since bf16 rounding
+# over 12 layers of random weights moves a logit by ~0.005 where the logits
+# spread only ~0.026 (two bf16 paths that sum in different orders are as far
+# apart; the deberta_vs_cpu line reports both distances)
+PEARSON_F32 = 0.999
+PEARSON_BF16 = 0.99
+# the bf16 main path against the CPU's bf16 path: Pearson 0.9981 and max
+# |err| 0.0047 in PR 3's first runs; held at 0.995 and 3x that error
+PEARSON_BF16_VS_BF16 = 0.995
+LOGIT_ERR_BF16_VS_BF16 = 0.015
 COSINE_SERVER = 0.9999  # wire replies vs engine.encode
 ATTENTION = ("attn_bse_packed", "attn_bse_keybias", "attn_bse_bias", "attn_bse_bias_packed",
-             "attn_long", "attn_local")
+             "attn_long", "attn_local", "deberta_attn", "deberta_attn_packed")
 
 # Published dense peaks by the name the card reports (NVIDIA data sheets):
 # memory bytes/s and bf16 tensor-core flop/s.
@@ -227,6 +257,10 @@ MINILM_LINEARS = [("qkvo", 384, 384, None, 4, False), ("up", 384, 1536, "gelu_er
 MODERNBERT_LINEARS = [("qkvo", 768, 768, None, 4, False),
                       ("up", 768, 1152, "gelu_erf", 1, False),
                       ("gate", 768, 1152, None, 1, False), ("down", 1152, 768, None, 1, True)]
+# DeBERTa-v3-base at M = 16384 (each layer also projects the 512-row
+# relative table through q and k: 2 more launches at M = 512, not timed)
+DEBERTA_LINEARS = [("qkvo", 768, 768, None, 4, False), ("up", 768, 3072, "gelu_erf", 1, False),
+                   ("down", 3072, 768, None, 1, False)]
 
 
 def phase_kernels_q4(peaks, model: str, shapes, all_types: tuple, bias: bool,
@@ -321,7 +355,8 @@ def phase_kernels_q4(peaks, model: str, shapes, all_types: tuple, bias: bool,
 
 
 def _attention_case(kernel: str, fn, plain, lib, args, nbytes: float, flops: float,
-                    peaks, timed: bool, **shape) -> dict:
+                    peaks, timed: bool, within=_within, tolerance=_tolerance,
+                    **shape) -> dict:
     """One kernel check: the kernel against its plain version on the same
     inputs; with `timed`, the kernel's, the plain version's and the library
     call's ms beside the bound."""
@@ -332,9 +367,9 @@ def _attention_case(kernel: str, fn, plain, lib, args, nbytes: float, flops: flo
     torch.cuda.synchronize()
     err, rel = _rel_err(got, ref)
     dtype = got.dtype
-    ok = _within(dtype, err, rel) and bool(torch.isfinite(got).all())
+    ok = within(dtype, err, rel) and bool(torch.isfinite(got).all())
     case = {**shape, "dtype": str(dtype).split(".")[-1], "max_abs_err": err, "rel_err": rel,
-            "tolerance": _tolerance(dtype), "ok": ok}
+            "tolerance": tolerance(dtype), "ok": ok}
     del got, ref
     if timed:
         case["ms"] = gpu_ms(lambda: fn(*args))
@@ -531,19 +566,161 @@ def phase_kernels_long(peaks) -> dict:
     return results
 
 
-def _expected_forwards(eng, token_lists) -> int:
+def _deberta_within(dtype, err: float, rel: float) -> bool:
+    import torch
+
+    if dtype == torch.float32:
+        return err <= DEBERTA_F32_ATOL
+    return err <= DEBERTA_BF16_ATOL and rel <= BF16_REL
+
+
+def _deberta_tolerance(dtype) -> str:
+    import torch
+
+    return (f"max_abs_err <= {DEBERTA_F32_ATOL}" if dtype == torch.float32 else
+            f"max_abs_err <= {DEBERTA_BF16_ATOL} and rel_err <= {BF16_REL}")
+
+
+def phase_kernels_deberta(peaks) -> dict:
+    """K9 (key bias) and K10 (segments; 64 per row, then a padding tail) at
+    deberta-v3-base's [32, 512, 12x64] with its 256 buckets out to 512, in
+    bf16 (timed) and f32.  The library call is SDPA given the materialised
+    [B, H, S, S] c2p + p2c bias (already scaled, with the key bias or the
+    segment mask folded in); building that bias is not timed."""
+    import torch
+    import torch.nn.functional as F
+
+    from embedding_cpp_tpu_torch.ops.deberta_attention import (
+        MASK_BIAS,
+        _device_tables,
+        _scores_plain,
+        disentangled_attention,
+        disentangled_attention_packed,
+        disentangled_attention_plain,
+    )
+
+    dev = torch.device("cuda")
+    b, s, h, d, span, max_dist = 32, 512, 12, 64, 256, 512
+    scale = 1.0 / np.sqrt(3 * d)
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    rng = np.random.default_rng(7)
+    c2p, p2c = _device_tables(s, span, max_dist, dev)
+    seg_np = np.full((b, s), -1, np.int32)
+    for row in range(b):
+        ends = np.cumsum(rng.integers(3, 12, 64))
+        seg_np[row, :ends[-1]] = np.repeat(np.arange(64), np.diff(ends, prepend=0))
+    seg = torch.from_numpy(seg_np).to(dev)
+    lens = torch.from_numpy(rng.integers(1, s + 1, size=b))
+    keyb = torch.where(torch.arange(s)[None, :] < lens[:, None], 0.0,
+                       MASK_BIAS).to(torch.float32).to(dev)
+    results = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        # half-scale normal inputs keep the outputs below 4, where one bf16
+        # rounding step is 2^-6
+        q, k, v = (0.5 * torch.randn(b, s, h, d, generator=gen).to(dev, dtype)
+                   for _ in range(3))
+        pk, pq = (0.5 * torch.randn(2 * span, h, d, generator=gen).to(dev, dtype)
+                  for _ in range(2))
+        timed = dtype == torch.bfloat16
+        nbytes = (4 * q.numel() + 2 * pk.numel()) * q.element_size() + b * s * 4 + 2 * 2 * s * 4
+        flops = 8.0 * b * h * s * s * d  # q.k, c2p, p2c and PV
+        heads = [t.transpose(1, 2).contiguous() for t in (q, k, v)]
+        rel = None
+        if timed:  # scaled c2p + p2c [B, H, S, S]: all three terms less q.k
+            rel = (_scores_plain(q, k, pk, pq, c2p.long(), p2c.long())
+                   - torch.matmul(heads[0].float(), heads[1].float().transpose(-1, -2))) * scale
+        for kernel, fn, mask, seg_mask in (
+                ("deberta_attn", disentangled_attention, keyb, False),
+                ("deberta_attn_packed", disentangled_attention_packed, seg, True)):
+            lmask = None
+            if timed:
+                lmask = (torch.where((seg[:, :, None] == seg[:, None, :])[:, None], rel, MASK_BIAS)
+                         if seg_mask else rel + keyb[:, None, None, :]).to(dtype)
+            c = _attention_case(
+                kernel, lambda *a, fn=fn: fn(*a, span, max_dist),
+                lambda *a, sm=seg_mask: disentangled_attention_plain(*a, c2p, p2c, sm),
+                (lambda m=lmask: F.scaled_dot_product_attention(*heads, attn_mask=m, scale=scale))
+                if timed else None,
+                (q, k, v, mask, pk, pq), nbytes, flops, peaks, timed,
+                within=_deberta_within, tolerance=_deberta_tolerance,
+                b=b, s=s, h=h, d=d, span=span, max_dist=max_dist)
+            if timed:
+                results[kernel] = c
+            del lmask
+        del q, k, v, pk, pq, heads, rel
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_kernels_deberta_shapes(shapes, span: int, max_dist: int) -> None:
+    """K9 (untimed, bf16 and f32) at every [B, S] the DeBERTa main path gave
+    it, deberta-v3-base's 12 heads of 64, and K10 at [64, 32] with a
+    padding tail on every row and one row all padding.  At S <= 256 the
+    span exceeds S and a query tile's 64-key chunk is only partly filled:
+    code that the [32, 512] case never runs."""
+    import torch
+
+    from embedding_cpp_tpu_torch.ops.deberta_attention import (
+        MASK_BIAS,
+        _device_tables,
+        disentangled_attention,
+        disentangled_attention_packed,
+        disentangled_attention_plain,
+    )
+
+    dev = torch.device("cuda")
+    h, d = 12, 64
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    rng = np.random.default_rng(11)
+    for packed, b, s in [(False, b, s) for b, s in shapes] + [(True, 64, 32)]:
+        c2p, p2c = _device_tables(s, span, max_dist, dev)
+        if packed:
+            seg = np.full((b, s), -1, np.int32)
+            for row in range(b - 1):  # a tail of 1-4 padding slots
+                ends = np.cumsum(rng.integers(1, 9, s))
+                ends = ends[ends <= s - 1 - row % 4]
+                seg[row, :ends[-1]] = np.repeat(np.arange(len(ends)),
+                                                np.diff(ends, prepend=0))
+            mask = torch.from_numpy(seg).to(dev)
+        else:
+            lens = torch.from_numpy(rng.integers(1, s + 1, size=b))
+            mask = torch.where(torch.arange(s)[None, :] < lens[:, None], 0.0,
+                               MASK_BIAS).to(torch.float32).to(dev)
+        fn = disentangled_attention_packed if packed else disentangled_attention
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (0.5 * torch.randn(b, s, h, d, generator=gen).to(dev, dtype)
+                       for _ in range(3))
+            pk, pq = (0.5 * torch.randn(2 * span, h, d, generator=gen).to(dev, dtype)
+                      for _ in range(2))
+            _attention_case(
+                "deberta_attn_packed" if packed else "deberta_attn",
+                lambda *a, fn=fn: fn(*a, span, max_dist),
+                lambda *a, sm=packed: disentangled_attention_plain(*a, c2p, p2c, sm),
+                None, (q, k, v, mask, pk, pq), 0.0, 0.0, None, False,
+                within=_deberta_within, tolerance=_deberta_tolerance,
+                b=b, s=s, h=h, d=d, span=span, max_dist=max_dist)
+            del q, k, v, pk, pq
+    torch.cuda.empty_cache()
+
+
+def _planned_forwards(eng, token_lists) -> tuple[int, int]:
+    """(packed, plain) forwards the engine's plan launches for the lists."""
     from embedding_cpp_tpu_torch.runtime.batching import pack_batches, pack_segments
 
     plan = eng._pack_plan(token_lists)
     rest = sorted(set(range(len(token_lists))) - set(plan))
-    n = 0
+    packed = 0
     if plan:
-        n += len(pack_segments([token_lists[i] for i in plan], plan, eng.special_ids.pad,
-                               seq_len=eng.pack_seq, n_seg=eng.pack_segs))
-    n += len(pack_batches([token_lists[i] for i in rest], eng.special_ids.pad,
-                          seq_buckets=eng.seq_buckets, batch_buckets=eng.batch_buckets,
-                          max_seq=eng.config.n_ctx, max_tokens=eng.max_batch_tokens))
-    return n
+        packed = len(pack_segments([token_lists[i] for i in plan], plan, eng.special_ids.pad,
+                                   seq_len=eng.pack_seq, n_seg=eng.pack_segs))
+    plain = len(pack_batches([token_lists[i] for i in rest], eng.special_ids.pad,
+                             seq_buckets=eng.seq_buckets, batch_buckets=eng.batch_buckets,
+                             max_seq=eng.config.n_ctx, max_tokens=eng.max_batch_tokens))
+    return packed, plain
+
+
+def _expected_forwards(eng, token_lists) -> int:
+    return sum(_planned_forwards(eng, token_lists))
 
 
 def phase_main(counters) -> tuple:
@@ -810,6 +987,180 @@ def phase_modernbert_vs_cpu(counters, base, outs, token_lists) -> dict:
     return counts
 
 
+def _rerank_pairs(n: int, seed: int) -> list[tuple[str, str]]:
+    """Query/passage pairs with the MS MARCO passage-ranking profile: a
+    query of 8-12 words, a passage of 60 +- 20 words."""
+    from embedding_cpp_tpu_torch.tokenizer.testvocab import _COMMON_WORDS
+
+    rng = np.random.default_rng(seed)
+    words = np.array(_COMMON_WORDS)
+    return [(" ".join(rng.choice(words, size=int(rng.integers(8, 13)))),
+             " ".join(rng.choice(words, size=max(20, int(rng.normal(60, 20))))))
+            for _ in range(n)]
+
+
+def _deberta_counts_ok(counts: dict, packed: int, plain: int, what: str) -> None:
+    """Per forward: 96 K1 launches (six linears and the two projections of
+    the relative table, 12 layers), 12 K10 (packed) or 12 K9 (plain)."""
+    forwards = packed + plain
+    check(counts["q4_matmul"] == 96 * forwards and counts["q4_matmul_prologue"] == 0,
+          f"{what}: K1 {counts}")
+    check(counts["deberta_attn_packed"] == 12 * packed and counts["deberta_attn"] == 12 * plain,
+          f"{what}: attention {counts}")
+    check(sum(counts[k] for k in ATTENTION) == 12 * forwards, f"{what}: attention {counts}")
+
+
+def _pearson(a: np.ndarray, b: np.ndarray) -> float:
+    return float(np.corrcoef(a, b)[0, 1])
+
+
+def phase_deberta_main(counters, token_lists, out_dir) -> tuple:
+    """DeBERTa-v3-base (Q4_0 weights from seed 0, bf16 activations) with
+    mxbai-rerank-base-v1's head: embeddings over the corpus, packed and
+    plain; cross-encoder scores of 256 query/passage pairs."""
+    import torch
+
+    from embedding_cpp_tpu_torch import Engine
+    from embedding_cpp_tpu_torch.models import DEBERTA_V3_BASE, ComputeOptions
+    from embedding_cpp_tpu_torch.models.bert import bert_embed_batch, bert_embed_packed
+    from embedding_cpp_tpu_torch.runtime.batching import pack_batches
+
+    # full width and depth; the one cut is the vocab (1000 synthetic words)
+    config = replace(DEBERTA_V3_BASE, n_vocab=1000, n_labels=1, head_activation="gelu",
+                     name="deberta-v3-base-synthetic")
+    opts = ComputeOptions(dtype="bfloat16")
+    base = Engine.synthetic(config, "q4_0", seed=0, opts=opts, device="cuda")
+    engines = {packing: Engine(base.params, config, base.tokenizer, base.special_ids,
+                               opts=opts, device="cuda", packing=packing)
+               for packing in ("auto", "never")}
+    launches, outs = {}, {}
+    for packing, eng in engines.items():
+        reset_counts(counters)
+        outs[packing] = eng.embed_tokens(token_lists)
+        torch.cuda.synchronize()
+        counts = read_counts(counters)
+        packed, plain = _planned_forwards(eng, token_lists)
+        launches[packing] = counts
+        emit({"phase": "deberta_launches", "packing": packing, "packed_forwards": packed,
+              "plain_forwards": plain, "launches": counts})
+        _deberta_counts_ok(counts, packed, plain, f"deberta {packing}")
+        check(counts["deberta_attn_packed" if packing == "auto" else "deberta_attn"] > 0,
+              f"deberta {packing}: {counts}")
+        out = outs[packing]
+        norms = np.linalg.norm(out, axis=-1)
+        check(np.isfinite(out).all() and out.shape == (len(token_lists), 768),
+              f"deberta {packing}: output {out.shape}")
+        check(np.abs(norms - 1.0).max() <= 1e-3, f"deberta {packing}: norms")
+
+    best = {key: float("inf") for key in engines}
+    for _ in range(5):
+        for key, eng in engines.items():
+            t0 = time.perf_counter()
+            eng.embed_tokens(token_lists)
+            best[key] = min(best[key], time.perf_counter() - t0)
+
+    # cross-encoder: 256 pre-framed pairs through the length buckets
+    pairs = _rerank_pairs(256, seed=8)
+    pair_ids, pair_types = base.tokenize_pairs(pairs)
+    shapes = [list(b.ids.shape) for b in base.score_plan(pair_ids)]
+    forwards = len(shapes)
+    reset_counts(counters)
+    logits = base.score_token_pairs(pair_ids, pair_types)
+    torch.cuda.synchronize()
+    counts = read_counts(counters)
+    emit({"phase": "deberta_score_launches", "pairs": len(pairs), "plain_forwards": forwards,
+          "batch_shapes": shapes, "launches": counts})
+    _deberta_counts_ok(counts, 0, forwards, "deberta score")
+    launches["score"] = counts
+    check(logits.shape == (len(pairs),) and np.isfinite(logits).all(), "deberta logits")
+    best_pairs = float("inf")
+    for _ in range(5):
+        t0 = time.perf_counter()
+        base.score_token_pairs(pair_ids, pair_types)
+        best_pairs = min(best_pairs, time.perf_counter() - t0)
+    wall_ms, rows, table = _profiled(lambda: base.score_token_pairs(pair_ids, pair_types))
+    _save(out_dir, "profile_deberta_score_token_pairs.txt", table)
+    busy_ms = sum(r[1] for r in rows) / 1e3
+    emit({"phase": "profile", "model": config.name, "what": "score_token_pairs, 256 pairs",
+          "wall_ms_under_profiler": wall_ms, "device_busy_ms": busy_ms,
+          "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+          "top": [{"name": k[:80], "device_ms": us / 1e3, "calls": n}
+                  for k, us, n in rows[:6]]})
+
+    # the port's CPU path on the same weights: f32 (and bf16, reported); the
+    # logits of 64 pairs also through the card's f32 path
+    cpu = Engine(base.params, config, base.tokenizer, base.special_ids, device="cpu")
+    cpu_bf16 = Engine(base.params, config, base.tokenizer, base.special_ids, opts=opts,
+                      device="cpu")
+    gpu_f32 = Engine(base.params, config, base.tokenizer, base.special_ids, device="cuda")
+    ref = cpu.embed_tokens(token_lists[:256])
+    cos = {p: float(np.min(np.sum(outs[p][:256] * ref, -1)
+                           / np.linalg.norm(outs[p][:256], axis=-1)
+                           / np.linalg.norm(ref, axis=-1))) for p in outs}
+    n_check = 64
+    got = logits[:n_check]
+    got_f32 = gpu_f32.score_token_pairs(pair_ids[:n_check], pair_types[:n_check])
+    ref_f32 = cpu.score_token_pairs(pair_ids[:n_check], pair_types[:n_check])
+    ref_bf16 = cpu_bf16.score_token_pairs(pair_ids[:n_check], pair_types[:n_check])
+    vs_cpu = {"sentences": 256, "min_cosine": cos, "threshold": COSINE_VS_CPU,
+              "pairs": n_check, "logit_std": float(np.std(ref_f32)),
+              "f32_pearson": _pearson(got_f32, ref_f32),
+              "f32_top1": [int(np.argmax(got_f32)), int(np.argmax(ref_f32))],
+              "f32_max_abs_logit_err": float(np.abs(got_f32 - ref_f32).max()),
+              "bf16_pearson": _pearson(got, ref_f32),
+              "bf16_max_abs_logit_err": float(np.abs(got - ref_f32).max()),
+              "bf16_top1": int(np.argmax(got)),
+              "bf16_pearson_vs_cpu_bf16": _pearson(got, ref_bf16),
+              "bf16_max_abs_logit_err_vs_cpu_bf16": float(np.abs(got - ref_bf16).max()),
+              "pearson_thresholds": {"f32": PEARSON_F32, "bf16": PEARSON_BF16,
+                                     "bf16_vs_cpu_bf16": PEARSON_BF16_VS_BF16},
+              "max_abs_logit_err_bf16_vs_cpu_bf16": LOGIT_ERR_BF16_VS_BF16}
+    emit({"phase": "deberta_vs_cpu", **vs_cpu})
+    check(min(cos.values()) >= COSINE_VS_CPU, f"deberta cosine vs CPU {cos}")
+    check(vs_cpu["f32_pearson"] >= PEARSON_F32
+          and vs_cpu["f32_top1"][0] == vs_cpu["f32_top1"][1], f"deberta f32 logits {vs_cpu}")
+    check(vs_cpu["bf16_pearson"] >= PEARSON_BF16, f"deberta bf16 logits {vs_cpu}")
+    check(vs_cpu["bf16_pearson_vs_cpu_bf16"] >= PEARSON_BF16_VS_BF16
+          and vs_cpu["bf16_max_abs_logit_err_vs_cpu_bf16"] <= LOGIT_ERR_BF16_VS_BF16,
+          f"deberta bf16 logits vs the CPU's bf16 path {vs_cpu}")
+    # K9 at the shapes of the plain corpus forwards and the score forwards
+    plain_shapes = [tuple(b.ids.shape) for b in pack_batches(
+        token_lists, base.special_ids.pad, seq_buckets=base.seq_buckets,
+        batch_buckets=base.batch_buckets, max_seq=config.n_ctx,
+        max_tokens=base.max_batch_tokens)]
+    phase_kernels_deberta_shapes(plain_shapes + [tuple(s) for s in shapes],
+                                 config.rel_attn_buckets, config.rel_attn_max_dist)
+
+    rng = np.random.default_rng(2)
+    dev = torch.device("cuda")
+    ids = torch.from_numpy(rng.integers(4, config.n_vocab, (32, 512)).astype(np.int32)).to(dev)
+    mask = torch.ones(32, 512, dtype=torch.int32, device=dev)
+    seg_np, pos_np = serving_segments(rng, 32, 512)
+    pids = rng.integers(4, config.n_vocab, (32, 512)).astype(np.int32)
+    pids[seg_np < 0] = 0
+    pids, seg, pos = (torch.from_numpy(a).to(dev) for a in (pids, seg_np, pos_np))
+    with torch.inference_mode():
+        # a forward is ~500 launches: spin long enough to queue them
+        plain_ms = gpu_ms(lambda: bert_embed_batch(base.params, ids, mask, config, opts),
+                          samples=5, reps=2, spin=500_000_000)
+        packed_ms = gpu_ms(lambda: bert_embed_packed(base.params, pids, seg, pos, config,
+                                                     opts, n_seg=64),
+                           samples=5, reps=2, spin=500_000_000)
+    emit({"phase": "deberta_main", "model": config.name, "weights": "q4_0",
+          "activations": "bfloat16", "sentences": len(token_lists),
+          "tokens": sum(len(t) for t in token_lists),
+          "sentences_per_sec": {p: len(token_lists) / t for p, t in best.items()},
+          "sentences_per_sec_packed": len(token_lists) / best["auto"],
+          "sentences_per_sec_plain": len(token_lists) / best["never"],
+          "pairs": len(pairs), "pair_tokens": sum(len(t) for t in pair_ids),
+          "pairs_per_sec": len(pairs) / best_pairs,
+          "forward_ms_in_device_b32_s512": plain_ms,
+          "packed_forward_ms_in_device_b32_s512": packed_ms,
+          "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+    total = {name: sum(c[name] for c in launches.values()) for name in counters}
+    return base, total, (base.params, config, pids, seg, pos)
+
+
 def _profiled(fn):
     """Run `fn` under torch.profiler; returns (wall ms inside the profiled
     region, kernel rows [(name, device us, calls)] by device time, table)."""
@@ -857,7 +1208,10 @@ def phase_profile(forward_args, engine, token_lists, out_dir, tag: str = "") -> 
           "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms)})
 
 
-def phase_server(engine) -> None:
+@contextlib.contextmanager
+def _serving(engine):
+    """The TCP server over `engine` on a free local port, on its own event
+    loop thread; yields the port and stops the server on exit."""
     from embedding_cpp_tpu_torch.runtime.server import serve
 
     sock = socket.socket()
@@ -879,48 +1233,77 @@ def phase_server(engine) -> None:
 
     thread = threading.Thread(target=run, daemon=True)
     thread.start()
-
-    def recv(s, n):
-        buf = b""
-        while len(buf) < n:
-            chunk = s.recv(n - len(buf))
-            check(bool(chunk), "server closed the connection")
-            buf += chunk
-        return buf
-
-    texts = ["hello world", "the quick brown fox jumps over the lazy dog",
-             "welcome back soon"]
-    want = engine.encode(texts)
     try:
         for _ in range(200):
             try:
-                s = socket.create_connection(("127.0.0.1", port), 1.0)
+                socket.create_connection(("127.0.0.1", port), 1.0).close()
                 break
             except OSError:
                 time.sleep(0.05)
         else:
             raise RuntimeError("server did not start")
-        with s:
-            s.settimeout(60)
-            (n_embd,) = struct.unpack("<i", recv(s, 4))
-            check(n_embd == 384, f"handshake n_embd {n_embd}")
-            s.sendall(texts[1].encode())
-            raw = np.frombuffer(recv(s, 4 * n_embd), np.float32)
-            body = b"".join(struct.pack("<I", len(t.encode())) + t.encode() for t in texts)
-            s.sendall(b"TPE2" + struct.pack("<I", len(texts)) + body)
-            (count,) = struct.unpack("<I", recv(s, 4))
-            check(count == len(texts), f"TPE2 count {count}")
-            vecs = np.frombuffer(recv(s, 4 * count * n_embd), np.float32).reshape(count, -1)
+        yield port
     finally:
         loop.call_soon_threadsafe(holder["task"].cancel)
         thread.join(timeout=30)
     check(not thread.is_alive(), "server thread did not stop")
+
+
+def _recv(s, n: int) -> bytes:
+    buf = b""
+    while len(buf) < n:
+        chunk = s.recv(n - len(buf))
+        check(bool(chunk), "server closed the connection")
+        buf += chunk
+    return buf
+
+
+def phase_server(engine) -> None:
+    texts = ["hello world", "the quick brown fox jumps over the lazy dog",
+             "welcome back soon"]
+    want = engine.encode(texts)
+    with _serving(engine) as port, socket.create_connection(("127.0.0.1", port), 10) as s:
+        s.settimeout(60)
+        (n_embd,) = struct.unpack("<i", _recv(s, 4))
+        check(n_embd == 384, f"handshake n_embd {n_embd}")
+        s.sendall(texts[1].encode())
+        raw = np.frombuffer(_recv(s, 4 * n_embd), np.float32)
+        body = b"".join(struct.pack("<I", len(t.encode())) + t.encode() for t in texts)
+        s.sendall(b"TPE2" + struct.pack("<I", len(texts)) + body)
+        (count,) = struct.unpack("<I", _recv(s, 4))
+        check(count == len(texts), f"TPE2 count {count}")
+        vecs = np.frombuffer(_recv(s, 4 * count * n_embd), np.float32).reshape(count, -1)
     cos_raw = float(np.dot(raw, want[1]) / np.linalg.norm(raw) / np.linalg.norm(want[1]))
     cos_tpe2 = float(np.min(np.sum(vecs * want, -1) / np.linalg.norm(vecs, axis=-1)
                             / np.linalg.norm(want, axis=-1)))
     emit({"phase": "server", "n_embd": n_embd, "raw_cosine": cos_raw,
           "tpe2_min_cosine": cos_tpe2, "threshold": COSINE_SERVER})
     check(min(cos_raw, cos_tpe2) >= COSINE_SERVER, "server replies differ from encode")
+
+
+def phase_rerank_server(engine) -> None:
+    """One rerank frame to the server over the GPU DeBERTa cross-encoder:
+    the ranking equals Engine.rerank's."""
+    from embedding_cpp_tpu_torch.runtime.server import MAGIC_RERANK
+
+    query, docs = _rerank_pairs(1, seed=9)[0][0], [p for _, p in _rerank_pairs(8, seed=10)]
+    top_n = 5
+    want = engine.rerank(query, docs, top_n=top_n)
+    body = b"".join(struct.pack("<I", len(d.encode())) + d.encode() for d in docs)
+    with _serving(engine) as port, socket.create_connection(("127.0.0.1", port), 10) as s:
+        s.settimeout(60)
+        _recv(s, 4)
+        s.sendall(MAGIC_RERANK + struct.pack("<II", top_n, len(query.encode()))
+                  + query.encode() + struct.pack("<I", len(docs)) + body)
+        (m,) = struct.unpack("<I", _recv(s, 4))
+        check(m == top_n, f"rerank reply count {m}")
+        idx = np.frombuffer(_recv(s, 4 * m), np.int32).tolist()
+        scores = np.frombuffer(_recv(s, 4 * m), np.float32)
+    err = float(np.abs(scores - [r["relevance_score"] for r in want]).max())
+    emit({"phase": "rerank_server", "documents": len(docs), "top_n": top_n, "indices": idx,
+          "max_abs_score_err": err})
+    check(idx == [r["index"] for r in want] and err <= 1e-6,
+          f"rerank frame {idx} differs from Engine.rerank {want}")
 
 
 def _entry(name: str, source: str, replaces: str, launches: int, c: dict, shape: str,
@@ -948,6 +1331,7 @@ def main() -> None:
     import torch
 
     from embedding_cpp_tpu_torch.ops import attention as A
+    from embedding_cpp_tpu_torch.ops import deberta_attention as DA
     from embedding_cpp_tpu_torch.ops.q4_matmul import q4_matmul
 
     phase_build(out_dir)
@@ -955,10 +1339,13 @@ def main() -> None:
                           bias=True, seed=0)
     k1m = phase_kernels_q4(peaks, "modernbert-base", MODERNBERT_LINEARS, ("down",),
                            bias=False, seed=2)
+    k1d = phase_kernels_q4(peaks, "deberta-v3-base", DEBERTA_LINEARS, ("down",),
+                           bias=True, seed=3)
     attn = phase_kernels_attention(peaks, "minilm-l6", 12, 32, seed=0)
     attn_mb = phase_kernels_attention(peaks, "modernbert-base", 12, 64, seed=2)
     attn.update(phase_kernels_bias(peaks))
     attn.update(phase_kernels_long(peaks))
+    attn.update(phase_kernels_deberta(peaks))
     counters = {"q4_matmul": (q4_matmul, "launches"),
                 "q4_matmul_prologue": (q4_matmul, "prologue_launches"),
                 "attn_bse_packed": (A.flash_attention_packed_bse, "launches"),
@@ -966,14 +1353,19 @@ def main() -> None:
                 "attn_bse_bias": (A.flash_attention_bse, "bias_launches"),
                 "attn_bse_bias_packed": (A.flash_attention_packed_bse, "bias_launches"),
                 "attn_long": (A.flash_attention, "launches"),
-                "attn_local": (A.flash_attention_local, "launches")}
+                "attn_local": (A.flash_attention_local, "launches"),
+                "deberta_attn": (DA.disentangled_attention, "launches"),
+                "deberta_attn_packed": (DA.disentangled_attention_packed, "launches")}
     engine, forward_args, launches, token_lists = phase_main(counters)
     mb, mb_outs, mb_launches, mb_forward_args = phase_modernbert_main(counters, token_lists)
     long_launches = phase_modernbert_long(counters, mb, out_dir)
     phase_modernbert_vs_cpu(counters, mb, mb_outs, token_lists)
+    de, de_total, de_forward_args = phase_deberta_main(counters, token_lists, out_dir)
     phase_profile(forward_args, engine, token_lists, out_dir)
     phase_profile(mb_forward_args, mb, token_lists, out_dir, tag="modernbert_")
+    phase_profile(de_forward_args, de, token_lists, out_dir, tag="deberta_")
     phase_server(engine)
+    phase_rerank_server(de)
 
     # each model's launches beside the times at that model's shapes
     mb_total = {k: mb_launches[k] + long_launches[k] for k in counters}
@@ -981,6 +1373,8 @@ def main() -> None:
              "bound_by": k1m["bound_by"]}
     k1_mini = {**k1["per_layer"], "max_abs_err": k1["max_abs_err"],
                "bound_by": k1["bound_by"]}
+    k1_de = {**k1d["per_layer"], "max_abs_err": k1d["max_abs_err"],
+             "bound_by": k1d["bound_by"]}
     kernels = [
         _entry("q4_matmul", "q4_matmul.cu", "q4_matmul.py:126", launches["q4_matmul"],
                k1_mini, "MiniLM-L6: one layer's six linears (q,k,v,o 384->384; up "
@@ -994,7 +1388,12 @@ def main() -> None:
         _entry("q4_matmul_prologue", "q4_matmul.cu", "q4_matmul.py:214",
                mb_total["q4_matmul_prologue"], k1m["prologue"],
                "down 1152->768 with prologue_mul at M=16384, bf16, Q4_0",
-               model="modernbert-base")]
+               model="modernbert-base"),
+        _entry("q4_matmul/deberta", "q4_matmul.cu", "q4_matmul.py:126",
+               de_total["q4_matmul"], k1_de, "DeBERTa-v3-base: one layer's six linears "
+               "(q,k,v,o 768->768; up 768->3072 + gelu_erf; down 3072->768) at M=16384, "
+               "bf16, Q4_0 (the two relative-table projections at M=512 not timed)",
+               model="deberta-v3-base")]
     for kname in ("attn_bse_packed", "attn_bse_keybias"):
         for suffix, count, c in (("", launches[kname], attn[kname]),
                                  ("/modernbert", mb_total[kname], attn_mb[kname])):
@@ -1019,8 +1418,18 @@ def main() -> None:
                           mb_total["attn_local"], c,
                           f"[{c['b']}, {c['s']}, {c['h']}*{c['d']}] bf16, window 128",
                           model="modernbert-base"))
+    for kname, line, what in (("deberta_attn", 76, "key padding"),
+                              ("deberta_attn_packed", 185, "64 segments per row")):
+        c = attn[kname]
+        kernels.append(_entry(kname, "deberta_attention.cu", f"deberta_attention.py:{line}",
+                              de_total[kname], c,
+                              f"[{c['b']}, {c['s']}, {c['h']}*{c['d']}] bf16, span "
+                              f"{c['span']}, max_dist {c['max_dist']}, {what}",
+                              model="deberta-v3-base",
+                              library="SDPA with the materialised [B, H, S, S] c2p+p2c "
+                                      "bias (bias build not timed)"))
     check(all(k["launches"] > 0 for k in kernels),
-          f"a kernel was never launched: {launches} {mb_total}")
+          f"a kernel was never launched: {launches} {mb_total} {de_total}")
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

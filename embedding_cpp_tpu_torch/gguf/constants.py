@@ -1,4 +1,5 @@
-"""GGUF format constants (the subset the BERT and ModernBERT paths read).
+"""GGUF format constants (the subset the BERT, ModernBERT and DeBERTa
+paths read).
 
 The same format semantics as the JAX package's `gguf/constants.py`: key
 names follow the GGUF BERT convention, tensor types follow ggml's
@@ -85,7 +86,7 @@ ARCH = "bert"
 
 
 class Keys:
-    """kv key names read by the BERT and ModernBERT paths (every family
+    """kv key names read by the BERT, ModernBERT and DeBERTa paths (every family
     keeps the `bert.*` prefix; `general.architecture` names the family)."""
 
     ARCHITECTURE = "general.architecture"
@@ -112,6 +113,12 @@ class Keys:
     ROPE_FREQ_BASE_LOCAL = f"{ARCH}.rope.freq_base_local"
     GLOBAL_ATTN_EVERY = f"{ARCH}.attention.global_every_n_layers"
     LOCAL_ATTN_WINDOW = f"{ARCH}.attention.local_window"
+    # DeBERTa: the log-bucketed relative positions (buckets and far-field
+    # cap), and the sequence-classification head of cross-encoder rerankers
+    REL_ATTN_BUCKETS = f"{ARCH}.attention.relative_buckets"
+    REL_ATTN_MAX_DIST = f"{ARCH}.attention.relative_max_distance"
+    N_LABELS = f"{ARCH}.classifier.n_labels"
+    HEAD_ACTIVATION = f"{ARCH}.classifier.activation"
 
     TOKENIZER_LIST = "tokenizer.ggml.tokens"
     TOKENIZER_UNK_ID = "tokenizer.ggml.unknown_token_id"

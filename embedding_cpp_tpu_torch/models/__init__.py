@@ -1,16 +1,18 @@
-"""BERT and ModernBERT encoders: configuration, tensor schema, parameters
-and forward."""
-from .bert import ComputeOptions, bert_embed_batch, bert_embed_packed
-from .config import MINILM_L6, MODERNBERT_BASE, BertConfig
+"""BERT, ModernBERT and DeBERTa encoders: configuration, tensor schema,
+parameters, forward and the cross-encoder score path."""
+from .bert import ComputeOptions, bert_embed_batch, bert_embed_packed, bert_score_batch
+from .config import DEBERTA_V3_BASE, MINILM_L6, MODERNBERT_BASE, BertConfig
 from .params import from_jax_params, load_params, random_params, random_state_dict
 
 __all__ = [
+    "DEBERTA_V3_BASE",
     "MINILM_L6",
     "MODERNBERT_BASE",
     "BertConfig",
     "ComputeOptions",
     "bert_embed_batch",
     "bert_embed_packed",
+    "bert_score_batch",
     "from_jax_params",
     "load_params",
     "random_params",

@@ -1,5 +1,7 @@
-"""Batched, masked BERT encoder forward pass in PyTorch (ModernBERT
-configs dispatch to models/modernbert.py from the two entry points).
+"""Batched, masked BERT encoder forward pass in PyTorch (ModernBERT and
+DeBERTa configs dispatch to models/modernbert.py and models/deberta.py from
+the entry points), and the cross-encoder score path with its
+classification head.
 
 The BERT path of the JAX package's `models/bert.py`, on dicts of tensors:
 matmuls run in the activation dtype (bf16 for throughput, f32 for parity)
@@ -15,6 +17,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..ops.attention import MASK_BIAS, flash_attention_bse, flash_attention_packed_bse
 from ..ops.linear import layer_norm, linear
@@ -46,10 +49,12 @@ class ComputeOptions:
 
 
 def embed_tokens(params: dict, ids: torch.Tensor, config: BertConfig,
-                 opts: ComputeOptions, positions: torch.Tensor | None = None
-                 ) -> torch.Tensor:
-    """word[ids] + token_type[0] + position[off + 0..S-1] (or the per-segment
-    `positions` of packed rows), then the embedding LayerNorm."""
+                 opts: ComputeOptions, positions: torch.Tensor | None = None,
+                 type_ids: torch.Tensor | None = None) -> torch.Tensor:
+    """word[ids] + token_type[0] (or token_type[type_ids], the segments of
+    a cross-encoder pair) + position[off + 0..S-1] (or the per-segment
+    `positions` of packed rows; no position term where the family has no
+    absolute table), then the embedding LayerNorm."""
     emb = params["embeddings"]
     s = ids.shape[-1]
     off = config.pos_offset
@@ -59,11 +64,12 @@ def embed_tokens(params: dict, ids: torch.Tensor, config: BertConfig,
     else:
         x = word[ids].to(torch.float32)
     if "token_type" in emb:
-        x = x + emb["token_type"][0].to(torch.float32)
-    if positions is None:
-        x = x + emb["position"][off : off + s].to(torch.float32)
-    else:
-        x = x + emb["position"][positions + off].to(torch.float32)
+        tt = emb["token_type"]
+        x = x + (tt[0] if type_ids is None else tt[type_ids]).to(torch.float32)
+    if config.abs_positions:
+        pe = emb["position"]
+        x = x + (pe[off : off + s] if positions is None else pe[positions + off]).to(
+            torch.float32)
     return layer_norm(x, emb["ln_scale"], emb["ln_bias"], config.layer_norm_eps,
                       opts.tdtype)
 
@@ -203,6 +209,10 @@ def bert_embed_batch(params: dict, ids: torch.Tensor, mask: torch.Tensor,
 
         return modernbert_embed_batch(params, ids, mask, config, opts,
                                       gather_idx=gather_idx)
+    if config.arch == "deberta":
+        from .deberta import deberta_embed_batch
+
+        return deberta_embed_batch(params, ids, mask, config, opts, gather_idx=gather_idx)
     x = embed_tokens(params, ids, config, opts)
     mask_bias = torch.where(mask.to(torch.bool), 0.0, MASK_BIAS).to(torch.float32)
     x = _run_layers(x, params["layers"], config, mask_bias)
@@ -225,6 +235,11 @@ def bert_embed_packed(params: dict, ids: torch.Tensor, seg: torch.Tensor,
 
         return modernbert_embed_packed(params, ids, seg, pos, config, opts,
                                        n_seg=n_seg, gather_idx=gather_idx)
+    if config.arch == "deberta":
+        from .deberta import deberta_embed_packed
+
+        return deberta_embed_packed(params, ids, seg, pos, config, opts,
+                                    n_seg=n_seg, gather_idx=gather_idx)
     x = embed_tokens(params, ids, config, opts, positions=pos)
     x = _run_layers(x, params["layers"], config, None, seg=seg)
     pooled = pool_normalize_packed(x, seg, pos, n_seg, config.pooling, normalize=False)
@@ -232,3 +247,38 @@ def bert_embed_packed(params: dict, ids: torch.Tensor, seg: torch.Tensor,
     if gather_idx is not None:
         out = out.reshape(-1, out.shape[-1])[gather_idx]
     return _cast_output(out, opts)
+
+
+def classifier_head(h: torch.Tensor, head: dict, activation: str) -> torch.Tensor:
+    """logits = out(act(dense(h))) in f32, the shape every HF
+    *ForSequenceClassification head reduces to; `activation` is "tanh" |
+    "relu" | "gelu" (erf)."""
+    y = h @ head["dense_w"] + head["dense_b"]
+    if activation == "tanh":
+        y = torch.tanh(y)
+    elif activation == "relu":
+        y = torch.relu(y)
+    else:
+        y = F.gelu(y)
+    return y @ head["out_w"] + head["out_b"]
+
+
+def bert_score_batch(params: dict, ids: torch.Tensor, mask: torch.Tensor,
+                     config: BertConfig, opts: ComputeOptions = ComputeOptions(),
+                     type_ids: torch.Tensor | None = None) -> torch.Tensor:
+    """Cross-encoder forward: pair ids [B, S] (+ segment type ids [B, S])
+    -> [B, n_labels] f32 logits: the masked encoder, then the
+    classification head on the CLS state."""
+    if config.arch == "deberta":
+        from .deberta import deberta_score_batch
+
+        return deberta_score_batch(params, ids, mask, config, opts, type_ids=type_ids)
+    if config.arch != "bert":
+        raise NotImplementedError(f"{config.arch} score path is not ported yet")
+    if "head" not in params:
+        raise ValueError("model has no classification head (n_labels == 0)")
+    x = embed_tokens(params, ids, config, opts, type_ids=type_ids)
+    mask_bias = torch.where(mask.to(torch.bool), 0.0, MASK_BIAS).to(torch.float32)
+    x = _run_layers(x, params["layers"], config, mask_bias)
+    return classifier_head(x[:, 0, :].to(torch.float32), params["head"],
+                           config.head_activation)

@@ -1,11 +1,11 @@
-"""Model hyperparameters for the BERT and ModernBERT encoder paths.
+"""Model hyperparameters for the BERT, ModernBERT and DeBERTa encoder paths.
 
-The BERT (`arch="bert"`) and ModernBERT (`arch="modernbert"`) fields of
-the JAX package's `BertConfig`, read from GGUF kv metadata the same way:
-n_vocab from the token list length, everything else from `bert.*` keys,
-with per-family defaults for the keys a file leaves out.  Other encoder
-families are not ported yet; a file that names one is refused instead of
-being run as BERT.
+The BERT (`arch="bert"`), ModernBERT (`arch="modernbert"`) and DeBERTa-v3
+(`arch="deberta"`) fields of the JAX package's `BertConfig`, read from
+GGUF kv metadata the same way: n_vocab from the token list length,
+everything else from `bert.*` keys, with per-family defaults for the keys a
+file leaves out.  Other encoder families are not ported yet; a file that
+names one is refused instead of being run as BERT.
 """
 from __future__ import annotations
 
@@ -14,9 +14,15 @@ from dataclasses import dataclass
 from ..gguf.constants import Keys
 
 ARCH = "bert"
-# per-family defaults: (n_token_types, layer_norm_eps).  ModernBERT has no
-# token-type or position table (RoPE), and eps 1e-5 (HF ModernBertConfig)
-_ARCH_DEFAULTS = {"bert": (2, 1e-12), "modernbert": (0, 1e-5)}
+# per-family defaults: (n_token_types, layer_norm_eps, rel_attn_buckets).
+# ModernBERT has no token-type or position table (RoPE), and eps 1e-5 (HF
+# ModernBertConfig); DeBERTa-v3 has neither table either (relative
+# positions only), eps 1e-7 and 256 position buckets
+_ARCH_DEFAULTS = {"bert": (2, 1e-12, 0), "modernbert": (0, 1e-5, 0),
+                  "deberta": (0, 1e-7, 256)}
+# classification-head activation per family: DeBERTa's ContextPooler and
+# ModernBERT's PredictionHead use GELU, BERT's pooler tanh
+HEAD_ACT_DEFAULTS = {"modernbert": "gelu", "deberta": "gelu"}
 
 
 @dataclass(frozen=True)
@@ -38,6 +44,11 @@ class BertConfig:
     dense_activation: str = "tanh"  # "tanh" | "identity"
     arch: str = ARCH
     pos_offset: int = 0
+    # DeBERTa: log-bucketed relative positions, linear within
+    # +-rel_attn_buckets/2 and log-spaced out to rel_attn_max_dist; one
+    # [2*rel_attn_buckets, E] table shared by every layer
+    rel_attn_buckets: int = 0
+    rel_attn_max_dist: int = 128
     # ModernBERT (unused by BERT): layer i is global when
     # i % global_attn_every == 0 and rotates by RoPE base rope_theta; every
     # other layer attends within |q - k| <= local_window // 2 and rotates by
@@ -46,11 +57,21 @@ class BertConfig:
     local_rope_theta: float = 0.0
     global_attn_every: int = 0
     local_window: int = 0
+    # sequence-classification head (cross-encoder rerankers; 0 = embedding
+    # model): logits = out(act(dense(h_cls))), act one of tanh/relu/gelu
+    n_labels: int = 0
+    head_activation: str = "tanh"
     name: str = ""
 
     @property
     def head_dim(self) -> int:
         return self.n_embd // self.n_head
+
+    @property
+    def abs_positions(self) -> bool:
+        """Whether the embeddings add an absolute-position table: BERT
+        does; ModernBERT rotates (RoPE) and DeBERTa attends relatively."""
+        return self.arch == "bert"
 
     def __post_init__(self):
         if self.n_embd % self.n_head:
@@ -62,12 +83,15 @@ class BertConfig:
                 f"architecture {self.arch!r} is not ported yet "
                 f"(only {sorted(_ARCH_DEFAULTS)})"
             )
+        if self.n_labels and self.head_activation not in ("tanh", "relu", "gelu"):
+            raise ValueError(f"unsupported head_activation {self.head_activation!r} "
+                             "(supported: tanh, relu, gelu)")
 
     @classmethod
     def from_gguf_kv(cls, kv: dict) -> "BertConfig":
         # reference files say "bert" or nothing at all
         arch = str(kv.get(Keys.ARCHITECTURE, ARCH))
-        ntt, eps = _ARCH_DEFAULTS.get(arch, _ARCH_DEFAULTS[ARCH])
+        ntt, eps, buckets = _ARCH_DEFAULTS.get(arch, _ARCH_DEFAULTS[ARCH])
         return cls(
             n_vocab=len(kv[Keys.TOKENIZER_LIST]),
             n_ctx=int(kv[Keys.CONTEXT_LENGTH]),
@@ -84,10 +108,15 @@ class BertConfig:
             dense_activation=str(kv.get(Keys.DENSE_ACTIVATION, "tanh")),
             arch=arch,
             pos_offset=int(kv.get(Keys.POSITION_OFFSET, 0)),
+            rel_attn_buckets=int(kv.get(Keys.REL_ATTN_BUCKETS, buckets)),
+            rel_attn_max_dist=int(kv.get(Keys.REL_ATTN_MAX_DIST, 128)),
             rope_theta=float(kv.get(Keys.ROPE_FREQ_BASE, 0.0)),
             local_rope_theta=float(kv.get(Keys.ROPE_FREQ_BASE_LOCAL, 0.0)),
             global_attn_every=int(kv.get(Keys.GLOBAL_ATTN_EVERY, 0)),
             local_window=int(kv.get(Keys.LOCAL_ATTN_WINDOW, 0)),
+            n_labels=int(kv.get(Keys.N_LABELS, 0)),
+            head_activation=str(kv.get(Keys.HEAD_ACTIVATION,
+                                       HEAD_ACT_DEFAULTS.get(arch, "tanh"))),
             name=str(kv.get(Keys.NAME, "")),
         )
 
@@ -106,4 +135,12 @@ MODERNBERT_BASE = BertConfig(
     rope_theta=160000.0, local_rope_theta=10000.0,
     global_attn_every=3, local_window=128, pooling="cls",
     name="gte-modernbert-base",
+)
+# microsoft/deberta-v3-base geometry, the encoder of mxbai-rerank-base-v1
+# and nli-deberta-v3-base: 12 layers, 256 position buckets out to 512
+DEBERTA_V3_BASE = BertConfig(
+    n_vocab=128100, n_ctx=512, n_embd=768, n_layer=12, n_head=12, n_ff=3072,
+    n_token_types=0, arch="deberta", layer_norm_eps=1e-7,
+    rel_attn_buckets=256, rel_attn_max_dist=512,
+    name="deberta-v3-base",
 )

@@ -1,12 +1,14 @@
 """Parameter construction: GGUF files, raw state dicts or a JAX parameter
 tree -> dicts of torch tensors on a device.
 
-The BERT and ModernBERT paths of the JAX package's `models/params.py`:
-tensors are shape-checked against the schema, per-layer tensors are
-stacked on a leading layer axis, and quantized matmul weights and the word
-table stay packed in the QTensor layout (ops/qtensor.py) — weights stay 4-
-or 8-bit in device memory.  ModernBERT's fused Wqkv and Wi split at load
-into q/k/v and up/gate.
+The BERT, ModernBERT and DeBERTa paths of the JAX package's
+`models/params.py`: tensors are shape-checked against the schema,
+per-layer tensors are stacked on a leading layer axis, and quantized
+matmul weights and the word table stay packed in the QTensor layout
+(ops/qtensor.py) — weights stay 4- or 8-bit in device memory.  ModernBERT's
+fused Wqkv and Wi split at load into q/k/v and up/gate.  Encoder-level
+tensors (DeBERTa's relative table) and a classification head load dense
+f32.
 """
 from __future__ import annotations
 
@@ -174,6 +176,14 @@ def build_params(source: _TensorSource, config: BertConfig, *,
             else:
                 dense["b"] = t
         params["dense"] = dense
+    if config.n_labels:
+        # classification head: two small linears computed in f32 on the CLS
+        # state, dense whatever the file's type; weights as [in, out]
+        head = {}
+        for name, (key, shape_fn) in schema.head_tensors(config).items():
+            t = source.dense(name, shape_fn(config), f32)
+            head[key.removeprefix("head_")] = t.T.contiguous() if key.endswith("_w") else t
+        params["head"] = head
     return params_to(params, device)
 
 
@@ -212,7 +222,8 @@ def load_params(reader, config: BertConfig | None = None, *,
 def random_state_dict(config: BertConfig, seed: int = 0) -> dict[str, np.ndarray]:
     """Random HF-style state dict — the same numbers as the JAX package's
     `random_state_dict` for the same config and seed (tensors drawn in the
-    same order: embeddings, layers, encoder-level extras, Dense head)."""
+    same order: embeddings, layers, encoder-level extras, Dense head,
+    classification head)."""
     rng = np.random.default_rng(seed)
 
     def init(shape):
@@ -236,11 +247,17 @@ def random_state_dict(config: BertConfig, seed: int = 0) -> dict[str, np.ndarray
                 sd[name] = np.zeros(shape, np.float32)
             else:
                 sd[name] = init(shape)
-    for name, (_, shape_fn) in schema.extra_tensors(config).items():
-        sd[name] = np.ones(shape_fn(config), np.float32)  # norm scales
+    for name, (key, shape_fn) in schema.extra_tensors(config).items():
+        # norm scales are ones; tables (and DeBERTa's rel-table LN bias) random
+        if key.endswith("ln_scale"):
+            sd[name] = np.ones(shape_fn(config), np.float32)
+        else:
+            sd[name] = init(shape_fn(config))
     if config.dense_out:
         for name, (_, shape_fn) in schema.DENSE_TENSORS.items():
             sd[name] = init(shape_fn(config))
+    for name, (_, shape_fn) in schema.head_tensors(config).items():
+        sd[name] = init(shape_fn(config))  # head biases random too
     return sd
 
 

@@ -1,9 +1,10 @@
-"""GGUF tensor-name schema of the BERT and ModernBERT encoders.
+"""GGUF tensor-name schema of the BERT, ModernBERT and DeBERTa encoders.
 
 GGUF files keep the verbatim HF state-dict names.  This maps them to the
 parameter keys the forward reads (q_w, ffn_up_w, ln_att_scale, ...), with
-each tensor's expected [out, in] shape — the BERT and ModernBERT entries of
-the JAX package's `models/schema.py`.
+each tensor's expected [out, in] shape — the BERT, ModernBERT and DeBERTa
+entries of the JAX package's `models/schema.py`, and the classification
+heads of BERT and DeBERTa.
 """
 from __future__ import annotations
 
@@ -68,27 +69,78 @@ MODERNBERT_EXTRA_TENSORS = {
     "final_norm.weight": ("final_ln_scale", lambda c: (c.n_embd,)),
 }
 
+# --- DeBERTa-v3 ---------------------------------------------------------------
+# HF DebertaV2Model names (no absolute-position or token-type table; the
+# q/k/v projections are *_proj; otherwise BERT's post-norm block).
+# Encoder-level: the shared relative-position table [2*buckets, E] and its
+# LayerNorm (norm_rel_ebd="layer_norm", encoder.LayerNorm).
+DEBERTA_EMBEDDING_TENSORS = {
+    "embeddings.word_embeddings.weight": ("word", lambda c: (c.n_vocab, c.n_embd)),
+    "embeddings.LayerNorm.weight": ("ln_scale", lambda c: (c.n_embd,)),
+    "embeddings.LayerNorm.bias": ("ln_bias", lambda c: (c.n_embd,)),
+}
+
+DEBERTA_LAYER_TENSORS = {
+    name.replace(".self.query.", ".self.query_proj.")
+        .replace(".self.key.", ".self.key_proj.")
+        .replace(".self.value.", ".self.value_proj."): spec
+    for name, spec in LAYER_TENSORS.items()
+}
+
+DEBERTA_EXTRA_TENSORS = {
+    "encoder.rel_embeddings.weight": ("rel_emb", lambda c: (2 * c.rel_attn_buckets, c.n_embd)),
+    "encoder.LayerNorm.weight": ("rel_ln_scale", lambda c: (c.n_embd,)),
+    "encoder.LayerNorm.bias": ("rel_ln_bias", lambda c: (c.n_embd,)),
+}
+
+# --- sequence-classification heads (present only when n_labels > 0) ----------
+# logits = out(act(dense(h_cls))): BERT's pooler + classifier; DeBERTa's
+# ContextPooler (dense + gelu on the first token) has the same names.
+_BERT_HEAD_TENSORS = {
+    "pooler.dense.weight": ("head_dense_w", lambda c: (c.n_embd, c.n_embd)),
+    "pooler.dense.bias": ("head_dense_b", lambda c: (c.n_embd,)),
+    "classifier.weight": ("head_out_w", lambda c: (c.n_labels, c.n_embd)),
+    "classifier.bias": ("head_out_b", lambda c: (c.n_labels,)),
+}
+_HEAD_TENSORS_BY_ARCH = {"bert": _BERT_HEAD_TENSORS, "deberta": _BERT_HEAD_TENSORS}
+
+
+def head_tensors(config) -> dict:
+    """Classification-head tensor map (empty for embedding models)."""
+    if not config.n_labels:
+        return {}
+    if config.arch not in _HEAD_TENSORS_BY_ARCH:
+        raise NotImplementedError(f"{config.arch} classification head is not ported yet")
+    return _HEAD_TENSORS_BY_ARCH[config.arch]
+
 
 def embedding_tensors(config) -> dict:
     """Embedding-level tensor map; a BERT config without token types has
-    no token-type table."""
+    no token-type table, a DeBERTa config with them has one."""
     if config.arch == "modernbert":
         return MODERNBERT_EMBEDDING_TENSORS
+    if config.arch == "deberta":
+        if not config.n_token_types:
+            return DEBERTA_EMBEDDING_TENSORS
+        return {**DEBERTA_EMBEDDING_TENSORS, "embeddings.token_type_embeddings.weight":
+                ("token_type", lambda c: (c.n_token_types, c.n_embd))}
     if config.n_token_types == 0:
         return {k: v for k, v in EMBEDDING_TENSORS.items() if v[0] != "token_type"}
     return EMBEDDING_TENSORS
 
 
 def layer_tensor_names(i: int, config=None) -> dict[str, tuple[str, object]]:
-    modern = config is not None and config.arch == "modernbert"
-    named = {t.format(i=i): v for t, v in
-             (MODERNBERT_LAYER_TENSORS if modern else LAYER_TENSORS).items()}
-    if modern and i == 0:
+    arch = "bert" if config is None else config.arch
+    templates = {"modernbert": MODERNBERT_LAYER_TENSORS,
+                 "deberta": DEBERTA_LAYER_TENSORS}.get(arch, LAYER_TENSORS)
+    named = {t.format(i=i): v for t, v in templates.items()}
+    if arch == "modernbert" and i == 0:
         named = {k: v for k, v in named.items() if v[0] != "ln_att_scale"}
     return named
 
 
 def extra_tensors(config) -> dict:
     """Encoder-level tensors outside embeddings and layers: ModernBERT's
-    final LayerNorm scale."""
-    return MODERNBERT_EXTRA_TENSORS if config.arch == "modernbert" else {}
+    final LayerNorm scale; DeBERTa's relative table and its LayerNorm."""
+    return {"modernbert": MODERNBERT_EXTRA_TENSORS,
+            "deberta": DEBERTA_EXTRA_TENSORS}.get(config.arch, {})

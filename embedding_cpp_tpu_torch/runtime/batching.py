@@ -244,12 +244,15 @@ def pack_batches(
     batch_buckets: Sequence[int] = DEFAULT_BATCH_BUCKETS,
     max_seq: int | None = None,
     max_tokens: int | None = None,
+    pad_rows: bool = True,
 ) -> list[PackedBatch]:
     """Group tokenized sentences into padded static-shape batches.
 
     `max_tokens` bounds one batch's token slots (rows x seq bucket): long
     sequence buckets get proportionally fewer rows per dispatch so the
-    activation footprint of a single compiled shape stays bounded."""
+    activation footprint of a single compiled shape stays bounded.  With
+    `pad_rows=False` a batch holds only its real rows: the row buckets then
+    only cap a batch's size."""
     if max_seq is not None:
         seq_buckets = [b for b in seq_buckets if b <= max_seq] or [max_seq]
 
@@ -267,7 +270,7 @@ def pack_batches(
         cap = bb[-1]
         for start in range(0, len(indices), cap):
             chunk = indices[start : start + cap]
-            b = bucket_for(len(chunk), bb)
+            b = bucket_for(len(chunk), bb) if pad_rows else len(chunk)
             ids = np.full((b, s), pad_id, dtype=np.int32)
             mask = np.zeros((b, s), dtype=np.int32)
             for row, idx in enumerate(chunk):

@@ -1,8 +1,10 @@
 """The embedding engine: model + tokenizer + batched forward on a device.
 
-The encode path of the JAX package's `runtime/engine.py`: tokenize ->
-plan (pack short sentences many to a row, bucket the rest by length) ->
-launch every batch -> fetch once -> scatter back to input order.  The
+The encode and rerank paths of the JAX package's `runtime/engine.py`:
+tokenize -> plan (pack short sentences many to a row, bucket the rest by
+length) -> launch every batch -> fetch once -> scatter back to input order;
+cross-encoder pairs frame as [CLS] a [SEP] b [SEP] and run through the
+length buckets to one logit per pair (`score_pairs`, `rerank`).  The
 engine runs on the GPU unless the caller passes `device="cpu"`; with no
 device given and no GPU present it raises instead of falling back.
 """
@@ -20,11 +22,18 @@ from ..models.bert import (
     ComputeOptions,
     bert_embed_batch,
     bert_embed_packed,
+    bert_score_batch,
     unpack_output_i8,
 )
 from ..models.config import BertConfig
 from ..models.params import load_params, params_to, random_params
-from ..tokenizer import SpecialIds, WordPieceTokenizer, frame_ids, load_tokenizer
+from ..tokenizer import (
+    SpecialIds,
+    WordPieceTokenizer,
+    frame_ids,
+    frame_pair_ids,
+    load_tokenizer,
+)
 from .batching import (
     DEFAULT_BATCH_BUCKETS,
     DEFAULT_PACK_SEQ,
@@ -218,6 +227,85 @@ class Engine:
         if isinstance(texts, str):
             texts = [texts]
         return self.embed_tokens(self.tokenize_batch(texts))
+
+    # --- cross-encoder scoring ----------------------------------------------
+    def tokenize_pairs(self, pairs: Sequence[tuple[str, str]]
+                       ) -> tuple[list[list[int]], list[list[int]]]:
+        """[(text_a, text_b), ...] -> (framed [CLS] a [SEP] b [SEP] id
+        lists, parallel token-type id lists)."""
+        if self.tokenizer is None:
+            raise RuntimeError("engine has no tokenizer (model without blob kv)")
+        raw = self.tokenizer.encode_batch([t for pair in pairs for t in pair])
+        framed = [frame_pair_ids(raw[i], raw[i + 1], self.special_ids, self.config.n_ctx)
+                  for i in range(0, len(raw), 2)]
+        return [f[0] for f in framed], [f[1] for f in framed]
+
+    def score_plan(self, token_lists: Sequence[Sequence[int]]) -> list:
+        """The batches `score_token_pairs` launches for the lists: length
+        buckets of real rows only (eager PyTorch compiles nothing per
+        shape, so a row padded up to a row bucket would only add work)."""
+        return pack_batches(
+            token_lists, self.special_ids.pad, seq_buckets=self.seq_buckets,
+            batch_buckets=self.batch_buckets, max_seq=self.config.n_ctx,
+            max_tokens=self.max_batch_tokens, pad_rows=False,
+        )
+
+    def score_token_pairs(self, token_lists: Sequence[Sequence[int]],
+                          type_lists: Sequence[Sequence[int]]) -> np.ndarray:
+        """Framed pair-id lists (+ parallel type-id lists) -> [n] f32 logits
+        ([n, n_labels] for multi-label heads).  Plain length buckets
+        (`score_plan`), every batch launched before the one fetch, as
+        `embed_tokens` does."""
+        if self.config.n_labels == 0:
+            raise RuntimeError("model has no classification head (embedding model); "
+                               "rerank/score needs a *ForSequenceClassification checkpoint")
+        out = np.empty((len(token_lists), self.config.n_labels), np.float32)
+        with self._lock:
+            batches = self.score_plan(token_lists)
+            pending = []
+            with torch.inference_mode():
+                for batch in batches:
+                    types = np.zeros_like(batch.ids)
+                    for row, idx in enumerate(batch.positions):
+                        t = list(type_lists[idx])[: types.shape[1]]
+                        types[row, : len(t)] = t
+                    logits = bert_score_batch(
+                        self.params, self._tensor(batch.ids), self._tensor(batch.mask),
+                        self.config, self.opts, type_ids=self._tensor(types),
+                    )
+                    pending.append((batch, logits))
+            if not pending:
+                return out[:, 0] if self.config.n_labels == 1 else out
+            joined = torch.cat([v for _, v in pending], dim=0)
+        host = joined.cpu().numpy()
+        off = 0
+        for batch, _ in pending:
+            out[batch.positions] = host[off: off + len(batch.positions)]
+            off += len(batch.positions)
+        return out[:, 0] if self.config.n_labels == 1 else out
+
+    def score_pairs(self, pairs: Sequence[tuple[str, str]], *,
+                    activation: str | None = None) -> np.ndarray:
+        """(text_a, text_b) pairs -> relevance scores: raw logits, or
+        activation="sigmoid" (sentence-transformers CrossEncoder's default
+        for single-label heads)."""
+        if activation not in (None, "sigmoid"):
+            raise ValueError(f"unknown activation {activation!r}")
+        scores = self.score_token_pairs(*self.tokenize_pairs(pairs))
+        return 1.0 / (1.0 + np.exp(-scores)) if activation == "sigmoid" else scores
+
+    def rerank(self, query: str, documents: Sequence[str], *, top_n: int | None = None,
+               activation: str | None = "sigmoid") -> list[dict]:
+        """Documents ranked by cross-encoder relevance to the query:
+        [{"index": i, "relevance_score": s}, ...], descending, cut to top_n."""
+        if self.config.n_labels > 1:
+            raise RuntimeError(f"rerank needs a single-label head (n_labels="
+                               f"{self.config.n_labels}); use score_pairs for multi-label")
+        scores = self.score_pairs([(query, d) for d in documents], activation=activation)
+        order = np.argsort(-scores, kind="stable")
+        if top_n is not None:
+            order = order[:top_n]
+        return [{"index": int(i), "relevance_score": float(scores[i])} for i in order]
 
     @property
     def n_embd(self) -> int:

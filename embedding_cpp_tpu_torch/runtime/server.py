@@ -1,6 +1,7 @@
 """Embedding TCP server over the port's Engine.
 
-The encode surface of the JAX package's `runtime/server.py`, on one port:
+The encode and rerank surfaces of the JAX package's `runtime/server.py`,
+on one port:
 
 1. **ggml-compat raw mode**: on connect the server sends `n_embd` as a
    little-endian int32; each client message is raw UTF-8 text (one read,
@@ -9,9 +10,14 @@ The encode surface of the JAX package's `runtime/server.py`, on one port:
    `magic | u32 count | count * (u32 len | utf8 bytes)`; the reply is
    `u32 count | count * n_embd * f32`, or on failure
    `u32 0xFFFFFFFF | u32 len | message`.
+3. **rerank** (a model with a classification head): b"\x01TPR" |
+   `u32 top_n (0 = all) | u32 len | query utf8 | u32 n | n * (u32 len |
+   utf8 doc)`; the reply is `u32 m | m * i32 index | m * f32 sigmoid score`,
+   descending, or the error frame.
 
-Requests from all connections merge into device batches through one
-continuous batcher (a short micro-batching window).
+Encode requests from all connections merge into device batches through
+one continuous batcher (a short micro-batching window); rerank requests
+run `Engine.rerank` on an executor thread under the same pending budget.
 """
 from __future__ import annotations
 
@@ -23,7 +29,8 @@ import sys
 import numpy as np
 
 MAGIC = b"TPE2"
-_MAGICS = (MAGIC,)
+MAGIC_RERANK = b"\x01TPR"
+_MAGICS = (MAGIC, MAGIC_RERANK)
 RAW_CHUNK = 1 << 15  # the ggml-compat message cap
 MAX_ITEMS = 1 << 16  # texts per request
 MAX_TEXT_BYTES = 16 << 20  # per text
@@ -67,20 +74,45 @@ class ContinuousBatcher:
             except asyncio.CancelledError:
                 pass
 
-    async def encode(self, texts: list[str]) -> np.ndarray:
-        n = len(texts)
+    def try_reserve(self, n: int) -> None:
+        """Admission control: reserve `n` sentences against the pending
+        budget (encode requests and reranks on executor threads alike), or
+        raise OverloadedError.  Call from the event loop only, and
+        `release` in a finally."""
+        if n > self.max_pending:
+            raise OverloadedError(
+                f"request too large: {n} sentences exceed the pending cap "
+                f"{self.max_pending}; split the request"
+            )
         if self._pending + n > self.max_pending:
             raise OverloadedError(
                 f"server overloaded: {self._pending} sentences pending "
                 f"(cap {self.max_pending})"
             )
         self._pending += n
+
+    def release(self, n: int) -> None:
+        self._pending -= n
+
+    async def encode(self, texts: list[str]) -> np.ndarray:
+        n = len(texts)
+        self.try_reserve(n)
         try:
             fut = asyncio.get_running_loop().create_future()
             await self.queue.put((texts, fut))
             return await fut
         finally:
-            self._pending -= n
+            self.release(n)
+
+    async def rerank(self, query: str, docs: list[str], top_n: int | None) -> list[dict]:
+        """`Engine.rerank` on an executor thread, admitted against the
+        pending budget."""
+        self.try_reserve(len(docs))
+        try:
+            return await asyncio.get_running_loop().run_in_executor(
+                None, lambda: self.engine.rerank(query, docs, top_n=top_n))
+        finally:
+            self.release(len(docs))
 
     async def _run(self) -> None:
         # pipeline depth 2: batch N+1 is planned while batch N computes
@@ -181,6 +213,24 @@ async def handle_client(reader: asyncio.StreamReader, writer: asyncio.StreamWrit
                 else:
                     writer.write(struct.pack("<I", len(vecs)))
                     writer.write(np.ascontiguousarray(vecs, np.float32).tobytes())
+            elif head == MAGIC_RERANK:
+                (top_n,) = struct.unpack("<I", await reader.readexactly(4))
+                _check(top_n <= MAX_ITEMS, f"top_n {top_n}")
+                (qlen,) = struct.unpack("<I", await reader.readexactly(4))
+                _check(0 < qlen <= MAX_TEXT_BYTES, f"query length {qlen}")
+                query = (await reader.readexactly(qlen)).decode("utf-8")
+                docs = await _read_texts(reader)
+                try:
+                    if not docs:
+                        raise ValueError("no documents")
+                    ranked = await batcher.rerank(query, docs, top_n or None)
+                except Exception as e:  # request-level failure, connection stays
+                    _error_frame(writer, e)
+                else:
+                    writer.write(struct.pack("<I", len(ranked)))
+                    writer.write(np.asarray([r["index"] for r in ranked], np.int32).tobytes())
+                    writer.write(np.asarray([r["relevance_score"] for r in ranked],
+                                            np.float32).tobytes())
             else:
                 # raw mode: one read == one message; the unframed protocol has
                 # no error representation, so a failure drops the connection

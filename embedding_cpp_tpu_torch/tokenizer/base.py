@@ -3,7 +3,8 @@ framing, as in the JAX package's `tokenizer/base.py`.
 
 The tokenizer.json pipeline runs *without* template special tokens; the
 ids are then framed here: prepend CLS, append SEP, truncate to
-n_max_tokens with SEP overwriting the last slot on overflow.
+n_max_tokens with SEP overwriting the last slot on overflow.  A
+cross-encoder pair frames as [CLS] a [SEP] b [SEP] (`frame_pair_ids`).
 """
 from __future__ import annotations
 
@@ -46,6 +47,48 @@ def frame_ids(ids: Sequence[int], special: SpecialIds, n_max_tokens: int) -> lis
     else:
         out.append(special.sep)
     return out
+
+
+def _strip_pad(ids: Sequence[int], pad: int) -> list[int]:
+    """The ids up to the first pad id (padding a json config injects)."""
+    out = []
+    for i in ids:
+        if i == pad:
+            break
+        out.append(int(i))
+    return out
+
+
+def truncate_longest_first(la: int, lb: int, budget: int) -> tuple[int, int]:
+    """HF tokenizers' LongestFirst truncation of a pair: the kept lengths.
+    The longer sequence is trimmed to the other's length, then the
+    remaining budget splits with the ceiling half to the longer one; on
+    equal lengths the second counts as the longer.  `budget` excludes the
+    special tokens."""
+    budget = max(0, budget)
+    if la + lb <= budget:
+        return la, lb
+    a_longest = la > lb
+    lng, oth = (la, lb) if a_longest else (lb, la)
+    to_remove = lng + oth - budget
+    if lng - oth >= to_remove:  # trimming the longer one alone suffices
+        lng -= to_remove
+    else:
+        lng = budget - budget // 2
+        oth = budget // 2
+    return (lng, oth) if a_longest else (oth, lng)
+
+
+def frame_pair_ids(a_ids: Sequence[int], b_ids: Sequence[int], special: SpecialIds,
+                   n_max_tokens: int) -> tuple[list[int], list[int]]:
+    """Cross-encoder pair framing [CLS] a [SEP] b [SEP] -> (ids, token type
+    ids 0...0 1...1; the [SEP] after `a` belongs to segment 0), the pair
+    truncated longest-first to n_max_tokens."""
+    a = _strip_pad(a_ids, special.pad)
+    b = _strip_pad(b_ids, special.pad)
+    la, lb = truncate_longest_first(len(a), len(b), n_max_tokens - 3)
+    ids = [special.cls, *a[:la], special.sep, *b[:lb], special.sep]
+    return ids, [0] * (la + 2) + [1] * (lb + 1)
 
 
 # --- added-token matching ----------------------------------------------------

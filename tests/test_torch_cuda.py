@@ -6,8 +6,9 @@ Edge shapes live here (ragged M, sequence lengths that are not multiples of
 the 16- and 64-row tiles, S = 1025, fully padded rows, head dims 32 and
 64, f32 and bf16) for K1 (with and without its prologue multiply), the
 projection-layout kernel with and without a position bias (K2-K4), the
-long-row kernel (K5) and the sliding-window kernel (K7); chip_smoke.py
-checks the main-path shapes.
+long-row kernel (K5), the sliding-window kernel (K7) and the
+disentangled-attention kernel (K9 key bias, K10 segments; S = 16 ... 512
+with spans below and above S); chip_smoke.py checks the main-path shapes.
 
 Tolerances: f32 1e-4 absolute (the same f32 products summed in another
 order); bf16 by relative error max|err| / max|ref| <= 1e-2 (an order
@@ -31,6 +32,12 @@ from embedding_cpp_tpu_torch.ops.attention import (
     flash_attention_bse,
     flash_attention_local,
     flash_attention_packed_bse,
+)
+from embedding_cpp_tpu_torch.ops.deberta_attention import (
+    delta_tables,
+    disentangled_attention,
+    disentangled_attention_packed,
+    disentangled_attention_plain,
 )
 from embedding_cpp_tpu_torch.ops.q4_matmul import q4_matmul, q4_matmul_plain
 
@@ -233,3 +240,52 @@ def test_long_kernels_reject_what_they_do_not_serve(dev):
     with pytest.raises(ValueError):  # a [3, S, S] bias for 2 heads
         flash_attention_bias_bse(q, k, v, torch.zeros(1, 128, device=dev),
                                  torch.zeros(3, 128, 128, device=dev), 2)
+
+
+def _deberta_inputs(b, s, h, d, span, dtype, dev, seed=0):
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    q, k, v = (torch.randn(b, s, h, d, generator=gen).to(dev, dtype) for _ in range(3))
+    pk, pq = (torch.randn(2 * span, h, d, generator=gen).to(dev, dtype) for _ in range(2))
+    return q, k, v, pk, pq
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s,h,d,span,max_dist", [(16, 2, 16, 32, 128), (48, 4, 32, 16, 64),
+                                                 (128, 4, 64, 96, 192), (512, 12, 64, 256, 512),
+                                                 (512, 2, 128, 32, 128),
+                                                 # deberta-v3-base's heads at the short
+                                                 # buckets, where the span exceeds S
+                                                 (16, 12, 64, 256, 512), (32, 12, 64, 256, 512),
+                                                 (64, 12, 64, 256, 512),
+                                                 (128, 12, 64, 256, 512)])
+def test_deberta_kernels_match_plain(dev, dtype, s, h, d, span, max_dist):
+    b = 3
+    q, k, v, pk, pq = _deberta_inputs(b, s, h, d, span, dtype, dev, seed=s + d)
+    c2p, p2c = (torch.from_numpy(t.astype(np.int32)).to(dev)
+                for t in delta_tables(s, span, max_dist))
+    mask = _long_mask(b, s, dev)  # row 1 padded past S/3, row 2 all padding
+    before = disentangled_attention.launches
+    got = disentangled_attention(q, k, v, mask, pk, pq, span, max_dist)
+    assert disentangled_attention.launches == before + 1
+    _close(got, disentangled_attention_plain(q, k, v, mask, pk, pq, c2p, p2c, False), dtype)
+    seg = torch.full((b, s), -1, dtype=torch.int32)
+    seg[0, : s // 2], seg[0, s // 2 : s - 3] = 0, 1
+    seg[1, :] = 0
+    seg = seg.to(dev)  # row 2: all padding
+    before = disentangled_attention_packed.launches
+    got = disentangled_attention_packed(q, k, v, seg, pk, pq, span, max_dist)
+    assert disentangled_attention_packed.launches == before + 1
+    _close(got, disentangled_attention_plain(q, k, v, seg, pk, pq, c2p, p2c, True), dtype)
+
+
+def test_deberta_kernel_rejects_what_it_does_not_serve(dev):
+    q, k, v, pk, pq = _deberta_inputs(1, 520, 2, 32, 32, torch.bfloat16, dev)
+    with pytest.raises(ValueError):  # S > 512
+        disentangled_attention(q, k, v, torch.zeros(1, 520, device=dev), pk, pq, 32, 128)
+    q, k, v, pk, pq = _deberta_inputs(1, 64, 2, 24, 32, torch.bfloat16, dev)
+    with pytest.raises(ValueError):  # d = 24
+        disentangled_attention(q, k, v, torch.zeros(1, 64, device=dev), pk, pq, 32, 128)
+    q, k, v, pk, pq = _deberta_inputs(1, 64, 2, 32, 32, torch.bfloat16, dev)
+    with pytest.raises(ValueError):  # f32 tables beside bf16 q/k/v
+        disentangled_attention(q, k, v, torch.zeros(1, 64, device=dev), pk.float(),
+                               pq.float(), 32, 128)

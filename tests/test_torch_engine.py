@@ -150,3 +150,89 @@ def test_long_context_buckets_match_jax():
     for n_ctx in (8, 100, 128, 512, 3000):
         assert long_seq_buckets(n_ctx) == JEngine(
             {}, replace(J_MODERNBERT_BASE, n_ctx=n_ctx)).seq_buckets
+
+
+@pytest.fixture(scope="module")
+def deberta_engines(tmp_path_factory):
+    """tiny-deberta and tiny-deberta-reranker Q4_0 GGUFs (SentencePiece
+    Unigram tokenizer.json, trained by the HF `tokenizers` library) through
+    both engines."""
+    pytest.importorskip("tokenizers")
+    out = {}
+    for preset in ("tiny-deberta", "tiny-deberta-reranker"):
+        path = str(tmp_path_factory.mktemp("gguf") / f"{preset}-q4_0.gguf")
+        make_test_model(path, preset, "q4_0", seed=0)
+        out[preset] = (Engine.from_gguf(path, device="cpu"), JEngine.from_gguf(path))
+    return out
+
+
+@pytest.mark.parametrize("texts", [PACKED, UNPACKED], ids=["packed", "unpacked"])
+def test_deberta_encode_matches_jax(deberta_engines, texts):
+    ours, theirs = deberta_engines["tiny-deberta"]
+    assert ours.config.arch == "deberta" and ours.config.rel_attn_buckets == 32
+    assert type(ours.tokenizer).__name__ == "UnigramTokenizer"
+    assert ours.tokenize_batch(texts) == theirs.tokenize_batch(texts)
+    got, ref = ours.encode(texts), theirs.encode(texts)
+    assert got.shape == ref.shape == (len(texts), 64)
+    cos = np.sum(got * ref, -1) / np.linalg.norm(got, axis=-1) / np.linalg.norm(ref, axis=-1)
+    assert cos.min() >= 0.99999
+    np.testing.assert_allclose(got, ref, rtol=0, atol=ATOL)
+
+
+def test_deberta_rerank_matches_jax(deberta_engines):
+    ours, theirs = deberta_engines["tiny-deberta-reranker"]
+    assert (ours.config.n_labels, ours.config.head_activation) == (1, "gelu")
+    query = "the quick brown fox"
+    docs = UNPACKED[:10] + ["the quick brown fox jumps", "a lazy dog"]
+    assert ours.tokenize_pairs([(query, d) for d in docs]) == theirs.tokenize_pairs(
+        [(query, d) for d in docs])
+    got, ref = ours.rerank(query, docs), theirs.rerank(query, docs)
+    assert [r["index"] for r in got] == [r["index"] for r in ref]
+    np.testing.assert_allclose([r["relevance_score"] for r in got],
+                               [r["relevance_score"] for r in ref], rtol=0, atol=1e-4)
+    top = ours.rerank(query, docs, top_n=3)
+    assert top == got[:3]
+    logits = ours.score_pairs([(query, d) for d in docs])
+    assert logits.shape == (len(docs),)
+    np.testing.assert_allclose(logits, theirs.score_pairs([(query, d) for d in docs]),
+                               rtol=0, atol=1e-4)
+
+
+def test_score_plan_runs_real_rows_only():
+    """The score path's batches are the JAX plan's length buckets cut to
+    their real rows: no row is padded up to a row bucket."""
+    from embedding_cpp_tpu.runtime.batching import pack_batches as jax_pack
+
+    lists = [list(range(2, 4 + (i * 13) % 140)) for i in range(300)]
+    eng = Engine({}, MINILM_L6, device="cpu")
+    ours = eng.score_plan(lists)
+    theirs = jax_pack(lists, eng.special_ids.pad, seq_buckets=eng.seq_buckets,
+                      max_seq=512, max_tokens=eng.max_batch_tokens)
+    assert len(ours) == len(theirs)
+    for a, b in zip(ours, theirs):
+        n = len(b.positions)
+        assert a.positions == b.positions and a.ids.shape == (n, b.ids.shape[1])
+        np.testing.assert_array_equal(a.ids, b.ids[:n])
+        np.testing.assert_array_equal(a.mask, b.mask[:n])
+    assert sum(a.ids.shape[0] for a in ours) == len(lists)
+
+
+def test_rerank_needs_a_classification_head(deberta_engines):
+    ours, _ = deberta_engines["tiny-deberta"]
+    with pytest.raises(RuntimeError):
+        ours.rerank("a query", ["a document"])
+
+
+def test_pair_framing_matches_jax():
+    from embedding_cpp_tpu.tokenizer.base import SpecialIds as JSpecialIds
+    from embedding_cpp_tpu.tokenizer.base import frame_pair_ids as jax_frame_pair_ids
+    from embedding_cpp_tpu_torch.tokenizer import SpecialIds, frame_pair_ids
+
+    ours_s, theirs_s = SpecialIds(cls=2, sep=3, pad=0, unk=1), JSpecialIds(2, 3, 0, 1)
+    for la in (0, 1, 5, 20, 40):
+        for lb in (0, 3, 20, 61):
+            a, b = list(range(10, 10 + la)), list(range(100, 100 + lb))
+            for n_max in (8, 24, 64):
+                ours = frame_pair_ids(a, b, ours_s, n_max)
+                assert ours == jax_frame_pair_ids(a, b, theirs_s, n_max)
+                assert len(ours[0]) == len(ours[1]) <= n_max

@@ -1,6 +1,7 @@
 """The port's TCP server over a CPU engine on a free local port: the int32
 n_embd handshake, a raw-mode text, and a TPE2 batch, each equal to
-`engine.encode`."""
+`engine.encode`; the rerank frame over a DeBERTa cross-encoder, equal to
+`engine.rerank`, and its error frames."""
 import asyncio
 import contextlib
 import socket
@@ -13,15 +14,18 @@ import numpy as np
 import pytest
 
 from embedding_cpp_tpu_torch import Engine
-from embedding_cpp_tpu_torch.models import MINILM_L6
-from embedding_cpp_tpu_torch.runtime.server import serve
+from embedding_cpp_tpu_torch.models import DEBERTA_V3_BASE, MINILM_L6
+from embedding_cpp_tpu_torch.runtime.server import MAGIC_RERANK, serve
 
 CONFIG = replace(MINILM_L6, n_vocab=300, n_embd=64, n_head=4, n_ff=128,
                  n_layer=2, n_ctx=128)
+RERANKER = replace(DEBERTA_V3_BASE, n_vocab=300, n_embd=64, n_head=4, n_ff=128,
+                   n_layer=2, n_ctx=128, rel_attn_buckets=32, rel_attn_max_dist=128,
+                   n_labels=1, head_activation="gelu")
 
 
 @contextlib.contextmanager
-def serve_in_thread(engine):
+def serve_in_thread(engine, **serve_kw):
     sock = socket.socket()
     sock.bind(("127.0.0.1", 0))
     port = sock.getsockname()[1]
@@ -32,7 +36,7 @@ def serve_in_thread(engine):
 
     def main():
         asyncio.set_event_loop(loop)
-        holder["task"] = loop.create_task(serve(engine, "127.0.0.1", port))
+        holder["task"] = loop.create_task(serve(engine, "127.0.0.1", port, **serve_kw))
         loop.call_soon(ready.set)
         try:
             loop.run_until_complete(holder["task"])
@@ -101,3 +105,63 @@ def test_malformed_frame_gets_an_error_frame(engine):
         assert flag == 0xFFFFFFFF
         (ln,) = struct.unpack("<I", _recv(s, 4))
         assert b"malformed" in _recv(s, ln)
+
+
+@pytest.fixture(scope="module")
+def reranker():
+    return Engine.synthetic(RERANKER, "q4_0", device="cpu")
+
+
+def _rerank_frame(query: str, docs: list[str], top_n: int) -> bytes:
+    body = b"".join(struct.pack("<I", len(d.encode())) + d.encode() for d in docs)
+    return (MAGIC_RERANK + struct.pack("<II", top_n, len(query.encode())) + query.encode()
+            + struct.pack("<I", len(docs)) + body)
+
+
+def _error(s) -> bytes:
+    (ln,) = struct.unpack("<I", _recv(s, 4))
+    return _recv(s, ln)
+
+
+@pytest.mark.parametrize("top_n", [0, 2])
+def test_rerank_frame_equals_engine_rerank(reranker, top_n):
+    query = "the quick brown fox"
+    docs = ["the lazy dog", "a quick brown fox jumps over the dog", "hello world",
+            "welcome back soon"]
+    want = reranker.rerank(query, docs, top_n=top_n or None)
+    with serve_in_thread(reranker) as port, socket.create_connection(
+            ("127.0.0.1", port), 10) as s:
+        _recv(s, 4)
+        s.sendall(_rerank_frame(query, docs, top_n))
+        (m,) = struct.unpack("<I", _recv(s, 4))
+        assert m == len(want) == (top_n or len(docs))
+        idx = np.frombuffer(_recv(s, 4 * m), np.int32)
+        scores = np.frombuffer(_recv(s, 4 * m), np.float32)
+        # the connection stays usable: a second request on it
+        s.sendall(_rerank_frame(query, docs[:1], 0))
+        assert struct.unpack("<I", _recv(s, 4))[0] == 1
+        _recv(s, 8)
+    assert idx.tolist() == [r["index"] for r in want]
+    np.testing.assert_allclose(scores, [r["relevance_score"] for r in want], rtol=0, atol=1e-6)
+    assert np.all(np.diff(scores) <= 0) and np.all((scores > 0) & (scores < 1))
+
+
+def test_rerank_frame_errors_keep_the_connection(reranker, engine):
+    with serve_in_thread(reranker, max_pending=3) as port, socket.create_connection(
+            ("127.0.0.1", port), 10) as s:
+        _recv(s, 4)
+        s.sendall(_rerank_frame("q", [], 0))  # no documents
+        assert struct.unpack("<I", _recv(s, 4))[0] == 0xFFFFFFFF
+        assert b"no documents" in _error(s)
+        s.sendall(_rerank_frame("q", ["a", "b", "c", "d"], 0))  # over the pending cap
+        assert struct.unpack("<I", _recv(s, 4))[0] == 0xFFFFFFFF
+        assert b"OverloadedError" in _error(s)
+        s.sendall(_rerank_frame("q", ["a", "b"], 0))
+        assert struct.unpack("<I", _recv(s, 4))[0] == 2
+        _recv(s, 16)
+    with serve_in_thread(engine) as port, socket.create_connection(
+            ("127.0.0.1", port), 10) as s:
+        _recv(s, 4)
+        s.sendall(_rerank_frame("q", ["a"], 0))  # an embedding model has no head
+        assert struct.unpack("<I", _recv(s, 4))[0] == 0xFFFFFFFF
+        assert b"classification head" in _error(s)

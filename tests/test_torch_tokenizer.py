@@ -1,6 +1,8 @@
-"""The port's pure-Python WordPiece tokenizer and framing against the JAX
-package's: the committed golden ids, added-token splitting, the synthetic
-tokenizer.json, and CLS/SEP framing."""
+"""The port's pure-Python tokenizers and framing against the JAX package's:
+WordPiece (the committed golden ids, added-token splitting, the synthetic
+tokenizer.json), byte-level BPE, SentencePiece Unigram (trained,
+ALBERT-normalized and Precompiled-charsmap pipelines), and CLS/SEP
+framing."""
 import json
 import random
 from pathlib import Path
@@ -107,3 +109,58 @@ def test_load_tokenizer_dispatches_on_model_type():
     spec["model"]["type"] = "Unigram"
     with pytest.raises(ValueError):
         load_tokenizer(json.dumps(spec))
+
+
+# --- SentencePiece Unigram (DeBERTa-v3 / XLM-R tokenizer.json) -----------------
+
+UNIGRAM_TEXTS = [
+    "hello world", "Hello World", "the quick brown fox jumps over the lazy dog",
+    "It's the quick brown fox; don't they'll we've I'm you're 123 42.",
+    "Café déjà vu — naïve résumé!", "你好世界 中文 模型", "日本語 テスト です",
+    "  leading and   multiple   spaces  ", "", " ", "a", "▁already▁metaspaced",
+    "tab\tand\nnewline", "punct!!! ... ??? ,,,", "number 3.14159 and -42 and 1e10",
+    "ümlaut Über straße", "unknownglyphs ☃❤ snowman heart", "ZAQWSXCDE rare uppercase run",
+    "``quoted''  twice", "ﬁne ﬂour ½ cup №5", "ｆｕｌｌ ｗｉｄｔｈ", "ạ́ marks", "x² + y²",
+]
+UNIGRAM_ALPHABET = ("abcdefghijklmnopqrstuvwxyzABCDE 0123456789.,!?'\"- "
+                    "你好世界中文模型éüßñÉÎ▁ \tﬁ½№☃①ａ")
+
+
+def _unigram_blobs() -> dict:
+    from embedding_cpp_tpu.tokenizer.testvocab import (
+        build_albert_tokenizer_json,
+        build_unigram_tokenizer_json,
+    )
+    from test_unigram_tokenizer import _CHARSMAP, build_charsmap_blob
+    from tokenizers import Tokenizer, models, normalizers, pre_tokenizers
+
+    trained = json.loads(build_unigram_tokenizer_json(600))
+    precompiled = Tokenizer(models.Unigram(
+        [tuple(p) for p in trained["model"]["vocab"]], unk_id=trained["model"]["unk_id"],
+        byte_fallback=False))
+    precompiled.normalizer = normalizers.Precompiled(build_charsmap_blob(_CHARSMAP))
+    precompiled.pre_tokenizer = pre_tokenizers.Metaspace(replacement="▁")
+    return {"trained": build_unigram_tokenizer_json(600),
+            "albert": build_albert_tokenizer_json(400),
+            "precompiled": precompiled.to_str().encode()}
+
+
+@pytest.mark.parametrize("blob", ["trained", "albert", "precompiled"])
+def test_unigram_encodes_match_jax(blob):
+    pytest.importorskip("tokenizers")
+    from embedding_cpp_tpu.tokenizer.unigram import UnigramTokenizer as JUnigram
+    from embedding_cpp_tpu_torch.tokenizer import UnigramTokenizer, load_tokenizer
+
+    data = _unigram_blobs()[blob]
+    ours, theirs = load_tokenizer(data), JUnigram(data)
+    assert isinstance(ours, UnigramTokenizer)
+    if blob == "precompiled":
+        assert json.loads(data)["normalizer"]["type"] == "Precompiled"
+    rng = random.Random(3)
+    fuzz = ["".join(rng.choice(UNIGRAM_ALPHABET) for _ in range(rng.randint(0, 40)))
+            for _ in range(300)]
+    for text in UNIGRAM_TEXTS + fuzz:
+        ids = ours.encode(text)
+        assert ids == theirs.encode(text), repr(text)
+        assert [ours.id_to_token(i) for i in ids] == [theirs.id_to_token(i) for i in ids]
+    assert ours.encode_batch(UNIGRAM_TEXTS) == theirs.encode_batch(UNIGRAM_TEXTS)
