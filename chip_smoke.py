@@ -15,7 +15,10 @@ Phases, in order, each printing JSON lines:
             (12 of 32, 12 of 64) and K4 (position bias), the long-row K5 and
             the sliding-window K7 (ModernBERT), K1 at DeBERTa-v3-base's linears
             and the disentangled attention K9 (key bias) / K10 (segments)
-            at [32, 512, 12x64]
+            at [32, 512, 12x64], K1 at nomic-embed-text-v1.5's linears
+            (SwiGLU: silu epilogue, gate prologue), the segment attention K6
+            at [8, 2048, 12x64] in both forms (windowed over chunk-sized
+            segments, every key over document-sized ones) and its edge cases
   main      Engine.embed_tokens at MiniLM-L6 full width (384 wide, 6 layers,
             12 heads; Q4_0 weights from a seed, bf16 activations) over the
             2758-sentence STSB-profile corpus, packed and plain, f32 and int8
@@ -39,11 +42,25 @@ Phases, in order, each printing JSON lines:
             [32, 512], cosine and logits (the card's bf16 and f32 paths)
             against the port's CPU path; then K9 untimed at every [B, S]
             those plain and score forwards gave it, and K10 at a short S
+  nomic_main  nomic-embed-text-v1.5 at full width and depth (768 wide, 12
+            layers, 12 heads of 64, SwiGLU 3072, RoPE base 1000) over the
+            corpus at the default pack_seq 512, packed (K2) and plain (K3):
+            84 K1 (12 with the prologue) + 12 attention launches per forward,
+            sentences/s, in-device forward ms at [32, 512]
+  nomic_chunks  512 RAG chunks of 128-512 tokens through Engine(pack_seq=2048):
+            rows of 2048 on the windowed K6; chunks/s, padded token slots,
+            the [8, 2048] forward in-device and under torch.profiler, the
+            call's idle share
+  nomic_documents  32 documents of 600-1400 tokens packed "always" at 2048
+            (K6 over every key) and 8 documents of 8192 tokens, plain (K5,
+            NTK-scaled RoPE base): documents/s, in-device forward at [8, 8192]
+  nomic_vs_cpu  min cosine against the port's f32 CPU path: 256 sentences,
+            16 chunks packed at 2048, 2 documents of 2048 tokens
   profile   torch.profiler kernel times of the packed [32, 512] forwards
             (MiniLM-L6, ModernBERT, DeBERTa) and of the [8, 8192] ModernBERT
             forward
   server    the TCP server over the GPU engines: one raw text and one TPE2
-            batch (MiniLM-L6), one rerank frame (DeBERTa)
+            batch (MiniLM-L6, nomic), one rerank frame (DeBERTa)
 then the card's name and power limit, the `kernels` summary line (one entry
 per kernel and model: a model's launches beside the times at its shapes),
 and last {"ok": true, "device": {...}}.  Launch counts are set to 0 just before each
@@ -93,7 +110,8 @@ PEARSON_BF16_VS_BF16 = 0.995
 LOGIT_ERR_BF16_VS_BF16 = 0.015
 COSINE_SERVER = 0.9999  # wire replies vs engine.encode
 ATTENTION = ("attn_bse_packed", "attn_bse_keybias", "attn_bse_bias", "attn_bse_bias_packed",
-             "attn_long", "attn_local", "deberta_attn", "deberta_attn_packed")
+             "attn_long", "attn_local", "deberta_attn", "deberta_attn_packed", "attn_seg",
+             "attn_seg_window")
 
 # Published dense peaks by the name the card reports (NVIDIA data sheets):
 # memory bytes/s and bf16 tensor-core flop/s.
@@ -261,6 +279,10 @@ MODERNBERT_LINEARS = [("qkvo", 768, 768, None, 4, False),
 # relative table through q and k: 2 more launches at M = 512, not timed)
 DEBERTA_LINEARS = [("qkvo", 768, 768, None, 4, False), ("up", 768, 3072, "gelu_erf", 1, False),
                    ("down", 3072, 768, None, 1, False)]
+# nomic-embed-text-v1.5: SwiGLU, silu in the up projection's epilogue, the
+# gate multiplied in the down projection's prologue
+NOMIC_LINEARS = [("qkvo", 768, 768, None, 4, False), ("up", 768, 3072, "silu", 1, False),
+                 ("gate", 768, 3072, None, 1, False), ("down", 3072, 768, None, 1, True)]
 
 
 def phase_kernels_q4(peaks, model: str, shapes, all_types: tuple, bias: bool,
@@ -323,7 +345,7 @@ def phase_kernels_q4(peaks, model: str, shapes, all_types: tuple, bias: bool,
                     def lib():
                         xx = x * g if gated else x
                         y = torch.mm(xx, wd) if b is None else torch.addmm(b.to(dtype), xx, wd)
-                        return F.gelu(y) if act else y
+                        return {"gelu_erf": F.gelu, "silu": F.silu}[act](y) if act else y
 
                     case["library_ms"] = gpu_ms(lib)
                     nbytes = (x.numel() * 2 * (2 if gated else 1)
@@ -703,20 +725,144 @@ def phase_kernels_deberta_shapes(shapes, span: int, max_dist: int) -> None:
     torch.cuda.empty_cache()
 
 
-def _planned_forwards(eng, token_lists) -> tuple[int, int]:
-    """(packed, plain) forwards the engine's plan launches for the lists."""
-    from embedding_cpp_tpu_torch.runtime.batching import pack_batches, pack_segments
+def packed_rows(rng, b: int, s: int, lo: int, hi: int, tile: int = 0):
+    """seg/pos [b, s]: each row holds segments of lo..hi tokens in order and
+    ends in at least 16 padding slots (seg -1).  With `tile`, a segment
+    that would cross a multiple of `tile` ends on it instead, so segments
+    end exactly on the kernel's query-tile boundaries."""
+    seg = np.full((b, s), -1, np.int32)
+    pos = np.zeros((b, s), np.int32)
+    for i in range(b):
+        c = g = 0
+        while True:
+            n = int(rng.integers(lo, hi + 1))
+            if tile and c // tile != (c + n - 1) // tile:
+                n = (c // tile + 1) * tile - c
+            if c + n > s - 16:
+                break
+            seg[i, c:c + n], pos[i, c:c + n] = g, np.arange(n)
+            c, g = c + n, g + 1
+    return seg, pos
+
+
+def _segment_pairs(seg: np.ndarray, tq: int, wmax: int | None) -> float:
+    """The (query, key) pairs of seg [B, S] that share a segment id, the
+    padding id -1 included (padding queries attend padding keys), counting
+    for each query tile of `tq` rows only the keys of its wmax-key slice
+    (every key when wmax is None): the scores K6 must compute on this data."""
+    from embedding_cpp_tpu_torch.ops.attention import _slice_keys
+
+    b, s = seg.shape
+    kidx = (np.arange(s)[None] if wmax is None
+            else _slice_keys(s, tq, wmax, "cpu").numpy())
+    tq = s if wmax is None else tq
+    n = int(seg.max()) + 2  # ids -1..max shifted to 0..max+1
+    pairs = 0
+    for row in seg.astype(np.int64) + 1:
+        for t, keys in enumerate(kidx):
+            pairs += int(np.dot(np.bincount(row[t * tq:(t + 1) * tq], minlength=n),
+                                np.bincount(row[keys], minlength=n)))
+    return float(pairs)
+
+
+def phase_kernels_segment(peaks) -> dict:
+    """K6 at nomic's packed main-path shape [8, 2048, 12x64] in bf16
+    (timed) and f32: the windowed form over chunk-sized segments (128-512
+    tokens, bound 512: tq 256, wmax 1408) and the full form over
+    document-sized ones (600-1400 tokens, bound 2048: every key).  Untimed
+    edge cases: S = 1024 with a short bound (windowed at the envelope's
+    edge), S = 1152 (tq 128), S = 8192 in both forms, segments ending on
+    the 256-row tiles; every row ends in padding and one is all padding.
+    The library call is SDPA with the boolean block-diagonal [B, 1, S, S]
+    mask.  Bound: 4*H*d operations for each (query, key) pair that shares a
+    segment id within the query tile's key slice, padding pairs included
+    (`_segment_pairs`); beside it, that of every pair of the slice,
+    4*B*H*S*wmax*d (wmax = S for the full form), which is the work the
+    kernel does."""
+    import torch
+    import torch.nn.functional as F
+
+    from embedding_cpp_tpu_torch.ops.attention import (
+        attention_packed_plain,
+        attention_packed_window_plain,
+        flash_attention_packed,
+        packed_window_tiles,
+    )
+
+    dev = torch.device("cuda")
+    h, d = 12, 64
+    gen = torch.Generator(device="cpu").manual_seed(12)
+    rng = np.random.default_rng(12)
+    results = {}
+
+    def run(kernel, b, s, lo, hi, bound, dtype, timed, tile=0, empty_row=False):
+        seg_np, _ = packed_rows(rng, b, s, lo, hi, tile)
+        if empty_row:
+            seg_np[-1] = -1
+        tq, wmax = packed_window_tiles(s, bound)
+        check((wmax is not None) == (kernel == "attn_seg_window"), f"{kernel} S={s} {bound}")
+        seg = torch.from_numpy(seg_np).to(dev)
+        q, k, v = (torch.randn(b, s, h, d, generator=gen).to(dev, dtype) for _ in range(3))
+        plain = ((lambda *a: attention_packed_window_plain(*a, bound)) if wmax
+                 else attention_packed_plain)
+        heads = allowed = None
+        if timed:
+            heads = [t.transpose(1, 2).contiguous() for t in (q, k, v)]
+            allowed = (seg[:, :, None] == seg[:, None, :])[:, None]
+
+        def lib():
+            return F.scaled_dot_product_attention(*heads, attn_mask=allowed)
+        width = wmax or s
+        nbytes = 4 * q.numel() * q.element_size() + seg.numel() * 4
+        pairs = _segment_pairs(seg_np, tq, wmax)
+        c = _attention_case(
+            kernel, lambda *a: flash_attention_packed(*a, bound), plain, lib, (q, k, v, seg),
+            nbytes, 4.0 * h * pairs * d, peaks, timed, b=b, s=s, h=h, d=d,
+            max_seg_len=bound, tq=tq, wmax=width, segments=[lo, hi], tile_ends=tile or None,
+            pair_share=pairs / (b * s * width))
+        if timed:
+            c["bound_ms_key_slice"] = bound_ms(nbytes, 4.0 * b * h * s * width * d, peaks)[0]
+        return c
+
+    for dtype in (torch.bfloat16, torch.float32):
+        timed = dtype == torch.bfloat16
+        for kernel, lo, hi, bound in (("attn_seg_window", 128, 512, 512),
+                                      ("attn_seg", 600, 1400, 2048)):
+            c = run(kernel, 8, 2048, lo, hi, bound, dtype, timed)
+            if timed:
+                results[kernel] = c
+        for kernel, b, s, lo, hi, bound, tile in (
+                ("attn_seg_window", 2, 1024, 16, 100, 128, 256),
+                ("attn_seg_window", 2, 1152, 16, 128, 128, 128),
+                ("attn_seg_window", 3, 2048, 40, 300, 512, 256),
+                ("attn_seg", 3, 1152, 100, 500, None, 128),
+                ("attn_seg_window", 2, 8192, 128, 512, 512, 256),
+                ("attn_seg", 1, 8192, 1000, 3000, 8192, 256)):
+            run(kernel, b, s, lo, hi, bound, dtype, False, tile=tile, empty_row=b > 1)
+        torch.cuda.empty_cache()
+    return results
+
+
+def _packed_plan(eng, token_lists) -> list:
+    """The packed batches the engine's plan launches for the lists."""
+    from embedding_cpp_tpu_torch.runtime.batching import pack_segments
 
     plan = eng._pack_plan(token_lists)
-    rest = sorted(set(range(len(token_lists))) - set(plan))
-    packed = 0
-    if plan:
-        packed = len(pack_segments([token_lists[i] for i in plan], plan, eng.special_ids.pad,
-                                   seq_len=eng.pack_seq, n_seg=eng.pack_segs))
+    if not plan:
+        return []
+    return pack_segments([token_lists[i] for i in plan], plan, eng.special_ids.pad,
+                         seq_len=eng.pack_seq, n_seg=eng.pack_segs)
+
+
+def _planned_forwards(eng, token_lists) -> tuple[int, int]:
+    """(packed, plain) forwards the engine's plan launches for the lists."""
+    from embedding_cpp_tpu_torch.runtime.batching import pack_batches
+
+    rest = sorted(set(range(len(token_lists))) - set(eng._pack_plan(token_lists)))
     plain = len(pack_batches([token_lists[i] for i in rest], eng.special_ids.pad,
                              seq_buckets=eng.seq_buckets, batch_buckets=eng.batch_buckets,
                              max_seq=eng.config.n_ctx, max_tokens=eng.max_batch_tokens))
-    return packed, plain
+    return len(_packed_plan(eng, token_lists)), plain
 
 
 def _expected_forwards(eng, token_lists) -> int:
@@ -968,18 +1114,14 @@ def phase_modernbert_vs_cpu(counters, base, outs, token_lists) -> dict:
     cpu = Engine(base.params, base.config, base.tokenizer, base.special_ids, device="cpu")
     ref = cpu.embed_tokens(token_lists[:256])
 
-    def min_cos(a, b):
-        return float(np.min(np.sum(a * b, -1) / np.linalg.norm(a, axis=-1)
-                            / np.linalg.norm(b, axis=-1)))
-
-    cos = {f"sentences/{p}": min_cos(outs[p][:256], ref) for p in outs}
+    cos = {f"sentences/{p}": _min_cos(outs[p][:256], ref) for p in outs}
     docs = _documents(2, 2048, seed=6, special=base.special_ids)
     reset_counts(counters)
     got = base.embed_tokens(docs)
     torch.cuda.synchronize()
     counts = read_counts(counters)
     check(counts["attn_long"] == 8 and counts["attn_local"] == 14, f"2048: {counts}")
-    cos["documents_2048"] = min_cos(got, cpu.embed_tokens(docs))
+    cos["documents_2048"] = _min_cos(got, cpu.embed_tokens(docs))
     emit({"phase": "modernbert_vs_cpu", "sentences": 256, "documents": 2,
           "document_tokens": 2048, "min_cosine": cos, "threshold": COSINE_VS_CPU,
           "launches_2048": counts})
@@ -1161,6 +1303,237 @@ def phase_deberta_main(counters, token_lists, out_dir) -> tuple:
     return base, total, (base.params, config, pids, seg, pos)
 
 
+def _nomic_counts_ok(counts: dict, attention: dict, what: str) -> None:
+    """Per forward: 84 K1 launches (seven linears, 12 layers), 12 with the
+    prologue (the SwiGLU gate), and 12 of the routed attention kernel;
+    `attention` maps each routed counter to its forwards."""
+    forwards = sum(attention.values())
+    check(counts["q4_matmul"] == 84 * forwards
+          and counts["q4_matmul_prologue"] == 12 * forwards, f"{what}: K1 {counts}")
+    check(all(counts[k] == 12 * n for k, n in attention.items())
+          and sum(counts[k] for k in ATTENTION) == 12 * forwards, f"{what}: attention {counts}")
+
+
+def _run_counted(counters, eng, token_lists, attention: dict, what: str) -> tuple:
+    """One embed_tokens call with every count set to 0 just before it and
+    read just after; checks the launches and the output's shape and norms."""
+    import torch
+
+    reset_counts(counters)
+    out = eng.embed_tokens(token_lists)
+    torch.cuda.synchronize()
+    counts = read_counts(counters)
+    emit({"phase": "nomic_launches", "what": what, "forwards": attention, "launches": counts})
+    _nomic_counts_ok(counts, attention, what)
+    check(all(counts[k] > 0 for k in attention), f"{what}: {counts}")
+    norms = np.linalg.norm(out, axis=-1)
+    check(np.isfinite(out).all() and out.shape == (len(token_lists), eng.n_embd)
+          and np.abs(norms - 1.0).max() <= 1e-3, f"{what}: output {out.shape}")
+    return out, counts
+
+
+def _best_s(fn, runs: int) -> float:
+    best = float("inf")
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def _min_cos(a: np.ndarray, b: np.ndarray) -> float:
+    return float(np.min(np.sum(a * b, -1) / np.linalg.norm(a, axis=-1)
+                        / np.linalg.norm(b, axis=-1)))
+
+
+def phase_nomic_main(counters, token_lists) -> tuple:
+    """nomic-embed-text-v1.5 at full width and depth (Q4_0 weights from seed
+    0, bf16 activations) over the corpus at the default pack_seq 512:
+    packed (K2) and plain (K3)."""
+    import torch
+
+    from embedding_cpp_tpu_torch import Engine
+    from embedding_cpp_tpu_torch.models import NOMIC_EMBED, ComputeOptions
+    from embedding_cpp_tpu_torch.models.bert import bert_embed_batch, bert_embed_packed
+
+    # full width and depth; the one cut is the vocab (1000 synthetic words)
+    config = replace(NOMIC_EMBED, n_vocab=1000, name="nomic-embed-text-v1.5-synthetic")
+    opts = ComputeOptions(dtype="bfloat16")
+    base = Engine.synthetic(config, "q4_0", seed=0, opts=opts, device="cuda")
+    engines = {packing: Engine(base.params, config, base.tokenizer, base.special_ids,
+                               opts=opts, device="cuda", packing=packing)
+               for packing in ("auto", "never")}
+    launches, outs = {}, {}
+    for packing, eng in engines.items():
+        packed, plain = _planned_forwards(eng, token_lists)
+        routes = {k: n for k, n in (("attn_bse_packed", packed),
+                                    ("attn_bse_keybias", plain)) if n}
+        outs[packing], launches[packing] = _run_counted(counters, eng, token_lists, routes,
+                                                        f"corpus, packing {packing}")
+    best = {p: _best_s(lambda e=eng: e.embed_tokens(token_lists), 3)
+            for p, eng in engines.items()}
+
+    rng = np.random.default_rng(3)
+    dev = torch.device("cuda")
+    ids = torch.from_numpy(rng.integers(4, config.n_vocab, (32, 512)).astype(np.int32)).to(dev)
+    mask = torch.ones(32, 512, dtype=torch.int32, device=dev)
+    seg_np, pos_np = serving_segments(rng, 32, 512)
+    pids = rng.integers(4, config.n_vocab, (32, 512)).astype(np.int32)
+    pids[seg_np < 0] = 0
+    pids, seg, pos = (torch.from_numpy(a).to(dev) for a in (pids, seg_np, pos_np))
+    with torch.inference_mode():
+        plain_ms = gpu_ms(lambda: bert_embed_batch(base.params, ids, mask, config, opts),
+                          samples=5, reps=2, spin=500_000_000)
+        packed_ms = gpu_ms(lambda: bert_embed_packed(base.params, pids, seg, pos, config,
+                                                     opts, n_seg=64),
+                           samples=5, reps=2, spin=500_000_000)
+    emit({"phase": "nomic_main", "model": config.name, "weights": "q4_0",
+          "activations": "bfloat16", "sentences": len(token_lists),
+          "tokens": sum(len(t) for t in token_lists),
+          "sentences_per_sec_packed": len(token_lists) / best["auto"],
+          "sentences_per_sec_plain": len(token_lists) / best["never"],
+          "forward_ms_in_device_b32_s512": plain_ms,
+          "packed_forward_ms_in_device_b32_s512": packed_ms,
+          "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+    total = {name: sum(c[name] for c in launches.values()) for name in counters}
+    return base, outs, total
+
+
+def _chunks(n: int, lo: int, hi: int, seed: int, special) -> list[list[int]]:
+    """n token lists of lo..hi tokens: [CLS] ids [SEP] (RAG chunks)."""
+    rng = np.random.default_rng(seed)
+    return [[special.cls] + rng.integers(4, 1000, int(m) - 2).tolist() + [special.sep]
+            for m in rng.integers(lo, hi + 1, n)]
+
+
+def phase_nomic_chunks(counters, base, out_dir) -> tuple:
+    """512 RAG chunks of 128-512 tokens (seed 0) through Engine(pack_seq=
+    2048): auto packing puts every chunk in rows of 2048 with the bound
+    512, so every layer takes the windowed K6 (wmax 1408).  Reports the
+    padded token slots of the plan; profiles the [8, 2048] forward and the
+    whole call."""
+    import torch
+
+    from embedding_cpp_tpu_torch import Engine
+    from embedding_cpp_tpu_torch.models.bert import bert_embed_packed
+    from embedding_cpp_tpu_torch.ops.attention import packed_window_tiles
+    from embedding_cpp_tpu_torch.runtime.engine import segment_bound
+
+    eng = Engine(base.params, base.config, base.tokenizer, base.special_ids, opts=base.opts,
+                 device="cuda", pack_seq=2048)
+    chunks = _chunks(512, 128, 512, seed=0, special=base.special_ids)
+    plan = _packed_plan(eng, chunks)
+    bounds = [segment_bound(pb) for pb in plan]
+    check(sum(len(pb.orig) for pb in plan) == len(chunks) and set(bounds) == {512}
+          and packed_window_tiles(2048, 512) == (256, 1408), f"chunk plan {bounds}")
+    tokens = sum(len(t) for t in chunks)
+    slots = sum(pb.ids.size for pb in plan)
+    _, counts = _run_counted(counters, eng, chunks, {"attn_seg_window": len(plan)}, "chunks")
+    best = _best_s(lambda: eng.embed_tokens(chunks), 3)
+    pb = plan[0]
+    dev = torch.device("cuda")
+    ids, seg, pos = (torch.from_numpy(a[:8]).to(dev) for a in (pb.ids, pb.seg, pb.pos))
+
+    def forward():
+        return bert_embed_packed(base.params, ids, seg, pos, base.config, base.opts,
+                                 n_seg=eng.pack_segs, max_seg_len=512)
+
+    with torch.inference_mode():
+        fwd_ms = gpu_ms(forward, samples=5, reps=2, spin=500_000_000)
+        _, rows, table = _profiled(forward)
+    _save(out_dir, "profile_nomic_packed_forward_b8_s2048.txt", table)
+    emit({"phase": "profile", "model": base.config.name, "what": "packed forward [8, 2048]",
+          "device_busy_ms": sum(r[1] for r in rows) / 1e3,
+          "top": [{"name": k[:80], "device_ms": us / 1e3, "calls": n}
+                  for k, us, n in rows[:8]]})
+    wall_ms, rows, table = _profiled(lambda: eng.embed_tokens(chunks))
+    _save(out_dir, "profile_nomic_chunks_embed_tokens.txt", table)
+    busy_ms = sum(r[1] for r in rows) / 1e3
+    emit({"phase": "profile", "model": base.config.name,
+          "what": "embed_tokens, 512 chunks, pack_seq 2048",
+          "wall_ms_under_profiler": wall_ms, "device_busy_ms": busy_ms,
+          "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms)})
+    emit({"phase": "nomic_chunks", "chunks": len(chunks), "tokens": tokens,
+          "pack_seq": eng.pack_seq, "batch_shapes": [list(b.ids.shape) for b in plan],
+          "token_slots": slots, "padded_token_slots": slots - tokens,
+          "max_seg_len": 512, "chunks_per_sec": len(chunks) / best,
+          "packed_forward_ms_in_device_b8_s2048": fwd_ms,
+          "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+    return chunks, counts
+
+
+def phase_nomic_documents(counters, base) -> dict:
+    """32 documents of 600-1400 tokens through Engine(pack_seq=2048,
+    packing="always"): the bound is 2048, so every key (K6a); and 8
+    documents of 8192 tokens, plain, through K5 with the NTK-scaled base."""
+    import torch
+
+    from embedding_cpp_tpu_torch import Engine
+    from embedding_cpp_tpu_torch.models.bert import bert_embed_batch
+    from embedding_cpp_tpu_torch.runtime.engine import segment_bound
+
+    eng = Engine(base.params, base.config, base.tokenizer, base.special_ids, opts=base.opts,
+                 device="cuda", pack_seq=2048, packing="always")
+    docs = _chunks(32, 600, 1400, seed=1, special=base.special_ids)
+    plan = _packed_plan(eng, docs)
+    check(sum(len(pb.orig) for pb in plan) == len(docs)
+          and {segment_bound(pb) for pb in plan} == {2048}, "document plan")
+    _, counts = _run_counted(counters, eng, docs, {"attn_seg": len(plan)}, "documents, packed")
+    best = _best_s(lambda: eng.embed_tokens(docs), 3)
+
+    long_docs = _documents(8, 8192, seed=7, special=base.special_ids)
+    check(_planned_forwards(base, long_docs) == (0, 1), "8 documents of 8192: one forward")
+    _, long_counts = _run_counted(counters, base, long_docs, {"attn_long": 1},
+                                  "documents of 8192 tokens")
+    best_long = _best_s(lambda: base.embed_tokens(long_docs), 2)
+    dev = torch.device("cuda")
+    ids = torch.tensor(long_docs, dtype=torch.int32, device=dev)
+    mask = torch.ones_like(ids)
+    with torch.inference_mode():
+        fwd_ms = gpu_ms(lambda: bert_embed_batch(base.params, ids, mask, base.config, base.opts),
+                        samples=3, reps=1, spin=500_000_000)
+    emit({"phase": "nomic_documents", "documents": len(docs),
+          "tokens": sum(len(t) for t in docs), "pack_seq": 2048, "packing": "always",
+          "batch_shapes": [list(b.ids.shape) for b in plan],
+          "documents_per_sec": len(docs) / best,
+          "long_documents": len(long_docs), "tokens_per_long_document": 8192,
+          "long_documents_per_sec": len(long_docs) / best_long,
+          "forward_ms_in_device_b8_s8192": fwd_ms,
+          "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+    return {k: counts[k] + long_counts[k] for k in counts}
+
+
+def phase_nomic_vs_cpu(counters, base, outs, token_lists, chunks) -> dict:
+    """The bf16 card path against the port's f32 CPU path (plain versions)
+    on the same weights: 256 corpus sentences (packed and plain), 16
+    chunks packed in rows of 2048 (K6b), 2 documents of 2048 tokens (K5)."""
+    import torch
+
+    from embedding_cpp_tpu_torch import Engine
+
+    def cpu_engine(**kw):
+        return Engine(base.params, base.config, base.tokenizer, base.special_ids,
+                      device="cpu", **kw)
+
+    ref = cpu_engine().embed_tokens(token_lists[:256])
+    cos = {f"sentences/{p}": _min_cos(outs[p][:256], ref) for p in outs}
+    kw = {"pack_seq": 2048, "packing": "always"}
+    gpu = Engine(base.params, base.config, base.tokenizer, base.special_ids, opts=base.opts,
+                 device="cuda", **kw)
+    few = chunks[:16]
+    got, counts = _run_counted(counters, gpu, few, {"attn_seg_window": len(_packed_plan(gpu, few))},
+                               "16 chunks")
+    cos["chunks_packed_2048"] = _min_cos(got, cpu_engine(**kw).embed_tokens(few))
+    docs = _documents(2, 2048, seed=8, special=base.special_ids)
+    got, doc_counts = _run_counted(counters, base, docs, {"attn_long": 1}, "2 documents of 2048")
+    cos["documents_2048"] = _min_cos(got, cpu_engine().embed_tokens(docs))
+    emit({"phase": "nomic_vs_cpu", "sentences": 256, "chunks": len(few), "documents": 2,
+          "document_tokens": 2048, "min_cosine": cos, "threshold": COSINE_VS_CPU})
+    check(min(cos.values()) >= COSINE_VS_CPU, f"nomic cosine vs CPU {cos}")
+    torch.cuda.empty_cache()
+    return {k: counts[k] + doc_counts[k] for k in counts}
+
+
 def _profiled(fn):
     """Run `fn` under torch.profiler; returns (wall ms inside the profiled
     region, kernel rows [(name, device us, calls)] by device time, table)."""
@@ -1265,7 +1638,7 @@ def phase_server(engine) -> None:
     with _serving(engine) as port, socket.create_connection(("127.0.0.1", port), 10) as s:
         s.settimeout(60)
         (n_embd,) = struct.unpack("<i", _recv(s, 4))
-        check(n_embd == 384, f"handshake n_embd {n_embd}")
+        check(n_embd == engine.n_embd, f"handshake n_embd {n_embd}")
         s.sendall(texts[1].encode())
         raw = np.frombuffer(_recv(s, 4 * n_embd), np.float32)
         body = b"".join(struct.pack("<I", len(t.encode())) + t.encode() for t in texts)
@@ -1276,7 +1649,8 @@ def phase_server(engine) -> None:
     cos_raw = float(np.dot(raw, want[1]) / np.linalg.norm(raw) / np.linalg.norm(want[1]))
     cos_tpe2 = float(np.min(np.sum(vecs * want, -1) / np.linalg.norm(vecs, axis=-1)
                             / np.linalg.norm(want, axis=-1)))
-    emit({"phase": "server", "n_embd": n_embd, "raw_cosine": cos_raw,
+    emit({"phase": "server", "model": engine.config.name, "n_embd": n_embd,
+          "raw_cosine": cos_raw,
           "tpe2_min_cosine": cos_tpe2, "threshold": COSINE_SERVER})
     check(min(cos_raw, cos_tpe2) >= COSINE_SERVER, "server replies differ from encode")
 
@@ -1341,11 +1715,15 @@ def main() -> None:
                            bias=False, seed=2)
     k1d = phase_kernels_q4(peaks, "deberta-v3-base", DEBERTA_LINEARS, ("down",),
                            bias=True, seed=3)
+    k1n = phase_kernels_q4(peaks, "nomic-embed-text-v1.5", NOMIC_LINEARS, ("down",),
+                           bias=False, seed=4)
     attn = phase_kernels_attention(peaks, "minilm-l6", 12, 32, seed=0)
+    # ModernBERT's global layers and nomic share this shape: [32, 512, 12x64]
     attn_mb = phase_kernels_attention(peaks, "modernbert-base", 12, 64, seed=2)
     attn.update(phase_kernels_bias(peaks))
     attn.update(phase_kernels_long(peaks))
     attn.update(phase_kernels_deberta(peaks))
+    attn.update(phase_kernels_segment(peaks))
     counters = {"q4_matmul": (q4_matmul, "launches"),
                 "q4_matmul_prologue": (q4_matmul, "prologue_launches"),
                 "attn_bse_packed": (A.flash_attention_packed_bse, "launches"),
@@ -1355,16 +1733,23 @@ def main() -> None:
                 "attn_long": (A.flash_attention, "launches"),
                 "attn_local": (A.flash_attention_local, "launches"),
                 "deberta_attn": (DA.disentangled_attention, "launches"),
-                "deberta_attn_packed": (DA.disentangled_attention_packed, "launches")}
+                "deberta_attn_packed": (DA.disentangled_attention_packed, "launches"),
+                "attn_seg": (A.flash_attention_packed, "launches"),
+                "attn_seg_window": (A.flash_attention_packed, "window_launches")}
     engine, forward_args, launches, token_lists = phase_main(counters)
     mb, mb_outs, mb_launches, mb_forward_args = phase_modernbert_main(counters, token_lists)
     long_launches = phase_modernbert_long(counters, mb, out_dir)
     phase_modernbert_vs_cpu(counters, mb, mb_outs, token_lists)
     de, de_total, de_forward_args = phase_deberta_main(counters, token_lists, out_dir)
+    nomic, nomic_outs, nomic_total = phase_nomic_main(counters, token_lists)
+    chunks, chunk_counts = phase_nomic_chunks(counters, nomic, out_dir)
+    doc_counts = phase_nomic_documents(counters, nomic)
+    vs_counts = phase_nomic_vs_cpu(counters, nomic, nomic_outs, token_lists, chunks)
     phase_profile(forward_args, engine, token_lists, out_dir)
     phase_profile(mb_forward_args, mb, token_lists, out_dir, tag="modernbert_")
     phase_profile(de_forward_args, de, token_lists, out_dir, tag="deberta_")
     phase_server(engine)
+    phase_server(nomic)
     phase_rerank_server(de)
 
     # each model's launches beside the times at that model's shapes
@@ -1375,6 +1760,10 @@ def main() -> None:
                "bound_by": k1["bound_by"]}
     k1_de = {**k1d["per_layer"], "max_abs_err": k1d["max_abs_err"],
              "bound_by": k1d["bound_by"]}
+    k1_no = {**k1n["per_layer"], "max_abs_err": k1n["max_abs_err"],
+             "bound_by": k1n["bound_by"]}
+    nomic_total = {k: nomic_total[k] + chunk_counts[k] + doc_counts[k] + vs_counts[k]
+                   for k in counters}
     kernels = [
         _entry("q4_matmul", "q4_matmul.cu", "q4_matmul.py:126", launches["q4_matmul"],
                k1_mini, "MiniLM-L6: one layer's six linears (q,k,v,o 384->384; up "
@@ -1393,10 +1782,19 @@ def main() -> None:
                de_total["q4_matmul"], k1_de, "DeBERTa-v3-base: one layer's six linears "
                "(q,k,v,o 768->768; up 768->3072 + gelu_erf; down 3072->768) at M=16384, "
                "bf16, Q4_0 (the two relative-table projections at M=512 not timed)",
-               model="deberta-v3-base")]
+               model="deberta-v3-base"),
+        _entry("q4_matmul/nomic", "q4_matmul.cu", "q4_matmul.py:126",
+               nomic_total["q4_matmul"], k1_no, "nomic-embed-text-v1.5: one layer's seven "
+               "linears (q,k,v,o 768->768; up 768->3072 + silu; gate 768->3072; down "
+               "3072->768 with the prologue) at M=16384, bf16, Q4_0", model="nomic-embed"),
+        _entry("q4_matmul_prologue/nomic", "q4_matmul.cu", "q4_matmul.py:214",
+               nomic_total["q4_matmul_prologue"], k1n["prologue"],
+               "down 3072->768 with prologue_mul at M=16384, bf16, Q4_0",
+               model="nomic-embed")]
     for kname in ("attn_bse_packed", "attn_bse_keybias"):
         for suffix, count, c in (("", launches[kname], attn[kname]),
-                                 ("/modernbert", mb_total[kname], attn_mb[kname])):
+                                 ("/modernbert", mb_total[kname], attn_mb[kname]),
+                                 ("/nomic", nomic_total[kname], attn_mb[kname])):
             kernels.append(_entry(kname + suffix, "attention_bse.cu", "attention.py:213",
                                   count, c, f"[{c['b']}, {c['s']}, {c['h']}*{c['d']}] bf16",
                                   model=c["model"]))
@@ -1428,8 +1826,25 @@ def main() -> None:
                               model="deberta-v3-base",
                               library="SDPA with the materialised [B, H, S, S] c2p+p2c "
                                       "bias (bias build not timed)"))
+    c = attn["attn_long"]
+    kernels.append(_entry("attn_long/nomic", "attention_long.cu", "attention.py:26",
+                          nomic_total["attn_long"], c,
+                          f"[{c['b']}, {c['s']}, {c['h']}*{c['d']}] bf16, key padding",
+                          model="nomic-embed"))
+    for kname, line, what in (("attn_seg", 418, "every key (wmax = S)"),
+                              ("attn_seg_window", 500, "the tile's key slice")):
+        c = attn[kname]
+        kernels.append(_entry(kname, "attention_long.cu", f"attention.py:{line}",
+                              nomic_total[kname], c,
+                              f"[{c['b']}, {c['s']}, {c['h']}*{c['d']}] bf16, segments of "
+                              f"{c['segments'][0]}-{c['segments'][1]} tokens, max_seg_len "
+                              f"{c['max_seg_len']}, {what}: tq {c['tq']}, wmax {c['wmax']}",
+                              model="nomic-embed",
+                              bound_ms_key_slice=c["bound_ms_key_slice"],
+                              pair_share=c["pair_share"],
+                              library="SDPA with the boolean block-diagonal [B, 1, S, S] mask"))
     check(all(k["launches"] > 0 for k in kernels),
-          f"a kernel was never launched: {launches} {mb_total} {de_total}")
+          f"a kernel was never launched: {launches} {mb_total} {de_total} {nomic_total}")
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,7 @@
-// Long-row and sliding-window masked attention for Hopper (sm_90a), plain C
-// interface.
+// Long-row, sliding-window and packed-segment masked attention for Hopper
+// (sm_90a), plain C interface.
 //
-// Replaces two TPU kernels of embedding_cpp_tpu/ops/attention.py:
+// Replaces four TPU kernels of embedding_cpp_tpu/ops/attention.py:
 //   K5 `_attn_kernel` through `_flash_attention` / `_flash_attention_bias`
 //      (entry `flash_attention`): every key of the row, an additive f32 key
 //      bias [B, S] and an optional additive f32 position bias [PH, S, S]
@@ -14,6 +14,15 @@
 //      s*scale + (in window ? keybias : -1e9).  A block's 64 rows lie in one
 //      TPU tile and use that tile's slice, so padding rows whose slice is
 //      all padding get the TPU's uniform softmax over the slice, row for row.
+//   K6 `_attn_seg_kernel` (entry `flash_attention_packed`) and
+//      `_attn_seg_window_kernel`: packed rows, int32 segment ids [B, S]
+//      (-1 on padding): seg[q] == seg[k] ? s*scale : -1e9, exactly -1e9 for
+//      masked keys and no key-validity term, so padding queries attend the
+//      padding keys as on the TPU.  The windowed form (K6b) scores the TPU
+//      tile's slice by K7's rule with K6's tile (tq = 256 if S % 256 == 0,
+//      else 128) and wmax from the longest segment; the full form (K6a) is
+//      the same mode with wmax = S, the slice that is the whole row.  On
+//      real rows the two agree exactly: a masked key adds exp(-1e9 - m) = 0.
 // q/k/v/o are [B, S, H, d] (the projections' [B, S, H*d], read in place:
 // head h is the column slice h*d .. h*d+d; no transpose on either side).
 //
@@ -37,9 +46,12 @@
 // tensor-core peak) over 0.05 GB of q/k/v/o, so the tensor cores bound it,
 // and the 6.4e9 exps load the special-function unit beside them; the second
 // QK^T pass adds half the flops again.  K7 scores wmax = 512 keys per row,
-// 1/16 of that work, and is bound by the bytes (0.12 ms).  This first
+// 1/16 of that work, and is bound by the bytes (0.12 ms).  K6 at nomic's
+// packed [8, 2048, 12x64] scores 2048 (K6a) or wmax = 1408 (K6b, segments
+// of at most 512) keys per row: 0.10 / 0.07 ms of flops.  This first
 // version uses mma.sync through WMMA with synchronous tile loads (no
-// wgmma, no TMA, no pipelining); each block re-reads K/V from L2.
+// wgmma, no TMA, no pipelining); each block re-reads K/V from L2, and K6
+// scores every key tile of its slice, masked or not.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -135,10 +147,12 @@ __device__ __forceinline__ void warp_scores(float* sc, const T* qw, const T* kt,
   __syncwarp();
 }
 
-template <typename T, int D, bool LOCAL>
+enum Mode { kFull = 0, kLocal = 1, kSeg = 2 };
+
+template <typename T, int D, int MODE>
 __global__ void __launch_bounds__(NTHREADS) attn_long_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const float* __restrict__ keybias, const float* __restrict__ pbias, T* __restrict__ o,
+    const void* __restrict__ mask, const float* __restrict__ pbias, T* __restrict__ o,
     int S, int H, int PH, float scale, int tq, int wmax, int window) {
   using L = Layout<T, D>;
   constexpr int LD = L::kRowLd;
@@ -151,12 +165,14 @@ __global__ void __launch_bounds__(NTHREADS) attn_long_kernel(
   const int q0 = blockIdx.x * TQ, h = blockIdx.y, b = blockIdx.z;
   const int E = H * D, col0 = h * D;
   const size_t base = (size_t)b * S * E;
-  const float* kb = keybias + (size_t)b * S;
+  // the key bias (K5, K7) or the segment ids (K6) of this row
+  const float* kb = static_cast<const float*>(mask) + (size_t)b * S;
+  const int* sg = static_cast<const int*>(mask) + (size_t)b * S;
   float* sc = reinterpret_cast<float*>(smem + L::sc_off) + warp * WROWS * L::kScLd;
 
   // the key range this block scores: all of S, or its TPU tile's slice
   int kbeg = 0, kend = S;
-  if constexpr (LOCAL) {
+  if constexpr (MODE != kFull) {
     const int qtile = (q0 / tq) * tq;
     kbeg = floordiv(qtile + floordiv(tq - wmax, 2), 8) * 8;
     kbeg = min(max(kbeg, 0), S - wmax);
@@ -181,9 +197,12 @@ __global__ void __launch_bounds__(NTHREADS) attn_long_kernel(
   const int qrow = min(qg, S - 1);  // rows past S are computed, never stored
   const float* pb = pbias == nullptr ? nullptr
                                      : pbias + ((size_t)(h % PH) * S + qrow) * S;
+  const int segq = MODE == kSeg ? sg[qrow] : 0;
   auto score = [&](int j, int key) {
     const float s = __fmul_rn(sc[r * L::kScLd + j], scale);
-    if constexpr (LOCAL) {
+    if constexpr (MODE == kSeg) {
+      return sg[key] == segq ? s : kMaskBias;
+    } else if constexpr (MODE == kLocal) {
       const int dist = qg > key ? qg - key : key - qg;
       return __fadd_rn(s, dist <= window / 2 ? kb[key] : kMaskBias);
     } else {
@@ -288,32 +307,44 @@ __global__ void __launch_bounds__(NTHREADS) attn_long_kernel(
   }
 }
 
-template <typename T, int D, bool LOCAL>
-int launch(const void* q, const void* k, const void* v, const float* keybias,
+template <typename T, int D, int MODE>
+int launch(const void* q, const void* k, const void* v, const void* mask,
            const float* pbias, void* o, int B, int S, int H, int PH, float scale,
            int tq, int wmax, int window, cudaStream_t st) {
   using L = Layout<T, D>;
   if (L::bytes > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        attn_long_kernel<T, D, LOCAL>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes);
+        attn_long_kernel<T, D, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   dim3 grid((S + TQ - 1) / TQ, H, B);
-  attn_long_kernel<T, D, LOCAL><<<grid, NTHREADS, L::bytes, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), keybias,
+  attn_long_kernel<T, D, MODE><<<grid, NTHREADS, L::bytes, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), mask,
       pbias, static_cast<T*>(o), S, H, PH, scale, tq, wmax, window);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool LOCAL>
-int dispatch_d(const void* q, const void* k, const void* v, const float* keybias,
+template <typename T, int MODE>
+int dispatch_d(const void* q, const void* k, const void* v, const void* mask,
                const float* pbias, void* o, int B, int S, int H, int D, int PH,
                float scale, int tq, int wmax, int window, cudaStream_t st) {
   switch (D) {
-    case 16: return launch<T, 16, LOCAL>(q, k, v, keybias, pbias, o, B, S, H, PH, scale, tq, wmax, window, st);
-    case 32: return launch<T, 32, LOCAL>(q, k, v, keybias, pbias, o, B, S, H, PH, scale, tq, wmax, window, st);
-    case 64: return launch<T, 64, LOCAL>(q, k, v, keybias, pbias, o, B, S, H, PH, scale, tq, wmax, window, st);
-    case 128: return launch<T, 128, LOCAL>(q, k, v, keybias, pbias, o, B, S, H, PH, scale, tq, wmax, window, st);
+    case 16: return launch<T, 16, MODE>(q, k, v, mask, pbias, o, B, S, H, PH, scale, tq, wmax, window, st);
+    case 32: return launch<T, 32, MODE>(q, k, v, mask, pbias, o, B, S, H, PH, scale, tq, wmax, window, st);
+    case 64: return launch<T, 64, MODE>(q, k, v, mask, pbias, o, B, S, H, PH, scale, tq, wmax, window, st);
+    case 128: return launch<T, 128, MODE>(q, k, v, mask, pbias, o, B, S, H, PH, scale, tq, wmax, window, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename T>
+int dispatch_mode(int mode, const void* q, const void* k, const void* v, const void* mask,
+                  const float* pbias, void* o, int B, int S, int H, int D, int PH,
+                  float scale, int tq, int wmax, int window, cudaStream_t st) {
+  switch (mode) {
+    case kFull: return dispatch_d<T, kFull>(q, k, v, mask, pbias, o, B, S, H, D, PH, scale, tq, wmax, window, st);
+    case kLocal: return dispatch_d<T, kLocal>(q, k, v, mask, pbias, o, B, S, H, D, PH, scale, tq, wmax, window, st);
+    case kSeg: return dispatch_d<T, kSeg>(q, k, v, mask, nullptr, o, B, S, H, D, PH, scale, tq, wmax, window, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -321,21 +352,21 @@ int dispatch_d(const void* q, const void* k, const void* v, const float* keybias
 }  // namespace
 
 // q/k/v/o [B, S, H, D] (bf16 when is_bf16, else f32), contiguous, 16-byte
-// aligned; keybias f32 [B, S].  pbias: f32 [PH, S, S] or null (K5 only).
-// local = 0 (K5): every key; local = 1 (K7): the TPU tile's slice, with
-// (tq, wmax) from local_window_tiles (S % tq == 0, tq % 64 == 0, wmax <= S)
-// and the window.  D in {16, 32, 64, 128}; `scale` multiplies the raw scores
-// (1/sqrt(D) rounded to f32 by the caller).  Returns cudaGetLastError().
+// aligned.  mask: f32 key bias [B, S] (modes 0, 1) or int32 segment ids
+// [B, S] (mode 2).  pbias: f32 [PH, S, S] or null (mode 0 only).
+// mode 0 (K5): every key; mode 1 (K7): the TPU tile's slice, with (tq,
+// wmax) from local_window_tiles and the window; mode 2 (K6): segments over
+// the TPU tile's slice, (tq, wmax) from packed_window_tiles, or wmax = S
+// for every key.  The slice needs S % tq == 0, tq % 64 == 0, wmax <= S.
+// D in {16, 32, 64, 128}; `scale` multiplies the raw scores (1/sqrt(D)
+// rounded to f32 by the caller).  Returns cudaGetLastError().
 extern "C" int attn_long_launch(const void* q, const void* k, const void* v,
-                                const float* keybias, const float* pbias, void* o,
+                                const void* mask, const float* pbias, void* o,
                                 int B, int S, int H, int D, int PH, float scale,
-                                int is_bf16, int local, int tq, int wmax, int window,
+                                int is_bf16, int mode, int tq, int wmax, int window,
                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    return local ? dispatch_d<__nv_bfloat16, true>(q, k, v, keybias, pbias, o, B, S, H, D, PH, scale, tq, wmax, window, st)
-                 : dispatch_d<__nv_bfloat16, false>(q, k, v, keybias, pbias, o, B, S, H, D, PH, scale, tq, wmax, window, st);
-  }
-  return local ? dispatch_d<float, true>(q, k, v, keybias, pbias, o, B, S, H, D, PH, scale, tq, wmax, window, st)
-               : dispatch_d<float, false>(q, k, v, keybias, pbias, o, B, S, H, D, PH, scale, tq, wmax, window, st);
+  if (is_bf16)
+    return dispatch_mode<__nv_bfloat16>(mode, q, k, v, mask, pbias, o, B, S, H, D, PH, scale, tq, wmax, window, st);
+  return dispatch_mode<float>(mode, q, k, v, mask, pbias, o, B, S, H, D, PH, scale, tq, wmax, window, st);
 }

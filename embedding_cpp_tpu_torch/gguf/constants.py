@@ -1,5 +1,5 @@
-"""GGUF format constants (the subset the BERT, ModernBERT and DeBERTa
-paths read).
+"""GGUF format constants (the subset the BERT, ModernBERT, DeBERTa and
+nomic-bert paths read).
 
 The same format semantics as the JAX package's `gguf/constants.py`: key
 names follow the GGUF BERT convention, tensor types follow ggml's
@@ -86,7 +86,7 @@ ARCH = "bert"
 
 
 class Keys:
-    """kv key names read by the BERT, ModernBERT and DeBERTa paths (every family
+    """kv key names read by the BERT-family paths (every family
     keeps the `bert.*` prefix; `general.architecture` names the family)."""
 
     ARCHITECTURE = "general.architecture"
@@ -119,6 +119,18 @@ class Keys:
     REL_ATTN_MAX_DIST = f"{ARCH}.attention.relative_max_distance"
     N_LABELS = f"{ARCH}.classifier.n_labels"
     HEAD_ACTIVATION = f"{ARCH}.classifier.activation"
+    # nomic-bert: dynamic-NTK RoPE scaling past the trained length, the
+    # checkpoint's bias layout and its FFN recipe
+    ROPE_SCALING_FACTOR = f"{ARCH}.rope.scaling_factor"
+    ROPE_MAX_TRAINED = f"{ARCH}.rope.max_trained_positions"
+    ATTN_BIAS = f"{ARCH}.attention.bias"
+    FFN_BIAS = f"{ARCH}.ffn_bias"
+    FFN_ACT = f"{ARCH}.ffn_activation"
+    FFN_GATED = f"{ARCH}.ffn_gated"
+    # named prompt prefixes: a JSON object {name: prefix}, and the name
+    # applied when the caller names none
+    PROMPTS = f"{ARCH}.prompts"
+    DEFAULT_PROMPT = f"{ARCH}.default_prompt_name"
 
     TOKENIZER_LIST = "tokenizer.ggml.tokens"
     TOKENIZER_UNK_ID = "tokenizer.ggml.unknown_token_id"

@@ -1,7 +1,7 @@
-"""Batched, masked BERT encoder forward pass in PyTorch (ModernBERT and
-DeBERTa configs dispatch to models/modernbert.py and models/deberta.py from
-the entry points), and the cross-encoder score path with its
-classification head.
+"""Batched, masked BERT encoder forward pass in PyTorch (ModernBERT,
+DeBERTa and nomic-bert configs dispatch to models/modernbert.py,
+models/deberta.py and models/nomic.py from the entry points), and the
+cross-encoder score path with its classification head.
 
 The BERT path of the JAX package's `models/bert.py`, on dicts of tensors:
 matmuls run in the activation dtype (bf16 for throughput, f32 for parity)
@@ -19,7 +19,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.attention import MASK_BIAS, flash_attention_bse, flash_attention_packed_bse
+from ..ops.attention import (
+    MASK_BIAS,
+    MAX_SEQ,
+    flash_attention_bse,
+    flash_attention_packed_bse,
+)
 from ..ops.linear import layer_norm, linear
 from ..ops.qtensor import QTensor, gather_rows
 from .config import BertConfig
@@ -213,6 +218,10 @@ def bert_embed_batch(params: dict, ids: torch.Tensor, mask: torch.Tensor,
         from .deberta import deberta_embed_batch
 
         return deberta_embed_batch(params, ids, mask, config, opts, gather_idx=gather_idx)
+    if config.arch == "nomic-bert":
+        from .nomic import nomic_embed_batch
+
+        return nomic_embed_batch(params, ids, mask, config, opts, gather_idx=gather_idx)
     x = embed_tokens(params, ids, config, opts)
     mask_bias = torch.where(mask.to(torch.bool), 0.0, MASK_BIAS).to(torch.float32)
     x = _run_layers(x, params["layers"], config, mask_bias)
@@ -223,13 +232,35 @@ def bert_embed_batch(params: dict, ids: torch.Tensor, mask: torch.Tensor,
     return _cast_output(out, opts)
 
 
+def check_pack_seq(config: BertConfig, s: int) -> None:
+    """Raises ValueError when no kernel of `config`'s family serves packed
+    rows of `s` tokens (the Engine asks once, when it is built, not in the
+    middle of a forward)."""
+    if config.arch == "modernbert":
+        from .modernbert import check_pack_seq as family
+    elif config.arch == "nomic-bert":
+        from .nomic import check_pack_seq as family
+    else:
+        from ..ops.deberta_attention import MAX_SEQ as DEBERTA_MAX_SEQ
+
+        limit = DEBERTA_MAX_SEQ if config.arch == "deberta" else MAX_SEQ
+        if s > limit:
+            raise ValueError(f"{config.arch} packed rows of {s} tokens are not served: "
+                             f"its attention kernel stops at {limit}")
+        return
+    family(config, s)
+
+
 def bert_embed_packed(params: dict, ids: torch.Tensor, seg: torch.Tensor,
                       pos: torch.Tensor, config: BertConfig,
                       opts: ComputeOptions = ComputeOptions(), *, n_seg: int,
-                      gather_idx: torch.Tensor | None = None) -> torch.Tensor:
+                      gather_idx: torch.Tensor | None = None,
+                      max_seg_len: int | None = None) -> torch.Tensor:
     """Sequence-packed forward: ids/seg/pos [B, S] (seg -1 on padding, pos
     the within-segment position) -> [B, n_seg, n_embd], or the flat slots
-    `gather_idx` of B*n_seg, in the output encoding."""
+    `gather_idx` of B*n_seg, in the output encoding.  `max_seg_len` bounds
+    the longest segment; only nomic-bert's rows of 1024 tokens or more
+    use it (the windowed segment kernel)."""
     if config.arch == "modernbert":
         from .modernbert import modernbert_embed_packed
 
@@ -240,6 +271,11 @@ def bert_embed_packed(params: dict, ids: torch.Tensor, seg: torch.Tensor,
 
         return deberta_embed_packed(params, ids, seg, pos, config, opts,
                                     n_seg=n_seg, gather_idx=gather_idx)
+    if config.arch == "nomic-bert":
+        from .nomic import nomic_embed_packed
+
+        return nomic_embed_packed(params, ids, seg, pos, config, opts, n_seg=n_seg,
+                                  gather_idx=gather_idx, max_seg_len=max_seg_len)
     x = embed_tokens(params, ids, config, opts, positions=pos)
     x = _run_layers(x, params["layers"], config, None, seg=seg)
     pooled = pool_normalize_packed(x, seg, pos, n_seg, config.pooling, normalize=False)
@@ -273,6 +309,10 @@ def bert_score_batch(params: dict, ids: torch.Tensor, mask: torch.Tensor,
         from .deberta import deberta_score_batch
 
         return deberta_score_batch(params, ids, mask, config, opts, type_ids=type_ids)
+    if config.arch == "nomic-bert":
+        # no nomic-bert classification checkpoint exists; BERT's score path
+        # lacks RoPE, so it refuses instead of computing the wrong thing
+        raise ValueError("nomic-bert classification heads are not supported")
     if config.arch != "bert":
         raise NotImplementedError(f"{config.arch} score path is not ported yet")
     if "head" not in params:

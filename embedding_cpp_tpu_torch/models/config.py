@@ -1,7 +1,9 @@
-"""Model hyperparameters for the BERT, ModernBERT and DeBERTa encoder paths.
+"""Model hyperparameters for the BERT, ModernBERT, DeBERTa and nomic-bert
+encoder paths.
 
-The BERT (`arch="bert"`), ModernBERT (`arch="modernbert"`) and DeBERTa-v3
-(`arch="deberta"`) fields of the JAX package's `BertConfig`, read from
+The BERT (`arch="bert"`), ModernBERT (`arch="modernbert"`), DeBERTa-v3
+(`arch="deberta"`) and nomic-bert (`arch="nomic-bert"`) fields of the JAX
+package's `BertConfig`, read from
 GGUF kv metadata the same way: n_vocab from the token list length,
 everything else from `bert.*` keys, with per-family defaults for the keys a
 file leaves out.  Other encoder families are not ported yet; a file that
@@ -17,9 +19,11 @@ ARCH = "bert"
 # per-family defaults: (n_token_types, layer_norm_eps, rel_attn_buckets).
 # ModernBERT has no token-type or position table (RoPE), and eps 1e-5 (HF
 # ModernBertConfig); DeBERTa-v3 has neither table either (relative
-# positions only), eps 1e-7 and 256 position buckets
+# positions only), eps 1e-7 and 256 position buckets; nomic-bert keeps
+# BERT's two token types and eps, and rotates (RoPE) instead of a position
+# table
 _ARCH_DEFAULTS = {"bert": (2, 1e-12, 0), "modernbert": (0, 1e-5, 0),
-                  "deberta": (0, 1e-7, 256)}
+                  "deberta": (0, 1e-7, 256), "nomic-bert": (2, 1e-12, 0)}
 # classification-head activation per family: DeBERTa's ContextPooler and
 # ModernBERT's PredictionHead use GELU, BERT's pooler tanh
 HEAD_ACT_DEFAULTS = {"modernbert": "gelu", "deberta": "gelu"}
@@ -57,6 +61,15 @@ class BertConfig:
     local_rope_theta: float = 0.0
     global_attn_every: int = 0
     local_window: int = 0
+    # nomic-bert: dynamic-NTK RoPE scaling once the sequence length S
+    # exceeds rope_max_trained (factor > 0): base' = base * ((factor * S /
+    # max_trained) - (factor - 1)) ** (d / (d - 2)); attn_bias / ffn_bias
+    # say whether the Wqkv + out_proj / fc11 + fc12 + fc2 linears carry
+    # biases (published checkpoints have none)
+    rope_scaling_factor: float = 0.0
+    rope_max_trained: int = 0
+    attn_bias: bool = True
+    ffn_bias: bool = True
     # sequence-classification head (cross-encoder rerankers; 0 = embedding
     # model): logits = out(act(dense(h_cls))), act one of tanh/relu/gelu
     n_labels: int = 0
@@ -70,7 +83,8 @@ class BertConfig:
     @property
     def abs_positions(self) -> bool:
         """Whether the embeddings add an absolute-position table: BERT
-        does; ModernBERT rotates (RoPE) and DeBERTa attends relatively."""
+        does; ModernBERT and nomic-bert rotate (RoPE) and DeBERTa attends
+        relatively."""
         return self.arch == "bert"
 
     def __post_init__(self):
@@ -92,6 +106,12 @@ class BertConfig:
         # reference files say "bert" or nothing at all
         arch = str(kv.get(Keys.ARCHITECTURE, ARCH))
         ntt, eps, buckets = _ARCH_DEFAULTS.get(arch, _ARCH_DEFAULTS[ARCH])
+        # the nomic-bert forward is SwiGLU: refuse a file that declares
+        # another FFN rather than serve it as one
+        ffn = (str(kv.get(Keys.FFN_ACT, "silu")), bool(kv.get(Keys.FFN_GATED, True)))
+        if arch == "nomic-bert" and ffn != ("silu", True):
+            raise NotImplementedError(f"nomic-bert FFN {ffn[0]!r} (gated {ffn[1]}) is not "
+                                      "ported: only the gated silu (SwiGLU) is")
         return cls(
             n_vocab=len(kv[Keys.TOKENIZER_LIST]),
             n_ctx=int(kv[Keys.CONTEXT_LENGTH]),
@@ -114,6 +134,10 @@ class BertConfig:
             local_rope_theta=float(kv.get(Keys.ROPE_FREQ_BASE_LOCAL, 0.0)),
             global_attn_every=int(kv.get(Keys.GLOBAL_ATTN_EVERY, 0)),
             local_window=int(kv.get(Keys.LOCAL_ATTN_WINDOW, 0)),
+            rope_scaling_factor=float(kv.get(Keys.ROPE_SCALING_FACTOR, 0.0)),
+            rope_max_trained=int(kv.get(Keys.ROPE_MAX_TRAINED, 0)),
+            attn_bias=bool(kv.get(Keys.ATTN_BIAS, arch != "nomic-bert")),
+            ffn_bias=bool(kv.get(Keys.FFN_BIAS, arch != "nomic-bert")),
             n_labels=int(kv.get(Keys.N_LABELS, 0)),
             head_activation=str(kv.get(Keys.HEAD_ACTIVATION,
                                        HEAD_ACT_DEFAULTS.get(arch, "tanh"))),
@@ -143,4 +167,14 @@ DEBERTA_V3_BASE = BertConfig(
     n_token_types=0, arch="deberta", layer_norm_eps=1e-7,
     rel_attn_buckets=256, rel_attn_max_dist=512,
     name="deberta-v3-base",
+)
+# nomic-ai/nomic-embed-text-v1.5 geometry (NomicBertModel): post-norm RoPE
+# blocks (base 1000), SwiGLU FFN 3072, bias-free attention and FFN
+# linears, dynamic-NTK scaling past the 2048 trained positions up to the
+# 8192-token context
+NOMIC_EMBED = BertConfig(
+    n_vocab=30528, n_ctx=8192, n_embd=768, n_layer=12, n_head=12, n_ff=3072,
+    arch="nomic-bert", rope_theta=1000.0, rope_scaling_factor=2.0,
+    rope_max_trained=2048, attn_bias=False, ffn_bias=False,
+    name="nomic-embed-text-v1.5",
 )

@@ -30,6 +30,7 @@ import torch
 
 from ..ops.attention import (
     MASK_BIAS,
+    MAX_SEQ,
     fits_bias_bse,
     flash_attention,
     flash_attention_bse,
@@ -79,6 +80,18 @@ def window_bias(s: int, window: int, device) -> torch.Tensor:
     return torch.where(inside, 0.0, MASK_BIAS).to(torch.float32)[None]
 
 
+def check_pack_seq(config: BertConfig, s: int) -> None:
+    """Refuses packed rows of `s` tokens past the projection-layout
+    kernel's envelope: they would need a segment mask with the sliding
+    window, which no kernel of the port has (the reference runs them
+    through XLA with a [B, S, S] bias)."""
+    if not fits_bias_bse(s, config.head_dim):
+        raise ValueError(
+            f"ModernBERT packed rows of {s} tokens are not served: past {MAX_SEQ} they "
+            "need a segment mask with the sliding window, which no kernel of the port "
+            f"has (use pack_seq <= {MAX_SEQ} or packing='never')")
+
+
 def _ln(x: torch.Tensor, scale: torch.Tensor, eps: float, out_dtype) -> torch.Tensor:
     """Bias-free LayerNorm."""
     return layer_norm(x, scale, 0.0, eps, out_dtype)
@@ -124,7 +137,7 @@ def _attention(xn: torch.Tensor, lp: dict, i: int, ctx: _Ctx,
     local = ctx.is_local[i]
     if ctx.long:
         if ctx.seg is not None:
-            raise ValueError(f"packed rows of {s} tokens exceed the 1024 envelope")
+            check_pack_seq(config, s)
         if local and ctx.sliced:
             att = flash_attention_local(q, k, v, ctx.pad, config.local_window)
         else:

@@ -1,12 +1,13 @@
 """Parameter construction: GGUF files, raw state dicts or a JAX parameter
 tree -> dicts of torch tensors on a device.
 
-The BERT, ModernBERT and DeBERTa paths of the JAX package's
+The BERT, ModernBERT, DeBERTa and nomic-bert paths of the JAX package's
 `models/params.py`: tensors are shape-checked against the schema,
 per-layer tensors are stacked on a leading layer axis, and quantized
 matmul weights and the word table stay packed in the QTensor layout
-(ops/qtensor.py) — weights stay 4- or 8-bit in device memory.  ModernBERT's
-fused Wqkv and Wi split at load into q/k/v and up/gate.  Encoder-level
+(ops/qtensor.py) — weights stay 4- or 8-bit in device memory.  The fused
+Wqkv (ModernBERT, nomic-bert; nomic's bias too) and ModernBERT's Wi split
+at load into q/k/v and up/gate.  Encoder-level
 tensors (DeBERTa's relative table) and a classification head load dense
 f32.
 """
@@ -39,9 +40,12 @@ FTYPE_NAMES = {
     "q8_0": GGUFFileType.MOSTLY_Q8_0,
 }
 
-_MATMUL_KEYS = frozenset({"q_w", "k_w", "v_w", "o_w", "ffn_up_w", "ffn_down_w"})
+_MATMUL_KEYS = frozenset({"q_w", "k_w", "v_w", "o_w", "ffn_up_w", "ffn_gate_w",
+                          "ffn_down_w"})
 # fused [out, in] tensors split into equal out-row groups at load
 _SPLIT_KEYS = {"wqkv": ("q_w", "k_w", "v_w"), "wi": ("ffn_up_w", "ffn_gate_w")}
+# fused biases split into equal thirds, matching the wqkv weight split
+_SPLIT_BIAS_KEYS = {"wqkv_b": ("q_b", "k_b", "v_b")}
 
 
 class _TensorSource:
@@ -151,6 +155,12 @@ def build_params(source: _TensorSource, config: BertConfig, *,
                                                    len(subkeys))
                 for subkey, v in zip(subkeys, parts):
                     per_layer.setdefault(subkey, []).append(v)
+                continue
+            if key in _SPLIT_BIAS_KEYS:
+                full = source.dense(name, shape, f32)
+                subkeys = _SPLIT_BIAS_KEYS[key]
+                for subkey, v in zip(subkeys, full.chunk(len(subkeys))):
+                    per_layer.setdefault(subkey, []).append(v.contiguous())
                 continue
             if key in _MATMUL_KEYS:
                 v = source.matmul_weight(name, shape, dense_dtype)

@@ -1,10 +1,11 @@
-"""GGUF tensor-name schema of the BERT, ModernBERT and DeBERTa encoders.
+"""GGUF tensor-name schema of the BERT, ModernBERT, DeBERTa and nomic-bert
+encoders.
 
 GGUF files keep the verbatim HF state-dict names.  This maps them to the
 parameter keys the forward reads (q_w, ffn_up_w, ln_att_scale, ...), with
-each tensor's expected [out, in] shape — the BERT, ModernBERT and DeBERTa
-entries of the JAX package's `models/schema.py`, and the classification
-heads of BERT and DeBERTa.
+each tensor's expected [out, in] shape — the BERT, ModernBERT, DeBERTa
+and nomic-bert entries of the JAX package's `models/schema.py`, and the
+classification heads of BERT and DeBERTa.
 """
 from __future__ import annotations
 
@@ -93,6 +94,46 @@ DEBERTA_EXTRA_TENSORS = {
     "encoder.LayerNorm.bias": ("rel_ln_bias", lambda c: (c.n_embd,)),
 }
 
+# --- nomic-bert ----------------------------------------------------------------
+# HF NomicBertModel names (nomic-embed-text-v1/v1.5): a fused attn.Wqkv
+# [3E, E] split at load into q/k/v like ModernBERT's, post-norm blocks
+# (norm1 after attention, norm2 after the MLP), and the SwiGLU MLP
+# fc2(fc11(x) * silu(fc12(x))).  fc12 is the activated half, so it maps to
+# ffn_up_w (the linear that carries the activation); fc11, the raw
+# multiplicand, to ffn_gate_w.  The bias rows join only when
+# config.attn_bias / config.ffn_bias say so (published checkpoints have
+# none); Wqkv's bias splits into q/k/v thirds.
+NOMIC_EMBEDDING_TENSORS = {
+    "embeddings.word_embeddings.weight": ("word", lambda c: (c.n_vocab, c.n_embd)),
+    "embeddings.token_type_embeddings.weight": (
+        "token_type", lambda c: (c.n_token_types, c.n_embd),
+    ),
+    "emb_ln.weight": ("ln_scale", lambda c: (c.n_embd,)),
+    "emb_ln.bias": ("ln_bias", lambda c: (c.n_embd,)),
+}
+
+_NOMIC_PREFIX = "encoder.layers.{i}."
+NOMIC_LAYER_TENSORS = {
+    _NOMIC_PREFIX + "attn.Wqkv.weight": ("wqkv", lambda c: (3 * c.n_embd, c.n_embd)),
+    _NOMIC_PREFIX + "attn.out_proj.weight": ("o_w", lambda c: (c.n_embd, c.n_embd)),
+    _NOMIC_PREFIX + "norm1.weight": ("ln_att_scale", lambda c: (c.n_embd,)),
+    _NOMIC_PREFIX + "norm1.bias": ("ln_att_bias", lambda c: (c.n_embd,)),
+    _NOMIC_PREFIX + "norm2.weight": ("ln_out_scale", lambda c: (c.n_embd,)),
+    _NOMIC_PREFIX + "norm2.bias": ("ln_out_bias", lambda c: (c.n_embd,)),
+    _NOMIC_PREFIX + "mlp.fc11.weight": ("ffn_gate_w", lambda c: (c.n_ff, c.n_embd)),
+    _NOMIC_PREFIX + "mlp.fc12.weight": ("ffn_up_w", lambda c: (c.n_ff, c.n_embd)),
+    _NOMIC_PREFIX + "mlp.fc2.weight": ("ffn_down_w", lambda c: (c.n_embd, c.n_ff)),
+}
+_NOMIC_ATTN_BIAS_TENSORS = {
+    _NOMIC_PREFIX + "attn.Wqkv.bias": ("wqkv_b", lambda c: (3 * c.n_embd,)),
+    _NOMIC_PREFIX + "attn.out_proj.bias": ("o_b", lambda c: (c.n_embd,)),
+}
+_NOMIC_FFN_BIAS_TENSORS = {
+    _NOMIC_PREFIX + "mlp.fc11.bias": ("ffn_gate_b", lambda c: (c.n_ff,)),
+    _NOMIC_PREFIX + "mlp.fc12.bias": ("ffn_up_b", lambda c: (c.n_ff,)),
+    _NOMIC_PREFIX + "mlp.fc2.bias": ("ffn_down_b", lambda c: (c.n_embd,)),
+}
+
 # --- sequence-classification heads (present only when n_labels > 0) ----------
 # logits = out(act(dense(h_cls))): BERT's pooler + classifier; DeBERTa's
 # ContextPooler (dense + gelu on the first token) has the same names.
@@ -119,6 +160,8 @@ def embedding_tensors(config) -> dict:
     no token-type table, a DeBERTa config with them has one."""
     if config.arch == "modernbert":
         return MODERNBERT_EMBEDDING_TENSORS
+    if config.arch == "nomic-bert":
+        return NOMIC_EMBEDDING_TENSORS
     if config.arch == "deberta":
         if not config.n_token_types:
             return DEBERTA_EMBEDDING_TENSORS
@@ -133,6 +176,10 @@ def layer_tensor_names(i: int, config=None) -> dict[str, tuple[str, object]]:
     arch = "bert" if config is None else config.arch
     templates = {"modernbert": MODERNBERT_LAYER_TENSORS,
                  "deberta": DEBERTA_LAYER_TENSORS}.get(arch, LAYER_TENSORS)
+    if arch == "nomic-bert":
+        templates = {**NOMIC_LAYER_TENSORS,
+                     **(_NOMIC_ATTN_BIAS_TENSORS if config.attn_bias else {}),
+                     **(_NOMIC_FFN_BIAS_TENSORS if config.ffn_bias else {})}
     named = {t.format(i=i): v for t, v in templates.items()}
     if arch == "modernbert" and i == 0:
         named = {k: v for k, v in named.items() if v[0] != "ln_att_scale"}

@@ -20,6 +20,11 @@ Long rows (q/k/v/o [B, S, H, d], a free view of the projections), kernel
                            `_flash_attention_bias`)
   `flash_attention_local`  the sliding window over the TPU tile's key slice
                            (TPU `_attn_local_kernel`)
+  `flash_attention_packed` segment-masked packed rows past the projection
+                           layout's envelope: every key (TPU
+                           `_attn_seg_kernel`), or, given the longest
+                           segment, the TPU query tile's key slice (TPU
+                           `_attn_seg_window_kernel`)
 The same order of operations in two passes over the key tiles (row max,
 then exp / sum / PV), so nothing is rescaled.  What bounds each kernel on
 an H100 and what its first version does about it is noted in its source.
@@ -28,7 +33,8 @@ Every wrapper launches its kernel for CUDA tensors, raises for what the
 kernel does not serve, and runs the plain version only for tensors on the
 CPU.  Each wrapper's `launches` counts its kernel launches; the two
 projection-layout wrappers count those with a position bias (K4) apart,
-in `bias_launches`.
+in `bias_launches`, and `flash_attention_packed` its windowed launches
+in `window_launches`.
 """
 from __future__ import annotations
 
@@ -138,10 +144,7 @@ def _local_slices(s: int, window: int, device) -> tuple[int, int, torch.Tensor]:
     tq, wmax = local_window_tiles(s, window)
     if wmax is None:
         raise ValueError(f"no sliding-window slice for S={s}, window={window}")
-    qs = torch.arange(0, s, tq, device=device)
-    kstart = torch.clamp(torch.div(qs + (tq - wmax) // 2, 8, rounding_mode="floor") * 8,
-                         0, s - wmax)
-    return tq, wmax, kstart[:, None] + torch.arange(wmax, device=device)[None, :]
+    return tq, wmax, _slice_keys(s, tq, wmax, device)
 
 
 def attention_local_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -162,6 +165,80 @@ def attention_local_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kt = k[:, kidx].permute(0, 1, 3, 4, 2).to(torch.float32)  # [B, nt, H, d, wmax]
     vt = v[:, kidx].permute(0, 1, 3, 2, 4)  # [B, nt, H, wmax, d]
     scores = torch.matmul(qt, kt) * scale + add[:, :, None]  # [B, nt, H, tq, wmax]
+    out = _softmax_pv(scores, vt, q.dtype)  # [B, nt, H, tq, d]
+    return out.permute(0, 1, 3, 2, 4).reshape(b, s, h, d)
+
+
+def packed_window_tiles(s: int, max_seg_len: int | None) -> tuple[int, int | None]:
+    """(tq, wmax) of the TPU windowed segment kernel: query tiles of tq
+    rows each score a slice of wmax keys, a margin of the longest segment
+    plus the 8-alignment slack on either side; wmax is None (the full
+    kernel runs) without a bound, for S % 128 != 0 or S < 1024, or when
+    the slice would not be narrower than S."""
+    tq = 256 if s % 256 == 0 else 128
+    if max_seg_len is None or s % 128 or s < 1024:
+        return tq, None
+    wmax = -(-(tq + 2 * max_seg_len + 24) // 128) * 128
+    return tq, wmax if wmax < s else None
+
+
+def packed_bse_applies(s: int, d: int, max_seg_len: int | None) -> bool:
+    """True when packed rows take the projection-layout kernel (K2): S in
+    128..1024 with aligned tiles, and the windowed segment kernel would not
+    apply (it needs the [B, S, H, d] layout and runs from S = 1024)."""
+    if s % 8 or d % 8 or not 128 <= s <= MAX_SEQ:
+        return False
+    return packed_window_tiles(s, max_seg_len)[1] is None
+
+
+def _slice_keys(s: int, tq: int, wmax: int, device) -> torch.Tensor:
+    """kidx [S/tq, wmax]: the key indices of each TPU query tile's slice,
+    kstart = clip(((qs + (tq - wmax)//2)//8)*8, 0, S - wmax)."""
+    qs = torch.arange(0, s, tq, device=device)
+    kstart = torch.clamp(torch.div(qs + (tq - wmax) // 2, 8, rounding_mode="floor") * 8,
+                         0, s - wmax)
+    return kstart[:, None] + torch.arange(wmax, device=device)[None, :]
+
+
+def attention_packed_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           seg: torch.Tensor) -> torch.Tensor:
+    """The full segment kernel's arithmetic in plain PyTorch: q/k/v [B, S,
+    H, d], seg [B, S] int32 -> [B, S, H, d]; seg[q] == seg[k] ? s*scale :
+    -1e9 over every key (padding rows, seg -1, attend the padding keys).
+    Query rows go in chunks so [B, H, rows, S] stays small."""
+    b, s, h, d = q.shape
+    scale = 1.0 / (d**0.5)
+    kh = k.permute(0, 2, 1, 3).to(torch.float32)
+    vh = v.permute(0, 2, 1, 3)
+    masked = torch.tensor(MASK_BIAS, dtype=torch.float32, device=q.device)
+    out = torch.empty_like(q)
+    rows = max(1, _PLAIN_CHUNK // max(1, b * h * s))
+    for r0 in range(0, s, rows):
+        qc = q[:, r0:r0 + rows].permute(0, 2, 1, 3).to(torch.float32)
+        allowed = (seg[:, r0:r0 + rows, None] == seg[:, None, :])[:, None]
+        scores = torch.where(allowed, torch.matmul(qc, kh.transpose(-1, -2)) * scale, masked)
+        out[:, r0:r0 + rows] = _softmax_pv(scores, vh, q.dtype).permute(0, 2, 1, 3)
+    return out
+
+
+def attention_packed_window_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                  seg: torch.Tensor, max_seg_len: int) -> torch.Tensor:
+    """The windowed segment kernel's arithmetic in plain PyTorch: each TPU
+    query tile scores only its slice's keys, seg[q] == seg[k] ? s*scale :
+    -1e9.  q/k/v [B, S, H, d] -> [B, S, H, d]."""
+    b, s, h, d = q.shape
+    scale = 1.0 / (d**0.5)
+    tq, wmax = packed_window_tiles(s, max_seg_len)
+    if wmax is None:
+        raise ValueError(f"no segment window for S={s}, max_seg_len={max_seg_len}")
+    kidx = _slice_keys(s, tq, wmax, q.device)
+    nt = s // tq
+    allowed = seg.reshape(b, nt, tq)[..., None] == seg[:, kidx][:, :, None, :]
+    qt = q.reshape(b, nt, tq, h, d).permute(0, 1, 3, 2, 4).to(torch.float32)
+    kt = k[:, kidx].permute(0, 1, 3, 4, 2).to(torch.float32)  # [B, nt, H, d, wmax]
+    vt = v[:, kidx].permute(0, 1, 3, 2, 4)  # [B, nt, H, wmax, d]
+    scores = torch.where(allowed[:, :, None], torch.matmul(qt, kt) * scale,
+                         torch.tensor(MASK_BIAS, dtype=torch.float32, device=q.device))
     out = _softmax_pv(scores, vt, q.dtype)  # [B, nt, H, tq, d]
     return out.permute(0, 1, 3, 2, 4).reshape(b, s, h, d)
 
@@ -247,29 +324,38 @@ def _launch_bse(q, k, v, mask, h: int, seg_mask: bool, pos_bias=None) -> torch.T
     return out
 
 
-def _launch_long(q, k, v, mask_bias, pos_bias=None, window: int = 0) -> torch.Tensor:
-    """Checks the operands and launches the long-row kernel: every key
-    (window 0) or the sliding-window slices."""
+_FULL, _LOCAL, _SEG = 0, 1, 2  # attention_long.cu's modes
+
+
+def _launch_long(q, k, v, mask, mode: int, pos_bias=None, window: int = 0,
+                 max_seg_len: int | None = None) -> torch.Tensor:
+    """Checks the operands and launches the long-row kernel in `mode`:
+    _FULL, every key under an f32 key bias; _LOCAL, the sliding-window
+    slices of `window`; _SEG, int32 segment ids over the TPU tile's key
+    slice when `max_seg_len` gives one, else every key."""
     b, s, h, d = _check_qkv(q, k, v, True)
-    if mask_bias.shape != (b, s) or mask_bias.dtype != torch.float32:
-        raise ValueError(f"mask_bias {tuple(mask_bias.shape)} {mask_bias.dtype}, "
-                         f"want ({b}, {s}) float32")
+    want = torch.int32 if mode == _SEG else torch.float32
+    if mask.shape != (b, s) or mask.dtype != want:
+        raise ValueError(f"mask {tuple(mask.shape)} {mask.dtype}, want ({b}, {s}) {want}")
     _check_pos_bias(pos_bias, h, s)
-    tq = wmax = 0
-    if window:
+    tq, wmax = 0, 0
+    if mode == _SEG:
+        tq, wmax = packed_window_tiles(s, max_seg_len)
+        wmax = wmax or s  # no window: the slice is the whole row
+    elif mode == _LOCAL:
         tq, wmax = local_window_tiles(s, window)
         if wmax is None:
             raise ValueError(f"no sliding-window slice for S={s}, window={window}")
-    q, k, v, mask_bias, pos_bias = _operands((q, k, v, mask_bias, pos_bias), q.device)
+    q, k, v, mask, pos_bias = _operands((q, k, v, mask, pos_bias), q.device)
     out = torch.empty_like(q)
     if b == 0 or s == 0:
         return out
     err = _bind("attention_long.cu", "attn_long_launch",
                 [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P])(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_bias.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
         None if pos_bias is None else pos_bias.data_ptr(), out.data_ptr(),
         b, s, h, d, 1 if pos_bias is None else pos_bias.shape[0], 1.0 / (d**0.5),
-        int(q.dtype == torch.bfloat16), int(window > 0), tq, wmax, window,
+        int(q.dtype == torch.bfloat16), mode, tq, wmax, window,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     check(err, "attn_long_launch")
@@ -358,7 +444,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         pos_bias = pos_bias.to(torch.float32)
     if not _on_cuda(q, "flash_attention"):
         return attention_long_plain(q, k, v, mask_bias, pos_bias)
-    out = _launch_long(q, k, v, mask_bias, pos_bias)
+    out = _launch_long(q, k, v, mask_bias, _FULL, pos_bias)
     flash_attention.launches += 1
     return out
 
@@ -374,12 +460,38 @@ def flash_attention_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return attention_local_plain(q, k, v, mask_bias, window)
     if window <= 0:
         raise ValueError(f"window {window} must be positive")
-    out = _launch_long(q, k, v, mask_bias, window=window)
+    out = _launch_long(q, k, v, mask_bias, _LOCAL, window=window)
     flash_attention_local.launches += 1
     return out
 
 
+def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           seg: torch.Tensor, max_seg_len: int | None = None) -> torch.Tensor:
+    """Segment-masked attention for packed rows in the [B, S, H, d] layout:
+    key k is visible to query q iff seg[q] == seg[k] (seg [B, S] int32, -1
+    on padding).  `max_seg_len` bounds the longest packed segment: where
+    `packed_window_tiles` gives a slice narrower than S, each TPU query tile
+    scores only its wmax keys (`window_launches`), else every key
+    (`launches`).  S must be a multiple of 8."""
+    seg = seg.to(torch.int32)
+    _, s, _, d = _check_qkv(q, k, v, True)
+    if s % 8:
+        raise ValueError(f"packed rows of {s} tokens: the segment kernel needs S % 8 == 0")
+    windowed = packed_window_tiles(s, max_seg_len)[1] is not None
+    if not _on_cuda(q, "flash_attention_packed"):
+        if windowed:
+            return attention_packed_window_plain(q, k, v, seg, max_seg_len)
+        return attention_packed_plain(q, k, v, seg)
+    out = _launch_long(q, k, v, seg, _SEG, max_seg_len=max_seg_len)
+    if windowed:
+        flash_attention_packed.window_launches += 1
+    else:
+        flash_attention_packed.launches += 1
+    return out
+
+
 for _fn in (flash_attention_bse, flash_attention_packed_bse, flash_attention,
-            flash_attention_local):
+            flash_attention_local, flash_attention_packed):
     _fn.launches = 0
 flash_attention_bse.bias_launches = flash_attention_packed_bse.bias_launches = 0
+flash_attention_packed.window_launches = 0

@@ -4,12 +4,14 @@ The encode and rerank paths of the JAX package's `runtime/engine.py`:
 tokenize -> plan (pack short sentences many to a row, bucket the rest by
 length) -> launch every batch -> fetch once -> scatter back to input order;
 cross-encoder pairs frame as [CLS] a [SEP] b [SEP] and run through the
-length buckets to one logit per pair (`score_pairs`, `rerank`).  The
+length buckets to one logit per pair (`score_pairs`, `rerank`).  `encode`
+takes named or literal prompt prefixes and Matryoshka `dimensions`.  The
 engine runs on the GPU unless the caller passes `device="cpu"`; with no
 device given and no GPU present it raises instead of falling back.
 """
 from __future__ import annotations
 
+import json
 import threading
 from typing import Sequence
 
@@ -23,6 +25,7 @@ from ..models.bert import (
     bert_embed_batch,
     bert_embed_packed,
     bert_score_batch,
+    check_pack_seq,
     unpack_output_i8,
 )
 from ..models.config import BertConfig
@@ -56,6 +59,20 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+def truncate_normalize(vecs: np.ndarray, dimensions: int) -> np.ndarray:
+    """Matryoshka reduction: the first `dimensions` components of each row,
+    L2-normalized again (the OpenAI embeddings API's `dimensions`)."""
+    n_embd = vecs.shape[-1]
+    if not isinstance(dimensions, int) or isinstance(dimensions, bool):
+        raise ValueError("dimensions must be an integer")
+    if not 1 <= dimensions <= n_embd:
+        raise ValueError(f"dimensions must be in 1..{n_embd}")
+    if dimensions == n_embd:
+        return vecs
+    v = np.ascontiguousarray(vecs[..., :dimensions], dtype=np.float32)
+    return v / np.maximum(np.linalg.norm(v, axis=-1, keepdims=True), 1e-12)
+
+
 def long_seq_buckets(n_ctx: int) -> tuple[int, ...]:
     """The default length buckets up to n_ctx, extended in powers of two
     past 512 for long-context encoders (ModernBERT: ..., 512, 1024, 2048,
@@ -67,6 +84,15 @@ def long_seq_buckets(n_ctx: int) -> tuple[int, ...]:
         b = min(b * 2, n_ctx)
         buckets += (b,)
     return buckets
+
+
+def segment_bound(pb: PackedSegBatch) -> int | None:
+    """The bound on a packed batch's longest segment that its forward may
+    window by: the next power of two >= it (at least 32), for rows of 1024
+    tokens or more only (the windowed segment kernel starts there)."""
+    if pb.ids.shape[1] < 1024:
+        return None
+    return 1 << max(5, (max(pb.max_len, 1) - 1).bit_length())
 
 
 class Engine:
@@ -82,22 +108,35 @@ class Engine:
         opts: ComputeOptions | None = None,
         device=None,
         packing: str = "auto",
+        pack_seq: int | None = None,
+        prompts: dict[str, str] | None = None,
+        default_prompt_name: str = "",
     ):
         self.device = resolve_device(device)
         self.config = config
         self.opts = opts or ComputeOptions()
         self.tokenizer = tokenizer
+        # named prompt prefixes ("search_query: ", ...), resolved once per
+        # encode call (resolve_prompt); embed_tokens never applies them
+        self.prompts = dict(prompts or {})
+        if default_prompt_name and default_prompt_name not in self.prompts:
+            raise ValueError(f"default_prompt_name {default_prompt_name!r} is not in "
+                             f"prompts {sorted(self.prompts)}")
+        self.default_prompt_name = default_prompt_name or ""
         self.special_ids = special_ids or SpecialIds(cls=101, sep=102, pad=0, unk=100)
         self.seq_buckets = long_seq_buckets(config.n_ctx)
         self.batch_buckets = DEFAULT_BATCH_BUCKETS
         # per-dispatch token budget: longer sequence buckets get fewer rows
         # (8192-token rows batch 128 at a time, not 2048)
         self.max_batch_tokens = DEFAULT_BATCH_BUCKETS[-1] * 512
-        if packing not in ("auto", "never"):
-            raise ValueError(f"packing must be auto/never, got {packing!r}")
+        if packing not in ("auto", "always", "never"):
+            raise ValueError(f"packing must be auto/always/never, got {packing!r}")
         self.packing = packing
-        self.pack_seq = min(DEFAULT_PACK_SEQ, config.n_ctx)
+        # packed rows past 1024 tokens take the segment kernel K6 (nomic)
+        self.pack_seq = min(pack_seq or DEFAULT_PACK_SEQ, config.n_ctx)
         self.pack_segs = max(8, self.pack_seq // 8)
+        if packing != "never":
+            check_pack_seq(config, self.pack_seq)
         # serializes planning + launches across threads (the server's
         # executor threads share one engine)
         self._lock = threading.Lock()
@@ -114,6 +153,11 @@ class Engine:
             blob = r.kv.get(Keys.TOKENIZER_JSON_BLOB)
             tokenizer = load_tokenizer(blob) if blob else None
             special = SpecialIds.from_gguf_kv(r.kv)
+            prompts = r.kv.get(Keys.PROMPTS)
+            if prompts and "prompts" not in kw:
+                kw["prompts"] = json.loads(prompts)
+                # a caller's default wins over the file's
+                kw.setdefault("default_prompt_name", str(r.kv.get(Keys.DEFAULT_PROMPT, "")))
         return cls(params, config, tokenizer, special, opts=opts, device=device, **kw)
 
     @classmethod
@@ -151,9 +195,12 @@ class Engine:
         (the rest go through plain length-bucketed batching)."""
         if self.packing == "never":
             return []
+        packable = [i for i, t in enumerate(token_lists) if len(t) <= self.pack_seq]
+        if self.packing == "always":
+            return packable
         # auto: packing pays off when many short sentences would otherwise
         # spread over several dispatches; long sentences already fill rows
-        short = [i for i, t in enumerate(token_lists) if len(t) <= self.pack_seq // 4]
+        short = [i for i in packable if len(token_lists[i]) <= self.pack_seq // 4]
         return short if len(short) >= 32 else []
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
@@ -187,6 +234,7 @@ class Engine:
                     self._tensor(pb.pos), self.config, self.opts, n_seg=pb.n_seg,
                     # the flat slots of real sentences: padding never leaves
                     gather_idx=self._tensor(pb.slots.astype(np.int64)),
+                    max_seg_len=segment_bound(pb),
                 )
                 pending.append((pb, out))
             for batch in batches:
@@ -222,11 +270,36 @@ class Engine:
             off += vecs.shape[0]
         return out
 
-    def encode(self, texts: str | Sequence[str]) -> np.ndarray:
-        """Texts -> [n, n_embd] L2-normalized f32 embeddings."""
+    def resolve_prompt(self, prompt_name: str | None = None,
+                       prompt: str | None = None) -> str:
+        """The prefix an encode call prepends (sentence-transformers
+        semantics): a literal `prompt` wins; `prompt_name` names one of the
+        model's prompts; None takes the default prompt; "" none."""
+        if prompt is not None:
+            if not isinstance(prompt, str):
+                raise ValueError("prompt must be a string")
+            return prompt
+        if prompt_name is None:
+            prompt_name = self.default_prompt_name
+        if prompt_name == "":
+            return ""
+        if not isinstance(prompt_name, str) or prompt_name not in self.prompts:
+            raise ValueError(f"unknown prompt_name {prompt_name!r} "
+                             f"(model prompts: {sorted(self.prompts)})")
+        return self.prompts[prompt_name]
+
+    def encode(self, texts: str | Sequence[str], *, dimensions: int | None = None,
+               prompt_name: str | None = None, prompt: str | None = None) -> np.ndarray:
+        """Texts -> [n, n_embd] L2-normalized f32 embeddings; the prompt
+        prefix (`resolve_prompt`) goes before every text, and `dimensions`
+        keeps that many leading components, normalized again."""
         if isinstance(texts, str):
             texts = [texts]
-        return self.embed_tokens(self.tokenize_batch(texts))
+        prefix = self.resolve_prompt(prompt_name, prompt)
+        if prefix:
+            texts = [prefix + t for t in texts]
+        out = self.embed_tokens(self.tokenize_batch(texts))
+        return out if dimensions is None else truncate_normalize(out, dimensions)
 
     # --- cross-encoder scoring ----------------------------------------------
     def tokenize_pairs(self, pairs: Sequence[tuple[str, str]]

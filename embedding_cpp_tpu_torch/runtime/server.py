@@ -285,8 +285,9 @@ def main(argv=None) -> None:
     p.add_argument("--dtype", choices=["float32", "bfloat16"], default="bfloat16")
     p.add_argument("--output-dtype", choices=["float32", "int8"], default="int8",
                    help="embedding transfer encoding off the device (replies stay f32)")
-    p.add_argument("--packing", choices=["auto", "never"], default="auto",
-                   help="pack short sentences many to a row (auto) or never")
+    p.add_argument("--packing", choices=["auto", "always", "never"], default="auto",
+                   help="pack short sentences many to a row (auto), every text "
+                        "that fits a row (always) or none (never)")
     p.add_argument("--max-batch", type=int, default=256)
     p.add_argument("--window-ms", type=float, default=2.0)
     p.add_argument("--max-pending", type=int, default=16384)

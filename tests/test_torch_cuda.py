@@ -6,9 +6,11 @@ Edge shapes live here (ragged M, sequence lengths that are not multiples of
 the 16- and 64-row tiles, S = 1025, fully padded rows, head dims 32 and
 64, f32 and bf16) for K1 (with and without its prologue multiply), the
 projection-layout kernel with and without a position bias (K2-K4), the
-long-row kernel (K5), the sliding-window kernel (K7) and the
-disentangled-attention kernel (K9 key bias, K10 segments; S = 16 ... 512
-with spans below and above S); chip_smoke.py checks the main-path shapes.
+long-row kernel (K5), the sliding-window kernel (K7), the packed-segment
+kernel (K6, full and windowed: S = 200 ... 8192, segments ending on tile
+boundaries, padded tails, a row all padding) and the disentangled-attention
+kernel (K9 key bias, K10 segments; S = 16 ... 512 with spans below and
+above S); chip_smoke.py checks the main-path shapes.
 
 Tolerances: f32 1e-4 absolute (the same f32 products summed in another
 order); bf16 by relative error max|err| / max|ref| <= 1e-2 (an order
@@ -26,12 +28,16 @@ from embedding_cpp_tpu_torch.ops.attention import (
     attention_bse_plain,
     attention_local_plain,
     attention_long_plain,
+    attention_packed_plain,
+    attention_packed_window_plain,
     flash_attention,
     flash_attention_bias_bse,
     flash_attention_bias_packed_bse,
     flash_attention_bse,
     flash_attention_local,
+    flash_attention_packed,
     flash_attention_packed_bse,
+    packed_window_tiles,
 )
 from embedding_cpp_tpu_torch.ops.deberta_attention import (
     delta_tables,
@@ -240,6 +246,72 @@ def test_long_kernels_reject_what_they_do_not_serve(dev):
     with pytest.raises(ValueError):  # a [3, S, S] bias for 2 heads
         flash_attention_bias_bse(q, k, v, torch.zeros(1, 128, device=dev),
                                  torch.zeros(3, 128, 128, device=dev), 2)
+
+
+def _packed_seg(b, s, max_len, dev, seed=0):
+    """Row 0: segments of 1..max_len tokens, two ending on the 256-row
+    tiles, then a padded tail; row 1 one segment over the whole row; the
+    rest all padding."""
+    rng = np.random.default_rng(seed)
+    seg = np.full((b, s), -1, np.int32)
+    c = g = 0
+    while c < s - max_len - 24:
+        n = int(rng.integers(1, max_len + 1))
+        for edge in (256, 512):
+            if c < edge < c + n:
+                n = edge - c
+        seg[0, c:c + n] = g
+        c, g = c + n, g + 1
+    seg[1, :min(s, max_len)] = 0
+    return torch.from_numpy(seg).to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s,h,d,max_seg_len", [
+    (1024, 2, 64, 256), (1024, 2, 32, 64), (1152, 2, 32, 128), (2048, 4, 64, 512),
+    (2048, 4, 64, None), (8192, 2, 64, 512), (8192, 1, 64, None), (200, 2, 16, None),
+    (1024, 2, 128, None), (2048, 2, 16, 256)])
+def test_packed_segment_kernel_matches_plain_row_for_row(dev, dtype, s, h, d, max_seg_len):
+    b = 3
+    q, k, v = _long_qkv(b, s, h, d, dtype, dev, seed=s + d)
+    seg = _packed_seg(b, s, max_seg_len or 300, dev, seed=s)
+    windowed = packed_window_tiles(s, max_seg_len)[1] is not None
+    assert windowed == (max_seg_len is not None)
+    before = (flash_attention_packed.launches, flash_attention_packed.window_launches)
+    got = flash_attention_packed(q, k, v, seg, max_seg_len)
+    assert (flash_attention_packed.launches, flash_attention_packed.window_launches) == (
+        before[0] + (not windowed), before[1] + windowed)
+    ref = (attention_packed_window_plain(q, k, v, seg, max_seg_len) if windowed
+           else attention_packed_plain(q, k, v, seg))
+    _close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s,max_seg_len", [(1024, 256), (2048, 512), (4096, 128)])
+def test_packed_segment_forms_agree_on_real_rows(dev, dtype, s, max_seg_len):
+    """A masked key adds exp(-1e9 - m) = 0, and the f32 path sums the keys
+    in the same order in both forms: on real rows the windowed kernel
+    equals the full one exactly in f32 (bf16 products group keys into
+    other 16-key chunks: within tolerance)."""
+    q, k, v = _long_qkv(2, s, 2, 64, dtype, dev, seed=s)
+    seg = _packed_seg(2, s, max_seg_len, dev, seed=s + 1)
+    full = flash_attention_packed(q, k, v, seg)
+    window = flash_attention_packed(q, k, v, seg, max_seg_len)
+    real = seg >= 0
+    if dtype == torch.float32:
+        assert torch.equal(window[real], full[real])
+    else:
+        _close(window[real], full[real], dtype)
+
+
+def test_packed_segment_kernel_rejects_what_it_does_not_serve(dev):
+    q, k, v = _long_qkv(1, 1100, 2, 32, torch.bfloat16, dev)
+    with pytest.raises(ValueError):  # S % 8 != 0
+        flash_attention_packed(q, k, v, torch.zeros(1, 1100, dtype=torch.int32, device=dev))
+    q, k, v = _long_qkv(1, 1024, 2, 24, torch.bfloat16, dev)
+    with pytest.raises(ValueError):  # d = 24
+        flash_attention_packed(q, k, v, torch.zeros(1, 1024, dtype=torch.int32, device=dev),
+                               128)
 
 
 def _deberta_inputs(b, s, h, d, span, dtype, dev, seed=0):

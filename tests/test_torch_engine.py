@@ -236,3 +236,45 @@ def test_pair_framing_matches_jax():
                 ours = frame_pair_ids(a, b, ours_s, n_max)
                 assert ours == jax_frame_pair_ids(a, b, theirs_s, n_max)
                 assert len(ours[0]) == len(ours[1]) <= n_max
+
+
+@pytest.mark.parametrize("pack_seq,packing,refused", [
+    (2048, "auto", True), (1025, "always", True), (2048, "never", False),
+    (1024, "auto", False), (None, "auto", False)])
+def test_modernbert_refuses_packed_rows_past_1024(pack_seq, packing, refused):
+    """ModernBERT packed rows past 1024 tokens would need a segment mask
+    with the sliding window (the JAX package runs them through XLA with a
+    [B, S, S] bias; no kernel of the port serves them): the engine refuses
+    the configuration when it is built, not in the middle of a forward."""
+    from dataclasses import replace
+
+    from embedding_cpp_tpu_torch.models import MODERNBERT_BASE
+
+    config = replace(MODERNBERT_BASE, n_vocab=1000)
+    if refused:
+        with pytest.raises(ValueError, match="ModernBERT packed rows"):
+            Engine({}, config, device="cpu", pack_seq=pack_seq, packing=packing)
+    else:
+        eng = Engine({}, config, device="cpu", pack_seq=pack_seq, packing=packing)
+        assert eng.pack_seq == (pack_seq or 512)
+
+
+@pytest.mark.parametrize("pack_seq,packing,refused", [
+    (1500, "auto", True), (1500, "always", True), (1500, "never", False),
+    (1504, "auto", False), (1000, "auto", False)])
+def test_nomic_refuses_unaligned_packed_rows_past_1024(pack_seq, packing, refused):
+    """nomic-bert packed rows past 1024 tokens take the segment kernel K6,
+    which needs S % 8 == 0 (the JAX package runs other lengths through
+    XLA): the engine refuses such a pack_seq when it is built.  At 1024 or
+    less the projection-layout kernel serves any length."""
+    from dataclasses import replace
+
+    from embedding_cpp_tpu_torch.models import NOMIC_EMBED
+
+    config = replace(NOMIC_EMBED, n_vocab=1000)
+    if refused:
+        with pytest.raises(ValueError, match="nomic-bert packed rows of 1500"):
+            Engine({}, config, device="cpu", pack_seq=pack_seq, packing=packing)
+    else:
+        eng = Engine({}, config, device="cpu", pack_seq=pack_seq, packing=packing)
+        assert eng.pack_seq == pack_seq

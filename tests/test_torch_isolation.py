@@ -35,7 +35,7 @@ def test_importing_everything_loads_no_jax():
     assert result["bad"] == []
     assert "embedding_cpp_tpu_torch.runtime.server" in result["modules"]
     assert "embedding_cpp_tpu_torch.ops.q4_matmul" in result["modules"]
-    for name in ("models.modernbert", "tokenizer.bpe", "ops.attention"):
+    for name in ("models.modernbert", "models.nomic", "tokenizer.bpe", "ops.attention"):
         assert f"embedding_cpp_tpu_torch.{name}" in result["modules"]
 
 

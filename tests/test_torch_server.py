@@ -1,7 +1,8 @@
 """The port's TCP server over a CPU engine on a free local port: the int32
 n_embd handshake, a raw-mode text, and a TPE2 batch, each equal to
-`engine.encode`; the rerank frame over a DeBERTa cross-encoder, equal to
-`engine.rerank`, and its error frames."""
+`engine.encode` (a synthetic MiniLM-shaped engine, and a tiny-nomic GGUF);
+the rerank frame over a DeBERTa cross-encoder, equal to `engine.rerank`,
+and its error frames."""
 import asyncio
 import contextlib
 import socket
@@ -76,7 +77,26 @@ def engine():
     return Engine.synthetic(CONFIG, "q4_0", device="cpu")
 
 
+@pytest.fixture(scope="module")
+def nomic_engine(tmp_path_factory):
+    """The JAX package's tiny-nomic preset in a Q4_0 GGUF (WordPiece vocab)."""
+    from embedding_cpp_tpu.cli.make_test_model import make_test_model
+
+    path = str(tmp_path_factory.mktemp("gguf") / "tiny-nomic-q4_0.gguf")
+    make_test_model(path, "tiny-nomic", "q4_0", seed=0)
+    return Engine.from_gguf(path, device="cpu")
+
+
 def test_handshake_raw_and_tpe2(engine):
+    _check_raw_and_tpe2(engine)
+
+
+def test_nomic_gguf_served_raw_and_tpe2(nomic_engine):
+    assert nomic_engine.config.arch == "nomic-bert"
+    _check_raw_and_tpe2(nomic_engine)
+
+
+def _check_raw_and_tpe2(engine):
     texts = ["hello world", "the quick brown fox jumps over the lazy dog", "a"]
     want = engine.encode(texts)
     with serve_in_thread(engine) as port, socket.create_connection(
