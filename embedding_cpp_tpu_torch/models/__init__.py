@@ -1,10 +1,18 @@
 """BERT, ModernBERT, DeBERTa and nomic-bert encoders: configuration, tensor schema,
 parameters, forward and the cross-encoder score path."""
 from .bert import ComputeOptions, bert_embed_batch, bert_embed_packed, bert_score_batch
-from .config import DEBERTA_V3_BASE, MINILM_L6, MODERNBERT_BASE, NOMIC_EMBED, BertConfig
+from .config import (
+    BGE_LARGE_EN,
+    DEBERTA_V3_BASE,
+    MINILM_L6,
+    MODERNBERT_BASE,
+    NOMIC_EMBED,
+    BertConfig,
+)
 from .params import from_jax_params, load_params, random_params, random_state_dict
 
 __all__ = [
+    "BGE_LARGE_EN",
     "DEBERTA_V3_BASE",
     "MINILM_L6",
     "MODERNBERT_BASE",

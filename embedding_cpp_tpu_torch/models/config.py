@@ -150,6 +150,14 @@ MINILM_L6 = BertConfig(
     n_vocab=30522, n_ctx=512, n_embd=384, n_layer=6, n_head=12, n_ff=1536,
     name="all-MiniLM-L6-v2",
 )
+# BAAI/bge-large-en-v1.5 geometry (BertModel, CLS pooling, normalized),
+# which mxbai-embed-large-v1 shares and e5-large-v2 shares with mean
+# pooling: 24 layers of 1024, 16 heads of 64, FFN 4096.  In Q8_0 its FFN
+# weights are too large for the fused kernel's 1-D route (ops/q4_matmul.py)
+BGE_LARGE_EN = BertConfig(
+    n_vocab=30522, n_ctx=512, n_embd=1024, n_layer=24, n_head=16, n_ff=4096,
+    layer_norm_eps=1e-12, gelu="erf", pooling="cls", name="bge-large-en-v1.5",
+)
 # answerdotai/ModernBERT-base geometry, which gte-modernbert-base reuses
 # (gte pools cls): 22 layers, GeGLU FFN 1152, global attention every 3rd
 # layer, a 128-token sliding window elsewhere, 8192-token context

@@ -2,11 +2,15 @@
 
 `linear()` hides the weight representation from the model code, in the
 order of the JAX package's Pallas path (ops/linear.py): a QTensor weight
-goes through the fused dequant-matmul kernel (`q4_matmul`), which takes the
-gated FFN's `prologue_mul` on its loaded x tiles and the bias and the
-activation in its f32 epilogue; the result is cast to the
-activation dtype, the residual is added in that dtype, and the LayerNorm
-tail runs in f32.  A dense weight takes a plain matmul with f32
+goes through the fused dequant-matmul kernel (`q4_matmul`, K1 or K8 as its
+route says), which takes the gated FFN's `prologue_mul` on its loaded x
+tiles and the bias and the activation in its f32 epilogue; the result is
+cast to the activation dtype, the residual is added in that dtype, and the
+LayerNorm tail runs in f32.  The residual and LayerNorm stay outside the
+kernel although `q4_matmul` can fuse them (K1's epilogue): the JAX
+package's linear composes them outside its kernel too (ops/linear.py:84-94),
+and a residual added in f32 inside the kernel rounds differently in bf16
+from one added in the activation dtype.  A dense weight takes a plain matmul with f32
 accumulation (after the prologue multiply in the activation dtype), the
 bias in f32, then the cast and the activation.
 """

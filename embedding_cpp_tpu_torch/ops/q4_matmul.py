@@ -1,26 +1,45 @@
-"""Fused quantized dequant + matmul (Q4_0 / Q4_1 / Q8_0): the CUDA kernel's
-wrapper and its plain PyTorch version.
+"""Fused quantized dequant + matmul (Q4_0 / Q4_1 / Q8_0): the route, the
+CUDA kernels' wrappers and their plain PyTorch version.
 
-Kernel: `csrc/q4_matmul.cu`, the Hopper port of the TPU kernel
-`_q4_matmul_1d` (embedding_cpp_tpu/ops/q4_matmul.py): y = act((x [* g]) @
-dequant(W) + bias), the epilogue in f32 on the accumulator, then one cast.
+Kernels, both in `csrc/q4_matmul.cu`, the Hopper ports of the two TPU
+kernels of embedding_cpp_tpu/ops/q4_matmul.py:
+
+- K1 (`_q4_matmul_1d`, the TPU's 1-D kernel): y = act((x [* g]) @
+  dequant(W) + bias), the epilogue in f32 on the accumulator, then one
+  cast.  With `residual` and/or `ln` a second kernel of the same source
+  adds the residual in f32 and applies the LayerNorm over whole rows before
+  the cast (the TPU kernel's `residual` / `ln_sb` epilogue).
+- K8 (`_q4_matmul_2d`, the TPU's N-tiled kernel): the same y without the
+  residual/LayerNorm tail, each block holding one column slice of the
+  dequantized weight in shared memory for all the M tiles it walks.
+
 The optional prologue multiplicand g ([M, K], the gated FFN's gate) scales
 the loaded x tile before the product, rounded to x's dtype as the TPU
-kernel's `x_ref[:] * g_ref[:]` rounds it.  The weight
-stays packed 4- or 8-bit in device memory and is dequantized on chip, 32
-rows at a time, exactly as the TPU kernel's `_dequant_tile` does it.  bf16
-activations run on the tensor cores with f32 accumulation; f32 activations
-run f32 FMAs (no TF32).  What bounds it on an H100 and what the first
-version does about it is noted in the source.
+kernel's `x_ref[:] * g_ref[:]` rounds it.  The weight stays packed 4- or
+8-bit in device memory and is dequantized on chip exactly as the TPU
+kernel's `_dequant_tile` does it.  bf16 activations run on the tensor cores
+with f32 accumulation; f32 activations run f32 FMAs (no TF32).
 
-`q4_matmul` launches the kernel for a CUDA tensor and runs
-`q4_matmul_plain`, which repeats the kernel's arithmetic step by step, only
-for a tensor on the CPU.  `q4_matmul.launches` counts kernel launches,
-`q4_matmul.prologue_launches` those of them with a prologue multiplicand.
+`q4_matmul` routes each call as the JAX package's `q4_matmul` does
+(`route`): the 1-D kernel with the largest M tile whose TPU working set fits
+12 MiB, else the N-tiled kernel.  Where the JAX package falls back to XLA
+for a shape its kernels do not tile, the port launches K1, which takes
+ragged M and N and computes the same function.  Where it composes the
+residual/LayerNorm tail in f32 because the weight is too large for its 1-D
+kernel, the port runs K8 into f32 and the same tail in plain PyTorch.
+
+The launchers `_q4_matmul_1d` / `_q4_matmul_2d` launch their kernel for a
+CUDA tensor and run the plain version, which repeats the kernels'
+arithmetic step by step, only for a tensor on the CPU.  K1 and K8 compute
+one function, so `q4_matmul_plain` is the plain version of both.  Launch
+counts: `q4_matmul.launches` (K1, both forms), `q4_matmul.prologue_launches`
+(those with a prologue multiplicand), `q4_matmul.ln_launches` (K1 with the
+residual/LayerNorm epilogue), `q4_matmul.n_tiled_launches` (K8).
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -30,10 +49,60 @@ from .qtensor import QUANT_TYPES, QTensor
 
 ACTIVATIONS = (None, "gelu_erf", "gelu_tanh", "silu")
 _QTYPE_CODE = {GGMLType.Q4_0: 0, GGMLType.Q4_1: 1, GGMLType.Q8_0: 2}
+# the TPU 1-D kernel's working-set budget and M tiles (q4_matmul.py:432-441)
+VMEM_BUDGET = 12 * 1024 * 1024
+_TM_1D = (2048, 1024, 512, 256, 128, 64, 32, 16, 8)
+
+
+class Route(NamedTuple):
+    """The JAX package's choice for one call: `kernel` is "1d"
+    (`_q4_matmul_1d` with M tile `tm`), "2d" (`_q4_matmul_2d` with tiles
+    `tm`, `tn`), "composed" (XLA, because a residual/LayerNorm tail meets a
+    weight too large for the 1-D kernel) or "xla" (a shape its kernels do
+    not tile)."""
+
+    kernel: str
+    tm: int = 0
+    tn: int = 0
+
+
+def _pick_tile(dim: int, candidates: tuple[int, ...]) -> int:
+    return next((c for c in candidates if dim % c == 0 and c <= dim), dim)
+
+
+def route(m: int, k: int, n: int, qtype: GGMLType, dtype: torch.dtype, *,
+          prologue: bool = False, residual: bool = False, ln: bool = False) -> Route:
+    """The JAX `q4_matmul`'s dispatch (q4_matmul.py:383-466) for x [m, k]
+    of `dtype` times a [k, n] weight of `qtype`, with its VMEM estimate
+    term for term."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    sublane = 16 if dtype == torch.bfloat16 else 8
+    qk_rows = k if qtype == GGMLType.Q8_0 else k // 2
+
+    def vmem_est(tm: int) -> int:
+        return (k * n * itemsize
+                + 2 * tm * (k + n) * itemsize
+                + (2 * tm * n * itemsize if residual else 0)
+                + (2 * tm * k * itemsize if prologue else 0)
+                + qk_rows * n
+                + (k // QK4) * n * 4 * (2 if qtype == GGMLType.Q4_1 else 1))
+
+    candidates = [c for c in _TM_1D if c <= m and m % c == 0 and c % sublane == 0]
+    if not candidates or k % QK4 or n % 128:
+        return Route("xla")
+    tm = next((c for c in candidates if vmem_est(c) <= VMEM_BUDGET), 0)
+    if tm:
+        return Route("1d", tm)
+    if residual or ln:
+        return Route("composed")
+    tn = _pick_tile(n, (512, 384, 256, 128))
+    if n % tn:
+        return Route("xla")
+    return Route("2d", _pick_tile(m, (256, 128, 64, 32, 16, 8)), tn)
 
 
 def dequant_weight(w: QTensor, dtype) -> torch.Tensor:
-    """[K, N] weight as the kernel stages it: f32 math, one rounding to
+    """[K, N] weight as the kernels stage it: f32 math, one rounding to
     `dtype` (the TPU kernel's `_dequant_tile`)."""
     if w.qtype == GGMLType.Q8_0:
         k, n = w.qs.shape
@@ -54,8 +123,8 @@ def dequant_weight(w: QTensor, dtype) -> torch.Tensor:
 
 def epilogue(y: torch.Tensor, bias: torch.Tensor | None,
              activation: str | None) -> torch.Tensor:
-    """bias add, then the activation, in f32 (the TPU kernel's `_epilogue`
-    without the residual/LayerNorm tail)."""
+    """bias add, then the activation, in f32 (the head of the TPU kernel's
+    `_epilogue`)."""
     if bias is not None:
         y = y + bias.to(torch.float32)
     if activation == "gelu_erf":
@@ -70,6 +139,21 @@ def epilogue(y: torch.Tensor, bias: torch.Tensor | None,
     return y
 
 
+def ln_tail(y: torch.Tensor, residual: torch.Tensor | None,
+            ln: tuple | None) -> torch.Tensor:
+    """The tail of the TPU kernel's `_epilogue` on f32 rows: the residual
+    added in f32, then (y - mean) * rsqrt(var + eps) * scale + bias with the
+    row statistics in f32."""
+    if residual is not None:
+        y = y + residual.to(torch.float32)
+    if ln is not None:
+        mean = y.mean(dim=-1, keepdim=True)
+        var = torch.square(y - mean).mean(dim=-1, keepdim=True)
+        y = (y - mean) * torch.rsqrt(var + float(ln[2]))
+        y = y * ln[0].to(torch.float32) + ln[1].to(torch.float32)
+    return y
+
+
 def prologue(x: torch.Tensor, g: torch.Tensor | None) -> torch.Tensor:
     """x * g rounded once to x's dtype (exact in f32 for two bf16 inputs,
     so one rounding equals the TPU's bf16 multiply)."""
@@ -79,26 +163,32 @@ def prologue(x: torch.Tensor, g: torch.Tensor | None) -> torch.Tensor:
 
 
 def q4_matmul_plain(x: torch.Tensor, w: QTensor, bias=None, activation=None,
+                    residual: torch.Tensor | None = None, ln: tuple | None = None,
                     out_f32: bool = False,
                     prologue_mul: torch.Tensor | None = None) -> torch.Tensor:
-    """The kernel's arithmetic in plain PyTorch: the prologue multiply,
-    bf16 (or f32) products accumulated in f32, f32 epilogue, one cast."""
+    """The kernels' arithmetic in plain PyTorch (K1's, with its epilogue,
+    and K8's, which computes the same function): the prologue multiply,
+    bf16 (or f32) products accumulated in f32, the f32 epilogue (bias,
+    activation, residual, LayerNorm), one cast."""
     wd = dequant_weight(w, x.dtype)
     y = torch.matmul(prologue(x, prologue_mul).to(torch.float32), wd.to(torch.float32))
-    y = epilogue(y, bias, activation)
+    y = ln_tail(epilogue(y, bias, activation), residual, ln)
     return y if out_f32 else y.to(x.dtype)
 
 
-def _lib():
-    fn = load("q4_matmul.cu").q4_matmul_launch
+def _fn(entry: str, argtypes: list):
+    fn = getattr(load("q4_matmul.cu"), entry)
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, i, p, p, p, p, p, i, i, i, i, i, i, p]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
 
-def _check_args(x: torch.Tensor, w: QTensor, activation, prologue_mul) -> None:
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def _check_args(x: torch.Tensor, w: QTensor, activation, prologue_mul,
+                residual=None, ln=None) -> None:
     if w.qtype not in QUANT_TYPES:
         raise ValueError(f"not a quantized tensor: {w.qtype}")
     if activation not in ACTIVATIONS:
@@ -112,17 +202,27 @@ def _check_args(x: torch.Tensor, w: QTensor, activation, prologue_mul) -> None:
         raise ValueError(f"x {tuple(x.shape)} does not match weight {w.shape}")
     if prologue_mul is not None and prologue_mul.shape != x.shape:
         raise ValueError(f"prologue_mul {tuple(prologue_mul.shape)} != x {tuple(x.shape)}")
+    n = w.shape[1]
+    if residual is not None and tuple(residual.shape) != (x.shape[0], n):
+        raise ValueError(f"residual {tuple(residual.shape)} != ({x.shape[0]}, {n})")
+    if ln is not None and (len(ln) != 3 or ln[0].shape != (n,) or ln[1].shape != (n,)):
+        raise ValueError(f"ln must be (scale [{n}], bias [{n}], eps)")
 
 
-def q4_matmul(x: torch.Tensor, w: QTensor, bias: torch.Tensor | None = None,
-              activation: str | None = None, out_f32: bool = False,
-              prologue_mul: torch.Tensor | None = None) -> torch.Tensor:
-    """(x [M, K] [* prologue_mul [M, K]]) @ packed w [K, N] -> act(. +
-    bias) [M, N] in x.dtype (f32 with `out_f32`).  CPU tensors take the
-    plain version; CUDA tensors launch the kernel or raise."""
-    _check_args(x, w, activation, prologue_mul)
-    if x.device.type == "cpu":
-        return q4_matmul_plain(x, w, bias, activation, out_f32, prologue_mul)
+def _operand(t: torch.Tensor, x: torch.Tensor, what: str) -> torch.Tensor:
+    """`t` as the kernel reads it: x's device and dtype, contiguous, 16-byte
+    aligned."""
+    if t.device != x.device or t.dtype != x.dtype:
+        raise ValueError(f"q4_matmul: {what} must match x's device and dtype")
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def _cuda_args(x: torch.Tensor, w: QTensor, bias, prologue_mul, out_f32: bool,
+               activation, residual=None, ln=None):
+    """Checks a CUDA call and returns (x, g, bias, out, f32_out, the
+    weight's (qs, scales, mins)) as the kernels read them."""
+    _check_args(x, w, activation, prologue_mul, residual, ln)
     if x.device.type != "cuda":
         raise ValueError(f"q4_matmul: unsupported device {x.device}")
     if x.dtype not in (torch.bfloat16, torch.float32):
@@ -132,44 +232,123 @@ def q4_matmul(x: torch.Tensor, w: QTensor, bias: torch.Tensor | None = None,
         raise ValueError("q4_matmul: weight and x on different devices")
     if any(t.dtype != torch.float32 for t in fields[1:]):
         raise ValueError("q4_matmul: scales/mins must be f32")
-    x = x.contiguous()
-    if x.data_ptr() % 16:
-        x = x.clone()
-    g = None
-    if prologue_mul is not None:
-        if prologue_mul.device != x.device or prologue_mul.dtype != x.dtype:
-            raise ValueError("q4_matmul: prologue_mul must match x's device and dtype")
-        g = prologue_mul.contiguous()
-        if g.data_ptr() % 16:
-            g = g.clone()
-    qs, scales = w.qs.contiguous(), w.scales.contiguous()
-    mins = None if w.mins is None else w.mins.contiguous()
+    n = w.shape[1]
     if bias is not None:
         bias = bias.to(device=x.device, dtype=torch.float32).contiguous()
-        if bias.shape != (w.shape[1],):
-            raise ValueError(f"bias shape {tuple(bias.shape)} != ({w.shape[1]},)")
+        if bias.shape != (n,):
+            raise ValueError(f"bias shape {tuple(bias.shape)} != ({n},)")
+    x = _operand(x, x, "x")
+    g = None if prologue_mul is None else _operand(prologue_mul, x, "prologue_mul")
+    f32_out = out_f32 or x.dtype == torch.float32
+    out = torch.empty((x.shape[0], n), device=x.device,
+                      dtype=torch.float32 if f32_out else x.dtype)
+    weight = (w.qs.contiguous(), w.scales.contiguous(),
+              None if w.mins is None else w.mins.contiguous())
+    return x, g, bias, out, int(f32_out), weight
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def _q4_matmul_1d(x: torch.Tensor, w: QTensor, bias=None, residual=None, ln=None,
+                  prologue_mul=None, *, activation=None, out_f32: bool = False) -> torch.Tensor:
+    """K1: the whole product in 64 x 64 tiles; with `residual` / `ln`
+    ((scale [N], bias [N], eps)) the kernel that owns whole rows and applies
+    that tail before its one cast."""
+    if x.device.type == "cpu":
+        return q4_matmul_plain(x, w, bias, activation, residual, ln, out_f32, prologue_mul)
+    x, g, bias, out, f32_out, (qs, scales, mins) = _cuda_args(
+        x, w, bias, prologue_mul, out_f32, activation, residual, ln)
+    if x.shape[0] == 0:
+        return out
     m, k = x.shape
     n = w.shape[1]
-    f32_out = out_f32 or x.dtype == torch.float32
-    out = torch.empty((m, n), device=x.device,
-                      dtype=torch.float32 if f32_out else x.dtype)
-    if m == 0:
-        return out
-    err = _lib()(
-        x.data_ptr(), None if g is None else g.data_ptr(),
-        int(x.dtype == torch.bfloat16), qs.data_ptr(),
-        scales.data_ptr(), None if mins is None else mins.data_ptr(),
-        None if bias is None else bias.data_ptr(), out.data_ptr(),
-        int(f32_out), m, k, n, _QTYPE_CODE[w.qtype],
-        ACTIVATIONS.index(activation),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    check(err, "q4_matmul_launch")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    common = (_ptr(x), _ptr(g), int(x.dtype == torch.bfloat16), _ptr(qs), _ptr(scales),
+              _ptr(mins), _ptr(bias))
+    if residual is None and ln is None:
+        err = _fn("q4_matmul_launch", [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])(
+            *common, _ptr(out), f32_out, m, k, n, _QTYPE_CODE[w.qtype],
+            ACTIVATIONS.index(activation), stream)
+        check(err, "q4_matmul_launch")
+    else:
+        res = None if residual is None else _operand(residual, x, "residual")
+        ln_sb = eps = None
+        if ln is not None:
+            ln_sb = torch.stack([ln[0], ln[1]]).to(device=x.device, dtype=torch.float32)
+            eps = float(ln[2])
+        err = _fn("q4_matmul_ln_launch", [_P, _P, _I, _P, _P, _P, _P, _P, _P, ctypes.c_float,
+                                          _P, _I, _I, _I, _I, _I, _I, _P])(
+            *common, _ptr(res), _ptr(ln_sb), 0.0 if eps is None else eps, _ptr(out), f32_out,
+            m, k, n, _QTYPE_CODE[w.qtype], ACTIVATIONS.index(activation), stream)
+        check(err, "q4_matmul_ln_launch")
+        q4_matmul.ln_launches += 1
     q4_matmul.launches += 1
     if g is not None:
         q4_matmul.prologue_launches += 1
     return out
 
 
+def _q4_matmul_2d(x: torch.Tensor, w: QTensor, bias=None, prologue_mul=None, *,
+                  activation=None, out_f32: bool = False) -> torch.Tensor:
+    """K8: each block holds one column slice of the dequantized weight in
+    shared memory (`slice_width` columns) for every M tile it walks."""
+    if x.device.type == "cpu":
+        return q4_matmul_plain(x, w, bias, activation, out_f32=out_f32,
+                               prologue_mul=prologue_mul)
+    x, g, bias, out, f32_out, (qs, scales, mins) = _cuda_args(
+        x, w, bias, prologue_mul, out_f32, activation)
+    if x.shape[0] == 0:
+        return out
+    m, k = x.shape
+    err = _fn("q4_matmul_2d_launch", [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                      _P])(
+        _ptr(x), _ptr(g), int(x.dtype == torch.bfloat16), _ptr(qs), _ptr(scales), _ptr(mins),
+        _ptr(bias), _ptr(out), f32_out, m, k, w.shape[1], _QTYPE_CODE[w.qtype],
+        ACTIVATIONS.index(activation), torch.cuda.current_stream(x.device).cuda_stream)
+    check(err, "q4_matmul_2d_launch")
+    q4_matmul.n_tiled_launches += 1
+    return out
+
+
+def slice_width(dtype: torch.dtype, k: int) -> int:
+    """K8's column-slice width for x of `dtype` at this K on the current
+    card: the widest whose slice fits a block's shared memory (builds the
+    kernels' library)."""
+    return _fn("q4_matmul_2d_slice_n", [_I, _I])(int(dtype == torch.bfloat16), k)
+
+
+def q4_matmul(x: torch.Tensor, w: QTensor, bias: torch.Tensor | None = None,
+              activation: str | None = None, residual: torch.Tensor | None = None,
+              ln: tuple | None = None, out_f32: bool = False,
+              prologue_mul: torch.Tensor | None = None) -> torch.Tensor:
+    """(x [M, K] [* prologue_mul [M, K]]) @ packed w [K, N] -> act(. + bias)
+    [+ residual [M, N]] [-> LayerNorm with ln = (scale [N], bias [N], eps)]
+    [M, N] in x.dtype (f32 with `out_f32`), routed as `route` says.  CPU
+    tensors take the plain version; CUDA tensors launch a kernel or raise."""
+    _check_args(x, w, activation, prologue_mul, residual, ln)
+    m, k = x.shape
+    r = route(m, k, w.shape[1], w.qtype, x.dtype, prologue=prologue_mul is not None,
+              residual=residual is not None, ln=ln is not None)
+    if r.kernel == "1d":
+        return _q4_matmul_1d(x, w, bias, residual, ln, prologue_mul,
+                             activation=activation, out_f32=out_f32)
+    if r.kernel == "2d":
+        return _q4_matmul_2d(x, w, bias, prologue_mul, activation=activation, out_f32=out_f32)
+    tail = residual is not None or ln is not None
+    if r.kernel == "composed":
+        y = _q4_matmul_2d(x, w, bias, prologue_mul, activation=activation, out_f32=True)
+    else:  # "xla": K1 takes ragged M and N
+        y = _q4_matmul_1d(x, w, bias, prologue_mul=prologue_mul, activation=activation,
+                          out_f32=out_f32 or tail)
+    if not tail:
+        return y
+    y = ln_tail(y, residual, ln)
+    return y if out_f32 else y.to(x.dtype)
+
+
 q4_matmul.launches = 0
 q4_matmul.prologue_launches = 0  # the launches that multiplied in a prologue
+q4_matmul.ln_launches = 0  # K1 launches with the residual/LayerNorm epilogue
+q4_matmul.n_tiled_launches = 0  # K8 launches

@@ -5,9 +5,12 @@ tokenize -> plan (pack short sentences many to a row, bucket the rest by
 length) -> launch every batch -> fetch once -> scatter back to input order;
 cross-encoder pairs frame as [CLS] a [SEP] b [SEP] and run through the
 length buckets to one logit per pair (`score_pairs`, `rerank`).  `encode`
-takes named or literal prompt prefixes and Matryoshka `dimensions`.  The
-engine runs on the GPU unless the caller passes `device="cpu"`; with no
-device given and no GPU present it raises instead of falling back.
+takes named or literal prompt prefixes, Matryoshka `dimensions` and
+`truncate=False`; `encode_queries` / `encode_documents` apply the model's
+query and document prompts, `encode_with_counts` also returns the token
+counts.  The engine runs on the GPU unless the caller passes
+`device="cpu"`; with no device given and no GPU present it raises instead
+of falling back.
 """
 from __future__ import annotations
 
@@ -37,6 +40,7 @@ from ..tokenizer import (
     frame_pair_ids,
     load_tokenizer,
 )
+from ..tokenizer.base import _strip_pad
 from .batching import (
     DEFAULT_BATCH_BUCKETS,
     DEFAULT_PACK_SEQ,
@@ -182,12 +186,23 @@ class Engine:
         return cls(params, config, tokenizer, special, opts=opts, device=device, **kw)
 
     # --- tokenize -----------------------------------------------------------
-    def tokenize_batch(self, texts: Sequence[str]) -> list[list[int]]:
-        """Tokenize + frame each text ([CLS] .. [SEP], cut at n_ctx)."""
+    def tokenize_batch(self, texts: Sequence[str], *,
+                       truncate: bool = True) -> list[list[int]]:
+        """Tokenize + frame each text ([CLS] .. [SEP], cut at n_ctx).
+        truncate=False raises instead, naming the first text whose framed
+        ids pass the context."""
         if self.tokenizer is None:
             raise RuntimeError("engine has no tokenizer (model without blob kv)")
-        return [frame_ids(ids, self.special_ids, self.config.n_ctx)
-                for ids in self.tokenizer.encode_batch(list(texts))]
+        raw = self.tokenizer.encode_batch(list(texts))
+        if not truncate:
+            cap = self.config.n_ctx
+            for i, ids in enumerate(raw):
+                need = len(_strip_pad(ids, self.special_ids.pad)) + 2
+                if need > cap:
+                    raise ValueError(f"input {i} is {need} tokens framed, over the model's "
+                                     f"{cap}-token context (set truncate=true to cut, "
+                                     "or split the text)")
+        return [frame_ids(ids, self.special_ids, self.config.n_ctx) for ids in raw]
 
     # --- forward ------------------------------------------------------------
     def _pack_plan(self, token_lists: Sequence[Sequence[int]]) -> list[int]:
@@ -289,17 +304,53 @@ class Engine:
         return self.prompts[prompt_name]
 
     def encode(self, texts: str | Sequence[str], *, dimensions: int | None = None,
-               prompt_name: str | None = None, prompt: str | None = None) -> np.ndarray:
+               prompt_name: str | None = None, prompt: str | None = None,
+               truncate: bool = True) -> np.ndarray:
         """Texts -> [n, n_embd] L2-normalized f32 embeddings; the prompt
-        prefix (`resolve_prompt`) goes before every text, and `dimensions`
-        keeps that many leading components, normalized again."""
+        prefix (`resolve_prompt`) goes before every text, `dimensions`
+        keeps that many leading components, normalized again, and
+        truncate=False raises on a text past the context instead of
+        cutting it."""
+        return self.encode_with_counts(texts, dimensions=dimensions, prompt_name=prompt_name,
+                                       prompt=prompt, truncate=truncate)[0]
+
+    def query_prompt_prefix(self) -> str:
+        """The prefix for search queries: prompt "query" when the model
+        declares one (sentence-transformers' encode_query), else the
+        default prompt, else ""."""
+        return self.resolve_prompt("query" if "query" in self.prompts else None)
+
+    def document_prompt_prefix(self) -> str:
+        """The prefix for corpus documents: the first of "document" /
+        "passage" the model declares (sentence-transformers'
+        encode_document), else the default prompt, else ""."""
+        return self.resolve_prompt(
+            next((n for n in ("document", "passage") if n in self.prompts), None))
+
+    def encode_queries(self, texts: str | Sequence[str], **kw) -> np.ndarray:
+        """encode() with the model's query prefix (query_prompt_prefix)."""
+        return self.encode(texts, prompt=self.query_prompt_prefix(), **kw)
+
+    def encode_documents(self, texts: str | Sequence[str], **kw) -> np.ndarray:
+        """encode() with the model's document prefix (document_prompt_prefix)."""
+        return self.encode(texts, prompt=self.document_prompt_prefix(), **kw)
+
+    def encode_with_counts(self, texts: str | Sequence[str], *, dimensions: int | None = None,
+                           prompt_name: str | None = None, prompt: str | None = None,
+                           truncate: bool = True) -> tuple[np.ndarray, list[int]]:
+        """encode() plus each text's framed token count ([CLS] and [SEP]
+        and the prompt's tokens included), from the tokenization that fed
+        the forward: what a usage report counts."""
         if isinstance(texts, str):
             texts = [texts]
         prefix = self.resolve_prompt(prompt_name, prompt)
         if prefix:
             texts = [prefix + t for t in texts]
-        out = self.embed_tokens(self.tokenize_batch(texts))
-        return out if dimensions is None else truncate_normalize(out, dimensions)
+        ids = self.tokenize_batch(texts, truncate=truncate)
+        out = self.embed_tokens(ids)
+        if dimensions is not None:
+            out = truncate_normalize(out, dimensions)
+        return out, [len(t) for t in ids]
 
     # --- cross-encoder scoring ----------------------------------------------
     def tokenize_pairs(self, pairs: Sequence[tuple[str, str]]

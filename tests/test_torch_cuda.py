@@ -4,8 +4,12 @@ Marked `cuda`: without a GPU every test here skips.  On a machine with an
 H100 and nvcc:  python -m pytest tests/test_torch_cuda.py -q
 Edge shapes live here (ragged M, sequence lengths that are not multiples of
 the 16- and 64-row tiles, S = 1025, fully padded rows, head dims 32 and
-64, f32 and bf16) for K1 (with and without its prologue multiply), the
-projection-layout kernel with and without a position bias (K2-K4), the
+64, f32 and bf16) for K1 (with and without its prologue multiply, and its
+residual + LayerNorm epilogue up to and past the cap on N), the N-tiled
+K8 (ragged M, K = 32, every slice width, N not a multiple of it, every
+activation and qtype, the prologue, out_f32, a slice past the shared
+memory), the projection-layout kernel with and without a position bias
+(K2-K4), the
 long-row kernel (K5), the sliding-window kernel (K7), the packed-segment
 kernel (K6, full and windowed: S = 200 ... 8192, segments ending on tile
 boundaries, padded tails, a row all padding) and the disentangled-attention
@@ -45,7 +49,12 @@ from embedding_cpp_tpu_torch.ops.deberta_attention import (
     disentangled_attention_packed,
     disentangled_attention_plain,
 )
-from embedding_cpp_tpu_torch.ops.q4_matmul import q4_matmul, q4_matmul_plain
+from embedding_cpp_tpu_torch.ops.q4_matmul import (
+    _q4_matmul_1d,
+    _q4_matmul_2d,
+    q4_matmul,
+    q4_matmul_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -162,6 +171,109 @@ def test_q4_matmul_prologue_matches_plain(dev, qtype, dtype, m, k, n):
     got = q4_matmul(x, w, prologue_mul=g)
     assert q4_matmul.launches == before + 1
     _close(got, q4_matmul_plain(x, w, prologue_mul=g), dtype)
+
+
+@pytest.mark.parametrize("qtype", ["Q4_0", "Q4_1", "Q8_0"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n,act", [
+    (1, 32, 64, "gelu_tanh"),              # one row, K = 32
+    (37, 1024, 4096, "gelu_erf"),          # bge-large's up projection
+    (16384 - 37, 4096, 1024, None),        # its down projection, ragged M
+    (200, 256, 200, "silu"),               # N not a multiple of the slice
+    (130, 2048, 1000, "gelu_erf"),
+    (300, 96, 72, None),                   # K narrower than one x chunk
+    (50, 1184, 256, "silu"),               # a last x chunk of 32 columns
+])
+def test_n_tiled_kernel_matches_plain(dev, qtype, dtype, m, k, n, act):
+    """K8 at every slice width: K = 1024 takes 64 columns in bf16 and 32 in
+    f32, K = 2048 32 and 16, K = 4096 16 and 8."""
+    w = _weight(qtype, k, n, dev, seed=4)
+    gen = torch.Generator(device="cpu").manual_seed(m + k + n)
+    x = torch.randn(m, k, generator=gen).to(dev, dtype)
+    bias = torch.randn(n, generator=gen).to(dev) * 0.1
+    before = (q4_matmul.launches, q4_matmul.n_tiled_launches)
+    got = _q4_matmul_2d(x, w, bias, activation=act)
+    assert (q4_matmul.launches, q4_matmul.n_tiled_launches) == (before[0], before[1] + 1)
+    assert got.dtype == dtype and got.shape == (m, n)
+    _close(got, q4_matmul_plain(x, w, bias, act), dtype)
+
+
+@pytest.mark.parametrize("qtype", ["Q4_0", "Q4_1", "Q8_0"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_n_tiled_prologue_and_out_f32(dev, qtype, dtype):
+    w = _weight(qtype, 1024, 640, dev, seed=5)
+    gen = torch.Generator(device="cpu").manual_seed(6)
+    x, g = (torch.randn(100, 1024, generator=gen).to(dev, dtype) for _ in range(2))
+    got = _q4_matmul_2d(x, w, None, g, activation="gelu_erf", out_f32=True)
+    assert got.dtype == torch.float32
+    ref = q4_matmul_plain(x, w, None, "gelu_erf", out_f32=True, prologue_mul=g)
+    assert (got - ref).abs().max().item() <= (1e-4 if dtype == torch.float32 else 1e-3)
+
+
+def test_q4_matmul_routes_bge_large_ffn_to_the_n_tiled_kernel(dev):
+    """bf16 Q8_0 at 1024 -> 4096 takes K8; with the residual and the
+    LayerNorm tail at 4096 -> 1024 K8 runs into f32 and the tail follows."""
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    up, down = _weight("Q8_0", 1024, 4096, dev, seed=8), _weight("Q8_0", 4096, 1024, dev, seed=9)
+    x = torch.randn(256, 1024, generator=gen).to(dev, torch.bfloat16)
+    h = torch.randn(256, 4096, generator=gen).to(dev, torch.bfloat16)
+    ln = (torch.ones(1024, device=dev), torch.zeros(1024, device=dev), 1e-12)
+    before = (q4_matmul.launches, q4_matmul.n_tiled_launches)
+    _close(q4_matmul(x, up, activation="gelu_erf"),
+           q4_matmul_plain(x, up, activation="gelu_erf"), torch.bfloat16)
+    _close(q4_matmul(h, down, residual=x, ln=ln),
+           q4_matmul_plain(h, down, residual=x, ln=ln), torch.bfloat16)
+    assert (q4_matmul.launches, q4_matmul.n_tiled_launches) == (before[0], before[1] + 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_n_tiled_slice_past_shared_memory_raises(dev, dtype):
+    """A slice the opt-in shared memory cannot hold is refused at launch and
+    the wrapper raises; the refusal does not surface at the next launch."""
+    w = _weight("Q8_0", 8192, 128, dev)
+    with pytest.raises(RuntimeError, match="q4_matmul_2d_launch"):
+        _q4_matmul_2d(torch.zeros(64, 8192, device=dev, dtype=dtype), w)
+    small = _weight("Q4_0", 128, 128, dev)
+    x = torch.randn(64, 128, device=dev).to(dtype)
+    _close(_q4_matmul_2d(x, small), q4_matmul_plain(x, small), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n,qtype", [
+    (16384 - 37, 1024, 1024, "Q8_0"), (77, 384, 384, "Q4_0"), (333, 768, 768, "Q4_1"),
+    (16, 1024, 1000, "Q8_0"), (1, 64, 96, "Q4_0")])
+@pytest.mark.parametrize("parts", ["residual+ln", "residual", "ln"])
+def test_fused_epilogue_kernel_matches_plain(dev, dtype, m, k, n, qtype, parts):
+    """K1's residual + LayerNorm epilogue: ragged M, N = 384 / 768 / 1024
+    and N not a multiple of the 64-column sub-tile, bf16 and f32 residual."""
+    w = _weight(qtype, k, n, dev, seed=10)
+    gen = torch.Generator(device="cpu").manual_seed(m + n)
+    x = torch.randn(m, k, generator=gen).to(dev, dtype)
+    bias = torch.randn(n, generator=gen).to(dev) * 0.1
+    kw = {}
+    if "residual" in parts:
+        kw["residual"] = torch.randn(m, n, generator=gen).to(dev, dtype)
+    if "ln" in parts:
+        kw["ln"] = (1 + 0.1 * torch.randn(n, generator=gen).to(dev),
+                    0.1 * torch.randn(n, generator=gen).to(dev), 1e-12)
+    before = (q4_matmul.launches, q4_matmul.ln_launches)
+    got = _q4_matmul_1d(x, w, bias, activation="gelu_erf", **kw)
+    assert (q4_matmul.launches, q4_matmul.ln_launches) == (before[0] + 1, before[1] + 1)
+    assert got.dtype == dtype and got.shape == (m, n)
+    _close(got, q4_matmul_plain(x, w, bias, "gelu_erf", **kw), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_epilogue_past_its_cap_raises(dev, dtype):
+    """The row buffer caps N (about 3500 columns): N = 4096 is refused."""
+    w = _weight("Q8_0", 256, 4096, dev)
+    ln = (torch.ones(4096, device=dev), torch.zeros(4096, device=dev), 1e-5)
+    with pytest.raises(RuntimeError, match="q4_matmul_ln_launch"):
+        _q4_matmul_1d(torch.zeros(64, 256, device=dev, dtype=dtype), w, ln=ln)
+    small = _weight("Q8_0", 128, 384, dev)
+    x = torch.randn(32, 128, device=dev).to(dtype)
+    ln = (torch.ones(384, device=dev), torch.zeros(384, device=dev), 1e-5)
+    _close(_q4_matmul_1d(x, small, ln=ln), q4_matmul_plain(x, small, ln=ln), dtype)
 
 
 def _pos_bias(ph, s, dev, seed=0):

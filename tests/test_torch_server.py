@@ -1,8 +1,8 @@
 """The port's TCP server over a CPU engine on a free local port: the int32
 n_embd handshake, a raw-mode text, and a TPE2 batch, each equal to
-`engine.encode` (a synthetic MiniLM-shaped engine, and a tiny-nomic GGUF);
-the rerank frame over a DeBERTa cross-encoder, equal to `engine.rerank`,
-and its error frames."""
+`engine.encode` (a synthetic MiniLM-shaped engine, a tiny-nomic GGUF and a
+tiny CLS-pooled Q8_0 GGUF); the rerank frame over a DeBERTa cross-encoder,
+equal to `engine.rerank`, and its error frames."""
 import asyncio
 import contextlib
 import socket
@@ -87,6 +87,23 @@ def nomic_engine(tmp_path_factory):
     return Engine.from_gguf(path, device="cpu")
 
 
+@pytest.fixture(scope="module")
+def q8_engine(tmp_path_factory):
+    """A tiny CLS-pooled BERT in a Q8_0 GGUF (bge-large's pooling and
+    weight type at 64 wide), written by the JAX package."""
+    from embedding_cpp_tpu.models.config import BertConfig as JConfig
+    from embedding_cpp_tpu.models.convert import FTYPE_NAMES, write_bert_gguf
+    from embedding_cpp_tpu.models.params import random_state_dict
+    from embedding_cpp_tpu.tokenizer.testvocab import build_tokenizer_json
+
+    config = JConfig(n_vocab=1000, n_ctx=128, n_embd=64, n_layer=2, n_head=4, n_ff=256,
+                     pooling="cls", name="tiny-q8-cls")
+    path = str(tmp_path_factory.mktemp("gguf") / "tiny-q8_0.gguf")
+    write_bert_gguf(path, config, random_state_dict(config, seed=0),
+                    build_tokenizer_json(config.n_vocab), FTYPE_NAMES["q8_0"])
+    return Engine.from_gguf(path, device="cpu")
+
+
 def test_handshake_raw_and_tpe2(engine):
     _check_raw_and_tpe2(engine)
 
@@ -94,6 +111,12 @@ def test_handshake_raw_and_tpe2(engine):
 def test_nomic_gguf_served_raw_and_tpe2(nomic_engine):
     assert nomic_engine.config.arch == "nomic-bert"
     _check_raw_and_tpe2(nomic_engine)
+
+
+def test_q8_cls_gguf_served_raw_and_tpe2(q8_engine):
+    assert q8_engine.config.pooling == "cls"
+    assert q8_engine.params["layers"]["ffn_up_w"].qtype.name == "Q8_0"
+    _check_raw_and_tpe2(q8_engine)
 
 
 def _check_raw_and_tpe2(engine):
