@@ -22,7 +22,10 @@ Phases, in order, each printing JSON lines:
             K1 at bge-large-en-v1.5's q/k/v/o (Q8_0), the N-tiled K8 at its
             FFN (every qtype, bf16 and f32, beside the same call forced
             through K1), K1's residual + LayerNorm epilogue at N = 384, 768,
-            1024, and K2/K3 at 16 heads of 64
+            1024, and K2/K3 at 16 heads of 64; B1, the kernel suite's
+            head-packed attention (benchmark code, on no model path), at
+            [32, 512, 12x32] hb 4 and [32, 512, 12x64] hb 2 beside K5, K3
+            and SDPA at the same shape, and with -1e9 padding tails
   main      Engine.embed_tokens at MiniLM-L6 full width (384 wide, 6 layers,
             12 heads; Q4_0 weights from a seed, bf16 activations) over the
             2758-sentence STSB-profile corpus, packed and plain, f32 and int8
@@ -72,12 +75,16 @@ Phases, in order, each printing JSON lines:
             (MiniLM-L6, ModernBERT, DeBERTa, bge-large) and of the [8, 8192]
             ModernBERT forward
   server    the TCP server over the GPU engines: one raw text and one TPE2
-            batch (MiniLM-L6, nomic, bge-large), one rerank frame (DeBERTa)
+            batch (MiniLM-L6, nomic, bge-large), one rerank frame (DeBERTa);
+            on MiniLM-L6 also the reference's bert.h frames (health, stats,
+            meta, tokenize, eval, vocab, int8 encode) and one frame the port
+            does not serve yet, whose error frame leaves the connection usable
 then the card's name and power limit, the `kernels` summary line (one entry
 per kernel and model: a model's launches beside the times at its shapes),
 and last {"ok": true, "device": {...}}.  Launch counts are set to 0 just before each
-path is driven and read just after; every kernel but K1's fused tail, which
-no model path runs, must have launched on its path.  Any failure raises and exits non-zero
+path is driven and read just after; every kernel but K1's fused tail and
+B1, which no model path runs, must have launched on its path (those two
+must not have).  Any failure raises and exits non-zero
 before the last line.  Nothing of JAX or of the JAX package is imported.
 With --out-dir, the ptxas log and the profiler tables are written there.
 """
@@ -97,6 +104,14 @@ from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
+
+from embedding_cpp_tpu_torch.utils.profiling import (
+    F32_PEAKS,
+    bound_ms,
+    gpu_ms,
+    peaks_for,
+    trace,
+)
 
 ROOT = Path(__file__).resolve().parent
 M_TOKENS = 32 * 512  # the packed main-path batch: 32 rows of 512 tokens
@@ -122,19 +137,10 @@ PEARSON_BF16 = 0.99
 PEARSON_BF16_VS_BF16 = 0.995
 LOGIT_ERR_BF16_VS_BF16 = 0.015
 COSINE_SERVER = 0.9999  # wire replies vs engine.encode
+COSINE_INT8 = 0.999  # int8 wire codes (one step is 1/127 of a row's largest value)
 ATTENTION = ("attn_bse_packed", "attn_bse_keybias", "attn_bse_bias", "attn_bse_bias_packed",
              "attn_long", "attn_local", "deberta_attn", "deberta_attn_packed", "attn_seg",
              "attn_seg_window")
-
-# Published dense peaks by the name the card reports (NVIDIA data sheets):
-# memory bytes/s and bf16 tensor-core flop/s.
-PEAKS = {
-    "H100 PCIe": (2.0e12, 756e12),
-    "H100 NVL": (3.9e12, 835e12),
-    "H100": (3.35e12, 989e12),  # SXM5, the 80 GB HBM3 part
-}
-# f32 outside the tensor cores (the same data sheets): the f32 forms' bound
-F32_PEAKS = {"H100 PCIe": 51e12, "H100 NVL": 60e12, "H100": 67e12}
 
 
 def emit(obj) -> None:
@@ -153,41 +159,6 @@ def reset_counts(counters) -> None:
 
 def read_counts(counters) -> dict:
     return {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
-
-
-def peaks_for(name: str):
-    for key, val in PEAKS.items():
-        if key in name:
-            return key, val
-    raise RuntimeError(f"no published peaks for {name!r}")
-
-
-def gpu_ms(fn, samples: int = 20, reps: int = 3, spin: int = 2_000_000) -> float:
-    """Median over `samples` of CUDA-event time per call, each sample `reps`
-    back-to-back calls queued behind a GPU spin of `spin` cycles, so the
-    host's launch overhead stays out of the device time."""
-    import torch
-
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(samples):
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        torch.cuda._sleep(spin)  # keep the stream busy while we enqueue
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    return float(np.median(times))
-
-
-def bound_ms(nbytes: float, flops: float, peaks) -> tuple[float, str]:
-    bw, flop_rate = peaks
-    t_bytes, t_ops = nbytes / bw * 1e3, flops / flop_rate * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 # --- serving-shaped inputs (copies of the benchmark helpers) -----------------
@@ -809,10 +780,10 @@ def phase_kernels_deberta(peaks) -> dict:
     from embedding_cpp_tpu_torch.ops.deberta_attention import (
         MASK_BIAS,
         _device_tables,
-        _scores_plain,
         disentangled_attention,
         disentangled_attention_packed,
         disentangled_attention_plain,
+        disentangled_scores_plain,
     )
 
     dev = torch.device("cuda")
@@ -843,7 +814,7 @@ def phase_kernels_deberta(peaks) -> dict:
         heads = [t.transpose(1, 2).contiguous() for t in (q, k, v)]
         rel = None
         if timed:  # scaled c2p + p2c [B, H, S, S]: all three terms less q.k
-            rel = (_scores_plain(q, k, pk, pq, c2p.long(), p2c.long())
+            rel = (disentangled_scores_plain(q, k, pk, pq, c2p.long(), p2c.long())
                    - torch.matmul(heads[0].float(), heads[1].float().transpose(-1, -2))) * scale
         for kernel, fn, mask, seg_mask in (
                 ("deberta_attn", disentangled_attention, keyb, False),
@@ -1035,6 +1006,64 @@ def phase_kernels_segment(peaks) -> dict:
             run(kernel, b, s, lo, hi, bound, dtype, False, tile=tile, empty_row=b > 1)
         torch.cuda.empty_cache()
     return results
+
+
+def phase_kernels_headpack(peaks) -> dict:
+    """B1, the head-packed attention of the kernel suite, against its plain
+    version (divide before PV) in bf16: timed at [32, 512, 12x32] with hb 4
+    and [32, 512, 12x64] with hb 2 (zero bias, as the JAX suite), beside
+    K5 (`flash_attention`, [B, S, H, d]) and K3 (`flash_attention_bse`,
+    [B, S, H*d]) at the same shape and SDPA (the library call, B1's own
+    [B, H, S, d] layout); checked untimed at both shapes with a -1e9 padding
+    tail on every row but the first and one row all padding, and at a
+    ragged S.  No model path runs B1: its launches here are check launches."""
+    import torch
+    import torch.nn.functional as F
+
+    from embedding_cpp_tpu_torch.ops.attention import (
+        MASK_BIAS,
+        attention_headpack,
+        attention_headpack_plain,
+        flash_attention,
+        flash_attention_bse,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(15)
+    rng = np.random.default_rng(15)
+    results, before = {}, attention_headpack.launches
+    for b, s, h, d, hb, tail, timed in ((32, 512, 12, 32, 4, False, True),
+                                        (32, 512, 12, 64, 2, False, True),
+                                        (32, 512, 12, 32, 4, True, False),
+                                        (32, 512, 12, 64, 2, True, False),
+                                        (4, 300, 12, 64, 2, True, False)):
+        q, k, v = (torch.randn(b, h, s, d, generator=gen).to(dev, torch.bfloat16)
+                   for _ in range(3))
+        bias = torch.zeros(b, s)
+        if tail:
+            lens = torch.from_numpy(rng.integers(1, s + 1, size=b))
+            lens[0], lens[-1] = s, 0
+            bias = torch.where(torch.arange(s)[None, :] < lens[:, None], 0.0, MASK_BIAS)
+        bias = bias.to(torch.float32).to(dev)
+        c = _attention_case(
+            "attention_headpack", lambda *a: attention_headpack(*a, hb),
+            lambda *a: attention_headpack_plain(*a, hb),
+            lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=bias[:, None, None, :].to(q.dtype)),
+            (q, k, v, bias), 4 * q.numel() * 2 + bias.numel() * 4, 4.0 * b * h * s * s * d,
+            peaks, timed, b=b, s=s, h=h, d=d, hb=hb, padding_tail=tail)
+        if timed:
+            rows = [t.transpose(1, 2).contiguous() for t in (q, k, v)]  # [B, S, H, d]
+            proj = [t.view(b, s, h * d) for t in rows]
+            c["k5_ms"] = gpu_ms(lambda: flash_attention(*rows, bias))
+            c["k3_ms"] = gpu_ms(lambda: flash_attention_bse(*proj, bias, h))
+            emit({"phase": "kernel_time", "kernel": "attention_headpack", "b": b, "s": s,
+                  "h": h, "d": d, "hb": hb, "k5_ms": c["k5_ms"], "k3_ms": c["k3_ms"]})
+            results[f"d{d}_hb{hb}"] = c
+            del rows, proj
+        del q, k, v
+    torch.cuda.empty_cache()
+    return {**results, "check_launches": attention_headpack.launches - before}
 
 
 def _packed_plan(eng, token_lists) -> list:
@@ -1876,9 +1905,8 @@ def _profiled(fn):
     region, kernel rows [(name, device us, calls)] by device time, table)."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with trace() as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1992,6 +2020,93 @@ def phase_server(engine) -> None:
     check(min(cos_raw, cos_tpe2) >= COSINE_SERVER, "server replies differ from encode")
 
 
+def phase_server_frames(engine) -> None:
+    """The reference's bert.h frames on one connection to the server over
+    the GPU engine: health, stats, meta, tokenize (== Engine.tokenize),
+    eval of those ids (== Engine.embed_tokens), vocab (== id_to_token; an
+    unknown id gives an empty token), int8 encode (against encode), and one
+    unserved magic (the vector-index frame): its error frame, then a TPE2
+    frame on the same socket answered; and eval frames with an id past the
+    vocab and a negative id: each gets the error frame before anything
+    launches, and a valid eval frame behind them is answered (the CUDA
+    context survives)."""
+    texts = ["hello world", "the quick brown fox jumps over the lazy dog", "welcome back soon"]
+    ids = [engine.tokenize(t) for t in texts]
+    want_eval, want_enc = engine.embed_tokens(ids), engine.encode(texts)
+    body = struct.pack("<I", len(texts)) + b"".join(
+        struct.pack("<I", len(t.encode())) + t.encode() for t in texts)
+    n_embd = engine.n_embd
+
+    def u32(s) -> int:
+        (v,) = struct.unpack("<I", _recv(s, 4))
+        if v == 0xFFFFFFFF:
+            raise RuntimeError(f"error frame: {_recv(s, struct.unpack('<I', _recv(s, 4))[0])}")
+        return v
+
+    def f32_rows(s) -> np.ndarray:
+        n = u32(s)
+        return np.frombuffer(_recv(s, 4 * n * n_embd), np.float32).reshape(n, n_embd)
+
+    def eval_frame(lists) -> bytes:
+        return b"\x01TPI" + struct.pack("<I", len(lists)) + b"".join(
+            struct.pack("<I", len(t)) + np.asarray(t, np.int32).tobytes() for t in lists)
+
+    with _serving(engine) as port, socket.create_connection(("127.0.0.1", port), 10) as s:
+        s.settimeout(60)
+        _recv(s, 4)
+        s.sendall(b"TPEH")
+        health = _recv(s, 6)
+        s.sendall(b"TPES")
+        stats = json.loads(_recv(s, u32(s)))
+        s.sendall(b"\x01TPM")
+        meta = json.loads(_recv(s, u32(s)))
+        s.sendall(b"\x01TPT" + body)
+        toks = []
+        for _ in range(u32(s)):
+            toks.append(np.frombuffer(_recv(s, 4 * u32(s)), np.int32).tolist())
+        s.sendall(eval_frame(ids))
+        got_eval = f32_rows(s)
+        vocab = []
+        for i in ids[1] + [engine.config.n_vocab + 5]:
+            s.sendall(b"\x01TPV" + struct.pack("<I", i))
+            vocab.append(_recv(s, u32(s)).decode())
+        s.sendall(b"\x01TP8" + body)
+        n = u32(s)
+        scale = np.frombuffer(_recv(s, 4 * n), np.float32)
+        codes = np.frombuffer(_recv(s, n * n_embd), np.int8).reshape(n, n_embd)
+        s.sendall(b"\x01TPB" + body + b"TPE2" + body)  # unserved, then served
+        (flag,) = struct.unpack("<I", _recv(s, 4))
+        error = _recv(s, struct.unpack("<I", _recv(s, 4))[0]).decode()
+        after = f32_rows(s)
+        bad_replies = []
+        for bad in (engine.config.n_vocab, -1):
+            s.sendall(eval_frame([ids[0], [ids[1][0], bad, ids[1][-1]]]))
+            (bad_flag,) = struct.unpack("<I", _recv(s, 4))
+            bad_replies.append((bad_flag, _recv(s, struct.unpack("<I", _recv(s, 4))[0]).decode()))
+        s.sendall(eval_frame(ids))
+        after_bad = f32_rows(s)
+    cos_eval, cos_i8 = _min_cos(got_eval, want_eval), _min_cos(codes * scale[:, None], want_enc)
+    cos_after, cos_after_bad = _min_cos(after, want_enc), _min_cos(after_bad, want_eval)
+    emit({"phase": "server_frames", "model": engine.config.name, "health": health[4:].decode(),
+          "stats_server": stats.get("server"), "meta": meta, "tokens": toks[1][:8],
+          "eval_min_cosine": cos_eval, "int8_min_cosine": cos_i8, "unserved_reply": error,
+          "after_error_min_cosine": cos_after, "out_of_vocab_replies": bad_replies,
+          "after_out_of_vocab_min_cosine": cos_after_bad})
+    check(health == struct.pack("<I", 2) + b"ok", f"health {health!r}")
+    check(stats["server"]["connections"] >= 1 and "counters" in stats, f"stats {stats}")
+    check(meta == {"n_embd": n_embd, "n_max_tokens": engine.n_max_tokens,
+                   "name": engine.config.name}, f"meta {meta}")
+    check(toks == ids, "tokenize frame differs from Engine.tokenize")
+    check(vocab == [engine.id_to_token(i) for i in ids[1]] + [""], f"vocab {vocab}")
+    check(min(cos_eval, cos_after) >= COSINE_SERVER, "eval/TPE2 replies differ from the engine")
+    check(cos_i8 >= COSINE_INT8, f"int8 reply cosine {cos_i8}")
+    check(flag == 0xFFFFFFFF and error.startswith("NotImplementedError"),
+          f"unserved frame reply {flag:#x} {error!r}")
+    check(all(f == 0xFFFFFFFF and "outside 0.." in e for f, e in bad_replies),
+          f"out-of-vocab eval replies {bad_replies}")
+    check(cos_after_bad >= COSINE_SERVER, "eval after the out-of-vocab frames differs")
+
+
 def phase_rerank_server(engine) -> None:
     """One rerank frame to the server over the GPU DeBERTa cross-encoder:
     the ranking equals Engine.rerank's."""
@@ -2066,6 +2181,7 @@ def main() -> None:
     attn.update(phase_kernels_deberta(peaks))
     attn.update(phase_kernels_segment(peaks))
     attn_bge = phase_kernels_attention(peaks, "bge-large-en-v1.5", 16, 64, seed=5)
+    headpack = phase_kernels_headpack(peaks)
     counters = {"q4_matmul": (q4_matmul, "launches"),
                 "q4_matmul_prologue": (q4_matmul, "prologue_launches"),
                 "q4_matmul_2d": (q4_matmul, "n_tiled_launches"),
@@ -2079,7 +2195,8 @@ def main() -> None:
                 "deberta_attn": (DA.disentangled_attention, "launches"),
                 "deberta_attn_packed": (DA.disentangled_attention_packed, "launches"),
                 "attn_seg": (A.flash_attention_packed, "launches"),
-                "attn_seg_window": (A.flash_attention_packed, "window_launches")}
+                "attn_seg_window": (A.flash_attention_packed, "window_launches"),
+                "attention_headpack": (A.attention_headpack, "launches")}
     engine, forward_args, launches, token_lists = phase_main(counters)
     mb, mb_outs, mb_launches, mb_forward_args = phase_modernbert_main(counters, token_lists)
     long_launches = phase_modernbert_long(counters, mb, out_dir)
@@ -2096,6 +2213,7 @@ def main() -> None:
     phase_profile(de_forward_args, de, token_lists, out_dir, tag="deberta_")
     phase_profile(bge_forward_args, bge, token_lists, out_dir, tag="bge_")
     phase_server(engine)
+    phase_server_frames(engine)
     phase_server(nomic)
     phase_server(bge)
     phase_rerank_server(de)
@@ -2116,6 +2234,10 @@ def main() -> None:
     ln_on_paths = sum(t["q4_matmul_ln"] for t in (launches, mb_total, de_total, nomic_total,
                                                   bge_total, bge_f32_counts))
     check(ln_on_paths == 0, f"the fused tail ran on a model path {ln_on_paths} times")
+    # B1 too: it is benchmark code, on no model path
+    headpack_on_paths = sum(t["attention_headpack"] for t in (
+        launches, mb_total, de_total, nomic_total, bge_total, bge_f32_counts))
+    check(headpack_on_paths == 0, f"B1 ran on a model path {headpack_on_paths} times")
     k1_bge = {**k1b["per_layer"], "max_abs_err": k1b["max_abs_err"],
               "bound_by": k1b["bound_by"]}
     k8_layer = {**k8["per_layer"], "max_abs_err": k8["max_abs_err"], "bound_by": k8["bound_by"]}
@@ -2223,8 +2345,23 @@ def main() -> None:
                               bound_ms_key_slice=c["bound_ms_key_slice"],
                               pair_share=c["pair_share"],
                               library="SDPA with the boolean block-diagonal [B, 1, S, S] mask"))
-    # every kernel ran on its model path; the fused tail runs on none
-    check(all(k["launches"] > 0 for k in kernels if k["name"] != "q4_matmul_ln"),
+    c = headpack["d32_hb4"]
+    kernels.append({
+        **_entry("attention_headpack", "attention_headpack.cu", "", headpack_on_paths, c,
+                 f"[{c['b']}, {c['h']}, {c['s']}, {c['d']}] bf16 head-major, hb {c['hb']}, "
+                 "zero bias", k5_ms=c["k5_ms"], k3_ms=c["k3_ms"],
+                 library="SDPA with the additive mask, [B, H, S, d]",
+                 d64_hb2={**_timing(headpack["d64_hb2"]),
+                          "k5_ms": headpack["d64_hb2"]["k5_ms"],
+                          "k3_ms": headpack["d64_hb2"]["k3_ms"],
+                          "shape": "[32, 12, 512, 64] bf16 head-major, hb 2, zero bias"}),
+        "replaces": "benchmarks/kernels.py:234",
+        "launches_on_model_paths": headpack_on_paths,
+        "why": "benchmark code: the kernel suite's head-packing A/B, on no model path",
+        "check_launches": headpack["check_launches"]})
+    # every kernel ran on its model path; the fused tail and B1 run on none
+    check(all(k["launches"] > 0 for k in kernels
+              if k["name"] not in ("q4_matmul_ln", "attention_headpack")),
           f"a kernel was never launched: {launches} {mb_total} {de_total} {nomic_total} "
           f"{bge_total}")
     print(smi, flush=True)

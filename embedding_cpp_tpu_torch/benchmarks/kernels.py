@@ -1,0 +1,351 @@
+"""Kernel A/B suite on the GPU: each hand-written kernel of the port against
+one PyTorch library call that computes the same function, at the shapes of
+the JAX package's suite (`benchmarks/kernels.py`); the port never calls
+the library calls.
+
+    python -m embedding_cpp_tpu_torch.benchmarks.kernels [--m 512 4096 32768] [--out FILE]
+
+Times are CUDA-event medians (`utils/profiling.gpu_ms`); the layout
+permutes and the library calls' masks are built outside the timed region.
+Each entry holds `kernel` and `library` (in place of the JAX suite's
+`pallas` and `xla`), each with `us`, `tflops` and `bound_us`, the least
+time the card could take for the function (`utils/profiling.bound_ms`:
+each input read once, each output written once, the card's published
+peaks).  The last line of standard output is one JSON object with a
+`device` entry (the card's name and power limit from nvidia-smi).
+
+`bench_attention_headpack` runs B1, the head-packed attention of the JAX
+suite's bench of that name (`ops/attention.attention_headpack`, kernel
+`csrc/attention_headpack.cu`).  No model path runs B1: it measures
+whether packing heads into one wide product pays on the card's tensor
+cores.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..gguf import GGMLType
+from ..gguf.quant import quantize
+from ..ops import qtensor as tqt
+from ..ops.attention import (
+    attention_headpack,
+    attention_headpack_plain,
+    flash_attention,
+    flash_attention_bse,
+    flash_attention_local,
+    flash_attention_packed,
+    flash_attention_packed_bse,
+)
+from ..ops.deberta_attention import (
+    delta_tables,
+    disentangled_attention,
+    disentangled_scores_plain,
+)
+from ..ops.q4_matmul import dequant_weight, q4_matmul, route
+from ..utils.profiling import bound_ms, gpu_ms, peaks_for
+
+# --- the A/B suite -------------------------------------------------------------
+
+def _timed(fn, nbytes: float, flops: float, peaks, **kw) -> dict:
+    """{us, tflops, bound_us} of one call on the card."""
+    ms = gpu_ms(fn, **kw)
+    return {"us": ms * 1e3, "tflops": flops / ms / 1e9,
+            "bound_us": bound_ms(nbytes, flops, peaks)[0] * 1e3}
+
+
+def _weight(qtype: str, k: int, n: int, scale: float, rng, dev):
+    """A random [k, n] weight (rows drawn as [n, k], the GGUF layout)
+    packed as `qtype` on the card, and its dequantized bf16 [k, n]."""
+    w_np = (rng.normal(size=(n, k)) * scale).astype(np.float32)
+    raw = quantize(w_np, GGMLType[qtype])
+    w = (tqt.pack_q8_matmul(raw, (n, k)) if qtype == "Q8_0"
+         else tqt.pack_q4_matmul(raw, (n, k), GGMLType[qtype]))
+    w = w.map(lambda t: t.to(dev))
+    return w, dequant_weight(w, torch.bfloat16)
+
+
+def _weight_bytes(w) -> int:
+    return sum(t.numel() * t.element_size() for t in (w.qs, w.scales, w.mins) if t is not None)
+
+
+def _ffn_pair(m: int, e: int, f: int, weight_scale: float, qtype: str = "Q4_0"):
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    up, up_d = _weight(qtype, e, f, weight_scale, rng, dev)
+    dn, dn_d = _weight(qtype, f, e, weight_scale, rng, dev)
+    x = torch.from_numpy(rng.normal(size=(m, e))).to(dev, torch.bfloat16)
+    nbytes = 2 * m * e * 2 + _weight_bytes(up) + _weight_bytes(dn)
+    return up, up_d, dn, dn_d, x, nbytes, 4.0 * m * e * f
+
+
+def bench_q4_ffn(m: int, peaks, e: int = 384, f: int = 1536) -> dict:
+    """The FFN pair up then down with nothing between (weights scaled so the
+    activations stay finite): K1 twice against torch.mm on the dequantized
+    weights."""
+    up, up_d, dn, dn_d, x, nbytes, flops = _ffn_pair(m, e, f, 2e-2)
+    return {"kernel": _timed(lambda: q4_matmul(q4_matmul(x, up), dn), nbytes, flops, peaks),
+            "library": _timed(lambda: torch.mm(torch.mm(x, up_d), dn_d), nbytes, flops, peaks),
+            "route": [route(m, e, f, up.qtype, x.dtype).kernel,
+                      route(m, f, e, dn.qtype, x.dtype).kernel]}
+
+
+def bench_q4_epilogue(m: int, peaks, e: int = 384, f: int = 1536) -> dict:
+    """The same pair with a `* 1e-3` between and after the products, in the
+    four combinations of K1 (k) and torch.mm (l) for up and down."""
+    up, up_d, dn, dn_d, x, nbytes, flops = _ffn_pair(m, e, f, 1.0)
+    mm = {"k": lambda a, w, wd: q4_matmul(a, w), "l": lambda a, w, wd: torch.mm(a, wd)}
+    out = {}
+    for a in "kl":
+        for b in "kl":
+            def fn(a=a, b=b):
+                h = mm[a](x, up, up_d) * 1e-3
+                return mm[b](h, dn, dn_d) * 1e-3
+            out[a + b] = _timed(fn, nbytes, flops, peaks, samples=10)
+    return out
+
+
+def bench_q4_fused_epilogue(m: int, peaks, e: int = 384, f: int = 1536,
+                            qtype: str = "Q4_0") -> dict:
+    """The FFN with its real epilogues, y = gelu(x @ W_up + b_up) @ W_dn +
+    b_dn: K1 with bias and gelu in its epilogue against torch.addmm on the
+    dequantized weights (+ gelu)."""
+    up, up_d, dn, dn_d, x, nbytes, flops = _ffn_pair(m, e, f, 2e-2, qtype)
+    rng = np.random.default_rng(7)
+    b_up = torch.from_numpy(rng.normal(size=(f,)) * 1e-2).to(x.device, torch.float32)
+    b_dn = torch.from_numpy(rng.normal(size=(e,)) * 1e-2).to(x.device, torch.float32)
+    bu, bd = b_up.to(x.dtype), b_dn.to(x.dtype)
+    nbytes += (e + f) * 4
+
+    def kernel():
+        return q4_matmul(q4_matmul(x, up, bias=b_up, activation="gelu_erf"), dn, bias=b_dn)
+
+    def library():
+        return torch.addmm(bd, F.gelu(torch.addmm(bu, x, up_d)), dn_d)
+    return {"kernel": _timed(kernel, nbytes, flops, peaks),
+            "library": _timed(library, nbytes, flops, peaks)}
+
+
+def _qkv(shape, seed: int = 0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=shape)).to("cuda", torch.bfloat16)
+            for _ in range(3)]
+
+
+def _tail_bias(b: int, s: int) -> torch.Tensor:
+    bias = np.zeros((b, s), np.float32)
+    bias[:, (s * 3) // 4:] = -1e9
+    return torch.from_numpy(bias).cuda()
+
+
+def _sdpa(q, k, v, mask, **kw):
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, **kw)
+
+
+def bench_attention(peaks, b: int = 32, s: int = 512, h: int = 12, d: int = 32) -> dict:
+    """K3, the projection-layout kernel with a key bias (the last quarter of
+    every row masked), against SDPA with the additive mask."""
+    q, k, v = _qkv((b, s, h * d))
+    bias = _tail_bias(b, s)
+    heads = [t.view(b, s, h, d).transpose(1, 2).contiguous() for t in (q, k, v)]
+    nbytes, flops = 4 * q.numel() * 2 + bias.numel() * 4, 4.0 * b * h * s * s * d
+    return {"kernel": _timed(lambda: flash_attention_bse(q, k, v, bias, h), nbytes, flops, peaks),
+            "library": _timed(_sdpa(*heads, bias[:, None, None, :].to(q.dtype)), nbytes, flops,
+                              peaks)}
+
+
+def bench_attention_bias(peaks, b: int = 32, s: int = 512, h: int = 12, d: int = 64) -> dict:
+    """K4, a per-head [H, S, S] f32 position bias added after the key bias
+    (MPNet's relative attention at all-mpnet-base-v2's shape), against SDPA
+    with the float mask (key bias + position bias, materialized)."""
+    q, k, v = _qkv((b, s, h * d))
+    bias = _tail_bias(b, s)
+    pos = torch.from_numpy(np.random.default_rng(1).normal(size=(h, s, s))
+                           .astype(np.float32)).cuda()
+    heads = [t.view(b, s, h, d).transpose(1, 2).contiguous() for t in (q, k, v)]
+    mask = (bias[:, None, None, :] + pos[None]).to(q.dtype)
+    nbytes = 4 * q.numel() * 2 + bias.numel() * 4 + pos.numel() * 4
+    flops = 4.0 * b * h * s * s * d
+    return {"kernel": _timed(lambda: flash_attention_bse(q, k, v, bias, h, pos), nbytes, flops,
+                             peaks),
+            "library": _timed(_sdpa(*heads, mask), nbytes, flops, peaks)}
+
+
+def bench_attention_headpack(peaks, b: int = 32, s: int = 512, h: int = 12, d: int = 32,
+                             hb: int = 4) -> dict:
+    """B1, hb heads packed into one product per stage over block-diagonal
+    K/V tiles, beside the per-head kernels at the same shape: K5
+    (`flash_attention`, [B, S, H, d]) and K3 (`flash_attention_bse`,
+    [B, S, H*d]), SDPA (the library call, [B, H, S, d]) and the plain
+    version.  The bias is zero, as in the JAX suite; max_err_vs_per_head is
+    max|B1 - K5| and max_err_vs_plain max|B1 - plain|."""
+    q, k, v = _qkv((b, h, s, d))
+    bias = torch.zeros(b, s, dtype=torch.float32, device="cuda")
+    rows = [t.transpose(1, 2).contiguous() for t in (q, k, v)]  # [B, S, H, d]
+    proj = [t.view(b, s, h * d) for t in rows]
+    nbytes, flops = 4 * q.numel() * 2 + bias.numel() * 4, 4.0 * b * h * s * s * d
+    got = attention_headpack(q, k, v, bias, hb)
+    per_head = flash_attention(*rows, bias).transpose(1, 2)
+    plain = attention_headpack_plain(q, k, v, bias, hb)
+    torch.cuda.synchronize()
+    return {
+        "hb": hb,
+        "kernel": _timed(lambda: attention_headpack(q, k, v, bias, hb), nbytes, flops, peaks),
+        "per_head": _timed(lambda: flash_attention(*rows, bias), nbytes, flops, peaks),
+        "k3": _timed(lambda: flash_attention_bse(*proj, bias, h), nbytes, flops, peaks),
+        "library": _timed(_sdpa(q, k, v, bias[:, None, None, :].to(q.dtype)), nbytes, flops,
+                          peaks),
+        "plain": _timed(lambda: attention_headpack_plain(q, k, v, bias, hb), nbytes, flops,
+                        peaks, samples=3, reps=1),
+        "max_err_vs_per_head": (got.float() - per_head.float()).abs().max().item(),
+        "max_err_vs_plain": (got.float() - plain.float()).abs().max().item(),
+    }
+
+
+def bench_packed_attention(peaks, b: int = 64, s: int = 512, h: int = 12, d: int = 32,
+                           seg_len: int = 16) -> dict:
+    """K2, segment-masked packed rows (segments of seg_len tokens), against
+    SDPA with the boolean block-diagonal [B, 1, S, S] mask."""
+    q, k, v = _qkv((b, s, h * d))
+    seg = torch.arange(s, device="cuda").div(seg_len, rounding_mode="floor") \
+        .to(torch.int32).expand(b, s).contiguous()
+    heads = [t.view(b, s, h, d).transpose(1, 2).contiguous() for t in (q, k, v)]
+    allowed = (seg[:, :, None] == seg[:, None, :])[:, None]
+    nbytes, flops = 4 * q.numel() * 2 + seg.numel() * 4, 4.0 * b * h * s * s * d
+    return {"kernel": _timed(lambda: flash_attention_packed_bse(q, k, v, seg, h), nbytes, flops,
+                             peaks),
+            "library": _timed(_sdpa(*heads, allowed), nbytes, flops, peaks)}
+
+
+def bench_windowed_attention(peaks, b: int = 8, s: int = 2048, h: int = 12, d: int = 32,
+                             seg_len: int = 64, window: int = 128) -> dict:
+    """Long rows [B, S, H, d]: K6 over packed segments of seg_len tokens,
+    windowed (`kernel`, the query tile's key slice) and over every key
+    (`full`); K7, the sliding window (`local`), beside K5 over every key
+    (`long`); SDPA with the boolean block-diagonal mask (`library`).  tflops
+    count the visible (query, key) pairs of each function."""
+    q, k, v = _qkv((b, s, h, d))
+    seg = torch.arange(s, device="cuda").div(seg_len, rounding_mode="floor") \
+        .to(torch.int32).expand(b, s).contiguous()
+    keyb = torch.zeros(b, s, dtype=torch.float32, device="cuda")
+    heads = [t.transpose(1, 2).contiguous() for t in (q, k, v)]
+    allowed = (seg[:, :, None] == seg[:, None, :])[:, None]
+    nbytes = 4 * q.numel() * 2 + b * s * 4
+    pos = np.arange(s)
+    local_pairs = float(b * (np.minimum(pos + window // 2, s - 1)
+                             - np.maximum(pos - window // 2, 0) + 1).sum())
+    seg_flops, all_flops = 4.0 * h * d * b * s * seg_len, 4.0 * b * h * s * s * d
+    return {
+        "kernel": _timed(lambda: flash_attention_packed(q, k, v, seg, seg_len), nbytes,
+                         seg_flops, peaks),
+        "full": _timed(lambda: flash_attention_packed(q, k, v, seg), nbytes, seg_flops, peaks),
+        "local": _timed(lambda: flash_attention_local(q, k, v, keyb, window), nbytes,
+                        4.0 * h * d * local_pairs, peaks),
+        "long": _timed(lambda: flash_attention(q, k, v, keyb), nbytes, all_flops, peaks),
+        "library": _timed(_sdpa(*heads, allowed), nbytes, seg_flops, peaks),
+    }
+
+
+def bench_deberta_attention(peaks, b: int = 16, s: int = 512, h: int = 12, d: int = 64,
+                            span: int = 256) -> dict:
+    """K9, disentangled attention at deberta-v3-base's geometry with a key
+    bias, against SDPA given the materialized scaled c2p + p2c bias with
+    the key bias folded in (building it is not timed)."""
+    max_dist = 2 * span
+    q, k, v = _qkv((b, s, h, d))
+    rng = np.random.default_rng(1)
+    pos_k, pos_q = (torch.from_numpy(rng.normal(size=(2 * span, h, d))).to("cuda", q.dtype)
+                    for _ in range(2))
+    bias = _tail_bias(b, s)
+    scale = 1.0 / float(np.sqrt(3 * d))
+    c2p, p2c = (torch.from_numpy(t).to(q.device) for t in delta_tables(s, span, max_dist))
+    heads = [t.transpose(1, 2).contiguous() for t in (q, k, v)]
+    rel = (disentangled_scores_plain(q, k, pos_k, pos_q, c2p.long(), p2c.long())
+           - torch.matmul(heads[0].float(), heads[1].float().transpose(-1, -2))) * scale
+    mask = (rel + bias[:, None, None, :]).to(q.dtype)
+    del rel
+    nbytes = (4 * q.numel() + 2 * pos_k.numel()) * 2 + b * s * 4
+    flops = float(b * h * s * d * (4 * s + 4 * 2 * s))
+    return {"kernel": _timed(lambda: disentangled_attention(q, k, v, bias, pos_k, pos_q, span,
+                                                            max_dist), nbytes, flops, peaks),
+            "library": _timed(_sdpa(*heads, mask, scale=scale), nbytes, flops, peaks)}
+
+
+def _device() -> dict:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    name, _, limit = smi.partition(",")
+    return {"platform": "gpu", "name": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(), "nvidia_smi_name": name.strip(),
+            "power_limit": limit.strip(), "torch": torch.__version__, "cuda": torch.version.cuda}
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--m", type=int, nargs="+", default=[512, 4096, 32768])
+    p.add_argument("--out", default=None, help="also write the JSON result to this file")
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: the kernel suite runs only on the GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = _device()
+    _, peaks = peaks_for(device["name"])
+
+    def log(line: str) -> None:
+        print(line, file=sys.stderr, flush=True)
+
+    def ab(r: dict) -> str:
+        return (f"kernel {r['kernel']['us']:9.1f}us {r['kernel']['tflops']:6.1f} TF/s | "
+                f"library {r['library']['us']:9.1f}us {r['library']['tflops']:6.1f} TF/s | "
+                f"bound {r['kernel']['bound_us']:7.1f}us")
+
+    results = {"platform": "gpu", "device": device, "q4_ffn": {}, "q4_fused_epilogue": {},
+               "q8_fused_epilogue": {}, "attention": {}}
+    for m in args.m:
+        results["q4_ffn"][m] = r = bench_q4_ffn(m, peaks)
+        log(f"q4 ffn M={m:6d} ({'/'.join(r['route'])}): {ab(r)}")
+    m = max(args.m)
+    results["q4_epilogue"] = {m: bench_q4_epilogue(m, peaks)}
+    log(f"q4 epilogue combos (up,dn) M={m}: " + "  ".join(
+        f"{k}={v['us']:.1f}us" for k, v in results["q4_epilogue"][m].items()))
+    for m in args.m:
+        results["q4_fused_epilogue"][m] = r = bench_q4_fused_epilogue(m, peaks)
+        log(f"q4 fused bias+gelu M={m:6d}: {ab(r)}")
+    for m in args.m:
+        results["q8_fused_epilogue"][m] = r = bench_q4_fused_epilogue(m, peaks, qtype="Q8_0")
+        log(f"q8 fused bias+gelu M={m:6d}: {ab(r)}")
+    results["attention"]["b32_s512"] = r = bench_attention(peaks)
+    log(f"attention K3 B=32 S=512: {ab(r)}")
+    results["attention_bias"] = {"b32_s512_d64": (r := bench_attention_bias(peaks))}
+    log(f"attention K4 + pos-bias B=32 S=512 d=64: {ab(r)}")
+    results["attention_headpack"] = {}
+    for d, hb in ((32, 4), (64, 2)):
+        key = f"b32_s512_d{d}_hb{hb}"
+        results["attention_headpack"][key] = r = bench_attention_headpack(peaks, d=d, hb=hb)
+        log(f"attention head-pack B1 {key}: {ab(r)} | K5 {r['per_head']['us']:.1f}us | "
+            f"K3 {r['k3']['us']:.1f}us | max_err vs K5 {r['max_err_vs_per_head']:.5f}")
+    results["packed_attention"] = {"b64_s512_w16": (r := bench_packed_attention(peaks))}
+    log(f"packed attention K2 B=64 S=512: {ab(r)}")
+    results["windowed_attention"] = {"b8_s2048_w64": (r := bench_windowed_attention(peaks))}
+    log(f"windowed attention B=8 S=2048: K6 windowed {r['kernel']['us']:.1f}us | "
+        f"K6 full {r['full']['us']:.1f}us | K7 {r['local']['us']:.1f}us | "
+        f"K5 {r['long']['us']:.1f}us | library {r['library']['us']:.1f}us")
+    results["deberta_attention"] = {"b16_s512_d64": (r := bench_deberta_attention(peaks))}
+    log(f"deberta attention K9 B=16 S=512 d=64: {ab(r)}")
+    line = json.dumps(results)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(line + "\n")
+    print(line)
+
+
+if __name__ == "__main__":
+    main()

@@ -6,7 +6,9 @@ The BERT (`arch="bert"`), ModernBERT (`arch="modernbert"`), DeBERTa-v3
 package's `BertConfig`, read from
 GGUF kv metadata the same way: n_vocab from the token list length,
 everything else from `bert.*` keys, with per-family defaults for the keys a
-file leaves out.  Other encoder families are not ported yet; a file that
+file leaves out.  An architecture name the reference does not know
+("xlm-roberta", "jina-bert-v2", ...) reads as BERT, as the reference reads
+it; the reference's other families are not ported yet, and a file that
 names one is refused instead of being run as BERT.
 """
 from __future__ import annotations
@@ -24,6 +26,8 @@ ARCH = "bert"
 # table
 _ARCH_DEFAULTS = {"bert": (2, 1e-12, 0), "modernbert": (0, 1e-5, 0),
                   "deberta": (0, 1e-7, 256), "nomic-bert": (2, 1e-12, 0)}
+# the reference's other families (its `_ARCH_DEFAULTS`): refused by name
+UNPORTED_ARCHS = ("roberta", "distilbert", "mpnet", "albert", "electra", "t5")
 # classification-head activation per family: DeBERTa's ContextPooler and
 # ModernBERT's PredictionHead use GELU, BERT's pooler tanh
 HEAD_ACT_DEFAULTS = {"modernbert": "gelu", "deberta": "gelu"}
@@ -103,8 +107,11 @@ class BertConfig:
 
     @classmethod
     def from_gguf_kv(cls, kv: dict) -> "BertConfig":
-        # reference files say "bert" or nothing at all
+        # reference files say "bert" or nothing at all; a name the reference
+        # does not know reads as BERT there too
         arch = str(kv.get(Keys.ARCHITECTURE, ARCH))
+        if arch not in _ARCH_DEFAULTS and arch not in UNPORTED_ARCHS:
+            arch = ARCH
         ntt, eps, buckets = _ARCH_DEFAULTS.get(arch, _ARCH_DEFAULTS[ARCH])
         # the nomic-bert forward is SwiGLU: refuse a file that declares
         # another FFN rather than serve it as one

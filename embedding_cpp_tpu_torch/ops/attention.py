@@ -25,6 +25,14 @@ Long rows (q/k/v/o [B, S, H, d], a free view of the projections), kernel
                            `_attn_seg_kernel`), or, given the longest
                            segment, the TPU query tile's key slice (TPU
                            `_attn_seg_window_kernel`)
+
+Head-major rows (q/k/v/o [B, H, S, d]), kernel
+`csrc/attention_headpack.cu`, the Hopper port of B1, the head-packed
+kernel of the JAX suite's `bench_attention_headpack`
+(benchmarks/kernels.py); no model path runs it:
+  `attention_headpack`     hb heads per block, each product one MMA over a
+                           block-diagonal operand tile; unlike every kernel
+                           above, p is divided by the row sum before PV
 The same order of operations in two passes over the key tiles (row max,
 then exp / sum / PV), so nothing is rescaled.  What bounds each kernel on
 an H100 and what its first version does about it is noted in its source.
@@ -241,6 +249,36 @@ def attention_packed_window_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
                          torch.tensor(MASK_BIAS, dtype=torch.float32, device=q.device))
     out = _softmax_pv(scores, vt, q.dtype)  # [B, nt, H, tq, d]
     return out.permute(0, 1, 3, 2, 4).reshape(b, s, h, d)
+
+
+# (head dim, heads per block) B1 is built for: the packed width hb * d
+# stays within one 128-column tile
+HEADPACK_SHAPES = ((32, 1), (32, 2), (32, 4), (64, 1), (64, 2))
+
+
+def attention_headpack_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             bias: torch.Tensor, hb: int) -> torch.Tensor:
+    """B1's arithmetic in plain PyTorch: q/k/v [B, H, S, d], bias [B, S]
+    f32 -> [B, H, S, d].  Per head: f32 scores * 1/sqrt(d) + bias, row max,
+    e = exp(s - m), p = e / sum(e) divided before the PV product, p rounded
+    to v's dtype, f32 product, cast to q's dtype.  The TPU kernel's
+    block-diagonal operands add exact zeros, so head by head is the same
+    function; `hb` only has to divide H.  Query rows go in chunks."""
+    b, h, s, d = q.shape
+    if h % hb:
+        raise ValueError(f"{h} heads not divisible into groups of {hb}")
+    scale = 1.0 / (d**0.5)
+    kt = k.to(torch.float32).transpose(-1, -2)
+    vf = v.to(torch.float32)
+    keyb = bias.to(torch.float32)[:, None, None, :]
+    out = torch.empty_like(q)
+    rows = max(1, _PLAIN_CHUNK // max(1, b * h * s))
+    for r0 in range(0, s, rows):
+        sc = torch.matmul(q[:, :, r0:r0 + rows].to(torch.float32), kt) * scale + keyb
+        e = torch.exp(sc - torch.amax(sc, dim=-1, keepdim=True))
+        p = (e / torch.sum(e, dim=-1, keepdim=True)).to(v.dtype)
+        out[:, :, r0:r0 + rows] = torch.matmul(p.to(torch.float32), vf).to(q.dtype)
+    return out
 
 
 # --- launches ----------------------------------------------------------------
@@ -490,8 +528,39 @@ def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def attention_headpack(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       bias: torch.Tensor, hb: int) -> torch.Tensor:
+    """Head-packed attention (B1): q/k/v [B, H, S, d] bf16 (head-major),
+    bias [B, S] f32 (0 valid, -1e9 masked), hb heads per block -> [B, H,
+    S, d]; (d, hb) in HEADPACK_SHAPES with hb dividing H."""
+    bias = bias.to(torch.float32)
+    if not _on_cuda(q, "attention_headpack"):
+        return attention_headpack_plain(q, k, v, bias, hb)
+    if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(f"q/k/v shapes {tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
+    b, h, s, d = q.shape
+    if (d, hb) not in HEADPACK_SHAPES or h % hb:
+        raise ValueError(f"(d={d}, hb={hb}) with {h} heads: the kernel takes (d, hb) in "
+                         f"{HEADPACK_SHAPES} and hb dividing H")
+    if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
+        raise ValueError(f"q/k/v dtypes {q.dtype} {k.dtype} {v.dtype}, want bfloat16")
+    if bias.shape != (b, s):
+        raise ValueError(f"bias {tuple(bias.shape)}, want ({b}, {s})")
+    q, k, v, bias = _operands((q, k, v, bias), q.device)
+    out = torch.empty_like(q)
+    if b == 0 or s == 0:
+        return out
+    err = _bind("attention_headpack.cu", "attn_headpack_launch",
+                [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P])(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        b, s, h, d, hb, 1.0 / (d**0.5), torch.cuda.current_stream(q.device).cuda_stream)
+    check(err, "attn_headpack_launch")
+    attention_headpack.launches += 1
+    return out
+
+
 for _fn in (flash_attention_bse, flash_attention_packed_bse, flash_attention,
-            flash_attention_local, flash_attention_packed):
+            flash_attention_local, flash_attention_packed, attention_headpack):
     _fn.launches = 0
 flash_attention_bse.bias_launches = flash_attention_packed_bse.bias_launches = 0
 flash_attention_packed.window_launches = 0

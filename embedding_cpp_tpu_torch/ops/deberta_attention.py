@@ -79,7 +79,7 @@ def _device_tables(s: int, span: int, max_dist: int, device: torch.device):
                  for t in delta_tables(s, span, max_dist))
 
 
-def _scores_plain(q, k, pos_k, pos_q, c2p_idx, p2c_idx) -> torch.Tensor:
+def disentangled_scores_plain(q, k, pos_k, pos_q, c2p_idx, p2c_idx) -> torch.Tensor:
     """Raw f32 scores [B, H, S, S]: (q.k + c2p) + p2c, each term a product
     of f32 copies of the inputs."""
     b, s, h, d = q.shape
@@ -104,7 +104,7 @@ def disentangled_attention_plain(q, k, v, mask, pos_k, pos_q, c2p_idx, p2c_idx,
     pos_k/pos_q [2*span, H, d]; c2p_idx/p2c_idx int [2S] (delta_tables)."""
     d = q.shape[-1]
     scale = 1.0 / math.sqrt(d * 3)
-    scores = _scores_plain(q, k, pos_k, pos_q, c2p_idx.long(), p2c_idx.long())
+    scores = disentangled_scores_plain(q, k, pos_k, pos_q, c2p_idx.long(), p2c_idx.long())
     if seg_mask:
         allowed = (mask[:, :, None] == mask[:, None, :])[:, None]
         scores = torch.where(allowed, scores * scale,

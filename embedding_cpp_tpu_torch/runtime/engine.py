@@ -8,7 +8,11 @@ length buckets to one logit per pair (`score_pairs`, `rerank`).  `encode`
 takes named or literal prompt prefixes, Matryoshka `dimensions` and
 `truncate=False`; `encode_queries` / `encode_documents` apply the model's
 query and document prompts, `encode_with_counts` also returns the token
-counts.  The engine runs on the GPU unless the caller passes
+counts.  The reference's bert.h surface rides beside them: `tokenize`,
+`n_max_tokens`, `id_to_token` and `decode`; every `embed_tokens` call
+adds its sentences, tokens, batches and padded token slots to `stats` and
+to the process's metrics (`utils/metrics.GLOBAL`, the server's TPES
+frame).  The engine runs on the GPU unless the caller passes
 `device="cpu"`; with no device given and no GPU present it raises instead
 of falling back.
 """
@@ -16,6 +20,7 @@ from __future__ import annotations
 
 import json
 import threading
+import time
 from typing import Sequence
 
 import numpy as np
@@ -41,6 +46,7 @@ from ..tokenizer import (
     load_tokenizer,
 )
 from ..tokenizer.base import _strip_pad
+from ..utils.metrics import GLOBAL as metrics
 from .batching import (
     DEFAULT_BATCH_BUCKETS,
     DEFAULT_PACK_SEQ,
@@ -99,6 +105,16 @@ def segment_bound(pb: PackedSegBatch) -> int | None:
     return 1 << max(5, (max(pb.max_len, 1) - 1).bit_length())
 
 
+def _check_ids(arrays: Sequence[np.ndarray], n: int, what: str) -> None:
+    """Refuse ids outside 0..n-1 before anything launches: on the card an
+    out-of-range row gather fires a device-side assert, which loses the
+    process's CUDA context for every later call."""
+    for a in arrays:
+        if a.size and (a.min() < 0 or a.max() >= n):
+            bad = int(a[(a < 0) | (a >= n)][0])
+            raise ValueError(f"{what} {bad} outside 0..{n - 1}")
+
+
 class Engine:
     """Text -> L2-normalized embedding vectors."""
 
@@ -144,6 +160,7 @@ class Engine:
         # serializes planning + launches across threads (the server's
         # executor threads share one engine)
         self._lock = threading.Lock()
+        self.stats = {"sentences": 0, "tokens": 0, "batches": 0, "eval_time": 0.0}
         self.params = params_to(params, self.device)
 
     # --- constructors -------------------------------------------------------
@@ -186,6 +203,11 @@ class Engine:
         return cls(params, config, tokenizer, special, opts=opts, device=device, **kw)
 
     # --- tokenize -----------------------------------------------------------
+    def tokenize(self, text: str) -> list[int]:
+        """Framed token ids ([CLS] .. [SEP]) of one text, the reference's
+        bert_tokenize."""
+        return self.tokenize_batch([text])[0]
+
     def tokenize_batch(self, texts: Sequence[str], *,
                        truncate: bool = True) -> list[list[int]]:
         """Tokenize + frame each text ([CLS] .. [SEP], cut at n_ctx).
@@ -241,6 +263,9 @@ class Engine:
         )
         for batch in batches:
             batch.positions = [rest[i] for i in batch.positions]
+        _check_ids([b.ids for b in (*packed_batches, *batches)], self.config.n_vocab,
+                   "token id")
+        metrics.inc("padded_slots", sum(b.ids.size for b in (*packed_batches, *batches)))
         pending = []
         with torch.inference_mode():
             for pb in packed_batches:
@@ -270,20 +295,36 @@ class Engine:
         the fetch waits outside the lock, so another caller's launches
         queue behind this call's work meanwhile."""
         out = np.empty((len(token_lists), self.n_embd), dtype=np.float32)
-        with self._lock:
-            pending = self._dispatch(token_lists)
-            if not pending:
-                return out
-            joined = torch.cat([v for _, v in pending], dim=0)
-        host = joined.cpu().numpy()
-        if host.dtype == np.uint8:  # int8 output: packed codes + scales
-            host = unpack_output_i8(host)
-        off = 0
-        for batch, vecs in pending:
-            rows = batch.orig if isinstance(batch, PackedSegBatch) else batch.positions
-            out[rows] = host[off : off + len(rows)]
-            off += vecs.shape[0]
+        t0 = time.perf_counter()
+        with metrics.timer("eval"):
+            with self._lock:
+                pending = self._dispatch(token_lists)
+                joined = torch.cat([v for _, v in pending], dim=0) if pending else None
+            if joined is not None:
+                host = joined.cpu().numpy()
+                if host.dtype == np.uint8:  # int8 output: packed codes + scales
+                    host = unpack_output_i8(host)
+                off = 0
+                for batch, vecs in pending:
+                    rows = batch.orig if isinstance(batch, PackedSegBatch) else batch.positions
+                    out[rows] = host[off : off + len(rows)]
+                    off += vecs.shape[0]
+        self._count_stats(token_lists, len(pending), t0)
         return out
+
+    def _count_stats(self, token_lists, n_batches: int, t0: float) -> None:
+        """Add one call's sentences, tokens, batches and seconds to `stats`
+        and to the process's metrics."""
+        n = len(token_lists)
+        n_tokens = int(sum(len(t) for t in token_lists))
+        with self._lock:
+            self.stats["eval_time"] += time.perf_counter() - t0
+            self.stats["sentences"] += n
+            self.stats["tokens"] += n_tokens
+            self.stats["batches"] += n_batches
+        metrics.inc("sentences", n)
+        metrics.inc("tokens", n_tokens)
+        metrics.inc("batches", n_batches)
 
     def resolve_prompt(self, prompt_name: str | None = None,
                        prompt: str | None = None) -> str:
@@ -386,13 +427,20 @@ class Engine:
         out = np.empty((len(token_lists), self.config.n_labels), np.float32)
         with self._lock:
             batches = self.score_plan(token_lists)
+            type_arrays = []
+            for batch in batches:
+                types = np.zeros_like(batch.ids)
+                for row, idx in enumerate(batch.positions):
+                    t = list(type_lists[idx])[: types.shape[1]]
+                    types[row, : len(t)] = t
+                type_arrays.append(types)
+            _check_ids([b.ids for b in batches], self.config.n_vocab, "token id")
+            type_table = self.params["embeddings"].get("token_type")
+            if type_table is not None:
+                _check_ids(type_arrays, type_table.shape[0], "token type id")
             pending = []
             with torch.inference_mode():
-                for batch in batches:
-                    types = np.zeros_like(batch.ids)
-                    for row, idx in enumerate(batch.positions):
-                        t = list(type_lists[idx])[: types.shape[1]]
-                        types[row, : len(t)] = t
+                for batch, types in zip(batches, type_arrays):
                     logits = bert_score_batch(
                         self.params, self._tensor(batch.ids), self._tensor(batch.mask),
                         self.config, self.opts, type_ids=self._tensor(types),
@@ -431,7 +479,24 @@ class Engine:
             order = order[:top_n]
         return [{"index": int(i), "relevance_score": float(scores[i])} for i in order]
 
+    # --- introspection (the reference's bert.h:87-90) ------------------------
     @property
     def n_embd(self) -> int:
         """Output embedding width: the Dense head's width when present."""
         return self.config.dense_out or self.config.n_embd
+
+    @property
+    def n_max_tokens(self) -> int:
+        return self.config.n_ctx
+
+    def id_to_token(self, token_id: int) -> str:
+        """The token of an id; "" for an unknown id or without a tokenizer."""
+        if self.tokenizer is None:
+            return ""
+        return self.tokenizer.id_to_token(token_id)
+
+    def decode(self, ids: Sequence[int]) -> str:
+        """Token ids -> text, by the tokenizer's decoder."""
+        if self.tokenizer is None:
+            raise RuntimeError("engine has no tokenizer (model without blob kv)")
+        return self.tokenizer.decode(ids)

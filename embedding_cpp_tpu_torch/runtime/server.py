@@ -1,40 +1,90 @@
 """Embedding TCP server over the port's Engine.
 
-The encode and rerank surfaces of the JAX package's `runtime/server.py`,
-on one port:
+The wire protocol of the JAX package's `runtime/server.py`, on one port:
 
 1. **ggml-compat raw mode**: on connect the server sends `n_embd` as a
    little-endian int32; each client message is raw UTF-8 text (one read,
    at most 32 KiB, is one message) and each reply is `n_embd` raw f32.
-2. **TPE2 framed**: a message starting with b"TPE2" is
-   `magic | u32 count | count * (u32 len | utf8 bytes)`; the reply is
-   `u32 count | count * n_embd * f32`, or on failure
-   `u32 0xFFFFFFFF | u32 len | message`.
-3. **rerank** (a model with a classification head): b"\x01TPR" |
-   `u32 top_n (0 = all) | u32 len | query utf8 | u32 n | n * (u32 len |
-   utf8 doc)`; the reply is `u32 m | m * i32 index | m * f32 sigmoid score`,
-   descending, or the error frame.
+2. **Framed requests**, each starting with a 4-byte magic; a request that
+   fails gets the error frame `u32 0xFFFFFFFF | u32 len | message` and the
+   connection stays usable:
+   - b"TPE2" encode: `u32 count | count * (u32 len | utf8 bytes)` ->
+     `u32 count | count * n_embd * f32`;
+   - b"\x01TP8" int8 encode: the TPE2 request -> `u32 count | count * f32
+     scale | count * n_embd * i8` (vec = codes * scale);
+   - b"TPES" stats -> `u32 len | JSON` (the metrics snapshot plus a
+     "server" block); b"TPEH" health -> `u32 2 | "ok"`;
+   - the reference's bert.h surface (the C client `native/capi/tpuembed.h`):
+     b"\x01TPM" meta -> `u32 len | JSON {n_embd, n_max_tokens, name}`;
+     b"\x01TPT" tokenize: texts -> `u32 n | n * (u32 k | k * i32)`;
+     b"\x01TPI" eval: `u32 n | n * (u32 k | k * i32)` -> `u32 n | n *
+     n_embd * f32` (an id outside 0..n_vocab-1 gets the error frame before
+     anything launches, where the reference's gather clamps it);
+     b"\x01TPV" vocab: `u32 id` -> `u32 len | utf8 token`
+     (an unknown id gives an empty token);
+   - b"\x01TPR" rerank (a model with a classification head): `u32 top_n (0 =
+     all) | u32 len | query utf8 | u32 n | n * (u32 len | utf8 doc)` ->
+     `u32 m | m * i32 index | m * f32 sigmoid score`, descending;
+   - the index, search, sparse, MaxSim and hybrid frames (b"\x01TPB",
+     "\x01TPS", "\x01TPW", "\x01TPX", "\x01TPY", "\x01TPZ", "\x01TPF",
+     "\x01TPG", "\x01TPJ", "\x01TPK") are not ported yet: each request is
+     read to its end by its layout, then answered with the error frame.
+   A head that starts with b"\x01" but is no magic desynchronizes the
+   stream: it gets the error frame and the connection closes.
 
 Encode requests from all connections merge into device batches through
-one continuous batcher (a short micro-batching window); rerank requests
-run `Engine.rerank` on an executor thread under the same pending budget.
+one continuous batcher (a short micro-batching window); the other
+requests run on executor threads, reranks under the same pending budget.
 """
 from __future__ import annotations
 
 import argparse
 import asyncio
+import json
 import struct
 import sys
+import time
+from dataclasses import dataclass, field
 
 import numpy as np
 
+from ..utils.metrics import GLOBAL as metrics
+
 MAGIC = b"TPE2"
+MAGIC_STATS = b"TPES"
+MAGIC_HEALTH = b"TPEH"
+MAGIC_TOKENIZE = b"\x01TPT"
+MAGIC_EVAL = b"\x01TPI"
+MAGIC_META = b"\x01TPM"
+MAGIC_VOCAB = b"\x01TPV"
+MAGIC_ENCODE_I8 = b"\x01TP8"
 MAGIC_RERANK = b"\x01TPR"
-_MAGICS = (MAGIC, MAGIC_RERANK)
+# the reference's frames this server reads but does not serve yet: what it
+# is, and what follows the magic (texts; u32 k | texts; a rerank-layout
+# query and texts)
+UNSERVED = {
+    b"\x01TPB": ("vector index", "texts"),
+    b"\x01TPS": ("vector search", "k_texts"),
+    b"\x01TPW": ("sparse encode", "sparse_k_texts"),
+    b"\x01TPX": ("MaxSim rerank", "query_texts"),
+    b"\x01TPY": ("sparse index", "texts"),
+    b"\x01TPZ": ("sparse search", "k_texts"),
+    b"\x01TPF": ("hybrid index", "texts"),
+    b"\x01TPG": ("hybrid search", "k_texts"),
+    b"\x01TPJ": ("MaxSim index", "texts"),
+    b"\x01TPK": ("MaxSim search", "k_texts"),
+}
+_MAGICS = (MAGIC, MAGIC_STATS, MAGIC_HEALTH, MAGIC_TOKENIZE, MAGIC_EVAL, MAGIC_META,
+           MAGIC_VOCAB, MAGIC_ENCODE_I8, MAGIC_RERANK, *UNSERVED)
 RAW_CHUNK = 1 << 15  # the ggml-compat message cap
-MAX_ITEMS = 1 << 16  # texts per request
+# caps on what one frame may ask the server to read or allocate
+MAX_ITEMS = 1 << 16  # texts or id lists per request
 MAX_TEXT_BYTES = 16 << 20  # per text
 MAX_REQUEST_BYTES = 64 << 20  # aggregate text payload per request
+MAX_IDS = 1 << 20  # per id list
+MAX_REQUEST_IDS = 1 << 22  # aggregate ids per request
+MAX_TOPK = 1 << 12  # search k
+MAX_SPARSE_K = 4096  # sparse top-k width
 
 
 class ProtocolError(Exception):
@@ -50,6 +100,42 @@ def _check(cond: bool, what: str) -> None:
         raise ProtocolError(f"malformed frame: {what}")
 
 
+@dataclass
+class ServerStats:
+    """The server block of the TPES reply: connection, request, batch and
+    error counts, and latency percentiles over the last LAT_WINDOW
+    requests."""
+    connections: int = 0
+    requests: int = 0
+    sentences: int = 0
+    batches: int = 0
+    errors: int = 0
+    rejected: int = 0  # admission-control refusals
+    latencies: list = field(default_factory=list, repr=False)
+    _lat_idx: int = 0
+    LAT_WINDOW = 1024
+
+    def record_latency(self, seconds: float) -> None:
+        if len(self.latencies) < self.LAT_WINDOW:
+            self.latencies.append(seconds)
+        else:
+            self.latencies[self._lat_idx] = seconds
+            self._lat_idx = (self._lat_idx + 1) % self.LAT_WINDOW
+
+    def as_dict(self) -> dict:
+        d = {k: v for k, v in self.__dict__.items()
+             if not k.startswith("_") and k != "latencies"}
+        if self.latencies:
+            lat = np.sort(np.asarray(self.latencies))
+            d["latency_ms"] = {
+                "p50": round(float(lat[len(lat) // 2]) * 1e3, 2),
+                "p95": round(float(lat[int(len(lat) * 0.95)]) * 1e3, 2),
+                "p99": round(float(lat[min(int(len(lat) * 0.99), len(lat) - 1)]) * 1e3, 2),
+                "window": len(lat),
+            }
+        return d
+
+
 class ContinuousBatcher:
     """Merge pending encode requests across connections into device batches."""
 
@@ -61,6 +147,7 @@ class ContinuousBatcher:
         self.max_pending = max_pending
         self._pending = 0
         self.queue: asyncio.Queue = asyncio.Queue()
+        self.stats = ServerStats()
         self._task: asyncio.Task | None = None
 
     async def start(self) -> None:
@@ -80,11 +167,13 @@ class ContinuousBatcher:
         raise OverloadedError.  Call from the event loop only, and
         `release` in a finally."""
         if n > self.max_pending:
+            self.stats.rejected += 1
             raise OverloadedError(
                 f"request too large: {n} sentences exceed the pending cap "
                 f"{self.max_pending}; split the request"
             )
         if self._pending + n > self.max_pending:
+            self.stats.rejected += 1
             raise OverloadedError(
                 f"server overloaded: {self._pending} sentences pending "
                 f"(cap {self.max_pending})"
@@ -154,7 +243,10 @@ class ContinuousBatcher:
                 if not fut.cancelled():
                     fut.set_result(vecs[off : off + len(texts)])
                 off += len(texts)
+            self.stats.batches += 1
+            self.stats.sentences += len(flat)
         except Exception as e:  # every waiter of the batch gets the error
+            self.stats.errors += 1
             for _, fut in jobs:
                 if not fut.cancelled():
                     fut.set_exception(e)
@@ -177,17 +269,76 @@ async def _read_head(reader: asyncio.StreamReader) -> bytes:
     return head
 
 
+async def _read_u32(reader: asyncio.StreamReader) -> int:
+    return struct.unpack("<I", await reader.readexactly(4))[0]
+
+
+async def _read_utf8(reader: asyncio.StreamReader, n: int) -> str:
+    """n bytes of UTF-8; bytes that do not decode fail the frame mid-read,
+    where the stream cannot be resynchronized."""
+    try:
+        return (await reader.readexactly(n)).decode("utf-8")
+    except UnicodeDecodeError as e:
+        raise ProtocolError(f"malformed frame: text is not UTF-8 ({e.reason})") from None
+
+
 async def _read_texts(reader: asyncio.StreamReader) -> list[str]:
-    (count,) = struct.unpack("<I", await reader.readexactly(4))
+    count = await _read_u32(reader)
     _check(count <= MAX_ITEMS, f"count {count}")
     texts, total = [], 0
     for _ in range(count):
-        (ln,) = struct.unpack("<I", await reader.readexactly(4))
+        ln = await _read_u32(reader)
         _check(ln <= MAX_TEXT_BYTES, f"text length {ln}")
         total += ln
         _check(total <= MAX_REQUEST_BYTES, f"request payload {total}")
-        texts.append((await reader.readexactly(ln)).decode("utf-8"))
+        texts.append(await _read_utf8(reader, ln))
     return texts
+
+
+async def _read_query_texts(reader: asyncio.StreamReader) -> tuple[int, str, list[str]]:
+    """The rerank layout: u32 top_n | u32 len | query | texts."""
+    top_n = await _read_u32(reader)
+    _check(top_n <= MAX_ITEMS, f"top_n {top_n}")
+    qlen = await _read_u32(reader)
+    _check(0 < qlen <= MAX_TEXT_BYTES, f"query length {qlen}")
+    query = await _read_utf8(reader, qlen)
+    return top_n, query, await _read_texts(reader)
+
+
+async def _read_ids(reader: asyncio.StreamReader) -> list[list[int]]:
+    """The eval layout: u32 n | n * (u32 k | k * i32)."""
+    count = await _read_u32(reader)
+    _check(count <= MAX_ITEMS, f"count {count}")
+    id_lists, total = [], 0
+    for _ in range(count):
+        k = await _read_u32(reader)
+        _check(k <= MAX_IDS, f"id count {k}")
+        total += k
+        _check(total <= MAX_REQUEST_IDS, f"request ids {total}")
+        id_lists.append(np.frombuffer(await reader.readexactly(4 * k), np.int32).tolist())
+    return id_lists
+
+
+async def _read_unserved(reader: asyncio.StreamReader, layout: str) -> None:
+    """Read an unserved frame's whole payload by its layout, so the next
+    frame on the connection starts where the client sent it."""
+    if layout == "query_texts":
+        await _read_query_texts(reader)
+        return
+    if layout != "texts":
+        k = await _read_u32(reader)
+        cap = MAX_SPARSE_K if layout == "sparse_k_texts" else MAX_TOPK
+        _check(0 < k <= cap, f"top-k {k}")
+    await _read_texts(reader)
+
+
+def _quantize_i8(vecs: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Per-vector symmetric int8 for the wire: (codes, scales), vec ~=
+    codes * scale."""
+    amax = np.max(np.abs(vecs), axis=-1)
+    scale = (amax / 127.0).astype(np.float32)
+    q = np.round(vecs / np.maximum(scale, 1e-20)[:, None]).astype(np.int8)
+    return q, scale
 
 
 def _error_frame(writer: asyncio.StreamWriter, e: Exception) -> None:
@@ -195,8 +346,68 @@ def _error_frame(writer: asyncio.StreamWriter, e: Exception) -> None:
     writer.write(struct.pack("<I", 0xFFFFFFFF) + struct.pack("<I", len(msg)) + msg)
 
 
+def _json_frame(writer: asyncio.StreamWriter, obj: dict) -> None:
+    payload = json.dumps(obj).encode("utf-8")
+    writer.write(struct.pack("<I", len(payload)) + payload)
+
+
+async def _serve_frame(head: bytes, reader: asyncio.StreamReader,
+                       writer: asyncio.StreamWriter, batcher: ContinuousBatcher,
+                       n_embd: int) -> None:
+    """Read one framed request (`head` is its magic) and write its reply.
+    A failure after the request was read raises, for the error frame;
+    a ProtocolError means the stream cannot be read further."""
+    engine = batcher.engine
+    loop = asyncio.get_running_loop()
+    if head in (MAGIC, MAGIC_ENCODE_I8):
+        texts = await _read_texts(reader)
+        vecs = np.asarray(await batcher.encode(texts), np.float32)
+        writer.write(struct.pack("<I", len(vecs)))
+        if head == MAGIC_ENCODE_I8:
+            q, scale = _quantize_i8(vecs)
+            writer.write(scale.tobytes() + q.tobytes())
+        else:
+            writer.write(np.ascontiguousarray(vecs).tobytes())
+    elif head == MAGIC_STATS:
+        snap = metrics.snapshot()
+        snap["server"] = batcher.stats.as_dict()
+        _json_frame(writer, snap)
+    elif head == MAGIC_HEALTH:
+        writer.write(struct.pack("<I", 2) + b"ok")
+    elif head == MAGIC_META:
+        _json_frame(writer, {"n_embd": n_embd, "n_max_tokens": engine.n_max_tokens,
+                             "name": engine.config.name})
+    elif head == MAGIC_VOCAB:
+        tok = engine.id_to_token(await _read_u32(reader)).encode("utf-8")
+        writer.write(struct.pack("<I", len(tok)) + tok)
+    elif head == MAGIC_TOKENIZE:
+        texts = await _read_texts(reader)
+        id_lists = await loop.run_in_executor(None, engine.tokenize_batch, texts)
+        writer.write(struct.pack("<I", len(id_lists)))
+        for ids in id_lists:
+            writer.write(struct.pack("<I", len(ids)) + np.asarray(ids, np.int32).tobytes())
+    elif head == MAGIC_EVAL:
+        id_lists = await _read_ids(reader)
+        vecs = await loop.run_in_executor(None, engine.embed_tokens, id_lists)
+        writer.write(struct.pack("<I", len(vecs)))
+        writer.write(np.ascontiguousarray(vecs, np.float32).tobytes())
+    elif head == MAGIC_RERANK:
+        top_n, query, docs = await _read_query_texts(reader)
+        if not docs:
+            raise ValueError("no documents")
+        ranked = await batcher.rerank(query, docs, top_n or None)
+        writer.write(struct.pack("<I", len(ranked)))
+        writer.write(np.asarray([r["index"] for r in ranked], np.int32).tobytes())
+        writer.write(np.asarray([r["relevance_score"] for r in ranked], np.float32).tobytes())
+    else:
+        what, layout = UNSERVED[head]
+        await _read_unserved(reader, layout)
+        raise NotImplementedError(f"the {what} frame ({head!r}) is not ported to this server yet")
+
+
 async def handle_client(reader: asyncio.StreamReader, writer: asyncio.StreamWriter,
                         batcher: ContinuousBatcher, n_embd: int) -> None:
+    batcher.stats.connections += 1
     try:
         writer.write(struct.pack("<i", n_embd))  # handshake
         await writer.drain()
@@ -204,33 +415,18 @@ async def handle_client(reader: asyncio.StreamReader, writer: asyncio.StreamWrit
             head = await _read_head(reader)
             if not head:
                 break
-            if head == MAGIC:
-                texts = await _read_texts(reader)
+            t_req = time.perf_counter()
+            if head in _MAGICS:
                 try:
-                    vecs = await batcher.encode(texts)
+                    await _serve_frame(head, reader, writer, batcher, n_embd)
+                except (ProtocolError, asyncio.IncompleteReadError, ConnectionError):
+                    raise
                 except Exception as e:  # request-level failure, connection stays
+                    batcher.stats.errors += 1
                     _error_frame(writer, e)
-                else:
-                    writer.write(struct.pack("<I", len(vecs)))
-                    writer.write(np.ascontiguousarray(vecs, np.float32).tobytes())
-            elif head == MAGIC_RERANK:
-                (top_n,) = struct.unpack("<I", await reader.readexactly(4))
-                _check(top_n <= MAX_ITEMS, f"top_n {top_n}")
-                (qlen,) = struct.unpack("<I", await reader.readexactly(4))
-                _check(0 < qlen <= MAX_TEXT_BYTES, f"query length {qlen}")
-                query = (await reader.readexactly(qlen)).decode("utf-8")
-                docs = await _read_texts(reader)
-                try:
-                    if not docs:
-                        raise ValueError("no documents")
-                    ranked = await batcher.rerank(query, docs, top_n or None)
-                except Exception as e:  # request-level failure, connection stays
-                    _error_frame(writer, e)
-                else:
-                    writer.write(struct.pack("<I", len(ranked)))
-                    writer.write(np.asarray([r["index"] for r in ranked], np.int32).tobytes())
-                    writer.write(np.asarray([r["relevance_score"] for r in ranked],
-                                            np.float32).tobytes())
+            elif head.startswith(b"\x01"):
+                # a control byte never starts ggml-compat text: an unknown frame
+                raise ProtocolError(f"unknown frame magic {head!r}")
             else:
                 # raw mode: one read == one message; the unframed protocol has
                 # no error representation, so a failure drops the connection
@@ -239,14 +435,22 @@ async def handle_client(reader: asyncio.StreamReader, writer: asyncio.StreamWrit
                 try:
                     vecs = await batcher.encode([text])
                 except Exception as e:
+                    batcher.stats.errors += 1
                     print(f"raw-mode request failed: {e!r}", file=sys.stderr)
                     break
                 writer.write(np.ascontiguousarray(vecs[0], np.float32).tobytes())
+            batcher.stats.requests += 1
+            batcher.stats.record_latency(time.perf_counter() - t_req)
             await writer.drain()
     except ProtocolError as e:
         # the stream is desynchronized: report once, then drop the connection
+        batcher.stats.errors += 1
         _error_frame(writer, e)
-    except (asyncio.IncompleteReadError, ConnectionResetError):
+        try:
+            await writer.drain()
+        except ConnectionError:
+            pass
+    except (asyncio.IncompleteReadError, ConnectionError):
         pass
     finally:
         writer.close()

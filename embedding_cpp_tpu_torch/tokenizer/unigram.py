@@ -383,3 +383,15 @@ class UnigramTokenizer:
 
     def id_to_token(self, token_id: int) -> str:
         return self._id_to_token.get(token_id, "")
+
+    def decode(self, ids) -> str:
+        """Metaspace decoder: replacement -> space, the first token's
+        leading separator stripped (prepend_scheme != never); added tokens
+        pass through literally."""
+        out: list[str] = []
+        for n, i in enumerate(ids):
+            piece = self._id_to_token.get(int(i), "").replace(self.replacement, " ")
+            if n == 0 and self.prepend_scheme != "never" and piece.startswith(" "):
+                piece = piece[1:]
+            out.append(piece)
+        return "".join(out)

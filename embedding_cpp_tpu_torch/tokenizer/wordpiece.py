@@ -14,6 +14,13 @@ from typing import Sequence
 
 from .base import parse_added_tokens, split_added_tokens
 
+# HF WordPiece decoder cleanup=True rules, applied per piece (a piece is
+# " " + token or a "##"-stripped continuation), as the Rust decoder does
+_WP_CLEANUP = (
+    (" .", "."), (" ?", "?"), (" !", "!"), (" ,", ","), (" ' ", "'"),
+    (" n't", "n't"), (" 'm", "'m"), (" do not", " don't"), (" 's", "'s"),
+    (" 've", "'ve"), (" 're", "'re"),
+)
 # CJK Unified Ideograph ranges (BERT's definition)
 _CJK_RANGES = (
     (0x4E00, 0x9FFF),
@@ -185,3 +192,18 @@ class WordPieceTokenizer:
 
     def id_to_token(self, token_id: int) -> str:
         return self._id_to_token.get(token_id, "")
+
+    def decode(self, ids) -> str:
+        """Ids -> text with the WordPiece decoder's rules: "##" continuations
+        fuse onto the previous token, other tokens join with a space, and
+        the cleanup rules de-space punctuation piece by piece."""
+        pieces: list[str] = []
+        for i in ids:
+            tok = self.id_to_token(int(i))
+            if not tok:
+                continue
+            piece = tok if not pieces else tok[2:] if tok.startswith("##") else " " + tok
+            for a, b in _WP_CLEANUP:
+                piece = piece.replace(a, b)
+            pieces.append(piece)
+        return "".join(pieces)

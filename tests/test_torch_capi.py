@@ -1,0 +1,193 @@
+"""The reference's C client (native/capi/tpuembed.h, the bert.h analog)
+against the port's server and the reference's server, through ctypes.
+
+The client library is built on demand from `native/capi/tpuembed_capi.cpp`
+with `make -C native`, into this module's temporary directory (so parallel
+test workers never race on one output file); the tests skip only where
+`make` or `g++` is missing.  Both servers run CPU engines over one tiny f32
+GGUF written by the JAX package: `tpe_connect` returns, `tpe_n_max_tokens`,
+`tpe_tokenize`, `tpe_eval_batch` (f32 bar) and `tpe_vocab_id_to_token` give
+the same results from both, and the port answers `tpe_index` and the other
+unserved frames with an error while the context goes on encoding.
+"""
+import asyncio
+import contextlib
+import shutil
+import socket
+import subprocess
+import sys
+import threading
+import time
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+ATOL_F32 = 2e-5  # the f32 bar of the engine parity tests
+TEXTS = ["hello tokenized world", "the quick brown fox jumps over the lazy dog", "a",
+         "Hello, World!  Ünïcödé 中文"]
+
+
+@pytest.fixture(scope="module")
+def capi_lib(tmp_path_factory) -> str:
+    if shutil.which("make") is None or shutil.which("g++") is None:
+        pytest.skip("no C++ toolchain (make and g++)")
+    build = tmp_path_factory.mktemp("capi-build")
+    lib = build / "libtpuembed_capi.so"
+    r = subprocess.run(["make", "-C", str(ROOT / "native"), f"BUILD={build}", str(lib)],
+                       capture_output=True, text=True, timeout=300)
+    if r.returncode != 0:
+        pytest.fail(f"native build failed:\n{r.stdout}\n{r.stderr}")
+    return str(lib)
+
+
+@contextlib.contextmanager
+def _serve(serve, engine):
+    """`serve(engine, host, port)` on its own event-loop thread; yields the
+    port once it accepts connections."""
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    loop = asyncio.new_event_loop()
+    holder = {}
+
+    def main():
+        asyncio.set_event_loop(loop)
+        holder["task"] = loop.create_task(serve(engine, "127.0.0.1", port))
+        try:
+            loop.run_until_complete(holder["task"])
+        except asyncio.CancelledError:
+            pass
+        finally:
+            loop.close()
+
+    t = threading.Thread(target=main, daemon=True)
+    t.start()
+    for _ in range(200):
+        try:
+            socket.create_connection(("127.0.0.1", port), 0.2).close()
+            break
+        except OSError:
+            time.sleep(0.05)
+    try:
+        yield port
+    finally:
+        loop.call_soon_threadsafe(holder["task"].cancel)
+        t.join(timeout=10)
+
+
+@pytest.fixture(scope="module")
+def servers(tmp_path_factory):
+    """{"port": (engine, port), "reference": (engine, port)}."""
+    from embedding_cpp_tpu.cli.make_test_model import make_test_model
+    from embedding_cpp_tpu.runtime.engine import Engine as JEngine
+    from embedding_cpp_tpu.runtime.server import serve as serve_reference
+    from embedding_cpp_tpu_torch import Engine
+    from embedding_cpp_tpu_torch.runtime.server import serve as serve_port
+
+    path = str(tmp_path_factory.mktemp("gguf") / "tiny-f32.gguf")
+    make_test_model(path, "tiny", "f32", seed=0)
+    ours, theirs = Engine.from_gguf(path, device="cpu"), JEngine.from_gguf(path)
+    with _serve(serve_port, ours) as p1, _serve(serve_reference, theirs) as p2:
+        yield {"port": (ours, p1), "reference": (theirs, p2)}
+
+
+def _client(lib: str, port: int):
+    sys.path.insert(0, str(ROOT))
+    from examples.sample_dylib import TpuEmbedModel
+
+    return TpuEmbedModel(host="127.0.0.1", port=port, lib_path=lib)
+
+
+@pytest.fixture(scope="module")
+def replies(capi_lib, servers):
+    """Each server's answers to the bert.h calls, through one context."""
+    out = {}
+    for side, (engine, port) in servers.items():
+        model = _client(capi_lib, port)
+        try:
+            ids = [model.tokenize(t) for t in TEXTS]
+            out[side] = {
+                "n_embd": model.n_embd,
+                "n_max_tokens": model.n_max_tokens,
+                "ids": ids,
+                "eval": model.eval_tokens(ids + [[2, 3]]),
+                "vocab": [model.id_to_token(i) for i in (0, 1, 2, 3, 150, 999, 5000)],
+                "encode": model.encode(TEXTS),
+            }
+        finally:
+            model.close()
+    return out
+
+
+@pytest.mark.parametrize("side", ["port", "reference"])
+def test_connect_returns(capi_lib, servers, side):
+    engine, port = servers[side]
+    model = _client(capi_lib, port)
+    try:
+        assert model.n_embd == engine.n_embd == 64
+        assert model.n_max_tokens == engine.n_max_tokens == 128
+    finally:
+        model.close()
+
+
+def test_n_max_tokens_tokenize_vocab_are_equal(replies, servers):
+    ours, theirs = replies["port"], replies["reference"]
+    for key in ("n_embd", "n_max_tokens", "ids", "vocab"):
+        assert ours[key] == theirs[key], key
+    engine, _ = servers["port"]
+    assert ours["ids"] == [engine.tokenize(t) for t in TEXTS]
+    assert ours["vocab"][-1] == ""  # an unknown id: the empty token
+
+
+def test_eval_batch_and_encode_meet_the_f32_bar(replies, servers):
+    ours, theirs = replies["port"], replies["reference"]
+    np.testing.assert_allclose(ours["eval"], theirs["eval"], rtol=0, atol=ATOL_F32)
+    np.testing.assert_allclose(ours["encode"], theirs["encode"], rtol=0, atol=ATOL_F32)
+    engine, _ = servers["port"]
+    np.testing.assert_allclose(ours["eval"][:len(TEXTS)], engine.encode(TEXTS),
+                               rtol=0, atol=1e-6)
+
+
+DOCS = ["a document", "another one"]
+UNSERVED_CALLS = {
+    "index": lambda m: m.index(DOCS),
+    "search": lambda m: m.search(DOCS, 3),
+    "sparse_index": lambda m: m.sparse_index(DOCS),
+    "sparse_search": lambda m: m.sparse_search(DOCS, 3),
+    "hybrid_index": lambda m: m.hybrid_index(DOCS),
+    "hybrid_search": lambda m: m.hybrid_search(DOCS, 3),
+    "maxsim_index": lambda m: m.maxsim_index(DOCS),
+    "maxsim_search": lambda m: m.maxsim_search(DOCS, 3),
+    "encode_sparse": lambda m: m.encode_sparse(DOCS, 16),
+    "maxsim": lambda m: m.maxsim("a query", DOCS),
+}
+
+
+@pytest.mark.parametrize("call", sorted(UNSERVED_CALLS))
+def test_unserved_call_errors_and_the_context_still_encodes(capi_lib, servers, call):
+    engine, port = servers["port"]
+    model = _client(capi_lib, port)
+    try:
+        with pytest.raises(RuntimeError, match="NotImplementedError"):
+            UNSERVED_CALLS[call](model)
+        np.testing.assert_allclose(model.encode(TEXTS[:2]), engine.encode(TEXTS[:2]),
+                                   rtol=0, atol=1e-6)
+    finally:
+        model.close()
+
+
+@pytest.mark.parametrize("bad", [-1, 1 << 20], ids=["negative", "past-the-vocab"])
+def test_eval_batch_with_an_id_outside_the_vocab_errors_and_the_context_still_encodes(
+        capi_lib, servers, bad):
+    engine, port = servers["port"]
+    model = _client(capi_lib, port)
+    try:
+        with pytest.raises(RuntimeError, match="outside 0.."):
+            model.eval_tokens([[2, 5, 3], [2, bad, 3]])
+        np.testing.assert_allclose(model.encode(TEXTS[:2]), engine.encode(TEXTS[:2]),
+                                   rtol=0, atol=1e-6)
+    finally:
+        model.close()

@@ -14,7 +14,9 @@ long-row kernel (K5), the sliding-window kernel (K7), the packed-segment
 kernel (K6, full and windowed: S = 200 ... 8192, segments ending on tile
 boundaries, padded tails, a row all padding) and the disentangled-attention
 kernel (K9 key bias, K10 segments; S = 16 ... 512 with spans below and
-above S); chip_smoke.py checks the main-path shapes.
+above S) and the kernel suite's head-packed attention (B1: every (d, hb)
+it is built for, S = 1 ... 512, padded tails, a row all padding);
+chip_smoke.py checks the main-path shapes.
 
 Tolerances: f32 1e-4 absolute (the same f32 products summed in another
 order); bf16 by relative error max|err| / max|ref| <= 1e-2 (an order
@@ -29,6 +31,8 @@ from embedding_cpp_tpu_torch.gguf.quant import quantize
 from embedding_cpp_tpu_torch.ops import qtensor as tqt
 from embedding_cpp_tpu_torch.ops.attention import (
     MASK_BIAS,
+    attention_headpack,
+    attention_headpack_plain,
     attention_bse_plain,
     attention_local_plain,
     attention_long_plain,
@@ -473,3 +477,55 @@ def test_deberta_kernel_rejects_what_it_does_not_serve(dev):
     with pytest.raises(ValueError):  # f32 tables beside bf16 q/k/v
         disentangled_attention(q, k, v, torch.zeros(1, 64, device=dev), pk.float(),
                                pq.float(), 32, 128)
+
+
+# --- B1, the head-packed attention of the kernel suite -------------------------
+
+@pytest.mark.parametrize("s,h,d,hb", [(512, 12, 32, 4), (512, 12, 64, 2), (100, 4, 32, 4),
+                                      (77, 2, 32, 1), (130, 4, 64, 1), (65, 4, 32, 2),
+                                      (1, 2, 64, 2), (300, 6, 64, 2)])
+def test_headpack_kernel_matches_plain(dev, s, h, d, hb):
+    b = 3
+    gen = torch.Generator(device="cpu").manual_seed(s + h + d)
+    q, k, v = (torch.randn(b, h, s, d, generator=gen).to(dev, torch.bfloat16)
+               for _ in range(3))
+    mask = _long_mask(b, s, dev)  # padding tails, one row all padding
+    before = attention_headpack.launches
+    got = attention_headpack(q, k, v, mask, hb)
+    assert attention_headpack.launches == before + 1
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    _close(got, attention_headpack_plain(q, k, v, mask, hb), torch.bfloat16)
+
+
+def test_headpack_kernel_rejects_what_it_does_not_serve(dev):
+    q = torch.zeros(1, 4, 64, 32, device=dev, dtype=torch.bfloat16)
+    bias = torch.zeros(1, 64, device=dev)
+    for bad in (dict(hb=3), dict(hb=8)):  # hb not dividing H; packed width past 128
+        with pytest.raises(ValueError):
+            attention_headpack(q, q, q, bias, **bad)
+    with pytest.raises(ValueError):  # f32
+        attention_headpack(q.float(), q.float(), q.float(), bias, 4)
+    q16 = torch.zeros(1, 4, 64, 16, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # d = 16
+        attention_headpack(q16, q16, q16, bias, 4)
+
+
+@pytest.mark.parametrize("n_lists", [2, 40], ids=["plain", "packed"])
+def test_engine_refuses_ids_outside_the_vocab_and_keeps_serving(dev, n_lists):
+    """An out-of-range id raises on the host before any launch, so the CUDA
+    context survives (a gather past the table would fire a device-side
+    assert) and the next call on the card is answered."""
+    from dataclasses import replace
+
+    from embedding_cpp_tpu_torch import Engine
+    from embedding_cpp_tpu_torch.models import MINILM_L6
+
+    eng = Engine.synthetic(replace(MINILM_L6, n_layer=1), "q4_0", device=dev)
+    n = eng.config.n_vocab
+    good = [[2, 7 + i, 3] for i in range(n_lists)]
+    for bad in (n, -1, -n - 1):
+        with pytest.raises(ValueError, match=f"token id {bad} outside 0..{n - 1}"):
+            eng.embed_tokens(good[:-1] + [[2, bad, 3]])
+    torch.cuda.synchronize()
+    out = eng.embed_tokens(good)
+    assert np.isfinite(out).all() and out.shape == (n_lists, eng.n_embd)

@@ -278,3 +278,140 @@ def test_nomic_refuses_unaligned_packed_rows_past_1024(pack_seq, packing, refuse
     else:
         eng = Engine({}, config, device="cpu", pack_seq=pack_seq, packing=packing)
         assert eng.pack_seq == pack_seq
+
+
+# --- the bert.h surface: tokenize, n_max_tokens, id_to_token, decode, stats ---
+
+def test_bert_h_members_match_jax(engines):
+    ours, theirs = engines
+    assert ours.n_max_tokens == theirs.n_max_tokens == ours.config.n_ctx
+    for text in UNPACKED + PACKED[:5]:
+        ids = ours.tokenize(text)
+        assert ids == theirs.tokenize(text)
+        assert ours.decode(ids) == theirs.decode(ids)
+    for i in (0, 1, 2, 3, 7, 150, 999, 1000, 10**6):
+        assert ours.id_to_token(i) == theirs.id_to_token(i)
+
+
+@pytest.mark.parametrize("family", ["modernbert", "deberta"])
+def test_decode_matches_jax_on_bpe_and_unigram(modernbert_engines, deberta_engines, family):
+    ours, theirs = (modernbert_engines if family == "modernbert"
+                    else deberta_engines["tiny-deberta"])
+    for text in UNPACKED[:6] + ["Hello, World!  Ünïcödé 中文"]:
+        ids = theirs.tokenize(text)
+        assert ours.tokenize(text) == ids
+        assert ours.decode(ids) == theirs.decode(ids)
+        assert [ours.id_to_token(i) for i in ids] == [theirs.id_to_token(i) for i in ids]
+
+
+def test_embed_tokens_counts_sentences_tokens_batches(engines):
+    from embedding_cpp_tpu_torch.utils.metrics import GLOBAL as metrics
+
+    ours, _ = engines
+    ids = ours.tokenize_batch(PACKED + UNPACKED)
+    before, snap0 = dict(ours.stats), metrics.snapshot()["counters"]
+    ours.embed_tokens(ids)
+    after, snap1 = ours.stats, metrics.snapshot()["counters"]
+    n_tokens = sum(len(t) for t in ids)
+    assert after["sentences"] - before["sentences"] == len(ids)
+    assert after["tokens"] - before["tokens"] == n_tokens
+    assert after["batches"] - before["batches"] >= 2  # one packed, plain buckets
+    assert after["eval_time"] > before["eval_time"]
+    for key, want in (("sentences", len(ids)), ("tokens", n_tokens)):
+        assert snap1[key] - snap0.get(key, 0) == want
+    assert snap1["padded_slots"] - snap0.get("padded_slots", 0) >= n_tokens
+
+
+# --- architecture names (the reference's config.py:290-292) --------------------
+
+def _kv(arch: str) -> dict:
+    from embedding_cpp_tpu_torch.gguf import Keys
+
+    return {Keys.ARCHITECTURE: arch, Keys.TOKENIZER_LIST: ["a"] * 50,
+            Keys.CONTEXT_LENGTH: 128, Keys.EMBEDDING_LENGTH: 64, Keys.BLOCK_COUNT: 2,
+            Keys.HEAD_COUNT: 4, Keys.FEED_FORWARD_LENGTH: 128}
+
+
+@pytest.mark.parametrize("arch", ["xlm-roberta", "jina-bert-v2"])
+def test_unknown_architecture_reads_as_bert_on_both_sides(arch):
+    from dataclasses import fields
+
+    from embedding_cpp_tpu.models.config import BertConfig as JConfig
+    from embedding_cpp_tpu_torch.models import BertConfig
+
+    ours, theirs = BertConfig.from_gguf_kv(_kv(arch)), JConfig.from_gguf_kv(_kv(arch))
+    assert ours.arch == theirs.arch == "bert"
+    for f in fields(ours):
+        assert getattr(ours, f.name) == getattr(theirs, f.name), f.name
+
+
+@pytest.mark.parametrize("arch", ["roberta", "t5"])
+def test_known_unported_architecture_is_still_refused(arch):
+    from embedding_cpp_tpu.models.config import BertConfig as JConfig
+    from embedding_cpp_tpu_torch.models import BertConfig
+
+    assert JConfig.from_gguf_kv(_kv(arch)).arch == arch  # the reference serves it
+    with pytest.raises(NotImplementedError, match=f"'{arch}' is not ported yet"):
+        BertConfig.from_gguf_kv(_kv(arch))
+
+
+def test_xlm_roberta_named_gguf_loads_as_bert(tmp_path, monkeypatch):
+    """A BERT GGUF whose general.architecture says "xlm-roberta" loads in
+    both packages as BERT and encodes alike."""
+    import embedding_cpp_tpu.models.convert as convert
+    from embedding_cpp_tpu.gguf.constants import Keys as JKeys
+    from embedding_cpp_tpu.models.config import BertConfig as JConfig
+    from embedding_cpp_tpu.models.params import random_state_dict
+    from embedding_cpp_tpu.tokenizer.testvocab import build_tokenizer_json
+
+    class Writer(convert.GGUFWriter):
+        def add_string(self, key, value):
+            super().add_string(key, "xlm-roberta" if key == JKeys.ARCHITECTURE else value)
+
+    monkeypatch.setattr(convert, "GGUFWriter", Writer)
+    config = JConfig(n_vocab=300, n_ctx=128, n_embd=64, n_layer=2, n_head=4, n_ff=128,
+                     name="tiny-xlmr-named")
+    path = str(tmp_path / "xlmr.gguf")
+    convert.write_bert_gguf(path, config, random_state_dict(config, seed=0),
+                            build_tokenizer_json(config.n_vocab))
+    from embedding_cpp_tpu.gguf.reader import GGUFReader as JReader
+
+    with JReader(path) as r:
+        assert r.kv[JKeys.ARCHITECTURE] == "xlm-roberta"
+    ours, theirs = Engine.from_gguf(path, device="cpu"), JEngine.from_gguf(path)
+    assert ours.config.arch == theirs.config.arch == "bert"
+    np.testing.assert_allclose(ours.encode(UNPACKED), theirs.encode(UNPACKED),
+                               rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("bad", [-1, 10**6], ids=["negative", "past-the-vocab"])
+@pytest.mark.parametrize("n_lists", [3, 40], ids=["plain", "packed"])
+def test_embed_tokens_refuses_ids_outside_the_vocab(engines, n_lists, bad):
+    """An id outside 0..n_vocab-1 raises before anything launches, on the
+    plain and the packed path (a gather past the table would lose the
+    CUDA context on the card); the engine then still serves."""
+    ours, _ = engines
+    good = [[2, 5 + i % 7, 3] for i in range(n_lists)]
+    assert (len(ours._pack_plan(good)) > 0) == (n_lists >= 32)
+    wrong = [list(t) for t in good]
+    wrong[-1][1] = bad
+    with pytest.raises(ValueError, match=f"token id {bad} outside 0..{ours.config.n_vocab - 1}"):
+        ours.embed_tokens(wrong)
+    assert np.isfinite(ours.embed_tokens(good)).all()
+
+
+def test_score_token_pairs_refuses_ids_and_types_outside_their_tables():
+    from dataclasses import replace
+
+    config = replace(MINILM_L6, n_vocab=300, n_embd=64, n_head=4, n_ff=128, n_layer=2,
+                     n_ctx=128, n_labels=1)
+    eng = Engine.synthetic(config, "f32", device="cpu")
+    ids, types = [[2, 7, 3, 9, 3]], [[0, 0, 0, 1, 1]]
+    want = eng.score_token_pairs(ids, types)
+    with pytest.raises(ValueError, match="token id 300 outside 0..299"):
+        eng.score_token_pairs([[2, 300, 3, 9, 3]], types)
+    with pytest.raises(ValueError, match="token type id 2 outside 0..1"):
+        eng.score_token_pairs(ids, [[0, 0, 0, 2, 2]])
+    with pytest.raises(ValueError, match="token type id -1 outside 0..1"):
+        eng.score_token_pairs(ids, [[0, 0, 0, -1, 1]])
+    np.testing.assert_array_equal(eng.score_token_pairs(ids, types), want)

@@ -1,6 +1,7 @@
 """The port and chip_smoke.py import neither jax nor anything of the JAX
-package `embedding_cpp_tpu`: checked in a fresh interpreter and by a scan of
-every import statement in their sources."""
+package `embedding_cpp_tpu` nor its benchmark scripts (`benchmarks/`):
+checked in a fresh interpreter and by a scan of every import statement in
+their sources."""
 import ast
 import json
 import subprocess
@@ -9,7 +10,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / "embedding_cpp_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "embedding_cpp_tpu")
+FORBIDDEN = ("jax", "jaxlib", "embedding_cpp_tpu", "benchmarks")
 
 _PROBE = """
 import importlib, json, pkgutil, sys
@@ -20,7 +21,7 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "embedding_cpp_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "embedding_cpp_tpu", "benchmarks"))
 print(json.dumps({{"modules": names, "bad": bad}}))
 """
 
@@ -35,7 +36,8 @@ def test_importing_everything_loads_no_jax():
     assert result["bad"] == []
     assert "embedding_cpp_tpu_torch.runtime.server" in result["modules"]
     assert "embedding_cpp_tpu_torch.ops.q4_matmul" in result["modules"]
-    for name in ("models.modernbert", "models.nomic", "tokenizer.bpe", "ops.attention"):
+    for name in ("models.modernbert", "models.nomic", "tokenizer.bpe", "ops.attention",
+                 "utils.metrics", "utils.profiling", "benchmarks.kernels"):
         assert f"embedding_cpp_tpu_torch.{name}" in result["modules"]
 
 
