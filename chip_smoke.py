@@ -785,6 +785,7 @@ def phase_kernels_deberta(peaks) -> dict:
         disentangled_attention_plain,
         disentangled_scores_plain,
     )
+    from embedding_cpp_tpu_torch.ops.deberta_attention import work as deberta_work
 
     dev = torch.device("cuda")
     b, s, h, d, span, max_dist = 32, 512, 12, 64, 256, 512
@@ -809,8 +810,7 @@ def phase_kernels_deberta(peaks) -> dict:
         pk, pq = (0.5 * torch.randn(2 * span, h, d, generator=gen).to(dev, dtype)
                   for _ in range(2))
         timed = dtype == torch.bfloat16
-        nbytes = (4 * q.numel() + 2 * pk.numel()) * q.element_size() + b * s * 4 + 2 * 2 * s * 4
-        flops = 8.0 * b * h * s * s * d  # q.k, c2p, p2c and PV
+        flops, nbytes = deberta_work(b, s, h, d, span, q.element_size())
         heads = [t.transpose(1, 2).contiguous() for t in (q, k, v)]
         rel = None
         if timed:  # scaled c2p + p2c [B, H, S, S]: all three terms less q.k

@@ -48,6 +48,7 @@ from ..ops.deberta_attention import (
     disentangled_attention,
     disentangled_scores_plain,
 )
+from ..ops.deberta_attention import work as deberta_work
 from ..ops.q4_matmul import dequant_weight, q4_matmul, route
 from ..utils.profiling import bound_ms, gpu_ms, peaks_for
 
@@ -270,8 +271,7 @@ def bench_deberta_attention(peaks, b: int = 16, s: int = 512, h: int = 12, d: in
            - torch.matmul(heads[0].float(), heads[1].float().transpose(-1, -2))) * scale
     mask = (rel + bias[:, None, None, :]).to(q.dtype)
     del rel
-    nbytes = (4 * q.numel() + 2 * pos_k.numel()) * 2 + b * s * 4
-    flops = float(b * h * s * d * (4 * s + 4 * 2 * s))
+    flops, nbytes = deberta_work(b, s, h, d, span, q.element_size())
     return {"kernel": _timed(lambda: disentangled_attention(q, k, v, bias, pos_k, pos_q, span,
                                                             max_dist), nbytes, flops, peaks),
             "library": _timed(_sdpa(*heads, mask, scale=scale), nbytes, flops, peaks)}

@@ -79,6 +79,18 @@ def _device_tables(s: int, span: int, max_dist: int, device: torch.device):
                  for t in delta_tables(s, span, max_dist))
 
 
+def work(b: int, s: int, h: int, d: int, span: int, itemsize: int) -> tuple[float, float]:
+    """(flops, bytes) of one call at [B, S, H x d] with 2*span relative rows,
+    the minimal work whatever implements it: the four products q.k, c2p,
+    p2c and PV at 2*S*S*d flops each per (batch, head); q, k, v, pos_k and
+    pos_q read once and o written once (`itemsize` bytes an element), the
+    f32 key bias or int32 segment row [B, S] and the two int32 index tables
+    [2S] read once."""
+    flops = 8.0 * b * h * s * s * d
+    nbytes = (4 * b * s + 2 * 2 * span) * h * d * itemsize + b * s * 4 + 2 * 2 * s * 4
+    return flops, float(nbytes)
+
+
 def disentangled_scores_plain(q, k, pos_k, pos_q, c2p_idx, p2c_idx) -> torch.Tensor:
     """Raw f32 scores [B, H, S, S]: (q.k + c2p) + p2c, each term a product
     of f32 copies of the inputs."""

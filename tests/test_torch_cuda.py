@@ -14,7 +14,8 @@ long-row kernel (K5), the sliding-window kernel (K7), the packed-segment
 kernel (K6, full and windowed: S = 200 ... 8192, segments ending on tile
 boundaries, padded tails, a row all padding) and the disentangled-attention
 kernel (K9 key bias, K10 segments; S = 16 ... 512 with spans below and
-above S) and the kernel suite's head-packed attention (B1: every (d, hb)
+above S, S off the bf16 kernel's 64-row tiles, segments crossing them, a
+row all padding) and the kernel suite's head-packed attention (B1: every (d, hb)
 it is built for, S = 1 ... 512, padded tails, a row all padding);
 chip_smoke.py checks the main-path shapes.
 
@@ -445,9 +446,16 @@ def _deberta_inputs(b, s, h, d, span, dtype, dev, seed=0):
                                                  # buckets, where the span exceeds S
                                                  (16, 12, 64, 256, 512), (32, 12, 64, 256, 512),
                                                  (64, 12, 64, 256, 512),
-                                                 (128, 12, 64, 256, 512)])
+                                                 (128, 12, 64, 256, 512),
+                                                 # S not a multiple of the bf16
+                                                 # kernel's 64-row tile or 64-key chunk
+                                                 (100, 12, 64, 256, 512),
+                                                 (300, 12, 64, 256, 512),
+                                                 (500, 12, 64, 256, 512),
+                                                 (300, 4, 32, 96, 192), (100, 2, 16, 32, 128),
+                                                 (200, 2, 128, 32, 128)])
 def test_deberta_kernels_match_plain(dev, dtype, s, h, d, span, max_dist):
-    b = 3
+    b = 4
     q, k, v, pk, pq = _deberta_inputs(b, s, h, d, span, dtype, dev, seed=s + d)
     c2p, p2c = (torch.from_numpy(t.astype(np.int32)).to(dev)
                 for t in delta_tables(s, span, max_dist))
@@ -459,6 +467,7 @@ def test_deberta_kernels_match_plain(dev, dtype, s, h, d, span, max_dist):
     seg = torch.full((b, s), -1, dtype=torch.int32)
     seg[0, : s // 2], seg[0, s // 2 : s - 3] = 0, 1
     seg[1, :] = 0
+    seg[3, :] = torch.arange(s) // 37  # segments crossing the 64-row tile boundaries
     seg = seg.to(dev)  # row 2: all padding
     before = disentangled_attention_packed.launches
     got = disentangled_attention_packed(q, k, v, seg, pk, pq, span, max_dist)

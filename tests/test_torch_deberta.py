@@ -8,6 +8,11 @@
 - The kernels' plain versions (K9 key bias, K10 segments) against the
   Pallas kernels in interpret mode, f32, atol 2e-6, on every row (K10's
   padding rows attend over the other padding keys, as the TPU kernel's).
+- The bf16 kernel's skew arithmetic in plain torch (`_tiled_scores`: per
+  64-row query tile and 64-key chunk, the [16, 80] c2p and p2c run
+  products read along the kernel's diagonals) against
+  `disentangled_scores_plain` and, through softmax and PV, the Pallas
+  K9/K10 in interpret mode, at S = 16, 100, 512, with and without padding.
 - The models against `bert_embed_batch` / `bert_embed_packed` /
   `bert_score_batch` with the reference's XLA and Pallas attention:
   f32 atol 2e-5, rtol 1e-4 (the reference's own bar); bf16 activations
@@ -181,6 +186,106 @@ def test_k10_plain_matches_pallas_on_every_row(s, span, max_dist):
                                             max_dist).numpy()
     assert (seg < 0).any()  # padding rows are compared too
     np.testing.assert_allclose(got, ref, rtol=0, atol=KERNEL_ATOL)
+
+
+# --- the bf16 kernel's skewed relative products, in plain torch -------------------
+
+TILE, GROUP, WINDOW = 64, 16, 80  # query tile = key chunk, warp group, run window
+
+
+def _run_rows(table, idx, start: int, n: int, s: int) -> torch.Tensor:
+    """Rows start .. start+n-1 of a relative run, [H, n, d]: row w is
+    table[idx[w]], zero where w falls outside 0..2S-1 or idx[w] outside
+    the table (the kernel's zero-filled copies)."""
+    w = torch.arange(start, start + n)
+    ok = (w >= 0) & (w < 2 * s)
+    row = torch.where(ok, idx[w.clamp(0, 2 * s - 1)], -1)
+    ok &= (row >= 0) & (row < table.shape[0])
+    return (table[row.clamp(min=0)] * ok[:, None, None]).permute(1, 0, 2)
+
+
+def _tiled_scores(q, k, pos_k, pos_q, c2p_idx, p2c_idx) -> torch.Tensor:
+    """Raw f32 scores [B, H, S, S] as the bf16 kernel of
+    csrc/deberta_attention.cu forms them: per (64-row query tile, 64-key
+    chunk), q.k; then per 16-row group the product C = Q_group .
+    PKrun[u0 .. u0+80)^T read at key j = u - (63 - r); then per 16-key
+    group D^T = K_group . PQrun[v0 .. v0+80)^T read at query r = u' + j - 63;
+    summed (q.k + c2p) + p2c."""
+    b, s, h, d = q.shape
+    n = -(-s // TILE) * TILE
+    qh = torch.zeros(b, h, n, d)
+    kh = torch.zeros(b, h, n, d)
+    qh[:, :, :s] = q.permute(0, 2, 1, 3)
+    kh[:, :, :s] = k.permute(0, 2, 1, 3)
+    out = torch.zeros(b, h, n, n)
+    x = torch.arange(GROUP)
+    for q0 in range(0, n, TILE):
+        for c0 in range(0, n, TILE):
+            qt, kc = qh[:, :, q0:q0 + TILE], kh[:, :, c0:c0 + TILE]
+            pk = _run_rows(pos_k, c2p_idx, s - q0 - TILE + c0, 2 * TILE, s)
+            pq = _run_rows(pos_q, p2c_idx, q0 - c0 - TILE + 1 + s, 2 * TILE, s)
+            tile = qt @ kc.transpose(-1, -2)
+            for grp in range(TILE // GROUP):
+                rows = slice(GROUP * grp, GROUP * (grp + 1))
+                u0 = TILE - GROUP * (grp + 1)
+                cmat = qt[:, :, rows] @ pk[:, u0:u0 + WINDOW].transpose(-1, -2)
+                r, j = GROUP * grp + x[:, None], torch.arange(TILE)[None, :]
+                col = (TILE - 1 - r + j) - u0
+                assert 0 <= int(col.min()) and int(col.max()) < WINDOW
+                tile[:, :, rows] += cmat[:, :, x[:, None], col]
+            for grp in range(TILE // GROUP):
+                keys = slice(GROUP * grp, GROUP * (grp + 1))
+                v0 = TILE - GROUP * (grp + 1)
+                dmat = kc[:, :, keys] @ pq[:, v0:v0 + WINDOW].transpose(-1, -2)
+                r, j = torch.arange(TILE)[:, None], GROUP * grp + x[None, :]
+                col = (r - j + TILE - 1) - v0
+                assert 0 <= int(col.min()) and int(col.max()) < WINDOW
+                tile[:, :, :, keys] += dmat[:, :, x[None, :], col]
+            out[:, :, q0:q0 + TILE, c0:c0 + TILE] = tile
+    return out[:, :, :s, :s]
+
+
+@pytest.mark.parametrize("padded", [False, True])
+@pytest.mark.parametrize("span,max_dist", [(256, 512), (16, 64)])
+@pytest.mark.parametrize("s", [16, 100, 512])
+def test_tiled_skew_scores_match_plain_and_pallas(s, span, max_dist, padded):
+    """The bf16 kernel's tile, group and diagonal index arithmetic, run in
+    plain torch: its scores against `disentangled_scores_plain` (f32,
+    atol 1e-5: the same products in other blocks), and its K9 / K10
+    outputs against the Pallas kernels in interpret mode (KERNEL_ATOL),
+    with and without padding, spans below and above S."""
+    from embedding_cpp_tpu.ops.deberta_attention import disentangled_attention as jax_k9
+    from embedding_cpp_tpu.ops.deberta_attention import (
+        disentangled_attention_packed as jax_k10,
+    )
+
+    rng = np.random.default_rng(s + span + padded)
+    b, h, d = 2, 2, 16
+    q, k, v = (rng.standard_normal((b, s, h, d)).astype(np.float32) for _ in range(3))
+    pk, pq = (rng.standard_normal((2 * span, h, d)).astype(np.float32) for _ in range(2))
+    c2p_idx, p2c_idx = (torch.from_numpy(t) for t in tda.delta_tables(s, span, max_dist))
+    tq, tk, tpk, tpq = _t(q, k, pk, pq)
+    tiled = _tiled_scores(tq, tk, tpk, tpq, c2p_idx, p2c_idx)
+    plain = tda.disentangled_scores_plain(tq, tk, tpk, tpq, c2p_idx, p2c_idx)
+    np.testing.assert_allclose(tiled.numpy(), plain.numpy(), rtol=0, atol=1e-5)
+
+    bias = np.zeros((b, s), np.float32)
+    seg = np.repeat((np.arange(s) // 37)[None], b, 0).astype(np.int32)
+    if padded:
+        bias[1, max(1, s // 3):] = -1e9
+        seg[1, max(1, s // 3):] = -1
+    scale = 1.0 / np.sqrt(3 * d)
+    vh = torch.from_numpy(v).permute(0, 2, 1, 3)
+    got9 = tda._softmax_pv(tiled * scale + torch.from_numpy(bias)[:, None, None, :], vh,
+                           torch.float32).permute(0, 2, 1, 3).numpy()
+    ref9 = np.asarray(jax_k9(*map(jnp.asarray, (q, k, v, bias, pk, pq)), span, max_dist))
+    np.testing.assert_allclose(got9, ref9, rtol=0, atol=KERNEL_ATOL)
+    ts = torch.from_numpy(seg)
+    allowed = (ts[:, :, None] == ts[:, None, :])[:, None]
+    got10 = tda._softmax_pv(torch.where(allowed, tiled * scale, torch.tensor(-1e9)), vh,
+                            torch.float32).permute(0, 2, 1, 3).numpy()
+    ref10 = np.asarray(jax_k10(*map(jnp.asarray, (q, k, v, seg, pk, pq)), span, max_dist))
+    np.testing.assert_allclose(got10, ref10, rtol=0, atol=KERNEL_ATOL)
 
 
 def test_cpu_wrapper_rejects_other_devices():
