@@ -21,7 +21,8 @@ Phases, in order, each printing JSON lines:
             segments, every key over document-sized ones) and its edge cases;
             K1 at bge-large-en-v1.5's q/k/v/o (Q8_0), the N-tiled K8 at its
             FFN (every qtype, bf16 and f32, beside the same call forced
-            through K1), K1's residual + LayerNorm epilogue at N = 384, 768,
+            through K1) and forced at its q/k/v/o beside K1, K1's residual +
+            LayerNorm epilogue at N = 384, 768,
             1024, and K2/K3 at 16 heads of 64; B1, the kernel suite's
             head-packed attention (benchmark code, on no model path), at
             [32, 512, 12x32] hb 4 and [32, 512, 12x64] hb 2 beside K5, K3
@@ -379,8 +380,11 @@ def phase_kernels_k8(peaks, f32_rate: float) -> dict:
     bf16 and f32, a prologue case and a ragged M.  Timed in Q8_0 bf16 (the
     main path's): K8, its plain version, torch.addmm on the dequantized
     weight (then the activation) as the library call, and the same call
-    forced through K1; in f32 (the card's f32 check) at the up shape, K8
-    and K1, with the bound at the f32 SIMT rate."""
+    forced through K1; in f32 (the card's f32 check) at the up shape, K8,
+    K1 and addmm on the f32 weight (TF32 off), with the bound at the f32
+    SIMT rate.  Also K8 forced at bge-large's q/k/v/o shape (1024 -> 1024,
+    which the route gives K1) beside K1 and addmm, for the record.  bf16
+    cases name K8's tile (`tile`), f32 cases its column slice."""
     import torch
     import torch.nn.functional as F
 
@@ -392,6 +396,7 @@ def phase_kernels_k8(peaks, f32_rate: float) -> dict:
         q4_matmul_plain,
         route,
         slice_width,
+        tile,
     )
 
     dev = torch.device("cuda")
@@ -414,10 +419,12 @@ def phase_kernels_k8(peaks, f32_rate: float) -> dict:
         err, rel = _rel_err(got, ref)
         ok = _within(dtype, err, rel) and bool(torch.isfinite(got).all())
         del got, ref
+        layout = ({"tile": tile(gated)} if dtype == torch.bfloat16
+                  else {"slice_n": slice_width(k)})
         case = {"qtype": qtype, "dtype": str(dtype).split(".")[-1], "shape": name, "m": m,
                 "k": k, "n": n, "act": act, "prologue": gated,
                 "route": route(m, k, n, w.qtype, dtype, prologue=gated).kernel,
-                "slice_n": slice_width(dtype, k), "max_abs_err": err, "rel_err": rel,
+                **layout, "max_abs_err": err, "rel_err": rel,
                 "tolerance": _tolerance(dtype), "ok": ok}
         return case, (x, w, b, g)
 
@@ -456,6 +463,10 @@ def phase_kernels_k8(peaks, f32_rate: float) -> dict:
                                            samples=5, reps=1)
                     case["plain_ms"] = gpu_ms(lambda: q4_matmul_plain(x, w, b, act),
                                               samples=5, reps=1)
+                    wd = dequant_weight(w, dtype)
+                    case["library_ms"] = gpu_ms(lambda: F.gelu(torch.addmm(b, x, wd)),
+                                                samples=5, reps=1)
+                    del wd
                     nbytes = (x.numel() * 4 + w.qs.numel() + w.scales.numel() * 4 + n * 4
                               + M_TOKENS * n * 4)
                     case["bound_ms"], case["bound_by"] = bound_ms(
@@ -472,6 +483,21 @@ def phase_kernels_k8(peaks, f32_rate: float) -> dict:
         emit({"phase": "kernel_check", "kernel": "q4_matmul_2d", "model": "bge-large-en-v1.5",
               **case})
         check(case["ok"], f"K8 {what}: {case['max_abs_err']}")
+    # K8 forced at q/k/v/o, beside K1 (the route's kernel there) and addmm
+    name, k, n, act, _, _ = BGE_LINEARS[0]
+    case, (x, w, b, _) = run("Q8_0", torch.bfloat16, "qkvo-forced", k, n, act)
+    wd = dequant_weight(w, torch.bfloat16)
+    case["ms"] = gpu_ms(lambda: _q4_matmul_2d(x, w, b))
+    case["k1_ms"] = gpu_ms(lambda: _q4_matmul_1d(x, w, b))
+    case["library_ms"] = gpu_ms(lambda: torch.addmm(b.to(torch.bfloat16), x, wd))
+    case["bound_ms"], case["bound_by"] = bound_ms(
+        x.numel() * 2 + w.qs.numel() + w.scales.numel() * 4 + n * 4 + M_TOKENS * n * 2,
+        2.0 * M_TOKENS * k * n, peaks)
+    cases["qkvo_forced"] = case
+    emit({"phase": "kernel_check", "kernel": "q4_matmul_2d", "model": "bge-large-en-v1.5",
+          **case})
+    check(case["ok"], f"K8 qkvo-forced: {case['max_abs_err']}")
+    del x, w, b, wd
     torch.cuda.empty_cache()
     return {**cases, "per_layer": totals, "max_abs_err": main_err,
             "bound_by": "bytes" if totals["t_bytes"] >= totals["t_ops"] else "operations"}
@@ -2278,12 +2304,14 @@ def main() -> None:
                model="bge-large", f32_check_launches=bge_f32_counts["q4_matmul_2d"],
                k1_forced_ms=k8["per_layer"]["k1_ms"],
                library="torch.addmm on the dequantized weight (+ gelu)",
-               up=_timing(k8["up"]) | {"k1_ms": k8["up"]["k1_ms"],
-                                        "slice_n": k8["up"]["slice_n"]},
+               up=_timing(k8["up"]) | {"k1_ms": k8["up"]["k1_ms"], "tile": k8["up"]["tile"]},
                down=_timing(k8["down"]) | {"k1_ms": k8["down"]["k1_ms"],
-                                            "slice_n": k8["down"]["slice_n"]},
+                                            "tile": k8["down"]["tile"]},
                f32_up={k: k8["f32_up"][k] for k in ("max_abs_err", "ms", "k1_ms", "plain_ms",
-                                                     "bound_ms", "bound_by", "slice_n")}),
+                                                     "library_ms", "bound_ms", "bound_by",
+                                                     "slice_n")},
+               qkvo_forced={k: k8["qkvo_forced"][k] for k in (
+                   "max_abs_err", "ms", "k1_ms", "library_ms", "bound_ms", "bound_by")}),
         {**_entry("q4_matmul_ln", "q4_matmul.cu", "q4_matmul.py:219", ln_on_paths,
                   k1ln, "o projection 1024->1024 + gelu_erf + residual + LayerNorm at "
                   "M=16384, bf16, Q8_0", k1_ms=k1ln["k1_ms"], linear_ms=k1ln["linear_ms"]),

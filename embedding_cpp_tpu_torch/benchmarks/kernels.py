@@ -14,6 +14,11 @@ each input read once, each output written once, the card's published
 peaks).  The last line of standard output is one JSON object with a
 `device` entry (the card's name and power limit from nvidia-smi).
 
+`bench_k8_ffn` runs K8, the N-tiled dequant-GEMM, at bge-large-en-v1.5's
+FFN (Q8_0, M = 16384): each projection alone, as the route gives it to
+K8, against torch.addmm on the dequantized weight (+ gelu).  `--only`
+runs the named sections alone (e.g. `--only k8_ffn`).
+
 `bench_attention_headpack` runs B1, the head-packed attention of the JAX
 suite's bench of that name (`ops/attention.attention_headpack`, kernel
 `csrc/attention_headpack.cu`).  No model path runs B1: it measures
@@ -49,7 +54,7 @@ from ..ops.deberta_attention import (
     disentangled_scores_plain,
 )
 from ..ops.deberta_attention import work as deberta_work
-from ..ops.q4_matmul import dequant_weight, q4_matmul, route
+from ..ops.q4_matmul import _q4_matmul_2d, dequant_weight, q4_matmul, route
 from ..utils.profiling import bound_ms, gpu_ms, peaks_for
 
 # --- the A/B suite -------------------------------------------------------------
@@ -131,6 +136,32 @@ def bench_q4_fused_epilogue(m: int, peaks, e: int = 384, f: int = 1536,
         return torch.addmm(bd, F.gelu(torch.addmm(bu, x, up_d)), dn_d)
     return {"kernel": _timed(kernel, nbytes, flops, peaks),
             "library": _timed(library, nbytes, flops, peaks)}
+
+
+def bench_k8_ffn(peaks, m: int = 16384, e: int = 1024, f: int = 4096) -> dict:
+    """K8 at bge-large's FFN, each projection with its bias (and gelu_erf
+    on up) against torch.addmm on the dequantized weight (+ gelu)."""
+    up, up_d, dn, dn_d, x, _, _ = _ffn_pair(m, e, f, 2e-2, "Q8_0")
+    rng = np.random.default_rng(7)
+    h = torch.from_numpy(rng.normal(size=(m, f))).to(x.device, torch.bfloat16)
+    out = {}
+    for name, a, w, wd, act in (("up", x, up, up_d, "gelu_erf"), ("down", h, dn, dn_d, None)):
+        k, n = w.shape
+        b = torch.from_numpy(rng.normal(size=(n,)) * 1e-2).to(x.device, torch.float32)
+        bb = b.to(a.dtype)
+        nbytes = m * k * 2 + _weight_bytes(w) + n * 4 + m * n * 2
+        flops = 2.0 * m * k * n
+
+        def kernel(a=a, w=w, b=b, act=act):
+            return _q4_matmul_2d(a, w, b, activation=act)
+
+        def library(a=a, wd=wd, bb=bb, act=act):
+            y = torch.addmm(bb, a, wd)
+            return F.gelu(y) if act else y
+        out[name] = {"kernel": _timed(kernel, nbytes, flops, peaks),
+                     "library": _timed(library, nbytes, flops, peaks),
+                     "route": route(m, k, n, w.qtype, a.dtype).kernel}
+    return out
 
 
 def _qkv(shape, seed: int = 0):
@@ -292,6 +323,8 @@ def main(argv=None) -> None:
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--m", type=int, nargs="+", default=[512, 4096, 32768])
     p.add_argument("--out", default=None, help="also write the JSON result to this file")
+    p.add_argument("--only", nargs="+", default=None, metavar="SECTION",
+                   help="run only these sections (keys of the JSON result, e.g. k8_ffn)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: the kernel suite runs only on the GPU")
@@ -307,39 +340,54 @@ def main(argv=None) -> None:
                 f"library {r['library']['us']:9.1f}us {r['library']['tflops']:6.1f} TF/s | "
                 f"bound {r['kernel']['bound_us']:7.1f}us")
 
-    results = {"platform": "gpu", "device": device, "q4_ffn": {}, "q4_fused_epilogue": {},
-               "q8_fused_epilogue": {}, "attention": {}}
-    for m in args.m:
-        results["q4_ffn"][m] = r = bench_q4_ffn(m, peaks)
-        log(f"q4 ffn M={m:6d} ({'/'.join(r['route'])}): {ab(r)}")
-    m = max(args.m)
-    results["q4_epilogue"] = {m: bench_q4_epilogue(m, peaks)}
-    log(f"q4 epilogue combos (up,dn) M={m}: " + "  ".join(
-        f"{k}={v['us']:.1f}us" for k, v in results["q4_epilogue"][m].items()))
-    for m in args.m:
-        results["q4_fused_epilogue"][m] = r = bench_q4_fused_epilogue(m, peaks)
-        log(f"q4 fused bias+gelu M={m:6d}: {ab(r)}")
-    for m in args.m:
-        results["q8_fused_epilogue"][m] = r = bench_q4_fused_epilogue(m, peaks, qtype="Q8_0")
-        log(f"q8 fused bias+gelu M={m:6d}: {ab(r)}")
-    results["attention"]["b32_s512"] = r = bench_attention(peaks)
-    log(f"attention K3 B=32 S=512: {ab(r)}")
-    results["attention_bias"] = {"b32_s512_d64": (r := bench_attention_bias(peaks))}
-    log(f"attention K4 + pos-bias B=32 S=512 d=64: {ab(r)}")
-    results["attention_headpack"] = {}
-    for d, hb in ((32, 4), (64, 2)):
-        key = f"b32_s512_d{d}_hb{hb}"
-        results["attention_headpack"][key] = r = bench_attention_headpack(peaks, d=d, hb=hb)
-        log(f"attention head-pack B1 {key}: {ab(r)} | K5 {r['per_head']['us']:.1f}us | "
-            f"K3 {r['k3']['us']:.1f}us | max_err vs K5 {r['max_err_vs_per_head']:.5f}")
-    results["packed_attention"] = {"b64_s512_w16": (r := bench_packed_attention(peaks))}
-    log(f"packed attention K2 B=64 S=512: {ab(r)}")
-    results["windowed_attention"] = {"b8_s2048_w64": (r := bench_windowed_attention(peaks))}
-    log(f"windowed attention B=8 S=2048: K6 windowed {r['kernel']['us']:.1f}us | "
-        f"K6 full {r['full']['us']:.1f}us | K7 {r['local']['us']:.1f}us | "
-        f"K5 {r['long']['us']:.1f}us | library {r['library']['us']:.1f}us")
-    results["deberta_attention"] = {"b16_s512_d64": (r := bench_deberta_attention(peaks))}
-    log(f"deberta attention K9 B=16 S=512 d=64: {ab(r)}")
+    def want(section: str) -> bool:
+        return args.only is None or section in args.only
+
+    results = {"platform": "gpu", "device": device}
+    if want("q4_ffn"):
+        results["q4_ffn"] = {}
+        for m in args.m:
+            results["q4_ffn"][m] = r = bench_q4_ffn(m, peaks)
+            log(f"q4 ffn M={m:6d} ({'/'.join(r['route'])}): {ab(r)}")
+    if want("q4_epilogue"):
+        m = max(args.m)
+        results["q4_epilogue"] = {m: bench_q4_epilogue(m, peaks)}
+        log(f"q4 epilogue combos (up,dn) M={m}: " + "  ".join(
+            f"{k}={v['us']:.1f}us" for k, v in results["q4_epilogue"][m].items()))
+    for qtype, key in (("Q4_0", "q4_fused_epilogue"), ("Q8_0", "q8_fused_epilogue")):
+        if want(key):
+            results[key] = {}
+            for m in args.m:
+                results[key][m] = r = bench_q4_fused_epilogue(m, peaks, qtype=qtype)
+                log(f"{qtype} fused bias+gelu M={m:6d}: {ab(r)}")
+    if want("k8_ffn"):
+        results["k8_ffn"] = {"m16384_q8": (r := bench_k8_ffn(peaks))}
+        for name in ("up", "down"):
+            log(f"K8 bge-large {name} M=16384 ({r[name]['route']}): {ab(r[name])}")
+    if want("attention"):
+        results["attention"] = {"b32_s512": (r := bench_attention(peaks))}
+        log(f"attention K3 B=32 S=512: {ab(r)}")
+    if want("attention_bias"):
+        results["attention_bias"] = {"b32_s512_d64": (r := bench_attention_bias(peaks))}
+        log(f"attention K4 + pos-bias B=32 S=512 d=64: {ab(r)}")
+    if want("attention_headpack"):
+        results["attention_headpack"] = {}
+        for d, hb in ((32, 4), (64, 2)):
+            key = f"b32_s512_d{d}_hb{hb}"
+            results["attention_headpack"][key] = r = bench_attention_headpack(peaks, d=d, hb=hb)
+            log(f"attention head-pack B1 {key}: {ab(r)} | K5 {r['per_head']['us']:.1f}us | "
+                f"K3 {r['k3']['us']:.1f}us | max_err vs K5 {r['max_err_vs_per_head']:.5f}")
+    if want("packed_attention"):
+        results["packed_attention"] = {"b64_s512_w16": (r := bench_packed_attention(peaks))}
+        log(f"packed attention K2 B=64 S=512: {ab(r)}")
+    if want("windowed_attention"):
+        results["windowed_attention"] = {"b8_s2048_w64": (r := bench_windowed_attention(peaks))}
+        log(f"windowed attention B=8 S=2048: K6 windowed {r['kernel']['us']:.1f}us | "
+            f"K6 full {r['full']['us']:.1f}us | K7 {r['local']['us']:.1f}us | "
+            f"K5 {r['long']['us']:.1f}us | library {r['library']['us']:.1f}us")
+    if want("deberta_attention"):
+        results["deberta_attention"] = {"b16_s512_d64": (r := bench_deberta_attention(peaks))}
+        log(f"deberta attention K9 B=16 S=512 d=64: {ab(r)}")
     line = json.dumps(results)
     if args.out:
         with open(args.out, "w") as f:

@@ -78,6 +78,8 @@
 
 #include <type_traits>
 
+#include "sm90_mma.cuh"
+
 namespace {
 
 constexpr int TQ = 16;             // query rows per block
@@ -304,67 +306,7 @@ struct Layout {
   }
 };
 
-// Element offset of (row r, 16-byte chunk c) in a tile of D-wide bf16 rows:
-// the chunk index is XORed with row bits so that the 8 rows one ldmatrix
-// phase reads at one logical chunk fall in 8 distinct bank groups.
-template <int D>
-__device__ __forceinline__ int swz(int r, int c) {
-  constexpr int CPR = D / 8;
-  int x;
-  if constexpr (CPR >= 8) {
-    x = r & 7;
-  } else if constexpr (CPR == 4) {
-    x = (r >> 1) & 3;
-  } else {
-    x = (r >> 2) & 1;
-  }
-  return (r * CPR + (c ^ x)) * 8;
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p)));
-}
-
-// acc[16x8] += a[16x16] . b[16x8], bf16 in, f32 accumulate.  Lane (g, t) =
-// (lane / 4, lane % 4) holds acc rows g and g + 8, columns 2t and 2t + 1.
-__device__ __forceinline__ void mma(float (&acc)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+using namespace sm90;
 
 // A fragments (16 rows from m0, all D columns) of a swizzled row-major tile.
 template <int D>

@@ -38,6 +38,8 @@
 
 #include <mutex>
 
+#include "sm90_mma.cuh"
+
 using namespace nvcuda;
 
 namespace {
@@ -397,136 +399,371 @@ __global__ void __launch_bounds__(LN_THREADS) q4_matmul_ln_f32_kernel(
   ln_rows(Y, yld, m0, M, N, bias, act, residual, ln_sb, eps, out, 1);
 }
 
-// ---- K8: the N-tiled form, one column slice resident in shared memory --------
+// ---- K8: the N-tiled form -----------------------------------------------------
 //
-// Replaces `_q4_matmul_2d` (q4_matmul.py:259, the inner `kernel` :293): the
-// same y = act((x [* g]) @ dequant(W) + bias) into [M, N] (no residual, no
-// LayerNorm: it holds partial rows), for the weights whose dequantized form
-// the TPU's 1-D kernel cannot hold whole.  The TPU kernel dequantizes the
-// [K, tn] slice of the weight into scratch once per N tile and reuses it for
-// every M tile; here each block owns one column slice of TN columns (grid.x),
-// dequantizes it once into shared memory (f32 math, one rounding, as
-// `_dequant_tile`), and walks the M tiles blockIdx.y, blockIdx.y + G, ...,
-// with G the most walkers per slice that keep the grid within one wave of
-// the card's SMs at the kernel's occupancy (a second, partial wave would
-// leave its blocks' M tiles to a fraction of the card).  K1, by contrast,
-// dequantizes each 32-row weight block again for every 64-row M tile.
-//   bf16 x: 8 warps, an M tile of 128 rows (16 per warp) times the slice;
-//     TN = 64, 32 or 16, the widest whose slice fits a block's shared memory
-//     (64 up to K = 1280, 32 up to 2336, 16 up to 5856).  x is loaded 128
-//     columns at a time into registers one step ahead of the WMMA products,
-//     so a chunk's loads overlap the previous chunk's products.  At TN = 16
-//     a 32-column step held too few products per warp to cover the loads'
-//     latency: bge-large's down projection took 7.0 ms that way, 4.3 ms
-//     with 128 columns (M = 16384, H100 80GB HBM3 at 700 W).
-//   f32 x: SIMT FMAs, TN = 32, 16 or 8 by the same rule (32 up to K = 1728,
-//     16 up to 3360, 8 up to 6208), each thread 4 rows x 2 columns of a
-//     (2048 / TN) x TN tile.
-// A slice too large for the opt-in shared memory (K past 5856 in bf16, 6208
-// in f32) is refused at launch, and the wrapper raises.
-// Bound on an H100: at bge-large's FFN (M = 16384, K x N = 1024 x 4096 and
-// 4096 x 1024) 2*M*K*N = 1.37e11 flops against ~0.17 GB: the tensor-core
-// rate.  x is read once per column slice (N/TN passes), from L2 when the
-// slices' blocks walk the same M tiles together.  No TMA, no wgmma, no
-// clusters sharing a slice yet: that is later work.
+// Replaces `_q4_matmul_2d` (embedding_cpp_tpu/ops/q4_matmul.py:259, the inner
+// `kernel` :293, pallas_call :330): the same y = act((x [* g]) @ dequant(W) +
+// bias) into [M, N] (no residual, no LayerNorm: a block holds partial rows),
+// for the weights whose dequantized form the TPU's 1-D kernel cannot hold
+// whole.  The TPU kernel keeps a dequantized [K, tn] column slice in VMEM for
+// every M tile it walks.  A block's shared memory holds such a slice only 16
+// columns wide at K = 4096, which leaves each warp one 16 x 16 product per
+// load and re-reads x N/16 times, so the bf16 body streams K instead.
+//
+// What bounds it on an H100: at bge-large's FFN (M = 16384, K x N = 1024 x
+// 4096 and 4096 x 1024) the work is 2*M*K*N = 1.37e11 flops against ~0.17 GB
+// moved, so the tensor-core rate does: 0.139 ms at 989 TFLOP/s.
+//
+// bf16 x (`k8::q4_matmul_2d_tc_kernel`, the main path): output tiles of
+// TBM x TBN = 256 x 128, one block of 16 warps (4 x 4, each 64 x 32) per
+// tile, streamed over K in steps of TBK = 64 (two quant blocks).  A ring of
+// STAGES = 3 slots takes each step's x tile [256, 64] (bf16, rows
+// XOR-swizzled by 16-byte chunk) and the packed weight tile with its scales
+// (and mins), by 16-byte cp.async with zero-fill past M, K and N.  When N is
+// not a multiple of 16 (or a weight pointer is not 16-byte aligned) the
+// weight rows are not 16-byte aligned, and the weight tile is loaded with
+// guarded plain loads instead.  The weight tile is dequantized into a bf16
+// B tile [64, 128] (swizzled) as `dequant` and the TPU's `_dequant_tile` do:
+// the code to an exact f32 (a byte permute into the mantissa of 2^23, one
+// subtraction), then __fmul_rn / __fadd_rn and one rounding to bf16.  A
+// weight value is so dequantized once per 256 rows of x.  Two B tiles
+// alternate: step k + 1's is dequantized in two parts between step k's
+// 16-deep product slices, so the conversion's ALU work fills the gaps
+// between tensor-core instructions, and one barrier a step suffices.  Step
+// k + 2's copies are in flight meanwhile.  Products: A through ldmatrix, B
+// through ldmatrix.trans, mma.sync.m16n8k16 bf16 -> f32 in registers.  The
+// prologue reads the g tile of step k + 1 into registers during step k and
+// multiplies it into the landed x tile (f32 product, one rounding).  The
+// epilogue (bias, activation) runs on the accumulators, is staged as f32 in
+// shared memory and written out 16 bytes a thread along the rows: storing
+// the accumulators' pairs straight from registers scattered each warp's
+// stores over eight rows and cost more than the products at N = 4096.
+// Blocks are ordered N tile fastest, so the N/TBN blocks of one M panel run
+// together and read their x panel from L2: x comes from device memory about
+// once, and the weight (4.5 MB at bge-large's Q8_0) stays in L2 and is read
+// M/TBM times from there.  158 KB of shared memory, one block per SM; on
+// the card, 128 x 128 tiles at two blocks per SM, a B tile dequantized
+// between two barriers, a fourth stage, and 8 warps of 64 x 64 (no spills
+// at 255 registers, against 68 bytes at 128) were each slower or no
+// faster.  K is streamed, so every K that is a multiple of 32 is served.
+//
+// f32 x (`q4_matmul_2d_f32_kernel<TN>`): SIMT FMAs in f32 (the card has no
+// full-f32 tensor-core product, and TF32 would change the numbers).  Each
+// block owns one column slice of TN columns (grid.x), dequantizes it once
+// into shared memory (f32 math, as `_dequant_tile`), and walks the M tiles
+// blockIdx.y, blockIdx.y + G, ..., with G the most walkers per slice that
+// keep the grid within one wave of the card's SMs at the kernel's occupancy.
+// TN = 32, 16 or 8, the widest whose slice fits a block's shared memory (32
+// up to K = 1728, 16 up to 3360, 8 up to 6208), each thread 4 rows x 2
+// columns of a (2048 / TN) x TN tile.  A slice too large for the opt-in
+// shared memory (K past 6208) is refused at launch, and the wrapper raises.
 constexpr int K8_THREADS = 256;
-constexpr int K8_BM = 128;    // bf16 M tile: 16 rows per warp
-constexpr int K8_BK = 128;    // bf16 x columns loaded per step
-constexpr int K8_A_LD = K8_BK + 8;
-constexpr int K8_C_LD = 20;   // per-warp f32 staging [16, 20]
 
-__host__ __device__ constexpr int k8_w_ld(int tn) { return tn == 16 ? 16 : tn + 8; }
 // the f32 M tile: 4 rows for each of the K8_THREADS / (TN / 2) thread rows
 __host__ __device__ constexpr int k8f_bm(int tn) { return 4 * K8_THREADS / (tn / 2); }
 
-size_t k8_smem_bytes(int x_bf16, int tn, int K) {
-  if (x_bf16)
-    return (size_t)K * k8_w_ld(tn) * 2 + K8_BM * K8_A_LD * 2 +
-           (K8_THREADS / 32) * 16 * K8_C_LD * 4;
-  return (size_t)K * tn * 4 + BK * (k8f_bm(tn) + 1) * 4;
-}
+size_t k8_smem_bytes(int tn, int K) { return (size_t)K * tn * 4 + BK * (k8f_bm(tn) + 1) * 4; }
 
-// Columns k0 .. k0 + K8_BK - 1 of x's rows m0 .. m0 + K8_BM - 1 (times g's)
-// into registers, 8 values a vector; zeros past K and past the ragged M edge.
-template <int XV>
-__device__ __forceinline__ void k8_load_x(uint4 (&xr)[XV], const __nv_bfloat16* __restrict__ x,
-                                          const __nv_bfloat16* __restrict__ g, int m0, int k0,
-                                          int M, int K) {
-  constexpr int CV = K8_BK / 8;
+namespace k8 {
+
+using bf16 = __nv_bfloat16;
+using namespace sm90;
+
+// The tile: TBM x TBN outputs per block, K steps of TBK, STAGES ring slots;
+// warp tiles of WM x WN outputs, TBM / WM down and TBN / WN across.
+constexpr int TBM = 256, TBN = 128, TBK = 64, STAGES = 3, WM = 64, WN = 32;
+constexpr int NT = TBM / WM * (TBN / WN) * 32;
+constexpr int MI = WM / 16, NI = WN / 8;       // a warp's 16 x 8 accumulator tiles
+constexpr int XCH = TBM * (TBK / 8) / NT;      // 16-byte chunks of an x tile per thread
+static_assert(STAGES >= 3, "step k + 1 is dequantized while step k + 2 lands");
+constexpr int A_BYTES = TBM * TBK * 2;         // an x tile, bf16
+constexpr int Q_BYTES = TBK * TBN;             // the Q8 codes (Q4 fills half)
+constexpr int S_FLOATS = (TBK / QK) * TBN;     // the scales (and the mins)
+constexpr int B_BYTES = TBK * TBN * 2;         // a dequantized B tile, bf16
+constexpr int OUT_LD = TBN + 8;                // the staged output tile's row, f32
+constexpr int PARTS = TBK * (TBN / 8) / NT;    // 16-byte chunks of B per thread a step
+
+// A ring slot: [x | qs | scales | mins]; two B tiles follow the STAGES
+// slots.  The output tile is staged over both at the end.
+constexpr int SB = A_BYTES + Q_BYTES + 2 * S_FLOATS * 4;
+constexpr int SMEM = STAGES * SB + 2 * B_BYTES;
+static_assert(TBM * OUT_LD * 4 <= SMEM, "the staged output tile fits over the ring");
+
+struct Args {
+  const bf16* x;
+  const bf16* g;
+  const uint8_t* qs;
+  const float* scales;
+  const float* mins;
+  const float* bias;
+  void* out;
+  int M, K, N, qtype, act, out_f32, aligned;
+};
+
+// Step k0's tiles into the ring slot `st`: x rows m0.., columns
+// k0..k0+63; the weight's byte rows and scale rows of quant blocks k0/32 and
+// k0/32 + 1, columns n0..n0+127.  Zeros past M, K and N.
+__device__ __forceinline__ void load_stage(unsigned char* st, const Args& a, int m0, int n0,
+                                           int k0) {
+  const int tid = threadIdx.x;
+  bf16* xs = reinterpret_cast<bf16*>(st);
 #pragma unroll
-  for (int t = 0; t < XV; ++t) {
-    const int i = threadIdx.x + t * K8_THREADS, r = i / CV, c = (i % CV) * 8;
-    xr[t] = k0 + c < K ? load_x8(x, g, m0 + r, M, (size_t)(m0 + r) * K + k0 + c)
-                       : make_uint4(0, 0, 0, 0);
+  for (int t = 0; t < XCH; ++t) {
+    const int i = tid + t * NT, r = i / (TBK / 8), c = i % (TBK / 8);
+    const int gm = m0 + r, gk = k0 + c * 8;
+    const bool ok = gm < a.M && gk < a.K;
+    const size_t off = ok ? (size_t)gm * a.K + gk : 0;
+    cp_async16(xs + swz<TBK>(r, c), a.x + off, ok ? 16 : 0);
+  }
+  uint8_t* q = st + A_BYTES;
+  float* sc = reinterpret_cast<float*>(q + Q_BYTES);
+  float* mn = sc + S_FLOATS;
+  const bool q8 = a.qtype == kQ8_0;
+  const int qrows = q8 ? TBK : TBK / 2, qr0 = q8 ? k0 : k0 / 2, qrows_all = q8 ? a.K : a.K / 2;
+  const int kb0 = k0 / QK, nkb = a.K / QK;
+  if (a.aligned) {
+    for (int i = tid; i < qrows * (TBN / 16); i += NT) {
+      const int r = i / (TBN / 16), c = i % (TBN / 16), gr = qr0 + r, gn = n0 + c * 16;
+      const bool ok = gr < qrows_all && gn < a.N;
+      cp_async16(q + r * TBN + c * 16, ok ? a.qs + (size_t)gr * a.N + gn : a.qs, ok ? 16 : 0);
+    }
+    constexpr int SC = S_FLOATS / 4;  // 16-byte chunks of the scales
+    for (int i = tid; i < (a.mins != nullptr ? 2 : 1) * SC; i += NT) {
+      const bool is_min = i >= SC;
+      const int j = is_min ? i - SC : i, r = j / (TBN / 4), c = j % (TBN / 4);
+      const int gr = kb0 + r, gn = n0 + c * 4;
+      const bool ok = gr < nkb && gn < a.N;
+      const float* src = is_min ? a.mins : a.scales;
+      cp_async16((is_min ? mn : sc) + j * 4, ok ? src + (size_t)gr * a.N + gn : src,
+                 ok ? 16 : 0);
+    }
+  } else {
+    for (int i = tid; i < qrows * TBN; i += NT) {
+      const int r = i / TBN, c = i % TBN, gr = qr0 + r, gn = n0 + c;
+      q[i] = gr < qrows_all && gn < a.N ? a.qs[(size_t)gr * a.N + gn] : 0;
+    }
+    for (int i = tid; i < S_FLOATS; i += NT) {
+      const int r = i / TBN, c = i % TBN, gr = kb0 + r, gn = n0 + c;
+      const bool ok = gr < nkb && gn < a.N;
+      sc[i] = ok ? a.scales[(size_t)gr * a.N + gn] : 0.0f;
+      if (a.mins != nullptr) mn[i] = ok ? a.mins[(size_t)gr * a.N + gn] : 0.0f;
+    }
   }
 }
 
-template <int TN>
-__global__ void __launch_bounds__(K8_THREADS) q4_matmul_2d_bf16_kernel(
-    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ g,
-    const uint8_t* __restrict__ qs, const float* __restrict__ scales,
-    const float* __restrict__ mins, const float* __restrict__ bias, void* __restrict__ out,
-    int M, int K, int N, int qtype, int act, int out_f32) {
-  constexpr int WLD = k8_w_ld(TN), NF = TN / 16, CV = K8_BK / 8, XV = K8_BM * CV / K8_THREADS;
-  extern __shared__ __align__(128) unsigned char k8_smem[];
-  __nv_bfloat16* Ws = reinterpret_cast<__nv_bfloat16*>(k8_smem);  // the slice [K, WLD]
-  __nv_bfloat16* As = Ws + (size_t)K * WLD;                        // x chunk [K8_BM, K8_A_LD]
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  float* Cs = reinterpret_cast<float*>(As + K8_BM * K8_A_LD) + warp * 16 * K8_C_LD;
-  const int n0 = blockIdx.x * TN;
-  for (int kb = 0; kb < K / QK; ++kb)
-    dequant_block<__nv_bfloat16, TN, K8_THREADS>(Ws + (size_t)kb * QK * WLD, WLD, qs, scales,
-                                                 mins, kb, n0, N, qtype);
-  // the first barrier of the K loop orders these writes before any read
-  const int m_tiles = (M + K8_BM - 1) / K8_BM;
-  for (int mt = blockIdx.y; mt < m_tiles; mt += gridDim.y) {
-    const int m0 = mt * K8_BM;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NF];
+// Byte i of w as an exact f32, less `off`: the byte goes into the mantissa of
+// 2^23 (0x4B000000 | byte is 2^23 + byte), and the subtraction is exact.
+__device__ __forceinline__ float code(uint32_t w, int i, float off) {
+  return __fsub_rn(__int_as_float(__byte_perm(w, 0x4B000000u, 0x7440u | i)), off);
+}
+
+constexpr float kTwo23 = 8388608.0f;
+
+// Eight dequantized values (one 16-byte chunk of a B row) from two words of
+// codes and their eight scales (and mins): `dequant`'s rounding, then bf16.
+__device__ __forceinline__ uint4 dequant8(uint32_t w0, uint32_t w1, const float* s,
+                                          const float* m, float off) {
+  float v[8];
 #pragma unroll
-    for (int j = 0; j < NF; ++j) wmma::fill_fragment(acc[j], 0.0f);
-    uint4 xr[XV];
-    k8_load_x(xr, x, g, m0, 0, M, K);
-    for (int k0 = 0; k0 < K; k0 += K8_BK) {
+  for (int i = 0; i < 8; ++i) {
+    const float q = code(i < 4 ? w0 : w1, i % 4, off);
+    v[i] = m != nullptr ? __fadd_rn(__fmul_rn(q, s[i]), m[i]) : __fmul_rn(q, s[i]);
+  }
+  uint4 out;
+  __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&out);
 #pragma unroll
-      for (int t = 0; t < XV; ++t) {
-        const int i = tid + t * K8_THREADS;
-        *reinterpret_cast<uint4*>(&As[(i / CV) * K8_A_LD + (i % CV) * 8]) = xr[t];
-      }
-      __syncthreads();
-      if (k0 + K8_BK < K) k8_load_x(xr, x, g, m0, k0 + K8_BK, M, K);
-      const int kw = min(K8_BK, K - k0);  // the last chunk may be narrower
+  for (int i = 0; i < 4; ++i) o[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  return out;
+}
+
+// Part t (0 .. PARTS-1) of the ring slot's weight tile, dequantized into the
+// B tile Bs [64, 128] (bf16, swizzled): one 16-byte chunk of B per thread.
+// Q8: row r is code row r, scale row r / 32.  Q4: byte row j of quant block
+// b holds row 32b + j in its low nibble and row 32b + j + 16 in its high
+// one; the first half of the chunks are the low nibbles.
+constexpr int B_CH = TBN / 8;  // 16-byte chunks of a B row
+
+__device__ __forceinline__ void dequant_part(bf16* Bs, const uint8_t* q, const float* sc,
+                                             const float* mn, int qtype, int t) {
+  const int i = threadIdx.x + t * NT;
+  if (qtype == kQ8_0) {
+    const int r = i / B_CH, c = i % B_CH;
+    const uint2 w = *reinterpret_cast<const uint2*>(q + r * TBN + c * 8);
+    // signed codes: flipping the sign bit gives code + 128 as a byte
+    *reinterpret_cast<uint4*>(Bs + swz<TBN>(r, c)) =
+        dequant8(w.x ^ 0x80808080u, w.y ^ 0x80808080u, sc + (r / QK) * TBN + c * 8, nullptr,
+                 kTwo23 + 128.0f);
+    return;
+  }
+  constexpr int HALF = TBK / 2 * B_CH;
+  const int hi = i / HALF, jr = i % HALF / B_CH, c = i % B_CH, sh = hi * 4;
+  const int blk = jr / (QK / 2), r = blk * QK + jr % (QK / 2) + hi * (QK / 2);
+  const uint2 w = *reinterpret_cast<const uint2*>(q + jr * TBN + c * 8);
+  const bool q41 = qtype == kQ4_1;
+  *reinterpret_cast<uint4*>(Bs + swz<TBN>(r, c)) =
+      dequant8((w.x >> sh) & 0x0F0F0F0Fu, (w.y >> sh) & 0x0F0F0F0Fu, sc + blk * TBN + c * 8,
+               q41 ? mn + blk * TBN + c * 8 : nullptr,
+               q41 ? kTwo23 : kTwo23 + 8.0f);  // Q4_0 codes are q - 8
+}
+
+// The prologue: this thread's 16-byte chunks of the g tile (rows m0..,
+// columns k0..k0+63), read from device memory a step ahead of their use;
+// zeros past M and K.
+__device__ __forceinline__ void load_g(uint4 (&gv)[XCH], const Args& a, int m0, int k0) {
 #pragma unroll
-      for (int kk = 0; kk < K8_BK; kk += 16) {
-        if (kk >= kw) break;
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, As + warp * 16 * K8_A_LD + kk, K8_A_LD);
+  for (int t = 0; t < XCH; ++t) {
+    const int i = threadIdx.x + t * NT, r = i / (TBK / 8), c = i % (TBK / 8);
+    const int gm = m0 + r, gk = k0 + c * 8;
+    gv[t] = gm < a.M && gk < a.K ? *reinterpret_cast<const uint4*>(a.g + (size_t)gm * a.K + gk)
+                                 : make_uint4(0, 0, 0, 0);
+  }
+}
+
+// x *= g on the ring slot's x tile: the f32 product rounded once to bf16.
+__device__ __forceinline__ void apply_g(bf16* xs, const uint4 (&gv)[XCH]) {
 #pragma unroll
-        for (int j = 0; j < NF; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-          wmma::load_matrix_sync(b, Ws + (size_t)(k0 + kk) * WLD + j * 16, WLD);
-          wmma::mma_sync(acc[j], a, b, acc[j]);
-        }
-      }
-      __syncthreads();
+  for (int t = 0; t < XCH; ++t) {
+    const int i = threadIdx.x + t * NT;
+    uint4* px = reinterpret_cast<uint4*>(xs + swz<TBK>(i / (TBK / 8), i % (TBK / 8)));
+    uint4 xv = *px;
+    __nv_bfloat162* xp = reinterpret_cast<__nv_bfloat162*>(&xv);
+    const __nv_bfloat162* gp = reinterpret_cast<const __nv_bfloat162*>(&gv[t]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 u = __bfloat1622float2(xp[j]), v = __bfloat1622float2(gp[j]);
+      xp[j] = __floats2bfloat162_rn(__fmul_rn(u.x, v.x), __fmul_rn(u.y, v.y));
     }
-    // epilogue: each warp stages its 16 x 16 fragments and writes them
+    *px = xv;
+  }
+}
+
+template <bool PRO>
+__global__ void __launch_bounds__(NT, 1) q4_matmul_2d_tc_kernel(const Args a) {
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n0 = blockIdx.x * TBN, m0 = blockIdx.y * TBM;
+  const int wm = (warp / (TBN / WN)) * WM, wn = (warp % (TBN / WN)) * WN;  // the warp's tile
+  const int nk = (a.K + TBK - 1) / TBK;
+  auto x_tile = [&](int k) { return reinterpret_cast<bf16*>(tc_smem + (k % STAGES) * SB); };
+  auto b_tile = [&](int k) {
+    return reinterpret_cast<bf16*>(tc_smem + STAGES * SB) + (k & 1) * TBK * TBN;
+  };
+  auto dequant = [&](int k, int t) {  // part t of step k's B tile
+    const uint8_t* q = tc_smem + (k % STAGES) * SB + A_BYTES;
+    const float* sc = reinterpret_cast<const float*>(q + Q_BYTES);
+    dequant_part(b_tile(k), q, sc, sc + S_FLOATS, a.qtype, t);
+  };
 #pragma unroll
-    for (int j = 0; j < NF; ++j) {
-      wmma::store_matrix_sync(Cs, acc[j], K8_C_LD, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int r = e / 16, c = e % 16, gm = m0 + warp * 16 + r, gn = n0 + j * 16 + c;
-        if (gm >= M || gn >= N) continue;
-        const float y = epilogue(Cs[r * K8_C_LD + c], bias, gn, act);
-        if (out_f32)
-          static_cast<float*>(out)[(size_t)gm * N + gn] = y;
-        else
-          static_cast<__nv_bfloat16*>(out)[(size_t)gm * N + gn] = __float2bfloat16_rn(y);
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) load_stage(tc_smem + s * SB, a, m0, n0, s * TBK);
+    cp_async_commit();
+  }
+  uint4 gv[XCH];
+  if constexpr (PRO) load_g(gv, a, m0, 0);
+  cp_async_wait<STAGES - 2>();
+  __syncthreads();
+#pragma unroll
+  for (int t = 0; t < PARTS; ++t) dequant(0, t);
+  if constexpr (PRO) apply_g(x_tile(0), gv);
+  float acc[MI][NI][4] = {};
+  for (int kt = 0; kt < nk; ++kt) {
+    // step kt + 1 landed; every thread prepared step kt (its B tile, x *= g)
+    // and is done with step kt - 1 (its ring slot and its B tile)
+    cp_async_wait<STAGES - 3>();
+    __syncthreads();
+    const int ahead = kt + STAGES - 1;
+    if (ahead < nk) load_stage(tc_smem + (ahead % STAGES) * SB, a, m0, n0, ahead * TBK);
+    cp_async_commit();
+    const bool next = kt + 1 < nk;
+    if constexpr (PRO) {
+      if (next) load_g(gv, a, m0, (kt + 1) * TBK);
+    }
+    const bf16* xs = x_tile(kt);
+    const bf16* Bs = b_tile(kt);
+    // the products of step kt, each 16-deep slice followed by a part of
+    // step kt + 1's B tile
+#pragma unroll
+    for (int ks = 0; ks < TBK / 16; ++ks) {
+      uint32_t b[NI][2];
+#pragma unroll
+      for (int nj = 0; nj < NI / 2; ++nj) {
+        uint32_t r[4];
+        ldsm_x4_t(r, Bs + swz<TBN>(ks * 16 + (lane & 15), (wn + nj * 16) / 8 + (lane >> 4)));
+        b[2 * nj][0] = r[0];
+        b[2 * nj][1] = r[1];
+        b[2 * nj + 1][0] = r[2];
+        b[2 * nj + 1][1] = r[3];
       }
-      __syncwarp();
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) {
+        uint32_t af[4];
+        ldsm_x4(af, xs + swz<TBK>(wm + mi * 16 + (lane & 15), 2 * ks + (lane >> 4)));
+#pragma unroll
+        for (int ni = 0; ni < NI; ++ni) mma(acc[mi][ni], af, b[ni]);
+      }
+      constexpr int EVERY = TBK / 16 / PARTS;  // 16-deep slices per part
+      if (next && ks % EVERY == EVERY - 1) dequant(kt + 1, ks / EVERY);
+    }
+    if constexpr (PRO) {
+      if (next) apply_g(x_tile(kt + 1), gv);
+    }
+  }
+  // The epilogue (bias, activation) on the accumulators, staged as f32 in
+  // shared memory (lane (g, t) holds rows g, g + 8 and columns 2t, 2t + 1 of
+  // each 16 x 8 tile), then written out row by row, 16 bytes a thread.
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring
+  float* Cs = reinterpret_cast<float*>(tc_smem);
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = wm + mi * 16 + g + 8 * hr;
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) {
+        const int c = wn + ni * 8 + 2 * t, gn = n0 + c;
+        *reinterpret_cast<float2*>(Cs + r * OUT_LD + c) = make_float2(
+            gn < a.N ? epilogue(acc[mi][ni][2 * hr], a.bias, gn, a.act) : 0.0f,
+            gn + 1 < a.N ? epilogue(acc[mi][ni][2 * hr + 1], a.bias, gn + 1, a.act) : 0.0f);
+      }
+    }
+  }
+  __syncthreads();
+  const int vec = a.out_f32 ? 4 : 8;  // outputs per 16 bytes
+  const bool whole = a.N % vec == 0;  // rows start 16-byte aligned
+  for (int i = threadIdx.x; i < TBM * TBN / vec; i += NT) {
+    const int r = i / (TBN / vec), c = i % (TBN / vec) * vec, gm = m0 + r, gn = n0 + c;
+    if (gm >= a.M || gn >= a.N) continue;
+    const float4* y = reinterpret_cast<const float4*>(Cs + r * OUT_LD + c);
+    const size_t o = (size_t)gm * a.N + gn;
+    if (a.out_f32) {
+      float* out = static_cast<float*>(a.out) + o;
+      if (whole) {
+        *reinterpret_cast<float4*>(out) = y[0];
+      } else {
+        for (int j = 0; j < vec && gn + j < a.N; ++j) out[j] = Cs[r * OUT_LD + c + j];
+      }
+    } else {
+      bf16* out = static_cast<bf16*>(a.out) + o;
+      if (whole) {
+        const float4 lo = y[0], hi = y[1];
+        uint4 v;
+        __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&v);
+        p[0] = __floats2bfloat162_rn(lo.x, lo.y);
+        p[1] = __floats2bfloat162_rn(lo.z, lo.w);
+        p[2] = __floats2bfloat162_rn(hi.x, hi.y);
+        p[3] = __floats2bfloat162_rn(hi.z, hi.w);
+        *reinterpret_cast<uint4*>(out) = v;
+      } else {
+        for (int j = 0; j < vec && gn + j < a.N; ++j)
+          out[j] = __float2bfloat16_rn(Cs[r * OUT_LD + c + j]);
+      }
     }
   }
 }
+
+}  // namespace k8
 
 template <int TN>
 __global__ void __launch_bounds__(K8_THREADS) q4_matmul_2d_f32_kernel(
@@ -626,34 +863,42 @@ struct K8Occupancy {
   int blocks_per_sm[kMaxDevices] = {};
 };
 
-// Opts the K8 kernel in to its shared memory and sizes the grid: one column
-// slice of `tn` per blockIdx.x, G M-tile walkers per slice, as many as one
-// wave of the SMs holds at the kernel's occupancy (at least one).  The
-// opt-in and the occupancy are asked of the driver only when `smem` changes.
+// Opts a K8 kernel in to `smem` bytes of shared memory and reads its blocks
+// per SM on the current device; both are asked of the driver only when
+// `smem` changes.
+template <typename Kernel>
+int k8_occupancy(Kernel kernel, K8Occupancy& seen, int threads, size_t smem, int* occ,
+                 DeviceLimits* lim) {
+  int dev = 0;
+  int err = device_limits(&dev, lim);
+  if (err) return err;
+  std::lock_guard<std::mutex> lock(seen.mu);
+  if (seen.smem[dev] != smem) {
+    err = opt_in(kernel, smem);
+    if (err) return err;
+    cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(occ, kernel, threads, smem);
+    if (e == cudaSuccess && *occ < 1) e = cudaErrorInvalidConfiguration;
+    if (e != cudaSuccess) {
+      cudaGetLastError();
+      return static_cast<int>(e);
+    }
+    seen.smem[dev] = smem;
+    seen.blocks_per_sm[dev] = *occ;
+  }
+  *occ = seen.blocks_per_sm[dev];
+  return 0;
+}
+
+// The f32 kernel's grid: one column slice of `tn` per blockIdx.x, G M-tile
+// walkers per slice, as many as one wave of the SMs holds at the kernel's
+// occupancy (at least one).
 template <typename Kernel>
 int k8_grid(Kernel kernel, K8Occupancy& seen, size_t smem, int M, int N, int tn, int bm,
             dim3* grid) {
-  int dev = 0, occ = 0;
+  int occ = 0;
   DeviceLimits lim;
-  int err = device_limits(&dev, &lim);
+  const int err = k8_occupancy(kernel, seen, K8_THREADS, smem, &occ, &lim);
   if (err) return err;
-  {
-    std::lock_guard<std::mutex> lock(seen.mu);
-    if (seen.smem[dev] != smem) {
-      err = opt_in(kernel, smem);
-      if (err) return err;
-      cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, K8_THREADS,
-                                                                    smem);
-      if (e == cudaSuccess && occ < 1) e = cudaErrorInvalidConfiguration;
-      if (e != cudaSuccess) {
-        cudaGetLastError();
-        return static_cast<int>(e);
-      }
-      seen.smem[dev] = smem;
-      seen.blocks_per_sm[dev] = occ;
-    }
-    occ = seen.blocks_per_sm[dev];
-  }
   const int slices = (N + tn - 1) / tn, m_tiles = (M + bm - 1) / bm;
   int walkers = lim.sms * occ / slices;
   if (walkers > m_tiles) walkers = m_tiles;
@@ -661,27 +906,41 @@ int k8_grid(Kernel kernel, K8Occupancy& seen, size_t smem, int M, int N, int tn,
   return 0;
 }
 
-template <int TN>
-int k8_bf16_launch(const void* x, const void* g, const uint8_t* qs, const float* scales,
-                   const float* mins, const float* bias, void* out, int out_f32, int M, int K,
-                   int N, int qtype, int act, cudaStream_t st) {
-  static K8Occupancy seen;
-  const size_t smem = k8_smem_bytes(1, TN, K);
-  dim3 grid;
-  const int err = k8_grid(q4_matmul_2d_bf16_kernel<TN>, seen, smem, M, N, TN, K8_BM, &grid);
+namespace k8 {
+
+template <bool PRO>
+K8Occupancy& seen() {
+  static K8Occupancy s;
+  return s;
+}
+
+template <bool PRO>
+int occupancy(int* occ) {
+  DeviceLimits lim;
+  return k8_occupancy(q4_matmul_2d_tc_kernel<PRO>, seen<PRO>(), NT, SMEM, occ, &lim);
+}
+
+// One block per output tile, N tiles fastest.
+template <bool PRO>
+int launch(const Args& a, cudaStream_t st) {
+  int occ = 0;
+  const int err = occupancy<PRO>(&occ);
   if (err) return err;
-  q4_matmul_2d_bf16_kernel<TN><<<grid, K8_THREADS, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(g), qs, scales,
-      mins, bias, out, M, K, N, qtype, act, out_f32);
+  const int m_tiles = (a.M + TBM - 1) / TBM;
+  if (m_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((a.N + TBN - 1) / TBN, m_tiles);
+  q4_matmul_2d_tc_kernel<PRO><<<grid, NT, SMEM, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace k8
 
 template <int TN>
 int k8_f32_launch(const void* x, const void* g, const uint8_t* qs, const float* scales,
                   const float* mins, const float* bias, void* out, int M, int K, int N,
                   int qtype, int act, cudaStream_t st) {
   static K8Occupancy seen;
-  const size_t smem = k8_smem_bytes(0, TN, K);
+  const size_t smem = k8_smem_bytes(TN, K);
   dim3 grid;
   const int err =
       k8_grid(q4_matmul_2d_f32_kernel<TN>, seen, smem, M, N, TN, k8f_bm(TN), &grid);
@@ -754,38 +1013,50 @@ extern "C" int q4_matmul_ln_launch(const void* x, const void* g, int x_bf16, con
   return static_cast<int>(cudaGetLastError());
 }
 
-// K8's column-slice width at this K: the widest of 64, 32, 16 (bf16 x) or
-// 32, 16, 8 (f32 x) whose slice fits a block's opt-in shared memory; the
-// narrowest when none does (its launch is then refused).
-extern "C" int q4_matmul_2d_slice_n(int x_bf16, int K) {
-  const int narrowest = x_bf16 ? 16 : 8;
+// K8's f32 column-slice width at this K: the widest of 32, 16, 8 whose slice
+// fits a block's opt-in shared memory; 8 when none does (its launch is then
+// refused).  The bf16 body streams K and has no slice.
+extern "C" int q4_matmul_2d_slice_n(int K) {
   int dev = 0;
   DeviceLimits lim;
-  if (device_limits(&dev, &lim)) return narrowest;
-  for (int tn = 4 * narrowest; tn > narrowest; tn /= 2)
-    if (k8_smem_bytes(x_bf16, tn, K) <= (size_t)lim.optin) return tn;
-  return narrowest;
+  if (device_limits(&dev, &lim)) return 8;
+  for (int tn = 32; tn > 8; tn /= 2)
+    if (k8_smem_bytes(tn, K) <= (size_t)lim.optin) return tn;
+  return 8;
 }
 
-// K8: the arguments of q4_matmul_launch; the column slice is
-// q4_matmul_2d_slice_n's.  A slice past the opt-in shared memory is refused
-// (the error is returned).  Returns cudaGetLastError() after the launch.
+// K8's bf16 tile into tile[5]: BM, BN, BK, the ring's stages and the blocks
+// per SM on the current device, for the kernel with (prologue != 0) or
+// without the prologue's g ring.  Returns a CUDA error code.
+extern "C" int q4_matmul_2d_tile(int prologue, int* tile) {
+  int occ = 0;
+  const int err = prologue ? k8::occupancy<true>(&occ) : k8::occupancy<false>(&occ);
+  if (err) return err;
+  const int v[5] = {k8::TBM, k8::TBN, k8::TBK, k8::STAGES, occ};
+  for (int i = 0; i < 5; ++i) tile[i] = v[i];
+  return 0;
+}
+
+// K8: the arguments of q4_matmul_launch.  bf16 x takes the streamed tile
+// kernel at any K; f32 x the column slice of q4_matmul_2d_slice_n, refused
+// past the opt-in shared memory (the error is returned).  Returns
+// cudaGetLastError() after the launch.
 extern "C" int q4_matmul_2d_launch(const void* x, const void* g, int x_bf16, const void* qs,
                                    const float* scales, const float* mins,
                                    const float* bias, void* out, int out_f32, int M, int K,
                                    int N, int qtype, int act, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint8_t* q = static_cast<const uint8_t*>(qs);
-  const int tn = q4_matmul_2d_slice_n(x_bf16, K);
   if (x_bf16) {
-    switch (tn) {
-      case 64: return k8_bf16_launch<64>(x, g, q, scales, mins, bias, out, out_f32, M, K, N, qtype, act, st);
-      case 32: return k8_bf16_launch<32>(x, g, q, scales, mins, bias, out, out_f32, M, K, N, qtype, act, st);
-      case 16: return k8_bf16_launch<16>(x, g, q, scales, mins, bias, out, out_f32, M, K, N, qtype, act, st);
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
+    // 16-byte copies of the weight rows need N % 16 == 0 and aligned bases
+    const uintptr_t bases = reinterpret_cast<uintptr_t>(qs) | reinterpret_cast<uintptr_t>(scales) |
+                            reinterpret_cast<uintptr_t>(mins);
+    const k8::Args a{static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(g),
+                     q, scales, mins, bias, out, M, K, N, qtype, act, out_f32,
+                     N % 16 == 0 && bases % 16 == 0};
+    return g != nullptr ? k8::launch<true>(a, st) : k8::launch<false>(a, st);
   }
-  switch (tn) {
+  switch (q4_matmul_2d_slice_n(K)) {
     case 32: return k8_f32_launch<32>(x, g, q, scales, mins, bias, out, M, K, N, qtype, act, st);
     case 16: return k8_f32_launch<16>(x, g, q, scales, mins, bias, out, M, K, N, qtype, act, st);
     case 8: return k8_f32_launch<8>(x, g, q, scales, mins, bias, out, M, K, N, qtype, act, st);

@@ -2,8 +2,8 @@
 
 Each `csrc/*.cu` compiles on first use, one nvcc process per source, into
 its own shared library with a plain C interface under `_build/` (a
-directory git ignores), named by a hash of the source and the flags so an
-edited source rebuilds.  No PyTorch headers are compiled, which keeps a
+directory git ignores), named by a hash of the source, every shared header
+`csrc/*.cuh` and the flags, so an edited source or header rebuilds.  No PyTorch headers are compiled, which keeps a
 build to seconds.
 """
 from __future__ import annotations
@@ -45,8 +45,11 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    src = (CSRC / name).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / name).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"{Path(name).stem}-{digest}.so"
 
 

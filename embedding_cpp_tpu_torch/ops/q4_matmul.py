@@ -10,8 +10,12 @@ kernels of embedding_cpp_tpu/ops/q4_matmul.py:
   adds the residual in f32 and applies the LayerNorm over whole rows before
   the cast (the TPU kernel's `residual` / `ln_sb` epilogue).
 - K8 (`_q4_matmul_2d`, the TPU's N-tiled kernel): the same y without the
-  residual/LayerNorm tail, each block holding one column slice of the
-  dequantized weight in shared memory for all the M tiles it walks.
+  residual/LayerNorm tail.  bf16 x: 256 x 128 output tiles streamed over K
+  in 64-deep steps through a ring of asynchronous copies, each step's
+  packed weight tile dequantized once in shared memory for the tile's 256
+  rows (`tile`).  f32 x: each block holds one column slice of the
+  dequantized weight in shared memory for all the M tiles it walks
+  (`slice_width`).
 
 The optional prologue multiplicand g ([M, K], the gated FFN's gate) scales
 the loaded x tile before the product, rounded to x's dtype as the TPU
@@ -292,8 +296,9 @@ def _q4_matmul_1d(x: torch.Tensor, w: QTensor, bias=None, residual=None, ln=None
 
 def _q4_matmul_2d(x: torch.Tensor, w: QTensor, bias=None, prologue_mul=None, *,
                   activation=None, out_f32: bool = False) -> torch.Tensor:
-    """K8: each block holds one column slice of the dequantized weight in
-    shared memory (`slice_width` columns) for every M tile it walks."""
+    """K8: bf16 x streams K through output tiles (`tile`), at any K; f32 x
+    holds one column slice of the dequantized weight in shared memory
+    (`slice_width` columns) for every M tile it walks."""
     if x.device.type == "cpu":
         return q4_matmul_plain(x, w, bias, activation, out_f32=out_f32,
                                prologue_mul=prologue_mul)
@@ -312,11 +317,21 @@ def _q4_matmul_2d(x: torch.Tensor, w: QTensor, bias=None, prologue_mul=None, *,
     return out
 
 
-def slice_width(dtype: torch.dtype, k: int) -> int:
-    """K8's column-slice width for x of `dtype` at this K on the current
-    card: the widest whose slice fits a block's shared memory (builds the
-    kernels' library)."""
-    return _fn("q4_matmul_2d_slice_n", [_I, _I])(int(dtype == torch.bfloat16), k)
+def slice_width(k: int) -> int:
+    """K8's column-slice width for f32 x at this K on the current card: the
+    widest whose slice fits a block's shared memory (builds the kernels'
+    library).  The bf16 body has no slice: see `tile`."""
+    return _fn("q4_matmul_2d_slice_n", [_I])(k)
+
+
+def tile(prologue: bool = False) -> dict:
+    """K8's bf16 tile on the current card: the output tile (bm x bn), the
+    K step bk, the ring's stages and the blocks per SM, for the kernel
+    with or without the prologue's g ring (builds the kernels' library)."""
+    out = (ctypes.c_int * 5)()
+    check(_fn("q4_matmul_2d_tile", [_I, ctypes.POINTER(ctypes.c_int)])(int(prologue), out),
+          "q4_matmul_2d_tile")
+    return dict(zip(("bm", "bn", "bk", "stages", "blocks_per_sm"), out))
 
 
 def q4_matmul(x: torch.Tensor, w: QTensor, bias: torch.Tensor | None = None,

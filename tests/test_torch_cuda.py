@@ -6,9 +6,10 @@ Edge shapes live here (ragged M, sequence lengths that are not multiples of
 the 16- and 64-row tiles, S = 1025, fully padded rows, head dims 32 and
 64, f32 and bf16) for K1 (with and without its prologue multiply, and its
 residual + LayerNorm epilogue up to and past the cap on N), the N-tiled
-K8 (ragged M, K = 32, every slice width, N not a multiple of it, every
-activation and qtype, the prologue, out_f32, a slice past the shared
-memory), the projection-layout kernel with and without a position bias
+K8 (ragged M, K = 32, K % 64 == 32, N below and not a multiple of the
+128-column tile or of 16, every activation and qtype, the prologue,
+out_f32, the corpus's packed M = 65536, bf16 at K = 8192, every f32 slice
+width and an f32 slice past the shared memory), the projection-layout kernel with and without a position bias
 (K2-K4), the
 long-row kernel (K5), the sliding-window kernel (K7), the packed-segment
 kernel (K6, full and windowed: S = 200 ... 8192, segments ending on tile
@@ -59,6 +60,7 @@ from embedding_cpp_tpu_torch.ops.q4_matmul import (
     _q4_matmul_2d,
     q4_matmul,
     q4_matmul_plain,
+    tile,
 )
 
 pytestmark = pytest.mark.cuda
@@ -188,14 +190,23 @@ def test_q4_matmul_prologue_matches_plain(dev, qtype, dtype, m, k, n):
     (130, 2048, 1000, "gelu_erf"),
     (300, 96, 72, None),                   # K narrower than one x chunk
     (50, 1184, 256, "silu"),               # a last x chunk of 32 columns
+    (65536, 4096, 1024, None),             # the corpus's packed plan at down
+    (96, 8192, 256, "gelu_erf"),           # K = 8192: bf16 streams it
+    (133, 1120, 200, "gelu_tanh"),         # K % 64 == 32 with N % 16 != 0
 ])
 def test_n_tiled_kernel_matches_plain(dev, qtype, dtype, m, k, n, act):
-    """K8 at every slice width: K = 1024 takes 64 columns in bf16 and 32 in
-    f32, K = 2048 32 and 16, K = 4096 16 and 8."""
+    """K8 in bf16 at every edge of its 256 x 128 x 64 tile (K % 64 == 32,
+    N % 16 != 0, N < 128, ragged M); in f32 at every slice width: K = 1024
+    takes 32 columns, K = 2048 16, K = 4096 8.  K = 8192 is past every f32
+    slice and is refused there."""
     w = _weight(qtype, k, n, dev, seed=4)
     gen = torch.Generator(device="cpu").manual_seed(m + k + n)
     x = torch.randn(m, k, generator=gen).to(dev, dtype)
     bias = torch.randn(n, generator=gen).to(dev) * 0.1
+    if dtype == torch.float32 and k == 8192:
+        with pytest.raises(RuntimeError, match="q4_matmul_2d_launch"):
+            _q4_matmul_2d(x, w, bias, activation=act)
+        return
     before = (q4_matmul.launches, q4_matmul.n_tiled_launches)
     got = _q4_matmul_2d(x, w, bias, activation=act)
     assert (q4_matmul.launches, q4_matmul.n_tiled_launches) == (before[0], before[1] + 1)
@@ -213,6 +224,16 @@ def test_n_tiled_prologue_and_out_f32(dev, qtype, dtype):
     assert got.dtype == torch.float32
     ref = q4_matmul_plain(x, w, None, "gelu_erf", out_f32=True, prologue_mul=g)
     assert (got - ref).abs().max().item() <= (1e-4 if dtype == torch.float32 else 1e-3)
+
+
+@pytest.mark.parametrize("prologue", [False, True])
+def test_n_tiled_bf16_tile(dev, prologue):
+    """K8's bf16 tile as the card runs it, with and without the prologue:
+    256 x 128 outputs, 64-deep steps, three ring slots, at least one block
+    per SM after the shared-memory opt-in."""
+    t = tile(prologue)
+    assert (t["bm"], t["bn"], t["bk"], t["stages"]) == (256, 128, 64, 3)
+    assert t["blocks_per_sm"] >= 1
 
 
 def test_q4_matmul_routes_bge_large_ffn_to_the_n_tiled_kernel(dev):
@@ -233,11 +254,17 @@ def test_q4_matmul_routes_bge_large_ffn_to_the_n_tiled_kernel(dev):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_n_tiled_slice_past_shared_memory_raises(dev, dtype):
-    """A slice the opt-in shared memory cannot hold is refused at launch and
-    the wrapper raises; the refusal does not surface at the next launch."""
+    """f32: a slice the opt-in shared memory cannot hold is refused at
+    launch and the wrapper raises; the refusal does not surface at the next
+    launch.  bf16 streams K, so the same K = 8192 is served and matches the
+    plain version."""
     w = _weight("Q8_0", 8192, 128, dev)
-    with pytest.raises(RuntimeError, match="q4_matmul_2d_launch"):
-        _q4_matmul_2d(torch.zeros(64, 8192, device=dev, dtype=dtype), w)
+    x = torch.randn(64, 8192, device=dev).to(dtype)
+    if dtype == torch.bfloat16:
+        _close(_q4_matmul_2d(x, w), q4_matmul_plain(x, w), dtype)
+    else:
+        with pytest.raises(RuntimeError, match="q4_matmul_2d_launch"):
+            _q4_matmul_2d(x, w)
     small = _weight("Q4_0", 128, 128, dev)
     x = torch.randn(64, 128, device=dev).to(dtype)
     _close(_q4_matmul_2d(x, small), q4_matmul_plain(x, small), dtype)
