@@ -19,7 +19,11 @@ Phases, in order, each printing JSON lines:
             (SwiGLU: silu epilogue, gate prologue), the segment attention K6
             at [8, 2048, 12x64] in both forms (windowed over chunk-sized
             segments, every key over document-sized ones) and its edge cases;
-            K1 at bge-large-en-v1.5's q/k/v/o (Q8_0), the N-tiled K8 at its
+            K1 at bge-large-en-v1.5's q/k/v/o (Q8_0); K1's bf16 lines name the
+            tile instance its rule (`k1_tile`) picked, and each instance is
+            also forced at a model shape and at a ragged M and N, every
+            qtype, with the prologue and out_f32, and DeBERTa's M = 512
+            relative-table projection is timed; the N-tiled K8 at its
             FFN (every qtype, bf16 and f32, beside the same call forced
             through K1) and forced at its q/k/v/o beside K1, K1's residual +
             LayerNorm epilogue at N = 384, 768,
@@ -256,22 +260,9 @@ def _tolerance(dtype) -> str:
             else f"rel_err <= {BF16_REL}")
 
 
-# K1 linears per layer: (name, K, N, activation, launches per layer, prologue)
-MINILM_LINEARS = [("qkvo", 384, 384, None, 4, False), ("up", 384, 1536, "gelu_erf", 1, False),
-                  ("down", 1536, 384, None, 1, False)]
-MODERNBERT_LINEARS = [("qkvo", 768, 768, None, 4, False),
-                      ("up", 768, 1152, "gelu_erf", 1, False),
-                      ("gate", 768, 1152, None, 1, False), ("down", 1152, 768, None, 1, True)]
-# DeBERTa-v3-base at M = 16384 (each layer also projects the 512-row
-# relative table through q and k: 2 more launches at M = 512, not timed)
-DEBERTA_LINEARS = [("qkvo", 768, 768, None, 4, False), ("up", 768, 3072, "gelu_erf", 1, False),
-                   ("down", 3072, 768, None, 1, False)]
-# nomic-embed-text-v1.5: SwiGLU, silu in the up projection's epilogue, the
-# gate multiplied in the down projection's prologue
-NOMIC_LINEARS = [("qkvo", 768, 768, None, 4, False), ("up", 768, 3072, "silu", 1, False),
-                 ("gate", 768, 3072, None, 1, False), ("down", 3072, 768, None, 1, True)]
-# bge-large-en-v1.5 (Q8_0): q, k, v, o on K1; the FFN on K8 (BGE_FFN)
-BGE_LINEARS = [("qkvo", 1024, 1024, None, 4, False)]
+# bge-large-en-v1.5's FFN, on K8 (its q, k, v, o run K1: K1_LAYERS in the
+# kernel suite, embedding_cpp_tpu_torch/benchmarks/kernels.py, holds every
+# model's K1 linears)
 BGE_FFN = [("up", 1024, 4096, "gelu_erf"), ("down", 4096, 1024, None)]
 
 
@@ -290,25 +281,37 @@ def _q4_weight(qtype: str, k: int, n: int, seed: int):
     return w.map(lambda t: t.to(torch.device("cuda")))
 
 
-def phase_kernels_q4(peaks, model: str, shapes, all_types: tuple, bias: bool,
-                     seed: int, main_qtype: str = "Q4_0") -> dict:
-    """K1 at one model's linears per layer, M = 16384: every shape in the
-    main path's qtype (Q4_0; bge-large Q8_0) and bf16 (timed; the per-layer
-    totals weight q/k/v/o by 4), the shapes in `all_types` also in the
-    other qtypes and f32, and a ragged M edge at the up projection (the
-    first shape where a model has no K1 up projection).  A prologue shape
-    multiplies in the gated FFN's gate.  Every call must take K1's route."""
+def _k1_tile(m: int, k: int, n: int, gated: bool) -> dict:
+    """The bf16 tile instance K1 runs at this shape on this card."""
+    import torch
+
+    from embedding_cpp_tpu_torch.ops.q4_matmul import k1_tile, tile
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return tile(gated, *k1_tile(m, k, n, sms))
+
+
+def phase_kernels_q4(peaks, model: str, all_types: tuple, seed: int) -> dict:
+    """K1 at one model's linears per layer (`K1_LAYERS`), M = 16384: every
+    shape in the main path's qtype (Q4_0; bge-large Q8_0) and bf16 (timed;
+    the per-layer totals weight q/k/v/o by 4), the shapes in `all_types`
+    also in the other qtypes and f32, and a ragged M edge at the up
+    projection (the first shape where a model has no K1 up projection).  A
+    prologue shape multiplies in the gated FFN's gate.  Every call must take
+    K1's route; bf16 lines name the tile instance it ran (`k1_tile`)."""
     import torch
     import torch.nn.functional as F
 
+    from embedding_cpp_tpu_torch.benchmarks.kernels import K1_LAYERS
     from embedding_cpp_tpu_torch.ops.q4_matmul import dequant_weight, q4_matmul, q4_matmul_plain
 
+    main_qtype, bias, shapes = K1_LAYERS[model]
     dev = torch.device("cuda")
     weight = _q4_weight
     gen = torch.Generator(device="cpu").manual_seed(seed)
     totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
               "t_bytes": 0.0, "t_ops": 0.0}
-    main_err, prologue_case = 0.0, None
+    main_err, prologue_case, tiles = 0.0, None, {}
     for qtype in ("Q4_0", "Q4_1", "Q8_0"):
         for dtype in (torch.bfloat16, torch.float32):
             main = qtype == main_qtype and dtype == torch.bfloat16  # the main path's
@@ -329,10 +332,13 @@ def phase_kernels_q4(peaks, model: str, shapes, all_types: tuple, bias: bool,
                 ok = _within(dtype, err, rel)
                 case = {"qtype": qtype, "dtype": str(dtype).split(".")[-1], "shape": name,
                         "m": M_TOKENS, "k": k, "n": n, "act": act, "prologue": gated,
+                        **({"tile": _k1_tile(M_TOKENS, k, n, gated)}
+                           if dtype == torch.bfloat16 else {}),
                         "max_abs_err": err, "rel_err": rel, "tolerance": _tolerance(dtype),
                         "ok": ok}
                 if main:
                     main_err = max(main_err, err)
+                    tiles[name] = "{bm}x{bn}".format(**case["tile"])
                     wd = dequant_weight(w, dtype)
                     case["ms"] = gpu_ms(lambda: q4_matmul(x, w, bias=b, activation=act,
                                                           prologue_mul=g))
@@ -367,11 +373,91 @@ def phase_kernels_q4(peaks, model: str, shapes, all_types: tuple, bias: bool,
     err, rel = _rel_err(q4_matmul(x, w, activation=act), q4_matmul_plain(x, w, None, act))
     emit({"phase": "kernel_check", "kernel": "q4_matmul", "model": model, "qtype": main_qtype,
           "dtype": "bfloat16", "shape": f"{name}-ragged", "m": m, "k": k, "n": n,
-          "max_abs_err": err, "rel_err": rel, "tolerance": _tolerance(torch.bfloat16),
-          "ok": rel <= BF16_REL})
+          "tile": _k1_tile(m, k, n, False), "max_abs_err": err, "rel_err": rel,
+          "tolerance": _tolerance(torch.bfloat16), "ok": rel <= BF16_REL})
     check(rel <= BF16_REL, f"q4_matmul {model} ragged M: rel {rel}")
     return {"max_abs_err": main_err, "per_layer": totals, "prologue": prologue_case,
+            "tiles": tiles,
             "bound_by": "bytes" if totals["t_bytes"] >= totals["t_ops"] else "operations"}
+
+
+def phase_kernels_k1_tiles(peaks) -> dict:
+    """Each of K1's bf16 tile instances (`TC_TILES`) forced against the
+    plain version in every qtype: at ModernBERT's up projection (M = 16384,
+    768 -> 1152, gelu_erf) with the prologue, and at a ragged M and N
+    (16347 x 1120 -> 200: K % 64 == 32, N % 16 != 0; silu) into f32
+    (`out_f32`, bf16 tolerance: the inputs are bf16); each instance timed at
+    the model shape in Q4_0.  Then DeBERTa's relative-table projection (M =
+    512, 768 -> 768, bias, Q4_0) at the rule's instance, beside its plain
+    version, addmm and the bound."""
+    import torch
+
+    from embedding_cpp_tpu_torch.benchmarks.kernels import K1_TABLE
+    from embedding_cpp_tpu_torch.ops.q4_matmul import (
+        TC_TILES,
+        _q4_matmul_1d,
+        dequant_weight,
+        q4_matmul,
+        q4_matmul_plain,
+        route,
+        tile,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(17)
+    forced = {}
+    for bm, bn in TC_TILES:
+        for qtype in ("Q4_0", "Q4_1", "Q8_0"):
+            for shape, m, k, n, act, gated, out_f32 in (
+                    ("up-prologue", M_TOKENS, 768, 1152, "gelu_erf", True, False),
+                    ("ragged", M_TOKENS - 37, 1120, 200, "silu", False, True)):
+                w = _q4_weight(qtype, k, n, k * n + 17)
+                x = torch.randn(m, k, generator=gen).to(dev, torch.bfloat16)
+                g = torch.randn(m, k, generator=gen).to(dev, torch.bfloat16) if gated else None
+                b = (torch.randn(n, generator=gen) * 0.1).to(dev)
+                before = q4_matmul.launches
+
+                def fn(x=x, w=w, b=b, g=g, act=act, out_f32=out_f32, t=(bm, bn)):
+                    return _q4_matmul_1d(x, w, b, prologue_mul=g, activation=act,
+                                         out_f32=out_f32, tile=t)
+                got = fn()
+                check(q4_matmul.launches == before + 1, f"K1 {bm}x{bn}: count")
+                ref = q4_matmul_plain(x, w, b, act, out_f32=out_f32, prologue_mul=g)
+                torch.cuda.synchronize()
+                err, rel = _rel_err(got, ref)
+                ok = rel <= BF16_REL and bool(torch.isfinite(got).all())
+                case = {"qtype": qtype, "dtype": "bfloat16", "shape": shape, "m": m, "k": k,
+                        "n": n, "act": act, "prologue": gated, "out_f32": out_f32,
+                        "tile": tile(gated, bm, bn), "forced": True, "max_abs_err": err,
+                        "rel_err": rel, "tolerance": _tolerance(torch.bfloat16), "ok": ok}
+                if qtype == "Q4_0" and shape == "up-prologue":
+                    case["ms"] = gpu_ms(fn)
+                    forced[f"{bm}x{bn}"] = {k_: case[k_] for k_ in ("ms", "max_abs_err")}
+                emit({"phase": "kernel_check", "kernel": "q4_matmul", "model": "modernbert-base",
+                      **case})
+                check(ok, f"K1 forced {bm}x{bn} {qtype} {shape}: rel {rel}")
+                del x, w, b, g, got, ref
+        torch.cuda.empty_cache()
+    # DeBERTa's relative-table projection, as its forward runs it
+    m, k, n = K1_TABLE
+    w = _q4_weight("Q4_0", k, n, 19)
+    x = torch.randn(m, k, generator=gen).to(dev, torch.bfloat16)
+    b = (torch.randn(n, generator=gen) * 0.1).to(dev)
+    check(route(m, k, n, w.qtype, x.dtype).kernel == "1d", "the table projection takes K1")
+    err, rel = _rel_err(q4_matmul(x, w, bias=b), q4_matmul_plain(x, w, b))
+    wd = dequant_weight(w, torch.bfloat16)
+    table = {"qtype": "Q4_0", "dtype": "bfloat16", "shape": "table-projection", "m": m, "k": k,
+             "n": n, "act": None, "prologue": False, "tile": _k1_tile(m, k, n, False),
+             "max_abs_err": err, "rel_err": rel, "tolerance": _tolerance(torch.bfloat16),
+             "ok": rel <= BF16_REL, "ms": gpu_ms(lambda: q4_matmul(x, w, bias=b)),
+             "plain_ms": gpu_ms(lambda: q4_matmul_plain(x, w, b)),
+             "library_ms": gpu_ms(lambda: torch.addmm(b.to(torch.bfloat16), x, wd))}
+    table["bound_ms"], table["bound_by"] = bound_ms(
+        x.numel() * 2 + w.qs.numel() + w.scales.numel() * 4 + n * 4 + m * n * 2,
+        2.0 * m * k * n, peaks)
+    emit({"phase": "kernel_check", "kernel": "q4_matmul", "model": "deberta-v3-base", **table})
+    check(table["ok"], f"K1 table projection: rel {rel}")
+    return {"forced": forced, "table": table}
 
 
 def phase_kernels_k8(peaks, f32_rate: float) -> dict:
@@ -484,7 +570,7 @@ def phase_kernels_k8(peaks, f32_rate: float) -> dict:
               **case})
         check(case["ok"], f"K8 {what}: {case['max_abs_err']}")
     # K8 forced at q/k/v/o, beside K1 (the route's kernel there) and addmm
-    name, k, n, act, _, _ = BGE_LINEARS[0]
+    name, k, n, act = "qkvo", 1024, 1024, None
     case, (x, w, b, _) = run("Q8_0", torch.bfloat16, "qkvo-forced", k, n, act)
     wd = dequant_weight(w, torch.bfloat16)
     case["ms"] = gpu_ms(lambda: _q4_matmul_2d(x, w, b))
@@ -2187,16 +2273,12 @@ def main() -> None:
     from embedding_cpp_tpu_torch.ops.q4_matmul import q4_matmul
 
     phase_build(out_dir)
-    k1 = phase_kernels_q4(peaks, "minilm-l6", MINILM_LINEARS, ("qkvo", "up", "down"),
-                          bias=True, seed=0)
-    k1m = phase_kernels_q4(peaks, "modernbert-base", MODERNBERT_LINEARS, ("down",),
-                           bias=False, seed=2)
-    k1d = phase_kernels_q4(peaks, "deberta-v3-base", DEBERTA_LINEARS, ("down",),
-                           bias=True, seed=3)
-    k1n = phase_kernels_q4(peaks, "nomic-embed-text-v1.5", NOMIC_LINEARS, ("down",),
-                           bias=False, seed=4)
-    k1b = phase_kernels_q4(peaks, "bge-large-en-v1.5", BGE_LINEARS, ("qkvo",), bias=True,
-                           seed=5, main_qtype="Q8_0")
+    k1 = phase_kernels_q4(peaks, "minilm-l6", ("qkvo", "up", "down"), seed=0)
+    k1m = phase_kernels_q4(peaks, "modernbert-base", ("down",), seed=2)
+    k1d = phase_kernels_q4(peaks, "deberta-v3-base", ("down",), seed=3)
+    k1n = phase_kernels_q4(peaks, "nomic-embed-text-v1.5", ("down",), seed=4)
+    k1b = phase_kernels_q4(peaks, "bge-large-en-v1.5", ("qkvo",), seed=5)
+    k1t = phase_kernels_k1_tiles(peaks)
     k8 = phase_kernels_k8(peaks, F32_PEAKS[peaks_for(name)[0]])
     k1ln = phase_kernels_ln(peaks)
     attn = phase_kernels_attention(peaks, "minilm-l6", 12, 32, seed=0)
@@ -2271,12 +2353,14 @@ def main() -> None:
         _entry("q4_matmul", "q4_matmul.cu", "q4_matmul.py:126", launches["q4_matmul"],
                k1_mini, "MiniLM-L6: one layer's six linears (q,k,v,o 384->384; up "
                "384->1536 + gelu_erf; down 1536->384) at M=16384, bf16, Q4_0",
-               model="minilm-l6"),
+               model="minilm-l6", tiles=k1["tiles"],
+               forced_tiles={**k1t["forced"], "shape": "up 768->1152 + gelu_erf with "
+                             "prologue_mul at M=16384, bf16, Q4_0"}),
         _entry("q4_matmul/modernbert", "q4_matmul.cu", "q4_matmul.py:126",
                mb_total["q4_matmul"], k1_mb, "ModernBERT-base: one layer's seven linears "
                "(q,k,v,o 768->768; up 768->1152 + gelu_erf; gate 768->1152; down "
                "1152->768 with the prologue) at M=16384, bf16, Q4_0",
-               model="modernbert-base"),
+               model="modernbert-base", tiles=k1m["tiles"]),
         _entry("q4_matmul_prologue", "q4_matmul.cu", "q4_matmul.py:214",
                mb_total["q4_matmul_prologue"], k1m["prologue"],
                "down 1152->768 with prologue_mul at M=16384, bf16, Q4_0",
@@ -2284,12 +2368,15 @@ def main() -> None:
         _entry("q4_matmul/deberta", "q4_matmul.cu", "q4_matmul.py:126",
                de_total["q4_matmul"], k1_de, "DeBERTa-v3-base: one layer's six linears "
                "(q,k,v,o 768->768; up 768->3072 + gelu_erf; down 3072->768) at M=16384, "
-               "bf16, Q4_0 (the two relative-table projections at M=512 not timed)",
-               model="deberta-v3-base"),
+               "bf16, Q4_0 (the two relative-table projections at M=512 apart)",
+               model="deberta-v3-base", tiles=k1d["tiles"],
+               table_projection={**_timing(k1t["table"]), "tile": k1t["table"]["tile"],
+                                 "shape": "512x768 -> 768 + bias, bf16, Q4_0, 2 per layer"}),
         _entry("q4_matmul/nomic", "q4_matmul.cu", "q4_matmul.py:126",
                nomic_total["q4_matmul"], k1_no, "nomic-embed-text-v1.5: one layer's seven "
                "linears (q,k,v,o 768->768; up 768->3072 + silu; gate 768->3072; down "
-               "3072->768 with the prologue) at M=16384, bf16, Q4_0", model="nomic-embed"),
+               "3072->768 with the prologue) at M=16384, bf16, Q4_0", model="nomic-embed",
+               tiles=k1n["tiles"]),
         _entry("q4_matmul_prologue/nomic", "q4_matmul.cu", "q4_matmul.py:214",
                nomic_total["q4_matmul_prologue"], k1n["prologue"],
                "down 3072->768 with prologue_mul at M=16384, bf16, Q4_0",
@@ -2297,7 +2384,7 @@ def main() -> None:
         _entry("q4_matmul/bge-large", "q4_matmul.cu", "q4_matmul.py:126",
                bge_total["q4_matmul"], k1_bge, "bge-large-en-v1.5: one layer's four K1 "
                "linears (q,k,v,o 1024->1024) at M=16384, bf16, Q8_0", model="bge-large",
-               f32_check_launches=bge_f32_counts["q4_matmul"]),
+               f32_check_launches=bge_f32_counts["q4_matmul"], tiles=k1b["tiles"]),
         _entry("q4_matmul_2d", "q4_matmul.cu", "q4_matmul.py:259",
                bge_total["q4_matmul_2d"], k8_layer, "bge-large-en-v1.5: one layer's FFN (up "
                "1024->4096 + gelu_erf; down 4096->1024) at M=16384, bf16, Q8_0",

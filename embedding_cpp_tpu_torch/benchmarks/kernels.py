@@ -16,8 +16,15 @@ peaks).  The last line of standard output is one JSON object with a
 
 `bench_k8_ffn` runs K8, the N-tiled dequant-GEMM, at bge-large-en-v1.5's
 FFN (Q8_0, M = 16384): each projection alone, as the route gives it to
-K8, against torch.addmm on the dequantized weight (+ gelu).  `--only`
-runs the named sections alone (e.g. `--only k8_ffn`).
+K8, against torch.addmm on the dequantized weight (+ gelu).
+`bench_k1_layers` runs K1 at each model's linears of one layer (M =
+16384, bf16, the main path's qtype, `K1_LAYERS`) beside torch.mm /
+torch.addmm on the dequantized weight (+ the activation, x * g outside
+the kernel for a prologue) and the bound, summed per layer.
+`bench_k1_tiles` forces each of K1's bf16 tile instances (`TC_TILES`) at
+every distinct K1 shape of those layers over several M, beside the one
+`k1_tile` picks: the times its rule is decided from.  `--only` runs the
+named sections alone (e.g. `--only k8_ffn k1_layers`).
 
 `bench_attention_headpack` runs B1, the head-packed attention of the JAX
 suite's bench of that name (`ops/attention.attention_headpack`, kernel
@@ -54,7 +61,7 @@ from ..ops.deberta_attention import (
     disentangled_scores_plain,
 )
 from ..ops.deberta_attention import work as deberta_work
-from ..ops.q4_matmul import _q4_matmul_2d, dequant_weight, q4_matmul, route
+from ..ops.q4_matmul import _q4_matmul_1d, _q4_matmul_2d, dequant_weight, q4_matmul, route
 from ..utils.profiling import bound_ms, gpu_ms, peaks_for
 
 # --- the A/B suite -------------------------------------------------------------
@@ -161,6 +168,113 @@ def bench_k8_ffn(peaks, m: int = 16384, e: int = 1024, f: int = 4096) -> dict:
         out[name] = {"kernel": _timed(kernel, nbytes, flops, peaks),
                      "library": _timed(library, nbytes, flops, peaks),
                      "route": route(m, k, n, w.qtype, a.dtype).kernel}
+    return out
+
+
+# Each model's K1 linears of one layer: (main-path qtype, bias, [(name, K, N,
+# activation, launches per layer, prologue)]).  DeBERTa also projects its
+# 512-row relative table through q and k in every layer (K1_TABLE).
+K1_LAYERS = {
+    "minilm-l6": ("Q4_0", True, [("qkvo", 384, 384, None, 4, False),
+                                 ("up", 384, 1536, "gelu_erf", 1, False),
+                                 ("down", 1536, 384, None, 1, False)]),
+    "modernbert-base": ("Q4_0", False, [("qkvo", 768, 768, None, 4, False),
+                                        ("up", 768, 1152, "gelu_erf", 1, False),
+                                        ("gate", 768, 1152, None, 1, False),
+                                        ("down", 1152, 768, None, 1, True)]),
+    "deberta-v3-base": ("Q4_0", True, [("qkvo", 768, 768, None, 4, False),
+                                       ("up", 768, 3072, "gelu_erf", 1, False),
+                                       ("down", 3072, 768, None, 1, False)]),
+    "nomic-embed-text-v1.5": ("Q4_0", False, [("qkvo", 768, 768, None, 4, False),
+                                              ("up", 768, 3072, "silu", 1, False),
+                                              ("gate", 768, 3072, None, 1, False),
+                                              ("down", 3072, 768, None, 1, True)]),
+    "bge-large-en-v1.5": ("Q8_0", True, [("qkvo", 1024, 1024, None, 4, False)]),
+}
+K1_TABLE = (512, 768, 768)  # DeBERTa's relative-table projection: M, K, N
+_ACT = {None: lambda y: y, "gelu_erf": F.gelu, "silu": F.silu}
+
+
+def _k1_case(m: int, k: int, n: int, qtype: str, bias: bool, gated: bool, rng, dev):
+    """(x, w, wd, b, g) for one K1 call at [m, k] x [k, n] on the card."""
+    w, wd = _weight(qtype, k, n, 2e-2, rng, dev)
+    x = torch.from_numpy(rng.normal(size=(m, k))).to(dev, torch.bfloat16)
+    g = torch.from_numpy(rng.normal(size=(m, k))).to(dev, torch.bfloat16) if gated else None
+    b = torch.from_numpy(rng.normal(size=(n,)) * 1e-2).to(dev, torch.float32) if bias else None
+    return x, w, wd, b, g
+
+
+def _k1_work(m: int, k: int, n: int, w, gated: bool, bias: bool) -> tuple[float, float]:
+    """(bytes, flops) of one K1 call: x (and g) read once, the packed
+    weight, the bias, the bf16 output written once."""
+    nbytes = m * k * 2 * (2 if gated else 1) + _weight_bytes(w) + (n * 4 if bias else 0) + m * n * 2
+    return nbytes, 2.0 * m * k * n
+
+
+def bench_k1_layers(peaks, m: int = 16384) -> dict:
+    """K1 at each model's linears of one layer, as the route gives them to
+    K1 (bf16, the main path's qtype), against torch.mm / torch.addmm on the
+    dequantized weight (+ the activation); per shape and per layer (q/k/v/o
+    counted four times).  Runs on any tree that has `_q4_matmul_1d`, so the
+    same file times a parent commit."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    out = {}
+    for model, (qtype, bias, shapes) in K1_LAYERS.items():
+        layer = {"kernel_us": 0.0, "library_us": 0.0, "bound_us": 0.0, "shapes": {}}
+        for name, k, n, act, per_layer, gated in shapes:
+            x, w, wd, b, g = _k1_case(m, k, n, qtype, bias, gated, rng, dev)
+            r = route(m, k, n, w.qtype, x.dtype, prologue=gated).kernel
+            assert r in ("1d", "xla"), f"{model} {name}: the route gives {r}, not K1"
+            bb = None if b is None else b.to(x.dtype)
+
+            def kernel(x=x, w=w, b=b, g=g, act=act):
+                return _q4_matmul_1d(x, w, b, prologue_mul=g, activation=act)
+
+            def library(x=x, wd=wd, bb=bb, g=g, act=act):
+                xx = x if g is None else x * g
+                return _ACT[act](torch.mm(xx, wd) if bb is None else torch.addmm(bb, xx, wd))
+            nbytes, flops = _k1_work(m, k, n, w, gated, bias)
+            case = {"kernel": _timed(kernel, nbytes, flops, peaks),
+                    "library": _timed(library, nbytes, flops, peaks), "per_layer": per_layer}
+            layer["shapes"][name] = case
+            layer["kernel_us"] += per_layer * case["kernel"]["us"]
+            layer["library_us"] += per_layer * case["library"]["us"]
+            layer["bound_us"] += per_layer * case["kernel"]["bound_us"]
+            del x, w, wd, b, g
+        out[model] = layer
+        torch.cuda.empty_cache()
+    return out
+
+
+def bench_k1_tiles(peaks, ms=(512, 5376, 8192, 16384, 22016, 65536)) -> dict:
+    """Every K1 bf16 tile instance forced at every distinct K1 shape of
+    `K1_LAYERS` (and DeBERTa's table projection) over `ms`, beside the
+    instance `k1_tile` picks: {"KxN[+g]": {M: {"BMxBN": us, ..., "rule":
+    "BMxBN"}}}."""
+    from ..ops.q4_matmul import TC_TILES, _sms, k1_tile
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1)
+    shapes = {(k, n, gated, qtype, bias) for qtype, bias, layer in K1_LAYERS.values()
+              for _, k, n, _, _, gated in layer}
+    out = {}
+    for k, n, gated, qtype, bias in sorted(shapes):
+        ms_here = ms if (k, n) != K1_TABLE[1:] else sorted({*ms, K1_TABLE[0]})
+        key = f"{k}x{n}{'+g' if gated else ''}/{qtype}"
+        out[key] = {}
+        for m in ms_here:
+            x, w, wd, b, g = _k1_case(m, k, n, qtype, bias, gated, rng, dev)
+            nbytes, flops = _k1_work(m, k, n, w, gated, bias)
+            row = {f"{bm}x{bn}": _timed(
+                lambda t=(bm, bn): _q4_matmul_1d(x, w, b, prologue_mul=g, tile=t),
+                nbytes, flops, peaks, samples=10)["us"] for bm, bn in TC_TILES}
+            bm, bn = k1_tile(m, k, n, _sms(0))
+            row["rule"] = f"{bm}x{bn}"
+            row["bound_us"] = bound_ms(nbytes, flops, peaks)[0] * 1e3
+            out[key][m] = row
+            del x, w, wd, b, g
+        torch.cuda.empty_cache()
     return out
 
 
@@ -364,6 +478,18 @@ def main(argv=None) -> None:
         results["k8_ffn"] = {"m16384_q8": (r := bench_k8_ffn(peaks))}
         for name in ("up", "down"):
             log(f"K8 bge-large {name} M=16384 ({r[name]['route']}): {ab(r[name])}")
+    if want("k1_layers"):
+        results["k1_layers"] = {"m16384_bf16": (r := bench_k1_layers(peaks))}
+        for model, layer in r.items():
+            log(f"K1 {model} layer M=16384: kernel {layer['kernel_us']:9.1f}us | library "
+                f"{layer['library_us']:9.1f}us | bound {layer['bound_us']:7.1f}us")
+    if want("k1_tiles"):
+        results["k1_tiles"] = r = bench_k1_tiles(peaks)
+        for key, rows in r.items():
+            for m, row in rows.items():
+                log(f"K1 tiles {key} M={m}: " + "  ".join(
+                    f"{t}={us:.1f}" for t, us in row.items() if t not in ("rule", "bound_us"))
+                    + f"  rule={row['rule']}  bound={row['bound_us']:.1f}us")
     if want("attention"):
         results["attention"] = {"b32_s512": (r := bench_attention(peaks))}
         log(f"attention K3 B=32 S=512: {ab(r)}")

@@ -16,20 +16,21 @@
 // (within each 32-row block, byte-row j holds row j in the low nibble and row
 // j+16 in the high nibble); Q8 qs int8 [K, N]; scales/mins f32 [K/32, N].
 //
-// K1: each block computes a BM x BN output tile and walks K one 32-row quant
-// block at a time: it stages the x tile and dequantizes the weight block into
-// shared memory exactly as the TPU kernel's `_dequant_tile` does (f32 math,
-// then one rounding to the compute dtype), then multiplies.
-//   bf16 x: tensor cores (WMMA 16x16x16 bf16 fragments, f32 accumulation).
-//   f32 x:  SIMT FMAs in f32 (no TF32, which would change the numbers).
+// Both kernels' bf16 bodies are one tile kernel (`tc::q4_matmul_tc_kernel`,
+// the K8 section below), templated on its output tile: K8 runs the 256 x 128
+// instance, K1 the instance that `k1_tile` (ops/q4_matmul.py) chooses for
+// its shape from the few named once in `TC_TILES`.  The f32 bodies (SIMT
+// FMAs in f32, no TF32, which would change the numbers) are each kernel's
+// own: K1's stages the x tile and dequantizes one 32-row weight block at a
+// time into shared memory, exactly as the TPU kernel's `_dequant_tile` does
+// (f32 math), then multiplies.
 //
 // Bound on an H100: at the main-path shapes (M = 16384 tokens, K, N in
-// {384, 1536}) the work is ~2*M*K*N flops against ~2*M*(K+N) bytes of bf16
-// activations, so the product sits near the ridge point: q/k/v/o are bound by
-// the bytes, up/down by the tensor-core rate.  This first version uses plain
-// shared-memory tiles and synchronous loads (no TMA, no wgmma, no pipelining),
-// so it reaches neither bound; the packed weight is re-read from L2 by every
-// M tile, which costs little because a whole weight is at most 0.3 MB.
+// {384 .. 4096}) the work is ~2*M*K*N flops against ~2*M*(K+N) bytes of bf16
+// activations, so the product sits near the ridge point: MiniLM's q/k/v/o are
+// bound by the bytes, the wider products by the tensor-core rate.  The tile
+// kernel re-reads the packed weight from L2 once per M tile, which costs
+// little because a whole weight is at most 4.5 MB.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -128,73 +129,7 @@ __device__ __forceinline__ float load_x1(const float* __restrict__ x, const floa
   return g != nullptr ? __fmul_rn(x[off], g[off]) : x[off];
 }
 
-// ---- bf16 activations: tensor cores ----------------------------------------
-constexpr int BM = 64, BN = 64, BK = QK;
-constexpr int A_LD = BK + 8;  // bf16 elements; rows stay 16-byte aligned
-constexpr int B_LD = BN + 8;
-constexpr int C_LD = BN + 4;  // f32 elements
-
-__global__ void __launch_bounds__(128) q4_matmul_bf16_kernel(
-    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ g,
-    const uint8_t* __restrict__ qs,
-    const float* __restrict__ scales, const float* __restrict__ mins,
-    const float* __restrict__ bias, void* __restrict__ out, int M, int K, int N,
-    int qtype, int act, int out_f32) {
-  __shared__ __align__(128) __nv_bfloat16 As[BM * A_LD];
-  __shared__ __align__(128) __nv_bfloat16 Bs[BK * B_LD];
-  __shared__ __align__(128) float Cs[BM * C_LD];
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;  // 2x2 warps of 32x32
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    // x tile [BM, 32] (times the g tile): 16-byte loads, ragged M edge
-    // zero-filled
-    for (int i = tid; i < BM * BK / 8; i += 128) {
-      const int r = i / (BK / 8), c = (i % (BK / 8)) * 8, gm = m0 + r;
-      *reinterpret_cast<uint4*>(&As[r * A_LD + c]) =
-          load_x8(x, g, gm, M, (size_t)gm * K + k0 + c);
-    }
-    dequant_block<__nv_bfloat16, BN, 128>(Bs, B_LD, qs, scales, mins, k0 / QK, n0, N, qtype);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(a[i], As + (wm + i * 16) * A_LD + kk, A_LD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(b[j], Bs + kk * B_LD + wn + j * 16, B_LD);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm + i * 16) * C_LD + wn + j * 16, acc[i][j], C_LD,
-                              wmma::mem_row_major);
-  __syncthreads();
-  for (int i = tid; i < BM * BN; i += 128) {
-    const int r = i / BN, c = i % BN, gm = m0 + r, gn = n0 + c;
-    if (gm >= M || gn >= N) continue;
-    const float y = epilogue(Cs[r * C_LD + c], bias, gn, act);
-    if (out_f32)
-      static_cast<float*>(out)[(size_t)gm * N + gn] = y;
-    else
-      static_cast<__nv_bfloat16*>(out)[(size_t)gm * N + gn] = __float2bfloat16_rn(y);
-  }
-}
+constexpr int BK = QK;  // the f32 and LN bodies' K step: one quant block
 
 // ---- f32 activations: SIMT FMAs --------------------------------------------
 constexpr int FBM = 64, FBN = 64;  // 256 threads, 4x4 outputs each
@@ -247,9 +182,10 @@ __global__ void __launch_bounds__(256) q4_matmul_f32_kernel(
 // The TPU kernel's `_epilogue` with `residual` and `ln_sb` (q4_matmul.py
 // :113-119, :219-227): y = act(acc + bias); y += residual in f32; then
 // (y - mean) * rsqrt(var + eps) * scale + bias_ln with the row statistics in
-// f32 over all N; one cast.  The LayerNorm needs whole rows, which K1's 64 x
-// 64 tiles do not hold, so a block here owns LN_BM full rows: it walks N in
-// K1's 64-column sub-tiles (the same staging and products as K1), keeps each
+// f32 over all N; one cast.  The LayerNorm needs whole rows, which K1's
+// output tiles do not hold, so a block here owns LN_BM full rows: it walks N
+// in 64-column sub-tiles (staging the x tile and one dequantized weight block
+// at a time in shared memory, WMMA products in bf16), keeps each
 // sub-tile's f32 accumulator in a shared-memory row buffer [LN_BM, N], then
 // one warp per row adds the bias, activation and residual, reduces the row
 // and writes it once.  The buffer caps N at what a block's shared memory
@@ -257,6 +193,8 @@ __global__ void __launch_bounds__(256) q4_matmul_f32_kernel(
 // path runs this kernel: the JAX package's `linear` composes the tail
 // outside its kernel (ops/linear.py:84-94), and the port's does the same.
 constexpr int LN_BM = 16, LN_BN = 64, LN_THREADS = 128;
+constexpr int A_LD = BK + 8;     // bf16 elements; rows stay 16-byte aligned
+constexpr int B_LD = LN_BN + 8;
 
 __host__ __device__ constexpr int ln_y_ld(int N) { return (N + LN_BN - 1) / LN_BN * LN_BN + 4; }
 
@@ -399,53 +337,69 @@ __global__ void __launch_bounds__(LN_THREADS) q4_matmul_ln_f32_kernel(
   ln_rows(Y, yld, m0, M, N, bias, act, residual, ln_sb, eps, out, 1);
 }
 
-// ---- K8: the N-tiled form -----------------------------------------------------
+// ---- K8: the N-tiled form, and the bf16 tile kernel of K1 and K8 ------------
 //
-// Replaces `_q4_matmul_2d` (embedding_cpp_tpu/ops/q4_matmul.py:259, the inner
-// `kernel` :293, pallas_call :330): the same y = act((x [* g]) @ dequant(W) +
-// bias) into [M, N] (no residual, no LayerNorm: a block holds partial rows),
-// for the weights whose dequantized form the TPU's 1-D kernel cannot hold
-// whole.  The TPU kernel keeps a dequantized [K, tn] column slice in VMEM for
-// every M tile it walks.  A block's shared memory holds such a slice only 16
-// columns wide at K = 4096, which leaves each warp one 16 x 16 product per
-// load and re-reads x N/16 times, so the bf16 body streams K instead.
+// K8 replaces `_q4_matmul_2d` (embedding_cpp_tpu/ops/q4_matmul.py:259, the
+// inner `kernel` :293, pallas_call :330): the same y = act((x [* g]) @
+// dequant(W) + bias) into [M, N] (no residual, no LayerNorm: a block holds
+// partial rows), for the weights whose dequantized form the TPU's 1-D kernel
+// cannot hold whole.  The TPU kernel keeps a dequantized [K, tn] column slice
+// in VMEM for every M tile it walks.  A block's shared memory holds such a
+// slice only 16 columns wide at K = 4096, which leaves each warp one 16 x 16
+// product per load and re-reads x N/16 times, so the bf16 body streams K
+// instead.  K1 (`_q4_matmul_1d`, pallas_call :229) computes the same function
+// with the whole weight dequantized in VMEM; on the card its bf16 body is the
+// same streamed tile kernel at a tile chosen for its shape.
 //
 // What bounds it on an H100: at bge-large's FFN (M = 16384, K x N = 1024 x
 // 4096 and 4096 x 1024) the work is 2*M*K*N = 1.37e11 flops against ~0.17 GB
 // moved, so the tensor-core rate does: 0.139 ms at 989 TFLOP/s.
 //
-// bf16 x (`k8::q4_matmul_2d_tc_kernel`, the main path): output tiles of
-// TBM x TBN = 256 x 128, one block of 16 warps (4 x 4, each 64 x 32) per
-// tile, streamed over K in steps of TBK = 64 (two quant blocks).  A ring of
-// STAGES = 3 slots takes each step's x tile [256, 64] (bf16, rows
-// XOR-swizzled by 16-byte chunk) and the packed weight tile with its scales
-// (and mins), by 16-byte cp.async with zero-fill past M, K and N.  When N is
-// not a multiple of 16 (or a weight pointer is not 16-byte aligned) the
-// weight rows are not 16-byte aligned, and the weight tile is loaded with
-// guarded plain loads instead.  The weight tile is dequantized into a bf16
-// B tile [64, 128] (swizzled) as `dequant` and the TPU's `_dequant_tile` do:
-// the code to an exact f32 (a byte permute into the mantissa of 2^23, one
-// subtraction), then __fmul_rn / __fadd_rn and one rounding to bf16.  A
-// weight value is so dequantized once per 256 rows of x.  Two B tiles
-// alternate: step k + 1's is dequantized in two parts between step k's
-// 16-deep product slices, so the conversion's ALU work fills the gaps
-// between tensor-core instructions, and one barrier a step suffices.  Step
-// k + 2's copies are in flight meanwhile.  Products: A through ldmatrix, B
-// through ldmatrix.trans, mma.sync.m16n8k16 bf16 -> f32 in registers.  The
-// prologue reads the g tile of step k + 1 into registers during step k and
-// multiplies it into the landed x tile (f32 product, one rounding).  The
-// epilogue (bias, activation) runs on the accumulators, is staged as f32 in
-// shared memory and written out 16 bytes a thread along the rows: storing
-// the accumulators' pairs straight from registers scattered each warp's
-// stores over eight rows and cost more than the products at N = 4096.
-// Blocks are ordered N tile fastest, so the N/TBN blocks of one M panel run
-// together and read their x panel from L2: x comes from device memory about
-// once, and the weight (4.5 MB at bge-large's Q8_0) stays in L2 and is read
-// M/TBM times from there.  158 KB of shared memory, one block per SM; on
-// the card, 128 x 128 tiles at two blocks per SM, a B tile dequantized
-// between two barriers, a fourth stage, and 8 warps of 64 x 64 (no spills
-// at 255 registers, against 68 bytes at 128) were each slower or no
-// faster.  K is streamed, so every K that is a multiple of 32 is served.
+// bf16 x (`tc::q4_matmul_tc_kernel<Tile, PRO>`): output tiles of TBM x TBN,
+// one block of warps (TBM / WM x TBN / WN, each WM x WN) per tile, streamed
+// over K in steps of TBK = 64 (two quant blocks).  A ring of STAGES slots
+// takes each step's x tile [TBM, 64] (bf16, rows XOR-swizzled by 16-byte
+// chunk) and the packed weight tile with its scales (and mins), by 16-byte
+// cp.async with zero-fill past M, K and N.  When N is not a multiple of 16
+// (or a weight pointer is not 16-byte aligned) the weight rows are not
+// 16-byte aligned, and the weight tile is loaded with guarded plain loads
+// instead.  The weight tile is dequantized into a bf16 B tile [64, TBN]
+// (swizzled) as `dequant` and the TPU's `_dequant_tile` do: the code to an
+// exact f32 (a byte permute into the mantissa of 2^23, one subtraction),
+// then __fmul_rn / __fadd_rn and one rounding to bf16.  A weight value is so
+// dequantized once per TBM rows of x.  Two B tiles alternate: step k + 1's
+// is dequantized in PARTS parts between step k's 16-deep product slices, so
+// the conversion's ALU work fills the gaps between tensor-core instructions,
+// and one barrier a step suffices.  Step k + 2's copies are in flight
+// meanwhile.  Products: A through ldmatrix, B through ldmatrix.trans,
+// mma.sync.m16n8k16 bf16 -> f32 in registers.  The prologue copies the g
+// tile of step k + 1 into a g tile in shared memory during step k (its own
+// cp.async group, so it can be waited for alone) and multiplies it into the
+// landed x tile at the step's end (f32 product, one rounding); held in
+// registers instead, g spilled 212 bytes and cost 12-13% more at the gated
+// FFN's down projection.  The epilogue (bias,
+// activation) runs on the accumulators, is staged as f32 in shared memory
+// and written out 16 bytes a thread along the rows: storing the
+// accumulators' pairs straight from registers scattered each warp's stores
+// over eight rows and cost more than the products at N = 4096.  Blocks are
+// ordered N tile fastest, so the N/TBN blocks of one M panel run together
+// and read their x panel from L2: x comes from device memory about once, and
+// the weight (4.5 MB at bge-large's Q8_0) stays in L2 and is read M/TBM
+// times from there.  K is streamed, so every K that is a multiple of 32 is
+// served.
+//
+// The instances (TC_TILES): K8 runs 256 x 128 (16 warps of 64 x 32, three
+// stages, 158 KB of shared memory, one block per SM; on the card, 128 x 128
+// tiles at two blocks per SM, a B tile dequantized between two barriers, a
+// fourth stage, and 8 warps of 64 x 64 (no spills at 255 registers, against
+// 68 bytes at 128) were each slower or no faster at bge-large's FFN).  K1's
+// shapes are narrower (N and K from 384, M down to 512), where 256 x 128
+// tiles can leave SMs idle, so K1 also has a 128 x 64 instance (8 warps of
+// 32 x 32, 79 KB, two blocks per SM), and `k1_tile` (ops/q4_matmul.py)
+// picks one from the grid each gives.  On the card the small instance moves
+// ~0.72x the outputs per SM that 256 x 128 does, so it wins only on small
+// grids (every K1 shape at M = 512; N = 384 at M = 5376); 128 x 128 at two blocks per SM and 64 x 64 at four were never the fastest
+// at a K1 shape, and were dropped (PERF.md).
 //
 // f32 x (`q4_matmul_2d_f32_kernel<TN>`): SIMT FMAs in f32 (the card has no
 // full-f32 tensor-core product, and TF32 would change the numbers).  Each
@@ -464,30 +418,49 @@ __host__ __device__ constexpr int k8f_bm(int tn) { return 4 * K8_THREADS / (tn /
 
 size_t k8_smem_bytes(int tn, int K) { return (size_t)K * tn * 4 + BK * (k8f_bm(tn) + 1) * 4; }
 
-namespace k8 {
+// The tile kernel's instances, named once: X(TBM, TBN, WM, WN, STAGES, blocks
+// per SM it is built for).  K8 runs the first (K8_TBM x K8_TBN); K1 runs the
+// one `k1_tile` (ops/q4_matmul.py) names.
+#define TC_TILES(X)          \
+  X(256, 128, 64, 32, 3, 1)  \
+  X(128, 64, 32, 32, 3, 2)
+constexpr int K8_TBM = 256, K8_TBN = 128;
+
+namespace tc {
 
 using bf16 = __nv_bfloat16;
 using namespace sm90;
 
-// The tile: TBM x TBN outputs per block, K steps of TBK, STAGES ring slots;
-// warp tiles of WM x WN outputs, TBM / WM down and TBN / WN across.
-constexpr int TBM = 256, TBN = 128, TBK = 64, STAGES = 3, WM = 64, WN = 32;
-constexpr int NT = TBM / WM * (TBN / WN) * 32;
-constexpr int MI = WM / 16, NI = WN / 8;       // a warp's 16 x 8 accumulator tiles
-constexpr int XCH = TBM * (TBK / 8) / NT;      // 16-byte chunks of an x tile per thread
-static_assert(STAGES >= 3, "step k + 1 is dequantized while step k + 2 lands");
-constexpr int A_BYTES = TBM * TBK * 2;         // an x tile, bf16
-constexpr int Q_BYTES = TBK * TBN;             // the Q8 codes (Q4 fills half)
-constexpr int S_FLOATS = (TBK / QK) * TBN;     // the scales (and the mins)
-constexpr int B_BYTES = TBK * TBN * 2;         // a dequantized B tile, bf16
-constexpr int OUT_LD = TBN + 8;                // the staged output tile's row, f32
-constexpr int PARTS = TBK * (TBN / 8) / NT;    // 16-byte chunks of B per thread a step
+constexpr int TBK = 64;  // the K step: two quant blocks
 
-// A ring slot: [x | qs | scales | mins]; two B tiles follow the STAGES
-// slots.  The output tile is staged over both at the end.
-constexpr int SB = A_BYTES + Q_BYTES + 2 * S_FLOATS * 4;
-constexpr int SMEM = STAGES * SB + 2 * B_BYTES;
-static_assert(TBM * OUT_LD * 4 <= SMEM, "the staged output tile fits over the ring");
+// One instance: TBM x TBN outputs per block, K steps of TBK, STAGES ring
+// slots; warp tiles of WM x WN outputs, TBM / WM down and TBN / WN across;
+// MINB blocks per SM (its __launch_bounds__).
+template <int TBM_, int TBN_, int WM_, int WN_, int STAGES_, int MINB_>
+struct Tile {
+  static constexpr int TBM = TBM_, TBN = TBN_, WM = WM_, WN = WN_, STAGES = STAGES_,
+                       MINB = MINB_;
+  static constexpr int NT = TBM / WM * (TBN / WN) * 32;
+  static constexpr int MI = WM / 16, NI = WN / 8;     // a warp's 16 x 8 accumulator tiles
+  static constexpr int XCH = TBM * (TBK / 8) / NT;    // 16-byte chunks of an x tile per thread
+  static constexpr int A_BYTES = TBM * TBK * 2;       // an x tile, bf16
+  static constexpr int Q_BYTES = TBK * TBN;           // the Q8 codes (Q4 fills half)
+  static constexpr int S_FLOATS = (TBK / QK) * TBN;   // the scales (and the mins)
+  static constexpr int B_BYTES = TBK * TBN * 2;       // a dequantized B tile, bf16
+  static constexpr int OUT_LD = TBN + 8;              // the staged output tile's row, f32
+  static constexpr int B_CH = TBN / 8;                // 16-byte chunks of a B row
+  static constexpr int PARTS = TBK * B_CH / NT;       // 16-byte chunks of B per thread a step
+  // A ring slot: [x | qs | scales | mins]; two B tiles follow the STAGES
+  // slots.  The output tile is staged over both at the end.
+  static constexpr int SB = A_BYTES + Q_BYTES + 2 * S_FLOATS * 4;
+  static constexpr int SMEM = STAGES * SB + 2 * B_BYTES;
+  static_assert(STAGES >= 3, "step k + 1 is dequantized while step k + 2 lands");
+  static_assert(TBM % WM == 0 && TBN % WN == 0 && WM % 16 == 0 && WN % 16 == 0, "warp tiles");
+  static_assert(XCH >= 1 && TBM * (TBK / 8) % NT == 0, "whole x chunks per thread");
+  static_assert(PARTS >= 1 && TBK * B_CH % NT == 0 && (TBK / 16) % PARTS == 0,
+                "whole B chunks per thread, a whole number of slices per part");
+  static_assert(TBM * OUT_LD * 4 <= SMEM, "the staged output tile fits over the ring");
+};
 
 struct Args {
   const bf16* x;
@@ -502,33 +475,35 @@ struct Args {
 
 // Step k0's tiles into the ring slot `st`: x rows m0.., columns
 // k0..k0+63; the weight's byte rows and scale rows of quant blocks k0/32 and
-// k0/32 + 1, columns n0..n0+127.  Zeros past M, K and N.
+// k0/32 + 1, columns n0..n0+TBN-1.  Zeros past M, K and N.
+template <class T>
 __device__ __forceinline__ void load_stage(unsigned char* st, const Args& a, int m0, int n0,
                                            int k0) {
   const int tid = threadIdx.x;
   bf16* xs = reinterpret_cast<bf16*>(st);
 #pragma unroll
-  for (int t = 0; t < XCH; ++t) {
-    const int i = tid + t * NT, r = i / (TBK / 8), c = i % (TBK / 8);
+  for (int t = 0; t < T::XCH; ++t) {
+    const int i = tid + t * T::NT, r = i / (TBK / 8), c = i % (TBK / 8);
     const int gm = m0 + r, gk = k0 + c * 8;
     const bool ok = gm < a.M && gk < a.K;
     const size_t off = ok ? (size_t)gm * a.K + gk : 0;
     cp_async16(xs + swz<TBK>(r, c), a.x + off, ok ? 16 : 0);
   }
-  uint8_t* q = st + A_BYTES;
-  float* sc = reinterpret_cast<float*>(q + Q_BYTES);
-  float* mn = sc + S_FLOATS;
+  constexpr int TBN = T::TBN;
+  uint8_t* q = st + T::A_BYTES;
+  float* sc = reinterpret_cast<float*>(q + T::Q_BYTES);
+  float* mn = sc + T::S_FLOATS;
   const bool q8 = a.qtype == kQ8_0;
   const int qrows = q8 ? TBK : TBK / 2, qr0 = q8 ? k0 : k0 / 2, qrows_all = q8 ? a.K : a.K / 2;
   const int kb0 = k0 / QK, nkb = a.K / QK;
   if (a.aligned) {
-    for (int i = tid; i < qrows * (TBN / 16); i += NT) {
+    for (int i = tid; i < qrows * (TBN / 16); i += T::NT) {
       const int r = i / (TBN / 16), c = i % (TBN / 16), gr = qr0 + r, gn = n0 + c * 16;
       const bool ok = gr < qrows_all && gn < a.N;
       cp_async16(q + r * TBN + c * 16, ok ? a.qs + (size_t)gr * a.N + gn : a.qs, ok ? 16 : 0);
     }
-    constexpr int SC = S_FLOATS / 4;  // 16-byte chunks of the scales
-    for (int i = tid; i < (a.mins != nullptr ? 2 : 1) * SC; i += NT) {
+    constexpr int SC = T::S_FLOATS / 4;  // 16-byte chunks of the scales
+    for (int i = tid; i < (a.mins != nullptr ? 2 : 1) * SC; i += T::NT) {
       const bool is_min = i >= SC;
       const int j = is_min ? i - SC : i, r = j / (TBN / 4), c = j % (TBN / 4);
       const int gr = kb0 + r, gn = n0 + c * 4;
@@ -538,11 +513,11 @@ __device__ __forceinline__ void load_stage(unsigned char* st, const Args& a, int
                  ok ? 16 : 0);
     }
   } else {
-    for (int i = tid; i < qrows * TBN; i += NT) {
+    for (int i = tid; i < qrows * TBN; i += T::NT) {
       const int r = i / TBN, c = i % TBN, gr = qr0 + r, gn = n0 + c;
       q[i] = gr < qrows_all && gn < a.N ? a.qs[(size_t)gr * a.N + gn] : 0;
     }
-    for (int i = tid; i < S_FLOATS; i += NT) {
+    for (int i = tid; i < T::S_FLOATS; i += T::NT) {
       const int r = i / TBN, c = i % TBN, gr = kb0 + r, gn = n0 + c;
       const bool ok = gr < nkb && gn < a.N;
       sc[i] = ok ? a.scales[(size_t)gr * a.N + gn] : 0.0f;
@@ -577,15 +552,15 @@ __device__ __forceinline__ uint4 dequant8(uint32_t w0, uint32_t w1, const float*
 }
 
 // Part t (0 .. PARTS-1) of the ring slot's weight tile, dequantized into the
-// B tile Bs [64, 128] (bf16, swizzled): one 16-byte chunk of B per thread.
+// B tile Bs [64, TBN] (bf16, swizzled): one 16-byte chunk of B per thread.
 // Q8: row r is code row r, scale row r / 32.  Q4: byte row j of quant block
 // b holds row 32b + j in its low nibble and row 32b + j + 16 in its high
 // one; the first half of the chunks are the low nibbles.
-constexpr int B_CH = TBN / 8;  // 16-byte chunks of a B row
-
+template <class T>
 __device__ __forceinline__ void dequant_part(bf16* Bs, const uint8_t* q, const float* sc,
                                              const float* mn, int qtype, int t) {
-  const int i = threadIdx.x + t * NT;
+  constexpr int TBN = T::TBN, B_CH = T::B_CH;
+  const int i = threadIdx.x + t * T::NT;
   if (qtype == kQ8_0) {
     const int r = i / B_CH, c = i % B_CH;
     const uint2 w = *reinterpret_cast<const uint2*>(q + r * TBN + c * 8);
@@ -607,27 +582,32 @@ __device__ __forceinline__ void dequant_part(bf16* Bs, const uint8_t* q, const f
 }
 
 // The prologue: this thread's 16-byte chunks of the g tile (rows m0..,
-// columns k0..k0+63), read from device memory a step ahead of their use;
-// zeros past M and K.
-__device__ __forceinline__ void load_g(uint4 (&gv)[XCH], const Args& a, int m0, int k0) {
+// columns k0..k0+63) into the g buffer, by cp.async a step ahead of their
+// use; zeros past M and K.  The chunks are the ones this thread copies of
+// the x tile, so `apply_g` reads only what the thread itself copied.
+template <class T>
+__device__ __forceinline__ void load_g(bf16* gs, const Args& a, int m0, int k0) {
 #pragma unroll
-  for (int t = 0; t < XCH; ++t) {
-    const int i = threadIdx.x + t * NT, r = i / (TBK / 8), c = i % (TBK / 8);
+  for (int t = 0; t < T::XCH; ++t) {
+    const int i = threadIdx.x + t * T::NT, r = i / (TBK / 8), c = i % (TBK / 8);
     const int gm = m0 + r, gk = k0 + c * 8;
-    gv[t] = gm < a.M && gk < a.K ? *reinterpret_cast<const uint4*>(a.g + (size_t)gm * a.K + gk)
-                                 : make_uint4(0, 0, 0, 0);
+    const bool ok = gm < a.M && gk < a.K;
+    cp_async16(gs + swz<TBK>(r, c), a.g + (ok ? (size_t)gm * a.K + gk : 0), ok ? 16 : 0);
   }
 }
 
-// x *= g on the ring slot's x tile: the f32 product rounded once to bf16.
-__device__ __forceinline__ void apply_g(bf16* xs, const uint4 (&gv)[XCH]) {
+// x *= g on this thread's chunks of a landed x tile: the f32 product
+// rounded once to bf16.
+template <class T>
+__device__ __forceinline__ void apply_g(bf16* xs, const bf16* gs) {
 #pragma unroll
-  for (int t = 0; t < XCH; ++t) {
-    const int i = threadIdx.x + t * NT;
-    uint4* px = reinterpret_cast<uint4*>(xs + swz<TBK>(i / (TBK / 8), i % (TBK / 8)));
+  for (int t = 0; t < T::XCH; ++t) {
+    const int i = threadIdx.x + t * T::NT, e = swz<TBK>(i / (TBK / 8), i % (TBK / 8));
+    uint4* px = reinterpret_cast<uint4*>(xs + e);
     uint4 xv = *px;
+    const uint4 gv = *reinterpret_cast<const uint4*>(gs + e);
     __nv_bfloat162* xp = reinterpret_cast<__nv_bfloat162*>(&xv);
-    const __nv_bfloat162* gp = reinterpret_cast<const __nv_bfloat162*>(&gv[t]);
+    const __nv_bfloat162* gp = reinterpret_cast<const __nv_bfloat162*>(&gv);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const float2 u = __bfloat1622float2(xp[j]), v = __bfloat1622float2(gp[j]);
@@ -637,8 +617,17 @@ __device__ __forceinline__ void apply_g(bf16* xs, const uint4 (&gv)[XCH]) {
   }
 }
 
-template <bool PRO>
-__global__ void __launch_bounds__(NT, 1) q4_matmul_2d_tc_kernel(const Args a) {
+// Shared memory of an instance: the ring and two B tiles, and with the
+// prologue one g tile.
+template <class T, bool PRO>
+constexpr int smem_bytes() {
+  return T::SMEM + (PRO ? T::A_BYTES : 0);
+}
+
+template <class T, bool PRO>
+__global__ void __launch_bounds__(T::NT, T::MINB) q4_matmul_tc_kernel(const Args a) {
+  constexpr int TBM = T::TBM, TBN = T::TBN, WM = T::WM, WN = T::WN, STAGES = T::STAGES;
+  constexpr int MI = T::MI, NI = T::NI, NT = T::NT, SB = T::SB;
   extern __shared__ __align__(128) unsigned char tc_smem[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int n0 = blockIdx.x * TBN, m0 = blockIdx.y * TBM;
@@ -649,35 +638,41 @@ __global__ void __launch_bounds__(NT, 1) q4_matmul_2d_tc_kernel(const Args a) {
     return reinterpret_cast<bf16*>(tc_smem + STAGES * SB) + (k & 1) * TBK * TBN;
   };
   auto dequant = [&](int k, int t) {  // part t of step k's B tile
-    const uint8_t* q = tc_smem + (k % STAGES) * SB + A_BYTES;
-    const float* sc = reinterpret_cast<const float*>(q + Q_BYTES);
-    dequant_part(b_tile(k), q, sc, sc + S_FLOATS, a.qtype, t);
+    const uint8_t* q = tc_smem + (k % STAGES) * SB + T::A_BYTES;
+    const float* sc = reinterpret_cast<const float*>(q + T::Q_BYTES);
+    dequant_part<T>(b_tile(k), q, sc, sc + T::S_FLOATS, a.qtype, t);
   };
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk) load_stage(tc_smem + s * SB, a, m0, n0, s * TBK);
+  bf16* gs = reinterpret_cast<bf16*>(tc_smem + T::SMEM);  // the g tile (PRO)
+  if constexpr (PRO) {  // its own group, ahead of the ring's
+    load_g<T>(gs, a, m0, 0);
     cp_async_commit();
   }
-  uint4 gv[XCH];
-  if constexpr (PRO) load_g(gv, a, m0, 0);
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) load_stage<T>(tc_smem + s * SB, a, m0, n0, s * TBK);
+    cp_async_commit();
+  }
   cp_async_wait<STAGES - 2>();
   __syncthreads();
 #pragma unroll
-  for (int t = 0; t < PARTS; ++t) dequant(0, t);
-  if constexpr (PRO) apply_g(x_tile(0), gv);
+  for (int t = 0; t < T::PARTS; ++t) dequant(0, t);
+  if constexpr (PRO) apply_g<T>(x_tile(0), gs);
   float acc[MI][NI][4] = {};
   for (int kt = 0; kt < nk; ++kt) {
     // step kt + 1 landed; every thread prepared step kt (its B tile, x *= g)
     // and is done with step kt - 1 (its ring slot and its B tile)
     cp_async_wait<STAGES - 3>();
     __syncthreads();
+    if constexpr (PRO) {  // step kt + 1's g, in its own group before the ring's
+      if (kt + 1 < nk) {
+        load_g<T>(gs, a, m0, (kt + 1) * TBK);
+        cp_async_commit();
+      }
+    }
     const int ahead = kt + STAGES - 1;
-    if (ahead < nk) load_stage(tc_smem + (ahead % STAGES) * SB, a, m0, n0, ahead * TBK);
+    if (ahead < nk) load_stage<T>(tc_smem + (ahead % STAGES) * SB, a, m0, n0, ahead * TBK);
     cp_async_commit();
     const bool next = kt + 1 < nk;
-    if constexpr (PRO) {
-      if (next) load_g(gv, a, m0, (kt + 1) * TBK);
-    }
     const bf16* xs = x_tile(kt);
     const bf16* Bs = b_tile(kt);
     // the products of step kt, each 16-deep slice followed by a part of
@@ -701,11 +696,14 @@ __global__ void __launch_bounds__(NT, 1) q4_matmul_2d_tc_kernel(const Args a) {
 #pragma unroll
         for (int ni = 0; ni < NI; ++ni) mma(acc[mi][ni], af, b[ni]);
       }
-      constexpr int EVERY = TBK / 16 / PARTS;  // 16-deep slices per part
+      constexpr int EVERY = TBK / 16 / T::PARTS;  // 16-deep slices per part
       if (next && ks % EVERY == EVERY - 1) dequant(kt + 1, ks / EVERY);
     }
     if constexpr (PRO) {
-      if (next) apply_g(x_tile(kt + 1), gv);
+      if (next) {
+        cp_async_wait<1>();  // step kt + 1's g landed (step kt + 2's copies may not)
+        apply_g<T>(x_tile(kt + 1), gs);
+      }
     }
   }
   // The epilogue (bias, activation) on the accumulators, staged as f32 in
@@ -713,6 +711,7 @@ __global__ void __launch_bounds__(NT, 1) q4_matmul_2d_tc_kernel(const Args a) {
   // each 16 x 8 tile), then written out row by row, 16 bytes a thread.
   cp_async_wait<0>();
   __syncthreads();  // every warp is done with the ring
+  constexpr int OUT_LD = T::OUT_LD;
   float* Cs = reinterpret_cast<float*>(tc_smem);
   const int g = lane / 4, t = lane % 4;
 #pragma unroll
@@ -763,7 +762,7 @@ __global__ void __launch_bounds__(NT, 1) q4_matmul_2d_tc_kernel(const Args a) {
   }
 }
 
-}  // namespace k8
+}  // namespace tc
 
 template <int TN>
 __global__ void __launch_bounds__(K8_THREADS) q4_matmul_2d_f32_kernel(
@@ -855,20 +854,20 @@ int device_limits(int* dev, DeviceLimits* out) {
   return static_cast<int>(e);
 }
 
-// What one K8 kernel instance learned on each device at the shared memory of
+// What one kernel instance learned on each device at the shared memory of
 // its last launch: the opt-in is made and the blocks per SM are known.
-struct K8Occupancy {
+struct Occupancy {
   std::mutex mu;
   size_t smem[kMaxDevices] = {};
   int blocks_per_sm[kMaxDevices] = {};
 };
 
-// Opts a K8 kernel in to `smem` bytes of shared memory and reads its blocks
-// per SM on the current device; both are asked of the driver only when
-// `smem` changes.
+// Opts a kernel in to `smem` bytes of shared memory and reads its blocks per
+// SM on the current device; both are asked of the driver only when `smem`
+// changes.
 template <typename Kernel>
-int k8_occupancy(Kernel kernel, K8Occupancy& seen, int threads, size_t smem, int* occ,
-                 DeviceLimits* lim) {
+int kernel_occupancy(Kernel kernel, Occupancy& seen, int threads, size_t smem, int* occ,
+                     DeviceLimits* lim) {
   int dev = 0;
   int err = device_limits(&dev, lim);
   if (err) return err;
@@ -893,11 +892,11 @@ int k8_occupancy(Kernel kernel, K8Occupancy& seen, int threads, size_t smem, int
 // walkers per slice, as many as one wave of the SMs holds at the kernel's
 // occupancy (at least one).
 template <typename Kernel>
-int k8_grid(Kernel kernel, K8Occupancy& seen, size_t smem, int M, int N, int tn, int bm,
+int k8_grid(Kernel kernel, Occupancy& seen, size_t smem, int M, int N, int tn, int bm,
             dim3* grid) {
   int occ = 0;
   DeviceLimits lim;
-  const int err = k8_occupancy(kernel, seen, K8_THREADS, smem, &occ, &lim);
+  const int err = kernel_occupancy(kernel, seen, K8_THREADS, smem, &occ, &lim);
   if (err) return err;
   const int slices = (N + tn - 1) / tn, m_tiles = (M + bm - 1) / bm;
   int walkers = lim.sms * occ / slices;
@@ -906,40 +905,80 @@ int k8_grid(Kernel kernel, K8Occupancy& seen, size_t smem, int M, int N, int tn,
   return 0;
 }
 
-namespace k8 {
+namespace tc {
 
-template <bool PRO>
-K8Occupancy& seen() {
-  static K8Occupancy s;
-  return s;
-}
-
-template <bool PRO>
+template <class T, bool PRO>
 int occupancy(int* occ) {
+  static Occupancy seen;
   DeviceLimits lim;
-  return k8_occupancy(q4_matmul_2d_tc_kernel<PRO>, seen<PRO>(), NT, SMEM, occ, &lim);
+  return kernel_occupancy(q4_matmul_tc_kernel<T, PRO>, seen, T::NT, smem_bytes<T, PRO>(), occ,
+                          &lim);
 }
 
 // One block per output tile, N tiles fastest.
-template <bool PRO>
+template <class T, bool PRO>
 int launch(const Args& a, cudaStream_t st) {
   int occ = 0;
-  const int err = occupancy<PRO>(&occ);
+  const int err = occupancy<T, PRO>(&occ);
   if (err) return err;
-  const int m_tiles = (a.M + TBM - 1) / TBM;
+  const int m_tiles = (a.M + T::TBM - 1) / T::TBM;
   if (m_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((a.N + TBN - 1) / TBN, m_tiles);
-  q4_matmul_2d_tc_kernel<PRO><<<grid, NT, SMEM, st>>>(a);
+  const dim3 grid((a.N + T::TBN - 1) / T::TBN, m_tiles);
+  q4_matmul_tc_kernel<T, PRO><<<grid, T::NT, smem_bytes<T, PRO>(), st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace k8
+// f(Tile<...>{}) for the instance of output tile bm x bn; a tile that
+// TC_TILES does not name is refused.
+template <class F>
+int with_tile(int bm, int bn, F&& f) {
+#define TC_CASE(TBM, TBN, WM, WN, STAGES, MINB) \
+  if (bm == TBM && bn == TBN) return f(Tile<TBM, TBN, WM, WN, STAGES, MINB>{});
+  TC_TILES(TC_CASE)
+#undef TC_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The bm x bn instance, with the prologue's g tile when a.g is given.
+int launch_tile(int bm, int bn, const Args& a, cudaStream_t st) {
+  return with_tile(bm, bn, [&](auto t) {
+    using T = decltype(t);
+    return a.g != nullptr ? launch<T, true>(a, st) : launch<T, false>(a, st);
+  });
+}
+
+// The instance's tile into tile[7]: BM, BN, BK, the ring's stages, the warp
+// tile WM x WN and the blocks per SM on the current device.
+int tile_info(int bm, int bn, int prologue, int* tile) {
+  return with_tile(bm, bn, [&](auto t) {
+    using T = decltype(t);
+    int occ = 0;
+    const int err = prologue ? occupancy<T, true>(&occ) : occupancy<T, false>(&occ);
+    if (err) return err;
+    const int v[7] = {T::TBM, T::TBN, TBK, T::STAGES, T::WM, T::WN, occ};
+    for (int i = 0; i < 7; ++i) tile[i] = v[i];
+    return 0;
+  });
+}
+
+// The kernel's arguments; 16-byte copies of the weight rows need N % 16 == 0
+// and aligned bases.
+Args args(const void* x, const void* g, const void* qs, const float* scales, const float* mins,
+          const float* bias, void* out, int out_f32, int M, int K, int N, int qtype, int act) {
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(qs) | reinterpret_cast<uintptr_t>(scales) |
+                          reinterpret_cast<uintptr_t>(mins);
+  return Args{static_cast<const bf16*>(x), static_cast<const bf16*>(g),
+              static_cast<const uint8_t*>(qs), scales, mins, bias, out, M, K, N, qtype, act,
+              out_f32, N % 16 == 0 && bases % 16 == 0};
+}
+
+}  // namespace tc
 
 template <int TN>
 int k8_f32_launch(const void* x, const void* g, const uint8_t* qs, const float* scales,
                   const float* mins, const float* bias, void* out, int M, int K, int N,
                   int qtype, int act, cudaStream_t st) {
-  static K8Occupancy seen;
+  static Occupancy seen;
   const size_t smem = k8_smem_bytes(TN, K);
   dim3 grid;
   const int err =
@@ -953,39 +992,36 @@ int k8_f32_launch(const void* x, const void* g, const uint8_t* qs, const float* 
 
 }  // namespace
 
-// x [M, K] (bf16 when x_bf16, else f32), optional prologue multiplicand g
-// [M, K] of x's type, packed weight [K, N], optional mins/bias (each null
-// when absent).  out [M, N]: f32 when out_f32 or x is f32,
-// else bf16.  Requires K % 32 == 0 and 16-byte aligned x and g.  Returns
-// cudaGetLastError() after the launch.
+// K1.  x [M, K] (bf16 when x_bf16, else f32), optional prologue multiplicand
+// g [M, K] of x's type, packed weight [K, N], optional mins/bias (each null
+// when absent).  out [M, N]: f32 when out_f32 or x is f32, else bf16.
+// bf16 x runs the tile kernel's bm x bn instance (a tile TC_TILES does not
+// name is refused); f32 x the SIMT kernel (bm, bn unread).  Requires
+// K % 32 == 0 and 16-byte aligned x and g.  Returns cudaGetLastError()
+// after the launch.
 extern "C" int q4_matmul_launch(const void* x, const void* g, int x_bf16, const void* qs,
                                 const float* scales, const float* mins,
                                 const float* bias, void* out, int out_f32, int M,
-                                int K, int N, int qtype, int act, void* stream) {
+                                int K, int N, int qtype, int act, int bm, int bn,
+                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const uint8_t* q = static_cast<const uint8_t*>(qs);
-  if (x_bf16) {
-    dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-    q4_matmul_bf16_kernel<<<grid, 128, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(g), q,
-        scales, mins, bias, out, M, K, N,
-        qtype, act, out_f32);
-  } else {
-    dim3 grid((N + FBN - 1) / FBN, (M + FBM - 1) / FBM);
-    q4_matmul_f32_kernel<<<grid, 256, 0, st>>>(static_cast<const float*>(x),
-                                                static_cast<const float*>(g), q,
-                                                scales, mins, bias,
-                                                static_cast<float*>(out), M, K, N,
-                                                qtype, act);
-  }
+  if (x_bf16)
+    return tc::launch_tile(
+        bm, bn, tc::args(x, g, qs, scales, mins, bias, out, out_f32, M, K, N, qtype, act), st);
+  dim3 grid((N + FBN - 1) / FBN, (M + FBM - 1) / FBM);
+  q4_matmul_f32_kernel<<<grid, 256, 0, st>>>(static_cast<const float*>(x),
+                                              static_cast<const float*>(g),
+                                              static_cast<const uint8_t*>(qs), scales, mins,
+                                              bias, static_cast<float*>(out), M, K, N,
+                                              qtype, act);
   return static_cast<int>(cudaGetLastError());
 }
 
 // K1 with the residual + LayerNorm epilogue: the arguments of
-// q4_matmul_launch, plus residual [M, N] of x's type and ln_sb f32 [2, N]
-// (scale row, then bias row), each null when absent, and the LayerNorm's
-// eps.  N is capped by the row buffer's shared memory (a refusal is
-// returned).  Returns cudaGetLastError() after the launch.
+// q4_matmul_launch (no tile), plus residual [M, N] of x's type and ln_sb
+// f32 [2, N] (scale row, then bias row), each null when absent, and the
+// LayerNorm's eps.  N is capped by the row buffer's shared memory (a
+// refusal is returned).  Returns cudaGetLastError() after the launch.
 extern "C" int q4_matmul_ln_launch(const void* x, const void* g, int x_bf16, const void* qs,
                                    const float* scales, const float* mins, const float* bias,
                                    const void* residual, const float* ln_sb, float eps,
@@ -1025,37 +1061,29 @@ extern "C" int q4_matmul_2d_slice_n(int K) {
   return 8;
 }
 
-// K8's bf16 tile into tile[5]: BM, BN, BK, the ring's stages and the blocks
-// per SM on the current device, for the kernel with (prologue != 0) or
-// without the prologue's g ring.  Returns a CUDA error code.
-extern "C" int q4_matmul_2d_tile(int prologue, int* tile) {
-  int occ = 0;
-  const int err = prologue ? k8::occupancy<true>(&occ) : k8::occupancy<false>(&occ);
-  if (err) return err;
-  const int v[5] = {k8::TBM, k8::TBN, k8::TBK, k8::STAGES, occ};
-  for (int i = 0; i < 5; ++i) tile[i] = v[i];
-  return 0;
+// The bf16 tile kernel's bm x bn instance into tile[7]: BM, BN, BK, the
+// ring's stages, the warp tile WM x WN and the blocks per SM on the current
+// device, for the kernel with (prologue != 0) or without the prologue's g
+// tile.  Returns a CUDA error code (cudaErrorInvalidValue for a tile that
+// TC_TILES does not name).
+extern "C" int q4_matmul_tile(int bm, int bn, int prologue, int* tile) {
+  return tc::tile_info(bm, bn, prologue, tile);
 }
 
-// K8: the arguments of q4_matmul_launch.  bf16 x takes the streamed tile
-// kernel at any K; f32 x the column slice of q4_matmul_2d_slice_n, refused
-// past the opt-in shared memory (the error is returned).  Returns
-// cudaGetLastError() after the launch.
+// K8: the arguments of q4_matmul_launch (no tile).  bf16 x takes the tile
+// kernel's K8_TBM x K8_TBN instance at any K; f32 x the column slice of
+// q4_matmul_2d_slice_n, refused past the opt-in shared memory (the error is
+// returned).  Returns cudaGetLastError() after the launch.
 extern "C" int q4_matmul_2d_launch(const void* x, const void* g, int x_bf16, const void* qs,
                                    const float* scales, const float* mins,
                                    const float* bias, void* out, int out_f32, int M, int K,
                                    int N, int qtype, int act, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (x_bf16)
+    return tc::launch_tile(
+        K8_TBM, K8_TBN,
+        tc::args(x, g, qs, scales, mins, bias, out, out_f32, M, K, N, qtype, act), st);
   const uint8_t* q = static_cast<const uint8_t*>(qs);
-  if (x_bf16) {
-    // 16-byte copies of the weight rows need N % 16 == 0 and aligned bases
-    const uintptr_t bases = reinterpret_cast<uintptr_t>(qs) | reinterpret_cast<uintptr_t>(scales) |
-                            reinterpret_cast<uintptr_t>(mins);
-    const k8::Args a{static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(g),
-                     q, scales, mins, bias, out, M, K, N, qtype, act, out_f32,
-                     N % 16 == 0 && bases % 16 == 0};
-    return g != nullptr ? k8::launch<true>(a, st) : k8::launch<false>(a, st);
-  }
   switch (q4_matmul_2d_slice_n(K)) {
     case 32: return k8_f32_launch<32>(x, g, q, scales, mins, bias, out, M, K, N, qtype, act, st);
     case 16: return k8_f32_launch<16>(x, g, q, scales, mins, bias, out, M, K, N, qtype, act, st);

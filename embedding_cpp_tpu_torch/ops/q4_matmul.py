@@ -10,12 +10,16 @@ kernels of embedding_cpp_tpu/ops/q4_matmul.py:
   adds the residual in f32 and applies the LayerNorm over whole rows before
   the cast (the TPU kernel's `residual` / `ln_sb` epilogue).
 - K8 (`_q4_matmul_2d`, the TPU's N-tiled kernel): the same y without the
-  residual/LayerNorm tail.  bf16 x: 256 x 128 output tiles streamed over K
-  in 64-deep steps through a ring of asynchronous copies, each step's
-  packed weight tile dequantized once in shared memory for the tile's 256
-  rows (`tile`).  f32 x: each block holds one column slice of the
-  dequantized weight in shared memory for all the M tiles it walks
-  (`slice_width`).
+  residual/LayerNorm tail.
+
+bf16 x, in both: one tile kernel, output tiles streamed over K in 64-deep
+steps through a ring of asynchronous copies, each step's packed weight tile
+dequantized once in shared memory for the tile's rows.  K8 runs its 256 x
+128 instance; K1 the instance `k1_tile` chooses for its shape from
+`TC_TILES` (`tile` reads an instance's layout on the card).  f32 x: K1
+stages one quant block of the weight at a time; K8 holds one column slice
+of the dequantized weight in shared memory for all the M tiles it walks
+(`slice_width`).
 
 The optional prologue multiplicand g ([M, K], the gated FFN's gate) scales
 the loaded x tile before the product, rounded to x's dtype as the TPU
@@ -43,6 +47,7 @@ residual/LayerNorm epilogue), `q4_matmul.n_tiled_launches` (K8).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -56,6 +61,14 @@ _QTYPE_CODE = {GGMLType.Q4_0: 0, GGMLType.Q4_1: 1, GGMLType.Q8_0: 2}
 # the TPU 1-D kernel's working-set budget and M tiles (q4_matmul.py:432-441)
 VMEM_BUDGET = 12 * 1024 * 1024
 _TM_1D = (2048, 1024, 512, 256, 128, 64, 32, 16, 8)
+
+# The bf16 tile kernel's instances, as `TC_TILES` in csrc/q4_matmul.cu names
+# them: (bm, bn) -> the blocks per SM each is built for.  K8 runs K8_TILE.
+TC_TILES = {(256, 128): 1, (128, 64): 2}
+K8_TILE = (256, 128)
+# Outputs per SM per unit time of each instance over whole waves, relative
+# to 256 x 128, from the card's times at K1's shapes (PERF.md).
+_TILE_RATE = {(256, 128): 1.0, (128, 64): 0.72}
 
 
 class Route(NamedTuple):
@@ -103,6 +116,21 @@ def route(m: int, k: int, n: int, qtype: GGMLType, dtype: torch.dtype, *,
     if n % tn:
         return Route("xla")
     return Route("2d", _pick_tile(m, (256, 128, 64, 32, 16, 8)), tn)
+
+
+def k1_tile(m: int, k: int, n: int, sms: int) -> tuple[int, int]:
+    """K1's bf16 instance (bm, bn) for x [m, k] times a [k, n] weight on a
+    card of `sms` SMs: the one whose grid finishes first, counting whole
+    waves of `sms` * blocks-per-SM tiles, each wave the time one SM takes
+    for its tiles at the instance's rate.  K does not enter: the card
+    ranked the instances alike at every K of the models."""
+    def cost(t: tuple[int, int]) -> float:
+        bm, bn = t
+        tiles = -(-m // bm) * -(-n // bn)
+        waves = -(-tiles // (sms * TC_TILES[t]))
+        return waves * bm * bn * TC_TILES[t] / _TILE_RATE[t]
+
+    return min(TC_TILES, key=cost)
 
 
 def dequant_weight(w: QTensor, dtype) -> torch.Tensor:
@@ -255,9 +283,17 @@ def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _q4_matmul_1d(x: torch.Tensor, w: QTensor, bias=None, residual=None, ln=None,
-                  prologue_mul=None, *, activation=None, out_f32: bool = False) -> torch.Tensor:
-    """K1: the whole product in 64 x 64 tiles; with `residual` / `ln`
+                  prologue_mul=None, *, activation=None, out_f32: bool = False,
+                  tile: tuple[int, int] | None = None) -> torch.Tensor:
+    """K1: bf16 x runs the tile kernel at `k1_tile`'s instance for this
+    shape (`tile` forces another of `TC_TILES`; the launch refuses one the
+    source does not name), f32 x the SIMT kernel; with `residual` / `ln`
     ((scale [N], bias [N], eps)) the kernel that owns whole rows and applies
     that tail before its one cast."""
     if x.device.type == "cpu":
@@ -272,9 +308,13 @@ def _q4_matmul_1d(x: torch.Tensor, w: QTensor, bias=None, residual=None, ln=None
     common = (_ptr(x), _ptr(g), int(x.dtype == torch.bfloat16), _ptr(qs), _ptr(scales),
               _ptr(mins), _ptr(bias))
     if residual is None and ln is None:
-        err = _fn("q4_matmul_launch", [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])(
+        if x.dtype == torch.bfloat16 and tile is None:
+            tile = k1_tile(m, k, n, _sms(x.device.index or 0))
+        bm, bn = tile or (0, 0)
+        err = _fn("q4_matmul_launch", [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                       _I, _I, _P])(
             *common, _ptr(out), f32_out, m, k, n, _QTYPE_CODE[w.qtype],
-            ACTIVATIONS.index(activation), stream)
+            ACTIVATIONS.index(activation), bm, bn, stream)
         check(err, "q4_matmul_launch")
     else:
         res = None if residual is None else _operand(residual, x, "residual")
@@ -324,14 +364,15 @@ def slice_width(k: int) -> int:
     return _fn("q4_matmul_2d_slice_n", [_I])(k)
 
 
-def tile(prologue: bool = False) -> dict:
-    """K8's bf16 tile on the current card: the output tile (bm x bn), the
-    K step bk, the ring's stages and the blocks per SM, for the kernel
-    with or without the prologue's g ring (builds the kernels' library)."""
-    out = (ctypes.c_int * 5)()
-    check(_fn("q4_matmul_2d_tile", [_I, ctypes.POINTER(ctypes.c_int)])(int(prologue), out),
-          "q4_matmul_2d_tile")
-    return dict(zip(("bm", "bn", "bk", "stages", "blocks_per_sm"), out))
+def tile(prologue: bool = False, bm: int = K8_TILE[0], bn: int = K8_TILE[1]) -> dict:
+    """The bf16 tile kernel's bm x bn instance (K8's by default) on the
+    current card: the output tile, the K step bk, the ring's stages, the
+    warp tile wm x wn and the blocks per SM, for the kernel with or without
+    the prologue's g tile (builds the kernels' library)."""
+    out = (ctypes.c_int * 7)()
+    check(_fn("q4_matmul_tile", [_I, _I, _I, ctypes.POINTER(ctypes.c_int)])(
+        bm, bn, int(prologue), out), "q4_matmul_tile")
+    return dict(zip(("bm", "bn", "bk", "stages", "wm", "wn", "blocks_per_sm"), out))
 
 
 def q4_matmul(x: torch.Tensor, w: QTensor, bias: torch.Tensor | None = None,

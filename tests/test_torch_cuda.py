@@ -4,8 +4,9 @@ Marked `cuda`: without a GPU every test here skips.  On a machine with an
 H100 and nvcc:  python -m pytest tests/test_torch_cuda.py -q
 Edge shapes live here (ragged M, sequence lengths that are not multiples of
 the 16- and 64-row tiles, S = 1025, fully padded rows, head dims 32 and
-64, f32 and bf16) for K1 (with and without its prologue multiply, and its
-residual + LayerNorm epilogue up to and past the cap on N), the N-tiled
+64, f32 and bf16) for K1 (with and without its prologue multiply, each bf16
+tile instance forced at a model shape and at ragged M / N with out_f32,
+and its residual + LayerNorm epilogue up to and past the cap on N), the N-tiled
 K8 (ragged M, K = 32, K % 64 == 32, N below and not a multiple of the
 128-column tile or of 16, every activation and qtype, the prologue,
 out_f32, the corpus's packed M = 65536, bf16 at K = 8192, every f32 slice
@@ -56,6 +57,7 @@ from embedding_cpp_tpu_torch.ops.deberta_attention import (
     disentangled_attention_plain,
 )
 from embedding_cpp_tpu_torch.ops.q4_matmul import (
+    TC_TILES,
     _q4_matmul_1d,
     _q4_matmul_2d,
     q4_matmul,
@@ -118,6 +120,51 @@ def test_q4_matmul_out_f32(dev):
     assert got.dtype == torch.float32
     ref = q4_matmul_plain(x, w, out_f32=True)
     assert (got - ref).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("bm,bn", sorted(TC_TILES))
+@pytest.mark.parametrize("qtype", ["Q4_0", "Q4_1", "Q8_0"])
+@pytest.mark.parametrize("m,k,n,act,gated,out_f32", [
+    (16384, 384, 384, None, False, False),      # MiniLM's q/k/v/o
+    (512, 768, 768, "gelu_erf", False, False),  # DeBERTa's relative-table projection
+    (300, 1120, 200, "gelu_tanh", True, False),  # ragged M, K % 64 == 32, N % 16 != 0
+    (77, 64, 100, "silu", True, True),          # N below every tile, out_f32
+    (1, 32, 1152, None, False, False),          # one row, K = 32
+])
+def test_k1_tile_instances_match_plain(dev, bm, bn, qtype, m, k, n, act, gated, out_f32):
+    """K1's bf16 body forced through each tile instance of the source at a
+    model shape and at ragged M / N, with the prologue and out_f32."""
+    w = _weight(qtype, k, n, dev, seed=11)
+    gen = torch.Generator(device="cpu").manual_seed(m + k + n)
+    x = torch.randn(m, k, generator=gen).to(dev, torch.bfloat16)
+    g = torch.randn(m, k, generator=gen).to(dev, torch.bfloat16) if gated else None
+    bias = torch.randn(n, generator=gen).to(dev) * 0.1
+    before = (q4_matmul.launches, q4_matmul.prologue_launches, q4_matmul.n_tiled_launches)
+    got = _q4_matmul_1d(x, w, bias, prologue_mul=g, activation=act, out_f32=out_f32,
+                        tile=(bm, bn))
+    assert (q4_matmul.launches, q4_matmul.prologue_launches, q4_matmul.n_tiled_launches) == (
+        before[0] + 1, before[1] + gated, before[2])
+    assert got.dtype == (torch.float32 if out_f32 else torch.bfloat16) and got.shape == (m, n)
+    ref = q4_matmul_plain(x, w, bias, act, out_f32=out_f32, prologue_mul=g)
+    _close(got, ref, torch.bfloat16)
+
+
+def test_k1_tile_layouts_and_an_unnamed_tile(dev):
+    """Each instance runs at the blocks per SM it is built for, with and
+    without the prologue; a tile the source does not name is refused at
+    launch and the wrapper raises."""
+    for (bm, bn), blocks in TC_TILES.items():
+        for prologue in (False, True):
+            t = tile(prologue, bm, bn)
+            assert (t["bm"], t["bn"], t["bk"], t["stages"]) == (bm, bn, 64, 3)
+            assert t["blocks_per_sm"] == blocks, (bm, bn, prologue, t)
+    w = _weight("Q4_0", 128, 128, dev)
+    x = torch.zeros(64, 128, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="q4_matmul_launch"):
+        _q4_matmul_1d(x, w, tile=(32, 32))
+    with pytest.raises(RuntimeError, match="q4_matmul_tile"):
+        tile(False, 32, 32)
+    _close(_q4_matmul_1d(x, w), q4_matmul_plain(x, w), torch.bfloat16)
 
 
 def _qkv(b, s, h, d, dtype, dev, seed=0):
