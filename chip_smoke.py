@@ -12,7 +12,11 @@ Phases, in order, each printing JSON lines:
             library call that computes the same function: K1 q4_matmul at
             MiniLM-L6's and ModernBERT's linears (with the GeGLU prologue),
             the projection-layout attention K2/K3 at both models' heads
-            (12 of 32, 12 of 64) and K4 (position bias), the long-row K5 and
+            (12 of 32, 12 of 64; K2's bound over the pairs that share a
+            segment id, and the share of key tiles and 8-key runs its skip
+            rule leaves out, read from seg on the host) and K4 (position
+            bias), with edge inputs (shuffled ids, rows all padding, a bias
+            row of -1e9, S = 1024 at d = 128), the long-row K5 and
             the sliding-window K7 (ModernBERT), K1 at DeBERTa-v3-base's linears
             and the disentangled attention K9 (key bias) / K10 (segments)
             at [32, 512, 12x64], K1 at nomic-embed-text-v1.5's linears
@@ -110,6 +114,7 @@ from pathlib import Path
 
 import numpy as np
 
+from embedding_cpp_tpu_torch.benchmarks.profiles import segment_pairs, serving_segments
 from embedding_cpp_tpu_torch.utils.profiling import (
     F32_PEAKS,
     bound_ms,
@@ -166,25 +171,7 @@ def read_counts(counters) -> dict:
     return {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
 
 
-# --- serving-shaped inputs (copies of the benchmark helpers) -----------------
-
-def serving_segments(rng, b: int, s: int, mean_len: float = 12.6):
-    """Packed rows with the headline corpus's sentence-length profile
-    (~12.6 tokens/sentence), seg = -1 on the padded tail."""
-    seg = np.full((b, s), -1, np.int32)
-    pos = np.zeros((b, s), np.int32)
-    for i in range(b):
-        c, g = 0, 0
-        while True:
-            n = int(np.clip(rng.geometric(1.0 / mean_len), 3, 64))
-            if c + n > s:
-                break
-            seg[i, c:c + n] = g
-            pos[i, c:c + n] = np.arange(n)
-            c += n
-            g += 1
-    return seg, pos
-
+# --- serving-shaped inputs (packed rows: benchmarks/profiles.py) -------------
 
 def synthetic_sentences(n: int, seed: int = 0) -> list[str]:
     """The STSB-profile corpus (11 +- 4 words per sentence)."""
@@ -689,13 +676,22 @@ def _bse_heads(t, h: int):
 def phase_kernels_attention(peaks, model: str, h: int, d: int, seed: int) -> dict:
     """K2/K3 (no position bias) at one model's heads: packed [32, 512]
     segments; key bias at [32, 512], [512, 16] and [256, 32].  MiniLM-L6
-    runs them at 12 heads of 32, ModernBERT's global layers at 12 of 64."""
+    runs them at 12 heads of 32, ModernBERT's global layers at 12 of 64.
+    K2's bound counts the (query, key) pairs that share a segment id
+    (`segment_pairs`), the work no skip can remove; the every-pair figure
+    stays beside it on the kernel_check line (`bound_ms_all_pairs`).  The
+    `bse_skips` line gives the share of key tiles and of 8-key runs that
+    the kernel's skip rule leaves out at the packed shape, read on the host
+    from `seg` by `bse_skips` (the kernel counts nothing).  Untimed edge
+    cases: shuffled segment ids, a row all padding, a row every key of
+    which is padded."""
     import torch
     import torch.nn.functional as F
 
     from embedding_cpp_tpu_torch.ops.attention import (
         MASK_BIAS,
         attention_bse_plain,
+        bse_skips,
         flash_attention_bse,
         flash_attention_packed_bse,
     )
@@ -705,21 +701,34 @@ def phase_kernels_attention(peaks, model: str, h: int, d: int, seed: int) -> dic
     rng = np.random.default_rng(seed)
     results = {}
 
-    def run(kernel, b, s, mask, dtype, seg_mask, timed):
+    def run(kernel, b, s, mask, dtype, seg_mask, timed, flops=None):
         q, k, v = (torch.randn(b, s, h * d, generator=gen).to(dev, dtype) for _ in range(3))
         fn = flash_attention_packed_bse if seg_mask else flash_attention_bse
         heads = [_bse_heads(t, h) for t in (q, k, v)]
         lmask = ((mask[:, :, None] == mask[:, None, :])[:, None] if seg_mask
                  else mask.to(dtype)[:, None, None, :])
+        nbytes = 4 * q.numel() * q.element_size() + mask.numel() * 4
+        all_pairs = 4.0 * b * h * s * s * d
+        extra = ({} if flops is None or not timed
+                 else {"bound_ms_all_pairs": bound_ms(nbytes, all_pairs, peaks)[0]})
         return _attention_case(
             kernel, lambda *a: fn(*a, h), lambda *a: attention_bse_plain(*a, h, seg_mask),
             lambda: F.scaled_dot_product_attention(*heads, attn_mask=lmask), (q, k, v, mask),
-            4 * q.numel() * q.element_size() + mask.numel() * 4, 4.0 * b * h * s * s * d,
-            peaks, timed, model=model, b=b, s=s, h=h, d=d)
+            nbytes, all_pairs if flops is None else flops, peaks, timed, model=model, b=b, s=s,
+            h=h, d=d, **extra)
 
-    seg = torch.from_numpy(serving_segments(rng, 32, 512)[0]).to(dev)
+    seg_np = serving_segments(rng, 32, 512)[0]
+    seg = torch.from_numpy(seg_np).to(dev)
+    pairs = segment_pairs(seg_np)
+    kept, scored = bse_skips(torch.from_numpy(seg_np))
+    emit({"phase": "bse_skips", "model": model, "shape": [32, 512],
+          "computed_on": "host, from seg by ops.attention.bse_skips (the kernel's rule)",
+          "tiles_skipped_share": 1.0 - kept.float().mean().item(),
+          "runs_skipped_share": 1.0 - scored.float().mean().item(),
+          "pair_share": pairs / (32 * 512 * 512)})
     for dtype in (torch.bfloat16, torch.float32):
-        c = run("attn_bse_packed", 32, 512, seg, dtype, True, dtype == torch.bfloat16)
+        c = run("attn_bse_packed", 32, 512, seg, dtype, True, dtype == torch.bfloat16,
+                flops=4.0 * h * d * pairs)
         if dtype == torch.bfloat16:
             results["attn_bse_packed"] = c
     for b, s in ((32, 512), (512, 16), (256, 32)):
@@ -731,13 +740,26 @@ def phase_kernels_attention(peaks, model: str, h: int, d: int, seed: int) -> dic
             c = run("attn_bse_keybias", b, s, mask, dtype, False, timed)
             if timed:
                 results["attn_bse_keybias"] = c
+    # edge inputs: non-contiguous ids with padding among them and a row all
+    # padding; a row every key of which is padded
+    shuffled = torch.from_numpy(rng.integers(-1, 6, size=(4, 512)).astype(np.int32))
+    shuffled[-1] = -1
+    keyb = torch.zeros(4, 512)
+    keyb[1, 300:] = MASK_BIAS
+    keyb[3, :] = MASK_BIAS
+    for dtype in (torch.bfloat16, torch.float32):
+        run("attn_bse_packed", 4, 512, shuffled.to(dev), dtype, True, False)
+        run("attn_bse_keybias", 4, 512, keyb.to(dev), dtype, False, False)
     return results
 
 
 def phase_kernels_bias(peaks) -> dict:
     """K4 at ModernBERT's packed/plain shape [32, 512, 12x64]: the [1, S, S]
     window bias of the local layers, and a per-head [12, S, S] bias (MPNet's
-    and T5's form), each plain (key bias) and packed (segments)."""
+    and T5's form), each plain (key bias) and packed (segments).  Untimed
+    edge cases at [4, 512, 12x64] and [2, 1024, 2x128]: a bias row of -1e9
+    at every pair (where no skip is exact), shuffled segment ids with a row
+    all padding, a row every key of which is padded."""
     import torch
     import torch.nn.functional as F
 
@@ -783,6 +805,29 @@ def phase_kernels_bias(peaks) -> dict:
                 if timed and ph == 1:  # ModernBERT's form: the kernels line
                     results[kernel] = c
             del plain_mask, packed_mask
+    for eb, es, eh, ed in ((4, 512, 12, 64), (2, 1024, 2, 128)):
+        eseg = torch.from_numpy(rng.integers(-1, 6, size=(eb, es)).astype(np.int32))
+        eseg[-1] = -1
+        ekeyb = torch.zeros(eb, es)
+        ekeyb[0, es // 3:] = MASK_BIAS
+        ekeyb[-1] = MASK_BIAS
+        eseg, ekeyb = eseg.to(dev), ekeyb.to(dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (torch.randn(eb, es, eh * ed, generator=gen).to(dev, dtype)
+                       for _ in range(3))
+            for ph in (1, eh):
+                pb = torch.randn(ph, es, es, generator=gen)
+                pb[:, es // 2, :] = MASK_BIAS
+                pb = pb.to(dev)
+                for kernel, fn, mask, seg_mask in (
+                        ("attn_bse_bias", flash_attention_bias_bse, ekeyb, False),
+                        ("attn_bse_bias_packed", flash_attention_bias_packed_bse, eseg, True)):
+                    _attention_case(
+                        kernel, lambda *a: fn(*a, eh),
+                        lambda *a: attention_bse_plain(a[0], a[1], a[2], a[3], eh, seg_mask,
+                                                       a[4]),
+                        None, (q, k, v, mask, pb), 0.0, 0.0, peaks, False,
+                        b=eb, s=es, h=eh, d=ed, bias_heads=ph, edge="bias row of -1e9")
     return results
 
 
@@ -1022,26 +1067,6 @@ def packed_rows(rng, b: int, s: int, lo: int, hi: int, tile: int = 0):
     return seg, pos
 
 
-def _segment_pairs(seg: np.ndarray, tq: int, wmax: int | None) -> float:
-    """The (query, key) pairs of seg [B, S] that share a segment id, the
-    padding id -1 included (padding queries attend padding keys), counting
-    for each query tile of `tq` rows only the keys of its wmax-key slice
-    (every key when wmax is None): the scores K6 must compute on this data."""
-    from embedding_cpp_tpu_torch.ops.attention import _slice_keys
-
-    b, s = seg.shape
-    kidx = (np.arange(s)[None] if wmax is None
-            else _slice_keys(s, tq, wmax, "cpu").numpy())
-    tq = s if wmax is None else tq
-    n = int(seg.max()) + 2  # ids -1..max shifted to 0..max+1
-    pairs = 0
-    for row in seg.astype(np.int64) + 1:
-        for t, keys in enumerate(kidx):
-            pairs += int(np.dot(np.bincount(row[t * tq:(t + 1) * tq], minlength=n),
-                                np.bincount(row[keys], minlength=n)))
-    return float(pairs)
-
-
 def phase_kernels_segment(peaks) -> dict:
     """K6 at nomic's packed main-path shape [8, 2048, 12x64] in bf16
     (timed) and f32: the windowed form over chunk-sized segments (128-512
@@ -1053,7 +1078,7 @@ def phase_kernels_segment(peaks) -> dict:
     The library call is SDPA with the boolean block-diagonal [B, 1, S, S]
     mask.  Bound: 4*H*d operations for each (query, key) pair that shares a
     segment id within the query tile's key slice, padding pairs included
-    (`_segment_pairs`); beside it, that of every pair of the slice,
+    (`segment_pairs`); beside it, that of every pair of the slice,
     4*B*H*S*wmax*d (wmax = S for the full form), which is the work the
     kernel does."""
     import torch
@@ -1091,7 +1116,7 @@ def phase_kernels_segment(peaks) -> dict:
             return F.scaled_dot_product_attention(*heads, attn_mask=allowed)
         width = wmax or s
         nbytes = 4 * q.numel() * q.element_size() + seg.numel() * 4
-        pairs = _segment_pairs(seg_np, tq, wmax)
+        pairs = segment_pairs(seg_np, tq, wmax)
         c = _attention_case(
             kernel, lambda *a: flash_attention_packed(*a, bound), plain, lib, (q, k, v, seg),
             nbytes, 4.0 * h * pairs * d, peaks, timed, b=b, s=s, h=h, d=d,

@@ -26,6 +26,9 @@ every distinct K1 shape of those layers over several M, beside the one
 `k1_tile` picks: the times its rule is decided from.  `--only` runs the
 named sections alone (e.g. `--only k8_ffn k1_layers`).
 
+`bench_bse` runs the projection-layout kernel (K2, K3, K4 plain and
+packed with PH = 1 and H) at every model's heads at [32, 512] and K3 at
+MiniLM-L6's short plain buckets, the shapes its A/B is held to.
 `bench_attention_headpack` runs B1, the head-packed attention of the JAX
 suite's bench of that name (`ops/attention.attention_headpack`, kernel
 `csrc/attention_headpack.cu`).  No model path runs B1: it measures
@@ -63,6 +66,7 @@ from ..ops.deberta_attention import (
 from ..ops.deberta_attention import work as deberta_work
 from ..ops.q4_matmul import _q4_matmul_1d, _q4_matmul_2d, dequant_weight, q4_matmul, route
 from ..utils.profiling import bound_ms, gpu_ms, peaks_for
+from .profiles import segment_pairs, serving_segments
 
 # --- the A/B suite -------------------------------------------------------------
 
@@ -357,16 +361,84 @@ def bench_attention_headpack(peaks, b: int = 32, s: int = 512, h: int = 12, d: i
 def bench_packed_attention(peaks, b: int = 64, s: int = 512, h: int = 12, d: int = 32,
                            seg_len: int = 16) -> dict:
     """K2, segment-masked packed rows (segments of seg_len tokens), against
-    SDPA with the boolean block-diagonal [B, 1, S, S] mask."""
+    SDPA with the boolean block-diagonal [B, 1, S, S] mask.  tflops and the
+    bound count the (query, key) pairs that share a segment id, the work no
+    skip removes; `bound_us_all_pairs` is that of every pair."""
     q, k, v = _qkv((b, s, h * d))
     seg = torch.arange(s, device="cuda").div(seg_len, rounding_mode="floor") \
         .to(torch.int32).expand(b, s).contiguous()
     heads = [t.view(b, s, h, d).transpose(1, 2).contiguous() for t in (q, k, v)]
     allowed = (seg[:, :, None] == seg[:, None, :])[:, None]
-    nbytes, flops = 4 * q.numel() * 2 + seg.numel() * 4, 4.0 * b * h * s * s * d
+    nbytes = 4 * q.numel() * 2 + seg.numel() * 4
+    flops = 4.0 * h * d * segment_pairs(seg.cpu().numpy())
     return {"kernel": _timed(lambda: flash_attention_packed_bse(q, k, v, seg, h), nbytes, flops,
                              peaks),
-            "library": _timed(_sdpa(*heads, allowed), nbytes, flops, peaks)}
+            "library": _timed(_sdpa(*heads, allowed), nbytes, flops, peaks),
+            "bound_us_all_pairs": bound_ms(nbytes, 4.0 * b * h * s * s * d, peaks)[0] * 1e3}
+
+
+BSE_HEADS = ((12, 32), (12, 64), (16, 64))  # MiniLM-L6; ModernBERT, nomic; bge-large
+BSE_SHORT = ((2048, 16), (512, 32))  # MiniLM-L6's plain buckets of the corpus
+
+
+def bench_bse(peaks, b: int = 32, s: int = 512) -> dict:
+    """The projection-layout kernel at every model's heads at [32, 512],
+    bf16, each beside SDPA with its mask materialized: K2 over packed rows
+    of the serving profile (tflops and the bound over the pairs that share
+    a segment id), K3 with a padded tail, K4 plain and packed with a [1, S,
+    S] window-128 bias (ModernBERT's local layers) and a per-head [H, S, S]
+    bias; K3 at MiniLM-L6's short plain buckets [2048, 16] and [512, 32]."""
+    from ..models.modernbert import window_bias
+
+    seg_np = serving_segments(np.random.default_rng(0), b, s)[0]
+    seg = torch.from_numpy(seg_np).cuda()
+    allowed = (seg[:, :, None] == seg[:, None, :])[:, None]
+    pairs = segment_pairs(seg_np)
+    bias = _tail_bias(b, s)
+    out = {}
+    for h, d in BSE_HEADS:
+        q, k, v = _qkv((b, s, h * d))
+        heads = [t.view(b, s, h, d).transpose(1, 2).contiguous() for t in (q, k, v)]
+        nbytes = 4 * q.numel() * 2 + b * s * 4
+        flops = 4.0 * b * h * s * s * d
+        r = {"k2": {"kernel": _timed(lambda: flash_attention_packed_bse(q, k, v, seg, h), nbytes,
+                                     4.0 * h * d * pairs, peaks),
+                    "library": _timed(_sdpa(*heads, allowed), nbytes, 4.0 * h * d * pairs,
+                                      peaks)},
+             "k3": {"kernel": _timed(lambda: flash_attention_bse(q, k, v, bias, h), nbytes, flops,
+                                     peaks),
+                    "library": _timed(_sdpa(*heads, bias[:, None, None, :].to(q.dtype)), nbytes,
+                                      flops, peaks)}}
+        for ph in (1, h):
+            pos = (window_bias(s, 128, "cuda") if ph == 1 else torch.from_numpy(
+                np.random.default_rng(2).normal(size=(h, s, s)).astype(np.float32)).cuda())
+            pb_bytes = nbytes + pos.numel() * 4
+            plain_mask = (bias[:, None, None, :] + pos[None]).to(q.dtype)
+            r[f"k4_ph{ph}"] = {
+                "kernel": _timed(lambda: flash_attention_bse(q, k, v, bias, h, pos), pb_bytes,
+                                 flops, peaks),
+                "library": _timed(_sdpa(*heads, plain_mask), pb_bytes, flops, peaks)}
+            del plain_mask
+            packed_mask = torch.where(allowed, pos[None], -1e9).to(q.dtype)
+            r[f"k4_packed_ph{ph}"] = {
+                "kernel": _timed(lambda: flash_attention_packed_bse(q, k, v, seg, h, pos),
+                                 pb_bytes, flops, peaks),
+                "library": _timed(_sdpa(*heads, packed_mask), pb_bytes, flops, peaks)}
+            del packed_mask, pos
+        out[f"{h}x{d}"] = r
+        del q, k, v, heads
+        torch.cuda.empty_cache()
+    h, d = BSE_HEADS[0]
+    for bb, ss in BSE_SHORT:
+        q, k, v = _qkv((bb, ss, h * d))
+        mask = _tail_bias(bb, ss)
+        heads = [t.view(bb, ss, h, d).transpose(1, 2).contiguous() for t in (q, k, v)]
+        nbytes, flops = 4 * q.numel() * 2 + bb * ss * 4, 4.0 * bb * h * ss * ss * d
+        out[f"k3_b{bb}_s{ss}"] = {
+            "kernel": _timed(lambda: flash_attention_bse(q, k, v, mask, h), nbytes, flops, peaks),
+            "library": _timed(_sdpa(*heads, mask[:, None, None, :].to(q.dtype)), nbytes, flops,
+                              peaks)}
+    return out
 
 
 def bench_windowed_attention(peaks, b: int = 8, s: int = 2048, h: int = 12, d: int = 32,
@@ -503,6 +575,14 @@ def main(argv=None) -> None:
             results["attention_headpack"][key] = r = bench_attention_headpack(peaks, d=d, hb=hb)
             log(f"attention head-pack B1 {key}: {ab(r)} | K5 {r['per_head']['us']:.1f}us | "
                 f"K3 {r['k3']['us']:.1f}us | max_err vs K5 {r['max_err_vs_per_head']:.5f}")
+    if want("bse"):
+        results["bse"] = r = bench_bse(peaks)
+        for key, row in r.items():
+            if "kernel" in row:
+                log(f"bse {key}: {ab(row)}")
+                continue
+            for name, case in row.items():
+                log(f"bse {key} {name}: {ab(case)}")
     if want("packed_attention"):
         results["packed_attention"] = {"b64_s512_w16": (r := bench_packed_attention(peaks))}
         log(f"packed attention K2 B=64 S=512: {ab(r)}")

@@ -308,35 +308,6 @@ struct Layout {
 
 using namespace sm90;
 
-// A fragments (16 rows from m0, all D columns) of a swizzled row-major tile.
-template <int D>
-__device__ __forceinline__ void load_a(uint32_t (&a)[D / 16][4], const bf16* tile, int m0,
-                                       int lane) {
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks)
-    ldsm_x4(a[ks], tile + swz<D>(m0 + (lane & 15), 2 * ks + (lane >> 4)));
-}
-
-// B fragments (8 columns from n0 of B = tile^T, all D of depth) of a
-// swizzled tile whose rows are B's columns.
-template <int D>
-__device__ __forceinline__ void load_b(uint32_t (&b)[D / 16][2], const bf16* tile, int n0,
-                                       int lane) {
-  if constexpr (D == 16) {
-    ldsm_x2(b[0], tile + swz<D>(n0 + (lane & 7), (lane >> 3) & 1));
-  } else {
-#pragma unroll
-    for (int kp = 0; kp < D / 32; ++kp) {
-      uint32_t r[4];
-      ldsm_x4(r, tile + swz<D>(n0 + (lane & 7), 4 * kp + (lane >> 3)));
-      b[2 * kp][0] = r[0];
-      b[2 * kp][1] = r[1];
-      b[2 * kp + 1][0] = r[2];
-      b[2 * kp + 1][1] = r[3];
-    }
-  }
-}
-
 // n rows of the head slice [col0, col0 + D) into the swizzled bf16 tile dst by
 // cp.async: row r is src row `rows[r0 + r]` (or r0 + r when rows is null); a
 // row whose index falls outside [0, n_src) is zero-filled.

@@ -1,10 +1,12 @@
 // Warp-level tensor-core and asynchronous-copy helpers for Hopper (sm_90a),
 // shared by the kernels of this directory that feed mma.sync from shared
 // memory: 16-byte cp.async with zero-fill, ldmatrix (plain and transposed),
+// the A and B fragments of a swizzled tile of D-wide bf16 rows,
 // mma.sync.m16n8k16 bf16 -> f32, and the XOR swizzle that keeps ldmatrix
 // free of bank conflicts.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -66,6 +68,35 @@ __device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
                : "=r"(r[0]), "=r"(r[1])
                : "r"(smem_addr(p)));
+}
+
+// A fragments (16 rows from m0, all D columns) of a swizzled row-major tile.
+template <int D>
+__device__ __forceinline__ void load_a(uint32_t (&a)[D / 16][4], const __nv_bfloat16* tile,
+                                       int m0, int lane) {
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks)
+    ldsm_x4(a[ks], tile + swz<D>(m0 + (lane & 15), 2 * ks + (lane >> 4)));
+}
+
+// B fragments (8 columns from n0 of B = tile^T, all D of depth) of a
+// swizzled tile whose rows are B's columns.
+template <int D>
+__device__ __forceinline__ void load_b(uint32_t (&b)[D / 16][2], const __nv_bfloat16* tile,
+                                       int n0, int lane) {
+  if constexpr (D == 16) {
+    ldsm_x2(b[0], tile + swz<D>(n0 + (lane & 7), (lane >> 3) & 1));
+  } else {
+#pragma unroll
+    for (int kp = 0; kp < D / 32; ++kp) {
+      uint32_t r[4];
+      ldsm_x4(r, tile + swz<D>(n0 + (lane & 7), 4 * kp + (lane >> 3)));
+      b[2 * kp][0] = r[0];
+      b[2 * kp][1] = r[1];
+      b[2 * kp + 1][0] = r[2];
+      b[2 * kp + 1][1] = r[3];
+    }
+  }
 }
 
 // acc[16x8] += a[16x16] . b[16x8], bf16 in, f32 accumulate.  Lane (g, t) =

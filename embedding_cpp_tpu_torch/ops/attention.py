@@ -9,9 +9,12 @@ kernel `_attn_bse_kernel` (embedding_cpp_tpu/ops/attention.py) through
   `flash_attention_bse`         additive key bias (plain batches)
 either with an optional [PH, S, S] position bias (the JAX names
 `flash_attention_bias_bse` / `flash_attention_bias_packed_bse` delegate).
-A block keeps its query tile's whole f32 score rows on chip and follows
-the reference's order: scale, mask (and bias), row max, exp, f32 row sum,
-e cast to v's dtype for the PV product (f32 accumulation), divide, cast.
+The kernel follows the reference's order: scale, mask (and bias), row max,
+exp, f32 row sum, e cast to v's dtype for the PV product (f32
+accumulation), divide, cast.  Its bf16 body walks 64-query tiles over
+64-key tiles in two exact passes (the row max, then exp / sum / PV) and,
+on packed rows, skips the keys that share no segment id with the rows
+(`bse_skips`); at S <= 32 a block takes several batch rows.
 
 Long rows (q/k/v/o [B, S, H, d], a free view of the projections), kernel
 `csrc/attention_long.cu`, for any S:
@@ -53,7 +56,7 @@ import torch
 from ._build import check, load
 
 MASK_BIAS = -1e9  # additive score for masked keys (finite, never -inf)
-MAX_SEQ = 1024  # a query tile's f32 score rows must fit in shared memory
+MAX_SEQ = 1024  # the JAX route's envelope (a whole [S, S] f32 score tile in VMEM)
 HEAD_DIMS = (16, 32, 64, 128)
 _PLAIN_CHUNK = 1 << 26  # score elements per chunk of the long plain version
 
@@ -63,6 +66,56 @@ def fits_bias_bse(s: int, d: int) -> bool:
     and head dim `d` (its bias rows stream from device memory, so the bias
     adds no limit)."""
     return 1 <= s <= MAX_SEQ and d in HEAD_DIMS
+
+
+# The bf16 body's tiling, as csrc/attention_bse.cu names it (`tc::TILE_Q`,
+# `TILE_K`, `NW`): blocks of 64 query rows, 16 per warp, over 64-key tiles;
+# a warp skips keys in runs of 8, the n of its m16n8k16 products.
+BSE_TILE_Q = 64
+BSE_TILE_K = 64
+BSE_WARP_ROWS, BSE_RUN = 16, 8
+
+
+def _spans(seg: torch.Tensor, width: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(lo, hi, pad) [B, S_pad / width] of each run of `width` positions of
+    seg [B, S]: [min, max] over the ids other than -1 (lo > hi when none)
+    and whether -1 is among them; positions past S hold no key."""
+    b, s = seg.shape
+    n = -(-s // BSE_TILE_K) * BSE_TILE_K // width
+    big = torch.iinfo(torch.int64).max
+    ids = torch.zeros((b, n * width), dtype=torch.int64)
+    ids[:, :s] = seg.to(torch.int64).cpu()
+    key = torch.arange(n * width) < s
+    real = (ids != -1) & key
+    lo = torch.where(real, ids, big).reshape(b, n, width).amin(-1)
+    hi = torch.where(real, ids, -big).reshape(b, n, width).amax(-1)
+    pad = ((ids == -1) & key).reshape(b, n, width).any(-1)
+    return lo, hi, pad
+
+
+def _meet(a, b) -> torch.Tensor:
+    """Spans that may hold a pair of equal ids: overlapping, or both with
+    padding (broadcasting over their shapes)."""
+    return ((a[0] <= b[1]) & (b[0] <= a[1])) | (a[2] & b[2])
+
+
+def bse_skips(seg: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """What the segment kernel skips on seg [B, S] with S > 32 (at short S,
+    where a block takes several batch rows, it skips nothing): kept [B, nq,
+    nk], key tile j is loaded for query tile i (their spans meet); scored
+    [B, nq * 4, nk * 8], a warp's 16 rows score 8 keys (their tile is kept
+    and their spans meet).  A span is [min, max] over the ids other than -1
+    and whether -1 is there: no pair of spans that misses holds a visible
+    (query, key) pair, for any ids.  Runs and rows past S hold no span, so
+    they count as not scored (the kernel does not reach them)."""
+    tile = _spans(seg, BSE_TILE_K)
+    run = _spans(seg, BSE_RUN)
+    rows = _spans(seg, BSE_WARP_ROWS)
+    kept = _meet(tuple(t[:, :, None] for t in tile), tuple(t[:, None, :] for t in tile))
+    per_tile = BSE_TILE_Q // BSE_WARP_ROWS, BSE_TILE_K // BSE_RUN
+    scored = _meet(tuple(t[:, :, None] for t in rows), tuple(t[:, None, :] for t in run))
+    scored &= kept.repeat_interleave(per_tile[0], 1).repeat_interleave(per_tile[1], 2)
+    return kept, scored
 
 
 def _pos_bias_heads(pos_bias: torch.Tensor, h: int) -> torch.Tensor:

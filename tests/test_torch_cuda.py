@@ -11,7 +11,9 @@ K8 (ragged M, K = 32, K % 64 == 32, N below and not a multiple of the
 128-column tile or of 16, every activation and qtype, the prologue,
 out_f32, the corpus's packed M = 65536, bf16 at K = 8192, every f32 slice
 width and an f32 slice past the shared memory), the projection-layout kernel with and without a position bias
-(K2-K4), the
+(K2-K4: S = 8 ... 1024, the short buckets a block takes several batch rows
+of, shuffled segment ids, rows all padding, a position-bias row of -1e9,
+S = 1024 at d = 128, bge-large's 16 heads of 64), the
 long-row kernel (K5), the sliding-window kernel (K7), the packed-segment
 kernel (K6, full and windowed: S = 200 ... 8192, segments ending on tile
 boundaries, padded tails, a row all padding) and the disentangled-attention
@@ -173,8 +175,9 @@ def _qkv(b, s, h, d, dtype, dev, seed=0):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("s,h,d", [(8, 2, 16), (24, 4, 16), (40, 12, 32), (128, 4, 64),
-                                   (512, 12, 32), (1024, 2, 128)])
+@pytest.mark.parametrize("s,h,d", [(8, 2, 16), (16, 12, 32), (24, 4, 16), (32, 12, 32),
+                                   (40, 12, 32), (128, 4, 64), (512, 12, 32), (512, 16, 64),
+                                   (1024, 2, 128)])
 def test_key_bias_kernel_matches_plain(dev, dtype, s, h, d):
     b = 3
     q, k, v = _qkv(b, s, h, d, dtype, dev)
@@ -186,19 +189,26 @@ def test_key_bias_kernel_matches_plain(dev, dtype, s, h, d):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("s,h,d", [(24, 4, 16), (128, 4, 32), (512, 12, 32), (1000, 2, 64)])
-def test_segment_kernel_matches_plain(dev, dtype, s, h, d):
+@pytest.mark.parametrize("s,h,d", [(16, 4, 32), (24, 4, 16), (128, 4, 32), (512, 12, 32),
+                                   (512, 16, 64), (1000, 2, 64), (1024, 2, 128)])
+@pytest.mark.parametrize("ids", ["contiguous", "shuffled"])
+def test_segment_kernel_matches_plain(dev, dtype, s, h, d, ids):
+    """Contiguous segments with a -1 tail, or ids in no order with padding
+    among them (the tensor-core body's tile and run skips must hold for
+    both); row 1 all padding."""
     b = 2
     q, k, v = _qkv(b, s, h, d, dtype, dev, seed=1)
     rng = np.random.default_rng(s)
     seg = np.full((b, s), -1, np.int32)
     c, g = 0, 0
-    while True:
+    while ids == "contiguous":
         n = int(rng.integers(1, 40))
         if c + n > s - 3:
             break
         seg[0, c:c + n] = g
         c, g = c + n, g + 1
+    if ids == "shuffled":
+        seg[0] = rng.integers(-1, 6, size=s)
     seg_t = torch.from_numpy(seg).to(dev)  # row 1: all padding
     got = flash_attention_packed_bse(q, k, v, seg_t, h)
     _close(got, attention_bse_plain(q, k, v, seg_t, h, True), dtype)
@@ -363,12 +373,16 @@ def _pos_bias(ph, s, dev, seed=0):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("s,h,d", [(24, 4, 32), (100, 2, 64), (512, 12, 64), (1024, 2, 32)])
+@pytest.mark.parametrize("s,h,d", [(16, 4, 32), (24, 4, 32), (100, 2, 64), (512, 12, 64),
+                                   (512, 16, 64), (1024, 2, 32), (1024, 2, 128)])
 @pytest.mark.parametrize("per_head", [False, True])
 def test_bias_kernels_match_plain(dev, dtype, s, h, d, per_head):
+    """K4 plain and packed; the bias's middle row is -1e9 at every pair, so
+    no skip of the packed form's is exact for that row's block."""
     b = 3
     q, k, v = _qkv(b, s, h, d, dtype, dev, seed=2)
     pb = _pos_bias(h if per_head else 1, s, dev)
+    pb[:, s // 2, :] = MASK_BIAS
     mask = torch.zeros(b, s, device=dev)
     mask[1, max(1, s // 3):] = MASK_BIAS
     mask[2, :] = MASK_BIAS  # every key padded
