@@ -114,7 +114,7 @@ from pathlib import Path
 
 import numpy as np
 
-from embedding_cpp_tpu_torch.benchmarks.profiles import segment_pairs, serving_segments
+from embedding_cpp_tpu_torch.benchmarks.profiles import packed_rows, segment_pairs, serving_segments
 from embedding_cpp_tpu_torch.utils.profiling import (
     F32_PEAKS,
     bound_ms,
@@ -833,7 +833,10 @@ def phase_kernels_bias(peaks) -> dict:
 
 def phase_kernels_long(peaks) -> dict:
     """K5 at [8, 8192, 12x64] bf16 with key padding, and with a [1, S, S]
-    window bias at S = 2048; K7 at [8, 8192, 12x64] bf16, window 128."""
+    window bias at S = 2048; K7 at [8, 8192, 12x64] bf16, window 128
+    (timed), and at [2, 8192, 12x64] with window 16 in bf16 and f32
+    (untimed; a padded tail and a row all padding, whose blocks score the
+    whole slice in both passes)."""
     import torch
     import torch.nn.functional as F
 
@@ -895,6 +898,12 @@ def phase_kernels_long(peaks) -> dict:
             results["attn_local"] = c
         del q, k, v, heads, lmask
         torch.cuda.empty_cache()
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, keyb = inputs(2, 8192, dtype)
+        _attention_case("attn_local", lambda *a: flash_attention_local(*a, 16),
+                        lambda *a: attention_local_plain(*a, 16), None, (q, k, v, keyb),
+                        0.0, 0.0, peaks, False, b=2, s=8192, h=h, d=d, window=16)
+        del q, k, v
     # K5 with ModernBERT's [1, S, S] window bias (the path of lengths
     # without a window slice), at S = 2048
     b, s = 8, 2048
@@ -1047,26 +1056,6 @@ def phase_kernels_deberta_shapes(shapes, span: int, max_dist: int) -> None:
     torch.cuda.empty_cache()
 
 
-def packed_rows(rng, b: int, s: int, lo: int, hi: int, tile: int = 0):
-    """seg/pos [b, s]: each row holds segments of lo..hi tokens in order and
-    ends in at least 16 padding slots (seg -1).  With `tile`, a segment
-    that would cross a multiple of `tile` ends on it instead, so segments
-    end exactly on the kernel's query-tile boundaries."""
-    seg = np.full((b, s), -1, np.int32)
-    pos = np.zeros((b, s), np.int32)
-    for i in range(b):
-        c = g = 0
-        while True:
-            n = int(rng.integers(lo, hi + 1))
-            if tile and c // tile != (c + n - 1) // tile:
-                n = (c // tile + 1) * tile - c
-            if c + n > s - 16:
-                break
-            seg[i, c:c + n], pos[i, c:c + n] = g, np.arange(n)
-            c, g = c + n, g + 1
-    return seg, pos
-
-
 def phase_kernels_segment(peaks) -> dict:
     """K6 at nomic's packed main-path shape [8, 2048, 12x64] in bf16
     (timed) and f32: the windowed form over chunk-sized segments (128-512
@@ -1074,7 +1063,9 @@ def phase_kernels_segment(peaks) -> dict:
     document-sized ones (600-1400 tokens, bound 2048: every key).  Untimed
     edge cases: S = 1024 with a short bound (windowed at the envelope's
     edge), S = 1152 (tq 128), S = 8192 in both forms, segments ending on
-    the 256-row tiles; every row ends in padding and one is all padding.
+    the 256-row tiles; every row ends in padding and one is all padding;
+    both forms at [3, 2048] on shuffled non-contiguous ids (ids -1..5 in no
+    order, so every id span covers every id), one row all padding.
     The library call is SDPA with the boolean block-diagonal [B, 1, S, S]
     mask.  Bound: 4*H*d operations for each (query, key) pair that shares a
     segment id within the query tile's key slice, padding pairs included
@@ -1097,8 +1088,12 @@ def phase_kernels_segment(peaks) -> dict:
     rng = np.random.default_rng(12)
     results = {}
 
-    def run(kernel, b, s, lo, hi, bound, dtype, timed, tile=0, empty_row=False):
-        seg_np, _ = packed_rows(rng, b, s, lo, hi, tile)
+    def run(kernel, b, s, lo, hi, bound, dtype, timed, tile=0, empty_row=False,
+            shuffled=False):
+        if shuffled:  # ids -1..5 in no order: segments that are not contiguous
+            seg_np = rng.integers(-1, 6, size=(b, s)).astype(np.int32)
+        else:
+            seg_np = packed_rows(rng, b, s, lo, hi, tile)[0]
         if empty_row:
             seg_np[-1] = -1
         tq, wmax = packed_window_tiles(s, bound)
@@ -1120,7 +1115,8 @@ def phase_kernels_segment(peaks) -> dict:
         c = _attention_case(
             kernel, lambda *a: flash_attention_packed(*a, bound), plain, lib, (q, k, v, seg),
             nbytes, 4.0 * h * pairs * d, peaks, timed, b=b, s=s, h=h, d=d,
-            max_seg_len=bound, tq=tq, wmax=width, segments=[lo, hi], tile_ends=tile or None,
+            max_seg_len=bound, tq=tq, wmax=width,
+            segments="shuffled ids -1..5" if shuffled else [lo, hi], tile_ends=tile or None,
             pair_share=pairs / (b * s * width))
         if timed:
             c["bound_ms_key_slice"] = bound_ms(nbytes, 4.0 * b * h * s * width * d, peaks)[0]
@@ -1141,6 +1137,8 @@ def phase_kernels_segment(peaks) -> dict:
                 ("attn_seg_window", 2, 8192, 128, 512, 512, 256),
                 ("attn_seg", 1, 8192, 1000, 3000, 8192, 256)):
             run(kernel, b, s, lo, hi, bound, dtype, False, tile=tile, empty_row=b > 1)
+        for kernel, bound in (("attn_seg_window", 512), ("attn_seg", None)):
+            run(kernel, 3, 2048, 1, 6, bound, dtype, False, empty_row=True, shuffled=True)
         torch.cuda.empty_cache()
     return results
 

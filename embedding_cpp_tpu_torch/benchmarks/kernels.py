@@ -29,6 +29,9 @@ named sections alone (e.g. `--only k8_ffn k1_layers`).
 `bench_bse` runs the projection-layout kernel (K2, K3, K4 plain and
 packed with PH = 1 and H) at every model's heads at [32, 512] and K3 at
 MiniLM-L6's short plain buckets, the shapes its A/B is held to.
+`bench_long` runs the long-row body (K5, K5 with a [1, S, S] bias, K6b,
+K6a, K7) at the main paths' shapes, at the source's query-tile rule and
+with each query tile forced: the times the rule is decided from.
 `bench_attention_headpack` runs B1, the head-packed attention of the JAX
 suite's bench of that name (`ops/attention.attention_headpack`, kernel
 `csrc/attention_headpack.cu`).  No model path runs B1: it measures
@@ -66,7 +69,7 @@ from ..ops.deberta_attention import (
 from ..ops.deberta_attention import work as deberta_work
 from ..ops.q4_matmul import _q4_matmul_1d, _q4_matmul_2d, dequant_weight, q4_matmul, route
 from ..utils.profiling import bound_ms, gpu_ms, peaks_for
-from .profiles import segment_pairs, serving_segments
+from .profiles import packed_rows, segment_pairs, serving_segments
 
 # --- the A/B suite -------------------------------------------------------------
 
@@ -441,6 +444,83 @@ def bench_bse(peaks, b: int = 32, s: int = 512) -> dict:
     return out
 
 
+def bench_long(peaks, b: int = 8, h: int = 12, d: int = 64, window: int = 128) -> dict:
+    """The long-row body (K5, K6, K7) at the main paths' shapes, bf16, each
+    beside SDPA with its mask materialized and the bound: K5 at [8, 8192]
+    with key padding (every row padded past a random length in S/2..S, one
+    row all padding); K5 with ModernBERT's [1, S, S] window-128 bias at [8,
+    2048]; K6b over nomic's chunk rows (segments of 128-512 tokens, bound
+    512) and K6a over its document rows (600-1400, bound 2048) at [8, 2048]
+    (tflops and the bound over the pairs that share a segment id within each
+    query tile's key slice); K7 at [8, 8192], window 128, the same padding
+    (over the pairs within the window).  `kernel` is the wrapper, at the
+    source's query-tile rule; `tile_64` / `tile_128` force each query tile
+    the bf16 body is built for (absent on a tree that cannot force them)."""
+    from ..models.modernbert import window_bias
+    from ..ops import attention as A
+
+    tiles = getattr(A, "LONG_TILES", ())
+    rng = np.random.default_rng(4)
+    out = {}
+
+    def key_bias(bb, ss):
+        lens = rng.integers(ss // 2, ss + 1, size=bb)
+        lens[-1] = 0  # one row all padding
+        return torch.from_numpy(np.where(np.arange(ss)[None] < lens[:, None], 0.0, -1e9)
+                                .astype(np.float32)).cuda()
+
+    def case(name, rule, forced, lib, nbytes, flops):
+        r = {"kernel": _timed(rule, nbytes, flops, peaks),
+             "library": _timed(lib, nbytes, flops, peaks)}
+        for t in tiles:
+            r[f"tile_{t}"] = _timed(lambda t=t: forced(t), nbytes, flops, peaks)
+        out[name] = r
+
+    s = 8192
+    q, k, v = _qkv((b, s, h, d))
+    heads = [t.transpose(1, 2).contiguous() for t in (q, k, v)]
+    keyb = key_bias(b, s)
+    nbytes = 4 * q.numel() * 2 + b * s * 4
+    case("k5_b8_s8192", lambda: flash_attention(q, k, v, keyb),
+         lambda t: A._launch_long(q, k, v, keyb, A._FULL, tile_q=t),
+         _sdpa(*heads, keyb[:, None, None, :].to(q.dtype)), nbytes, 4.0 * b * h * s * s * d)
+    pos = torch.arange(s, device="cuda")
+    inwin = (pos[None, :] - pos[:, None]).abs() <= window // 2
+    lmask = torch.where(inwin[None, None], keyb[:, None, None, :], -1e9).to(q.dtype)
+    pairs = float(b * (torch.clamp(pos + window // 2, max=s - 1)
+                       - torch.clamp(pos - window // 2, min=0) + 1).sum())
+    case("k7_b8_s8192_w128", lambda: flash_attention_local(q, k, v, keyb, window),
+         lambda t: A._launch_long(q, k, v, keyb, A._LOCAL, window=window, tile_q=t),
+         _sdpa(*heads, lmask), nbytes, 4.0 * h * d * pairs)
+    del q, k, v, heads, lmask, inwin
+    torch.cuda.empty_cache()
+
+    s = 2048
+    q, k, v = _qkv((b, s, h, d))
+    heads = [t.transpose(1, 2).contiguous() for t in (q, k, v)]
+    keyb = key_bias(b, s)
+    pb = window_bias(s, window, "cuda")
+    nbytes = 4 * q.numel() * 2 + b * s * 4
+    case("k5_bias_b8_s2048", lambda: flash_attention(q, k, v, keyb, pb),
+         lambda t: A._launch_long(q, k, v, keyb, A._FULL, pb, tile_q=t),
+         _sdpa(*heads, (keyb[:, None, None, :] + pb[None]).to(q.dtype)),
+         nbytes + pb.numel() * 4, 4.0 * b * h * s * s * d)
+    for name, lo, hi, bound in (("k6b_chunks_b8_s2048", 128, 512, 512),
+                                ("k6a_documents_b8_s2048", 600, 1400, 2048)):
+        seg_np = packed_rows(rng, b, s, lo, hi)[0]
+        seg = torch.from_numpy(seg_np).cuda()
+        tq, wmax = A.packed_window_tiles(s, bound)
+        allowed = (seg[:, :, None] == seg[:, None, :])[:, None]
+        case(name, lambda seg=seg, bound=bound: flash_attention_packed(q, k, v, seg, bound),
+             lambda t, seg=seg, bound=bound: A._launch_long(q, k, v, seg, A._SEG,
+                                                            max_seg_len=bound, tile_q=t),
+             _sdpa(*heads, allowed), 4 * q.numel() * 2 + seg.numel() * 4,
+             4.0 * h * d * segment_pairs(seg_np, tq, wmax))
+        out[name]["wmax"] = wmax or s
+        del allowed
+    return out
+
+
 def bench_windowed_attention(peaks, b: int = 8, s: int = 2048, h: int = 12, d: int = 32,
                              seg_len: int = 64, window: int = 128) -> dict:
     """Long rows [B, S, H, d]: K6 over packed segments of seg_len tokens,
@@ -583,6 +663,11 @@ def main(argv=None) -> None:
                 continue
             for name, case in row.items():
                 log(f"bse {key} {name}: {ab(case)}")
+    if want("long"):
+        results["long"] = r = bench_long(peaks)
+        for key, row in r.items():
+            log(f"long {key}: {ab(row)} | " + "  ".join(
+                f"{t}={row[t]['us']:.1f}us" for t in row if t.startswith("tile_")))
     if want("packed_attention"):
         results["packed_attention"] = {"b64_s512_w16": (r := bench_packed_attention(peaks))}
         log(f"packed attention K2 B=64 S=512: {ab(r)}")

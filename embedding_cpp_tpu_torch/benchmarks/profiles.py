@@ -1,7 +1,9 @@
 """Serving-shaped inputs shared by the kernel suite, chip_smoke.py and the
-tests: packed rows with the corpus's sentence-length profile, and the
-(query, key) pairs of such rows that share a segment id, the work no skip
-can remove, which the packed attention kernels' bounds count."""
+tests: packed rows with the corpus's sentence-length profile, long packed
+rows of chunk- or document-sized segments (nomic's chunk and document
+rows), and the (query, key) pairs of such rows that share a segment id,
+the work no skip can remove, which the packed attention kernels' bounds
+count."""
 from __future__ import annotations
 
 import numpy as np
@@ -21,6 +23,26 @@ def serving_segments(rng, b: int, s: int, mean_len: float = 12.6):
                 break
             seg[i, c:c + n] = g
             pos[i, c:c + n] = np.arange(n)
+            c, g = c + n, g + 1
+    return seg, pos
+
+
+def packed_rows(rng, b: int, s: int, lo: int, hi: int, tile: int = 0):
+    """seg/pos [b, s]: each row holds segments of lo..hi tokens in order and
+    ends in at least 16 padding slots (seg -1).  With `tile`, a segment
+    that would cross a multiple of `tile` ends on it instead, so segments
+    end exactly on the kernel's query-tile boundaries."""
+    seg = np.full((b, s), -1, np.int32)
+    pos = np.zeros((b, s), np.int32)
+    for i in range(b):
+        c = g = 0
+        while True:
+            n = int(rng.integers(lo, hi + 1))
+            if tile and c // tile != (c + n - 1) // tile:
+                n = (c // tile + 1) * tile - c
+            if c + n > s - 16:
+                break
+            seg[i, c:c + n], pos[i, c:c + n] = g, np.arange(n)
             c, g = c + n, g + 1
     return seg, pos
 

@@ -304,29 +304,6 @@ struct Layout {
   }
 };
 
-// The ids of a run of keys: [lo, hi] over the ids other than -1 (lo > hi when
-// there are none) and whether -1 (padding) is among them.  Two runs hold a
-// pair of equal ids only if their spans overlap or both hold padding, so a
-// disjoint pair of spans proves that no key of one is visible to a query of
-// the other, for any ids.
-__device__ __forceinline__ int4 span_join(int4 a, int4 b) {
-  return make_int4(min(a.x, b.x), max(a.y, b.y), a.z | b.z, 0);
-}
-__device__ __forceinline__ bool span_meet(int4 a, int4 b) {
-  return (a.x <= b.y && b.x <= a.y) || (a.z & b.z);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// 4 bytes from global to shared memory (src_bytes = 0: a zero, nothing read)
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-
 template <int D, bool SEG>
 __global__ void __launch_bounds__(NT, min_blocks(D)) attn_bse_tc_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
@@ -401,13 +378,12 @@ __global__ void __launch_bounds__(NT, min_blocks(D)) attn_bse_tc_kernel(
   if (fine) {
     if (tid == 0) *kept_sh = 0;
     if (tid < lay.n_meta / 8) {
-      int4 sp = make_int4(0x7fffffff, -0x7fffffff - 1, 0, 0);
+      int4 sp = span_empty();
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int c = 8 * tid + j, id = c < S ? seg[(size_t)b0 * S + c] : 0;
         metai[c] = id;
-        if (c < S) sp = span_join(sp, id == -1 ? make_int4(0x7fffffff, -0x7fffffff - 1, 1, 0)
-                                               : make_int4(id, id, 0, 0));
+        if (c < S) sp = span_join(sp, span_of(id));
       }
       spans[tid] = sp;
     }

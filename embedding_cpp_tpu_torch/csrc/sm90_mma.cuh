@@ -1,9 +1,10 @@
 // Warp-level tensor-core and asynchronous-copy helpers for Hopper (sm_90a),
 // shared by the kernels of this directory that feed mma.sync from shared
-// memory: 16-byte cp.async with zero-fill, ldmatrix (plain and transposed),
-// the A and B fragments of a swizzled tile of D-wide bf16 rows,
-// mma.sync.m16n8k16 bf16 -> f32, and the XOR swizzle that keeps ldmatrix
-// free of bank conflicts.
+// memory: 16- and 4-byte cp.async with zero-fill, ldmatrix (plain and
+// transposed), the A and B fragments of a swizzled tile of D-wide bf16 rows,
+// mma.sync.m16n8k16 bf16 -> f32, the XOR swizzle that keeps ldmatrix free of
+// bank conflicts, the bf16 pair packing that turns an accumulator into an A
+// fragment, and the segment-id spans the attention kernels skip keys by.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -37,6 +38,11 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
 // read and the rest zero-filled (src_bytes = 0: all zeros, nothing read).
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+// 4 bytes from global to shared memory (src_bytes = 0: a zero, nothing read)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(src_bytes));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
@@ -108,6 +114,27 @@ __device__ __forceinline__ void mma(float (&acc)[4], const uint32_t (&a)[4],
       "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The ids of a run of keys or queries: [lo, hi] over the ids other than -1
+// (lo > hi when there are none) and whether -1 (padding) is among them.  Two
+// runs hold a pair of equal ids only if their spans overlap or both hold
+// padding, so a disjoint pair of spans proves that no key of one is visible
+// to a query of the other, for any ids.
+__device__ __forceinline__ int4 span_empty() { return make_int4(0x7fffffff, -0x7fffffff - 1, 0, 0); }
+__device__ __forceinline__ int4 span_of(int id) {
+  return id == -1 ? make_int4(0x7fffffff, -0x7fffffff - 1, 1, 0) : make_int4(id, id, 0, 0);
+}
+__device__ __forceinline__ int4 span_join(int4 a, int4 b) {
+  return make_int4(min(a.x, b.x), max(a.y, b.y), a.z | b.z, 0);
+}
+__device__ __forceinline__ bool span_meet(int4 a, int4 b) {
+  return (a.x <= b.y && b.x <= a.y) || (a.z & b.z);
 }
 
 }  // namespace sm90

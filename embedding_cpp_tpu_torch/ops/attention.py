@@ -28,6 +28,10 @@ Long rows (q/k/v/o [B, S, H, d], a free view of the projections), kernel
                            `_attn_seg_kernel`), or, given the longest
                            segment, the TPU query tile's key slice (TPU
                            `_attn_seg_window_kernel`)
+Its bf16 body walks 128-query tiles (64 with a position bias; either one
+forced by `_launch_long`'s `tile_q`, `LONG_TILES`) over 64-key tiles in the
+same two exact passes and, for K6 (segment id spans) and K7 (the window),
+skips the key tiles and 8-key runs that hold no visible pair.
 
 Head-major rows (q/k/v/o [B, H, S, d]), kernel
 `csrc/attention_headpack.cu`, the Hopper port of B1, the head-packed
@@ -416,14 +420,16 @@ def _launch_bse(q, k, v, mask, h: int, seg_mask: bool, pos_bias=None) -> torch.T
 
 
 _FULL, _LOCAL, _SEG = 0, 1, 2  # attention_long.cu's modes
+LONG_TILES = (64, 128)  # the query tiles attention_long.cu's bf16 body is built for
 
 
 def _launch_long(q, k, v, mask, mode: int, pos_bias=None, window: int = 0,
-                 max_seg_len: int | None = None) -> torch.Tensor:
+                 max_seg_len: int | None = None, tile_q: int = 0) -> torch.Tensor:
     """Checks the operands and launches the long-row kernel in `mode`:
     _FULL, every key under an f32 key bias; _LOCAL, the sliding-window
     slices of `window`; _SEG, int32 segment ids over the TPU tile's key
-    slice when `max_seg_len` gives one, else every key."""
+    slice when `max_seg_len` gives one, else every key.  `tile_q` forces
+    the bf16 body's query rows a block (LONG_TILES; 0: the source's rule)."""
     b, s, h, d = _check_qkv(q, k, v, True)
     want = torch.int32 if mode == _SEG else torch.float32
     if mask.shape != (b, s) or mask.dtype != want:
@@ -441,15 +447,17 @@ def _launch_long(q, k, v, mask, mode: int, pos_bias=None, window: int = 0,
     out = torch.empty_like(q)
     if b == 0 or s == 0:
         return out
-    err = _bind("attention_long.cu", "attn_long_launch",
-                [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P])(
+    if tile_q not in (0, *LONG_TILES):
+        raise ValueError(f"tile_q {tile_q} not in {LONG_TILES}")
+    err = _bind("attention_long.cu", "attn_long_launch_tile",
+                [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I, _P])(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
         None if pos_bias is None else pos_bias.data_ptr(), out.data_ptr(),
         b, s, h, d, 1 if pos_bias is None else pos_bias.shape[0], 1.0 / (d**0.5),
-        int(q.dtype == torch.bfloat16), mode, tq, wmax, window,
+        int(q.dtype == torch.bfloat16), mode, tq, wmax, window, tile_q,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    check(err, "attn_long_launch")
+    check(err, "attn_long_launch_tile")
     return out
 
 

@@ -14,9 +14,11 @@ width and an f32 slice past the shared memory), the projection-layout kernel wit
 (K2-K4: S = 8 ... 1024, the short buckets a block takes several batch rows
 of, shuffled segment ids, rows all padding, a position-bias row of -1e9,
 S = 1024 at d = 128, bge-large's 16 heads of 64), the
-long-row kernel (K5), the sliding-window kernel (K7), the packed-segment
-kernel (K6, full and windowed: S = 200 ... 8192, segments ending on tile
-boundaries, padded tails, a row all padding) and the disentangled-attention
+long-row kernel (K5), the sliding-window kernel (K7, also at S = 8192 with a
+padded row), the packed-segment kernel (K6, full and windowed: S = 200 ...
+8192, segments ending on tile boundaries, shuffled non-contiguous ids,
+padded tails, a row all padding), each of the long body's bf16 query tiles
+forced in every form and the disentangled-attention
 kernel (K9 key bias, K10 segments; S = 16 ... 512 with spans below and
 above S, S off the bf16 kernel's 64-row tiles, segments crossing them, a
 row all padding) and the kernel suite's head-packed attention (B1: every (d, hb)
@@ -35,7 +37,12 @@ from embedding_cpp_tpu_torch.gguf import GGMLType
 from embedding_cpp_tpu_torch.gguf.quant import quantize
 from embedding_cpp_tpu_torch.ops import qtensor as tqt
 from embedding_cpp_tpu_torch.ops.attention import (
+    _FULL,
+    _LOCAL,
+    _SEG,
+    LONG_TILES,
     MASK_BIAS,
+    _launch_long,
     attention_headpack,
     attention_headpack_plain,
     attention_bse_plain,
@@ -507,6 +514,67 @@ def test_packed_segment_forms_agree_on_real_rows(dev, dtype, s, max_seg_len):
         assert torch.equal(window[real], full[real])
     else:
         _close(window[real], full[real], dtype)
+
+
+def _shuffled_seg(b, s, dev, seed=0):
+    """Ids in -1..5 in no order (non-contiguous segments, padding among
+    them); the last row all padding."""
+    seg = np.random.default_rng(seed).integers(-1, 6, size=(b, s)).astype(np.int32)
+    seg[-1] = -1
+    return torch.from_numpy(seg).to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s,d,max_seg_len", [(1024, 64, 128), (2048, 32, 512), (2048, 64, None),
+                                             (1152, 16, None)])
+def test_packed_segment_kernel_on_shuffled_ids(dev, dtype, s, d, max_seg_len):
+    """K6 on non-contiguous ids: a tile's id span covers ids its keys do not
+    hold, so the skips must rest on spans, never on contiguity."""
+    q, k, v = _long_qkv(3, s, 2, d, dtype, dev, seed=s + 3)
+    seg = _shuffled_seg(3, s, dev, seed=s)
+    got = flash_attention_packed(q, k, v, seg, max_seg_len)
+    ref = (attention_packed_window_plain(q, k, v, seg, max_seg_len) if max_seg_len
+           else attention_packed_plain(q, k, v, seg))
+    _close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("window", [16, 128])
+def test_local_kernel_long_row_with_a_padded_row(dev, dtype, window):
+    """K7 at S = 8192: a padded tail and a row all padding, whose blocks
+    score the whole slice in both passes."""
+    b, s = 3, 8192
+    q, k, v = _long_qkv(b, s, 2, 64, dtype, dev, seed=window)
+    mask = _long_mask(b, s, dev)
+    _close(flash_attention_local(q, k, v, mask, window),
+           attention_local_plain(q, k, v, mask, window), dtype)
+
+
+@pytest.mark.parametrize("tile", LONG_TILES)
+@pytest.mark.parametrize("form", ["long", "long_bias", "local", "seg", "seg_window"])
+@pytest.mark.parametrize("s,d", [(1024, 64), (2048, 32), (1152, 128)])
+def test_long_kernel_query_tiles_match_plain(dev, tile, form, s, d):
+    """Each query tile the bf16 body is built for, forced (`tile_q`), in
+    every form: key bias, + a [1, S, S] bias, window 128, segments over
+    every key and over the tile's slice."""
+    b, h = 3, 2
+    q, k, v = _long_qkv(b, s, h, d, torch.bfloat16, dev, seed=s + tile)
+    mask = _long_mask(b, s, dev)
+    seg = _packed_seg(b, s, 128, dev, seed=s)
+    if form in ("long", "long_bias"):
+        pb = _pos_bias(1, s, dev, seed=2) if form == "long_bias" else None
+        got = _launch_long(q, k, v, mask, _FULL, pb, tile_q=tile)
+        ref = attention_long_plain(q, k, v, mask, pb)
+    elif form == "local":
+        got = _launch_long(q, k, v, mask, _LOCAL, window=128, tile_q=tile)
+        ref = attention_local_plain(q, k, v, mask, 128)
+    elif form == "seg":
+        got = _launch_long(q, k, v, seg, _SEG, tile_q=tile)
+        ref = attention_packed_plain(q, k, v, seg)
+    else:
+        got = _launch_long(q, k, v, seg, _SEG, max_seg_len=128, tile_q=tile)
+        ref = attention_packed_window_plain(q, k, v, seg, 128)
+    _close(got, ref, torch.bfloat16)
 
 
 def test_packed_segment_kernel_rejects_what_it_does_not_serve(dev):
