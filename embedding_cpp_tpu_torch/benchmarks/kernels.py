@@ -197,6 +197,10 @@ K1_LAYERS = {
                                               ("gate", 768, 3072, None, 1, False),
                                               ("down", 3072, 768, None, 1, True)]),
     "bge-large-en-v1.5": ("Q8_0", True, [("qkvo", 1024, 1024, None, 4, False)]),
+    # RoBERTa/XLM-R, DistilBERT and ELECTRA base run DeBERTa-v3-base's shapes
+    "electra-small": ("Q4_0", True, [("qkvo", 256, 256, None, 4, False),
+                                     ("up", 256, 1024, "gelu_erf", 1, False),
+                                     ("down", 1024, 256, None, 1, False)]),
 }
 K1_TABLE = (512, 768, 768)  # DeBERTa's relative-table projection: M, K, N
 _ACT = {None: lambda y: y, "gelu_erf": F.gelu, "silu": F.silu}

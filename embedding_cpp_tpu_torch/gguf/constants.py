@@ -107,6 +107,9 @@ class Keys:
     TOKEN_TYPE_COUNT = f"{ARCH}.token_type_count"
     POSITION_OFFSET = f"{ARCH}.position_offset"
     GELU = f"{ARCH}.gelu_variant"
+    # ELECTRA-small: the width of the factorized embedding tables, which a
+    # linear projects up to embedding_length (absent: no projection)
+    EMB_WIDTH = f"{ARCH}.embedding_width"
     # ModernBERT: RoPE bases (global / local layers), the global-layer
     # period and the sliding-window width
     ROPE_FREQ_BASE = f"{ARCH}.rope.freq_base"

@@ -3,7 +3,11 @@ DeBERTa and nomic-bert configs dispatch to models/modernbert.py,
 models/deberta.py and models/nomic.py from the entry points), and the
 cross-encoder score path with its classification head.
 
-The BERT path of the JAX package's `models/bert.py`, on dicts of tensors:
+The BERT path of the JAX package's `models/bert.py`, which also serves the
+families that share BERT's graph: RoBERTa and XLM-R (positions numbered
+from `pos_offset`), DistilBERT (no token-type table) and ELECTRA (ELECTRA-
+small's narrow embeddings projected up after their LayerNorm).  On dicts
+of tensors:
 matmuls run in the activation dtype (bf16 for throughput, f32 for parity)
 with f32 accumulation, while LayerNorm, softmax, pooling and the L2 norm
 accumulate in f32.  Every layer's six projections go through `linear`
@@ -27,7 +31,7 @@ from ..ops.attention import (
 )
 from ..ops.linear import layer_norm, linear
 from ..ops.qtensor import QTensor, gather_rows
-from .config import BertConfig
+from .config import BERT_GRAPH_ARCHS, BertConfig
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -57,9 +61,10 @@ def embed_tokens(params: dict, ids: torch.Tensor, config: BertConfig,
                  opts: ComputeOptions, positions: torch.Tensor | None = None,
                  type_ids: torch.Tensor | None = None) -> torch.Tensor:
     """word[ids] + token_type[0] (or token_type[type_ids], the segments of
-    a cross-encoder pair) + position[off + 0..S-1] (or the per-segment
-    `positions` of packed rows; no position term where the family has no
-    absolute table), then the embedding LayerNorm."""
+    a cross-encoder pair) + position[off + 0..S-1] (or off + the
+    per-segment `positions` of packed rows; no position term where the
+    family has no absolute table), then the embedding LayerNorm, then
+    ELECTRA's projection to n_embd where the tables are factorized."""
     emb = params["embeddings"]
     s = ids.shape[-1]
     off = config.pos_offset
@@ -75,8 +80,11 @@ def embed_tokens(params: dict, ids: torch.Tensor, config: BertConfig,
         pe = emb["position"]
         x = x + (pe[off : off + s] if positions is None else pe[positions + off]).to(
             torch.float32)
-    return layer_norm(x, emb["ln_scale"], emb["ln_bias"], config.layer_norm_eps,
-                      opts.tdtype)
+    x = layer_norm(x, emb["ln_scale"], emb["ln_bias"], config.layer_norm_eps, opts.tdtype)
+    if "emb_proj_w" in emb:
+        # a dense matmul, as the JAX package runs it (outside its kernels)
+        x = linear(x, emb["emb_proj_w"], emb["emb_proj_b"])
+    return x
 
 
 def _attention(x: torch.Tensor, lp: dict, mask_bias: torch.Tensor,
@@ -313,7 +321,7 @@ def bert_score_batch(params: dict, ids: torch.Tensor, mask: torch.Tensor,
         # no nomic-bert classification checkpoint exists; BERT's score path
         # lacks RoPE, so it refuses instead of computing the wrong thing
         raise ValueError("nomic-bert classification heads are not supported")
-    if config.arch != "bert":
+    if config.arch not in BERT_GRAPH_ARCHS:
         raise NotImplementedError(f"{config.arch} score path is not ported yet")
     if "head" not in params:
         raise ValueError("model has no classification head (n_labels == 0)")

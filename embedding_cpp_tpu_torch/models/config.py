@@ -1,7 +1,8 @@
-"""Model hyperparameters for the BERT, ModernBERT, DeBERTa and nomic-bert
-encoder paths.
+"""Model hyperparameters for the BERT-graph, ModernBERT, DeBERTa and
+nomic-bert encoder paths.
 
-The BERT (`arch="bert"`), ModernBERT (`arch="modernbert"`), DeBERTa-v3
+The BERT-graph families (`arch` "bert", "roberta" with XLM-R, "distilbert"
+and "electra"), ModernBERT (`arch="modernbert"`), DeBERTa-v3
 (`arch="deberta"`) and nomic-bert (`arch="nomic-bert"`) fields of the JAX
 package's `BertConfig`, read from
 GGUF kv metadata the same way: n_vocab from the token list length,
@@ -18,19 +19,29 @@ from dataclasses import dataclass
 from ..gguf.constants import Keys
 
 ARCH = "bert"
-# per-family defaults: (n_token_types, layer_norm_eps, rel_attn_buckets).
+# per-family defaults: (n_token_types, pos_offset, layer_norm_eps,
+# rel_attn_buckets).  RoBERTa (and XLM-R) numbers real tokens from
+# padding_idx + 1 = 2, has a 1-row token-type table and eps 1e-5;
+# DistilBERT has no token-type table; ELECTRA is BERT's graph and names.
 # ModernBERT has no token-type or position table (RoPE), and eps 1e-5 (HF
 # ModernBertConfig); DeBERTa-v3 has neither table either (relative
 # positions only), eps 1e-7 and 256 position buckets; nomic-bert keeps
 # BERT's two token types and eps, and rotates (RoPE) instead of a position
 # table
-_ARCH_DEFAULTS = {"bert": (2, 1e-12, 0), "modernbert": (0, 1e-5, 0),
-                  "deberta": (0, 1e-7, 256), "nomic-bert": (2, 1e-12, 0)}
+_ARCH_DEFAULTS = {"bert": (2, 0, 1e-12, 0), "roberta": (1, 2, 1e-5, 0),
+                  "distilbert": (0, 0, 1e-12, 0), "electra": (2, 0, 1e-12, 0),
+                  "modernbert": (0, 0, 1e-5, 0), "deberta": (0, 0, 1e-7, 256),
+                  "nomic-bert": (2, 0, 1e-12, 0)}
+# the families whose embeddings add an absolute-position table and run
+# BERT's post-norm block (models/bert.py)
+BERT_GRAPH_ARCHS = ("bert", "roberta", "distilbert", "electra")
 # the reference's other families (its `_ARCH_DEFAULTS`): refused by name
-UNPORTED_ARCHS = ("roberta", "distilbert", "mpnet", "albert", "electra", "t5")
-# classification-head activation per family: DeBERTa's ContextPooler and
-# ModernBERT's PredictionHead use GELU, BERT's pooler tanh
-HEAD_ACT_DEFAULTS = {"modernbert": "gelu", "deberta": "gelu"}
+UNPORTED_ARCHS = ("mpnet", "albert", "t5")
+# classification-head activation per family: DistilBERT's pre_classifier
+# uses ReLU; ELECTRA's ClassificationHead, DeBERTa's ContextPooler and
+# ModernBERT's PredictionHead GELU; BERT's pooler and RoBERTa's head tanh
+HEAD_ACT_DEFAULTS = {"distilbert": "relu", "modernbert": "gelu", "electra": "gelu",
+                     "deberta": "gelu"}
 
 
 @dataclass(frozen=True)
@@ -78,6 +89,11 @@ class BertConfig:
     # model): logits = out(act(dense(h_cls))), act one of tanh/relu/gelu
     n_labels: int = 0
     head_activation: str = "tanh"
+    # factorized embedding-table width (ELECTRA-small's embedding_size 128;
+    # 0 = the tables are n_embd wide): the tables and the embedding
+    # LayerNorm live at this width, and the emb_proj linear maps the
+    # normalized embeddings to n_embd before layer 0
+    n_embd_emb: int = 0
     name: str = ""
 
     @property
@@ -86,10 +102,15 @@ class BertConfig:
 
     @property
     def abs_positions(self) -> bool:
-        """Whether the embeddings add an absolute-position table: BERT
-        does; ModernBERT and nomic-bert rotate (RoPE) and DeBERTa attends
-        relatively."""
-        return self.arch == "bert"
+        """Whether the embeddings add an absolute-position table: the
+        BERT-graph families do; ModernBERT and nomic-bert rotate (RoPE) and
+        DeBERTa attends relatively."""
+        return self.arch in BERT_GRAPH_ARCHS
+
+    @property
+    def emb_width(self) -> int:
+        """Width of the embedding tables (n_embd unless factorized)."""
+        return self.n_embd_emb or self.n_embd
 
     def __post_init__(self):
         if self.n_embd % self.n_head:
@@ -104,6 +125,9 @@ class BertConfig:
         if self.n_labels and self.head_activation not in ("tanh", "relu", "gelu"):
             raise ValueError(f"unsupported head_activation {self.head_activation!r} "
                              "(supported: tanh, relu, gelu)")
+        if self.n_embd_emb and self.arch != "electra":
+            raise ValueError("factorized embeddings (n_embd_emb) are only supported for "
+                             f"electra, not {self.arch!r}")
 
     @classmethod
     def from_gguf_kv(cls, kv: dict) -> "BertConfig":
@@ -112,7 +136,7 @@ class BertConfig:
         arch = str(kv.get(Keys.ARCHITECTURE, ARCH))
         if arch not in _ARCH_DEFAULTS and arch not in UNPORTED_ARCHS:
             arch = ARCH
-        ntt, eps, buckets = _ARCH_DEFAULTS.get(arch, _ARCH_DEFAULTS[ARCH])
+        ntt, off, eps, buckets = _ARCH_DEFAULTS.get(arch, _ARCH_DEFAULTS[ARCH])
         # the nomic-bert forward is SwiGLU: refuse a file that declares
         # another FFN rather than serve it as one
         ffn = (str(kv.get(Keys.FFN_ACT, "silu")), bool(kv.get(Keys.FFN_GATED, True)))
@@ -134,7 +158,7 @@ class BertConfig:
             dense_out=int(kv.get(Keys.DENSE_OUT, 0)),
             dense_activation=str(kv.get(Keys.DENSE_ACTIVATION, "tanh")),
             arch=arch,
-            pos_offset=int(kv.get(Keys.POSITION_OFFSET, 0)),
+            pos_offset=int(kv.get(Keys.POSITION_OFFSET, off)),
             rel_attn_buckets=int(kv.get(Keys.REL_ATTN_BUCKETS, buckets)),
             rel_attn_max_dist=int(kv.get(Keys.REL_ATTN_MAX_DIST, 128)),
             rope_theta=float(kv.get(Keys.ROPE_FREQ_BASE, 0.0)),
@@ -148,6 +172,7 @@ class BertConfig:
             n_labels=int(kv.get(Keys.N_LABELS, 0)),
             head_activation=str(kv.get(Keys.HEAD_ACTIVATION,
                                        HEAD_ACT_DEFAULTS.get(arch, "tanh"))),
+            n_embd_emb=int(kv.get(Keys.EMB_WIDTH, 0)),
             name=str(kv.get(Keys.NAME, "")),
         )
 
@@ -192,4 +217,33 @@ NOMIC_EMBED = BertConfig(
     arch="nomic-bert", rope_theta=1000.0, rope_scaling_factor=2.0,
     rope_max_trained=2048, attn_bias=False, ffn_bias=False,
     name="nomic-embed-text-v1.5",
+)
+# intfloat/multilingual-e5-base geometry (XLMRobertaModel, the encoder of
+# paraphrase-multilingual-mpnet-base-v2 and bge-reranker-base's size): 12
+# layers of 768, 12 heads of 64, FFN 3072, positions numbered from 2 in a
+# 514-row table, one token-type row, eps 1e-5, mean pooling + L2
+MULTILINGUAL_E5_BASE = BertConfig(
+    n_vocab=250002, n_ctx=512, n_embd=768, n_layer=12, n_head=12, n_ff=3072,
+    layer_norm_eps=1e-5, n_token_types=1, arch="roberta", pos_offset=2,
+    name="multilingual-e5-base",
+)
+# sentence-transformers/multi-qa-distilbert-cos-v1 geometry (DistilBertModel):
+# 6 layers of 768, 12 heads, FFN 3072, no token-type table, mean pooling + L2
+MULTI_QA_DISTILBERT = BertConfig(
+    n_vocab=30522, n_ctx=512, n_embd=768, n_layer=6, n_head=12, n_ff=3072,
+    n_token_types=0, arch="distilbert", name="multi-qa-distilbert-cos-v1",
+)
+# cross-encoder/ms-marco-electra-base geometry (ElectraForSequenceClassification):
+# 12 layers of 768, 12 heads, FFN 3072, embedding_size 768 (no projection),
+# one logit through dense + gelu + out_proj on the first token
+MS_MARCO_ELECTRA_BASE = BertConfig(
+    n_vocab=30522, n_ctx=512, n_embd=768, n_layer=12, n_head=12, n_ff=3072,
+    arch="electra", n_labels=1, head_activation="gelu",
+    name="ms-marco-electra-base",
+)
+# google/electra-small-discriminator geometry: 12 layers of 256, 4 heads of
+# 64, FFN 1024, 128-wide embedding tables projected up to 256
+ELECTRA_SMALL = BertConfig(
+    n_vocab=30522, n_ctx=512, n_embd=256, n_layer=12, n_head=4, n_ff=1024,
+    arch="electra", n_embd_emb=128, name="electra-small-discriminator",
 )

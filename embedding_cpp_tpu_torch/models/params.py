@@ -1,15 +1,18 @@
 """Parameter construction: GGUF files, raw state dicts or a JAX parameter
 tree -> dicts of torch tensors on a device.
 
-The BERT, ModernBERT, DeBERTa and nomic-bert paths of the JAX package's
-`models/params.py`: tensors are shape-checked against the schema,
+The BERT-graph (BERT, RoBERTa/XLM-R, DistilBERT, ELECTRA), ModernBERT,
+DeBERTa and nomic-bert paths of the JAX package's `models/params.py`:
+tensors are shape-checked against the schema,
 per-layer tensors are stacked on a leading layer axis, and quantized
 matmul weights and the word table stay packed in the QTensor layout
 (ops/qtensor.py) — weights stay 4- or 8-bit in device memory.  The fused
 Wqkv (ModernBERT, nomic-bert; nomic's bias too) and ModernBERT's Wi split
 at load into q/k/v and up/gate.  Encoder-level
 tensors (DeBERTa's relative table) and a classification head load dense
-f32.
+f32; ELECTRA's factorized-embedding projection loads dense in the
+activation dtype, contraction-major (a small matmul the JAX package also
+runs outside its kernels).
 """
 from __future__ import annotations
 
@@ -143,7 +146,9 @@ def build_params(source: _TensorSource, config: BertConfig, *,
             emb[key] = source.gather_table(name, shape, dense_dtype)
         elif key in ("token_type", "position"):
             emb[key] = source.dense(name, shape, dense_dtype)
-        else:
+        elif key == "emb_proj_w":
+            emb[key] = source.dense(name, shape, dense_dtype).T.contiguous()
+        else:  # LayerNorm scale/bias and the projection's bias
             emb[key] = source.dense(name, shape, f32)
     per_layer: dict[str, list] = {}
     for i in range(config.n_layer):

@@ -1,24 +1,36 @@
-"""GGUF tensor-name schema of the BERT, ModernBERT, DeBERTa and nomic-bert
-encoders.
+"""GGUF tensor-name schema of the BERT-graph (BERT, RoBERTa/XLM-R,
+DistilBERT, ELECTRA), ModernBERT, DeBERTa and nomic-bert encoders.
 
 GGUF files keep the verbatim HF state-dict names.  This maps them to the
 parameter keys the forward reads (q_w, ffn_up_w, ln_att_scale, ...), with
-each tensor's expected [out, in] shape — the BERT, ModernBERT, DeBERTa
-and nomic-bert entries of the JAX package's `models/schema.py`, and the
-classification heads of BERT and DeBERTa.
+each tensor's expected [out, in] shape — those families' entries of the
+JAX package's `models/schema.py`, and their classification heads.
+RoBERTa and ELECTRA keep BertModel's names (RoBERTa's position table has
+pos_offset extra rows and its token-type table one row; ELECTRA-small's
+tables are emb_width wide, projected up by `embeddings_project`);
+DistilBERT has its own module names and no token-type table.
 """
 from __future__ import annotations
 
+# shapes at c.emb_width: n_embd unless the tables are factorized (ELECTRA)
 EMBEDDING_TENSORS = {
-    "embeddings.word_embeddings.weight": ("word", lambda c: (c.n_vocab, c.n_embd)),
+    "embeddings.word_embeddings.weight": ("word", lambda c: (c.n_vocab, c.emb_width)),
     "embeddings.token_type_embeddings.weight": (
-        "token_type", lambda c: (c.n_token_types, c.n_embd),
+        "token_type", lambda c: (c.n_token_types, c.emb_width),
     ),
     "embeddings.position_embeddings.weight": (
-        "position", lambda c: (c.n_ctx + c.pos_offset, c.n_embd),
+        "position", lambda c: (c.n_ctx + c.pos_offset, c.emb_width),
     ),
-    "embeddings.LayerNorm.weight": ("ln_scale", lambda c: (c.n_embd,)),
-    "embeddings.LayerNorm.bias": ("ln_bias", lambda c: (c.n_embd,)),
+    "embeddings.LayerNorm.weight": ("ln_scale", lambda c: (c.emb_width,)),
+    "embeddings.LayerNorm.bias": ("ln_bias", lambda c: (c.emb_width,)),
+}
+
+# ELECTRA's factorized-embedding projection (HF ElectraModel.
+# embeddings_project, present only when embedding_size != hidden_size):
+# the LayerNormed emb_width embeddings -> n_embd before layer 0
+_ELECTRA_EMB_PROJ_TENSORS = {
+    "embeddings_project.weight": ("emb_proj_w", lambda c: (c.n_embd, c.emb_width)),
+    "embeddings_project.bias": ("emb_proj_b", lambda c: (c.n_embd,)),
 }
 
 LAYER_TENSORS = {
@@ -38,6 +50,29 @@ LAYER_TENSORS = {
     "encoder.layer.{i}.output.dense.bias": ("ffn_down_b", lambda c: (c.n_embd,)),
     "encoder.layer.{i}.output.LayerNorm.weight": ("ln_out_scale", lambda c: (c.n_embd,)),
     "encoder.layer.{i}.output.LayerNorm.bias": ("ln_out_bias", lambda c: (c.n_embd,)),
+}
+
+# --- DistilBERT ----------------------------------------------------------------
+# HF DistilBertModel: BertModel's embedding names without the token-type
+# table, and its own encoder names
+_DISTILBERT_PREFIX = "transformer.layer.{i}."
+DISTILBERT_LAYER_TENSORS = {
+    _DISTILBERT_PREFIX + "attention.q_lin.weight": ("q_w", lambda c: (c.n_embd, c.n_embd)),
+    _DISTILBERT_PREFIX + "attention.q_lin.bias": ("q_b", lambda c: (c.n_embd,)),
+    _DISTILBERT_PREFIX + "attention.k_lin.weight": ("k_w", lambda c: (c.n_embd, c.n_embd)),
+    _DISTILBERT_PREFIX + "attention.k_lin.bias": ("k_b", lambda c: (c.n_embd,)),
+    _DISTILBERT_PREFIX + "attention.v_lin.weight": ("v_w", lambda c: (c.n_embd, c.n_embd)),
+    _DISTILBERT_PREFIX + "attention.v_lin.bias": ("v_b", lambda c: (c.n_embd,)),
+    _DISTILBERT_PREFIX + "attention.out_lin.weight": ("o_w", lambda c: (c.n_embd, c.n_embd)),
+    _DISTILBERT_PREFIX + "attention.out_lin.bias": ("o_b", lambda c: (c.n_embd,)),
+    _DISTILBERT_PREFIX + "sa_layer_norm.weight": ("ln_att_scale", lambda c: (c.n_embd,)),
+    _DISTILBERT_PREFIX + "sa_layer_norm.bias": ("ln_att_bias", lambda c: (c.n_embd,)),
+    _DISTILBERT_PREFIX + "ffn.lin1.weight": ("ffn_up_w", lambda c: (c.n_ff, c.n_embd)),
+    _DISTILBERT_PREFIX + "ffn.lin1.bias": ("ffn_up_b", lambda c: (c.n_ff,)),
+    _DISTILBERT_PREFIX + "ffn.lin2.weight": ("ffn_down_w", lambda c: (c.n_embd, c.n_ff)),
+    _DISTILBERT_PREFIX + "ffn.lin2.bias": ("ffn_down_b", lambda c: (c.n_embd,)),
+    _DISTILBERT_PREFIX + "output_layer_norm.weight": ("ln_out_scale", lambda c: (c.n_embd,)),
+    _DISTILBERT_PREFIX + "output_layer_norm.bias": ("ln_out_bias", lambda c: (c.n_embd,)),
 }
 
 # Optional sentence-transformers Dense head (present only when
@@ -137,13 +172,30 @@ _NOMIC_FFN_BIAS_TENSORS = {
 # --- sequence-classification heads (present only when n_labels > 0) ----------
 # logits = out(act(dense(h_cls))): BERT's pooler + classifier; DeBERTa's
 # ContextPooler (dense + gelu on the first token) has the same names.
+# RoBERTa's ClassificationHead (dense + tanh + out_proj; XLM-R rerankers
+# such as bge-reranker-base share it) and ELECTRA's (the same names, gelu);
+# DistilBERT's pre_classifier + relu + classifier.
 _BERT_HEAD_TENSORS = {
     "pooler.dense.weight": ("head_dense_w", lambda c: (c.n_embd, c.n_embd)),
     "pooler.dense.bias": ("head_dense_b", lambda c: (c.n_embd,)),
     "classifier.weight": ("head_out_w", lambda c: (c.n_labels, c.n_embd)),
     "classifier.bias": ("head_out_b", lambda c: (c.n_labels,)),
 }
-_HEAD_TENSORS_BY_ARCH = {"bert": _BERT_HEAD_TENSORS, "deberta": _BERT_HEAD_TENSORS}
+_ROBERTA_HEAD_TENSORS = {
+    "classifier.dense.weight": ("head_dense_w", lambda c: (c.n_embd, c.n_embd)),
+    "classifier.dense.bias": ("head_dense_b", lambda c: (c.n_embd,)),
+    "classifier.out_proj.weight": ("head_out_w", lambda c: (c.n_labels, c.n_embd)),
+    "classifier.out_proj.bias": ("head_out_b", lambda c: (c.n_labels,)),
+}
+_DISTILBERT_HEAD_TENSORS = {
+    "pre_classifier.weight": ("head_dense_w", lambda c: (c.n_embd, c.n_embd)),
+    "pre_classifier.bias": ("head_dense_b", lambda c: (c.n_embd,)),
+    "classifier.weight": ("head_out_w", lambda c: (c.n_labels, c.n_embd)),
+    "classifier.bias": ("head_out_b", lambda c: (c.n_labels,)),
+}
+_HEAD_TENSORS_BY_ARCH = {"bert": _BERT_HEAD_TENSORS, "roberta": _ROBERTA_HEAD_TENSORS,
+                         "distilbert": _DISTILBERT_HEAD_TENSORS,
+                         "electra": _ROBERTA_HEAD_TENSORS, "deberta": _BERT_HEAD_TENSORS}
 
 
 def head_tensors(config) -> dict:
@@ -156,8 +208,9 @@ def head_tensors(config) -> dict:
 
 
 def embedding_tensors(config) -> dict:
-    """Embedding-level tensor map; a BERT config without token types has
-    no token-type table, a DeBERTa config with them has one."""
+    """Embedding-level tensor map; DistilBERT and a BERT-schema config
+    without token types have no token-type table, a DeBERTa config with
+    them has one, and a factorized ELECTRA adds its projection."""
     if config.arch == "modernbert":
         return MODERNBERT_EMBEDDING_TENSORS
     if config.arch == "nomic-bert":
@@ -167,15 +220,18 @@ def embedding_tensors(config) -> dict:
             return DEBERTA_EMBEDDING_TENSORS
         return {**DEBERTA_EMBEDDING_TENSORS, "embeddings.token_type_embeddings.weight":
                 ("token_type", lambda c: (c.n_token_types, c.n_embd))}
-    if config.n_token_types == 0:
-        return {k: v for k, v in EMBEDDING_TENSORS.items() if v[0] != "token_type"}
-    return EMBEDDING_TENSORS
+    base = EMBEDDING_TENSORS
+    if config.n_token_types == 0 or config.arch == "distilbert":
+        base = {k: v for k, v in base.items() if v[0] != "token_type"}
+    if config.n_embd_emb:
+        base = {**base, **_ELECTRA_EMB_PROJ_TENSORS}
+    return base
 
 
 def layer_tensor_names(i: int, config=None) -> dict[str, tuple[str, object]]:
     arch = "bert" if config is None else config.arch
-    templates = {"modernbert": MODERNBERT_LAYER_TENSORS,
-                 "deberta": DEBERTA_LAYER_TENSORS}.get(arch, LAYER_TENSORS)
+    templates = {"modernbert": MODERNBERT_LAYER_TENSORS, "deberta": DEBERTA_LAYER_TENSORS,
+                 "distilbert": DISTILBERT_LAYER_TENSORS}.get(arch, LAYER_TENSORS)
     if arch == "nomic-bert":
         templates = {**NOMIC_LAYER_TENSORS,
                      **(_NOMIC_ATTN_BIAS_TENSORS if config.attn_bias else {}),

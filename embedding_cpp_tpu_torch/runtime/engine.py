@@ -3,8 +3,8 @@
 The encode and rerank paths of the JAX package's `runtime/engine.py`:
 tokenize -> plan (pack short sentences many to a row, bucket the rest by
 length) -> launch every batch -> fetch once -> scatter back to input order;
-cross-encoder pairs frame as [CLS] a [SEP] b [SEP] and run through the
-length buckets to one logit per pair (`score_pairs`, `rerank`).  `encode`
+cross-encoder pairs frame as [CLS] a [SEP] b [SEP] (RoBERTa and XLM-R:
+<s> a </s></s> b </s>) and run through the length buckets to one logit per pair (`score_pairs`, `rerank`).  `encode`
 takes named or literal prompt prefixes, Matryoshka `dimensions` and
 `truncate=False`; `encode_queries` / `encode_documents` apply the model's
 query and document prompts, `encode_with_counts` also returns the token
@@ -397,11 +397,14 @@ class Engine:
     def tokenize_pairs(self, pairs: Sequence[tuple[str, str]]
                        ) -> tuple[list[list[int]], list[list[int]]]:
         """[(text_a, text_b), ...] -> (framed [CLS] a [SEP] b [SEP] id
-        lists, parallel token-type id lists)."""
+        lists, parallel token-type id lists); RoBERTa and XLM-R frame
+        <s> a </s></s> b </s> with one segment."""
         if self.tokenizer is None:
             raise RuntimeError("engine has no tokenizer (model without blob kv)")
         raw = self.tokenizer.encode_batch([t for pair in pairs for t in pair])
-        framed = [frame_pair_ids(raw[i], raw[i + 1], self.special_ids, self.config.n_ctx)
+        double_sep = self.config.arch == "roberta"
+        framed = [frame_pair_ids(raw[i], raw[i + 1], self.special_ids, self.config.n_ctx,
+                                 double_sep=double_sep)
                   for i in range(0, len(raw), 2)]
         return [f[0] for f in framed], [f[1] for f in framed]
 

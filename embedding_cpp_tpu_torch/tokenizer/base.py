@@ -4,7 +4,8 @@ framing, as in the JAX package's `tokenizer/base.py`.
 The tokenizer.json pipeline runs *without* template special tokens; the
 ids are then framed here: prepend CLS, append SEP, truncate to
 n_max_tokens with SEP overwriting the last slot on overflow.  A
-cross-encoder pair frames as [CLS] a [SEP] b [SEP] (`frame_pair_ids`).
+cross-encoder pair frames as [CLS] a [SEP] b [SEP], or <s> a </s></s> b
+</s> for RoBERTa and XLM-R (`frame_pair_ids`).
 """
 from __future__ import annotations
 
@@ -80,13 +81,19 @@ def truncate_longest_first(la: int, lb: int, budget: int) -> tuple[int, int]:
 
 
 def frame_pair_ids(a_ids: Sequence[int], b_ids: Sequence[int], special: SpecialIds,
-                   n_max_tokens: int) -> tuple[list[int], list[int]]:
+                   n_max_tokens: int, *, double_sep: bool = False
+                   ) -> tuple[list[int], list[int]]:
     """Cross-encoder pair framing [CLS] a [SEP] b [SEP] -> (ids, token type
     ids 0...0 1...1; the [SEP] after `a` belongs to segment 0), the pair
-    truncated longest-first to n_max_tokens."""
+    truncated longest-first to n_max_tokens.  double_sep (RoBERTa, XLM-R):
+    <s> a </s></s> b </s>, every type id 0 (their token-type table has one
+    row), four specials out of the budget."""
     a = _strip_pad(a_ids, special.pad)
     b = _strip_pad(b_ids, special.pad)
-    la, lb = truncate_longest_first(len(a), len(b), n_max_tokens - 3)
+    la, lb = truncate_longest_first(len(a), len(b), n_max_tokens - (4 if double_sep else 3))
+    if double_sep:
+        ids = [special.cls, *a[:la], special.sep, special.sep, *b[:lb], special.sep]
+        return ids, [0] * len(ids)
     ids = [special.cls, *a[:la], special.sep, *b[:lb], special.sep]
     return ids, [0] * (la + 2) + [1] * (lb + 1)
 

@@ -22,7 +22,11 @@ forced in every form and the disentangled-attention
 kernel (K9 key bias, K10 segments; S = 16 ... 512 with spans below and
 above S, S off the bf16 kernel's 64-row tiles, segments crossing them, a
 row all padding) and the kernel suite's head-packed attention (B1: every (d, hb)
-it is built for, S = 1 ... 512, padded tails, a row all padding);
+it is built for, S = 1 ... 512, padded tails, a row all padding); the
+BERT-graph families (XLM-R, DistilBERT, ELECTRA base and small) at their
+published widths, two layers deep, with every K1 / K2 / K3 call of the
+forward and of the score path held against its plain version, and
+ELECTRA-small's factorized embedding;
 chip_smoke.py checks the main-path shapes.
 
 Tolerances: f32 1e-4 absolute (the same f32 products summed in another
@@ -694,3 +698,139 @@ def test_engine_refuses_ids_outside_the_vocab_and_keeps_serving(dev, n_lists):
     torch.cuda.synchronize()
     out = eng.embed_tokens(good)
     assert np.isfinite(out).all() and out.shape == (n_lists, eng.n_embd)
+
+
+# --- the BERT-graph families: K1/K2/K3 inside their forwards ----------------------
+
+def _family(name: str, n_layer: int = 2):
+    """A family preset at its published width, `n_layer` deep, vocab cut to
+    1000 (a gather: the cut removes bytes, not work)."""
+    from dataclasses import replace
+
+    from embedding_cpp_tpu_torch import models
+
+    preset = {"xlmr": models.MULTILINGUAL_E5_BASE, "distilbert": models.MULTI_QA_DISTILBERT,
+              "electra": models.MS_MARCO_ELECTRA_BASE, "electra-small": models.ELECTRA_SMALL,
+              "xlmr-reranker": replace(models.MULTILINGUAL_E5_BASE, n_labels=1)}[name]
+    return replace(preset, n_vocab=1000, n_layer=n_layer)
+
+
+@pytest.fixture()
+def held_kernels(monkeypatch):
+    """Routes every K1, K2 and K3 call of a forward through a recorder that
+    holds the kernel's output against its plain version on the same
+    inputs; returns the per-kernel call counts."""
+    import embedding_cpp_tpu_torch.models.bert as bert
+    import embedding_cpp_tpu_torch.ops.linear as linear
+
+    calls = {"K1": 0, "K2": 0, "K3": 0}
+
+    def k1(x, w, bias=None, activation=None, prologue_mul=None):
+        got = q4_matmul(x, w, bias=bias, activation=activation, prologue_mul=prologue_mul)
+        _close(got, q4_matmul_plain(x, w, bias=bias, activation=activation,
+                                    prologue_mul=prologue_mul), x.dtype)
+        calls["K1"] += 1
+        return got
+
+    def k3(q, k, v, mask_bias, h):
+        got = flash_attention_bse(q, k, v, mask_bias, h)
+        _close(got, attention_bse_plain(q, k, v, mask_bias, h, False), q.dtype)
+        calls["K3"] += 1
+        return got
+
+    def k2(q, k, v, seg, h):
+        got = flash_attention_packed_bse(q, k, v, seg, h)
+        _close(got, attention_bse_plain(q, k, v, seg, h, True), q.dtype)
+        calls["K2"] += 1
+        return got
+
+    monkeypatch.setattr(linear, "q4_matmul", k1)
+    monkeypatch.setattr(bert, "flash_attention_bse", k3)
+    monkeypatch.setattr(bert, "flash_attention_packed_bse", k2)
+    return calls
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("packed", [False, True], ids=["plain", "packed"])
+@pytest.mark.parametrize("name", ["xlmr", "distilbert", "electra", "electra-small"])
+def test_family_forward_holds_its_kernels(dev, held_kernels, name, packed, dtype):
+    """Two layers at the published width, Q4_0: every K1 and K2/K3 call of
+    the forward within its tolerance of the plain version, six K1 and one
+    attention call a layer, and the output against the CPU path's."""
+    from embedding_cpp_tpu_torch.benchmarks.profiles import serving_segments
+    from embedding_cpp_tpu_torch.models import ComputeOptions, random_params
+    from embedding_cpp_tpu_torch.models.bert import bert_embed_batch, bert_embed_packed
+
+    config = _family(name)
+    opts = ComputeOptions(dtype=dtype)
+    params = random_params(config, "q4_0", seed=1, dense_dtype=opts.tdtype)
+    rng = np.random.default_rng(2)
+    if packed:
+        seg, pos = serving_segments(rng, 4, 512)
+        ids = rng.integers(4, config.n_vocab, (4, 512)).astype(np.int32)
+        ids[seg < 0] = 0
+        args = [torch.from_numpy(a) for a in (ids, seg, pos)]
+
+        def run(p, device):
+            return bert_embed_packed(p, *(a.to(device) for a in args), config, opts, n_seg=64)
+    else:
+        ids = rng.integers(4, config.n_vocab, (4, 128)).astype(np.int32)
+        mask = (np.arange(128)[None] < np.array([128, 77, 5, 1])[:, None]).astype(np.int32)
+        args = [torch.from_numpy(a) for a in (ids, mask)]
+
+        def run(p, device):
+            return bert_embed_batch(p, *(a.to(device) for a in args), config, opts)
+
+    from embedding_cpp_tpu_torch.models.params import params_to
+
+    got = run(params_to(params, dev), dev).float().cpu()
+    assert held_kernels == {"K1": 6 * 2, "K2": 2 * packed, "K3": 2 * (not packed)}
+    want = run(params, "cpu").float()
+    real = want.norm(dim=-1) > 0
+    cos = torch.nn.functional.cosine_similarity(got[real], want[real], dim=-1)
+    assert torch.isfinite(got).all() and cos.min() >= (0.99999 if dtype == "float32" else 0.999)
+
+
+@pytest.mark.parametrize("name", ["xlmr-reranker", "electra"])
+def test_family_score_holds_its_kernels(dev, held_kernels, name):
+    """The cross-encoder path (K3 over the pairs' bucket, then the f32 head)
+    against the CPU path; RoBERTa's single token-type row."""
+    from embedding_cpp_tpu_torch.models import ComputeOptions, random_params
+    from embedding_cpp_tpu_torch.models.bert import bert_score_batch
+    from embedding_cpp_tpu_torch.models.params import params_to
+
+    config = _family(name)
+    opts = ComputeOptions(dtype="bfloat16")
+    params = random_params(config, "q4_0", seed=3, dense_dtype=torch.bfloat16)
+    rng = np.random.default_rng(4)
+    ids = torch.from_numpy(rng.integers(4, config.n_vocab, (16, 64)).astype(np.int32))
+    mask = torch.from_numpy((np.arange(64)[None] < rng.integers(8, 65, (16, 1))).astype(np.int32))
+    types = torch.zeros_like(ids) if config.n_token_types == 1 else (
+        (torch.arange(64)[None] >= 20).to(torch.int32) * mask)
+    got = bert_score_batch(params_to(params, dev), ids.to(dev), mask.to(dev), config, opts,
+                           type_ids=types.to(dev)).cpu()
+    assert held_kernels == {"K1": 12, "K2": 0, "K3": 2}
+    want = bert_score_batch(params, ids, mask, config, opts, type_ids=types)
+    assert got.shape == (16, 1) and torch.isfinite(got).all()
+    # chip_smoke.py's bar for the card's bf16 logits against the CPU's bf16 path
+    assert (got - want).abs().max().item() <= 0.015
+
+
+def test_electra_small_factorized_embedding(dev):
+    """ELECTRA-small's 128-wide tables, their LayerNorm and the dense
+    128 -> 256 projection on the card, against the CPU path."""
+    from embedding_cpp_tpu_torch.models import ComputeOptions, random_params
+    from embedding_cpp_tpu_torch.models.bert import embed_tokens
+    from embedding_cpp_tpu_torch.models.params import params_to
+
+    config = _family("electra-small")
+    ids = torch.from_numpy(np.random.default_rng(5).integers(
+        4, config.n_vocab, (8, 512)).astype(np.int32))
+    for dtype in ("float32", "bfloat16"):
+        opts = ComputeOptions(dtype=dtype)
+        params = random_params(config, "q4_0", seed=6, dense_dtype=opts.tdtype)
+        assert params["embeddings"]["emb_proj_w"].shape == (128, 256)
+        got = embed_tokens(params_to(params, dev), ids.to(dev), config, opts).cpu()
+        want = embed_tokens(params, ids, config, opts)
+        assert got.shape == (8, 512, 256) and got.dtype == opts.tdtype
+        _close(got, want, opts.tdtype)

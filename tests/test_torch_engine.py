@@ -345,7 +345,7 @@ def test_unknown_architecture_reads_as_bert_on_both_sides(arch):
         assert getattr(ours, f.name) == getattr(theirs, f.name), f.name
 
 
-@pytest.mark.parametrize("arch", ["roberta", "t5"])
+@pytest.mark.parametrize("arch", ["mpnet", "t5"])
 def test_known_unported_architecture_is_still_refused(arch):
     from embedding_cpp_tpu.models.config import BertConfig as JConfig
     from embedding_cpp_tpu_torch.models import BertConfig

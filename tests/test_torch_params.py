@@ -114,4 +114,4 @@ def test_dense_head_params_match_jax():
 
 def test_non_bert_architecture_is_refused():
     with pytest.raises(NotImplementedError):
-        BertConfig(**TINY, arch="roberta")
+        BertConfig(**TINY, arch="mpnet")
