@@ -23,8 +23,11 @@ Phases, in order, each printing JSON lines:
             (SwiGLU: silu epilogue, gate prologue), the segment attention K6
             at [8, 2048, 12x64] in both forms (windowed over chunk-sized
             segments, every key over document-sized ones) and its edge cases;
-            K1 at bge-large-en-v1.5's q/k/v/o (Q8_0) and at ELECTRA-small's
-            linears (K2/K3 at its 4 heads of 64 too); K1's bf16 lines name the
+            K1 at bge-large-en-v1.5's q/k/v/o (Q8_0), at ELECTRA-small's
+            linears (K2/K3 at its 4 heads of 64 too), at gtr-t5-base's
+            bias-free linears and t5-v1.1-base's gated ones (gelu_tanh,
+            the prologue at 2048 -> 768); K4 with a per-head [12, S, S]
+            bias timed at [32, 512] as MPNet's and T5's; K1's bf16 lines name the
             tile instance its rule (`k1_tile`) picked, and each instance is
             also forced at a model shape and at a ragged M and N, every
             qtype, with the prologue and out_f32, and DeBERTa's M = 512
@@ -96,12 +99,26 @@ Phases, in order, each printing JSON lines:
             score_token_pairs (K3), pairs/s, the logit bars; ELECTRA-small
             (128-wide tables projected to 256 by a dense matmul) on 64
             sentences against the f32 CPU path
+  mpnet     all-mpnet-base-v2 (768 wide, 12 layers, 12 heads of 64, FFN
+            3072, positions from 2, a 32-bucket relative bias [12, S, S]
+            shared by every layer) as XLM-R, on K4: 72 K1 + 12 K4 per
+            forward; K4 then held against its plain version, untimed, at
+            every [B, S] the forwards gave it with the model's own bias;
+            64 double-separator pairs through a one-logit tanh head
+  t5        gtr-t5-base (RMSNorm pre-norm blocks, unscaled attention on K4
+            with the shared bias, relu FFN 3072, bias-free) the same way,
+            the corpus framed as ids + </s>; t5_gated: a gated-GELU T5 at
+            t5-v1.1-base's width (FFN 2048, K1's prologue), 64 sentences
+            untimed against the f32 CPU path
+  albert    albert-base-v2 (128-wide tables projected to 768, one shared
+            layer applied 12 times, gelu tanh) as XLM-R, on K2/K3; 64
+            [CLS] q [SEP] p [SEP] pairs through its pooler + classifier
   profile   torch.profiler kernel times of the packed [32, 512] forwards
-            (MiniLM-L6, ModernBERT, DeBERTa, bge-large, XLM-R) and of the
-            [8, 8192] ModernBERT forward
+            (MiniLM-L6, ModernBERT, DeBERTa, bge-large, XLM-R, MPNet, T5,
+            ALBERT) and of the [8, 8192] ModernBERT forward
   server    the TCP server over the GPU engines: one raw text and one TPE2
             batch (MiniLM-L6, nomic, bge-large), one rerank frame (DeBERTa,
-            and the XLM-R cross-encoder);
+            and the XLM-R, MPNet and ALBERT cross-encoders);
             on MiniLM-L6 also the reference's bert.h frames (health, stats,
             meta, tokenize, eval, vocab, int8 encode) and one frame the port
             does not serve yet, whose error frame leaves the connection usable
@@ -362,7 +379,9 @@ def phase_kernels_q4(peaks, model: str, all_types: tuple, seed: int) -> dict:
                     def lib():
                         xx = x * g if gated else x
                         y = torch.mm(xx, wd) if b is None else torch.addmm(b.to(dtype), xx, wd)
-                        return {"gelu_erf": F.gelu, "silu": F.silu}[act](y) if act else y
+                        return {"gelu_erf": F.gelu, "silu": F.silu,
+                                "gelu_tanh": lambda t: F.gelu(t, approximate="tanh")}[act](y) \
+                            if act else y
 
                     case["library_ms"] = gpu_ms(lib)
                     nbytes = (x.numel() * 2 * (2 if gated else 1)
@@ -782,7 +801,8 @@ def phase_kernels_attention(peaks, model: str, h: int, d: int, seed: int) -> dic
 def phase_kernels_bias(peaks) -> dict:
     """K4 at ModernBERT's packed/plain shape [32, 512, 12x64]: the [1, S, S]
     window bias of the local layers, and a per-head [12, S, S] bias (MPNet's
-    and T5's form), each plain (key bias) and packed (segments).  Untimed
+    and T5's form, keyed `/ph12`), each plain (key bias) and packed
+    (segments).  Untimed
     edge cases at [4, 512, 12x64] and [2, 1024, 2x128]: a bias row of -1e9
     at every pair (where no skip is exact), shuffled segment ids with a row
     all padding, a row every key of which is padded."""
@@ -828,8 +848,8 @@ def phase_kernels_bias(peaks) -> dict:
                     lambda: F.scaled_dot_product_attention(*heads, attn_mask=lmask),
                     (q, k, v, mask, pb), nbytes, flops, peaks, timed,
                     b=b, s=s, h=h, d=d, bias_heads=ph)
-                if timed and ph == 1:  # ModernBERT's form: the kernels line
-                    results[kernel] = c
+                if timed:  # ModernBERT's form, and MPNet's and T5's
+                    results[kernel if ph == 1 else f"{kernel}/ph{ph}"] = c
             del plain_mask, packed_mask
     for eb, es, eh, ed in ((4, 512, 12, 64), (2, 1024, 2, 128)):
         eseg = torch.from_numpy(rng.integers(-1, 6, size=(eb, es)).astype(np.int32))
@@ -1930,15 +1950,17 @@ def _planned_shapes(eng, token_lists) -> tuple[list, list]:
 
 
 def _route_counts(config, shapes, dtype, qtype: str = "Q8_0") -> tuple[int, int]:
-    """(K1, K8) launches that q4_matmul's route gives the six `qtype`
-    linears of every layer in one forward of each [B, S] batch."""
+    """(K1, K8) launches that q4_matmul's route gives the `qtype` linears of
+    every layer (q, k, v, o, up, the gate of a gated FFN, down) in one
+    forward of each [B, S] batch."""
     from embedding_cpp_tpu_torch.gguf import GGMLType
     from embedding_cpp_tpu_torch.ops.q4_matmul import route
 
-    e, f = config.n_embd, config.n_ff
+    e, a, f = config.n_embd, config.attn_inner, config.n_ff
+    linears = [(e, a)] * 3 + [(a, e)] + [(e, f)] * (1 + config.ffn_gated) + [(f, e)]
     k1 = k8 = 0
     for b, s in shapes:
-        for k, n in [(e, e)] * 4 + [(e, f), (f, e)]:
+        for k, n in linears:
             if route(b * s, k, n, GGMLType[qtype], dtype).kernel == "2d":
                 k8 += config.n_layer
             else:
@@ -2043,25 +2065,39 @@ def phase_bge_vs_cpu(counters, base, outs, token_lists) -> dict:
 
 def _graph_counts_ok(counts: dict, config, packed: list, plain: list, what: str,
                      qtype: str = "Q4_0", dtype=None, k8_linears: int = 0) -> int:
-    """The BERT graph's forwards (BERT, RoBERTa/XLM-R, DistilBERT, ELECTRA)
-    of the planned [B, S] batches: per layer six linears, K1's except the
-    `k8_linears` the route gives K8 (bge-large's Q8_0 FFN), exactly as
-    q4_matmul's route gives every batch, and one K2 (packed) or K3 (plain)
-    launch; no prologue, no fused tail.  Returns the forwards."""
+    """The forwards of the BERT graph (BERT, RoBERTa/XLM-R, DistilBERT,
+    ELECTRA, MPNet, ALBERT) and of T5 over the planned [B, S] batches: per
+    layer six linears (seven with a gated FFN, whose down projection takes
+    K1's prologue), K1's except the `k8_linears` the route gives K8
+    (bge-large's Q8_0 FFN), exactly as q4_matmul's route gives every batch,
+    and one attention launch: K2 (packed) or K3 (plain), or K4's packed or
+    plain form under MPNet's and T5's relative bias; no fused tail.
+    Returns the forwards."""
     import torch
 
     k1, k8 = _route_counts(config, packed + plain, dtype or torch.bfloat16, qtype)
     forwards, layers = len(packed) + len(plain), config.n_layer
-    check((k1, k8) == ((6 - k8_linears) * layers * forwards, k8_linears * layers * forwards),
+    n_linears = 6 + config.ffn_gated
+    check((k1, k8) == ((n_linears - k8_linears) * layers * forwards,
+                       k8_linears * layers * forwards),
           f"{what}: the route gives {k1}/{k8}")
     check(counts["q4_matmul"] == k1 and counts["q4_matmul_2d"] == k8
-          and counts["q4_matmul_prologue"] == 0 and counts["q4_matmul_ln"] == 0,
-          f"{what}: K1/K8 {counts}")
-    check(counts["attn_bse_packed"] == layers * len(packed)
-          and counts["attn_bse_keybias"] == layers * len(plain)
+          and counts["q4_matmul_prologue"] == config.ffn_gated * layers * forwards
+          and counts["q4_matmul_ln"] == 0, f"{what}: K1/K8 {counts}")
+    packed_kernel, plain_kernel = _attention_kernels(config)
+    check(counts[packed_kernel] == layers * len(packed)
+          and counts[plain_kernel] == layers * len(plain)
           and sum(counts[k] for k in ATTENTION) == layers * forwards,
           f"{what}: attention {counts}")
     return forwards
+
+
+def _attention_kernels(config) -> tuple[str, str]:
+    """The counters of the attention a BERT-graph or T5 forward launches on
+    packed and on plain rows: K4's forms under a relative position bias."""
+    if config.arch in ("mpnet", "t5"):
+        return "attn_bse_bias_packed", "attn_bse_bias"
+    return "attn_bse_packed", "attn_bse_keybias"
 
 
 def _counted(counters, fn) -> tuple:
@@ -2090,12 +2126,17 @@ def _forward_inputs(config, seed: int) -> tuple:
 
 
 def phase_family_main(counters, token_lists, preset, tag: str, seed: int) -> tuple:
-    """One BERT-graph family at its preset's full width and depth (Q4_0
-    weights from seed 0, bf16 activations; the vocab cut to 1000 synthetic
-    words) over the corpus, packed (K2) and plain (K3): launches as the
-    route gives every planned batch, the min cosine of 256 sentences
-    against the port's f32 CPU path, sentences/s (best of 3) and the
-    in-device [32, 512] forward, plain and packed (median of 5)."""
+    """One BERT-graph or T5 family at its preset's full width and depth
+    (Q4_0 weights from seed 0, bf16 activations; the vocab cut to 1000
+    synthetic words) over the corpus (T5 frames it anew, without CLS),
+    packed (K2, or K4 with MPNet's / T5's relative bias) and plain (K3 or
+    K4): launches as the route gives every planned batch, the min cosine of
+    256 sentences against the port's f32 CPU path, sentences/s (best of 3)
+    and the in-device [32, 512] forward, plain and packed (median of 5).
+    Under a relative bias, K4 is then held against its plain version at
+    every [B, S] those forwards gave it, with the model's own bias.
+    Returns the engine, the launches, the packed forward's arguments and
+    the token lists it ran."""
     import torch
 
     from embedding_cpp_tpu_torch import Engine
@@ -2107,19 +2148,24 @@ def phase_family_main(counters, token_lists, preset, tag: str, seed: int) -> tup
     t0 = time.perf_counter()
     base = Engine.synthetic(config, "q4_0", seed=0, opts=opts, device="cuda")
     build_s = time.perf_counter() - t0
+    if config.arch == "t5":
+        token_lists = base.tokenize_batch(synthetic_sentences(len(token_lists), seed=0))
+        check(all(t[0] != base.special_ids.cls and t[-1] == base.special_ids.sep
+                  for t in token_lists), f"{tag}: T5 framing (ids + </s>, no CLS)")
     engines = {packing: Engine(base.params, config, base.tokenizer, base.special_ids,
                                opts=opts, device="cuda", packing=packing)
                for packing in ("auto", "never")}
-    launches, outs, forwards = {}, {}, {}
+    launches, outs, forwards, shapes = {}, {}, {}, []
     for packing, eng in engines.items():
         outs[packing], counts = _counted(counters, lambda e=eng: e.embed_tokens(token_lists))
         packed, plain = _planned_shapes(eng, token_lists)
+        shapes += [(True, *sh) for sh in packed] + [(False, *sh) for sh in plain]
         forwards[packing] = _graph_counts_ok(counts, config, packed, plain,
                                               f"{tag} {packing}")
         launches[packing] = counts
         emit({"phase": f"{tag}_launches", "packing": packing, "packed_forwards": len(packed),
               "plain_forwards": len(plain), "launches": counts})
-        check(counts["attn_bse_packed" if packing == "auto" else "attn_bse_keybias"] > 0,
+        check(counts[_attention_kernels(config)[packing == "never"]] > 0,
               f"{tag} {packing}: {counts}")
         norms = np.linalg.norm(outs[packing], axis=-1)
         check(np.isfinite(outs[packing]).all()
@@ -2144,14 +2190,60 @@ def phase_family_main(counters, token_lists, preset, tag: str, seed: int) -> tup
           "activations": "bfloat16", "params_build_s": build_s,
           "sentences": len(token_lists), "tokens": sum(len(t) for t in token_lists),
           "forwards": forwards,
-          "k1_per_forward": 6 * config.n_layer, "attention_per_forward": config.n_layer,
+          "k1_per_forward": (6 + config.ffn_gated) * config.n_layer,
+          "attention_per_forward": config.n_layer,
           "sentences_per_sec_packed": len(token_lists) / best["auto"],
           "sentences_per_sec_plain": len(token_lists) / best["never"],
           "forward_ms_in_device_b32_s512": plain_ms,
           "packed_forward_ms_in_device_b32_s512": packed_ms,
           "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+    if "rel_attn_bias" in base.params:
+        phase_kernels_relpos_shapes(base.params["rel_attn_bias"], config, tag,
+                                    sorted(set(shapes)) + [(False, 32, 512), (True, 32, 512)])
     total = {name: sum(c[name] for c in launches.values()) for name in counters}
-    return base, total, (base.params, config, pids, seg, pos)
+    return base, total, (base.params, config, pids, seg, pos), token_lists
+
+
+def phase_kernels_relpos_shapes(table, config, tag: str, shapes) -> None:
+    """K4 (untimed, bf16 and f32) at every (packed, B, S) a relative-bias
+    family's forwards gave it, at the model's heads, with the [H, S, S]
+    bias its own table gives (`rel_attn_bias`, T5's far-field cap): plain
+    rows with random key padding, packed rows of the serving profile.  The
+    short plain buckets (S <= 32) are where a block takes several batch
+    rows."""
+    import torch
+
+    from embedding_cpp_tpu_torch.models.bert import rel_attn_bias
+    from embedding_cpp_tpu_torch.ops.attention import (
+        MASK_BIAS,
+        attention_bse_plain,
+        flash_attention_bias_bse,
+        flash_attention_bias_packed_bse,
+    )
+
+    dev = torch.device("cuda")
+    h, d = config.n_head, config.head_dim
+    gen = torch.Generator(device="cpu").manual_seed(13)
+    rng = np.random.default_rng(13)
+    for packed, b, s in shapes:
+        pb = rel_attn_bias(table, s, config.rel_attn_max_dist if config.arch == "t5" else 128)
+        if packed:
+            mask = torch.from_numpy(serving_segments(rng, b, s)[0]).to(dev)
+        else:
+            lens = torch.from_numpy(rng.integers(1, s + 1, size=b))
+            mask = torch.where(torch.arange(s)[None, :] < lens[:, None], 0.0,
+                               MASK_BIAS).to(torch.float32).to(dev)
+        fn = flash_attention_bias_packed_bse if packed else flash_attention_bias_bse
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (torch.randn(b, s, h * d, generator=gen).to(dev, dtype) for _ in range(3))
+            _attention_case(
+                "attn_bse_bias_packed" if packed else "attn_bse_bias",
+                lambda *a, fn=fn: fn(*a, h),
+                lambda *a, sm=packed: attention_bse_plain(a[0], a[1], a[2], a[3], h, sm, a[4]),
+                None, (q, k, v, mask, pb), 0.0, 0.0, None, False,
+                model=tag, b=b, s=s, h=h, d=d, bias_heads=h)
+            del q, k, v
+    torch.cuda.empty_cache()
 
 
 def _score_counted(counters, eng, pair_ids, pair_types, what: str) -> tuple:
@@ -2164,26 +2256,68 @@ def _score_counted(counters, eng, pair_ids, pair_types, what: str) -> tuple:
     return logits, counts, shapes
 
 
-def phase_xlmr_pairs(counters, config) -> tuple:
-    """bge-reranker-base's shape: the XLM-R geometry with a one-logit tanh
-    ClassificationHead (Q4_0 weights from seed 1, bf16); 64 query/passage
-    pairs framed <s> q </s></s> p </s> with one segment, untimed, through
-    score_token_pairs (K3), held to the cross-encoder logit bars."""
+def phase_family_pairs(counters, config, tag: str, label: str) -> tuple:
+    """A one-logit cross-encoder of the family's geometry (Q4_0 weights from
+    seed 1, bf16): XLM-R and MPNet with RoBERTa's tanh ClassificationHead,
+    pairs framed <s> q </s></s> p </s> with one segment; ALBERT with its
+    pooler + classifier, [CLS] q [SEP] p [SEP] with segments 0/1.  64
+    query/passage pairs, untimed, through score_token_pairs (K3, or K4
+    under MPNet's relative bias), held to the cross-encoder logit bars."""
     from embedding_cpp_tpu_torch import Engine
     from embedding_cpp_tpu_torch.models import ComputeOptions
 
-    rr_config = replace(config, n_labels=1, name="xlm-r-base-reranker-synthetic")
+    rr_config = replace(config, n_labels=1, name=f"{label}-synthetic")
     rr = Engine.synthetic(rr_config, "q4_0", seed=1, opts=ComputeOptions(dtype="bfloat16"),
                           device="cuda")
     pair_ids, pair_types = rr.tokenize_pairs(_rerank_pairs(64, seed=11))
     sep = rr.special_ids.sep
-    check(all(any(t[i] == t[i + 1] == sep for i in range(len(t) - 1)) for t in pair_ids)
-          and not any(map(any, pair_types)), "xlmr pairs: the double-separator framing")
-    logits, counts, shapes = _score_counted(counters, rr, pair_ids, pair_types, "xlmr score")
-    vs = _logits_vs_cpu(rr, pair_ids, pair_types, logits, "xlmr", spread_scaled=True)
-    emit({"phase": "xlmr_pairs", "model": rr_config.name, "head": rr_config.head_activation,
+    double = [any(t[i] == t[i + 1] == sep for i in range(len(t) - 1)) for t in pair_ids]
+    if config.arch in ("roberta", "mpnet"):
+        check(all(double) and not any(map(any, pair_types)),
+              f"{tag} pairs: the double-separator framing")
+    else:
+        check(not any(double) and all(1 in t for t in pair_types), f"{tag} pairs: two segments")
+    logits, counts, shapes = _score_counted(counters, rr, pair_ids, pair_types, f"{tag} score")
+    vs = _logits_vs_cpu(rr, pair_ids, pair_types, logits, tag, spread_scaled=True)
+    emit({"phase": f"{tag}_pairs", "model": rr_config.name, "head": rr_config.head_activation,
           "batch_shapes": shapes, "launches": counts, **vs})
     return rr, counts
+
+
+def phase_t5_gated(counters) -> dict:
+    """A gated-GELU T5 at t5-v1.1-base's width (768, 12 layers, 12 heads of
+    64, FFN 2048, act(wi_0 x) * wi_1 x with gelu_tanh; Q4_0 from seed 0,
+    bf16): 64 corpus sentences framed without CLS, untimed, through K1 (the
+    wi_1 product in the down projection's prologue) and K4, against the
+    port's f32 CPU path, with the CPU's bf16 path's distance beside it."""
+    import torch
+
+    from embedding_cpp_tpu_torch import Engine
+    from embedding_cpp_tpu_torch.models import GTR_BASE, ComputeOptions
+
+    config = replace(GTR_BASE, n_vocab=1000, n_ff=2048, ffn_act="gelu_tanh", ffn_gated=True,
+                     name="t5-v1.1-base-synthetic")
+    eng = Engine.synthetic(config, "q4_0", seed=0, opts=ComputeOptions(dtype="bfloat16"),
+                           device="cuda")
+    few = eng.tokenize_batch(synthetic_sentences(64, seed=5))
+    out, counts = _counted(counters, lambda: eng.embed_tokens(few))
+    packed, plain = _planned_shapes(eng, few)
+    _graph_counts_ok(counts, config, packed, plain, "t5 gated")
+    check(counts["q4_matmul_prologue"] == config.n_layer * (len(packed) + len(plain)) > 0,
+          f"t5 gated: prologue {counts}")
+    cpu = {dtype: Engine(eng.params, config, eng.tokenizer, eng.special_ids,
+                         opts=ComputeOptions(dtype=dtype), device="cpu").embed_tokens(few)
+           for dtype in ("float32", "bfloat16")}
+    cos = _min_cos(out, cpu["float32"])
+    # the CPU's own bf16 path beside it: how far bf16 alone takes this
+    # random-weight gated FFN from f32
+    emit({"phase": "t5_gated", "model": config.name, "sentences": len(few),
+          "packed_forwards": len(packed), "plain_forwards": len(plain), "launches": counts,
+          "min_cosine": cos, "threshold": COSINE_VS_CPU,
+          "cpu_bf16_min_cosine": _min_cos(cpu["bfloat16"], cpu["float32"])})
+    check(cos >= COSINE_VS_CPU, f"t5 gated cosine vs CPU {cos}")
+    torch.cuda.empty_cache()
+    return counts
 
 
 def phase_electra(counters, token_lists) -> tuple:
@@ -2495,7 +2629,13 @@ def main() -> None:
     name, smi, peaks = phase_device()
     import torch
 
-    from embedding_cpp_tpu_torch.models import MULTI_QA_DISTILBERT, MULTILINGUAL_E5_BASE
+    from embedding_cpp_tpu_torch.models import (
+        ALBERT_BASE,
+        GTR_BASE,
+        MPNET_BASE,
+        MULTI_QA_DISTILBERT,
+        MULTILINGUAL_E5_BASE,
+    )
     from embedding_cpp_tpu_torch.ops import attention as A
     from embedding_cpp_tpu_torch.ops import deberta_attention as DA
     from embedding_cpp_tpu_torch.ops.q4_matmul import q4_matmul
@@ -2507,6 +2647,8 @@ def main() -> None:
     k1n = phase_kernels_q4(peaks, "nomic-embed-text-v1.5", ("down",), seed=4)
     k1b = phase_kernels_q4(peaks, "bge-large-en-v1.5", ("qkvo",), seed=5)
     k1es = phase_kernels_q4(peaks, "electra-small", (), seed=6)
+    k1t5 = phase_kernels_q4(peaks, "gtr-t5-base", (), seed=7)
+    k1t5g = phase_kernels_q4(peaks, "t5-v1.1-base", ("down",), seed=8)
     k1t = phase_kernels_k1_tiles(peaks)
     k8 = phase_kernels_k8(peaks, F32_PEAKS[peaks_for(name)[0]])
     k1ln = phase_kernels_ln(peaks)
@@ -2546,23 +2688,40 @@ def main() -> None:
     vs_counts = phase_nomic_vs_cpu(counters, nomic, nomic_outs, token_lists, chunks)
     bge, bge_outs, bge_total, bge_forward_args = phase_bge_main(counters, token_lists)
     bge_f32_counts = phase_bge_vs_cpu(counters, bge, bge_outs, token_lists)
-    xlmr, xlmr_total, xlmr_forward_args = phase_family_main(
+    xlmr, xlmr_total, xlmr_forward_args, _ = phase_family_main(
         counters, token_lists, MULTILINGUAL_E5_BASE, "xlmr", seed=16)
-    xlmr_rr, xlmr_pair_counts = phase_xlmr_pairs(counters, xlmr.config)
-    _, distil_total, _ = phase_family_main(counters, token_lists, MULTI_QA_DISTILBERT,
-                                           "distilbert", seed=17)
+    xlmr_rr, xlmr_pair_counts = phase_family_pairs(counters, xlmr.config, "xlmr",
+                                                   "xlm-r-base-reranker")
+    _, distil_total, _, _ = phase_family_main(counters, token_lists, MULTI_QA_DISTILBERT,
+                                              "distilbert", seed=17)
     electra_total, small_total = phase_electra(counters, token_lists)
+    mpnet, mpnet_total, mpnet_forward_args, _ = phase_family_main(
+        counters, token_lists, MPNET_BASE, "mpnet", seed=18)
+    mpnet_rr, mpnet_pair_counts = phase_family_pairs(counters, mpnet.config, "mpnet",
+                                                     "all-mpnet-base-reranker")
+    t5, t5_total, t5_forward_args, t5_lists = phase_family_main(
+        counters, token_lists, GTR_BASE, "t5", seed=19)
+    t5_gated_counts = phase_t5_gated(counters)
+    albert, albert_total, albert_forward_args, _ = phase_family_main(
+        counters, token_lists, ALBERT_BASE, "albert", seed=20)
+    albert_rr, albert_pair_counts = phase_family_pairs(counters, albert.config, "albert",
+                                                       "albert-base-v2-reranker")
     phase_profile(forward_args, engine, token_lists, out_dir)
     phase_profile(mb_forward_args, mb, token_lists, out_dir, tag="modernbert_")
     phase_profile(de_forward_args, de, token_lists, out_dir, tag="deberta_")
     phase_profile(bge_forward_args, bge, token_lists, out_dir, tag="bge_")
     phase_profile(xlmr_forward_args, xlmr, token_lists, out_dir, tag="xlmr_")
+    phase_profile(mpnet_forward_args, mpnet, token_lists, out_dir, tag="mpnet_")
+    phase_profile(t5_forward_args, t5, t5_lists, out_dir, tag="t5_")
+    phase_profile(albert_forward_args, albert, token_lists, out_dir, tag="albert_")
     phase_server(engine)
     phase_server_frames(engine)
     phase_server(nomic)
     phase_server(bge)
     phase_rerank_server(de)
     phase_rerank_server(xlmr_rr)
+    phase_rerank_server(mpnet_rr)
+    phase_rerank_server(albert_rr)
 
     # each model's launches beside the times at that model's shapes
     mb_total = {k: mb_launches[k] + long_launches[k] for k in counters}
@@ -2577,9 +2736,12 @@ def main() -> None:
     nomic_total = {k: nomic_total[k] + chunk_counts[k] + doc_counts[k] + vs_counts[k]
                    for k in counters}
     xlmr_total = {k: xlmr_total[k] + xlmr_pair_counts[k] for k in counters}
-    family_totals = {"xlmr": xlmr_total, "distilbert": distil_total, "electra": electra_total}
+    mpnet_total = {k: mpnet_total[k] + mpnet_pair_counts[k] for k in counters}
+    albert_total = {k: albert_total[k] + albert_pair_counts[k] for k in counters}
+    family_totals = {"xlmr": xlmr_total, "distilbert": distil_total, "electra": electra_total,
+                     "mpnet": mpnet_total, "t5": t5_total, "albert": albert_total}
     paths = (launches, mb_total, de_total, nomic_total, bge_total, bge_f32_counts,
-             *family_totals.values(), small_total)
+             *family_totals.values(), small_total, t5_gated_counts)
     # the fused residual/LayerNorm tail on every model path, bf16 and f32
     ln_on_paths = sum(t["q4_matmul_ln"] for t in paths)
     check(ln_on_paths == 0, f"the fused tail ran on a model path {ln_on_paths} times")
@@ -2660,19 +2822,57 @@ def main() -> None:
     labels = {"xlmr": "XLM-R base (multilingual-e5-base; with bge-reranker-base's head "
                       "on 64 pairs)",
               "distilbert": "multi-qa-distilbert-cos-v1",
-              "electra": "ms-marco-electra-base (the score path)"}
+              "electra": "ms-marco-electra-base (the score path)",
+              "mpnet": "all-mpnet-base-v2 (with a one-logit head on 64 pairs)",
+              "albert": "albert-base-v2, one layer applied 12 times (with its pooler + "
+                        "classifier on 64 pairs)"}
+    k1_t5 = {**k1t5["per_layer"], "max_abs_err": k1t5["max_abs_err"],
+             "bound_by": k1t5["bound_by"]}
+    # the gated T5 runs the same attention as gtr-t5-base: its K4 launches
+    # join that entry's
+    t5_attention = {k: t5_total[k] + t5_gated_counts[k]
+                    for k in ("attn_bse_bias_packed", "attn_bse_bias")}
     for tag, total in family_totals.items():
-        kernels.append(_entry(
-            f"q4_matmul/{tag}", "q4_matmul.cu", "q4_matmul.py:126", total["q4_matmul"],
-            k1_de, f"{labels[tag]}: one layer's six linears (q,k,v,o 768->768; up 768->3072 "
-            "+ gelu_erf; down 3072->768) at M=16384, bf16, Q4_0: the shapes of "
-            "q4_matmul/deberta, timed there", model=tag, tiles=k1d["tiles"]))
+        if tag == "t5":
+            kernels.append(_entry(
+                "q4_matmul/t5", "q4_matmul.cu", "q4_matmul.py:126", total["q4_matmul"], k1_t5,
+                "gtr-t5-base: one layer's six bias-free linears (q,k,v,o 768->768; up "
+                "768->3072, relu after it; down 3072->768) at M=16384, bf16, Q4_0",
+                model=tag, tiles=k1t5["tiles"]))
+        else:
+            kernels.append(_entry(
+                f"q4_matmul/{tag}", "q4_matmul.cu", "q4_matmul.py:126", total["q4_matmul"],
+                k1_de, f"{labels[tag]}: one layer's six linears (q,k,v,o 768->768; up "
+                "768->3072 + gelu; down 3072->768) at M=16384, bf16, Q4_0: the shapes of "
+                "q4_matmul/deberta, timed there", model=tag, tiles=k1d["tiles"]))
+        if tag in ("mpnet", "t5"):
+            for kname in ("attn_bse_bias_packed", "attn_bse_bias"):
+                c = attn[f"{kname}/ph12"]
+                n = t5_attention[kname] if tag == "t5" else total[kname]
+                kernels.append(_entry(
+                    f"{kname}/{tag}", "attention_bse.cu", "attention.py:213", n, c,
+                    f"[{c['b']}, {c['s']}, {c['h']}*{c['d']}] bf16, a per-head [12, S, S] "
+                    "bias (PH = H); every [B, S] of the forwards checked untimed with the "
+                    "model's own bias", model=tag))
+            continue
         for kname in ("attn_bse_packed", "attn_bse_keybias")[tag == "electra":]:
             c = attn_mb[kname]
             kernels.append(_entry(f"{kname}/{tag}", "attention_bse.cu", "attention.py:213",
                                   total[kname], c, f"[{c['b']}, {c['s']}, {c['h']}*{c['d']}] "
                                   "bf16, timed at the ModernBERT/nomic entries' shape",
                                   model=tag))
+    k1_t5g = {**k1t5g["per_layer"], "max_abs_err": k1t5g["max_abs_err"],
+              "bound_by": k1t5g["bound_by"]}
+    kernels.append(_entry("q4_matmul/t5-v1.1", "q4_matmul.cu", "q4_matmul.py:126",
+                          t5_gated_counts["q4_matmul"], k1_t5g, "t5-v1.1-base (gated "
+                          "gelu_tanh): one layer's seven bias-free linears (q,k,v,o 768->768; "
+                          "up 768->2048 + gelu_tanh; gate 768->2048; down 2048->768 with the "
+                          "prologue) at M=16384, bf16, Q4_0", model="t5-v1.1",
+                          tiles=k1t5g["tiles"]))
+    kernels.append(_entry("q4_matmul_prologue/t5-v1.1", "q4_matmul.cu", "q4_matmul.py:214",
+                          t5_gated_counts["q4_matmul_prologue"], k1t5g["prologue"],
+                          "down 2048->768 with prologue_mul at M=16384, bf16, Q4_0",
+                          model="t5-v1.1"))
     k1_es = {**k1es["per_layer"], "max_abs_err": k1es["max_abs_err"],
              "bound_by": k1es["bound_by"]}
     kernels.append(_entry("q4_matmul/electra-small", "q4_matmul.cu", "q4_matmul.py:126",

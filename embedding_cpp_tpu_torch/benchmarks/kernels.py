@@ -27,8 +27,10 @@ every distinct K1 shape of those layers over several M, beside the one
 named sections alone (e.g. `--only k8_ffn k1_layers`).
 
 `bench_bse` runs the projection-layout kernel (K2, K3, K4 plain and
-packed with PH = 1 and H) at every model's heads at [32, 512] and K3 at
-MiniLM-L6's short plain buckets, the shapes its A/B is held to.
+packed with PH = 1 and H) at every model's heads at [32, 512], K3 at
+MiniLM-L6's short plain buckets, and K4 with MPNet's / T5's bucketed
+per-head bias at [2048, 16], [512, 32] and [32, 512], the shapes its A/B
+is held to.
 `bench_long` runs the long-row body (K5, K5 with a [1, S, S] bias, K6b,
 K6a, K7) at the main paths' shapes, at the source's query-tile rule and
 with each query tile forced: the times the rule is decided from.
@@ -197,13 +199,23 @@ K1_LAYERS = {
                                               ("gate", 768, 3072, None, 1, False),
                                               ("down", 3072, 768, None, 1, True)]),
     "bge-large-en-v1.5": ("Q8_0", True, [("qkvo", 1024, 1024, None, 4, False)]),
-    # RoBERTa/XLM-R, DistilBERT and ELECTRA base run DeBERTa-v3-base's shapes
+    # RoBERTa/XLM-R, DistilBERT, ELECTRA, MPNet and ALBERT base run
+    # DeBERTa-v3-base's shapes
     "electra-small": ("Q4_0", True, [("qkvo", 256, 256, None, 4, False),
                                      ("up", 256, 1024, "gelu_erf", 1, False),
                                      ("down", 1024, 256, None, 1, False)]),
+    # T5 is bias-free; gtr-t5-base's relu follows the linear, outside K1
+    "gtr-t5-base": ("Q4_0", False, [("qkvo", 768, 768, None, 4, False),
+                                    ("up", 768, 3072, None, 1, False),
+                                    ("down", 3072, 768, None, 1, False)]),
+    "t5-v1.1-base": ("Q4_0", False, [("qkvo", 768, 768, None, 4, False),
+                                     ("up", 768, 2048, "gelu_tanh", 1, False),
+                                     ("gate", 768, 2048, None, 1, False),
+                                     ("down", 2048, 768, None, 1, True)]),
 }
 K1_TABLE = (512, 768, 768)  # DeBERTa's relative-table projection: M, K, N
-_ACT = {None: lambda y: y, "gelu_erf": F.gelu, "silu": F.silu}
+_ACT = {None: lambda y: y, "gelu_erf": F.gelu, "silu": F.silu,
+        "gelu_tanh": lambda y: F.gelu(y, approximate="tanh")}
 
 
 def _k1_case(m: int, k: int, n: int, qtype: str, bias: bool, gated: bool, rng, dev):
@@ -386,6 +398,9 @@ def bench_packed_attention(peaks, b: int = 64, s: int = 512, h: int = 12, d: int
 
 BSE_HEADS = ((12, 32), (12, 64), (16, 64))  # MiniLM-L6; ModernBERT, nomic; bge-large
 BSE_SHORT = ((2048, 16), (512, 32))  # MiniLM-L6's plain buckets of the corpus
+# MPNet's and T5's per-head relative bias at 12 heads of 64: the corpus's
+# short plain buckets and the [32, 512] forward
+BSE_RELPOS = ((2048, 16), (512, 32), (32, 512))
 
 
 def bench_bse(peaks, b: int = 32, s: int = 512) -> dict:
@@ -394,7 +409,11 @@ def bench_bse(peaks, b: int = 32, s: int = 512) -> dict:
     of the serving profile (tflops and the bound over the pairs that share
     a segment id), K3 with a padded tail, K4 plain and packed with a [1, S,
     S] window-128 bias (ModernBERT's local layers) and a per-head [H, S, S]
-    bias; K3 at MiniLM-L6's short plain buckets [2048, 16] and [512, 32]."""
+    bias; K3 at MiniLM-L6's short plain buckets [2048, 16] and [512, 32];
+    K4 plain and packed with MPNet's / T5's bucketed [12, S, S] bias at
+    12x64 at `BSE_RELPOS` (packed rows of the serving profile, cut to S;
+    tflops and the bound over the pairs that share a segment id)."""
+    from ..models.bert import rel_attn_bias
     from ..models.modernbert import window_bias
 
     seg_np = serving_segments(np.random.default_rng(0), b, s)[0]
@@ -445,6 +464,33 @@ def bench_bse(peaks, b: int = 32, s: int = 512) -> dict:
             "kernel": _timed(lambda: flash_attention_bse(q, k, v, mask, h), nbytes, flops, peaks),
             "library": _timed(_sdpa(*heads, mask[:, None, None, :].to(q.dtype)), nbytes, flops,
                               peaks)}
+    h, d = 12, 64
+    table = torch.from_numpy(np.random.default_rng(3).normal(size=(32, h))
+                             .astype(np.float32)).cuda()
+    for bb, ss in BSE_RELPOS:
+        q, k, v = _qkv((bb, ss, h * d))
+        mask = _tail_bias(bb, ss)
+        pos = rel_attn_bias(table, ss)
+        seg_np = serving_segments(np.random.default_rng(ss), bb, ss)[0]
+        seg = torch.from_numpy(seg_np).cuda()
+        seg_flops = 4.0 * h * d * segment_pairs(seg_np)
+        allowed = (seg[:, :, None] == seg[:, None, :])[:, None]
+        heads = [t.view(bb, ss, h, d).transpose(1, 2).contiguous() for t in (q, k, v)]
+        nbytes = 4 * q.numel() * 2 + bb * ss * 4 + pos.numel() * 4
+        flops = 4.0 * bb * h * ss * ss * d
+        plain_mask = (mask[:, None, None, :] + pos[None]).to(q.dtype)
+        r = {"plain": {"kernel": _timed(lambda: flash_attention_bse(q, k, v, mask, h, pos),
+                                        nbytes, flops, peaks),
+                       "library": _timed(_sdpa(*heads, plain_mask), nbytes, flops, peaks)}}
+        del plain_mask
+        packed_mask = torch.where(allowed, pos[None], -1e9).to(q.dtype)
+        r["packed"] = {
+            "kernel": _timed(lambda: flash_attention_packed_bse(q, k, v, seg, h, pos), nbytes,
+                             seg_flops, peaks),
+            "library": _timed(_sdpa(*heads, packed_mask), nbytes, seg_flops, peaks)}
+        out[f"k4_relpos_b{bb}_s{ss}"] = r
+        del packed_mask, q, k, v, heads
+        torch.cuda.empty_cache()
     return out
 
 

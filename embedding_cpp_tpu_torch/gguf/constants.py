@@ -107,9 +107,13 @@ class Keys:
     TOKEN_TYPE_COUNT = f"{ARCH}.token_type_count"
     POSITION_OFFSET = f"{ARCH}.position_offset"
     GELU = f"{ARCH}.gelu_variant"
-    # ELECTRA-small: the width of the factorized embedding tables, which a
-    # linear projects up to embedding_length (absent: no projection)
+    # ALBERT and ELECTRA-small: the width of the factorized embedding
+    # tables, which a linear projects up to embedding_length (absent: no
+    # projection)
     EMB_WIDTH = f"{ARCH}.embedding_width"
+    # T5: the per-head width d_kv where it is not embedding_length /
+    # head_count (llama.cpp's name)
+    HEAD_DIM = f"{ARCH}.attention.key_length"
     # ModernBERT: RoPE bases (global / local layers), the global-layer
     # period and the sliding-window width
     ROPE_FREQ_BASE = f"{ARCH}.rope.freq_base"
@@ -122,8 +126,8 @@ class Keys:
     REL_ATTN_MAX_DIST = f"{ARCH}.attention.relative_max_distance"
     N_LABELS = f"{ARCH}.classifier.n_labels"
     HEAD_ACTIVATION = f"{ARCH}.classifier.activation"
-    # nomic-bert: dynamic-NTK RoPE scaling past the trained length, the
-    # checkpoint's bias layout and its FFN recipe
+    # nomic-bert: dynamic-NTK RoPE scaling past the trained length and the
+    # checkpoint's bias layout; nomic-bert and T5: the FFN recipe
     ROPE_SCALING_FACTOR = f"{ARCH}.rope.scaling_factor"
     ROPE_MAX_TRAINED = f"{ARCH}.rope.max_trained_positions"
     ATTN_BIAS = f"{ARCH}.attention.bias"

@@ -1,22 +1,27 @@
-"""Batched, masked BERT encoder forward pass in PyTorch (ModernBERT,
-DeBERTa and nomic-bert configs dispatch to models/modernbert.py,
-models/deberta.py and models/nomic.py from the entry points), and the
-cross-encoder score path with its classification head.
+"""Batched, masked BERT encoder forward pass in PyTorch (T5, ModernBERT,
+DeBERTa and nomic-bert configs dispatch to models/t5.py,
+models/modernbert.py, models/deberta.py and models/nomic.py from the entry
+points), and the cross-encoder score path with its classification head.
 
 The BERT path of the JAX package's `models/bert.py`, which also serves the
 families that share BERT's graph: RoBERTa and XLM-R (positions numbered
-from `pos_offset`), DistilBERT (no token-type table) and ELECTRA (ELECTRA-
-small's narrow embeddings projected up after their LayerNorm).  On dicts
-of tensors:
+from `pos_offset`), DistilBERT (no token-type table), ELECTRA (ELECTRA-
+small's narrow embeddings projected up after their LayerNorm), MPNet (a
+T5-bucketed relative position bias [H, S, S] shared by every layer, added
+after the scaled scores) and ALBERT (factorized embeddings, one shared
+layer applied n_layer times).  On dicts of tensors:
 matmuls run in the activation dtype (bf16 for throughput, f32 for parity)
 with f32 accumulation, while LayerNorm, softmax, pooling and the L2 norm
 accumulate in f32.  Every layer's six projections go through `linear`
 (quantized weights: the fused dequant-matmul kernel), and attention goes
 through the projection-layout kernel: its segment-masked form for packed
-rows, its key-bias form for plain padded batches, at every sequence length.
+rows, its key-bias form for plain padded batches, at every sequence length,
+with MPNet's position bias (K4) or without (K2/K3).
 """
 from __future__ import annotations
 
+import functools
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -87,22 +92,73 @@ def embed_tokens(params: dict, ids: torch.Tensor, config: BertConfig,
     return x
 
 
+def t5_relative_bucket(rel: np.ndarray, num_buckets: int = 32,
+                       max_distance: int = 128) -> np.ndarray:
+    """T5's bidirectional relative-position bucket of rel = k_pos - q_pos
+    (HF MPNetEncoder.relative_position_bucket / T5Attention's): the sign
+    picks a half, then exact buckets near zero and log-spaced ones out to
+    max_distance.  In numpy float32, as the JAX package folds it on the
+    host: one ulp of the log at a boundary would move a bucket."""
+    half = num_buckets // 2
+    n = -rel
+    ret = (n < 0).astype(np.int32) * half
+    n = np.abs(n)
+    max_exact = half // 2
+    val_if_large = max_exact + (
+        np.log(np.maximum(n, 1).astype(np.float32) / max_exact)
+        / math.log(max_distance / max_exact)
+        * (half - max_exact)
+    ).astype(np.int32)
+    val_if_large = np.minimum(val_if_large, half - 1)
+    return ret + np.where(n < max_exact, n.astype(np.int32), val_if_large)
+
+
+@functools.lru_cache(maxsize=32)
+def _bucket_index(s: int, num_buckets: int, max_distance: int, device) -> torch.Tensor:
+    """The [S, S] bucket matrix of positions 0..S-1 on `device`, made once
+    per (S, buckets, max_distance, device)."""
+    pos = np.arange(s)
+    bucket = t5_relative_bucket(pos[None, :] - pos[:, None], num_buckets, max_distance)
+    return torch.from_numpy(bucket.astype(np.int64)).to(device)
+
+
+def rel_attn_bias(table: torch.Tensor, s: int, max_distance: int = 128) -> torch.Tensor:
+    """The shared relative position bias of a row of S positions: table
+    [buckets, H] gathered at the bucket matrix -> contiguous [H, S, S] f32,
+    the position-bias operand of the projection-layout kernel (K4).  It is
+    batch-invariant and serves packed rows too: within a segment the
+    restart positions are consecutive, so k_pos - q_pos is the row offset
+    k - q, and pairs across segments are masked."""
+    bucket = _bucket_index(s, int(table.shape[0]), int(max_distance), table.device)
+    return table.to(torch.float32)[bucket].permute(2, 0, 1).contiguous()
+
+
+def _pos_bias(params: dict, s: int) -> torch.Tensor | None:
+    """MPNet's [H, S, S] bias, built once per forward (None without a
+    table).  HF MPNetEncoder.compute_position_bias fixes max_distance at
+    128, as the JAX package does."""
+    table = params.get("rel_attn_bias")
+    return None if table is None else rel_attn_bias(table, s)
+
+
 def _attention(x: torch.Tensor, lp: dict, mask_bias: torch.Tensor,
-               config: BertConfig, seg: torch.Tensor | None = None) -> torch.Tensor:
-    """softmax(q k^T / sqrt(d)) v over the projection layout, masked by the
-    key bias, or block-diagonal by segment for packed rows."""
+               config: BertConfig, seg: torch.Tensor | None = None,
+               pos_bias: torch.Tensor | None = None) -> torch.Tensor:
+    """softmax(q k^T / sqrt(d) [+ pos_bias]) v over the projection layout,
+    masked by the key bias, or block-diagonal by segment for packed rows."""
     q = linear(x, lp["q_w"], lp["q_b"])
     k = linear(x, lp["k_w"], lp["k_b"])
     v = linear(x, lp["v_w"], lp["v_b"])
     if seg is not None:
-        return flash_attention_packed_bse(q, k, v, seg, config.n_head)
-    return flash_attention_bse(q, k, v, mask_bias, config.n_head)
+        return flash_attention_packed_bse(q, k, v, seg, config.n_head, pos_bias)
+    return flash_attention_bse(q, k, v, mask_bias, config.n_head, pos_bias)
 
 
 def encoder_layer(x: torch.Tensor, lp: dict, mask_bias: torch.Tensor,
-                  config: BertConfig, seg: torch.Tensor | None = None) -> torch.Tensor:
+                  config: BertConfig, seg: torch.Tensor | None = None,
+                  pos_bias: torch.Tensor | None = None) -> torch.Tensor:
     """One transformer block: attention + add&norm, GELU FFN + add&norm."""
-    att = _attention(x, lp, mask_bias, config, seg=seg)
+    att = _attention(x, lp, mask_bias, config, seg=seg, pos_bias=pos_bias)
     eps = config.layer_norm_eps
     x = linear(att, lp["o_w"], lp["o_b"], residual=x,
                ln=(lp["ln_att_scale"], lp["ln_att_bias"], eps))
@@ -113,10 +169,13 @@ def encoder_layer(x: torch.Tensor, lp: dict, mask_bias: torch.Tensor,
 
 
 def _run_layers(x: torch.Tensor, layers: dict, config: BertConfig, mask_bias,
-                seg=None) -> torch.Tensor:
+                seg=None, pos_bias=None) -> torch.Tensor:
+    """The layer stack; ALBERT's one shared layer (a stack of one) applied
+    n_layer times."""
     for i in range(config.n_layer):
-        lp = {k: v[i] for k, v in layers.items()}
-        x = encoder_layer(x, lp, mask_bias, config, seg=seg)
+        j = 0 if config.shared_layers else i
+        lp = {k: v[j] for k, v in layers.items()}
+        x = encoder_layer(x, lp, mask_bias, config, seg=seg, pos_bias=pos_bias)
     return x
 
 
@@ -222,6 +281,10 @@ def bert_embed_batch(params: dict, ids: torch.Tensor, mask: torch.Tensor,
 
         return modernbert_embed_batch(params, ids, mask, config, opts,
                                       gather_idx=gather_idx)
+    if config.arch == "t5":
+        from .t5 import t5_embed_batch
+
+        return t5_embed_batch(params, ids, mask, config, opts, gather_idx=gather_idx)
     if config.arch == "deberta":
         from .deberta import deberta_embed_batch
 
@@ -232,7 +295,8 @@ def bert_embed_batch(params: dict, ids: torch.Tensor, mask: torch.Tensor,
         return nomic_embed_batch(params, ids, mask, config, opts, gather_idx=gather_idx)
     x = embed_tokens(params, ids, config, opts)
     mask_bias = torch.where(mask.to(torch.bool), 0.0, MASK_BIAS).to(torch.float32)
-    x = _run_layers(x, params["layers"], config, mask_bias)
+    x = _run_layers(x, params["layers"], config, mask_bias,
+                    pos_bias=_pos_bias(params, ids.shape[-1]))
     pooled = pool_normalize(x, mask, config.pooling, normalize=False)
     out = _output_head(pooled, params, config)
     if gather_idx is not None:
@@ -274,6 +338,11 @@ def bert_embed_packed(params: dict, ids: torch.Tensor, seg: torch.Tensor,
 
         return modernbert_embed_packed(params, ids, seg, pos, config, opts,
                                        n_seg=n_seg, gather_idx=gather_idx)
+    if config.arch == "t5":
+        from .t5 import t5_embed_packed
+
+        return t5_embed_packed(params, ids, seg, pos, config, opts, n_seg=n_seg,
+                               gather_idx=gather_idx)
     if config.arch == "deberta":
         from .deberta import deberta_embed_packed
 
@@ -285,7 +354,8 @@ def bert_embed_packed(params: dict, ids: torch.Tensor, seg: torch.Tensor,
         return nomic_embed_packed(params, ids, seg, pos, config, opts, n_seg=n_seg,
                                   gather_idx=gather_idx, max_seg_len=max_seg_len)
     x = embed_tokens(params, ids, config, opts, positions=pos)
-    x = _run_layers(x, params["layers"], config, None, seg=seg)
+    x = _run_layers(x, params["layers"], config, None, seg=seg,
+                    pos_bias=_pos_bias(params, ids.shape[-1]))
     pooled = pool_normalize_packed(x, seg, pos, n_seg, config.pooling, normalize=False)
     out = _output_head(pooled, params, config)
     if gather_idx is not None:
@@ -321,12 +391,16 @@ def bert_score_batch(params: dict, ids: torch.Tensor, mask: torch.Tensor,
         # no nomic-bert classification checkpoint exists; BERT's score path
         # lacks RoPE, so it refuses instead of computing the wrong thing
         raise ValueError("nomic-bert classification heads are not supported")
+    if config.arch == "t5":
+        # monoT5-style rerankers score with the decoder, not a head
+        raise ValueError("t5 encoders have no classification head")
     if config.arch not in BERT_GRAPH_ARCHS:
         raise NotImplementedError(f"{config.arch} score path is not ported yet")
     if "head" not in params:
         raise ValueError("model has no classification head (n_labels == 0)")
     x = embed_tokens(params, ids, config, opts, type_ids=type_ids)
     mask_bias = torch.where(mask.to(torch.bool), 0.0, MASK_BIAS).to(torch.float32)
-    x = _run_layers(x, params["layers"], config, mask_bias)
+    x = _run_layers(x, params["layers"], config, mask_bias,
+                    pos_bias=_pos_bias(params, ids.shape[-1]))
     return classifier_head(x[:, 0, :].to(torch.float32), params["head"],
                            config.head_activation)

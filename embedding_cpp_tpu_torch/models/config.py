@@ -1,16 +1,14 @@
-"""Model hyperparameters for the BERT-graph, ModernBERT, DeBERTa and
-nomic-bert encoder paths.
+"""Model hyperparameters of every encoder family of the JAX package.
 
-The BERT-graph families (`arch` "bert", "roberta" with XLM-R, "distilbert"
-and "electra"), ModernBERT (`arch="modernbert"`), DeBERTa-v3
-(`arch="deberta"`) and nomic-bert (`arch="nomic-bert"`) fields of the JAX
-package's `BertConfig`, read from
+The BERT-graph families (`arch` "bert", "roberta" with XLM-R, "distilbert",
+"electra", "mpnet" and "albert"), the T5 encoder (`arch="t5"`), ModernBERT
+(`arch="modernbert"`), DeBERTa-v3 (`arch="deberta"`) and nomic-bert
+(`arch="nomic-bert"`) fields of the JAX package's `BertConfig`, read from
 GGUF kv metadata the same way: n_vocab from the token list length,
 everything else from `bert.*` keys, with per-family defaults for the keys a
 file leaves out.  An architecture name the reference does not know
 ("xlm-roberta", "jina-bert-v2", ...) reads as BERT, as the reference reads
-it; the reference's other families are not ported yet, and a file that
-names one is refused instead of being run as BERT.
+it.
 """
 from __future__ import annotations
 
@@ -23,20 +21,25 @@ ARCH = "bert"
 # rel_attn_buckets).  RoBERTa (and XLM-R) numbers real tokens from
 # padding_idx + 1 = 2, has a 1-row token-type table and eps 1e-5;
 # DistilBERT has no token-type table; ELECTRA is BERT's graph and names.
-# ModernBERT has no token-type or position table (RoPE), and eps 1e-5 (HF
-# ModernBertConfig); DeBERTa-v3 has neither table either (relative
-# positions only), eps 1e-7 and 256 position buckets; nomic-bert keeps
-# BERT's two token types and eps, and rotates (RoPE) instead of a position
-# table
+# MPNet numbers positions as RoBERTa does, has no token-type table, eps
+# 1e-5 and a 32-bucket T5-style relative bias shared by every layer;
+# ALBERT is BERT's graph with one shared layer (gelu_tanh, factorized
+# tables).  T5 has no token-type or position table, RMSNorm eps 1e-6 and
+# the 32-bucket relative bias.  ModernBERT has no token-type or position
+# table (RoPE), and eps 1e-5 (HF ModernBertConfig); DeBERTa-v3 has neither
+# table either (relative positions only), eps 1e-7 and 256 position
+# buckets; nomic-bert keeps BERT's two token types and eps, and rotates
+# (RoPE) instead of a position table
 _ARCH_DEFAULTS = {"bert": (2, 0, 1e-12, 0), "roberta": (1, 2, 1e-5, 0),
-                  "distilbert": (0, 0, 1e-12, 0), "electra": (2, 0, 1e-12, 0),
-                  "modernbert": (0, 0, 1e-5, 0), "deberta": (0, 0, 1e-7, 256),
-                  "nomic-bert": (2, 0, 1e-12, 0)}
+                  "distilbert": (0, 0, 1e-12, 0), "mpnet": (0, 2, 1e-5, 32),
+                  "modernbert": (0, 0, 1e-5, 0), "albert": (2, 0, 1e-12, 0),
+                  "electra": (2, 0, 1e-12, 0), "t5": (0, 0, 1e-6, 32),
+                  "deberta": (0, 0, 1e-7, 256), "nomic-bert": (2, 0, 1e-12, 0)}
 # the families whose embeddings add an absolute-position table and run
 # BERT's post-norm block (models/bert.py)
-BERT_GRAPH_ARCHS = ("bert", "roberta", "distilbert", "electra")
-# the reference's other families (its `_ARCH_DEFAULTS`): refused by name
-UNPORTED_ARCHS = ("mpnet", "albert", "t5")
+BERT_GRAPH_ARCHS = ("bert", "roberta", "distilbert", "electra", "mpnet", "albert")
+# the reference's families the port does not serve yet: none
+UNPORTED_ARCHS: tuple[str, ...] = ()
 # classification-head activation per family: DistilBERT's pre_classifier
 # uses ReLU; ELECTRA's ClassificationHead, DeBERTa's ContextPooler and
 # ModernBERT's PredictionHead GELU; BERT's pooler and RoBERTa's head tanh
@@ -89,22 +92,40 @@ class BertConfig:
     # model): logits = out(act(dense(h_cls))), act one of tanh/relu/gelu
     n_labels: int = 0
     head_activation: str = "tanh"
-    # factorized embedding-table width (ELECTRA-small's embedding_size 128;
-    # 0 = the tables are n_embd wide): the tables and the embedding
-    # LayerNorm live at this width, and the emb_proj linear maps the
-    # normalized embeddings to n_embd before layer 0
+    # factorized embedding-table width (ALBERT's and ELECTRA-small's
+    # embedding_size 128; 0 = the tables are n_embd wide): the tables and
+    # the embedding LayerNorm live at this width, and the emb_proj linear
+    # maps the normalized embeddings to n_embd before layer 0
     n_embd_emb: int = 0
+    # T5: the per-head width d_kv where it is not n_embd // n_head (q/k/v
+    # map n_embd -> n_head * n_head_dim); the FFN activation ("relu",
+    # "gelu_erf" or "gelu_tanh"; "" the family's GELU) and whether it is
+    # gated, act(wi_0 x) * wi_1 x
+    n_head_dim: int = 0
+    ffn_act: str = ""
+    ffn_gated: bool = False
     name: str = ""
 
     @property
     def head_dim(self) -> int:
-        return self.n_embd // self.n_head
+        return self.n_head_dim or self.n_embd // self.n_head
+
+    @property
+    def attn_inner(self) -> int:
+        """Width of the q/k/v projections (n_embd unless d_kv differs)."""
+        return self.n_head * self.head_dim
+
+    @property
+    def shared_layers(self) -> bool:
+        """True when one parameter set serves every layer (ALBERT): the
+        layer stack has leading dim 1, applied n_layer times."""
+        return self.arch == "albert"
 
     @property
     def abs_positions(self) -> bool:
         """Whether the embeddings add an absolute-position table: the
-        BERT-graph families do; ModernBERT and nomic-bert rotate (RoPE) and
-        DeBERTa attends relatively."""
+        BERT-graph families do (MPNet beside its relative bias); ModernBERT
+        and nomic-bert rotate (RoPE), DeBERTa and T5 attend relatively."""
         return self.arch in BERT_GRAPH_ARCHS
 
     @property
@@ -113,30 +134,28 @@ class BertConfig:
         return self.n_embd_emb or self.n_embd
 
     def __post_init__(self):
-        if self.n_embd % self.n_head:
+        if not self.n_head_dim and self.n_embd % self.n_head:
             raise ValueError(
                 f"n_embd {self.n_embd} not divisible by n_head {self.n_head}"
             )
         if self.arch not in _ARCH_DEFAULTS:
-            raise NotImplementedError(
-                f"architecture {self.arch!r} is not ported yet "
-                f"(only {sorted(_ARCH_DEFAULTS)})"
-            )
+            raise ValueError(f"unsupported architecture {self.arch!r} "
+                             f"(supported: {sorted(_ARCH_DEFAULTS)})")
         if self.n_labels and self.head_activation not in ("tanh", "relu", "gelu"):
             raise ValueError(f"unsupported head_activation {self.head_activation!r} "
                              "(supported: tanh, relu, gelu)")
-        if self.n_embd_emb and self.arch != "electra":
+        if self.n_embd_emb and self.arch not in ("albert", "electra"):
             raise ValueError("factorized embeddings (n_embd_emb) are only supported for "
-                             f"electra, not {self.arch!r}")
+                             f"albert/electra, not {self.arch!r}")
 
     @classmethod
     def from_gguf_kv(cls, kv: dict) -> "BertConfig":
         # reference files say "bert" or nothing at all; a name the reference
         # does not know reads as BERT there too
         arch = str(kv.get(Keys.ARCHITECTURE, ARCH))
-        if arch not in _ARCH_DEFAULTS and arch not in UNPORTED_ARCHS:
+        if arch not in _ARCH_DEFAULTS:
             arch = ARCH
-        ntt, off, eps, buckets = _ARCH_DEFAULTS.get(arch, _ARCH_DEFAULTS[ARCH])
+        ntt, off, eps, buckets = _ARCH_DEFAULTS[arch]
         # the nomic-bert forward is SwiGLU: refuse a file that declares
         # another FFN rather than serve it as one
         ffn = (str(kv.get(Keys.FFN_ACT, "silu")), bool(kv.get(Keys.FFN_GATED, True)))
@@ -152,7 +171,7 @@ class BertConfig:
             n_ff=int(kv[Keys.FEED_FORWARD_LENGTH]),
             layer_norm_eps=float(kv.get(Keys.LAYER_NORM_EPS, eps)),
             n_token_types=int(kv.get(Keys.TOKEN_TYPE_COUNT, ntt)),
-            gelu=str(kv.get(Keys.GELU, "erf")),
+            gelu=str(kv.get(Keys.GELU, "tanh" if arch == "albert" else "erf")),
             pooling=str(kv.get(Keys.POOLING_TYPE, "mean")),
             normalize=bool(kv.get(Keys.NORMALIZE, True)),
             dense_out=int(kv.get(Keys.DENSE_OUT, 0)),
@@ -173,6 +192,9 @@ class BertConfig:
             head_activation=str(kv.get(Keys.HEAD_ACTIVATION,
                                        HEAD_ACT_DEFAULTS.get(arch, "tanh"))),
             n_embd_emb=int(kv.get(Keys.EMB_WIDTH, 0)),
+            n_head_dim=int(kv.get(Keys.HEAD_DIM, 0)),
+            ffn_act=str(kv.get(Keys.FFN_ACT, "relu" if arch == "t5" else "")),
+            ffn_gated=bool(kv.get(Keys.FFN_GATED, False)),
             name=str(kv.get(Keys.NAME, "")),
         )
 
@@ -215,7 +237,8 @@ DEBERTA_V3_BASE = BertConfig(
 NOMIC_EMBED = BertConfig(
     n_vocab=30528, n_ctx=8192, n_embd=768, n_layer=12, n_head=12, n_ff=3072,
     arch="nomic-bert", rope_theta=1000.0, rope_scaling_factor=2.0,
-    rope_max_trained=2048, attn_bias=False, ffn_bias=False,
+    rope_max_trained=2048, ffn_act="silu", ffn_gated=True,
+    attn_bias=False, ffn_bias=False,
     name="nomic-embed-text-v1.5",
 )
 # intfloat/multilingual-e5-base geometry (XLMRobertaModel, the encoder of
@@ -246,4 +269,30 @@ MS_MARCO_ELECTRA_BASE = BertConfig(
 ELECTRA_SMALL = BertConfig(
     n_vocab=30522, n_ctx=512, n_embd=256, n_layer=12, n_head=4, n_ff=1024,
     arch="electra", n_embd_emb=128, name="electra-small-discriminator",
+)
+# sentence-transformers/all-mpnet-base-v2 geometry (MPNetModel): 12 layers
+# of 768, 12 heads of 64, FFN 3072, positions from 2, no token types, eps
+# 1e-5, one 32-bucket relative bias table shared by every layer
+MPNET_BASE = BertConfig(
+    n_vocab=30527, n_ctx=512, n_embd=768, n_layer=12, n_head=12, n_ff=3072,
+    n_token_types=0, arch="mpnet", pos_offset=2, rel_attn_buckets=32,
+    layer_norm_eps=1e-5,
+    name="all-mpnet-base-v2",
+)
+# sentence-transformers/gtr-t5-base geometry (the t5-base encoder, mean
+# pooled; the synthetic preset skips the Dense head): 12 pre-norm RMSNorm
+# blocks of 768, 12 heads of d_kv 64, relu FFN 3072, unscaled attention
+# with a 32-bucket relative bias shared by every layer
+GTR_BASE = BertConfig(
+    n_vocab=32128, n_ctx=512, n_embd=768, n_layer=12, n_head=12, n_ff=3072,
+    n_token_types=0, arch="t5", layer_norm_eps=1e-6, rel_attn_buckets=32,
+    n_head_dim=64, ffn_act="relu",
+    name="gtr-t5-base",
+)
+# albert-base-v2 geometry (AlbertModel): 128-wide embedding tables projected
+# to 768, one shared layer applied 12 times (12 heads of 64, FFN 3072,
+# gelu_new), two token types
+ALBERT_BASE = BertConfig(
+    n_vocab=30000, n_ctx=512, n_embd=768, n_layer=12, n_head=12, n_ff=3072,
+    arch="albert", gelu="tanh", n_embd_emb=128, name="albert-base-v2",
 )

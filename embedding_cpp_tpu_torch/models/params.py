@@ -1,16 +1,17 @@
 """Parameter construction: GGUF files, raw state dicts or a JAX parameter
 tree -> dicts of torch tensors on a device.
 
-The BERT-graph (BERT, RoBERTa/XLM-R, DistilBERT, ELECTRA), ModernBERT,
-DeBERTa and nomic-bert paths of the JAX package's `models/params.py`:
+The JAX package's `models/params.py` for every family it serves:
 tensors are shape-checked against the schema,
-per-layer tensors are stacked on a leading layer axis, and quantized
+per-layer tensors are stacked on a leading layer axis (ALBERT's one shared
+layer as a stack of one), and quantized
 matmul weights and the word table stay packed in the QTensor layout
 (ops/qtensor.py) — weights stay 4- or 8-bit in device memory.  The fused
 Wqkv (ModernBERT, nomic-bert; nomic's bias too) and ModernBERT's Wi split
 at load into q/k/v and up/gate.  Encoder-level
-tensors (DeBERTa's relative table) and a classification head load dense
-f32; ELECTRA's factorized-embedding projection loads dense in the
+tensors (DeBERTa's relative table, the MPNet and T5 relative-bias tables,
+T5's final norm) and a classification head load dense f32; ALBERT's and
+ELECTRA's factorized-embedding projection loads dense in the
 activation dtype, contraction-major (a small matmul the JAX package also
 runs outside its kernels).
 """
@@ -151,7 +152,7 @@ def build_params(source: _TensorSource, config: BertConfig, *,
         else:  # LayerNorm scale/bias and the projection's bias
             emb[key] = source.dense(name, shape, f32)
     per_layer: dict[str, list] = {}
-    for i in range(config.n_layer):
+    for i in range(1 if config.shared_layers else config.n_layer):
         for name, (key, shape_fn) in schema.layer_tensor_names(i, config).items():
             shape = shape_fn(config)
             if key in _SPLIT_KEYS:
@@ -253,7 +254,7 @@ def random_state_dict(config: BertConfig, seed: int = 0) -> dict[str, np.ndarray
             sd[name] = np.zeros(shape, np.float32)
         else:
             sd[name] = init(shape)
-    for i in range(config.n_layer):
+    for i in range(1 if config.shared_layers else config.n_layer):
         for name, (key, shape_fn) in schema.layer_tensor_names(i, config).items():
             shape = shape_fn(config)
             if key.startswith("ln_") and key.endswith("scale"):

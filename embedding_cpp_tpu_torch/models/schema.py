@@ -1,14 +1,18 @@
 """GGUF tensor-name schema of the BERT-graph (BERT, RoBERTa/XLM-R,
-DistilBERT, ELECTRA), ModernBERT, DeBERTa and nomic-bert encoders.
+DistilBERT, ELECTRA, MPNet, ALBERT), T5, ModernBERT, DeBERTa and
+nomic-bert encoders.
 
 GGUF files keep the verbatim HF state-dict names.  This maps them to the
 parameter keys the forward reads (q_w, ffn_up_w, ln_att_scale, ...), with
-each tensor's expected [out, in] shape — those families' entries of the
-JAX package's `models/schema.py`, and their classification heads.
+each tensor's expected [out, in] shape — the JAX package's
+`models/schema.py`, and its classification heads but ModernBERT's.
 RoBERTa and ELECTRA keep BertModel's names (RoBERTa's position table has
 pos_offset extra rows and its token-type table one row; ELECTRA-small's
 tables are emb_width wide, projected up by `embeddings_project`);
-DistilBERT has its own module names and no token-type table.
+DistilBERT has its own module names and no token-type table; MPNet its
+own attention names and one relative-bias table for every layer; ALBERT
+BERT's embedding names at emb_width and one shared layer; T5 the
+`shared` word table, bias-free blocks and block 0's relative-bias table.
 """
 from __future__ import annotations
 
@@ -31,6 +35,12 @@ EMBEDDING_TENSORS = {
 _ELECTRA_EMB_PROJ_TENSORS = {
     "embeddings_project.weight": ("emb_proj_w", lambda c: (c.n_embd, c.emb_width)),
     "embeddings_project.bias": ("emb_proj_b", lambda c: (c.n_embd,)),
+}
+# ALBERT's (HF AlbertTransformer.embedding_hidden_mapping_in, always there)
+_ALBERT_EMB_PROJ_TENSORS = {
+    "encoder.embedding_hidden_mapping_in.weight": ("emb_proj_w",
+                                                   lambda c: (c.n_embd, c.emb_width)),
+    "encoder.embedding_hidden_mapping_in.bias": ("emb_proj_b", lambda c: (c.n_embd,)),
 }
 
 LAYER_TENSORS = {
@@ -73,6 +83,85 @@ DISTILBERT_LAYER_TENSORS = {
     _DISTILBERT_PREFIX + "ffn.lin2.bias": ("ffn_down_b", lambda c: (c.n_embd,)),
     _DISTILBERT_PREFIX + "output_layer_norm.weight": ("ln_out_scale", lambda c: (c.n_embd,)),
     _DISTILBERT_PREFIX + "output_layer_norm.bias": ("ln_out_bias", lambda c: (c.n_embd,)),
+}
+
+# --- MPNet ---------------------------------------------------------------------
+# HF MPNetModel: no token-type table, positions numbered from 2, the
+# attention's linears under attention.attn.{q,k,v,o} and its LayerNorm
+# directly under attention; one encoder-level relative-attention-bias table
+# [buckets, H] shared by every layer (MPNetEncoder.relative_attention_bias)
+MPNET_EMBEDDING_TENSORS = {
+    "embeddings.word_embeddings.weight": ("word", lambda c: (c.n_vocab, c.n_embd)),
+    "embeddings.position_embeddings.weight": (
+        "position", lambda c: (c.n_ctx + c.pos_offset, c.n_embd),
+    ),
+    "embeddings.LayerNorm.weight": ("ln_scale", lambda c: (c.n_embd,)),
+    "embeddings.LayerNorm.bias": ("ln_bias", lambda c: (c.n_embd,)),
+}
+
+MPNET_LAYER_TENSORS = {
+    name.replace(".attention.self.query.", ".attention.attn.q.")
+        .replace(".attention.self.key.", ".attention.attn.k.")
+        .replace(".attention.self.value.", ".attention.attn.v.")
+        .replace(".attention.output.dense.", ".attention.attn.o.")
+        .replace(".attention.output.LayerNorm.", ".attention.LayerNorm."): spec
+    for name, spec in LAYER_TENSORS.items()
+}
+
+_REL_ATTN_BIAS = ("rel_attn_bias", lambda c: (c.rel_attn_buckets, c.n_head))
+MPNET_EXTRA_TENSORS = {"encoder.relative_attention_bias.weight": _REL_ATTN_BIAS}
+
+# --- ALBERT --------------------------------------------------------------------
+# HF AlbertModel: one parameter set serves every layer (num_hidden_groups =
+# inner_group_num = 1 in every published checkpoint), so the names carry no
+# layer index and the stack has leading dim 1; BERT's post-norm block math
+_ALBERT_PREFIX = "encoder.albert_layer_groups.0.albert_layers.0."
+ALBERT_LAYER_TENSORS = {
+    _ALBERT_PREFIX + "attention.query.weight": ("q_w", lambda c: (c.n_embd, c.n_embd)),
+    _ALBERT_PREFIX + "attention.query.bias": ("q_b", lambda c: (c.n_embd,)),
+    _ALBERT_PREFIX + "attention.key.weight": ("k_w", lambda c: (c.n_embd, c.n_embd)),
+    _ALBERT_PREFIX + "attention.key.bias": ("k_b", lambda c: (c.n_embd,)),
+    _ALBERT_PREFIX + "attention.value.weight": ("v_w", lambda c: (c.n_embd, c.n_embd)),
+    _ALBERT_PREFIX + "attention.value.bias": ("v_b", lambda c: (c.n_embd,)),
+    _ALBERT_PREFIX + "attention.dense.weight": ("o_w", lambda c: (c.n_embd, c.n_embd)),
+    _ALBERT_PREFIX + "attention.dense.bias": ("o_b", lambda c: (c.n_embd,)),
+    _ALBERT_PREFIX + "attention.LayerNorm.weight": ("ln_att_scale", lambda c: (c.n_embd,)),
+    _ALBERT_PREFIX + "attention.LayerNorm.bias": ("ln_att_bias", lambda c: (c.n_embd,)),
+    _ALBERT_PREFIX + "ffn.weight": ("ffn_up_w", lambda c: (c.n_ff, c.n_embd)),
+    _ALBERT_PREFIX + "ffn.bias": ("ffn_up_b", lambda c: (c.n_ff,)),
+    _ALBERT_PREFIX + "ffn_output.weight": ("ffn_down_w", lambda c: (c.n_embd, c.n_ff)),
+    _ALBERT_PREFIX + "ffn_output.bias": ("ffn_down_b", lambda c: (c.n_embd,)),
+    _ALBERT_PREFIX + "full_layer_layer_norm.weight": ("ln_out_scale", lambda c: (c.n_embd,)),
+    _ALBERT_PREFIX + "full_layer_layer_norm.bias": ("ln_out_bias", lambda c: (c.n_embd,)),
+}
+
+# --- T5 encoder ----------------------------------------------------------------
+# HF T5EncoderModel (sentence-t5 / GTR): bias-free throughout; the word
+# table is `shared`; one relative-attention-bias table on block 0 serves
+# every layer (T5Attention.has_relative_attention_bias); RMSNorm scales
+# only; q/k/v map n_embd -> attn_inner (n_head * d_kv)
+T5_EMBEDDING_TENSORS = {"shared.weight": ("word", lambda c: (c.n_vocab, c.n_embd))}
+
+_T5L = "encoder.block.{i}.layer."
+T5_LAYER_TENSORS = {
+    _T5L + "0.SelfAttention.q.weight": ("q_w", lambda c: (c.attn_inner, c.n_embd)),
+    _T5L + "0.SelfAttention.k.weight": ("k_w", lambda c: (c.attn_inner, c.n_embd)),
+    _T5L + "0.SelfAttention.v.weight": ("v_w", lambda c: (c.attn_inner, c.n_embd)),
+    _T5L + "0.SelfAttention.o.weight": ("o_w", lambda c: (c.n_embd, c.attn_inner)),
+    _T5L + "0.layer_norm.weight": ("ln_att_scale", lambda c: (c.n_embd,)),
+    _T5L + "1.DenseReluDense.wo.weight": ("ffn_down_w", lambda c: (c.n_embd, c.n_ff)),
+    _T5L + "1.layer_norm.weight": ("ln_out_scale", lambda c: (c.n_embd,)),
+}
+# v1.0: wo(act(wi x)); v1.1 gated: wo(act(wi_0 x) * wi_1 x)
+_T5_WI = {_T5L + "1.DenseReluDense.wi.weight": ("ffn_up_w", lambda c: (c.n_ff, c.n_embd))}
+_T5_WI_GATED = {
+    _T5L + "1.DenseReluDense.wi_0.weight": ("ffn_up_w", lambda c: (c.n_ff, c.n_embd)),
+    _T5L + "1.DenseReluDense.wi_1.weight": ("ffn_gate_w", lambda c: (c.n_ff, c.n_embd)),
+}
+
+T5_EXTRA_TENSORS = {
+    "encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight": _REL_ATTN_BIAS,
+    "encoder.final_layer_norm.weight": ("final_ln_scale", lambda c: (c.n_embd,)),
 }
 
 # Optional sentence-transformers Dense head (present only when
@@ -174,7 +263,9 @@ _NOMIC_FFN_BIAS_TENSORS = {
 # ContextPooler (dense + gelu on the first token) has the same names.
 # RoBERTa's ClassificationHead (dense + tanh + out_proj; XLM-R rerankers
 # such as bge-reranker-base share it) and ELECTRA's (the same names, gelu);
-# DistilBERT's pre_classifier + relu + classifier.
+# DistilBERT's pre_classifier + relu + classifier; MPNet's
+# ClassificationHead has RoBERTa's names; ALBERT's pooler is a bare linear
+# (pooler.weight) + tanh before the classifier.
 _BERT_HEAD_TENSORS = {
     "pooler.dense.weight": ("head_dense_w", lambda c: (c.n_embd, c.n_embd)),
     "pooler.dense.bias": ("head_dense_b", lambda c: (c.n_embd,)),
@@ -193,9 +284,16 @@ _DISTILBERT_HEAD_TENSORS = {
     "classifier.weight": ("head_out_w", lambda c: (c.n_labels, c.n_embd)),
     "classifier.bias": ("head_out_b", lambda c: (c.n_labels,)),
 }
+_ALBERT_HEAD_TENSORS = {
+    "pooler.weight": ("head_dense_w", lambda c: (c.n_embd, c.n_embd)),
+    "pooler.bias": ("head_dense_b", lambda c: (c.n_embd,)),
+    "classifier.weight": ("head_out_w", lambda c: (c.n_labels, c.n_embd)),
+    "classifier.bias": ("head_out_b", lambda c: (c.n_labels,)),
+}
 _HEAD_TENSORS_BY_ARCH = {"bert": _BERT_HEAD_TENSORS, "roberta": _ROBERTA_HEAD_TENSORS,
                          "distilbert": _DISTILBERT_HEAD_TENSORS,
-                         "electra": _ROBERTA_HEAD_TENSORS, "deberta": _BERT_HEAD_TENSORS}
+                         "electra": _ROBERTA_HEAD_TENSORS, "deberta": _BERT_HEAD_TENSORS,
+                         "mpnet": _ROBERTA_HEAD_TENSORS, "albert": _ALBERT_HEAD_TENSORS}
 
 
 def head_tensors(config) -> dict:
@@ -208,11 +306,16 @@ def head_tensors(config) -> dict:
 
 
 def embedding_tensors(config) -> dict:
-    """Embedding-level tensor map; DistilBERT and a BERT-schema config
-    without token types have no token-type table, a DeBERTa config with
-    them has one, and a factorized ELECTRA adds its projection."""
+    """Embedding-level tensor map; DistilBERT, MPNet and a BERT-schema
+    config without token types have no token-type table, a DeBERTa config
+    with them has one, and a factorized ALBERT or ELECTRA adds its
+    projection."""
     if config.arch == "modernbert":
         return MODERNBERT_EMBEDDING_TENSORS
+    if config.arch == "mpnet":
+        return MPNET_EMBEDDING_TENSORS
+    if config.arch == "t5":
+        return T5_EMBEDDING_TENSORS
     if config.arch == "nomic-bert":
         return NOMIC_EMBEDDING_TENSORS
     if config.arch == "deberta":
@@ -224,14 +327,18 @@ def embedding_tensors(config) -> dict:
     if config.n_token_types == 0 or config.arch == "distilbert":
         base = {k: v for k, v in base.items() if v[0] != "token_type"}
     if config.n_embd_emb:
-        base = {**base, **_ELECTRA_EMB_PROJ_TENSORS}
+        base = {**base, **(_ALBERT_EMB_PROJ_TENSORS if config.arch == "albert"
+                           else _ELECTRA_EMB_PROJ_TENSORS)}
     return base
 
 
 def layer_tensor_names(i: int, config=None) -> dict[str, tuple[str, object]]:
     arch = "bert" if config is None else config.arch
     templates = {"modernbert": MODERNBERT_LAYER_TENSORS, "deberta": DEBERTA_LAYER_TENSORS,
-                 "distilbert": DISTILBERT_LAYER_TENSORS}.get(arch, LAYER_TENSORS)
+                 "distilbert": DISTILBERT_LAYER_TENSORS, "mpnet": MPNET_LAYER_TENSORS,
+                 "albert": ALBERT_LAYER_TENSORS}.get(arch, LAYER_TENSORS)
+    if arch == "t5":
+        templates = {**T5_LAYER_TENSORS, **(_T5_WI_GATED if config.ffn_gated else _T5_WI)}
     if arch == "nomic-bert":
         templates = {**NOMIC_LAYER_TENSORS,
                      **(_NOMIC_ATTN_BIAS_TENSORS if config.attn_bias else {}),
@@ -244,6 +351,10 @@ def layer_tensor_names(i: int, config=None) -> dict[str, tuple[str, object]]:
 
 def extra_tensors(config) -> dict:
     """Encoder-level tensors outside embeddings and layers: ModernBERT's
-    final LayerNorm scale; DeBERTa's relative table and its LayerNorm."""
-    return {"modernbert": MODERNBERT_EXTRA_TENSORS,
-            "deberta": DEBERTA_EXTRA_TENSORS}.get(config.arch, {})
+    final LayerNorm scale; DeBERTa's relative table and its LayerNorm;
+    T5's relative-bias table and its final RMSNorm scale; for the BERT
+    graph, MPNet's relative-bias table wherever the config has buckets."""
+    if config.arch in ("modernbert", "deberta", "t5"):
+        return {"modernbert": MODERNBERT_EXTRA_TENSORS, "deberta": DEBERTA_EXTRA_TENSORS,
+                "t5": T5_EXTRA_TENSORS}[config.arch]
+    return MPNET_EXTRA_TENSORS if config.rel_attn_buckets else {}

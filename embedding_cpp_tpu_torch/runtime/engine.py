@@ -3,8 +3,10 @@
 The encode and rerank paths of the JAX package's `runtime/engine.py`:
 tokenize -> plan (pack short sentences many to a row, bucket the rest by
 length) -> launch every batch -> fetch once -> scatter back to input order;
-cross-encoder pairs frame as [CLS] a [SEP] b [SEP] (RoBERTa and XLM-R:
-<s> a </s></s> b </s>) and run through the length buckets to one logit per pair (`score_pairs`, `rerank`).  `encode`
+cross-encoder pairs frame as [CLS] a [SEP] b [SEP] (RoBERTa, XLM-R and
+MPNet: <s> a </s></s> b </s>) and run through the length buckets to one
+logit per pair (`score_pairs`, `rerank`; T5 encoders have no head), and T5
+frames a text as its ids + </s>, with no CLS.  `encode`
 takes named or literal prompt prefixes, Matryoshka `dimensions` and
 `truncate=False`; `encode_queries` / `encode_documents` apply the model's
 query and document prompts, `encode_with_counts` also returns the token
@@ -204,27 +206,31 @@ class Engine:
 
     # --- tokenize -----------------------------------------------------------
     def tokenize(self, text: str) -> list[int]:
-        """Framed token ids ([CLS] .. [SEP]) of one text, the reference's
-        bert_tokenize."""
+        """Framed token ids ([CLS] .. [SEP]; T5: .. </s>) of one text, the
+        reference's bert_tokenize."""
         return self.tokenize_batch([text])[0]
 
     def tokenize_batch(self, texts: Sequence[str], *,
                        truncate: bool = True) -> list[list[int]]:
-        """Tokenize + frame each text ([CLS] .. [SEP], cut at n_ctx).
+        """Tokenize + frame each text ([CLS] .. [SEP]; T5 .. </s>; cut at
+        n_ctx).
         truncate=False raises instead, naming the first text whose framed
         ids pass the context."""
         if self.tokenizer is None:
             raise RuntimeError("engine has no tokenizer (model without blob kv)")
         raw = self.tokenizer.encode_batch(list(texts))
+        # T5 frames ids + [</s>], with no CLS
+        add_cls = self.config.arch != "t5"
         if not truncate:
             cap = self.config.n_ctx
             for i, ids in enumerate(raw):
-                need = len(_strip_pad(ids, self.special_ids.pad)) + 2
+                need = len(_strip_pad(ids, self.special_ids.pad)) + 1 + add_cls
                 if need > cap:
                     raise ValueError(f"input {i} is {need} tokens framed, over the model's "
                                      f"{cap}-token context (set truncate=true to cut, "
                                      "or split the text)")
-        return [frame_ids(ids, self.special_ids, self.config.n_ctx) for ids in raw]
+        return [frame_ids(ids, self.special_ids, self.config.n_ctx, add_cls=add_cls)
+                for ids in raw]
 
     # --- forward ------------------------------------------------------------
     def _pack_plan(self, token_lists: Sequence[Sequence[int]]) -> list[int]:
@@ -397,12 +403,12 @@ class Engine:
     def tokenize_pairs(self, pairs: Sequence[tuple[str, str]]
                        ) -> tuple[list[list[int]], list[list[int]]]:
         """[(text_a, text_b), ...] -> (framed [CLS] a [SEP] b [SEP] id
-        lists, parallel token-type id lists); RoBERTa and XLM-R frame
-        <s> a </s></s> b </s> with one segment."""
+        lists, parallel token-type id lists); RoBERTa, XLM-R and MPNet
+        frame <s> a </s></s> b </s> with one segment."""
         if self.tokenizer is None:
             raise RuntimeError("engine has no tokenizer (model without blob kv)")
         raw = self.tokenizer.encode_batch([t for pair in pairs for t in pair])
-        double_sep = self.config.arch == "roberta"
+        double_sep = self.config.arch in ("roberta", "mpnet")
         framed = [frame_pair_ids(raw[i], raw[i + 1], self.special_ids, self.config.n_ctx,
                                  double_sep=double_sep)
                   for i in range(0, len(raw), 2)]

@@ -2,10 +2,10 @@
 framing, as in the JAX package's `tokenizer/base.py`.
 
 The tokenizer.json pipeline runs *without* template special tokens; the
-ids are then framed here: prepend CLS, append SEP, truncate to
-n_max_tokens with SEP overwriting the last slot on overflow.  A
+ids are then framed here: prepend CLS (not for T5), append SEP, truncate
+to n_max_tokens with SEP overwriting the last slot on overflow.  A
 cross-encoder pair frames as [CLS] a [SEP] b [SEP], or <s> a </s></s> b
-</s> for RoBERTa and XLM-R (`frame_pair_ids`).
+</s> for RoBERTa, XLM-R and MPNet (`frame_pair_ids`).
 """
 from __future__ import annotations
 
@@ -33,9 +33,12 @@ class SpecialIds:
         )
 
 
-def frame_ids(ids: Sequence[int], special: SpecialIds, n_max_tokens: int) -> list[int]:
-    """[CLS] + ids (stopping at the first pad id) + [SEP], truncated."""
-    out = [special.cls]
+def frame_ids(ids: Sequence[int], special: SpecialIds, n_max_tokens: int,
+              add_cls: bool = True) -> list[int]:
+    """[CLS] + ids (stopping at the first pad id) + [SEP], truncated;
+    add_cls=False frames ids + [SEP] only (T5: no CLS in its vocabulary,
+    </s> in the separator's slot)."""
+    out = [special.cls] if add_cls else []
     for i in ids:
         if i == special.pad:  # padding from the json config: stop here
             break
@@ -85,9 +88,9 @@ def frame_pair_ids(a_ids: Sequence[int], b_ids: Sequence[int], special: SpecialI
                    ) -> tuple[list[int], list[int]]:
     """Cross-encoder pair framing [CLS] a [SEP] b [SEP] -> (ids, token type
     ids 0...0 1...1; the [SEP] after `a` belongs to segment 0), the pair
-    truncated longest-first to n_max_tokens.  double_sep (RoBERTa, XLM-R):
-    <s> a </s></s> b </s>, every type id 0 (their token-type table has one
-    row), four specials out of the budget."""
+    truncated longest-first to n_max_tokens.  double_sep (RoBERTa, XLM-R,
+    MPNet): <s> a </s></s> b </s>, every type id 0 (a one-row token-type
+    table, or none), four specials out of the budget."""
     a = _strip_pad(a_ids, special.pad)
     b = _strip_pad(b_ids, special.pad)
     la, lb = truncate_longest_first(len(a), len(b), n_max_tokens - (4 if double_sep else 3))

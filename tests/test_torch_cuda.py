@@ -23,10 +23,12 @@ kernel (K9 key bias, K10 segments; S = 16 ... 512 with spans below and
 above S, S off the bf16 kernel's 64-row tiles, segments crossing them, a
 row all padding) and the kernel suite's head-packed attention (B1: every (d, hb)
 it is built for, S = 1 ... 512, padded tails, a row all padding); the
-BERT-graph families (XLM-R, DistilBERT, ELECTRA base and small) at their
-published widths, two layers deep, with every K1 / K2 / K3 call of the
-forward and of the score path held against its plain version, and
-ELECTRA-small's factorized embedding;
+BERT-graph families (XLM-R, DistilBERT, ELECTRA base and small, MPNet,
+ALBERT) and T5 (relu and gated) at their published widths, two layers
+deep, with every K1 / K2 / K3 / K4 call of the forward and of the score
+path held against its plain version, ELECTRA-small's factorized
+embedding, and K4 with MPNet's / T5's bucketed per-head bias at the
+shapes their forwards give it;
 chip_smoke.py checks the main-path shapes.
 
 Tolerances: f32 1e-4 absolute (the same f32 products summed in another
@@ -711,19 +713,27 @@ def _family(name: str, n_layer: int = 2):
 
     preset = {"xlmr": models.MULTILINGUAL_E5_BASE, "distilbert": models.MULTI_QA_DISTILBERT,
               "electra": models.MS_MARCO_ELECTRA_BASE, "electra-small": models.ELECTRA_SMALL,
-              "xlmr-reranker": replace(models.MULTILINGUAL_E5_BASE, n_labels=1)}[name]
+              "xlmr-reranker": replace(models.MULTILINGUAL_E5_BASE, n_labels=1),
+              "mpnet": models.MPNET_BASE, "mpnet-reranker": replace(models.MPNET_BASE, n_labels=1),
+              "t5": models.GTR_BASE,
+              "t5-gated": replace(models.GTR_BASE, n_ff=2048, ffn_act="gelu_tanh",
+                                  ffn_gated=True),
+              "albert": models.ALBERT_BASE,
+              "albert-reranker": replace(models.ALBERT_BASE, n_labels=1)}[name]
     return replace(preset, n_vocab=1000, n_layer=n_layer)
 
 
 @pytest.fixture()
 def held_kernels(monkeypatch):
-    """Routes every K1, K2 and K3 call of a forward through a recorder that
-    holds the kernel's output against its plain version on the same
-    inputs; returns the per-kernel call counts."""
+    """Routes every K1 and K2/K3/K4 call of a forward through a recorder
+    that holds the kernel's output against its plain version on the same
+    inputs; returns the per-kernel call counts (K4: the calls with a
+    position bias)."""
     import embedding_cpp_tpu_torch.models.bert as bert
+    import embedding_cpp_tpu_torch.models.t5 as t5
     import embedding_cpp_tpu_torch.ops.linear as linear
 
-    calls = {"K1": 0, "K2": 0, "K3": 0}
+    calls = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
 
     def k1(x, w, bias=None, activation=None, prologue_mul=None):
         got = q4_matmul(x, w, bias=bias, activation=activation, prologue_mul=prologue_mul)
@@ -732,31 +742,35 @@ def held_kernels(monkeypatch):
         calls["K1"] += 1
         return got
 
-    def k3(q, k, v, mask_bias, h):
-        got = flash_attention_bse(q, k, v, mask_bias, h)
-        _close(got, attention_bse_plain(q, k, v, mask_bias, h, False), q.dtype)
-        calls["K3"] += 1
+    def k3(q, k, v, mask_bias, h, pos_bias=None):
+        got = flash_attention_bse(q, k, v, mask_bias, h, pos_bias)
+        _close(got, attention_bse_plain(q, k, v, mask_bias, h, False, pos_bias), q.dtype)
+        calls["K3" if pos_bias is None else "K4"] += 1
         return got
 
-    def k2(q, k, v, seg, h):
-        got = flash_attention_packed_bse(q, k, v, seg, h)
-        _close(got, attention_bse_plain(q, k, v, seg, h, True), q.dtype)
-        calls["K2"] += 1
+    def k2(q, k, v, seg, h, pos_bias=None):
+        got = flash_attention_packed_bse(q, k, v, seg, h, pos_bias)
+        _close(got, attention_bse_plain(q, k, v, seg, h, True, pos_bias), q.dtype)
+        calls["K2" if pos_bias is None else "K4"] += 1
         return got
 
     monkeypatch.setattr(linear, "q4_matmul", k1)
-    monkeypatch.setattr(bert, "flash_attention_bse", k3)
-    monkeypatch.setattr(bert, "flash_attention_packed_bse", k2)
+    for module in (bert, t5):
+        monkeypatch.setattr(module, "flash_attention_bse", k3)
+        monkeypatch.setattr(module, "flash_attention_packed_bse", k2)
     return calls
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("packed", [False, True], ids=["plain", "packed"])
-@pytest.mark.parametrize("name", ["xlmr", "distilbert", "electra", "electra-small"])
+@pytest.mark.parametrize("name", ["xlmr", "distilbert", "electra", "electra-small", "mpnet",
+                                  "t5", "t5-gated", "albert"])
 def test_family_forward_holds_its_kernels(dev, held_kernels, name, packed, dtype):
-    """Two layers at the published width, Q4_0: every K1 and K2/K3 call of
-    the forward within its tolerance of the plain version, six K1 and one
-    attention call a layer, and the output against the CPU path's."""
+    """Two layers (ALBERT: its one layer twice) at the published width,
+    Q4_0: every K1 and K2/K3/K4 call of the forward within its tolerance of
+    the plain version, six K1 (seven with a gated FFN) and one attention
+    call a layer (K4 under MPNet's and T5's relative bias), and the output
+    against the CPU path's."""
     from embedding_cpp_tpu_torch.benchmarks.profiles import serving_segments
     from embedding_cpp_tpu_torch.models import ComputeOptions, random_params
     from embedding_cpp_tpu_torch.models.bert import bert_embed_batch, bert_embed_packed
@@ -784,17 +798,22 @@ def test_family_forward_holds_its_kernels(dev, held_kernels, name, packed, dtype
     from embedding_cpp_tpu_torch.models.params import params_to
 
     got = run(params_to(params, dev), dev).float().cpu()
-    assert held_kernels == {"K1": 6 * 2, "K2": 2 * packed, "K3": 2 * (not packed)}
+    biased = config.arch in ("mpnet", "t5")
+    assert held_kernels == {"K1": (6 + config.ffn_gated) * 2,
+                            "K2": 2 * (packed and not biased),
+                            "K3": 2 * (not packed and not biased), "K4": 2 * biased}
     want = run(params, "cpu").float()
     real = want.norm(dim=-1) > 0
     cos = torch.nn.functional.cosine_similarity(got[real], want[real], dim=-1)
     assert torch.isfinite(got).all() and cos.min() >= (0.99999 if dtype == "float32" else 0.999)
 
 
-@pytest.mark.parametrize("name", ["xlmr-reranker", "electra"])
+@pytest.mark.parametrize("name", ["xlmr-reranker", "electra", "mpnet-reranker",
+                                  "albert-reranker"])
 def test_family_score_holds_its_kernels(dev, held_kernels, name):
-    """The cross-encoder path (K3 over the pairs' bucket, then the f32 head)
-    against the CPU path; RoBERTa's single token-type row."""
+    """The cross-encoder path (K3, or K4 under MPNet's bias, over the pairs'
+    bucket, then the f32 head) against the CPU path; RoBERTa's single
+    token-type row, MPNet's none."""
     from embedding_cpp_tpu_torch.models import ComputeOptions, random_params
     from embedding_cpp_tpu_torch.models.bert import bert_score_batch
     from embedding_cpp_tpu_torch.models.params import params_to
@@ -805,11 +824,12 @@ def test_family_score_holds_its_kernels(dev, held_kernels, name):
     rng = np.random.default_rng(4)
     ids = torch.from_numpy(rng.integers(4, config.n_vocab, (16, 64)).astype(np.int32))
     mask = torch.from_numpy((np.arange(64)[None] < rng.integers(8, 65, (16, 1))).astype(np.int32))
-    types = torch.zeros_like(ids) if config.n_token_types == 1 else (
+    types = torch.zeros_like(ids) if config.n_token_types <= 1 else (
         (torch.arange(64)[None] >= 20).to(torch.int32) * mask)
     got = bert_score_batch(params_to(params, dev), ids.to(dev), mask.to(dev), config, opts,
                            type_ids=types.to(dev)).cpu()
-    assert held_kernels == {"K1": 12, "K2": 0, "K3": 2}
+    biased = config.arch == "mpnet"
+    assert held_kernels == {"K1": 12, "K2": 0, "K3": 2 * (not biased), "K4": 2 * biased}
     want = bert_score_batch(params, ids, mask, config, opts, type_ids=types)
     assert got.shape == (16, 1) and torch.isfinite(got).all()
     # chip_smoke.py's bar for the card's bf16 logits against the CPU's bf16 path
@@ -834,3 +854,32 @@ def test_electra_small_factorized_embedding(dev):
         want = embed_tokens(params, ids, config, opts)
         assert got.shape == (8, 512, 256) and got.dtype == opts.tdtype
         _close(got, want, opts.tdtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("packed,b,s", [(False, 2048, 16), (False, 512, 16), (False, 512, 32),
+                                        (False, 96, 64), (False, 32, 512), (True, 128, 512),
+                                        (True, 64, 128)])
+def test_relative_bias_kernel_at_the_relpos_shapes(dev, dtype, packed, b, s):
+    """K4 at 12 heads of 64 with MPNet's / T5's bucketed [12, S, S] bias
+    (PH = H, built by `rel_attn_bias` on the card) at the corpus's plain
+    buckets (S <= 32: several batch rows a block), the [32, 512] forward
+    and the packed rows, against its plain version."""
+    from embedding_cpp_tpu_torch.benchmarks.profiles import serving_segments
+    from embedding_cpp_tpu_torch.models.bert import rel_attn_bias
+
+    h, d = 12, 64
+    gen = torch.Generator(device="cpu").manual_seed(s)
+    table = (torch.randn(32, h, generator=gen) * 3).to(dev)
+    pb = rel_attn_bias(table, s)
+    assert pb.shape == (h, s, s) and pb.is_contiguous()
+    q, k, v = _qkv(b, s, h, d, dtype, dev, seed=s)
+    rng = np.random.default_rng(b)
+    if packed:
+        mask = torch.from_numpy(serving_segments(rng, b, s)[0]).to(dev)
+        got = flash_attention_bias_packed_bse(q, k, v, mask, pb, h)
+    else:
+        lens = torch.from_numpy(rng.integers(1, s + 1, size=b))
+        mask = torch.where(torch.arange(s)[None] < lens[:, None], 0.0, MASK_BIAS).to(dev)
+        got = flash_attention_bias_bse(q, k, v, mask, pb, h)
+    _close(got, attention_bse_plain(q, k, v, mask, h, packed, pb), dtype)

@@ -345,14 +345,23 @@ def test_unknown_architecture_reads_as_bert_on_both_sides(arch):
         assert getattr(ours, f.name) == getattr(theirs, f.name), f.name
 
 
-@pytest.mark.parametrize("arch", ["mpnet", "t5"])
+@pytest.mark.parametrize("arch", ["mpnet", "t5", "albert"])
 def test_known_unported_architecture_is_still_refused(arch):
+    """The reference's last three families, once refused by name, now read
+    field by field as the JAX package reads them; a name neither package
+    knows still reads as BERT (above), and a config naming it is refused."""
+    from dataclasses import fields
+
     from embedding_cpp_tpu.models.config import BertConfig as JConfig
     from embedding_cpp_tpu_torch.models import BertConfig
 
-    assert JConfig.from_gguf_kv(_kv(arch)).arch == arch  # the reference serves it
-    with pytest.raises(NotImplementedError, match=f"'{arch}' is not ported yet"):
-        BertConfig.from_gguf_kv(_kv(arch))
+    ours, theirs = BertConfig.from_gguf_kv(_kv(arch)), JConfig.from_gguf_kv(_kv(arch))
+    assert ours.arch == theirs.arch == arch
+    for f in fields(ours):
+        assert getattr(ours, f.name) == getattr(theirs, f.name), f.name
+    for config in (BertConfig, JConfig):
+        with pytest.raises(ValueError, match="unsupported architecture 'gpt2'"):
+            config(n_vocab=50, n_ctx=16, n_embd=64, n_layer=1, n_head=4, n_ff=64, arch="gpt2")
 
 
 def test_xlm_roberta_named_gguf_loads_as_bert(tmp_path, monkeypatch):

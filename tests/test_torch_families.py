@@ -207,15 +207,20 @@ def test_roberta_gguf_without_position_offset_encodes_alike(tmp_path, monkeypatc
 
 
 def test_family_rules():
-    """The port refuses only the families it has not ported, and only
-    ELECTRA may factorize its embeddings."""
-    assert UNPORTED_ARCHS == ("mpnet", "albert", "t5")
-    for arch in ("roberta", "distilbert", "electra"):
-        assert BertConfig(n_vocab=50, n_ctx=16, n_embd=64, n_layer=1, n_head=4, n_ff=64,
-                          arch=arch).abs_positions
-    with pytest.raises(ValueError, match="factorized"):
-        BertConfig(n_vocab=50, n_ctx=16, n_embd=64, n_layer=1, n_head=4, n_ff=64,
-                   arch="roberta", n_embd_emb=32)
+    """The port refuses none of the reference's families; the BERT-graph
+    ones add a position table, T5 does not; only ALBERT and ELECTRA may
+    factorize their embeddings, and only ALBERT shares its layer."""
+    assert UNPORTED_ARCHS == ()
+    small = dict(n_vocab=50, n_ctx=16, n_embd=64, n_layer=1, n_head=4, n_ff=64)
+    for arch in ("roberta", "distilbert", "electra", "mpnet", "albert"):
+        assert BertConfig(**small, arch=arch).abs_positions
+    assert not BertConfig(**small, arch="t5").abs_positions
+    for arch in ("albert", "electra"):
+        config = BertConfig(**small, arch=arch, n_embd_emb=32)
+        assert config.emb_width == 32 and config.shared_layers == (arch == "albert")
+    for arch in ("roberta", "mpnet", "t5"):
+        with pytest.raises(ValueError, match="factorized"):
+            BertConfig(**small, arch=arch, n_embd_emb=32)
     assert BertConfig.from_gguf_kv({
         Keys.ARCHITECTURE: "distilbert", Keys.TOKENIZER_LIST: ["a"] * 50,
         Keys.CONTEXT_LENGTH: 16, Keys.EMBEDDING_LENGTH: 64, Keys.BLOCK_COUNT: 1,

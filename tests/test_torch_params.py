@@ -113,5 +113,18 @@ def test_dense_head_params_match_jax():
 
 
 def test_non_bert_architecture_is_refused():
-    with pytest.raises(NotImplementedError):
-        BertConfig(**TINY, arch="mpnet")
+    """The reference's last three families build and draw their state dicts
+    as the JAX package does (ALBERT one shared layer, T5 d_kv 32); an
+    architecture neither package knows is refused by both."""
+    for kw in (dict(arch="mpnet", n_token_types=0, pos_offset=2, rel_attn_buckets=32),
+               dict(arch="albert", n_embd_emb=32, gelu="tanh"),
+               dict(arch="t5", n_token_types=0, rel_attn_buckets=32, n_head_dim=32,
+                    ffn_act="relu")):
+        sd = random_state_dict(BertConfig(**TINY, **kw), seed=4)
+        ref = jax_state_dict(JConfig(**TINY, **kw), seed=4)
+        assert list(sd) == list(ref), kw["arch"]
+        for k in sd:
+            np.testing.assert_array_equal(sd[k], ref[k])
+    for config in (BertConfig, JConfig):
+        with pytest.raises(ValueError, match="unsupported architecture"):
+            config(**TINY, arch="gpt2")
