@@ -38,7 +38,11 @@ Phases, in order, each printing JSON lines:
             1024, and K2/K3 at 16 heads of 64; B1, the kernel suite's
             head-packed attention (benchmark code, on no model path), at
             [32, 512, 12x32] hb 4 and [32, 512, 12x64] hb 2 beside K5, K3
-            and SDPA at the same shape, and with -1e9 padding tails
+            and SDPA at the same shape, and with -1e9 padding tails; mode 3
+            of the long-row kernel (segments and the sliding window) at
+            ModernBERT's chunk rows [8, 2048, 12x64], at S = 1032 (no
+            slice), [2, 8192] with four documents a row and with segments
+            shorter and longer than the window beside a row all padding
   main      Engine.embed_tokens at MiniLM-L6 full width (384 wide, 6 layers,
             12 heads; Q4_0 weights from a seed, bf16 activations) over the
             2758-sentence STSB-profile corpus, packed and plain, f32 and int8
@@ -52,7 +56,19 @@ Phases, in order, each printing JSON lines:
             K5 (global layers) and K7 (local layers): documents/s, in-device
             forward ms
   modernbert_vs_cpu  min cosine against the port's f32 CPU path: 256
-            sentences and 2 documents of 2048 tokens
+            sentences and a document of 2048 tokens
+  modernbert_chunks  the 512 RAG chunks through Engine(pack_seq=2048): rows of
+            2048 with 8 global layers on the windowed K6 and 14 local layers
+            on mode 3 (154 K1 per forward, 22 with the prologue); chunks/s,
+            the in-device [8, 2048] forward and its profiler breakdown, 32
+            documents packed "always" (K6 over every key), min cosine
+            against the f32 CPU path on 16 chunks and 2 documents
+  modernbert_rerank  gte-reranker-modernbert-base's geometry (mean pooling,
+            the PredictionHead): 256 MS MARCO-profile pairs through
+            score_token_pairs (K3/K4), pairs/s, 64 pairs' logits against the
+            CPU path, 4 pairs of 2048-4096 tokens on K5/K7 (f32 Pearson),
+            each attention kernel timed at the path's shapes, the rerank
+            frame
   deberta_main  DeBERTa-v3-base at full width and depth (768 wide, 12 layers,
             12 heads of 64, FFN 3072, 256 buckets out to 512) with
             mxbai-rerank-base-v1's one-logit gelu head: Engine.embed_tokens
@@ -75,7 +91,9 @@ Phases, in order, each printing JSON lines:
             (K6 over every key) and 8 documents of 8192 tokens, plain (K5,
             NTK-scaled RoPE base): documents/s, in-device forward at [8, 8192]
   nomic_vs_cpu  min cosine against the port's f32 CPU path: 256 sentences,
-            16 chunks packed at 2048, 2 documents of 2048 tokens
+            16 chunks packed at 2048, a document of 2048 tokens
+  nomic_unaligned  the chunks at pack_seq=2044 (S % 8 != 0): K6 padded to 2048
+            inside the call, launches asserted, min cosine against the CPU
   bge_main  bge-large-en-v1.5 at full width and depth (1024 wide, 24
             layers, 16 heads of 64, FFN 4096, CLS pooling; Q8_0 weights) over
             the corpus, packed (K2) and plain (K3): 96 K1 + 48 K8 + 24
@@ -113,12 +131,23 @@ Phases, in order, each printing JSON lines:
   albert    albert-base-v2 (128-wide tables projected to 768, one shared
             layer applied 12 times, gelu tanh) as XLM-R, on K2/K3; 64
             [CLS] q [SEP] p [SEP] pairs through its pooler + classifier
+  splade    BERT-base with the MLM head (n_vocab 30522 kept): the corpus
+            through sparse_tokens(k=256), sentences/s; the tied decoder on
+            K1/K8 as `route` gives every batch, checked and timed at its
+            shape beside addmm and K8 forced; the card's f32 and bf16 paths
+            against the CPU's
+  colbert   colbertv2.0's geometry (768 -> 128 projection, query_maxlen 32,
+            markers, [MASK] augmentation, the skiplist): 64 queries x 32
+            documents through maxsim_rerank, documents/s, scores against
+            the CPU path
   profile   torch.profiler kernel times of the packed [32, 512] forwards
             (MiniLM-L6, ModernBERT, DeBERTa, bge-large, XLM-R, MPNet, T5,
             ALBERT) and of the [8, 8192] ModernBERT forward
   server    the TCP server over the GPU engines: one raw text and one TPE2
             batch (MiniLM-L6, nomic, bge-large), one rerank frame (DeBERTa,
-            and the XLM-R, MPNet and ALBERT cross-encoders);
+            and the XLM-R, MPNet, ALBERT and ModernBERT cross-encoders); the
+            sparse frame \x01TPW (SPLADE) and the MaxSim frame \x01TPX
+            (ColBERT) against the Engine calls;
             on MiniLM-L6 also the reference's bert.h frames (health, stats,
             meta, tokenize, eval, vocab, int8 encode) and one frame the port
             does not serve yet, whose error frame leaves the connection usable
@@ -193,10 +222,17 @@ COSINE_SERVER = 0.9999  # wire replies vs engine.encode
 COSINE_INT8 = 0.999  # int8 wire codes (one step is 1/127 of a row's largest value)
 ATTENTION = ("attn_bse_packed", "attn_bse_keybias", "attn_bse_bias", "attn_bse_bias_packed",
              "attn_long", "attn_local", "deberta_attn", "deberta_attn_packed", "attn_seg",
-             "attn_seg_window")
+             "attn_seg_window", "attn_seg_local")
+
+
+_T0 = time.perf_counter()
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries `t_s`, the script's seconds so
+    far (where the time limit goes)."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - _T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -1504,8 +1540,9 @@ def phase_modernbert_long(counters, base, out_dir) -> dict:
 
 def phase_modernbert_vs_cpu(counters, base, outs, token_lists) -> dict:
     """The bf16 GPU path against the port's own f32 CPU path (plain
-    versions) on the same weights: 256 corpus sentences, and 2 documents of
-    2048 tokens, which run K5/K7 on the card."""
+    versions) on the same weights: 256 corpus sentences, and one document
+    of 2048 tokens, which runs K5/K7 on the card (one, not two since PR 15:
+    the CPU's plain long-row attention is most of the phase's time)."""
     import torch
 
     from embedding_cpp_tpu_torch import Engine
@@ -1514,14 +1551,14 @@ def phase_modernbert_vs_cpu(counters, base, outs, token_lists) -> dict:
     ref = cpu.embed_tokens(token_lists[:256])
 
     cos = {f"sentences/{p}": _min_cos(outs[p][:256], ref) for p in outs}
-    docs = _documents(2, 2048, seed=6, special=base.special_ids)
+    docs = _documents(1, 2048, seed=6, special=base.special_ids)
     reset_counts(counters)
     got = base.embed_tokens(docs)
     torch.cuda.synchronize()
     counts = read_counts(counters)
     check(counts["attn_long"] == 8 and counts["attn_local"] == 14, f"2048: {counts}")
     cos["documents_2048"] = _min_cos(got, cpu.embed_tokens(docs))
-    emit({"phase": "modernbert_vs_cpu", "sentences": 256, "documents": 2,
+    emit({"phase": "modernbert_vs_cpu", "sentences": 256, "documents": len(docs),
           "document_tokens": 2048, "min_cosine": cos, "threshold": COSINE_VS_CPU,
           "launches_2048": counts})
     check(min(cos.values()) >= COSINE_VS_CPU, f"modernbert cosine vs CPU {cos}")
@@ -1908,7 +1945,7 @@ def phase_nomic_documents(counters, base) -> dict:
 def phase_nomic_vs_cpu(counters, base, outs, token_lists, chunks) -> dict:
     """The bf16 card path against the port's f32 CPU path (plain versions)
     on the same weights: 256 corpus sentences (packed and plain), 16
-    chunks packed in rows of 2048 (K6b), 2 documents of 2048 tokens (K5)."""
+    chunks packed in rows of 2048 (K6b), a document of 2048 tokens (K5)."""
     import torch
 
     from embedding_cpp_tpu_torch import Engine
@@ -1926,10 +1963,10 @@ def phase_nomic_vs_cpu(counters, base, outs, token_lists, chunks) -> dict:
     got, counts = _run_counted(counters, gpu, few, {"attn_seg_window": len(_packed_plan(gpu, few))},
                                "16 chunks")
     cos["chunks_packed_2048"] = _min_cos(got, cpu_engine(**kw).embed_tokens(few))
-    docs = _documents(2, 2048, seed=8, special=base.special_ids)
-    got, doc_counts = _run_counted(counters, base, docs, {"attn_long": 1}, "2 documents of 2048")
+    docs = _documents(1, 2048, seed=8, special=base.special_ids)
+    got, doc_counts = _run_counted(counters, base, docs, {"attn_long": 1}, "a document of 2048")
     cos["documents_2048"] = _min_cos(got, cpu_engine().embed_tokens(docs))
-    emit({"phase": "nomic_vs_cpu", "sentences": 256, "chunks": len(few), "documents": 2,
+    emit({"phase": "nomic_vs_cpu", "sentences": 256, "chunks": len(few), "documents": len(docs),
           "document_tokens": 2048, "min_cosine": cos, "threshold": COSINE_VS_CPU})
     check(min(cos.values()) >= COSINE_VS_CPU, f"nomic cosine vs CPU {cos}")
     torch.cuda.empty_cache()
@@ -2605,6 +2642,589 @@ def phase_rerank_server(engine) -> None:
           f"rerank frame {idx} differs from Engine.rerank {want}")
 
 
+def phase_kernels_seg_local(peaks) -> dict:
+    """Mode 3 (segments and the sliding window 128; ModernBERT's local
+    layers on packed rows past 1024) against its plain version, bf16 and
+    f32: at the chunk-row shape [8, 2048, 12x64] with the segments of the
+    512-chunk plan (bf16 timed), at S = 1032 (no slice: every key), at
+    [2, 8192] with four packed documents a row, and at [2, 2048] with
+    segments shorter and longer than the window and a row all padding.
+    The library call is SDPA with the materialised boolean [B, 1, S, S]
+    mask seg_q == seg_k & |q - k| <= 64.  Bound: 4*H*d operations for each
+    (query, key) pair that shares a segment and lies within the window,
+    padding included (`segment_window_pairs`)."""
+    import torch
+    import torch.nn.functional as F
+
+    from embedding_cpp_tpu_torch.benchmarks.profiles import segment_window_pairs
+    from embedding_cpp_tpu_torch.ops.attention import (
+        attention_packed_local_plain,
+        flash_attention_packed_local,
+        local_window_tiles,
+    )
+    from embedding_cpp_tpu_torch.runtime.batching import pack_segments
+    from embedding_cpp_tpu_torch.tokenizer import SpecialIds
+
+    dev = torch.device("cuda")
+    h, d, window = 12, 64, 128
+    gen = torch.Generator(device="cpu").manual_seed(15)
+    rng = np.random.default_rng(15)
+
+    def run(seg_np, dtype, timed, segments):
+        b, s = seg_np.shape
+        seg = torch.from_numpy(seg_np).to(dev)
+        q, k, v = (torch.randn(b, s, h, d, generator=gen).to(dev, dtype) for _ in range(3))
+        heads = allowed = None
+        if timed:
+            heads = [t.transpose(1, 2).contiguous() for t in (q, k, v)]
+            pos = torch.arange(s, device=dev)
+            inwin = (pos[None, :] - pos[:, None]).abs() <= window // 2
+            allowed = ((seg[:, :, None] == seg[:, None, :]) & inwin)[:, None]
+        tq, wmax = local_window_tiles(s, window)
+        pairs = segment_window_pairs(seg_np, window)
+        nbytes = 4 * q.numel() * q.element_size() + seg.numel() * 4
+        return _attention_case(
+            "attn_seg_local", lambda *a: flash_attention_packed_local(*a, window),
+            lambda *a: attention_packed_local_plain(*a, window),
+            lambda: F.scaled_dot_product_attention(*heads, attn_mask=allowed), (q, k, v, seg),
+            nbytes, 4.0 * h * pairs * d, peaks, timed, b=b, s=s, h=h, d=d, window=window,
+            tq=tq, wmax=wmax or s, segments=segments,
+            pair_share=pairs / (b * s * (wmax or s)))
+
+    chunks = _chunks(512, 128, 512, seed=0, special=SpecialIds(cls=2, sep=3, pad=0, unk=1))
+    plan = pack_segments(chunks, list(range(len(chunks))), 0, seq_len=2048, n_seg=256)
+    chunk_rows = plan[0].seg[:8]
+    mixed = np.full((2, 2048), -1, np.int32)
+    c = g = 0
+    for n in (20, 300, 40, 700, 3, 128, 65, 500):  # shorter and longer than the window
+        mixed[0, c:c + n] = g
+        c, g = c + n, g + 1
+    results = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        timed = dtype == torch.bfloat16
+        c = run(chunk_rows, dtype, timed, "the 512-chunk plan's first 8 rows (128-512 tokens)")
+        if timed:
+            results["attn_seg_local"] = c
+        run(packed_rows(rng, 3, 1032, 40, 300)[0], dtype, False, [40, 300])
+        run(packed_rows(rng, 2, 8192, 1900, 2040)[0], dtype, False, "4 documents a row")
+        run(mixed, dtype, False, "20-700 tokens, then a row all padding")
+        torch.cuda.empty_cache()
+    return results
+
+
+def _attention_at(peaks, kernel: str, b: int, s: int, lens, window: int | None,
+                  long: bool, model: str = "gte-reranker-modernbert-base") -> dict:
+    """One timed bf16 check of a path's attention at its own shape [b, s,
+    12x64] with key padding to `lens`: the projection layout (K3, or K4 with
+    ModernBERT's [1, S, S] window bias) or the long-row kernel (K5, or K7
+    over its slices), beside SDPA with the same additive mask."""
+    import torch
+    import torch.nn.functional as F
+
+    from embedding_cpp_tpu_torch.models.modernbert import window_bias
+    from embedding_cpp_tpu_torch.ops import attention as A
+
+    dev = torch.device("cuda")
+    h, d = 12, 64
+    gen = torch.Generator(device="cpu").manual_seed(b * s)
+    keyb = torch.where(torch.arange(s)[None, :] < torch.as_tensor(lens)[:, None], 0.0,
+                       A.MASK_BIAS).to(torch.float32).to(dev)
+    q, k, v = (torch.randn(b, s, h, d, generator=gen).to(dev, torch.bfloat16)
+               for _ in range(3))
+    heads = [t.transpose(1, 2).contiguous() for t in (q, k, v)]
+    wb = None if window is None else window_bias(s, window, dev)
+    lmask = keyb[:, None, None, :] + (0.0 if wb is None else wb[None])
+    pos = torch.arange(s)
+    pairs = (float(b * s * s) if window is None else b * float(
+        (torch.clamp(pos + window // 2, max=s - 1) - torch.clamp(pos - window // 2, min=0)
+         + 1).sum()))
+    nbytes = 4 * q.numel() * 2 + b * s * 4
+    if long:
+        fn = ((lambda *a: A.flash_attention_local(*a, window)) if window
+              else A.flash_attention)
+        plain = ((lambda *a: A.attention_local_plain(*a, window)) if window
+                 else A.attention_long_plain)
+        args = (q, k, v, keyb)
+    else:
+        e = h * d
+        fn = lambda *a: A.flash_attention_bse(a[0].reshape(b, s, e), a[1].reshape(b, s, e),
+                                              a[2].reshape(b, s, e), a[3], h, wb)
+        plain = lambda *a: A.attention_bse_plain(a[0].reshape(b, s, e), a[1].reshape(b, s, e),
+                                                 a[2].reshape(b, s, e), a[3], h, False, wb)
+        args = (q, k, v, keyb)
+        if wb is not None:
+            nbytes += wb.numel() * 4
+    return _attention_case(kernel, fn, plain,
+                           lambda: F.scaled_dot_product_attention(
+                               *heads, attn_mask=lmask.to(torch.bfloat16)),
+                           args, nbytes, 4.0 * h * pairs * d, peaks, True, b=b, s=s, h=h, d=d,
+                           window=window, model=model)
+
+
+def _modernbert_packed_counts_ok(counts: dict, forwards: int, glob: str, what: str) -> None:
+    """Per forward on packed rows past 1024: 154 K1 launches (22 with the
+    prologue), 8 global layers on K6 (`glob`: windowed or every key), 14
+    local layers on mode 3."""
+    check(counts["q4_matmul"] == 154 * forwards and counts["q4_matmul_2d"] == 0
+          and counts["q4_matmul_prologue"] == 22 * forwards, f"{what}: K1 {counts}")
+    check(counts[glob] == 8 * forwards and counts["attn_seg_local"] == 14 * forwards
+          and sum(counts[k] for k in ATTENTION) == 22 * forwards, f"{what}: attention {counts}")
+
+
+def phase_modernbert_chunks(counters, base, out_dir) -> dict:
+    """ModernBERT-base (Q4_0, bf16) at Engine(pack_seq=2048): 512 RAG chunks
+    of 128-512 tokens (seed 0) in rows of 2048 with the bound 512 (global
+    layers on the windowed K6, local layers on mode 3): chunks/s, best of
+    3, the in-device [8, 2048] forward and its torch.profiler breakdown; 32
+    documents of 600-1400 tokens packed "always" (K6 over every key); min
+    cosine against the port's f32 CPU path on 16 chunks and 2 documents."""
+    import torch
+
+    from embedding_cpp_tpu_torch import Engine
+    from embedding_cpp_tpu_torch.models.bert import bert_embed_packed
+    from embedding_cpp_tpu_torch.runtime.engine import segment_bound
+
+    def engine(card: bool, **kw):
+        """On the card in the phase's bf16, or the f32 CPU reference."""
+        return Engine(base.params, base.config, base.tokenizer, base.special_ids,
+                      opts=base.opts if card else None, device="cuda" if card else "cpu",
+                      pack_seq=2048, **kw)
+
+    eng, docs_eng = engine(True), engine(True, packing="always")
+    chunks = _chunks(512, 128, 512, seed=0, special=base.special_ids)
+    plan = _packed_plan(eng, chunks)
+    check(sum(len(pb.orig) for pb in plan) == len(chunks)
+          and {segment_bound(pb) for pb in plan} == {512}, "modernbert chunk plan")
+    out, counts = _counted(counters, lambda: eng.embed_tokens(chunks))
+    emit({"phase": "modernbert_chunks_launches", "forwards": len(plan), "launches": counts})
+    _modernbert_packed_counts_ok(counts, len(plan), "attn_seg_window", "modernbert chunks")
+    norms = np.linalg.norm(out, axis=-1)
+    check(np.isfinite(out).all() and np.abs(norms - 1.0).max() <= 1e-3, "chunks: output")
+    best = _best_s(lambda: eng.embed_tokens(chunks), 3)
+
+    docs = _chunks(32, 600, 1400, seed=1, special=base.special_ids)
+    doc_plan = _packed_plan(docs_eng, docs)
+    check(sum(len(pb.orig) for pb in doc_plan) == len(docs)
+          and {segment_bound(pb) for pb in doc_plan} == {2048}, "modernbert document plan")
+    _, doc_counts = _counted(counters, lambda: docs_eng.embed_tokens(docs))
+    _modernbert_packed_counts_ok(doc_counts, len(doc_plan), "attn_seg", "modernbert documents")
+    best_docs = _best_s(lambda: docs_eng.embed_tokens(docs), 3)
+
+    pb = plan[0]
+    dev = torch.device("cuda")
+    ids, seg, pos = (torch.from_numpy(a[:8]).to(dev) for a in (pb.ids, pb.seg, pb.pos))
+
+    def forward():
+        return bert_embed_packed(base.params, ids, seg, pos, base.config, base.opts,
+                                 n_seg=eng.pack_segs, max_seg_len=512)
+
+    with torch.inference_mode():
+        fwd_ms = gpu_ms(forward, samples=5, reps=2, spin=500_000_000)
+        _, rows, table = _profiled(forward)
+    _save(out_dir, "profile_modernbert_chunk_forward_b8_s2048.txt", table)
+    busy = sum(r[1] for r in rows) / 1e3
+    emit({"phase": "profile", "model": base.config.name, "what": "packed forward [8, 2048]",
+          "device_busy_ms": busy,
+          "top": [{"name": k[:80], "device_ms": us / 1e3, "calls": n, "share": us / 1e3 / busy}
+                  for k, us, n in rows[:10]]})
+    wall_ms, rows, table = _profiled(lambda: eng.embed_tokens(chunks))
+    _save(out_dir, "profile_modernbert_chunks_embed_tokens.txt", table)
+    busy_ms = sum(r[1] for r in rows) / 1e3
+    emit({"phase": "profile", "model": base.config.name,
+          "what": "embed_tokens, 512 chunks, pack_seq 2048",
+          "wall_ms_under_profiler": wall_ms, "device_busy_ms": busy_ms,
+          "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms)})
+
+    # fewer than 32 chunks pack only with packing "always"
+    few, two = chunks[:16], docs[:2]
+    got, few_counts = _counted(counters, lambda: docs_eng.embed_tokens(few))
+    got_docs, two_counts = _counted(counters, lambda: docs_eng.embed_tokens(two))
+    check(few_counts["attn_seg_local"] > 0 and two_counts["attn_seg_local"] > 0,
+          f"vs cpu: {few_counts} {two_counts}")
+    cpu = engine(False, packing="always")
+    cos = {"chunks_packed_2048": _min_cos(got, cpu.embed_tokens(few)),
+           "documents_packed_2048": _min_cos(got_docs, cpu.embed_tokens(two))}
+    tokens = sum(len(t) for t in chunks)
+    slots = sum(p.ids.size for p in plan)
+    emit({"phase": "modernbert_chunks", "model": base.config.name, "chunks": len(chunks),
+          "tokens": tokens, "pack_seq": 2048, "batch_shapes": [list(p.ids.shape) for p in plan],
+          "token_slots": slots, "padded_token_slots": slots - tokens, "max_seg_len": 512,
+          "chunks_per_sec": len(chunks) / best,
+          "packed_forward_ms_in_device_b8_s2048": fwd_ms,
+          "documents": len(docs), "document_tokens": sum(len(t) for t in docs),
+          "document_batch_shapes": [list(p.ids.shape) for p in doc_plan],
+          "documents_per_sec": len(docs) / best_docs,
+          "min_cosine_vs_cpu": cos, "threshold": COSINE_VS_CPU,
+          "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+    check(min(cos.values()) >= COSINE_VS_CPU, f"modernbert chunks cosine vs CPU {cos}")
+    return {k: counts[k] + doc_counts[k] + few_counts[k] + two_counts[k] for k in counts}
+
+
+def _long_pairs(n: int, lo: int, hi: int, seed: int, special) -> tuple[list, list]:
+    """n framed pairs [CLS] a [SEP] b [SEP] of lo..hi tokens (a query of 12
+    tokens), with their type ids."""
+    rng = np.random.default_rng(seed)
+    ids, types = [], []
+    for m in rng.integers(lo, hi + 1, n):
+        a = rng.integers(4, 1000, 12).tolist()
+        b = rng.integers(4, 1000, int(m) - 15).tolist()
+        ids.append([special.cls] + a + [special.sep] + b + [special.sep])
+        types.append([0] * 14 + [1] * (len(b) + 1))
+    return ids, types
+
+
+def phase_modernbert_rerank(counters, peaks) -> tuple:
+    """gte-reranker-modernbert-base's geometry (ModernBERT-base, one logit
+    through the PredictionHead, mean pooling; Q4_0 from seed 1, bf16): 256
+    MS MARCO-profile pairs through score_token_pairs (K3 on global layers,
+    K4 with the window bias on local ones): pairs/s, best of 5; 64 pairs'
+    logits against the CPU path at DeBERTa's bars scaled to the logits'
+    spread; 4 pairs of 2048-4096 tokens (K5 and K7), their f32 logits
+    against the CPU's by Pearson; each attention kernel timed at the
+    path's own shapes."""
+    import torch
+
+    from embedding_cpp_tpu_torch import Engine
+    from embedding_cpp_tpu_torch.models import MODERNBERT_BASE, ComputeOptions
+
+    config = replace(MODERNBERT_BASE, n_vocab=1000, n_labels=1, head_activation="gelu",
+                     pooling="mean", name="gte-reranker-modernbert-base-synthetic")
+    rr = Engine.synthetic(config, "q4_0", seed=1, opts=ComputeOptions(dtype="bfloat16"),
+                          device="cuda")
+    pair_ids, pair_types = rr.tokenize_pairs(_rerank_pairs(256, seed=8))
+    sp = rr.special_ids
+    check(all(t[0] == sp.cls and t[-1] == sp.sep and t.count(sp.sep) == 2 for t in pair_ids),
+          "modernbert pairs: [CLS] a [SEP] b [SEP]")
+    plan = rr.score_plan(pair_ids)
+    shapes = [list(b.ids.shape) for b in plan]
+    logits, counts = _counted(counters, lambda: rr.score_token_pairs(pair_ids, pair_types))
+    f = len(plan)
+    check(counts["q4_matmul"] == 154 * f and counts["q4_matmul_prologue"] == 22 * f
+          and counts["attn_bse_keybias"] == 8 * f and counts["attn_bse_bias"] == 14 * f
+          and sum(counts[k] for k in ATTENTION) == 22 * f, f"modernbert score {counts}")
+    check(logits.shape == (256,) and np.isfinite(logits).all(), "modernbert logits")
+    best = _best_s(lambda: rr.score_token_pairs(pair_ids, pair_types), 5)
+    vs = _logits_vs_cpu(rr, pair_ids, pair_types, logits, "modernbert rerank",
+                        spread_scaled=True)
+
+    long_ids, long_types = _long_pairs(4, 2048, 4096, seed=12, special=sp)
+    long_plan = rr.score_plan(long_ids)
+    long_logits, long_counts = _counted(counters,
+                                        lambda: rr.score_token_pairs(long_ids, long_types))
+    fl = len(long_plan)
+    check(long_counts["q4_matmul"] == 154 * fl and long_counts["attn_long"] == 8 * fl
+          and long_counts["attn_local"] == 14 * fl
+          and sum(long_counts[k] for k in ATTENTION) == 22 * fl, f"long pairs {long_counts}")
+    f32 = Engine(rr.params, config, rr.tokenizer, sp, device="cuda")
+    cpu = Engine(rr.params, config, rr.tokenizer, sp, device="cpu")
+    got_f32 = f32.score_token_pairs(long_ids, long_types)
+    ref_f32 = cpu.score_token_pairs(long_ids, long_types)
+    long_vs = {"pairs": len(long_ids), "tokens": [len(t) for t in long_ids],
+               "batch_shapes": [list(b.ids.shape) for b in long_plan],
+               "f32_pearson": _pearson(got_f32, ref_f32),
+               "f32_max_abs_logit_err": float(np.abs(got_f32 - ref_f32).max()),
+               "bf16_pearson": _pearson(long_logits, ref_f32), "threshold": PEARSON_F32}
+    check(long_vs["f32_pearson"] >= PEARSON_F32 and np.isfinite(long_logits).all(),
+          f"long pairs {long_vs}")
+
+    big = max(plan, key=lambda b: b.ids.size)
+    lens = big.mask.sum(1)
+    b, s = big.ids.shape
+    timed = {"attn_bse_keybias": _attention_at(peaks, "attn_bse_keybias", b, s, lens, None,
+                                               False),
+             "attn_bse_bias": _attention_at(peaks, "attn_bse_bias", b, s, lens, 128, False)}
+    lb = max(long_plan, key=lambda b: b.ids.size)
+    b, s = lb.ids.shape
+    timed["attn_long"] = _attention_at(peaks, "attn_long", b, s, lb.mask.sum(1), None, True)
+    timed["attn_local"] = _attention_at(peaks, "attn_local", b, s, lb.mask.sum(1), 128, True)
+    emit({"phase": "modernbert_rerank", "model": config.name, "pooling": config.pooling,
+          "pairs": len(pair_ids), "pair_tokens": sum(len(t) for t in pair_ids),
+          "batch_shapes": shapes, "pairs_per_sec": len(pair_ids) / best, "launches": counts,
+          "long_pairs": long_vs, "long_launches": long_counts, "vs_cpu": vs,
+          "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+    phase_rerank_server(rr)
+    total = {k: counts[k] + long_counts[k] for k in counts}
+    return total, timed
+
+
+def _sparse_vec(pairs, n_vocab: int) -> np.ndarray:
+    """(ids, weights) per text -> dense [n, n_vocab] f32."""
+    out = np.zeros((len(pairs), n_vocab), np.float32)
+    for i, (idx, val) in enumerate(pairs):
+        out[i, idx] = val
+    return out
+
+
+def phase_splade(counters, peaks, texts) -> tuple:
+    """SPLADE at BERT-base geometry (768 wide, 12 layers, 12 heads of 64,
+    FFN 3072) with the MLM head, n_vocab 30522 kept (the decoder's N is the
+    vocabulary), Q4_0 from seed 0, bf16: the STSB-profile corpus through
+    sparse_tokens(k=256): sentences/s, best of 3; the encoder's K1/K3 and
+    the decoder's K1/K8 launches as `route` gives every planned batch; the
+    decoder shape against its plain version and addmm on the dequantized
+    weight (K8 forced beside it); 64 sentences against the port's CPU
+    path: the card's f32 path gives the same id sets with weights within
+    1e-4, the bf16 path cosine >= 0.995 of the rebuilt 30522-wide vectors
+    (every positive term) against the CPU's f32 path and >= 0.999 against
+    its bf16 path."""
+    import torch
+
+    from embedding_cpp_tpu_torch import Engine
+    from embedding_cpp_tpu_torch.models import BertConfig, ComputeOptions
+    from embedding_cpp_tpu_torch.models.bert import sparse_chunk
+    from embedding_cpp_tpu_torch.ops.q4_matmul import (
+        _q4_matmul_2d,
+        dequant_weight,
+        q4_matmul,
+        q4_matmul_plain,
+        route,
+    )
+    from embedding_cpp_tpu_torch.runtime.batching import pack_batches
+
+    config = BertConfig(n_vocab=30522, n_ctx=512, n_embd=768, n_layer=12, n_head=12,
+                        n_ff=3072, mlm_head=True, name="splade-bert-base-synthetic")
+    opts = ComputeOptions(dtype="bfloat16")
+    sp = Engine.synthetic(config, "q4_0", seed=0, opts=opts, device="cuda")
+    lists = sp.tokenize_batch(texts)
+    budget = sp._sparse_budget()
+    row_cap = max(1, budget // (8 * config.n_vocab * 4))
+    plan = pack_batches(lists, sp.special_ids.pad, seq_buckets=sp.seq_buckets,
+                        batch_buckets=tuple(b for b in sp.batch_buckets if b <= row_cap),
+                        max_seq=config.n_ctx, max_tokens=sp.max_batch_tokens, pad_rows=False)
+    w = sp.params["mlm"]["decoder_w"]
+    dec, dec_rows = {"1d": 0, "2d": 0}, []
+    for b in plan:
+        bb, s = b.ids.shape
+        cs = sparse_chunk(s, bb, config.n_vocab, budget)
+        r = route(bb * cs, 768, config.n_vocab, w.qtype, torch.bfloat16).kernel
+        dec["2d" if r == "2d" else "1d"] += s // cs
+        dec_rows.append([bb, s, cs, r])
+    out, counts = _counted(counters, lambda: sp.sparse_tokens(lists, k=256))
+    f = len(plan)
+    check(counts["q4_matmul"] == 72 * f + dec["1d"] and counts["q4_matmul_2d"] == dec["2d"]
+          and counts["attn_bse_keybias"] == 12 * f
+          and sum(counts[k] for k in ATTENTION) == 12 * f, f"splade launches {counts} {dec}")
+    check(len(out) == len(lists) and all(0 < len(i) <= 256 and np.all(v > 0)
+                                         and np.all(np.diff(v) <= 0) for i, v in out),
+          "splade outputs")
+    best = _best_s(lambda: sp.sparse_tokens(lists, k=256), 3)
+
+    # the decoder at the largest planned batch's chunk
+    bb, s, cs, _ = max(dec_rows, key=lambda r: r[0] * r[2])
+    m, k, n = bb * cs, 768, config.n_vocab
+    gen = torch.Generator(device="cpu").manual_seed(21)
+    x = torch.randn(m, k, generator=gen).to("cuda", torch.bfloat16)
+    bias = sp.params["mlm"]["bias"]
+    wd = dequant_weight(w, torch.bfloat16)
+    nbytes = (x.numel() * 2 + w.qs.numel() * w.qs.element_size() + w.scales.numel() * 4
+              + n * 4 + m * n * 2)
+    c = _attention_case("q4_matmul/splade", lambda *a: q4_matmul(*a, bias=bias),
+                        lambda *a: q4_matmul_plain(*a, bias),
+                        lambda: torch.addmm(bias.to(torch.bfloat16), x, wd), (x, w), nbytes,
+                        2.0 * m * k * n, peaks, True, m=m, k=k, n=n, qtype="Q4_0",
+                        route=route(m, k, n, w.qtype, torch.bfloat16).kernel)
+    got2 = _q4_matmul_2d(x, w, bias)
+    err2, rel2 = _rel_err(got2, q4_matmul_plain(x, w, bias))
+    c["k8_forced_ms"] = gpu_ms(lambda: _q4_matmul_2d(x, w, bias))
+    c["k8_forced_max_abs_err"] = err2
+    emit({"phase": "kernel_check", "kernel": "q4_matmul_2d/splade", "m": m, "k": k, "n": n,
+          "max_abs_err": err2, "rel_err": rel2, "ms": c["k8_forced_ms"],
+          "ok": _within(torch.bfloat16, err2, rel2)})
+    check(_within(torch.bfloat16, err2, rel2), f"K8 forced at the decoder: {rel2}")
+    del x, wd, got2
+
+    # the cosines over whole vectors (k = n_vocab: every positive term): a
+    # random-weight model has ~half the vocabulary positive, so its k = 256
+    # cut falls where the weights lie closer than bf16's step, and which of
+    # those terms a bf16 path keeps is a tie-break (reported apart)
+    few = lists[:64]
+    cpu = Engine(sp.params, config, sp.tokenizer, sp.special_ids, device="cpu")
+    cpu_bf16 = Engine(sp.params, config, sp.tokenizer, sp.special_ids, device="cpu",
+                      opts=opts)
+    gpu_f32 = Engine(sp.params, config, sp.tokenizer, sp.special_ids, device="cuda")
+    ref = cpu.sparse_tokens(few, k=256)
+    got_f32 = gpu_f32.sparse_tokens(few, k=256)
+    same_ids = all(set(a[0].tolist()) == set(b[0].tolist()) for a, b in zip(got_f32, ref))
+    w_err = max(float(np.abs(_sparse_vec([a], n) - _sparse_vec([b], n)).max())
+                for a, b in zip(got_f32, ref))
+    whole = {name: _sparse_vec(e.sparse_tokens(few, k=n), n)
+             for name, e in (("card_bf16", sp), ("cpu_f32", cpu), ("cpu_bf16", cpu_bf16))}
+    cos = {"bf16_vs_cpu_f32": _min_cos(whole["card_bf16"], whole["cpu_f32"]),
+           "bf16_vs_cpu_bf16": _min_cos(whole["card_bf16"], whole["cpu_bf16"])}
+    cos_k256 = {"bf16_vs_cpu_f32": _min_cos(_sparse_vec(out[:64], n), _sparse_vec(ref, n))}
+    emit({"phase": "splade", "model": config.name, "weights": "q4_0", "activations": "bfloat16",
+          "sentences": len(lists), "tokens": sum(len(t) for t in lists), "k": 256,
+          "sentences_per_sec": len(lists) / best, "batches": [list(b.ids.shape) for b in plan],
+          "decoder_chunks": dec_rows, "launches": counts,
+          "mean_terms": float(np.mean([len(i) for i, _ in out])),
+          "f32_same_ids": same_ids, "f32_max_abs_weight_err": w_err,
+          "min_cosine": cos, "thresholds": {"bf16_vs_cpu_f32": 0.995, "bf16_vs_cpu_bf16": 0.999},
+          "min_cosine_k256_reported": cos_k256,
+          "positive_terms": float(np.mean((whole["cpu_f32"] > 0).sum(1))),
+          "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+    check(same_ids and w_err <= 1e-4, f"splade f32 vs CPU: ids {same_ids} err {w_err}")
+    check(cos["bf16_vs_cpu_f32"] >= 0.995 and cos["bf16_vs_cpu_bf16"] >= 0.999,
+          f"splade bf16 cosine {cos}")
+    return sp, counts, c, dec, max(plan, key=lambda b: b.ids.size)
+
+
+def _colbert_docs(n: int, seed: int) -> list[str]:
+    """n passages of 55-155 words with a punctuation mark every 8 words
+    (ColBERT's skiplist drops them from scoring)."""
+    from embedding_cpp_tpu_torch.tokenizer.testvocab import _COMMON_WORDS
+
+    rng = np.random.default_rng(seed)
+    words = np.array(_COMMON_WORDS)
+    out = []
+    for m in rng.integers(55, 156, n):
+        toks = list(rng.choice(words, size=int(m)))
+        for i in range(8, len(toks), 8):
+            toks[i] += rng.choice([",", ".", ";", "?"])
+        out.append(" ".join(toks))
+    return out
+
+
+def phase_colbert(counters, token_lists) -> tuple:
+    """colbertv2.0's geometry (BERT-base, the 768 -> 128 projection,
+    query_maxlen 32, [unused0]/[unused1] markers, [MASK] augmentation, the
+    punctuation skiplist; Q4_0 from seed 0, bf16; vocab cut to 1000): 64
+    queries, each reranking the same 32 documents of 64-180 tokens through
+    maxsim_rerank: documents/s; K1/K3 launches per forward; 2 queries'
+    scores against the port's f32 CPU path: the card's f32 path within
+    1e-5 relative with the same order, the bf16 path Pearson >= 0.999 with
+    the same top-1."""
+    import torch
+
+    from embedding_cpp_tpu_torch import Engine
+    from embedding_cpp_tpu_torch.models import BertConfig, ComputeOptions
+    from embedding_cpp_tpu_torch.tokenizer.testvocab import build_vocab
+
+    vocab = build_vocab(1000)
+    config = BertConfig(n_vocab=1000, n_ctx=512, n_embd=768, n_layer=12, n_head=12, n_ff=3072,
+                        colbert_dim=128, query_maxlen=32, mask_punctuation=True,
+                        q_marker_id=vocab["[unused0]"], d_marker_id=vocab["[unused1]"],
+                        mask_id=vocab["[MASK]"], name="colbertv2.0-synthetic")
+    opts = ComputeOptions(dtype="bfloat16")
+    cb = Engine.synthetic(config, "q4_0", seed=0, opts=opts, device="cuda")
+    queries = synthetic_sentences(64, seed=13)
+    docs = _colbert_docs(32, seed=14)
+    doc_tokens = cb.colbert_doc_tokens(docs)
+    check(all(t[1] == config.d_marker_id for t in doc_tokens)
+          and 64 <= min(map(len, doc_tokens)) and max(map(len, doc_tokens)) <= 180,
+          f"colbert doc framing {sorted(map(len, doc_tokens))[:3]}")
+    q_ids, q_mask = cb.colbert_query_ids(queries[:1])
+    check(q_ids.shape == (1, 32) and q_ids[0, 1] == config.q_marker_id
+          and (q_ids[0][q_mask[0] == 0] == config.mask_id).all(), "colbert query framing")
+    check(len(cb.colbert_skiplist()) > 0, "colbert skiplist")
+    per_query = 1 + len(cb.score_plan(doc_tokens))
+    ranked, counts = _counted(counters, lambda: [cb.maxsim_rerank(q, docs) for q in queries])
+    f = 64 * per_query
+    check(counts["q4_matmul"] == 72 * f and counts["attn_bse_keybias"] == 12 * f
+          and sum(counts[k] for k in ATTENTION) == 12 * f, f"colbert launches {counts}")
+    best = _best_s(lambda: [cb.maxsim_rerank(q, docs) for q in queries], 2)
+
+    gpu_f32 = Engine(cb.params, config, cb.tokenizer, cb.special_ids, device="cuda")
+    cpu = Engine(cb.params, config, cb.tokenizer, cb.special_ids, device="cpu")
+    vs = []
+    for q, r in zip(queries[:2], ranked[:2]):
+        ref = cpu.maxsim(q, docs)
+        got = gpu_f32.maxsim(q, docs)
+        bf = np.empty(len(docs), np.float32)
+        bf[[x["index"] for x in r]] = [x["relevance_score"] for x in r]
+        vs.append({"f32_max_rel_err": float(np.max(np.abs(got - ref) / np.abs(ref))),
+                   "f32_same_order": bool((np.argsort(-got, kind="stable")
+                                           == np.argsort(-ref, kind="stable")).all()),
+                   "bf16_pearson": _pearson(bf, ref),
+                   "bf16_top1": [int(np.argmax(bf)), int(np.argmax(ref))],
+                   "score_std": float(np.std(ref))})
+    emit({"phase": "colbert", "model": config.name, "weights": "q4_0", "activations": "bfloat16",
+          "queries": len(queries), "documents": len(docs),
+          "document_tokens": sum(map(len, doc_tokens)), "forwards_per_query": per_query,
+          "documents_per_sec": len(queries) * len(docs) / best, "launches": counts,
+          "vs_cpu": vs, "thresholds": {"f32_max_rel_err": 1e-5, "bf16_pearson": 0.999},
+          "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+    check(all(v["f32_max_rel_err"] <= 1e-5 and v["f32_same_order"] for v in vs),
+          f"colbert f32 vs CPU {vs}")
+    check(all(v["bf16_pearson"] >= 0.999 and v["bf16_top1"][0] == v["bf16_top1"][1]
+              for v in vs), f"colbert bf16 vs CPU {vs}")
+    return cb, counts, max(cb.score_plan(doc_tokens), key=lambda b: b.ids.size)
+
+
+def phase_nomic_unaligned(counters, base) -> dict:
+    """nomic-embed-text-v1.5 at Engine(pack_seq=2044, packing="always"):
+    rows of 2044 tokens (S % 8 != 0, XLA in the reference) run K6 padded to
+    2048 inside the attention call (windowed by the bound 512); the 512
+    chunks' launches asserted, min cosine >= 0.999 against the port's f32
+    CPU path on 16 chunks."""
+    from embedding_cpp_tpu_torch import Engine
+
+    def engine(card: bool, **kw):
+        """On the card in the phase's bf16, or the f32 CPU reference."""
+        return Engine(base.params, base.config, base.tokenizer, base.special_ids,
+                      opts=base.opts if card else None, device="cuda" if card else "cpu",
+                      pack_seq=2044, **kw)
+
+    eng = engine(True, packing="always")
+    chunks = _chunks(512, 128, 512, seed=0, special=base.special_ids)
+    plan = _packed_plan(eng, chunks)
+    check(sum(len(pb.orig) for pb in plan) == len(chunks)
+          and all(pb.ids.shape[1] == 2044 for pb in plan), "nomic 2044 plan")
+    _, counts = _run_counted(counters, eng, chunks, {"attn_seg_window": len(plan)},
+                             "chunks at pack_seq 2044")
+    few = chunks[:16]
+    got, few_counts = _run_counted(counters, eng, few,
+                                   {"attn_seg_window": len(_packed_plan(eng, few))},
+                                   "16 chunks at pack_seq 2044")
+    cos = _min_cos(got, engine(False, packing="always").embed_tokens(few))
+    emit({"phase": "nomic_unaligned", "pack_seq": 2044, "chunks": len(chunks),
+          "batch_shapes": [list(pb.ids.shape) for pb in plan], "launches": counts,
+          "min_cosine_vs_cpu": cos, "threshold": COSINE_VS_CPU})
+    check(cos >= COSINE_VS_CPU, f"nomic 2044 cosine vs CPU {cos}")
+    return {k: counts[k] + few_counts[k] for k in counts}
+
+
+def _texts_frame(texts) -> bytes:
+    return struct.pack("<I", len(texts)) + b"".join(
+        struct.pack("<I", len(t.encode())) + t.encode() for t in texts)
+
+
+def phase_token_frames(splade, colbert) -> None:
+    """The sparse frame \\x01TPW on the SPLADE engine (== encode_sparse) and
+    the MaxSim frame \\x01TPX on the ColBERT engine (== maxsim_rerank)."""
+    from embedding_cpp_tpu_torch.runtime.server import MAGIC_MAXSIM, MAGIC_SPARSE
+
+    texts = synthetic_sentences(3, seed=21)
+    want = splade.encode_sparse(texts, k=64)
+    with _serving(splade) as port, socket.create_connection(("127.0.0.1", port), 10) as s:
+        s.settimeout(120)
+        _recv(s, 4)
+        s.sendall(MAGIC_SPARSE + struct.pack("<I", 64) + _texts_frame(texts))
+        (n,) = struct.unpack("<I", _recv(s, 4))
+        got = []
+        for _ in range(n):
+            (m,) = struct.unpack("<I", _recv(s, 4))
+            got.append((np.frombuffer(_recv(s, 4 * m), np.int32),
+                        np.frombuffer(_recv(s, 4 * m), np.float32)))
+    sparse_ok = n == len(texts) and all(
+        np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]) for a, b in zip(got, want))
+    query, docs = texts[0], _colbert_docs(6, seed=22)
+    want_rank = colbert.maxsim_rerank(query, docs, top_n=4)
+    with _serving(colbert) as port, socket.create_connection(("127.0.0.1", port), 10) as s:
+        s.settimeout(120)
+        _recv(s, 4)
+        s.sendall(MAGIC_MAXSIM + struct.pack("<II", 4, len(query.encode())) + query.encode()
+                  + _texts_frame(docs))
+        (m,) = struct.unpack("<I", _recv(s, 4))
+        idx = np.frombuffer(_recv(s, 4 * m), np.int32).tolist()
+        scores = np.frombuffer(_recv(s, 4 * m), np.float32)
+    err = float(np.abs(scores - [r["relevance_score"] for r in want_rank]).max())
+    emit({"phase": "token_frames", "sparse_texts": n, "sparse_equal": sparse_ok,
+          "maxsim_indices": idx, "maxsim_max_abs_score_err": err})
+    check(sparse_ok, "the TPW reply differs from encode_sparse")
+    check(idx == [r["index"] for r in want_rank] and err <= 1e-6,
+          f"the TPX reply {idx} differs from maxsim_rerank {want_rank}")
+
+
 def _entry(name: str, source: str, replaces: str, launches: int, c: dict, shape: str,
            **extra) -> dict:
     return {"name": name, "route": "cuda", "source": f"embedding_cpp_tpu_torch/csrc/{source}",
@@ -2659,6 +3279,7 @@ def main() -> None:
     attn.update(phase_kernels_long(peaks))
     attn.update(phase_kernels_deberta(peaks))
     attn.update(phase_kernels_segment(peaks))
+    attn.update(phase_kernels_seg_local(peaks))
     attn_bge = phase_kernels_attention(peaks, "bge-large-en-v1.5", 16, 64, seed=5)
     attn_es = phase_kernels_attention(peaks, "electra-small", 4, 64, seed=6)
     headpack = phase_kernels_headpack(peaks)
@@ -2676,16 +3297,20 @@ def main() -> None:
                 "deberta_attn_packed": (DA.disentangled_attention_packed, "launches"),
                 "attn_seg": (A.flash_attention_packed, "launches"),
                 "attn_seg_window": (A.flash_attention_packed, "window_launches"),
+                "attn_seg_local": (A.flash_attention_packed_local, "launches"),
                 "attention_headpack": (A.attention_headpack, "launches")}
     engine, forward_args, launches, token_lists = phase_main(counters)
     mb, mb_outs, mb_launches, mb_forward_args = phase_modernbert_main(counters, token_lists)
     long_launches = phase_modernbert_long(counters, mb, out_dir)
     phase_modernbert_vs_cpu(counters, mb, mb_outs, token_lists)
+    mb_chunk_counts = phase_modernbert_chunks(counters, mb, out_dir)
+    rr_counts, rr_timed = phase_modernbert_rerank(counters, peaks)
     de, de_total, de_forward_args = phase_deberta_main(counters, token_lists, out_dir)
     nomic, nomic_outs, nomic_total = phase_nomic_main(counters, token_lists)
     chunks, chunk_counts = phase_nomic_chunks(counters, nomic, out_dir)
     doc_counts = phase_nomic_documents(counters, nomic)
     vs_counts = phase_nomic_vs_cpu(counters, nomic, nomic_outs, token_lists, chunks)
+    nomic_2044 = phase_nomic_unaligned(counters, nomic)
     bge, bge_outs, bge_total, bge_forward_args = phase_bge_main(counters, token_lists)
     bge_f32_counts = phase_bge_vs_cpu(counters, bge, bge_outs, token_lists)
     xlmr, xlmr_total, xlmr_forward_args, _ = phase_family_main(
@@ -2706,6 +3331,12 @@ def main() -> None:
         counters, token_lists, ALBERT_BASE, "albert", seed=20)
     albert_rr, albert_pair_counts = phase_family_pairs(counters, albert.config, "albert",
                                                        "albert-base-v2-reranker")
+    splade, splade_counts, splade_dec_k, splade_dec, splade_big = phase_splade(
+        counters, peaks, synthetic_sentences(2758, seed=0))
+    colbert, colbert_counts, colbert_big = phase_colbert(counters, token_lists)
+    token_attn = {tag: _attention_at(peaks, "attn_bse_keybias", *big.ids.shape,
+                                     big.mask.sum(1), None, False, model=tag)
+                  for tag, big in (("splade", splade_big), ("colbert", colbert_big))}
     phase_profile(forward_args, engine, token_lists, out_dir)
     phase_profile(mb_forward_args, mb, token_lists, out_dir, tag="modernbert_")
     phase_profile(de_forward_args, de, token_lists, out_dir, tag="deberta_")
@@ -2722,9 +3353,10 @@ def main() -> None:
     phase_rerank_server(xlmr_rr)
     phase_rerank_server(mpnet_rr)
     phase_rerank_server(albert_rr)
+    phase_token_frames(splade, colbert)
 
     # each model's launches beside the times at that model's shapes
-    mb_total = {k: mb_launches[k] + long_launches[k] for k in counters}
+    mb_total = {k: mb_launches[k] + long_launches[k] + mb_chunk_counts[k] for k in counters}
     k1_mb = {**k1m["per_layer"], "max_abs_err": k1m["max_abs_err"],
              "bound_by": k1m["bound_by"]}
     k1_mini = {**k1["per_layer"], "max_abs_err": k1["max_abs_err"],
@@ -2741,7 +3373,8 @@ def main() -> None:
     family_totals = {"xlmr": xlmr_total, "distilbert": distil_total, "electra": electra_total,
                      "mpnet": mpnet_total, "t5": t5_total, "albert": albert_total}
     paths = (launches, mb_total, de_total, nomic_total, bge_total, bge_f32_counts,
-             *family_totals.values(), small_total, t5_gated_counts)
+             *family_totals.values(), small_total, t5_gated_counts, rr_counts, nomic_2044,
+             splade_counts, colbert_counts)
     # the fused residual/LayerNorm tail on every model path, bf16 and f32
     ln_on_paths = sum(t["q4_matmul_ln"] for t in paths)
     check(ln_on_paths == 0, f"the fused tail ran on a model path {ln_on_paths} times")
@@ -2929,6 +3562,67 @@ def main() -> None:
                               bound_ms_key_slice=c["bound_ms_key_slice"],
                               pair_share=c["pair_share"],
                               library="SDPA with the boolean block-diagonal [B, 1, S, S] mask"))
+    # the segment + sliding-window mode (no TPU kernel: XLA in the reference)
+    c = attn["attn_seg_local"]
+    kernels.append({
+        **_entry("attn_seg_local", "attention_long.cu", "", mb_total["attn_seg_local"], c,
+                 f"[{c['b']}, {c['s']}, {c['h']}*{c['d']}] bf16, window {c['window']}, "
+                 f"segments of {c['segments']}: tq {c['tq']}, wmax {c['wmax']}",
+                 model="modernbert-base", pair_share=c["pair_share"],
+                 library="SDPA with the boolean [B, 1, S, S] segment-and-window mask"),
+        "replaces": "embedding_cpp_tpu/models/modernbert.py:360 (XLA; no TPU kernel)"})
+    for kname, line, what in (("attn_seg_window", 500, "chunk rows, max_seg_len 512"),
+                              ("attn_seg", 418, "documents packed always, every key")):
+        c = attn[kname]
+        kernels.append(_entry(f"{kname}/modernbert", "attention_long.cu", f"attention.py:{line}",
+                              mb_total[kname], c,
+                              f"[{c['b']}, {c['s']}, {c['h']}*{c['d']}] bf16 ({what}): "
+                              "the shape of the nomic entry, timed there",
+                              model="modernbert-base",
+                              library="SDPA with the boolean block-diagonal [B, 1, S, S] mask"))
+    c = attn["attn_seg_window"]
+    kernels.append(_entry("attn_seg_window/nomic-2044", "attention_long.cu", "attention.py:500",
+                          nomic_2044["attn_seg_window"], c,
+                          "rows of 2044 padded to [8, 2048, 12*64] bf16 inside the call: "
+                          "the nomic entry's shape, timed there", model="nomic-embed",
+                          library="SDPA with the boolean block-diagonal [B, 1, S, S] mask"))
+    kernels.append(_entry("q4_matmul/modernbert-rerank", "q4_matmul.cu", "q4_matmul.py:126",
+                          rr_counts["q4_matmul"], k1_mb, "gte-reranker-modernbert-base: the "
+                          "linears of q4_matmul/modernbert (its K and N), timed there at "
+                          "M=16384", model="gte-reranker-modernbert-base", tiles=k1m["tiles"]))
+    for kname, src, line in (("attn_bse_keybias", "attention_bse.cu", "attention.py:213"),
+                             ("attn_bse_bias", "attention_bse.cu", "attention.py:213"),
+                             ("attn_long", "attention_long.cu", "attention.py:26"),
+                             ("attn_local", "attention_long.cu", "attention.py:597")):
+        c = rr_timed[kname]
+        kernels.append(_entry(f"{kname}/modernbert-rerank", src, line, rr_counts[kname], c,
+                              f"[{c['b']}, {c['s']}, {c['h']}*{c['d']}] bf16, the path's "
+                              f"largest batch, window {c['window']}",
+                              model="gte-reranker-modernbert-base",
+                              library="SDPA with the same additive mask"))
+    k1_base = {**k1d["per_layer"], "max_abs_err": k1d["max_abs_err"], "bound_by": k1d["bound_by"]}
+    for tag, total in (("splade", splade_counts), ("colbert", colbert_counts)):
+        encoder = total["q4_matmul"] - (splade_dec["1d"] if tag == "splade" else 0)
+        name = "q4_matmul/splade-encoder" if tag == "splade" else f"q4_matmul/{tag}"
+        kernels.append(_entry(name, "q4_matmul.cu", "q4_matmul.py:126", encoder,
+                              k1_base, "BERT-base encoder: the linears of q4_matmul/deberta "
+                              "(q,k,v,o 768->768; up 768->3072; down 3072->768), timed there "
+                              "at M=16384", model=tag, tiles=k1d["tiles"]))
+        c = token_attn[tag]
+        kernels.append(_entry(f"attn_bse_keybias/{tag}", "attention_bse.cu", "attention.py:213",
+                              total["attn_bse_keybias"], c,
+                              f"[{c['b']}, {c['s']}, {c['h']}*{c['d']}] bf16, the path's "
+                              "largest batch", model=tag,
+                              library="SDPA with the same additive mask"))
+    for kname, kernel_line, n in (("q4_matmul", 126, splade_dec["1d"]),
+                                  ("q4_matmul_2d", 259, splade_dec["2d"])):
+        if n:
+            kernels.append(_entry(
+                f"{kname}/splade", "q4_matmul.cu", f"q4_matmul.py:{kernel_line}", n, splade_dec_k,
+                f"the tied decoder: [{splade_dec_k['m']}, 768] x [768, 30522] + bias, bf16, "
+                f"Q4_0 (route: {splade_dec_k['route']})", model="splade",
+                k8_forced_ms=splade_dec_k["k8_forced_ms"],
+                library="torch.addmm on the dequantized weight"))
     c = headpack["d32_hb4"]
     kernels.append({
         **_entry("attention_headpack", "attention_headpack.cu", "", headpack_on_paths, c,

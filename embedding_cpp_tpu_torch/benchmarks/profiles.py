@@ -65,3 +65,16 @@ def segment_pairs(seg: np.ndarray, tq: int | None = None, wmax: int | None = Non
             pairs += int(np.dot(np.bincount(row[t * tq:(t + 1) * tq], minlength=n),
                                 np.bincount(row[keys], minlength=n)))
     return float(pairs)
+
+
+def segment_window_pairs(seg: np.ndarray, window: int) -> float:
+    """The (query, key) pairs of seg [B, S] that share a segment id and lie
+    within |q - k| <= window // 2, the padding id -1 included: the pairs
+    mode 3 (segments and the sliding window) cannot skip."""
+    s = seg.shape[1]
+    pairs = 0
+    for off in range(-(window // 2), window // 2 + 1):
+        a = seg[:, max(0, -off):s - max(0, off)]
+        b = seg[:, max(0, off):s - max(0, -off)]
+        pairs += int((a == b).sum())
+    return float(pairs)

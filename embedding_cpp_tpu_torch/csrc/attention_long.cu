@@ -23,6 +23,18 @@
 //      else 128) and wmax from the longest segment; the full form (K6a) is
 //      the same mode with wmax = S, the slice that is the whole row.  On
 //      real rows the two agree exactly: a masked key adds exp(-1e9 - m) = 0.
+// and, in mode 3 (`kSegLocal`, entry `flash_attention_packed_local`), a mask
+// no TPU kernel has: ModernBERT's local layers on packed rows past 1024
+// tokens, which the reference runs through XLA with a [B, S, S] bias
+// (embedding_cpp_tpu/models/modernbert.py, modernbert_embed_packed and
+// _attention).  A key is visible iff seg[q] == seg[k] and |q - k| <=
+// window/2: s*scale, else exactly -1e9.  Within a segment the restart
+// positions are consecutive, so the row distance is the reference's
+// per-segment |pos_q - pos_k|.  Keys come from K7's slice (tq, wmax from
+// local_window_tiles), or the whole row where S has no slice.  The reference
+// divides by the row sum before the PV product (jax.nn.softmax, then p . v);
+// this body keeps its order for every mode (row max, e, f32 sum, e cast, PV,
+// divide last), so mode 3 differs from the reference by that rounding too.
 // q/k/v/o are [B, S, H, d] (the projections' [B, S, H*d], read in place:
 // head h is the column slice h*d .. h*d+d; no transpose on either side).
 //
@@ -41,8 +53,8 @@
 // the second QK^T pass adds half the flops again (2.5e12, 2.5 ms), and the
 // 6.4e9 exps and the scaling, masking and max around every score (about 20
 // instructions a score over both passes) load the SFU and the FP32 pipes
-// beside them.  K7 scores a slice of wmax = 512 keys per row, of which a
-// row's window is 129, and is bound by the bytes (0.12 ms).  K6 at nomic's
+// beside them.  K7 (and mode 3) scores a slice of wmax = 512 keys per row, of
+// which a row's window is 129, and is bound by the bytes (0.12 ms).  K6 at nomic's
 // packed [8, 2048, 12x64] needs 0.03-0.05 ms over the pairs that share a
 // segment id.
 //
@@ -87,14 +99,15 @@
 // tile tq (128 or 256), so a block's rows share one slice;
 // `attn_long_launch_tile` forces either.
 //
-// Skipping (K6 and K7, exact).  K6: each 8 keys of the slice and each 8
-// query rows of the block get the span of their ids (sm90::span_of, [min,
-// max] of the ids other than -1, plus a padding flag): a key tile whose
-// span misses the block's rows' is not loaded, and within a loaded tile a
-// warp skips each 8-key run whose span misses its 16 rows'.  K7: a tile or
-// run with no key within window/2 of any row of the block (warp) is skipped
-// the same way.  A skipped key is masked for every row it is skipped for:
-// its score is exactly -1e9 (K6) or fl(s*scale - 1e9) (K7).  Pass 1 folds
+// Skipping (K6, K7 and mode 3, exact).  K6: each 8 keys of the slice and
+// each 8 query rows of the block get the span of their ids (sm90::span_of,
+// [min, max] of the ids other than -1, plus a padding flag): a key tile
+// whose span misses the block's rows' is not loaded, and within a loaded
+// tile a warp skips each 8-key run whose span misses its 16 rows'.  K7: a
+// tile or run with no key within window/2 of any row of the block (warp) is
+// skipped the same way.  Mode 3 skips a tile or run where either test says
+// no row can see it.  A skipped key is masked for every row it is skipped
+// for: its score is exactly -1e9 (K6, mode 3) or fl(s*scale - 1e9) (K7).  Pass 1 folds
 // the scored keys into m; pass 2 skips the same keys only when every row of
 // the block has m > kSharp = -5e8, where each skipped score lies more than
 // 104 below m (so it neither raises the max nor adds a nonzero exp in f32)
@@ -120,7 +133,12 @@ namespace {
 
 constexpr float kMaskBias = -1e9f;
 
-enum Mode { kFull = 0, kLocal = 1, kSeg = 2 };
+enum Mode { kFull = 0, kLocal = 1, kSeg = 2, kSegLocal = 3 };
+// the modes that read segment ids, and those that test the window
+__host__ __device__ constexpr bool has_seg(int mode) { return mode == kSeg || mode == kSegLocal; }
+__host__ __device__ constexpr bool has_window(int mode) {
+  return mode == kLocal || mode == kSegLocal;
+}
 
 // Python's floor division (the TPU slice start can round a negative value)
 __device__ __forceinline__ int floordiv(int a, int b) {
@@ -214,7 +232,7 @@ __global__ void __launch_bounds__(NTHREADS) attn_long_f32_kernel(
   const int q0 = blockIdx.x * TQ, h = blockIdx.y, b = blockIdx.z;
   const int E = H * D, col0 = h * D;
   const size_t base = (size_t)b * S * E;
-  // the key bias (K5, K7) or the segment ids (K6) of this row
+  // the key bias (K5, K7) or the segment ids (K6, mode 3) of this row
   const float* kb = static_cast<const float*>(mask) + (size_t)b * S;
   const int* sg = static_cast<const int*>(mask) + (size_t)b * S;
   float* sc = reinterpret_cast<float*>(smem + L::sc_off) + warp * WROWS * L::kScLd;
@@ -236,11 +254,14 @@ __global__ void __launch_bounds__(NTHREADS) attn_long_f32_kernel(
   const int qrow = min(qg, S - 1);  // rows past S are computed, never stored
   const float* pb = pbias == nullptr ? nullptr
                                      : pbias + ((size_t)(h % PH) * S + qrow) * S;
-  const int segq = MODE == kSeg ? sg[qrow] : 0;
+  const int segq = has_seg(MODE) ? sg[qrow] : 0;
   auto score = [&](int j, int key) {
     const float s = __fmul_rn(sc[r * L::kScLd + j], scale);
     if constexpr (MODE == kSeg) {
       return sg[key] == segq ? s : kMaskBias;
+    } else if constexpr (MODE == kSegLocal) {
+      const int dist = qg > key ? qg - key : key - qg;
+      return sg[key] == segq && dist <= window / 2 ? s : kMaskBias;
     } else if constexpr (MODE == kLocal) {
       const int dist = qg > key ? qg - key : key - qg;
       return __fadd_rn(s, dist <= window / 2 ? kb[key] : kMaskBias);
@@ -366,8 +387,8 @@ struct Layout {
     ring_off = TQ * D * 2;
     list_off = ring_off + nstage(D) * slot_bytes;
     span_off = list_off + (mode == kFull ? 0 : (n_tiles + 4) / 4 * 16);
-    qspan_off = span_off + (mode == kSeg ? n_tiles * (TILE_K / RUN) * 16 : 0);
-    bytes = qspan_off + (mode == kSeg ? TQ / RUN * 16 : 0);
+    qspan_off = span_off + (has_seg(mode) ? n_tiles * (TILE_K / RUN) * 16 : 0);
+    bytes = qspan_off + (has_seg(mode) ? TQ / RUN * 16 : 0);
   }
 };
 
@@ -424,7 +445,7 @@ __global__ void __launch_bounds__(TQ * 2, min_blocks(TQ, D)) attn_long_tc_kernel
   auto copy_meta = [&](unsigned char* dst, int c0) {
     if (tid < TILE_K) {
       const bool ok = c0 + tid < kend;
-      const void* src = MODE == kSeg ? static_cast<const void*>(sg + c0 + tid)
+      const void* src = has_seg(MODE) ? static_cast<const void*>(sg + c0 + tid)
                                      : static_cast<const void*>(kbias + c0 + tid);
       cp_async4(dst + 4 * tid, ok ? src : mask, ok ? 4 : 0);
     }
@@ -453,7 +474,7 @@ __global__ void __launch_bounds__(TQ * 2, min_blocks(TQ, D)) attn_long_tc_kernel
 
   // ---- what may be skipped: the kept key tiles, in order ---------------------
   int n_kept = n_all;
-  if constexpr (MODE == kSeg) {
+  if constexpr (has_seg(MODE)) {
     // S % 8 == 0 and kend % 8 == 0: a run of 8 keys or rows is whole or absent
     for (int i = tid; i < n_all * RUNS + TQ / RUN; i += NT) {
       const bool is_q = i >= n_all * RUNS;
@@ -477,7 +498,7 @@ __global__ void __launch_bounds__(TQ * 2, min_blocks(TQ, D)) attn_long_tc_kernel
   if constexpr (MODE != kFull) {
     if (warp == 0) {
       int4 qsp = span_empty();  // the ids of the block's rows
-      if constexpr (MODE == kSeg) {
+      if constexpr (has_seg(MODE)) {
         for (int i = 0; i < TQ / RUN; ++i) qsp = span_join(qsp, qspans[i]);
       }
       int cnt = 0;
@@ -485,13 +506,15 @@ __global__ void __launch_bounds__(TQ * 2, min_blocks(TQ, D)) attn_long_tc_kernel
         const int tt = t0 + lane;
         bool keep = false;
         if (tt < n_all) {
-          if constexpr (MODE == kSeg) {
+          keep = true;
+          if constexpr (has_seg(MODE)) {
             int4 ksp = spans[tt * RUNS];
             for (int j = 1; j < RUNS; ++j) ksp = span_join(ksp, spans[tt * RUNS + j]);
             keep = span_meet(ksp, qsp);
-          } else {  // a key of the tile within w2 of a row of the block
+          }
+          if constexpr (has_window(MODE)) {  // a key of the tile within w2 of a row of the block
             const int c0 = kbeg + tt * TILE_K, c1 = min(c0 + TILE_K, kend) - 1;
-            keep = c0 <= q0 + TQ - 1 + w2 && c1 >= q0 - w2;
+            keep = keep && c0 <= q0 + TQ - 1 + w2 && c1 >= q0 - w2;
           }
         }
         const unsigned bal = __ballot_sync(0xffffffffu, keep);
@@ -514,11 +537,11 @@ __global__ void __launch_bounds__(TQ * 2, min_blocks(TQ, D)) attn_long_tc_kernel
   for (int hr = 0; hr < 2; ++hr) {
     qpos[hr] = q0 + r0 + 8 * hr;
     qok[hr] = qpos[hr] < S;
-    if constexpr (MODE == kSeg) segq[hr] = sg[min(qpos[hr], S - 1)];
+    if constexpr (has_seg(MODE)) segq[hr] = sg[min(qpos[hr], S - 1)];
   }
   const bool live = wq0 < S;  // warp-uniform: rows past S are never stored
   int4 wspan = span_empty();  // the ids of the warp's 16 rows
-  if constexpr (MODE == kSeg) wspan = span_join(qspans[2 * warp], qspans[2 * warp + 1]);
+  if constexpr (has_seg(MODE)) wspan = span_join(qspans[2 * warp], qspans[2 * warp + 1]);
 
   // the n8 tiles of key tile tt (at key c0, hi keys in range) this warp
   // scores: those in range and, with `skip`, with a key its rows may see
@@ -529,11 +552,10 @@ __global__ void __launch_bounds__(TQ * 2, min_blocks(TQ, D)) attn_long_tc_kernel
       if (nb * RUN >= hi) continue;
       if (skip) {
         bool meet = true;
-        if constexpr (MODE == kSeg) {
-          meet = span_meet(wspan, spans[tt * RUNS + nb]);
-        } else if constexpr (MODE == kLocal) {
+        if constexpr (has_seg(MODE)) meet = span_meet(wspan, spans[tt * RUNS + nb]);
+        if constexpr (has_window(MODE)) {
           const int k0 = c0 + nb * RUN;
-          meet = k0 <= wq0 + WARP_ROWS - 1 + w2 && k0 + RUN - 1 >= wq0 - w2;
+          meet = meet && k0 <= wq0 + WARP_ROWS - 1 + w2 && k0 + RUN - 1 >= wq0 - w2;
         }
         if (!meet) continue;
       }
@@ -553,6 +575,15 @@ __global__ void __launch_bounds__(TQ * 2, min_blocks(TQ, D)) attn_long_tc_kernel
         x[2 * hr] = meta.x == segq[hr] ? __fmul_rn(acc[2 * hr], scale) : kMaskBias;
         x[2 * hr + 1] = meta.y == segq[hr] ? __fmul_rn(acc[2 * hr + 1], scale) : kMaskBias;
       }
+    } else if constexpr (MODE == kSegLocal) {
+      const int ids[2] = {meta.x, meta.y};
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool vis = ids[e] == segq[hr] && abs(qpos[hr] - (c0 + c + e)) <= w2;
+          x[2 * hr + e] = vis ? __fmul_rn(acc[2 * hr + e], scale) : kMaskBias;
+        }
     } else {
       const float kbv[2] = {__int_as_float(meta.x), __int_as_float(meta.y)};
 #pragma unroll
@@ -831,11 +862,12 @@ int dispatch_d(bool bf16, int tile, const void* q, const void* k, const void* v,
 
 // q/k/v/o [B, S, H, D] (bf16 when is_bf16, else f32), contiguous, 16-byte
 // aligned.  mask: f32 key bias [B, S] (modes 0, 1) or int32 segment ids
-// [B, S] (mode 2, S % 8 == 0).  pbias: f32 [PH, S, S] or null (mode 0 only).
-// mode 0 (K5): every key; mode 1 (K7): the TPU tile's slice, with (tq,
-// wmax) from local_window_tiles and the window; mode 2 (K6): segments over
-// the TPU tile's slice, (tq, wmax) from packed_window_tiles, or wmax = S
-// for every key.  The slice needs S % tq == 0, tq % 128 == 0, wmax <= S,
+// [B, S] (modes 2, 3, S % 8 == 0).  pbias: f32 [PH, S, S] or null (mode 0
+// only).  mode 0 (K5): every key; mode 1 (K7): the TPU tile's slice, with
+// (tq, wmax) from local_window_tiles and the window; mode 2 (K6): segments
+// over the TPU tile's slice, (tq, wmax) from packed_window_tiles, or wmax =
+// S for every key; mode 3: segments and the window over K7's slice, or wmax
+// = S where local_window_tiles gives none.  The slice needs S % tq == 0, tq % 128 == 0, wmax <= S,
 // wmax % 8 == 0.  D in {16, 32, 64, 128}; `scale` multiplies the raw scores
 // (1/sqrt(D) rounded to f32 by the caller).  `tile_q`: the bf16 body's
 // query rows a block, 64 or 128, or 0 for the source's rule (`tile_q`);
@@ -853,6 +885,9 @@ extern "C" int attn_long_launch_tile(const void* q, const void* k, const void* v
     case kSeg:
       if (S % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
       return dispatch_d<kSeg>(bf16, tile_q, q, k, v, mask, nullptr, o, B, S, H, D, PH, scale, tq, wmax, window, st);
+    case kSegLocal:
+      if (S % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+      return dispatch_d<kSegLocal>(bf16, tile_q, q, k, v, mask, nullptr, o, B, S, H, D, PH, scale, tq, wmax, window, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -134,6 +134,18 @@ class Keys:
     FFN_BIAS = f"{ARCH}.ffn_bias"
     FFN_ACT = f"{ARCH}.ffn_activation"
     FFN_GATED = f"{ARCH}.ffn_gated"
+    # SPLADE: the file carries its MLM prediction head (sparse lexical
+    # vectors instead of pooled embeddings)
+    MLM_HEAD = f"{ARCH}.mlm_head"
+    # ColBERT: the per-token projection width (absent: not ColBERT), the
+    # [MASK]-augmented query length, punctuation filtering of document
+    # tokens, and the [Q] / [D] marker and [MASK] ids the framing inserts
+    COLBERT_DIM = f"{ARCH}.colbert.dim"
+    COLBERT_QUERY_MAXLEN = f"{ARCH}.colbert.query_maxlen"
+    COLBERT_MASK_PUNCT = f"{ARCH}.colbert.mask_punctuation"
+    COLBERT_Q_MARKER = f"{ARCH}.colbert.query_marker_id"
+    COLBERT_D_MARKER = f"{ARCH}.colbert.doc_marker_id"
+    COLBERT_MASK_ID = f"{ARCH}.colbert.mask_token_id"
     # named prompt prefixes: a JSON object {name: prefix}, and the name
     # applied when the caller names none
     PROMPTS = f"{ARCH}.prompts"

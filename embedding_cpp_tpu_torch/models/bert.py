@@ -1,7 +1,10 @@
 """Batched, masked BERT encoder forward pass in PyTorch (T5, ModernBERT,
 DeBERTa and nomic-bert configs dispatch to models/t5.py,
 models/modernbert.py, models/deberta.py and models/nomic.py from the entry
-points), and the cross-encoder score path with its classification head.
+points), the cross-encoder score path with its classification head, and
+the token-level surfaces over any family's final states: ColBERT's
+projection and MaxSim (`project_token_states`, `maxsim_scores`) and
+SPLADE's sparse vectors from the MLM head (`bert_sparse_batch`).
 
 The BERT path of the JAX package's `models/bert.py`, which also serves the
 families that share BERT's graph: RoBERTa and XLM-R (positions numbered
@@ -36,7 +39,7 @@ from ..ops.attention import (
 )
 from ..ops.linear import layer_norm, linear
 from ..ops.qtensor import QTensor, gather_rows
-from .config import BERT_GRAPH_ARCHS, BertConfig
+from .config import BertConfig
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -273,30 +276,35 @@ def _cast_output(out: torch.Tensor, opts: ComputeOptions) -> torch.Tensor:
 
 def bert_embed_batch(params: dict, ids: torch.Tensor, mask: torch.Tensor,
                      config: BertConfig, opts: ComputeOptions = ComputeOptions(),
-                     gather_idx: torch.Tensor | None = None) -> torch.Tensor:
+                     gather_idx: torch.Tensor | None = None,
+                     token_states: bool = False) -> torch.Tensor:
     """Token ids [B, S] + validity mask [B, S] -> embeddings [B, n_embd]
-    (rows `gather_idx` only, when given), in the output encoding."""
+    (rows `gather_idx` only, when given), in the output encoding; with
+    `token_states`, the final hidden states [B, S, E] f32 of every family
+    (HF last_hidden_state: no pooling, head, gather or encoding)."""
+    kw = dict(gather_idx=gather_idx, token_states=token_states)
     if config.arch == "modernbert":
         from .modernbert import modernbert_embed_batch
 
-        return modernbert_embed_batch(params, ids, mask, config, opts,
-                                      gather_idx=gather_idx)
+        return modernbert_embed_batch(params, ids, mask, config, opts, **kw)
     if config.arch == "t5":
         from .t5 import t5_embed_batch
 
-        return t5_embed_batch(params, ids, mask, config, opts, gather_idx=gather_idx)
+        return t5_embed_batch(params, ids, mask, config, opts, **kw)
     if config.arch == "deberta":
         from .deberta import deberta_embed_batch
 
-        return deberta_embed_batch(params, ids, mask, config, opts, gather_idx=gather_idx)
+        return deberta_embed_batch(params, ids, mask, config, opts, **kw)
     if config.arch == "nomic-bert":
         from .nomic import nomic_embed_batch
 
-        return nomic_embed_batch(params, ids, mask, config, opts, gather_idx=gather_idx)
+        return nomic_embed_batch(params, ids, mask, config, opts, **kw)
     x = embed_tokens(params, ids, config, opts)
     mask_bias = torch.where(mask.to(torch.bool), 0.0, MASK_BIAS).to(torch.float32)
     x = _run_layers(x, params["layers"], config, mask_bias,
                     pos_bias=_pos_bias(params, ids.shape[-1]))
+    if token_states:
+        return x.to(torch.float32)
     pooled = pool_normalize(x, mask, config.pooling, normalize=False)
     out = _output_head(pooled, params, config)
     if gather_idx is not None:
@@ -307,20 +315,16 @@ def bert_embed_batch(params: dict, ids: torch.Tensor, mask: torch.Tensor,
 def check_pack_seq(config: BertConfig, s: int) -> None:
     """Raises ValueError when no kernel of `config`'s family serves packed
     rows of `s` tokens (the Engine asks once, when it is built, not in the
-    middle of a forward)."""
-    if config.arch == "modernbert":
-        from .modernbert import check_pack_seq as family
-    elif config.arch == "nomic-bert":
-        from .nomic import check_pack_seq as family
-    else:
-        from ..ops.deberta_attention import MAX_SEQ as DEBERTA_MAX_SEQ
-
-        limit = DEBERTA_MAX_SEQ if config.arch == "deberta" else MAX_SEQ
-        if s > limit:
-            raise ValueError(f"{config.arch} packed rows of {s} tokens are not served: "
-                             f"its attention kernel stops at {limit}")
+    middle of a forward).  ModernBERT and nomic-bert serve every length
+    (past 1024 tokens the long-row kernel's segment modes)."""
+    if config.arch in ("modernbert", "nomic-bert"):
         return
-    family(config, s)
+    from ..ops.deberta_attention import MAX_SEQ as DEBERTA_MAX_SEQ
+
+    limit = DEBERTA_MAX_SEQ if config.arch == "deberta" else MAX_SEQ
+    if s > limit:
+        raise ValueError(f"{config.arch} packed rows of {s} tokens are not served: "
+                         f"its attention kernel stops at {limit}")
 
 
 def bert_embed_packed(params: dict, ids: torch.Tensor, seg: torch.Tensor,
@@ -331,13 +335,14 @@ def bert_embed_packed(params: dict, ids: torch.Tensor, seg: torch.Tensor,
     """Sequence-packed forward: ids/seg/pos [B, S] (seg -1 on padding, pos
     the within-segment position) -> [B, n_seg, n_embd], or the flat slots
     `gather_idx` of B*n_seg, in the output encoding.  `max_seg_len` bounds
-    the longest segment; only nomic-bert's rows of 1024 tokens or more
-    use it (the windowed segment kernel)."""
+    the longest segment; the rows of 1024 tokens or more of nomic-bert and
+    of ModernBERT's global layers use it (the windowed segment kernel)."""
     if config.arch == "modernbert":
         from .modernbert import modernbert_embed_packed
 
         return modernbert_embed_packed(params, ids, seg, pos, config, opts,
-                                       n_seg=n_seg, gather_idx=gather_idx)
+                                       n_seg=n_seg, gather_idx=gather_idx,
+                                       max_seg_len=max_seg_len)
     if config.arch == "t5":
         from .t5 import t5_embed_packed
 
@@ -382,7 +387,12 @@ def bert_score_batch(params: dict, ids: torch.Tensor, mask: torch.Tensor,
                      type_ids: torch.Tensor | None = None) -> torch.Tensor:
     """Cross-encoder forward: pair ids [B, S] (+ segment type ids [B, S])
     -> [B, n_labels] f32 logits: the masked encoder, then the
-    classification head on the CLS state."""
+    classification head on the CLS state (ModernBERT: its PredictionHead
+    on the pooled state, no type ids)."""
+    if config.arch == "modernbert":
+        from .modernbert import modernbert_score_batch
+
+        return modernbert_score_batch(params, ids, mask, config, opts)
     if config.arch == "deberta":
         from .deberta import deberta_score_batch
 
@@ -394,8 +404,6 @@ def bert_score_batch(params: dict, ids: torch.Tensor, mask: torch.Tensor,
     if config.arch == "t5":
         # monoT5-style rerankers score with the decoder, not a head
         raise ValueError("t5 encoders have no classification head")
-    if config.arch not in BERT_GRAPH_ARCHS:
-        raise NotImplementedError(f"{config.arch} score path is not ported yet")
     if "head" not in params:
         raise ValueError("model has no classification head (n_labels == 0)")
     x = embed_tokens(params, ids, config, opts, type_ids=type_ids)
@@ -404,3 +412,91 @@ def bert_score_batch(params: dict, ids: torch.Tensor, mask: torch.Tensor,
                     pos_bias=_pos_bias(params, ids.shape[-1]))
     return classifier_head(x[:, 0, :].to(torch.float32), params["head"],
                            config.head_activation)
+
+
+def project_token_states(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """ColBERT's per-token projection where the checkpoint has one: [..., E]
+    -> [..., colbert_dim] f32 (a dense f32 matmul, as the JAX package
+    leaves it to XLA); the states unchanged otherwise."""
+    cb = params.get("colbert")
+    if cb is None:
+        return x
+    return torch.matmul(x.to(torch.float32), cb["w"])
+
+
+def maxsim_scores(params: dict, q_states: torch.Tensor, q_mask: torch.Tensor,
+                  d_ids: torch.Tensor, d_mask: torch.Tensor, config: BertConfig,
+                  opts: ComputeOptions = ComputeOptions(),
+                  d_keep: torch.Tensor | None = None) -> torch.Tensor:
+    """Late-interaction MaxSim: query token states [Sq, E'] (+ which of
+    them score, q_mask [Sq]) against the documents d_ids [B, S] (attention
+    mask d_mask) -> [B] f32: the sum over scoring query tokens of the max
+    over the documents' scoring tokens (`d_keep`, default d_mask: ColBERT's
+    punctuation skiplist) of the cosine of the projected token vectors."""
+    d = project_token_states(params, bert_embed_batch(params, d_ids, d_mask, config, opts,
+                                                      token_states=True))
+    sim = torch.einsum("qe,bse->bqs", _l2_normalize(q_states.to(torch.float32)),
+                       _l2_normalize(d))
+    keep = d_mask if d_keep is None else d_keep
+    sim = torch.where(keep[:, None, :] > 0, sim, -torch.inf)
+    best = torch.where(q_mask[None, :] > 0, torch.amax(sim, dim=-1), 0.0)  # [B, Sq]
+    return torch.sum(best, dim=-1)
+
+
+SPARSE_TILE_BUDGET = 128 << 20  # f32 bytes of one [B, chunk, V] logits tile
+
+
+def sparse_chunk(s: int, b: int, n_vocab: int, budget: int = SPARSE_TILE_BUDGET,
+                 cap: int = 64) -> int:
+    """The tokens of one step of the sparse head's running max: the largest
+    divisor of s, at most `cap`, whose [b, chunk, n_vocab] f32 logits fit
+    `budget` bytes (1 at least: the caller bounds b)."""
+    cap = min(cap, s, max(1, budget // max(1, b * n_vocab * 4)))
+    return next(c for c in range(cap, 0, -1) if s % c == 0)
+
+
+def pack_sparse_topk(idx: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
+    """Top-k entries in one int32 array [..., 2k]: the ids, then the f32
+    weights' bits (one device-to-host fetch)."""
+    return torch.cat([idx.to(torch.int32), val.to(torch.float32).view(torch.int32)], dim=-1)
+
+
+def unpack_sparse_topk(packed) -> tuple[np.ndarray, np.ndarray]:
+    """Host-side decode of pack_sparse_topk: [..., 2k] 32-bit -> (int32 ids
+    [..., k], f32 weights [..., k])."""
+    packed = np.ascontiguousarray(packed)
+    k = packed.shape[-1] // 2
+    return packed[..., :k].view(np.int32), packed[..., k:].view(np.float32)
+
+
+def bert_sparse_batch(params: dict, ids: torch.Tensor, mask: torch.Tensor,
+                      config: BertConfig, opts: ComputeOptions, k: int,
+                      gather_idx: torch.Tensor | None = None,
+                      budget: int = SPARSE_TILE_BUDGET) -> torch.Tensor:
+    """SPLADE: token ids [B, S] -> the top-k of each row's |V|-wide sparse
+    vector, packed [B (or M), 2k] (`pack_sparse_topk`).  The final states
+    go through the MLM transform in f32 (dense + bias, GELU, LayerNorm to
+    the activation dtype), then the decoder, the tied word table, through
+    `linear` (K1 or K8 as the route says) with the |V| bias; the vector is
+    the max over real tokens of log1p(relu(logits)) in f32.  The max runs
+    over token chunks of `sparse_chunk(budget)`, so the [B, S, V] logits
+    never exist whole; a max is exact in any chunk order."""
+    mlm = params.get("mlm")
+    if mlm is None:
+        raise ValueError("model has no MLM head (not a SPLADE checkpoint)")
+    h = bert_embed_batch(params, ids, mask, config, opts, token_states=True)
+    b, s, _ = h.shape
+    t = h @ mlm["dense_w"] + mlm["dense_b"]
+    t = F.gelu(t, approximate="tanh" if config.gelu == "tanh" else "none")
+    t = layer_norm(t, mlm["ln_scale"], mlm["ln_bias"], config.layer_norm_eps, opts.tdtype)
+    maskf = mask.to(torch.float32)
+    sparse = torch.zeros((b, config.n_vocab), dtype=torch.float32, device=h.device)
+    cs = sparse_chunk(s, b, config.n_vocab, budget)
+    for c0 in range(0, s, cs):
+        logits = linear(t[:, c0:c0 + cs], mlm["decoder_w"], mlm["bias"])  # [B, cs, V]
+        w = torch.log1p(torch.relu(logits.to(torch.float32))) * maskf[:, c0:c0 + cs, None]
+        sparse = torch.maximum(sparse, torch.amax(w, dim=1))
+    if gather_idx is not None:
+        sparse = sparse[gather_idx]
+    val, idx = torch.topk(sparse, k)
+    return pack_sparse_topk(idx, val)

@@ -104,6 +104,21 @@ class BertConfig:
     n_head_dim: int = 0
     ffn_act: str = ""
     ffn_gated: bool = False
+    # SPLADE sparse encoder (bert, roberta, distilbert): the MLM prediction
+    # head, its decoder tied to the word table; the model emits |V|-wide
+    # sparse vectors, max over tokens of log1p(relu(logits))
+    mlm_head: bool = False
+    # ColBERT (colbert_dim > 0, the width of the bias-free per-token
+    # projection): queries frame [CLS] [Q] .. [SEP] padded with [MASK] to
+    # query_maxlen (not attended to, but scored), documents [CLS] [D] ..
+    # [SEP]; mask_punctuation drops punctuation tokens from document
+    # scoring; the marker and mask ids come from the file
+    colbert_dim: int = 0
+    query_maxlen: int = 32
+    mask_punctuation: bool = True
+    q_marker_id: int = -1
+    d_marker_id: int = -1
+    mask_id: int = -1
     name: str = ""
 
     @property
@@ -147,6 +162,22 @@ class BertConfig:
         if self.n_embd_emb and self.arch not in ("albert", "electra"):
             raise ValueError("factorized embeddings (n_embd_emb) are only supported for "
                              f"albert/electra, not {self.arch!r}")
+        if self.mlm_head and self.arch not in ("bert", "roberta", "distilbert"):
+            raise ValueError("mlm_head (SPLADE sparse encoding) is only supported for "
+                             f"bert/roberta/distilbert, not {self.arch!r}")
+        if self.colbert_dim:
+            if self.arch == "t5":
+                raise ValueError("colbert_dim needs a CLS-framed family, not t5")
+            if self.mlm_head or self.n_labels or self.dense_out:
+                raise ValueError("colbert_dim is exclusive with mlm_head / n_labels / "
+                                 "dense_out (a ColBERT checkpoint has exactly the "
+                                 "per-token projection head)")
+            if min(self.q_marker_id, self.d_marker_id, self.mask_id) < 0:
+                raise ValueError("ColBERT models need q_marker_id, d_marker_id and "
+                                 "mask_id (resolved from the tokenizer at conversion)")
+            if self.query_maxlen < 4:
+                raise ValueError(f"query_maxlen {self.query_maxlen} leaves no room for "
+                                 "[CLS] [Q] token [SEP]")
 
     @classmethod
     def from_gguf_kv(cls, kv: dict) -> "BertConfig":
@@ -195,6 +226,13 @@ class BertConfig:
             n_head_dim=int(kv.get(Keys.HEAD_DIM, 0)),
             ffn_act=str(kv.get(Keys.FFN_ACT, "relu" if arch == "t5" else "")),
             ffn_gated=bool(kv.get(Keys.FFN_GATED, False)),
+            mlm_head=bool(kv.get(Keys.MLM_HEAD, False)),
+            colbert_dim=int(kv.get(Keys.COLBERT_DIM, 0)),
+            query_maxlen=int(kv.get(Keys.COLBERT_QUERY_MAXLEN, 32)),
+            mask_punctuation=bool(kv.get(Keys.COLBERT_MASK_PUNCT, True)),
+            q_marker_id=int(kv.get(Keys.COLBERT_Q_MARKER, -1)),
+            d_marker_id=int(kv.get(Keys.COLBERT_D_MARKER, -1)),
+            mask_id=int(kv.get(Keys.COLBERT_MASK_ID, -1)),
             name=str(kv.get(Keys.NAME, "")),
         )
 

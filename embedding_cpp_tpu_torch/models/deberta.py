@@ -88,12 +88,16 @@ def _key_bias(mask: torch.Tensor) -> torch.Tensor:
 
 def deberta_embed_batch(params: dict, ids: torch.Tensor, mask: torch.Tensor,
                         config: BertConfig, opts,
-                        gather_idx: torch.Tensor | None = None) -> torch.Tensor:
+                        gather_idx: torch.Tensor | None = None,
+                        token_states: bool = False) -> torch.Tensor:
     """Token ids [B, S] + validity mask [B, S] -> embeddings [B, n_embd]
-    (the contract of models.bert.bert_embed_batch, which dispatches here)."""
+    (the contract of models.bert.bert_embed_batch, which dispatches here),
+    or with `token_states` the final states [B, S, E] f32."""
     from .bert import _cast_output, _output_head, pool_normalize
 
     x = _encode(params, ids, _key_bias(mask), config, opts, packed=False)
+    if token_states:
+        return x.to(torch.float32)
     out = _output_head(pool_normalize(x, mask, config.pooling, normalize=False),
                        params, config)
     if gather_idx is not None:

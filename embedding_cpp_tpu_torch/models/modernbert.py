@@ -21,21 +21,32 @@ Attention goes through the hand-written kernels (ops/attention.py):
 - S > 1024: local layers take the sliding-window kernel (K7), global
   layers the long-row kernel (K5); where S has no window slice (S % 128 !=
   0) local layers take K5 with the [1, S, S] window bias, as the reference
-  does.
+  does.  Packed rows past 1024 take the segment kernel (K6, windowed by
+  the longest segment as nomic's) on global layers and the segment +
+  sliding-window mode of the long-row kernel (mode 3) on local layers,
+  where the reference runs XLA with a [B, S, S] bias; rows of S % 8 != 0
+  run padded to a multiple of 8 inside those calls.
+
+The cross-encoder head (gte-reranker-modernbert-base,
+`modernbert_score_batch`) pools the final-norm states per `pooling` (cls
+or mean), then dense (no bias), exact GELU, a bias-free LayerNorm and the
+classifier, all in f32.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..ops.attention import (
     MASK_BIAS,
-    MAX_SEQ,
     fits_bias_bse,
     flash_attention,
     flash_attention_bse,
     flash_attention_local,
+    flash_attention_packed,
     flash_attention_packed_bse,
+    flash_attention_packed_local,
     local_window_tiles,
 )
 from ..ops.linear import layer_norm, linear
@@ -80,18 +91,6 @@ def window_bias(s: int, window: int, device) -> torch.Tensor:
     return torch.where(inside, 0.0, MASK_BIAS).to(torch.float32)[None]
 
 
-def check_pack_seq(config: BertConfig, s: int) -> None:
-    """Refuses packed rows of `s` tokens past the projection-layout
-    kernel's envelope: they would need a segment mask with the sliding
-    window, which no kernel of the port has (the reference runs them
-    through XLA with a [B, S, S] bias)."""
-    if not fits_bias_bse(s, config.head_dim):
-        raise ValueError(
-            f"ModernBERT packed rows of {s} tokens are not served: past {MAX_SEQ} they "
-            "need a segment mask with the sliding window, which no kernel of the port "
-            f"has (use pack_seq <= {MAX_SEQ} or packing='never')")
-
-
 def _ln(x: torch.Tensor, scale: torch.Tensor, eps: float, out_dtype) -> torch.Tensor:
     """Bias-free LayerNorm."""
     return layer_norm(x, scale, 0.0, eps, out_dtype)
@@ -99,12 +98,14 @@ def _ln(x: torch.Tensor, scale: torch.Tensor, eps: float, out_dtype) -> torch.Te
 
 class _Ctx:
     """What every layer of one forward shares: the key mask (plain [B, S]
-    f32 bias, or packed [B, S] segment ids), the RoPE tables of both layer
-    kinds, and the window bias where a kernel needs it."""
+    f32 bias, or packed [B, S] segment ids and the longest segment), the
+    RoPE tables of both layer kinds, and the window bias where a kernel
+    needs it."""
 
     def __init__(self, config: BertConfig, pos: torch.Tensor, dtype, s: int, device,
-                 pad: torch.Tensor | None = None, seg: torch.Tensor | None = None):
-        self.pad, self.seg = pad, seg
+                 pad: torch.Tensor | None = None, seg: torch.Tensor | None = None,
+                 max_seg_len: int | None = None):
+        self.pad, self.seg, self.max_seg_len = pad, seg, max_seg_len
         is_local, inv_freq = layer_kinds(config)
         self.is_local = is_local
         inv = torch.from_numpy(inv_freq).to(device)
@@ -119,7 +120,7 @@ class _Ctx:
         self.long = not fits_bias_bse(s, config.head_dim)
         sliced = local_window_tiles(s, window)[1] is not None
         self.win = None
-        if any(is_local) and (not self.long or not sliced):
+        if any(is_local) and (not self.long or (not sliced and seg is None)):
             self.win = window_bias(s, window, device)
         self.sliced = self.long and sliced
 
@@ -137,7 +138,11 @@ def _attention(xn: torch.Tensor, lp: dict, i: int, ctx: _Ctx,
     local = ctx.is_local[i]
     if ctx.long:
         if ctx.seg is not None:
-            check_pack_seq(config, s)
+            if local:
+                att = flash_attention_packed_local(q, k, v, ctx.seg, config.local_window)
+            else:
+                att = flash_attention_packed(q, k, v, ctx.seg, ctx.max_seg_len)
+            return att.reshape(b, s, e)
         if local and ctx.sliced:
             att = flash_attention_local(q, k, v, ctx.pad, config.local_window)
         else:
@@ -183,20 +188,30 @@ def _run_layers(x: torch.Tensor, params: dict, ctx: _Ctx,
     return _ln(x, params["final_ln_scale"], config.layer_norm_eps, torch.float32)
 
 
-def modernbert_embed_batch(params: dict, ids: torch.Tensor, mask: torch.Tensor,
-                           config: BertConfig, opts,
-                           gather_idx: torch.Tensor | None = None) -> torch.Tensor:
-    """Token ids [B, S] + validity mask [B, S] -> embeddings [B, n_embd]
-    (the contract of models.bert.bert_embed_batch, which dispatches here).
-    Positions are absolute 0..S-1 in every row; padded keys are masked."""
-    from .bert import _cast_output, _output_head, pool_normalize
-
+def _encode(params: dict, ids: torch.Tensor, mask: torch.Tensor, config: BertConfig,
+            opts) -> torch.Tensor:
+    """The final-norm states [B, S, E] f32 of a padded batch: positions
+    are absolute 0..S-1 in every row; padded keys are masked."""
     s = ids.shape[-1]
     x = _embed(params, ids, config, opts.tdtype)
     pad = torch.where(mask.to(torch.bool), 0.0, MASK_BIAS).to(torch.float32)
     pos = torch.arange(s, device=ids.device)
     ctx = _Ctx(config, pos, opts.tdtype, s, ids.device, pad=pad)
-    x = _run_layers(x, params, ctx, config)
+    return _run_layers(x, params, ctx, config)
+
+
+def modernbert_embed_batch(params: dict, ids: torch.Tensor, mask: torch.Tensor,
+                           config: BertConfig, opts,
+                           gather_idx: torch.Tensor | None = None,
+                           token_states: bool = False) -> torch.Tensor:
+    """Token ids [B, S] + validity mask [B, S] -> embeddings [B, n_embd]
+    (the contract of models.bert.bert_embed_batch, which dispatches here),
+    or with `token_states` the final-norm states [B, S, E] f32."""
+    from .bert import _cast_output, _output_head, pool_normalize
+
+    x = _encode(params, ids, mask, config, opts)
+    if token_states:
+        return x
     out = _output_head(pool_normalize(x, mask, config.pooling, normalize=False),
                        params, config)
     if gather_idx is not None:
@@ -204,18 +219,40 @@ def modernbert_embed_batch(params: dict, ids: torch.Tensor, mask: torch.Tensor,
     return _cast_output(out, opts)
 
 
+def modernbert_score_batch(params: dict, ids: torch.Tensor, mask: torch.Tensor,
+                           config: BertConfig, opts) -> torch.Tensor:
+    """Cross-encoder forward (gte-reranker-modernbert-base): pair ids
+    [B, S] ([CLS] a [SEP] b [SEP], no type ids) -> [B, n_labels] f32
+    logits.  The final-norm states pooled per `pooling`, then the
+    PredictionHead in f32: dense without bias, exact erf GELU whatever
+    `config.gelu` says, a bias-free LayerNorm, then the classifier."""
+    from .bert import pool_normalize
+
+    if "head" not in params:
+        raise ValueError("model has no classification head (n_labels == 0)")
+    x = _encode(params, ids, mask, config, opts)
+    pooled = pool_normalize(x, mask, config.pooling, normalize=False)
+    head = params["head"]
+    y = F.gelu(pooled.to(torch.float32) @ head["dense_w"])
+    y = _ln(y, head["norm_scale"], config.layer_norm_eps, torch.float32)
+    return y @ head["out_w"] + head["out_b"]
+
+
 def modernbert_embed_packed(params: dict, ids: torch.Tensor, seg: torch.Tensor,
                             pos: torch.Tensor, config: BertConfig, opts, *,
-                            n_seg: int,
-                            gather_idx: torch.Tensor | None = None) -> torch.Tensor:
+                            n_seg: int, gather_idx: torch.Tensor | None = None,
+                            max_seg_len: int | None = None) -> torch.Tensor:
     """Sequence-packed forward: ids/seg/pos [B, S] (seg -1 on padding, pos
     the within-segment position, which RoPE rotates by) -> [B, n_seg,
-    n_embd], or the flat slots `gather_idx`, in the output encoding."""
+    n_embd], or the flat slots `gather_idx`, in the output encoding.
+    `max_seg_len` bounds the longest segment (the windowed K6's slice on
+    global layers past 1024 tokens)."""
     from .bert import _cast_output, _output_head, pool_normalize_packed
 
     s = ids.shape[-1]
     x = _embed(params, ids, config, opts.tdtype)
-    ctx = _Ctx(config, pos, opts.tdtype, s, ids.device, seg=seg.to(torch.int32))
+    ctx = _Ctx(config, pos, opts.tdtype, s, ids.device, seg=seg.to(torch.int32),
+               max_seg_len=max_seg_len)
     x = _run_layers(x, params, ctx, config)
     pooled = pool_normalize_packed(x, seg, pos, n_seg, config.pooling, normalize=False)
     out = _output_head(pooled, params, config)

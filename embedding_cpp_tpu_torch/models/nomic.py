@@ -17,7 +17,9 @@ as the reference routes its Pallas path:
   rows) past it;
 - packed rows: K2 (projection layout, segments) where `packed_bse_applies`,
   else K6 (`flash_attention_packed`): its windowed form where the longest
-  segment `max_seg_len` gives a key slice narrower than S, else every key.
+  segment `max_seg_len` gives a key slice narrower than S, else every key;
+  rows past 1024 with S % 8 != 0 (XLA in the reference) run K6 padded to a
+  multiple of 8 after RoPE, which is exact on the real rows.
 
 Packed rows take the NTK base of the packed row length S, as the reference
 does: in rows of 4096 or 8192 tokens a chunk is rotated by another base
@@ -55,17 +57,6 @@ def _inv_freq(config: BertConfig, s: int) -> np.ndarray:
         base = base * ((f * s / config.rope_max_trained) - (f - 1.0)) ** (d / (d - 2.0))
     exponents = np.arange(0, d, 2, dtype=np.float64) / d
     return (base ** -exponents).astype(np.float32)
-
-
-def check_pack_seq(config: BertConfig, s: int) -> None:
-    """Refuses packed rows of `s` tokens that no kernel serves: past
-    MAX_SEQ they take the segment kernel K6, which needs S % 8 == 0 (the
-    reference runs other lengths through XLA)."""
-    if s > MAX_SEQ and s % 8:
-        raise ValueError(
-            f"nomic-bert packed rows of {s} tokens are not served: past {MAX_SEQ} the "
-            "segment kernel needs a multiple of 8 tokens (use such a pack_seq, or "
-            "packing='never')")
 
 
 class _Ctx:
@@ -123,10 +114,12 @@ def _run_layers(x: torch.Tensor, layers: dict, ctx: _Ctx, config: BertConfig) ->
 
 def nomic_embed_batch(params: dict, ids: torch.Tensor, mask: torch.Tensor,
                       config: BertConfig, opts,
-                      gather_idx: torch.Tensor | None = None) -> torch.Tensor:
+                      gather_idx: torch.Tensor | None = None,
+                      token_states: bool = False) -> torch.Tensor:
     """Token ids [B, S] + validity mask [B, S] -> embeddings [B, n_embd]
-    (the contract of models.bert.bert_embed_batch, which dispatches here).
-    Positions are 0..S-1 in every row; padded keys are masked."""
+    (the contract of models.bert.bert_embed_batch, which dispatches here),
+    or with `token_states` the final states [B, S, E] f32.  Positions are
+    0..S-1 in every row; padded keys are masked."""
     from .bert import _cast_output, _output_head, embed_tokens, pool_normalize
 
     s = ids.shape[-1]
@@ -135,6 +128,8 @@ def nomic_embed_batch(params: dict, ids: torch.Tensor, mask: torch.Tensor,
     ctx = _Ctx(config, torch.arange(s, device=ids.device), opts.tdtype, s, ids.device,
                pad=pad)
     x = _run_layers(x, params["layers"], ctx, config)
+    if token_states:
+        return x.to(torch.float32)
     out = _output_head(pool_normalize(x, mask, config.pooling, normalize=False),
                        params, config)
     if gather_idx is not None:

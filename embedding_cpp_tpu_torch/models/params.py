@@ -10,7 +10,9 @@ matmul weights and the word table stay packed in the QTensor layout
 Wqkv (ModernBERT, nomic-bert; nomic's bias too) and ModernBERT's Wi split
 at load into q/k/v and up/gate.  Encoder-level
 tensors (DeBERTa's relative table, the MPNet and T5 relative-bias tables,
-T5's final norm) and a classification head load dense f32; ALBERT's and
+T5's final norm), a classification head, ColBERT's projection and SPLADE's
+MLM transform load dense f32 (SPLADE's decoder is the word table again, in
+matmul orientation); ALBERT's and
 ELECTRA's factorized-embedding projection loads dense in the
 activation dtype, contraction-major (a small matmul the JAX package also
 runs outside its kernels).
@@ -192,14 +194,31 @@ def build_params(source: _TensorSource, config: BertConfig, *,
             else:
                 dense["b"] = t
         params["dense"] = dense
+    if config.mlm_head:
+        # SPLADE's MLM head: the transform and its LayerNorm dense f32; the
+        # decoder is the tied word table again, in matmul orientation
+        # [E, V] and packed where the file is quantized (the K1/K8 operand
+        # of the logits product)
+        mlm = {}
+        for name, (key, shape_fn) in schema.mlm_tensors(config).items():
+            t = source.dense(name, shape_fn(config), f32)
+            mlm[key.removeprefix("mlm_")] = t.T.contiguous() if key == "mlm_dense_w" else t
+        mlm["decoder_w"] = source.matmul_weight("embeddings.word_embeddings.weight",
+                                                (config.n_vocab, config.emb_width),
+                                                dense_dtype)
+        params["mlm"] = mlm
     if config.n_labels:
-        # classification head: two small linears computed in f32 on the CLS
+        # classification head: small linears computed in f32 on the pooled
         # state, dense whatever the file's type; weights as [in, out]
         head = {}
         for name, (key, shape_fn) in schema.head_tensors(config).items():
             t = source.dense(name, shape_fn(config), f32)
             head[key.removeprefix("head_")] = t.T.contiguous() if key.endswith("_w") else t
         params["head"] = head
+    if config.colbert_dim:
+        # ColBERT's per-token projection: one bias-free [E, dim] f32 matmul
+        (name, (_, shape_fn)), = schema.COLBERT_TENSORS.items()
+        params["colbert"] = {"w": source.dense(name, shape_fn(config), f32).T.contiguous()}
     return params_to(params, device)
 
 
@@ -239,7 +258,7 @@ def random_state_dict(config: BertConfig, seed: int = 0) -> dict[str, np.ndarray
     """Random HF-style state dict — the same numbers as the JAX package's
     `random_state_dict` for the same config and seed (tensors drawn in the
     same order: embeddings, layers, encoder-level extras, Dense head,
-    classification head)."""
+    ColBERT projection, classification head, MLM head)."""
     rng = np.random.default_rng(seed)
 
     def init(shape):
@@ -272,8 +291,19 @@ def random_state_dict(config: BertConfig, seed: int = 0) -> dict[str, np.ndarray
     if config.dense_out:
         for name, (_, shape_fn) in schema.DENSE_TENSORS.items():
             sd[name] = init(shape_fn(config))
+    if config.colbert_dim:
+        for name, (_, shape_fn) in schema.COLBERT_TENSORS.items():
+            sd[name] = init(shape_fn(config))
     for name, (_, shape_fn) in schema.head_tensors(config).items():
         sd[name] = init(shape_fn(config))  # head biases random too
+    for name, (key, shape_fn) in schema.mlm_tensors(config).items():
+        shape = shape_fn(config)
+        if key == "mlm_ln_scale":
+            sd[name] = np.ones(shape, np.float32)
+        elif key == "mlm_ln_bias":
+            sd[name] = np.zeros(shape, np.float32)
+        else:  # the |V| output bias random too
+            sd[name] = init(shape)
     return sd
 
 

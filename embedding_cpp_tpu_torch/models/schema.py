@@ -290,19 +290,70 @@ _ALBERT_HEAD_TENSORS = {
     "classifier.weight": ("head_out_w", lambda c: (c.n_labels, c.n_embd)),
     "classifier.bias": ("head_out_b", lambda c: (c.n_labels,)),
 }
+# ModernBERT's PredictionHead: dense and LayerNorm without biases, then a
+# biased classifier, after pooling per `pooling` (cls or mean)
+_MODERNBERT_HEAD_TENSORS = {
+    "head.dense.weight": ("head_dense_w", lambda c: (c.n_embd, c.n_embd)),
+    "head.norm.weight": ("head_norm_scale", lambda c: (c.n_embd,)),
+    "classifier.weight": ("head_out_w", lambda c: (c.n_labels, c.n_embd)),
+    "classifier.bias": ("head_out_b", lambda c: (c.n_labels,)),
+}
 _HEAD_TENSORS_BY_ARCH = {"bert": _BERT_HEAD_TENSORS, "roberta": _ROBERTA_HEAD_TENSORS,
                          "distilbert": _DISTILBERT_HEAD_TENSORS,
                          "electra": _ROBERTA_HEAD_TENSORS, "deberta": _BERT_HEAD_TENSORS,
-                         "mpnet": _ROBERTA_HEAD_TENSORS, "albert": _ALBERT_HEAD_TENSORS}
+                         "mpnet": _ROBERTA_HEAD_TENSORS, "albert": _ALBERT_HEAD_TENSORS,
+                         "modernbert": _MODERNBERT_HEAD_TENSORS}
 
 
 def head_tensors(config) -> dict:
     """Classification-head tensor map (empty for embedding models)."""
     if not config.n_labels:
         return {}
-    if config.arch not in _HEAD_TENSORS_BY_ARCH:
-        raise NotImplementedError(f"{config.arch} classification head is not ported yet")
     return _HEAD_TENSORS_BY_ARCH[config.arch]
+
+
+# --- MLM prediction heads (SPLADE; present only when config.mlm_head) --------
+# logits = LayerNorm(gelu(dense(h))) @ word_tableᵀ + bias: the decoder is
+# tied to the word table, so only the transform, its LayerNorm and the |V|
+# bias are stored.  BERT's cls.predictions.*, RoBERTa's lm_head.*,
+# DistilBERT's vocab_transform / vocab_layer_norm / vocab_projector.bias.
+_BERT_MLM_TENSORS = {
+    "cls.predictions.transform.dense.weight": ("mlm_dense_w", lambda c: (c.n_embd, c.n_embd)),
+    "cls.predictions.transform.dense.bias": ("mlm_dense_b", lambda c: (c.n_embd,)),
+    "cls.predictions.transform.LayerNorm.weight": ("mlm_ln_scale", lambda c: (c.n_embd,)),
+    "cls.predictions.transform.LayerNorm.bias": ("mlm_ln_bias", lambda c: (c.n_embd,)),
+    "cls.predictions.bias": ("mlm_bias", lambda c: (c.n_vocab,)),
+}
+_ROBERTA_MLM_TENSORS = {
+    "lm_head.dense.weight": ("mlm_dense_w", lambda c: (c.n_embd, c.n_embd)),
+    "lm_head.dense.bias": ("mlm_dense_b", lambda c: (c.n_embd,)),
+    "lm_head.layer_norm.weight": ("mlm_ln_scale", lambda c: (c.n_embd,)),
+    "lm_head.layer_norm.bias": ("mlm_ln_bias", lambda c: (c.n_embd,)),
+    "lm_head.bias": ("mlm_bias", lambda c: (c.n_vocab,)),
+}
+_DISTILBERT_MLM_TENSORS = {
+    "vocab_transform.weight": ("mlm_dense_w", lambda c: (c.n_embd, c.n_embd)),
+    "vocab_transform.bias": ("mlm_dense_b", lambda c: (c.n_embd,)),
+    "vocab_layer_norm.weight": ("mlm_ln_scale", lambda c: (c.n_embd,)),
+    "vocab_layer_norm.bias": ("mlm_ln_bias", lambda c: (c.n_embd,)),
+    "vocab_projector.bias": ("mlm_bias", lambda c: (c.n_vocab,)),
+}
+_MLM_TENSORS_BY_ARCH = {"bert": _BERT_MLM_TENSORS, "roberta": _ROBERTA_MLM_TENSORS,
+                        "distilbert": _DISTILBERT_MLM_TENSORS}
+
+
+def mlm_tensors(config) -> dict:
+    """MLM prediction-head tensor map (empty unless config.mlm_head)."""
+    if not config.mlm_head:
+        return {}
+    return _MLM_TENSORS_BY_ARCH[config.arch]
+
+
+# ColBERT's per-token projection (present only when colbert_dim > 0): the
+# bias-free `linear` of HF_ColBERT over every final hidden state
+COLBERT_TENSORS = {
+    "linear.weight": ("colbert_w", lambda c: (c.colbert_dim, c.n_embd)),
+}
 
 
 def embedding_tensors(config) -> dict:

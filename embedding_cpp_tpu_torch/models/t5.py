@@ -93,9 +93,11 @@ def _run_layers(x: torch.Tensor, params: dict, pos_bias: torch.Tensor, mask: tor
 
 
 def t5_embed_batch(params: dict, ids: torch.Tensor, mask: torch.Tensor, config: BertConfig,
-                   opts, gather_idx: torch.Tensor | None = None) -> torch.Tensor:
+                   opts, gather_idx: torch.Tensor | None = None,
+                   token_states: bool = False) -> torch.Tensor:
     """Token ids [B, S] + validity mask [B, S] -> embeddings [B, n_embd]
-    (models.bert.bert_embed_batch's contract)."""
+    (models.bert.bert_embed_batch's contract), or with `token_states` the
+    final-RMSNorm states [B, S, E] f32."""
     from .bert import _cast_output, _output_head, pool_normalize, rel_attn_bias
 
     x = _embed(params, ids, opts)
@@ -103,6 +105,8 @@ def t5_embed_batch(params: dict, ids: torch.Tensor, mask: torch.Tensor, config: 
                              config.rel_attn_max_dist)
     pad = torch.where(mask.to(torch.bool), 0.0, MASK_BIAS).to(torch.float32)
     x = _run_layers(x, params, pos_bias, pad, config, packed=False)
+    if token_states:
+        return x
     pooled = pool_normalize(x, mask, config.pooling, normalize=False)
     out = _output_head(pooled, params, config)
     if gather_idx is not None:

@@ -28,6 +28,13 @@ Long rows (q/k/v/o [B, S, H, d], a free view of the projections), kernel
                            `_attn_seg_kernel`), or, given the longest
                            segment, the TPU query tile's key slice (TPU
                            `_attn_seg_window_kernel`)
+  `flash_attention_packed_local`  the segment mask and the sliding window
+                           together over K7's key slice (mode 3; no TPU
+                           kernel: the reference's XLA path for ModernBERT's
+                           local layers on packed rows past 1024 tokens)
+Both packed wrappers take any S: rows of S % 8 != 0 are padded to the next
+multiple of 8 with keys of segment -1 (masked for every real query), and
+the output is cut back.
 Its bf16 body walks 128-query tiles (64 with a position bias; either one
 forced by `_launch_long`'s `tile_q`, `LONG_TILES`) over 64-key tiles in the
 same two exact passes and, for K6 (segment id spans) and K7 (the window),
@@ -49,7 +56,8 @@ kernel does not serve, and runs the plain version only for tensors on the
 CPU.  Each wrapper's `launches` counts its kernel launches; the two
 projection-layout wrappers count those with a position bias (K4) apart,
 in `bias_launches`, and `flash_attention_packed` its windowed launches
-in `window_launches`.
+in `window_launches`; `flash_attention_packed_local.launches` counts
+mode 3.
 """
 from __future__ import annotations
 
@@ -286,6 +294,44 @@ def attention_packed_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def attention_packed_local_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 seg: torch.Tensor, window: int) -> torch.Tensor:
+    """Mode 3's arithmetic in plain PyTorch: key k is visible to query q
+    iff seg[q] == seg[k] and |q - k| <= window // 2, s*scale, else -1e9,
+    over each TPU query tile's slice of K7 (`local_window_tiles`), or over
+    the whole row where S has no slice.  q/k/v [B, S, H, d] -> [B, S, H,
+    d]."""
+    b, s, h, d = q.shape
+    scale = 1.0 / (d**0.5)
+    masked = torch.tensor(MASK_BIAS, dtype=torch.float32, device=q.device)
+    tq, wmax = local_window_tiles(s, window)
+    if wmax is None:  # the slice is the whole row: query rows in chunks
+        kh = k.permute(0, 2, 1, 3).to(torch.float32)
+        vh = v.permute(0, 2, 1, 3)
+        kpos = torch.arange(s, device=q.device)
+        out = torch.empty_like(q)
+        rows = max(1, _PLAIN_CHUNK // max(1, b * h * s))
+        for r0 in range(0, s, rows):
+            qc = q[:, r0:r0 + rows].permute(0, 2, 1, 3).to(torch.float32)
+            inwin = (kpos[r0:r0 + rows, None] - kpos[None, :]).abs() <= window // 2
+            allowed = (seg[:, r0:r0 + rows, None] == seg[:, None, :]) & inwin
+            scores = torch.where(allowed[:, None],
+                                 torch.matmul(qc, kh.transpose(-1, -2)) * scale, masked)
+            out[:, r0:r0 + rows] = _softmax_pv(scores, vh, q.dtype).permute(0, 2, 1, 3)
+        return out
+    kidx = _slice_keys(s, tq, wmax, q.device)
+    nt = s // tq
+    qpos = torch.arange(s, device=q.device).reshape(nt, tq)
+    inwin = (qpos[:, :, None] - kidx[:, None, :]).abs() <= window // 2  # [nt, tq, wmax]
+    allowed = (seg.reshape(b, nt, tq)[..., None] == seg[:, kidx][:, :, None, :]) & inwin
+    qt = q.reshape(b, nt, tq, h, d).permute(0, 1, 3, 2, 4).to(torch.float32)
+    kt = k[:, kidx].permute(0, 1, 3, 4, 2).to(torch.float32)  # [B, nt, H, d, wmax]
+    vt = v[:, kidx].permute(0, 1, 3, 2, 4)  # [B, nt, H, wmax, d]
+    scores = torch.where(allowed[:, :, None], torch.matmul(qt, kt) * scale, masked)
+    out = _softmax_pv(scores, vt, q.dtype)  # [B, nt, H, tq, d]
+    return out.permute(0, 1, 3, 2, 4).reshape(b, s, h, d)
+
+
 def attention_packed_window_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                   seg: torch.Tensor, max_seg_len: int) -> torch.Tensor:
     """The windowed segment kernel's arithmetic in plain PyTorch: each TPU
@@ -419,7 +465,7 @@ def _launch_bse(q, k, v, mask, h: int, seg_mask: bool, pos_bias=None) -> torch.T
     return out
 
 
-_FULL, _LOCAL, _SEG = 0, 1, 2  # attention_long.cu's modes
+_FULL, _LOCAL, _SEG, _SEG_LOCAL = 0, 1, 2, 3  # attention_long.cu's modes
 LONG_TILES = (64, 128)  # the query tiles attention_long.cu's bf16 body is built for
 
 
@@ -428,10 +474,12 @@ def _launch_long(q, k, v, mask, mode: int, pos_bias=None, window: int = 0,
     """Checks the operands and launches the long-row kernel in `mode`:
     _FULL, every key under an f32 key bias; _LOCAL, the sliding-window
     slices of `window`; _SEG, int32 segment ids over the TPU tile's key
-    slice when `max_seg_len` gives one, else every key.  `tile_q` forces
-    the bf16 body's query rows a block (LONG_TILES; 0: the source's rule)."""
+    slice when `max_seg_len` gives one, else every key; _SEG_LOCAL, int32
+    segment ids and the window over K7's slices, or every key where S has
+    none.  `tile_q` forces the bf16 body's query rows a block (LONG_TILES;
+    0: the source's rule)."""
     b, s, h, d = _check_qkv(q, k, v, True)
-    want = torch.int32 if mode == _SEG else torch.float32
+    want = torch.int32 if mode in (_SEG, _SEG_LOCAL) else torch.float32
     if mask.shape != (b, s) or mask.dtype != want:
         raise ValueError(f"mask {tuple(mask.shape)} {mask.dtype}, want ({b}, {s}) {want}")
     _check_pos_bias(pos_bias, h, s)
@@ -443,6 +491,9 @@ def _launch_long(q, k, v, mask, mode: int, pos_bias=None, window: int = 0,
         tq, wmax = local_window_tiles(s, window)
         if wmax is None:
             raise ValueError(f"no sliding-window slice for S={s}, window={window}")
+    elif mode == _SEG_LOCAL:
+        tq, wmax = local_window_tiles(s, window)
+        wmax = wmax or s
     q, k, v, mask, pos_bias = _operands((q, k, v, mask, pos_bias), q.device)
     out = torch.empty_like(q)
     if b == 0 or s == 0:
@@ -564,6 +615,18 @@ def flash_attention_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def pad_rows8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              seg: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """q/k/v [B, S, H, d] and seg [B, S] padded to the next multiple of 8
+    rows (the segment kernels read ids 8 at a time): zero rows of segment
+    -1, masked for every real query.  Unchanged where S % 8 == 0."""
+    pad = -q.shape[1] % 8
+    if not pad:
+        return q, k, v, seg
+    q, k, v = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
+    return q, k, v, torch.nn.functional.pad(seg, (0, pad), value=-1)
+
+
 def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            seg: torch.Tensor, max_seg_len: int | None = None) -> torch.Tensor:
     """Segment-masked attention for packed rows in the [B, S, H, d] layout:
@@ -571,22 +634,41 @@ def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     on padding).  `max_seg_len` bounds the longest packed segment: where
     `packed_window_tiles` gives a slice narrower than S, each TPU query tile
     scores only its wmax keys (`window_launches`), else every key
-    (`launches`).  S must be a multiple of 8."""
-    seg = seg.to(torch.int32)
-    _, s, _, d = _check_qkv(q, k, v, True)
-    if s % 8:
-        raise ValueError(f"packed rows of {s} tokens: the segment kernel needs S % 8 == 0")
-    windowed = packed_window_tiles(s, max_seg_len)[1] is not None
+    (`launches`).  Rows of S % 8 != 0 run padded (`pad_rows8`)."""
+    s = q.shape[1]
+    _check_qkv(q, k, v, True)
+    q, k, v, seg = pad_rows8(q, k, v, seg.to(torch.int32))
+    windowed = packed_window_tiles(q.shape[1], max_seg_len)[1] is not None
     if not _on_cuda(q, "flash_attention_packed"):
         if windowed:
-            return attention_packed_window_plain(q, k, v, seg, max_seg_len)
-        return attention_packed_plain(q, k, v, seg)
+            return attention_packed_window_plain(q, k, v, seg, max_seg_len)[:, :s]
+        return attention_packed_plain(q, k, v, seg)[:, :s]
     out = _launch_long(q, k, v, seg, _SEG, max_seg_len=max_seg_len)
     if windowed:
         flash_attention_packed.window_launches += 1
     else:
         flash_attention_packed.launches += 1
-    return out
+    return out[:, :s]
+
+
+def flash_attention_packed_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 seg: torch.Tensor, window: int) -> torch.Tensor:
+    """Segment-masked sliding-window attention for packed rows (mode 3,
+    ModernBERT's local layers past 1024 tokens): key k is visible to query
+    q iff seg[q] == seg[k] and |q - k| <= window // 2 (seg [B, S] int32, -1
+    on padding; row offsets, which within a segment are the restart
+    positions' distances), over K7's key slices, or every key where S has
+    none.  Rows of S % 8 != 0 run padded (`pad_rows8`)."""
+    s = q.shape[1]
+    _check_qkv(q, k, v, True)
+    if window <= 0:
+        raise ValueError(f"window {window} must be positive")
+    q, k, v, seg = pad_rows8(q, k, v, seg.to(torch.int32))
+    if not _on_cuda(q, "flash_attention_packed_local"):
+        return attention_packed_local_plain(q, k, v, seg, window)[:, :s]
+    out = _launch_long(q, k, v, seg, _SEG_LOCAL, window=window)
+    flash_attention_packed_local.launches += 1
+    return out[:, :s]
 
 
 def attention_headpack(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -621,7 +703,8 @@ def attention_headpack(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 for _fn in (flash_attention_bse, flash_attention_packed_bse, flash_attention,
-            flash_attention_local, flash_attention_packed, attention_headpack):
+            flash_attention_local, flash_attention_packed, flash_attention_packed_local,
+            attention_headpack):
     _fn.launches = 0
 flash_attention_bse.bias_launches = flash_attention_packed_bse.bias_launches = 0
 flash_attention_packed.window_launches = 0

@@ -10,7 +10,12 @@ frames a text as its ids + </s>, with no CLS.  `encode`
 takes named or literal prompt prefixes, Matryoshka `dimensions` and
 `truncate=False`; `encode_queries` / `encode_documents` apply the model's
 query and document prompts, `encode_with_counts` also returns the token
-counts.  The reference's bert.h surface rides beside them: `tokenize`,
+counts.  The token-level surfaces: `encode_token_states` (every family's
+final states), ColBERT late interaction (`maxsim`, `maxsim_tokens`,
+`maxsim_rerank`, with the checkpoint's [Q]/[D] framing, [MASK] query
+augmentation and punctuation skiplist) and SPLADE sparse vectors
+(`encode_sparse`, `sparse_tokens`).  The reference's bert.h surface rides
+beside them: `tokenize`,
 `n_max_tokens`, `id_to_token` and `decode`; every `embed_tokens` call
 adds its sentences, tokens, batches and padded token slots to `stats` and
 to the process's metrics (`utils/metrics.GLOBAL`, the server's TPES
@@ -31,12 +36,17 @@ import torch
 from ..gguf.constants import Keys
 from ..gguf.reader import GGUFReader
 from ..models.bert import (
+    SPARSE_TILE_BUDGET,
     ComputeOptions,
     bert_embed_batch,
     bert_embed_packed,
     bert_score_batch,
+    bert_sparse_batch,
     check_pack_seq,
+    maxsim_scores,
+    project_token_states,
     unpack_output_i8,
+    unpack_sparse_topk,
 )
 from ..models.config import BertConfig
 from ..models.params import load_params, params_to, random_params
@@ -54,9 +64,15 @@ from .batching import (
     DEFAULT_PACK_SEQ,
     DEFAULT_SEQ_BUCKETS,
     PackedSegBatch,
+    bucket_for,
     pack_batches,
     pack_segments,
 )
+
+# the device top-k widths of the sparse head, the JAX Engine's: a client's
+# k runs at the next one and is cut on the host, so both packages keep the
+# same terms where weights tie at the cut
+SPARSE_K_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -154,7 +170,8 @@ class Engine:
         if packing not in ("auto", "always", "never"):
             raise ValueError(f"packing must be auto/always/never, got {packing!r}")
         self.packing = packing
-        # packed rows past 1024 tokens take the segment kernel K6 (nomic)
+        # packed rows past 1024 tokens take the segment kernels (K6, and mode
+        # 3 on ModernBERT's local layers)
         self.pack_seq = min(pack_seq or DEFAULT_PACK_SEQ, config.n_ctx)
         self.pack_segs = max(8, self.pack_seq // 8)
         if packing != "never":
@@ -487,6 +504,201 @@ class Engine:
         if top_n is not None:
             order = order[:top_n]
         return [{"index": int(i), "relevance_score": float(scores[i])} for i in order]
+
+    # --- token states, ColBERT and SPLADE --------------------------------------
+    def _token_batches(self, token_lists: Sequence[Sequence[int]], forward, *,
+                       max_rows: int | None = None) -> list:
+        """Launch `forward(ids, mask, batch)` over the length buckets of the
+        lists (real rows only, at most `max_rows` a batch) under the lock;
+        returns [(batch, device result)], fetched by the caller outside it."""
+        with self._lock:
+            buckets = self.batch_buckets
+            if max_rows is not None:
+                buckets = tuple(b for b in buckets if b <= max_rows) or (max_rows,)
+            batches = pack_batches(
+                token_lists, self.special_ids.pad, seq_buckets=self.seq_buckets,
+                batch_buckets=buckets, max_seq=self.config.n_ctx,
+                max_tokens=self.max_batch_tokens, pad_rows=False)
+            _check_ids([b.ids for b in batches], self.config.n_vocab, "token id")
+            with torch.inference_mode():
+                return [(b, forward(self._tensor(b.ids), self._tensor(b.mask), b))
+                        for b in batches]
+
+    def _token_states(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """[B, S, E] f32 final states, ColBERT-projected where the model has
+        the projection."""
+        return project_token_states(self.params, bert_embed_batch(
+            self.params, ids, mask, self.config, self.opts, token_states=True))
+
+    def encode_token_states(self, texts: Sequence[str]) -> list[np.ndarray]:
+        """Per-token final hidden states (HF last_hidden_state; ColBERT
+        models: projected): one [len_i, E] f32 array per text over its
+        framed tokens, padding excluded.  No pooling, prompt, packing or
+        transfer encoding."""
+        return self.token_states_tokens(self.tokenize_batch(texts))
+
+    def token_states_tokens(self, token_lists: Sequence[Sequence[int]]) -> list[np.ndarray]:
+        """Token-id lists -> one [len, E] f32 array of final states each."""
+        out: list = [None] * len(token_lists)
+        pending = self._token_batches(token_lists,
+                                      lambda ids, mask, _: self._token_states(ids, mask))
+        for batch, dev in pending:
+            host = dev.cpu().numpy()
+            for row, i in enumerate(batch.positions):
+                out[i] = host[row, : len(token_lists[i])]
+        return out
+
+    def colbert_skiplist(self) -> frozenset[int]:
+        """The document token ids ColBERT leaves out of scoring: the first
+        token of each punctuation character (colbert-ai's skiplist); empty
+        where the checkpoint sets mask_punctuation off."""
+        if not self.config.mask_punctuation:
+            return frozenset()
+        if getattr(self, "_skiplist", None) is None:
+            import string
+
+            encoded = self.tokenizer.encode_batch(list(string.punctuation))
+            self._skiplist = frozenset(int(e[0]) for e in encoded if e)
+        return self._skiplist
+
+    def _colbert_frame(self, texts: Sequence[str], marker: int, maxlen: int) -> list[list[int]]:
+        """[CLS] <marker> tokens [SEP], cut to maxlen with [SEP] kept last."""
+        if self.config.colbert_dim <= 0:
+            raise RuntimeError("not a ColBERT checkpoint (colbert_dim == 0)")
+        out = []
+        for ids in self.tokenize_batch(list(texts)):
+            ids = [ids[0], marker] + list(ids[1:])
+            if len(ids) > maxlen:
+                ids = ids[: maxlen - 1] + [self.special_ids.sep]
+            out.append(ids)
+        return out
+
+    def colbert_doc_tokens(self, texts: Sequence[str], cap: int | None = None) -> list[list[int]]:
+        """Document framing: [CLS] [D] tokens [SEP], cut to min(cap, n_ctx)
+        before the forward (ColBERT's doc_maxlen)."""
+        maxlen = min(cap or self.config.n_ctx, self.config.n_ctx)
+        return self._colbert_frame(texts, self.config.d_marker_id, maxlen)
+
+    def colbert_query_ids(self, texts: Sequence[str]) -> tuple[np.ndarray, np.ndarray]:
+        """Query framing: [CLS] [Q] tokens [SEP] padded with [MASK] to
+        query_maxlen -> (ids [B, Lq] int32, attention mask [B, Lq] int32, 0
+        on the [MASK] slots: not attended to, but scored)."""
+        maxlen = min(self.config.query_maxlen, self.config.n_ctx)
+        framed = self._colbert_frame(texts, self.config.q_marker_id, maxlen)
+        ids = np.full((len(framed), maxlen), self.config.mask_id, np.int32)
+        mask = np.zeros((len(framed), maxlen), np.int32)
+        for i, row in enumerate(framed):
+            ids[i, : len(row)] = row
+            mask[i, : len(row)] = 1
+        return ids, mask
+
+    def colbert_query_vectors(self, texts: Sequence[str]) -> list[np.ndarray]:
+        """Queries -> one [query_maxlen, colbert_dim] f32 matrix each (every
+        slot, [MASK] augmentation included; not normalized)."""
+        q_ids, q_attn = self.colbert_query_ids(texts)
+        _check_ids([q_ids], self.config.n_vocab, "token id")
+        with self._lock, torch.inference_mode():
+            dev = self._token_states(self._tensor(q_ids), self._tensor(q_attn))
+        host = dev.cpu().numpy()
+        return [host[i].copy() for i in range(len(host))]
+
+    def maxsim(self, query: str, documents: Sequence[str]) -> np.ndarray:
+        """Late-interaction MaxSim relevance of each document to the query
+        over final-state token vectors (`maxsim_scores`), with any family;
+        ColBERT checkpoints frame with their markers, augment the query
+        with [MASK] to query_maxlen, project, and skip punctuation."""
+        if self.config.colbert_dim:
+            return self.maxsim_tokens(None, self.colbert_doc_tokens(documents),
+                                      _q_frame=self.colbert_query_ids([query]))
+        return self.maxsim_tokens(self.tokenize(query), self.tokenize_batch(documents))
+
+    def maxsim_tokens(self, q_tokens: Sequence[int] | None,
+                      doc_token_lists: Sequence[Sequence[int]], *,
+                      _q_frame: tuple[np.ndarray, np.ndarray] | None = None) -> np.ndarray:
+        """Token-id form of `maxsim` -> [n_docs] f32.  `_q_frame` (the
+        ColBERT path): the framed query (ids, attention mask) [1, Lq]; every
+        slot then scores and the skiplist filters the documents' tokens."""
+        colbert = _q_frame is not None
+        if colbert:
+            q_ids, q_attn = _q_frame
+            q_score = np.ones_like(q_attn)
+        else:
+            if not q_tokens:
+                raise ValueError("empty query")
+            sq = bucket_for(len(q_tokens), self.seq_buckets)
+            q_ids = np.zeros((1, sq), np.int32)
+            q_ids[0, : len(q_tokens)] = q_tokens
+            q_attn = np.zeros((1, sq), np.int32)
+            q_attn[0, : len(q_tokens)] = 1
+            q_score = q_attn
+        _check_ids([q_ids], self.config.n_vocab, "token id")
+        skip = torch.tensor(sorted(self.colbert_skiplist() if colbert else ()),
+                            dtype=torch.int32, device=self.device)
+        with self._lock, torch.inference_mode():
+            q_dev = self._token_states(self._tensor(q_ids), self._tensor(q_attn))[0]
+        q_mask = self._tensor(q_score[0])
+
+        def forward(ids, mask, _):
+            keep = mask if not skip.numel() else mask * ~torch.isin(ids, skip)
+            return maxsim_scores(self.params, q_dev, q_mask, ids, mask, self.config,
+                                 self.opts, d_keep=keep)
+
+        out = np.empty(len(doc_token_lists), np.float32)
+        for batch, dev in self._token_batches(doc_token_lists, forward):
+            out[batch.positions] = dev.cpu().numpy()
+        return out
+
+    def maxsim_rerank(self, query: str, documents: Sequence[str], *,
+                      top_n: int | None = None) -> list[dict]:
+        """`maxsim` in the rerank shape: [{"index", "relevance_score"}, ...]
+        descending, cut to top_n."""
+        scores = self.maxsim(query, documents)
+        order = np.argsort(-scores, kind="stable")
+        if top_n is not None:
+            order = order[:top_n]
+        return [{"index": int(i), "relevance_score": float(scores[i])} for i in order]
+
+    def encode_sparse(self, texts: Sequence[str], k: int = 256
+                      ) -> list[tuple[np.ndarray, np.ndarray]]:
+        """SPLADE: one (int32 term ids, f32 weights) pair per text, by
+        descending weight, zero weights dropped, at most `k` terms (an
+        MLM-head checkpoint; `models.bert.bert_sparse_batch`)."""
+        return self.sparse_tokens(self.tokenize_batch(texts), k=k)
+
+    def sparse_tokens(self, token_lists: Sequence[Sequence[int]], k: int = 256
+                      ) -> list[tuple[np.ndarray, np.ndarray]]:
+        """Token-id lists -> (term ids, weights) per list (`encode_sparse`).
+        The device top-k runs at the next width of SPARSE_K_BUCKETS, cut to
+        k on the host; a batch holds at most the rows whose 8-token logits
+        chunk fits the sparse tile budget."""
+        if not self.config.mlm_head:
+            raise ValueError("model has no MLM head (not a SPLADE checkpoint)")
+        k = min(int(k), self.config.n_vocab)
+        if k <= 0:
+            raise ValueError(f"k must be positive, got {k}")
+        k_run = min(next((kb for kb in SPARSE_K_BUCKETS if kb >= k), k), self.config.n_vocab)
+        budget = self._sparse_budget()
+        row_cap = max(1, budget // (8 * self.config.n_vocab * 4))
+
+        def forward(ids, mask, _):
+            return bert_sparse_batch(self.params, ids, mask, self.config, self.opts, k_run,
+                                     budget=budget)
+
+        out: list = [None] * len(token_lists)
+        for batch, dev in self._token_batches(token_lists, forward, max_rows=row_cap):
+            idx, val = unpack_sparse_topk(dev.cpu().numpy())
+            for row, i in enumerate(batch.positions):
+                n = int(np.count_nonzero(val[row, :k] > 0.0))
+                out[i] = (idx[row, :n].copy(), val[row, :n].copy())
+        return out
+
+    def _sparse_budget(self) -> int:
+        """Bytes of one f32 logits chunk of the sparse head: SPARSE_TILE_BUDGET
+        on the CPU, 1/64 of the card's memory on a GPU (1.25 GB on an 80 GB
+        card)."""
+        if self.device.type != "cuda":
+            return SPARSE_TILE_BUDGET
+        return torch.cuda.get_device_properties(self.device).total_memory // 64
 
     # --- introspection (the reference's bert.h:87-90) ------------------------
     @property

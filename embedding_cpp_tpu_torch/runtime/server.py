@@ -25,16 +25,23 @@ The wire protocol of the JAX package's `runtime/server.py`, on one port:
    - b"\x01TPR" rerank (a model with a classification head): `u32 top_n (0 =
      all) | u32 len | query utf8 | u32 n | n * (u32 len | utf8 doc)` ->
      `u32 m | m * i32 index | m * f32 sigmoid score`, descending;
-   - the index, search, sparse, MaxSim and hybrid frames (b"\x01TPB",
-     "\x01TPS", "\x01TPW", "\x01TPX", "\x01TPY", "\x01TPZ", "\x01TPF",
-     "\x01TPG", "\x01TPJ", "\x01TPK") are not ported yet: each request is
-     read to its end by its layout, then answered with the error frame.
+   - b"\x01TPX" MaxSim rerank (late interaction, any model; ColBERT
+     checkpoints with their framing): the rerank layout -> the same reply
+     with raw MaxSim scores;
+   - b"\x01TPW" sparse encode (a SPLADE checkpoint): `u32 k | u32 count |
+     count * (u32 len | utf8)` -> `u32 count | count * (u32 n | n * i32 term
+     id | n * f32 weight)`, at most k terms each, by descending weight;
+   - the index, search and hybrid frames (b"\x01TPB", "\x01TPS",
+     "\x01TPY", "\x01TPZ", "\x01TPF", "\x01TPG", "\x01TPJ", "\x01TPK")
+     are not ported yet: each request is read to its end by its layout,
+     then answered with the error frame.
    A head that starts with b"\x01" but is no magic desynchronizes the
    stream: it gets the error frame and the connection closes.
 
 Encode requests from all connections merge into device batches through
 one continuous batcher (a short micro-batching window); the other
-requests run on executor threads, reranks under the same pending budget.
+requests run on executor threads, reranks, MaxSim and sparse requests
+under the same pending budget.
 """
 from __future__ import annotations
 
@@ -59,14 +66,13 @@ MAGIC_META = b"\x01TPM"
 MAGIC_VOCAB = b"\x01TPV"
 MAGIC_ENCODE_I8 = b"\x01TP8"
 MAGIC_RERANK = b"\x01TPR"
+MAGIC_SPARSE = b"\x01TPW"
+MAGIC_MAXSIM = b"\x01TPX"
 # the reference's frames this server reads but does not serve yet: what it
-# is, and what follows the magic (texts; u32 k | texts; a rerank-layout
-# query and texts)
+# is, and what follows the magic (texts; u32 k | texts)
 UNSERVED = {
     b"\x01TPB": ("vector index", "texts"),
     b"\x01TPS": ("vector search", "k_texts"),
-    b"\x01TPW": ("sparse encode", "sparse_k_texts"),
-    b"\x01TPX": ("MaxSim rerank", "query_texts"),
     b"\x01TPY": ("sparse index", "texts"),
     b"\x01TPZ": ("sparse search", "k_texts"),
     b"\x01TPF": ("hybrid index", "texts"),
@@ -75,7 +81,8 @@ UNSERVED = {
     b"\x01TPK": ("MaxSim search", "k_texts"),
 }
 _MAGICS = (MAGIC, MAGIC_STATS, MAGIC_HEALTH, MAGIC_TOKENIZE, MAGIC_EVAL, MAGIC_META,
-           MAGIC_VOCAB, MAGIC_ENCODE_I8, MAGIC_RERANK, *UNSERVED)
+           MAGIC_VOCAB, MAGIC_ENCODE_I8, MAGIC_RERANK, MAGIC_SPARSE, MAGIC_MAXSIM,
+           *UNSERVED)
 RAW_CHUNK = 1 << 15  # the ggml-compat message cap
 # caps on what one frame may ask the server to read or allocate
 MAX_ITEMS = 1 << 16  # texts or id lists per request
@@ -193,15 +200,15 @@ class ContinuousBatcher:
         finally:
             self.release(n)
 
-    async def rerank(self, query: str, docs: list[str], top_n: int | None) -> list[dict]:
-        """`Engine.rerank` on an executor thread, admitted against the
-        pending budget."""
-        self.try_reserve(len(docs))
+    async def admitted(self, n: int, fn):
+        """`fn()` (a rerank, MaxSim or sparse call of the engine) on an
+        executor thread, its `n` texts admitted against the pending
+        budget."""
+        self.try_reserve(n)
         try:
-            return await asyncio.get_running_loop().run_in_executor(
-                None, lambda: self.engine.rerank(query, docs, top_n=top_n))
+            return await asyncio.get_running_loop().run_in_executor(None, fn)
         finally:
-            self.release(len(docs))
+            self.release(n)
 
     async def _run(self) -> None:
         # pipeline depth 2: batch N+1 is planned while batch N computes
@@ -322,14 +329,17 @@ async def _read_ids(reader: asyncio.StreamReader) -> list[list[int]]:
 async def _read_unserved(reader: asyncio.StreamReader, layout: str) -> None:
     """Read an unserved frame's whole payload by its layout, so the next
     frame on the connection starts where the client sent it."""
-    if layout == "query_texts":
-        await _read_query_texts(reader)
-        return
     if layout != "texts":
         k = await _read_u32(reader)
-        cap = MAX_SPARSE_K if layout == "sparse_k_texts" else MAX_TOPK
-        _check(0 < k <= cap, f"top-k {k}")
+        _check(0 < k <= MAX_TOPK, f"top-k {k}")
     await _read_texts(reader)
+
+
+def _ranked_reply(writer: asyncio.StreamWriter, ranked: list[dict]) -> None:
+    """`u32 m | m * i32 index | m * f32 score`."""
+    writer.write(struct.pack("<I", len(ranked)))
+    writer.write(np.asarray([r["index"] for r in ranked], np.int32).tobytes())
+    writer.write(np.asarray([r["relevance_score"] for r in ranked], np.float32).tobytes())
 
 
 def _quantize_i8(vecs: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -391,14 +401,23 @@ async def _serve_frame(head: bytes, reader: asyncio.StreamReader,
         vecs = await loop.run_in_executor(None, engine.embed_tokens, id_lists)
         writer.write(struct.pack("<I", len(vecs)))
         writer.write(np.ascontiguousarray(vecs, np.float32).tobytes())
-    elif head == MAGIC_RERANK:
+    elif head in (MAGIC_RERANK, MAGIC_MAXSIM):
         top_n, query, docs = await _read_query_texts(reader)
         if not docs:
             raise ValueError("no documents")
-        ranked = await batcher.rerank(query, docs, top_n or None)
-        writer.write(struct.pack("<I", len(ranked)))
-        writer.write(np.asarray([r["index"] for r in ranked], np.int32).tobytes())
-        writer.write(np.asarray([r["relevance_score"] for r in ranked], np.float32).tobytes())
+        rank = engine.rerank if head == MAGIC_RERANK else engine.maxsim_rerank
+        ranked = await batcher.admitted(len(docs), lambda: rank(query, docs,
+                                                                 top_n=top_n or None))
+        _ranked_reply(writer, ranked)
+    elif head == MAGIC_SPARSE:
+        k = await _read_u32(reader)
+        _check(0 < k <= MAX_SPARSE_K, f"sparse k {k}")
+        texts = await _read_texts(reader)
+        pairs = await batcher.admitted(len(texts), lambda: engine.encode_sparse(texts, k=k))
+        writer.write(struct.pack("<I", len(pairs)))
+        for idx, val in pairs:
+            writer.write(struct.pack("<I", len(idx)) + np.ascontiguousarray(idx, np.int32).tobytes()
+                         + np.ascontiguousarray(val, np.float32).tobytes())
     else:
         what, layout = UNSERVED[head]
         await _read_unserved(reader, layout)

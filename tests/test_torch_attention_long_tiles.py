@@ -1,6 +1,7 @@
-"""The bf16 body of the long-row attention K5/K6/K7
-(`tc::attn_long_tc_kernel`, csrc/attention_long.cu) walked in plain torch on
-the CPU, against the port's plain versions and the JAX package's TPU kernels.
+"""The bf16 body of the long-row attention K5/K6/K7 and its segment +
+sliding-window mode 3 (`tc::attn_long_tc_kernel`, csrc/attention_long.cu)
+walked in plain torch on the CPU, against the port's plain versions and the
+JAX package's TPU kernels.
 
 The CUDA kernel cannot run here, so this file repeats its walk: blocks of TQ
 query rows (16 per warp; every TQ the body is built for, and the source's
@@ -8,8 +9,8 @@ query rows (16 per warp; every TQ the body is built for, and the source's
 (K5, K6 with wmax = S) or its TPU tile's slice (K7, K6b), both read from the
 source.  K6 and K7 load only the key tiles that may hold a visible pair for
 a row of the block (K6: the 8-key runs' id spans meet the block's rows'; K7:
-a key within window/2), and each warp scores only such 8-key runs for its 16
-rows.  Pass 1 folds the scored keys' scaled, masked scores into the row max;
+a key within window/2; mode 3: both), and each warp scores only such 8-key
+runs for its 16 rows.  Pass 1 folds the scored keys' scaled, masked scores into the row max;
 pass 2 skips the same keys only when every row of the block (one head) has
 m > kSharp, else the block scores every key of its range in both passes.
 Pass 2 computes e = exp(s - m) in f32, the f32 row sum before e is cast, e
@@ -23,7 +24,10 @@ one rounding) at h = 2, d in {32, 64}: K5 at S in {100, 1025, 2048} with a
 padded tail and a row all padded, with no position bias and with one of PH
 = 1 and H; K6 full and windowed at S = 1024 / 1152 / 2048 on contiguous
 segments with a -1 tail and a row of all -1, and on shuffled non-contiguous
-ids; K7 at S = 1024 / 2048 with window 16 and 128 and a row all padded.  At
+ids; K7 at S = 1024 / 2048 with window 16 and 128 and a row all padded;
+mode 3 against `attention_packed_local_plain` at S = 1032 (no slice: every
+key), 1152 and 2048 with windows 16-128, on contiguous and shuffled ids,
+and its mask and skip tests as the source writes them.  At
 a few small points also against the JAX entries in Pallas interpret mode
 (f32 2e-5, the bar of tests/test_torch_attention.py).  And that no skipped
 tile or run holds a visible (query, key) pair.
@@ -44,6 +48,7 @@ from embedding_cpp_tpu_torch.ops.attention import (
     LONG_TILES,
     MASK_BIAS,
     attention_local_plain,
+    attention_packed_local_plain,
     attention_long_plain,
     attention_packed_plain,
     attention_packed_window_plain,
@@ -128,20 +133,20 @@ def block_skips(form: str, s: int, tq: int, width: int, tile: int, q0: int,
     nw = tile // WARP_ROWS
     kept = np.ones(n_all, bool)
     runs = np.ones((nw, n_all * TILE_K // RUN), bool)
-    if form == "seg":
+    if form in ("seg", "seg_local"):
         key = _run_spans(seg, kbeg, n_all * TILE_K // RUN, kend)
         rows = _run_spans(seg, q0, tile // RUN, s)
         kept = _meet(_join(key, n_all), _join(rows, 1))
         warp = _join(rows, nw)
         runs = _meet(tuple(x[:, None] for x in warp), tuple(x[None, :] for x in key))
-    elif form == "local":
+    if form in ("local", "seg_local"):
         w2 = window // 2
         c0 = kbeg + TILE_K * np.arange(n_all)
         c1 = np.minimum(c0 + TILE_K, kend) - 1
-        kept = (c0 <= q0 + tile - 1 + w2) & (c1 >= q0 - w2)
+        kept = kept & (c0 <= q0 + tile - 1 + w2) & (c1 >= q0 - w2)
         wq0 = q0 + WARP_ROWS * np.arange(nw)[:, None]
         k0 = kbeg + RUN * np.arange(runs.shape[1])[None, :]
-        runs = (k0 <= wq0 + WARP_ROWS - 1 + w2) & (k0 + RUN - 1 >= wq0 - w2)
+        runs = runs & (k0 <= wq0 + WARP_ROWS - 1 + w2) & (k0 + RUN - 1 >= wq0 - w2)
     return kbeg, kend, kept, runs
 
 
@@ -150,10 +155,13 @@ def block_skips(form: str, s: int, tq: int, width: int, tile: int, q0: int,
 def _masked(form, s_raw, scale, mask_row, pb, rows, keys, window):
     """The kernel's masked scores [H, rows, keys] from the raw f32 scores:
     K5 (s*scale + keybias) + pbias, each add rounded; K7 s*scale + (in
-    window ? keybias : -1e9); K6 seg[q] == seg[k] ? s*scale : -1e9."""
+    window ? keybias : -1e9); K6 seg[q] == seg[k] ? s*scale : -1e9; mode 3
+    seg[q] == seg[k] and |q - k| <= window/2 ? s*scale : -1e9."""
     x = s_raw * scale
-    if form == "seg":
+    if form in ("seg", "seg_local"):
         same = mask_row[rows][:, None] == mask_row[keys][None, :]
+        if form == "seg_local":
+            same = same & ((rows[:, None] - keys[None, :]).abs() <= window // 2)
         return torch.where(same[None], x, torch.tensor(MASK_BIAS, dtype=torch.float32))
     if form == "local":
         inwin = (rows[:, None] - keys[None, :]).abs() <= window // 2
@@ -168,13 +176,16 @@ def _masked(form, s_raw, scale, mask_row, pb, rows, keys, window):
 def kernel_walk(q, k, v, mask, form, tile, pos_bias=None, window=0, max_seg_len=None,
                 stats=None):
     """The bf16 body's walk over q/k/v [B, S, H, d] -> [B, S, H, d]; form
-    'full' (K5), 'local' (K7) or 'seg' (K6)."""
+    'full' (K5), 'local' (K7), 'seg' (K6) or 'seg_local' (mode 3)."""
     b, s, h, d = q.shape
     scale = 1.0 / (d**0.5)
     if form == "full":
         tq, width = 0, s
     elif form == "local":
         tq, width = local_window_tiles(s, window)
+    elif form == "seg_local":
+        tq, width = local_window_tiles(s, window)
+        width = width or s
     else:
         tq, width = packed_window_tiles(s, max_seg_len)
         width = width or s
@@ -185,8 +196,9 @@ def kernel_walk(q, k, v, mask, form, tile, pos_bias=None, window=0, max_seg_len=
         pb = pos_bias.float()[[hh % pos_bias.shape[0] for hh in range(h)]]
     out = torch.zeros_like(q)
     for bi in range(b):
-        mrow = mask[bi] if form == "seg" else mask[bi].float()
-        seg_np = mask[bi].numpy() if form == "seg" else None
+        ids = form in ("seg", "seg_local")
+        mrow = mask[bi] if ids else mask[bi].float()
+        seg_np = mask[bi].numpy() if ids else None
         qh, kh, vh = (t[bi].permute(1, 0, 2) for t in (q, k, v))  # [H, S, d]
         for q0 in range(0, s, tile):
             kbeg, kend, kept, runs = block_skips(form, s, tq, width, tile, q0, window, seg_np)
@@ -328,6 +340,45 @@ def test_local_walk_matches_plain(s, d, window, tile):
     assert stats["not_sharp"] >= H * s // tile
 
 
+@pytest.mark.parametrize("tile", LONG_TILES)
+@pytest.mark.parametrize("kind", ["contiguous", "shuffled"])
+@pytest.mark.parametrize("s,d,window", [(1032, 32, 128), (1152, 32, 64), (2048, 32, 16)])
+def test_segment_local_walk_matches_plain(s, d, window, kind, tile):
+    """Mode 3: segments of 1..400 tokens (shorter and longer than the
+    window) with a -1 tail and a row all -1, or shuffled ids."""
+    q, k, v = _qkv(s, d, seed=s + window)
+    seg = _shuffled(s, s + 1) if kind == "shuffled" else _contiguous(s, 400, s + 2)
+    assert (local_window_tiles(s, window)[1] is None) == (s % 128 != 0)
+    _, stats = _check((q, k, v, seg, window), attention_packed_local_plain, tile,
+                      form="seg_local", window=window)
+    assert stats["not_sharp"] == 0  # every row sees its own key: pass 2 always skips
+    if kind == "contiguous":
+        assert stats["kept_tiles"] < stats["tiles"]
+
+
+def test_segment_local_mask_and_skips_in_the_source():
+    """Mode 3 in the source as the walk models it: the score of a key is
+    s*scale only where both the segment test and the window test pass, and
+    a key tile or an 8-key run is kept only where both the span test and
+    the window test keep it."""
+    masked = re.search(r"MODE == kSegLocal\) \{\s*const int ids\[2\](.*?)\} else \{", _TEXT,
+                       re.S)[1]
+    # the f32 body's score
+    assert "return sg[key] == segq && dist <= window / 2 ? s : kMaskBias;" in _TEXT
+    vis = re.search(r"const bool vis = (.*?);", masked)[1]
+    assert vis.replace(" ", "") == "ids[e]==segq[hr]&&abs(qpos[hr]-(c0+c+e))<=w2", vis
+    assert "vis ? __fmul_rn(acc[2 * hr + e], scale) : kMaskBias" in masked
+    keep = re.search(r"keep = true;(.*?)const unsigned bal", _TEXT, re.S)[1]
+    assert "if constexpr (has_seg(MODE))" in keep and "keep = span_meet(ksp, qsp);" in keep
+    assert "keep = keep && c0 <= q0 + TQ - 1 + w2 && c1 >= q0 - w2;" in keep
+    assert "if constexpr (has_seg(MODE)) meet = span_meet(wspan, spans[tt * RUNS + nb]);" in _TEXT
+    assert "meet = meet && k0 <= wq0 + WARP_ROWS - 1 + w2 && k0 + RUN - 1 >= wq0 - w2;" in _TEXT
+    modes = dict(re.findall(r"(k\w+) = (\d)", re.search(r"enum Mode \{(.*?)\};", _TEXT)[1]))
+    assert modes == {"kFull": "0", "kLocal": "1", "kSeg": "2", "kSegLocal": "3"}
+    assert "return mode == kSeg || mode == kSegLocal;" in _TEXT
+    assert "return mode == kLocal || mode == kSegLocal;" in _TEXT
+
+
 # --- the walk against the TPU kernels (interpret mode) ---------------------------
 
 def _np(*ts):
@@ -383,33 +434,36 @@ def test_tile_constants_match_the_source():
 
 def _visible(form, s, seg, window, rows, keys):
     """[rows, keys]: the pairs whose score is not masked by the skip's rule
-    (K6: equal ids; K7: within window/2)."""
-    if form == "seg":
-        return seg[rows][:, None] == seg[keys][None, :]
-    return np.abs(rows[:, None] - keys[None, :]) <= window // 2
+    (K6: equal ids; K7: within window/2; mode 3: both)."""
+    inwin = np.abs(rows[:, None] - keys[None, :]) <= window // 2
+    if form == "local":
+        return inwin
+    same = seg[rows][:, None] == seg[keys][None, :]
+    return same & inwin if form == "seg_local" else same
 
 
 @pytest.mark.parametrize("tile", LONG_TILES)
 @pytest.mark.parametrize("case", ["seg_window", "seg_full", "seg_shuffled", "seg_few_ids",
-                                  "local_16", "local_128"])
+                                  "local_16", "local_128", "seglocal_16", "seglocal_128"])
 @pytest.mark.parametrize("s", [1024, 2048])
 def test_skips_never_drop_a_visible_pair(s, case, tile):
     rng = np.random.default_rng(s + len(case))
-    form = "seg" if case.startswith("seg") else "local"
-    window = int(case.split("_")[1]) if form == "local" else 0
+    form = {"seg": "seg", "local": "local", "seglocal": "seg_local"}[case.split("_")[0]]
+    window = int(case.split("_")[1]) if form != "seg" else 0
     seg = None
     if case == "seg_shuffled":
         seg = rng.integers(-1, 40, size=s).astype(np.int32)
     elif case == "seg_few_ids":  # two ids alternating in long runs, padding among them
         seg = (np.arange(s) // 37 % 2).astype(np.int32)
         seg[rng.integers(0, s, size=s // 10)] = -1
-    elif form == "seg":
+    elif form != "local":
         seg = _contiguous(s, 300, s)[0].numpy()
     if form == "seg":
         tq, width = packed_window_tiles(s, 512 if case == "seg_window" else None)
         width = width or s
     else:
         tq, width = local_window_tiles(s, window)
+        width = width or s
     skipped = 0
     for q0 in range(0, s, tile):
         kbeg, kend, kept, runs = block_skips(form, s, tq, width, tile, q0, window, seg)
@@ -420,5 +474,6 @@ def test_skips_never_drop_a_visible_pair(s, case, tile):
         vis = _visible(form, s, seg, window, np.minimum(rows, s - 1), keys) & (rows < s)[:, None]
         assert not (vis & ~act).any(), (q0, case)
         skipped += int((~act).sum())
-    if case in ("seg_window", "seg_full", "local_16", "local_128"):
+    if case in ("seg_window", "seg_full", "local_16", "local_128", "seglocal_16",
+                "seglocal_128"):
         assert skipped > 0  # the rule engages (on shuffled ids a span covers every id)

@@ -7,8 +7,9 @@ test workers never race on one output file); the tests skip only where
 `make` or `g++` is missing.  Both servers run CPU engines over one tiny f32
 GGUF written by the JAX package: `tpe_connect` returns, `tpe_n_max_tokens`,
 `tpe_tokenize`, `tpe_eval_batch` (f32 bar) and `tpe_vocab_id_to_token` give
-the same results from both, and the port answers `tpe_index` and the other
-unserved frames with an error while the context goes on encoding.
+the same results from both, as do `tpe_maxsim` and, on a tiny-splade GGUF,
+`tpe_encode_sparse`; the port answers `tpe_index` and the other unserved
+frames with an error while the context goes on encoding.
 """
 import asyncio
 import contextlib
@@ -161,8 +162,6 @@ UNSERVED_CALLS = {
     "hybrid_search": lambda m: m.hybrid_search(DOCS, 3),
     "maxsim_index": lambda m: m.maxsim_index(DOCS),
     "maxsim_search": lambda m: m.maxsim_search(DOCS, 3),
-    "encode_sparse": lambda m: m.encode_sparse(DOCS, 16),
-    "maxsim": lambda m: m.maxsim("a query", DOCS),
 }
 
 
@@ -173,6 +172,73 @@ def test_unserved_call_errors_and_the_context_still_encodes(capi_lib, servers, c
     try:
         with pytest.raises(RuntimeError, match="NotImplementedError"):
             UNSERVED_CALLS[call](model)
+        np.testing.assert_allclose(model.encode(TEXTS[:2]), engine.encode(TEXTS[:2]),
+                                   rtol=0, atol=1e-6)
+    finally:
+        model.close()
+
+
+@pytest.mark.parametrize("top_n", [None, 1])
+def test_maxsim_is_equal_from_both_servers(capi_lib, servers, top_n):
+    """tpe_maxsim (late interaction over the tiny model's token states)."""
+    got = {}
+    for side, (_, port) in servers.items():
+        model = _client(capi_lib, port)
+        try:
+            got[side] = model.maxsim("a query about the fox", TEXTS, top_n=top_n)
+        finally:
+            model.close()
+    (idx, scores), (idx_ref, scores_ref) = got["port"], got["reference"]
+    assert idx.tolist() == idx_ref.tolist() and len(idx) == (top_n or len(TEXTS))
+    np.testing.assert_allclose(scores, scores_ref, rtol=0, atol=ATOL_F32)
+    engine, _ = servers["port"]
+    want = engine.maxsim_rerank("a query about the fox", TEXTS, top_n=top_n)
+    assert idx.tolist() == [r["index"] for r in want]
+
+
+@pytest.fixture(scope="module")
+def splade_servers(tmp_path_factory):
+    from embedding_cpp_tpu.cli.make_test_model import make_test_model
+    from embedding_cpp_tpu.runtime.engine import Engine as JEngine
+    from embedding_cpp_tpu.runtime.server import serve as serve_reference
+    from embedding_cpp_tpu_torch import Engine
+    from embedding_cpp_tpu_torch.runtime.server import serve as serve_port
+
+    path = str(tmp_path_factory.mktemp("gguf") / "tiny-splade.gguf")
+    make_test_model(path, "tiny-splade", "f32", seed=0)
+    ours, theirs = Engine.from_gguf(path, device="cpu"), JEngine.from_gguf(path)
+    with _serve(serve_port, ours) as p1, _serve(serve_reference, theirs) as p2:
+        yield {"port": (ours, p1), "reference": (theirs, p2)}
+
+
+@pytest.mark.parametrize("k", [8, 64])
+def test_encode_sparse_is_equal_from_both_servers(capi_lib, splade_servers, k):
+    """tpe_encode_sparse on a tiny-splade model: the same term sets and
+    weights from both servers (top-k orders ties freely), equal to
+    Engine.encode_sparse."""
+    got = {}
+    for side, (_, port) in splade_servers.items():
+        model = _client(capi_lib, port)
+        try:
+            got[side] = model.encode_sparse(TEXTS, k=k)
+        finally:
+            model.close()
+    engine, _ = splade_servers["port"]
+    for (gi, gv), (ri, rv), (wi, _) in zip(got["port"], got["reference"],
+                                           engine.encode_sparse(TEXTS, k=k)):
+        assert 0 < len(gi) <= k and set(gi.tolist()) == set(ri.tolist())
+        g = dict(zip(gi.tolist(), gv.tolist()))
+        np.testing.assert_allclose([g[i] for i in ri.tolist()], rv, rtol=0, atol=ATOL_F32)
+        np.testing.assert_array_equal(gi, wi)
+
+
+def test_encode_sparse_on_a_dense_model_errors_and_the_context_still_encodes(capi_lib,
+                                                                            servers):
+    engine, port = servers["port"]
+    model = _client(capi_lib, port)
+    try:
+        with pytest.raises(RuntimeError, match="no MLM head"):
+            model.encode_sparse(DOCS, 16)
         np.testing.assert_allclose(model.encode(TEXTS[:2]), engine.encode(TEXTS[:2]),
                                    rtol=0, atol=1e-6)
     finally:

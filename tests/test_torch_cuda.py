@@ -17,7 +17,10 @@ S = 1024 at d = 128, bge-large's 16 heads of 64), the
 long-row kernel (K5), the sliding-window kernel (K7, also at S = 8192 with a
 padded row), the packed-segment kernel (K6, full and windowed: S = 200 ...
 8192, segments ending on tile boundaries, shuffled non-contiguous ids,
-padded tails, a row all padding), each of the long body's bf16 query tiles
+padded tails, a row all padding), its segment + sliding-window mode (mode
+3: S = 1032 and 1100 without a slice, 1024 ... 8192 over K7's slices,
+segments shorter and longer than the window, a padded tail, a row all
+padding, shuffled ids), each of the long body's bf16 query tiles
 forced in every form and the disentangled-attention
 kernel (K9 key bias, K10 segments; S = 16 ... 512 with spans below and
 above S, S off the bf16 kernel's 64-row tiles, segments crossing them, a
@@ -46,6 +49,7 @@ from embedding_cpp_tpu_torch.ops.attention import (
     _FULL,
     _LOCAL,
     _SEG,
+    _SEG_LOCAL,
     LONG_TILES,
     MASK_BIAS,
     _launch_long,
@@ -54,6 +58,7 @@ from embedding_cpp_tpu_torch.ops.attention import (
     attention_bse_plain,
     attention_local_plain,
     attention_long_plain,
+    attention_packed_local_plain,
     attention_packed_plain,
     attention_packed_window_plain,
     flash_attention,
@@ -63,6 +68,8 @@ from embedding_cpp_tpu_torch.ops.attention import (
     flash_attention_local,
     flash_attention_packed,
     flash_attention_packed_bse,
+    flash_attention_packed_local,
+    local_window_tiles,
     packed_window_tiles,
 )
 from embedding_cpp_tpu_torch.ops.deberta_attention import (
@@ -77,6 +84,7 @@ from embedding_cpp_tpu_torch.ops.q4_matmul import (
     _q4_matmul_2d,
     q4_matmul,
     q4_matmul_plain,
+    route,
     tile,
 )
 
@@ -304,6 +312,25 @@ def test_n_tiled_bf16_tile(dev, prologue):
     t = tile(prologue)
     assert (t["bm"], t["bn"], t["bk"], t["stages"]) == (256, 128, 64, 3)
     assert t["blocks_per_sm"] >= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", [512, 77])
+def test_splade_decoder_shape_both_kernels_match_plain(dev, dtype, m):
+    """SPLADE's decoder, the tied word table at N = 30522 (not a multiple
+    of 128 or 16): `route` sends it to K1 (the JAX package's XLA shape);
+    K8 forced at the same shape computes the same function."""
+    k, n = 768, 30522
+    w = _weight("Q4_0", k, n, dev, seed=m)
+    gen = torch.Generator(device="cpu").manual_seed(m)
+    x = torch.randn(m, k, generator=gen).to(dev, dtype)
+    bias = torch.randn(n, generator=gen).to(dev) * 0.1
+    assert route(m, k, n, GGMLType.Q4_0, dtype).kernel == "xla"
+    ref = q4_matmul_plain(x, w, bias)
+    before = (q4_matmul.launches, q4_matmul.n_tiled_launches)
+    _close(q4_matmul(x, w, bias), ref, dtype)
+    assert (q4_matmul.launches, q4_matmul.n_tiled_launches) == (before[0] + 1, before[1])
+    _close(_q4_matmul_2d(x, w, bias), ref, dtype)
 
 
 def test_q4_matmul_routes_bge_large_ffn_to_the_n_tiled_kernel(dev):
@@ -556,8 +583,64 @@ def test_local_kernel_long_row_with_a_padded_row(dev, dtype, window):
            attention_local_plain(q, k, v, mask, window), dtype)
 
 
+def _seg_local(b, s, window, dev, seed=0):
+    """Row 0: segments shorter and longer than the window (1 .. 3 windows)
+    with a padded tail; row 1 one segment over the row but its last 17
+    keys; the rest all padding."""
+    rng = np.random.default_rng(seed)
+    seg = np.full((b, s), -1, np.int32)
+    c = g = 0
+    while c < s - 40:
+        n = int(rng.choice([rng.integers(1, window // 2), rng.integers(window, 3 * window)]))
+        seg[0, c:c + n] = g
+        c, g = c + n, g + 1
+    seg[1, : s - 17] = 0
+    return torch.from_numpy(seg).to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s,h,d,window", [
+    (1032, 2, 64, 128), (1100, 2, 64, 128), (1024, 2, 32, 16), (2048, 4, 64, 128),
+    (8192, 2, 64, 128), (2048, 2, 128, 128), (1152, 2, 16, 64)])
+def test_packed_local_kernel_matches_plain_row_for_row(dev, dtype, s, h, d, window):
+    """Mode 3 against its plain version on every row (rows of S % 8 != 0
+    run padded to a multiple of 8 in both)."""
+    b = 3
+    q, k, v = _long_qkv(b, s, h, d, dtype, dev, seed=s + d)
+    seg = _seg_local(b, s, window, dev, seed=s)
+    before = flash_attention_packed_local.launches
+    got = flash_attention_packed_local(q, k, v, seg, window)
+    assert flash_attention_packed_local.launches == before + 1
+    _close(got, attention_packed_local_plain(q, k, v, seg, window) if s % 8 == 0
+           else flash_attention_packed_local(q.cpu(), k.cpu(), v.cpu(), seg.cpu(), window),
+           dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s,window", [(2048, 128), (1032, 128)])
+def test_packed_local_kernel_on_shuffled_ids(dev, dtype, s, window):
+    """Mode 3 on non-contiguous ids: the span and window skips together."""
+    q, k, v = _long_qkv(3, s, 2, 64, dtype, dev, seed=s + 5)
+    seg = _shuffled_seg(3, s, dev, seed=s + 1)
+    _close(flash_attention_packed_local(q, k, v, seg, window),
+           attention_packed_local_plain(q, k, v, seg, window), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_packed_local_kernel_equals_the_window_where_one_segment_fills_the_row(dev, dtype):
+    """One segment over every key: mode 3 is K7 with no padding, row for
+    row (the same slices, the same masked keys)."""
+    s, window = 2048, 128
+    q, k, v = _long_qkv(2, s, 2, 64, dtype, dev, seed=11)
+    seg = torch.zeros(2, s, dtype=torch.int32, device=dev)
+    got = flash_attention_packed_local(q, k, v, seg, window)
+    want = flash_attention_local(q, k, v, torch.zeros(2, s, device=dev), window)
+    _close(got, want, dtype)
+
+
 @pytest.mark.parametrize("tile", LONG_TILES)
-@pytest.mark.parametrize("form", ["long", "long_bias", "local", "seg", "seg_window"])
+@pytest.mark.parametrize("form", ["long", "long_bias", "local", "seg", "seg_window",
+                                  "seg_local"])
 @pytest.mark.parametrize("s,d", [(1024, 64), (2048, 32), (1152, 128)])
 def test_long_kernel_query_tiles_match_plain(dev, tile, form, s, d):
     """Each query tile the bf16 body is built for, forced (`tile_q`), in
@@ -577,6 +660,9 @@ def test_long_kernel_query_tiles_match_plain(dev, tile, form, s, d):
     elif form == "seg":
         got = _launch_long(q, k, v, seg, _SEG, tile_q=tile)
         ref = attention_packed_plain(q, k, v, seg)
+    elif form == "seg_local":
+        got = _launch_long(q, k, v, seg, _SEG_LOCAL, window=128, tile_q=tile)
+        ref = attention_packed_local_plain(q, k, v, seg, 128)
     else:
         got = _launch_long(q, k, v, seg, _SEG, max_seg_len=128, tile_q=tile)
         ref = attention_packed_window_plain(q, k, v, seg, 128)
@@ -584,9 +670,14 @@ def test_long_kernel_query_tiles_match_plain(dev, tile, form, s, d):
 
 
 def test_packed_segment_kernel_rejects_what_it_does_not_serve(dev):
-    q, k, v = _long_qkv(1, 1100, 2, 32, torch.bfloat16, dev)
-    with pytest.raises(ValueError):  # S % 8 != 0
-        flash_attention_packed(q, k, v, torch.zeros(1, 1100, dtype=torch.int32, device=dev))
+    q, k, v = _long_qkv(2, 1100, 2, 32, torch.bfloat16, dev)
+    seg = _packed_seg(2, 1100, 128, dev)
+    # S % 8 != 0 is served padded to a multiple of 8: the same real rows
+    got = flash_attention_packed(q, k, v, seg)
+    real = seg >= 0
+    _close(got[real], attention_packed_plain(q, k, v, seg)[real], torch.bfloat16)
+    with pytest.raises(ValueError):  # window 0
+        flash_attention_packed_local(q, k, v, seg, 0)
     q, k, v = _long_qkv(1, 1024, 2, 24, torch.bfloat16, dev)
     with pytest.raises(ValueError):  # d = 24
         flash_attention_packed(q, k, v, torch.zeros(1, 1024, dtype=torch.int32, device=dev),

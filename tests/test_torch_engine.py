@@ -238,46 +238,79 @@ def test_pair_framing_matches_jax():
                 assert len(ours[0]) == len(ours[1]) <= n_max
 
 
+# the families whose packed rows pass 1024 tokens, at a small width: two
+# layers (ModernBERT one global and one local, window 128), two heads of 32
+_LONG_PACKED = {
+    "modernbert": dict(n_vocab=1000, n_ctx=4096, n_embd=64, n_layer=2, n_head=2, n_ff=128,
+                       n_token_types=0, arch="modernbert", layer_norm_eps=1e-5,
+                       rope_theta=160000.0, local_rope_theta=10000.0, global_attn_every=2,
+                       local_window=128),
+    "nomic-bert": dict(n_vocab=1000, n_ctx=4096, n_embd=64, n_layer=2, n_head=2, n_ff=128,
+                       arch="nomic-bert", rope_theta=1000.0, rope_scaling_factor=2.0,
+                       rope_max_trained=128, attn_bias=False, ffn_bias=False)}
+
+
+def _packed_rows_match_jax(arch: str, pack_seq: int, packing: str) -> None:
+    """Synthetic engines of both packages (same seed, same weights) at
+    `pack_seq`: the same plan, every list packed, and embed_tokens within
+    2e-5 on rows of one or two packed rows of pack_seq tokens."""
+    from embedding_cpp_tpu.models.config import BertConfig as JConfig
+    from embedding_cpp_tpu_torch.models import BertConfig
+
+    small = _LONG_PACKED[arch]
+    ours = Engine.synthetic(BertConfig(**small), "f32", seed=0, device="cpu",
+                            pack_seq=pack_seq, packing=packing)
+    theirs = JEngine.synthetic(JConfig(**small), "f32", seed=0, pack_seq=pack_seq,
+                               packing=packing)
+    rng = np.random.default_rng(pack_seq)
+    n, hi = (34, 60) if packing == "auto" else (5, pack_seq // 3)
+    lists = [[2] + rng.integers(5, 1000, int(m) - 2).tolist() + [3]
+             for m in rng.integers(20, hi, n)]
+    plan = ours._pack_plan(lists)
+    assert plan == theirs._pack_plan(lists) == list(range(n))
+    np.testing.assert_allclose(ours.embed_tokens(lists), theirs.embed_tokens(lists),
+                               rtol=0, atol=ATOL)
+
+
 @pytest.mark.parametrize("pack_seq,packing,refused", [
     (2048, "auto", True), (1025, "always", True), (2048, "never", False),
     (1024, "auto", False), (None, "auto", False)])
 def test_modernbert_refuses_packed_rows_past_1024(pack_seq, packing, refused):
-    """ModernBERT packed rows past 1024 tokens would need a segment mask
-    with the sliding window (the JAX package runs them through XLA with a
-    [B, S, S] bias; no kernel of the port serves them): the engine refuses
-    the configuration when it is built, not in the middle of a forward."""
+    """Named for the refusal it replaced: ModernBERT packed rows past 1024
+    tokens are served (global layers on K6, local layers on the segment +
+    sliding-window mode of the long-row kernel; S % 8 != 0 padded), so
+    every configuration is accepted when the engine is built, and where it
+    used to be refused (`refused`) the packed forward matches the JAX
+    Engine's XLA path."""
     from dataclasses import replace
 
     from embedding_cpp_tpu_torch.models import MODERNBERT_BASE
 
     config = replace(MODERNBERT_BASE, n_vocab=1000)
+    eng = Engine({}, config, device="cpu", pack_seq=pack_seq, packing=packing)
+    assert eng.pack_seq == (pack_seq or 512)
     if refused:
-        with pytest.raises(ValueError, match="ModernBERT packed rows"):
-            Engine({}, config, device="cpu", pack_seq=pack_seq, packing=packing)
-    else:
-        eng = Engine({}, config, device="cpu", pack_seq=pack_seq, packing=packing)
-        assert eng.pack_seq == (pack_seq or 512)
+        _packed_rows_match_jax("modernbert", pack_seq, packing)
 
 
 @pytest.mark.parametrize("pack_seq,packing,refused", [
     (1500, "auto", True), (1500, "always", True), (1500, "never", False),
     (1504, "auto", False), (1000, "auto", False)])
 def test_nomic_refuses_unaligned_packed_rows_past_1024(pack_seq, packing, refused):
-    """nomic-bert packed rows past 1024 tokens take the segment kernel K6,
-    which needs S % 8 == 0 (the JAX package runs other lengths through
-    XLA): the engine refuses such a pack_seq when it is built.  At 1024 or
-    less the projection-layout kernel serves any length."""
+    """Named for the refusal it replaced: nomic-bert packed rows past 1024
+    tokens with S % 8 != 0 (XLA in the JAX package) run K6 padded to a
+    multiple of 8 inside the attention call, so every pack_seq is accepted,
+    and where it used to be refused (`refused`) the packed forward matches
+    the JAX Engine's."""
     from dataclasses import replace
 
     from embedding_cpp_tpu_torch.models import NOMIC_EMBED
 
     config = replace(NOMIC_EMBED, n_vocab=1000)
+    eng = Engine({}, config, device="cpu", pack_seq=pack_seq, packing=packing)
+    assert eng.pack_seq == pack_seq
     if refused:
-        with pytest.raises(ValueError, match="nomic-bert packed rows of 1500"):
-            Engine({}, config, device="cpu", pack_seq=pack_seq, packing=packing)
-    else:
-        eng = Engine({}, config, device="cpu", pack_seq=pack_seq, packing=packing)
-        assert eng.pack_seq == pack_seq
+        _packed_rows_match_jax("nomic-bert", pack_seq, packing)
 
 
 # --- the bert.h surface: tokenize, n_max_tokens, id_to_token, decode, stats ---

@@ -36,8 +36,10 @@ def test_importing_everything_loads_no_jax():
     assert result["bad"] == []
     assert "embedding_cpp_tpu_torch.runtime.server" in result["modules"]
     assert "embedding_cpp_tpu_torch.ops.q4_matmul" in result["modules"]
-    for name in ("models.modernbert", "models.nomic", "tokenizer.bpe", "ops.attention",
-                 "utils.metrics", "utils.profiling", "benchmarks.kernels"):
+    for name in ("models.modernbert", "models.nomic", "models.bert", "models.t5",
+                 "models.deberta", "runtime.engine", "tokenizer.bpe", "ops.attention",
+                 "utils.metrics", "utils.profiling", "benchmarks.kernels",
+                 "benchmarks.profiles"):
         assert f"embedding_cpp_tpu_torch.{name}" in result["modules"]
 
 

@@ -312,9 +312,20 @@ def test_packed_routing_matches_jax(s, d, max_seg_len):
 
 
 def test_segment_kernel_refuses_unaligned_rows():
-    q = torch.zeros(1, 1100, 2, 16)
-    with pytest.raises(ValueError):
-        flash_attention_packed(q, q, q, torch.zeros(1, 1100, dtype=torch.int32))
+    """Named for the refusal it replaced: rows of S % 8 != 0 run padded to
+    the next multiple of 8 with keys of segment -1, which every real query
+    masks, so the real rows equal the plain version over the unpadded row
+    (and the windowed form's, where the padded length has a slice)."""
+    rng = np.random.default_rng(11)
+    for s, bound in ((1100, None), (2044, 512)):
+        q, k, v = (torch.from_numpy(rng.normal(size=(2, s, 2, 16)).astype(np.float32))
+                   for _ in range(3))
+        seg = torch.from_numpy(_segments(2, s, 300, seed=s)[0])
+        got = flash_attention_packed(q, k, v, seg, bound)
+        assert got.shape == q.shape
+        real = seg >= 0
+        ref = attention_packed_plain(q, k, v, seg)
+        torch.testing.assert_close(got[real], ref[real], rtol=0, atol=1e-5)
 
 
 # --- the model ---------------------------------------------------------------
@@ -365,6 +376,21 @@ def test_embed_packed_matches_jax(models, s, max_len, bound, route):
     ids, seg, pos, n_seg, slots = _packed_case(s, max_len, seed=s + max_len)
     assert packed_bse_applies(s, 16, bound) == (route == "K2")
     assert (packed_window_tiles(s, bound)[1] is not None) == (route == "K6b")
+    ref = np.asarray(jax_embed_packed(jp, *map(jnp.asarray, (ids, seg, pos)),
+                                      JConfig(**SMALL), JOpts(dtype="float32", **JAX_OPTS),
+                                      n_seg=n_seg, gather_idx=jnp.asarray(slots, jnp.int32),
+                                      max_seg_len=bound))
+    got = bert_embed_packed(tp, *_t(ids, seg, pos), BertConfig(**SMALL), n_seg=n_seg,
+                            gather_idx=torch.from_numpy(slots), max_seg_len=bound).numpy()
+    np.testing.assert_allclose(got, ref, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("s,bound", [(1036, None), (2044, None), (2044, 512)])
+def test_embed_packed_unaligned_rows_match_jax(models, s, bound):
+    """Rows past 1024 with S % 8 != 0 (XLA in the reference) on K6 padded to
+    a multiple of 8 after RoPE; the NTK base keys off the planned S."""
+    _, jp, tp = models
+    ids, seg, pos, n_seg, slots = _packed_case(s, 300, seed=s)
     ref = np.asarray(jax_embed_packed(jp, *map(jnp.asarray, (ids, seg, pos)),
                                       JConfig(**SMALL), JOpts(dtype="float32", **JAX_OPTS),
                                       n_seg=n_seg, gather_idx=jnp.asarray(slots, jnp.int32),

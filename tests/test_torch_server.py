@@ -4,8 +4,10 @@ n_embd handshake, a raw-mode text, and a TPE2 batch, each equal to
 tiny CLS-pooled Q8_0 GGUF); the rerank frame over a DeBERTa cross-encoder,
 equal to `engine.rerank`, and its error frames.  The reference's bert.h
 frames (meta, health, tokenize, vocab, eval, int8 encode, stats) against
-the reference's own server over one GGUF, and each frame the port does not
-serve yet answered by an error frame on a connection that stays usable."""
+the reference's own server over one GGUF, the sparse (\x01TPW, on a
+tiny-splade GGUF) and MaxSim (\x01TPX) frames against the reference's
+server, and each frame the port does not serve yet answered by an error
+frame on a connection that stays usable."""
 import asyncio
 import contextlib
 import json
@@ -363,13 +365,98 @@ def test_stats_reply_has_the_reference_layout(engine_pair):
     assert ours["timer_counts"]["eval"] >= 1
 
 
+def _ranked(s) -> tuple[list[int], np.ndarray]:
+    (m,) = struct.unpack("<I", _recv(s, 4))
+    assert m != 0xFFFFFFFF, _error(s)
+    return np.frombuffer(_recv(s, 4 * m), np.int32).tolist(), np.frombuffer(
+        _recv(s, 4 * m), np.float32)
+
+
+def _sparse_reply(s) -> list[tuple[np.ndarray, np.ndarray]]:
+    (n,) = struct.unpack("<I", _recv(s, 4))
+    assert n != 0xFFFFFFFF, _error(s)
+    out = []
+    for _ in range(n):
+        (m,) = struct.unpack("<I", _recv(s, 4))
+        out.append((np.frombuffer(_recv(s, 4 * m), np.int32),
+                    np.frombuffer(_recv(s, 4 * m), np.float32)))
+    return out
+
+
+@pytest.mark.parametrize("top_n", [0, 3])
+def test_maxsim_frame_matches_the_reference(engine_pair, top_n):
+    """\x01TPX (MaxSim rerank over any model's token states): the rerank
+    layout in, indices and raw MaxSim scores out, as the reference's
+    server answers, and equal to Engine.maxsim_rerank; an empty document
+    list gets the error frame."""
+    query, docs = "the quick brown fox", TEXTS + ["hello world again"]
+    frame = (b"\x01TPX" + struct.pack("<II", top_n, len(query.encode())) + query.encode()
+             + _texts_body(docs))
+    with both_servers(engine_pair) as socks:
+        replies = []
+        for s in socks:
+            s.sendall(frame)
+            replies.append(_ranked(s))
+            s.sendall(b"\x01TPX" + struct.pack("<II", 0, 1) + b"q" + _texts_body([]))
+            assert struct.unpack("<I", _recv(s, 4))[0] == 0xFFFFFFFF
+            assert b"no documents" in _error(s)
+    (idx, scores), (idx_ref, scores_ref) = replies
+    assert idx == idx_ref and len(idx) == (top_n or len(docs))
+    np.testing.assert_allclose(scores, scores_ref, rtol=0, atol=ATOL_F32)
+    ours, _ = engine_pair
+    want = ours.maxsim_rerank(query, docs, top_n=top_n or None)
+    assert idx == [r["index"] for r in want]
+    np.testing.assert_allclose(scores, [r["relevance_score"] for r in want], rtol=0, atol=1e-6)
+
+
+@pytest.fixture(scope="module")
+def splade_pair(tmp_path_factory):
+    from embedding_cpp_tpu.cli.make_test_model import make_test_model
+    from embedding_cpp_tpu.runtime.engine import Engine as JEngine
+
+    path = str(tmp_path_factory.mktemp("gguf") / "tiny-splade.gguf")
+    make_test_model(path, "tiny-splade", "f32", seed=0)
+    return Engine.from_gguf(path, device="cpu"), JEngine.from_gguf(path)
+
+
+@pytest.mark.parametrize("k", [1, 16, 300])
+def test_sparse_frame_matches_the_reference(splade_pair, k):
+    """\x01TPW (SPLADE): u32 k | texts in, per text u32 n | n ids | n
+    weights out, as the reference's server answers (ids as sets: top-k
+    orders ties freely) and equal to Engine.encode_sparse."""
+    frame = b"\x01TPW" + struct.pack("<I", k) + _texts_body(TEXTS)
+    with both_servers(splade_pair) as socks:
+        replies = []
+        for s in socks:
+            s.sendall(frame)
+            replies.append(_sparse_reply(s))
+    ours, _ = splade_pair
+    want = ours.encode_sparse(TEXTS, k=k)
+    for (gi, gv), (ri, rv), (wi, wv) in zip(*replies, want):
+        assert 0 < len(gi) <= k and set(gi.tolist()) == set(ri.tolist())
+        g = dict(zip(gi.tolist(), gv.tolist()))
+        np.testing.assert_allclose([g[i] for i in ri.tolist()], rv, rtol=0, atol=ATOL_F32)
+        np.testing.assert_array_equal(gi, wi)
+        np.testing.assert_array_equal(gv, wv)
+
+
+def test_sparse_frame_on_a_dense_model_errors_and_the_connection_stays(engine):
+    want = engine.encode(TEXTS[:2])
+    with serve_in_thread(engine) as port, socket.create_connection(
+            ("127.0.0.1", port), 10) as s:
+        _recv(s, 4)
+        s.sendall(b"\x01TPW" + struct.pack("<I", 16) + _texts_body(["a"])
+                  + b"TPE2" + _texts_body(TEXTS[:2]))
+        assert struct.unpack("<I", _recv(s, 4))[0] == 0xFFFFFFFF
+        assert b"no MLM head" in _error(s)
+        np.testing.assert_allclose(_f32_reply(s), want, rtol=0, atol=1e-6)
+
+
 # each unserved magic with a payload of its documented layout
 _TEXTS = _texts_body(["a document", "another one"])
 UNSERVED_FRAMES = {
     "index": b"\x01TPB" + _TEXTS,
     "search": b"\x01TPS" + struct.pack("<I", 3) + _TEXTS,
-    "sparse": b"\x01TPW" + struct.pack("<I", 16) + _TEXTS,
-    "maxsim": b"\x01TPX" + struct.pack("<II", 0, 5) + b"query" + _TEXTS,
     "sparse_index": b"\x01TPY" + _TEXTS,
     "sparse_search": b"\x01TPZ" + struct.pack("<I", 3) + _TEXTS,
     "hybrid_index": b"\x01TPF" + _TEXTS,
@@ -377,6 +464,13 @@ UNSERVED_FRAMES = {
     "maxsim_index": b"\x01TPJ" + _TEXTS,
     "maxsim_search": b"\x01TPK" + struct.pack("<I", 3) + _TEXTS,
 }
+
+
+def test_the_unserved_frames_are_the_index_search_and_hybrid_ones():
+    from embedding_cpp_tpu_torch.runtime.server import UNSERVED
+
+    assert sorted(UNSERVED) == sorted(f[:4] for f in UNSERVED_FRAMES.values())
+    assert len(UNSERVED) == 8 and not {b"\x01TPW", b"\x01TPX"} & set(UNSERVED)
 
 
 @pytest.mark.parametrize("frame", sorted(UNSERVED_FRAMES))
