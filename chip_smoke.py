@@ -140,6 +140,26 @@ Phases, in order, each printing JSON lines:
             markers, [MASK] augmentation, the skiplist): 64 queries x 32
             documents through maxsim_rerank, documents/s, scores against
             the CPU path
+  vector_index  VectorIndex on the MiniLM engine: the corpus through add()
+            (Engine.embed_tokens_device: K1/K2 launched, the vectors never
+            leave the card) into a bf16 and an f32 corpus, 512 queries at
+            k = 10: documents/s, queries/s; both top-10s against an f64
+            numpy brute force over the fetched rows (the f32 one searched
+            while the process allows TF32)
+  sparse_index  SparseIndex on the SPLADE engine: ingest, 512 queries exact
+            and with candidates, the device search against the host
+            backend; the hybrid index and its rrf_fuse search
+  maxsim_index  MaxSimIndex on the ColBERT engine: the corpus through add()
+            (Engine.token_states_device), 64 queries exact and with
+            candidates (documents scored/s beside maxsim_rerank's); an f32
+            index's scores against Engine.maxsim
+  index_scale  1M unit vectors of 384 (bf16 and f32), 100,000 sparse
+            documents of 256 terms, 10,000 MaxSim documents of 256 x 128:
+            one 64-query search of each timed with CUDA events beside its
+            bound; the 1M f32 top-10 against a numpy brute force and the
+            bf16 recall@10 against it
+  index_frames  the 8 index and search frames over TCP against the direct
+            index calls
   profile   torch.profiler kernel times of the packed [32, 512] forwards
             (MiniLM-L6, ModernBERT, DeBERTa, bge-large, XLM-R, MPNet, T5,
             ALBERT) and of the [8, 8192] ModernBERT forward
@@ -149,10 +169,11 @@ Phases, in order, each printing JSON lines:
             sparse frame \x01TPW (SPLADE) and the MaxSim frame \x01TPX
             (ColBERT) against the Engine calls;
             on MiniLM-L6 also the reference's bert.h frames (health, stats,
-            meta, tokenize, eval, vocab, int8 encode) and one frame the port
-            does not serve yet, whose error frame leaves the connection usable
+            meta, tokenize, eval, vocab, int8 encode) and a search frame
+            before any index, whose error frame leaves the connection usable
 then the card's name and power limit, the `kernels` summary line (one entry
-per kernel and model: a model's launches beside the times at its shapes),
+per kernel and model or index ingest: the launches beside the times at its
+shapes),
 and last {"ok": true, "device": {...}}.  Launch counts are set to 0 just before each
 path is driven and read just after; every kernel but K1's fused tail and
 B1, which no model path runs, must have launched on its path (those two
@@ -2534,8 +2555,8 @@ def phase_server_frames(engine) -> None:
     """The reference's bert.h frames on one connection to the server over
     the GPU engine: health, stats, meta, tokenize (== Engine.tokenize),
     eval of those ids (== Engine.embed_tokens), vocab (== id_to_token; an
-    unknown id gives an empty token), int8 encode (against encode), and one
-    unserved magic (the vector-index frame): its error frame, then a TPE2
+    unknown id gives an empty token), int8 encode (against encode), a
+    search frame before any index frame: its error frame, then a TPE2
     frame on the same socket answered; and eval frames with an id past the
     vocab and a negative id: each gets the error frame before anything
     launches, and a valid eval frame behind them is answered (the CUDA
@@ -2584,7 +2605,7 @@ def phase_server_frames(engine) -> None:
         n = u32(s)
         scale = np.frombuffer(_recv(s, 4 * n), np.float32)
         codes = np.frombuffer(_recv(s, n * n_embd), np.int8).reshape(n, n_embd)
-        s.sendall(b"\x01TPB" + body + b"TPE2" + body)  # unserved, then served
+        s.sendall(b"\x01TPS" + struct.pack("<I", 3) + body + b"TPE2" + body)  # no index yet
         (flag,) = struct.unpack("<I", _recv(s, 4))
         error = _recv(s, struct.unpack("<I", _recv(s, 4))[0]).decode()
         after = f32_rows(s)
@@ -2599,7 +2620,7 @@ def phase_server_frames(engine) -> None:
     cos_after, cos_after_bad = _min_cos(after, want_enc), _min_cos(after_bad, want_eval)
     emit({"phase": "server_frames", "model": engine.config.name, "health": health[4:].decode(),
           "stats_server": stats.get("server"), "meta": meta, "tokens": toks[1][:8],
-          "eval_min_cosine": cos_eval, "int8_min_cosine": cos_i8, "unserved_reply": error,
+          "eval_min_cosine": cos_eval, "int8_min_cosine": cos_i8, "search_reply": error,
           "after_error_min_cosine": cos_after, "out_of_vocab_replies": bad_replies,
           "after_out_of_vocab_min_cosine": cos_after_bad})
     check(health == struct.pack("<I", 2) + b"ok", f"health {health!r}")
@@ -2610,8 +2631,8 @@ def phase_server_frames(engine) -> None:
     check(vocab == [engine.id_to_token(i) for i in ids[1]] + [""], f"vocab {vocab}")
     check(min(cos_eval, cos_after) >= COSINE_SERVER, "eval/TPE2 replies differ from the engine")
     check(cos_i8 >= COSINE_INT8, f"int8 reply cosine {cos_i8}")
-    check(flag == 0xFFFFFFFF and error.startswith("NotImplementedError"),
-          f"unserved frame reply {flag:#x} {error!r}")
+    check(flag == 0xFFFFFFFF and error.startswith("RuntimeError: no index built"),
+          f"search frame before any index: {flag:#x} {error!r}")
     check(all(f == 0xFFFFFFFF and "outside 0.." in e for f, e in bad_replies),
           f"out-of-vocab eval replies {bad_replies}")
     check(cos_after_bad >= COSINE_SERVER, "eval after the out-of-vocab frames differs")
@@ -3225,6 +3246,438 @@ def phase_token_frames(splade, colbert) -> None:
           f"the TPX reply {idx} differs from maxsim_rerank {want_rank}")
 
 
+# --- retrieval: the three on-device indexes ----------------------------------
+
+QUERY_K = 10
+
+
+def _event_ms(fn, runs: int = 5) -> float:
+    """Median CUDA-event time of fn() over `runs` calls after a warm-up.
+    The calls fetch their results to the host, so this is the call's
+    latency, its host work included."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(runs):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def _filled(index, texts):
+    """`index` after add(texts), its device work finished."""
+    import torch
+
+    index.add(texts)
+    torch.cuda.synchronize()
+    return index
+
+
+def _ties_only(ids, ref_ids, ref_scores, tol: float) -> bool:
+    """Whether top-k ids agree with a reference's, [Q, k+1] ranked ids and
+    scores, but where the reference's scores tie within `tol`: a position
+    may hold another id only where its reference score is that close to a
+    neighbour's (the (k+1)-th included)."""
+    k = ids.shape[1]
+    for row, rrow, srow in zip(ids, ref_ids, ref_scores):
+        for j in np.nonzero(row != rrow[:k])[0]:
+            near = [abs(srow[j] - srow[x]) <= tol * max(1.0, abs(srow[j]))
+                    for x in (j - 1, j + 1) if 0 <= x < len(srow)]
+            if not any(near):
+                return False
+    return True
+
+
+def _brute_force(q: np.ndarray, corpus: np.ndarray, k: int, block: int = 1 << 17) -> tuple:
+    """Exact f64 top-k of unit queries against unit corpus rows (numpy, in
+    row blocks): ([Q, k] ids, scores), equal scores by the lower id."""
+    q = q.astype(np.float64)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    scores = np.concatenate([q @ corpus[lo: lo + block].astype(np.float64).T
+                             for lo in range(0, len(corpus), block)], axis=1)
+    part = np.argpartition(-scores, k - 1, axis=1)[:, :k]
+    top = np.take_along_axis(scores, part, 1)
+    ids = np.take_along_axis(part, np.lexsort((part, -top), axis=-1), 1)
+    return ids, np.take_along_axis(scores, ids, 1)
+
+
+def _same_ranking(got: tuple, exact: tuple) -> bool:
+    """A candidates search at C >= n against exact search's [Q, k+1]
+    result: its stage 2 sums in another order, so ids agree but for ties
+    within 1e-5, and scores within 1e-5 relative."""
+    k = got[0].shape[1]
+    return _ties_only(got[0], *exact, 1e-5) and np.allclose(got[1], exact[1][:, :k], rtol=1e-5,
+                                                            atol=0)
+
+
+def _recall(ids: np.ndarray, ref: np.ndarray) -> float:
+    return float(np.mean([len(set(a) & set(b)) / len(b) for a, b in zip(ids, ref)]))
+
+
+def phase_vector_index(counters, engine) -> dict:
+    """VectorIndex on the MiniLM main-path engine (bf16 activations): the
+    2758-sentence corpus through add() (Engine.embed_tokens_device: K1 and
+    K2 on the card, the vectors never leave it) into a bf16 and an f32
+    corpus, 512 queries at k = 10.  Gates: K1 and the attention launched as
+    the plan gives them; both corpora on the card; the f32 index's top-10
+    equals an f64 numpy brute force over its fetched vectors, searched while
+    the process allows TF32; the bf16 index's equals one over its fetched
+    bf16 rows and bf16-rounded queries (ties within 1e-6 aside).  The bf16
+    index's recall against the f32 one is reported here (the random-weight
+    model's embeddings cluster) and gated at the 1M-vector scale."""
+    import torch
+
+    from embedding_cpp_tpu_torch.runtime.search import VectorIndex
+
+    texts, queries = synthetic_sentences(2758, seed=0), synthetic_sentences(512, seed=31)
+    t0 = time.perf_counter()
+    forwards = _expected_forwards(engine, engine.tokenize_batch(texts))
+    tokenize_s = time.perf_counter() - t0
+    index, counts = _counted(counters, lambda: _filled(VectorIndex(engine), texts))
+    attn = counts["attn_bse_packed"] + counts["attn_bse_keybias"]
+    check(counts["q4_matmul"] == 36 * forwards and attn == 6 * forwards
+          and counts["attn_bse_packed"] > 0, f"vector index ingest launches {counts}")
+    ingest_s = _best_s(lambda: _filled(VectorIndex(engine), texts), 3)
+    f32 = _filled(VectorIndex(engine, dtype="float32"), texts)
+    check(index._corpus.device.type == f32._corpus.device.type == "cuda", "corpus not on the card")
+    qvecs = engine.encode_queries(queries)
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")  # TF32 allowed: the index must not use it
+    try:
+        ids32, s32 = f32.search_vectors(qvecs, QUERY_K)
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    ids16, s16 = index.search_vectors(qvecs, QUERY_K)
+    n = len(texts)
+    ref32 = _brute_force(qvecs, f32._corpus[:n].cpu().numpy(), QUERY_K + 1)
+    q16 = torch.from_numpy(qvecs / np.linalg.norm(qvecs, axis=1, keepdims=True)).bfloat16()
+    ref16 = _brute_force(q16.float().numpy(), index._corpus[:n].float().cpu().numpy(),
+                         QUERY_K + 1)
+    ok32 = _ties_only(ids32, *ref32, 1e-6)
+    ok16 = _ties_only(ids16, *ref16, 1e-6)
+    err32 = float(np.abs(s32 - ref32[1][:, :QUERY_K]).max())
+    search_s = _best_s(lambda: index.search(queries, QUERY_K), 3)
+    out = {"phase": "vector_index", "model": engine.config.name, "documents": n,
+           "queries": len(queries), "k": QUERY_K, "launches": counts, "forwards": forwards,
+           "documents_per_sec": n / ingest_s, "tokenize_s": tokenize_s,
+           "queries_per_sec": len(queries) / search_s,
+           "search_ms_512_queries_bf16": _event_ms(lambda: index.search_vectors(qvecs, QUERY_K)),
+           "search_ms_512_queries_f32": _event_ms(lambda: f32.search_vectors(qvecs, QUERY_K)),
+           "f32_ids_equal_brute_force": ok32, "f32_max_abs_score_err": err32,
+           "bf16_ids_equal_brute_force": ok16,
+           "bf16_recall_at_10_vs_f32": _recall(ids16, ids32),
+           "mean_top10_gap": float(np.mean(s32[:, 0] - s32[:, -1])),
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    emit(out)
+    check(ok32 and err32 <= 1e-5, f"f32 index vs brute force: {ok32} {err32}")
+    check(ok16, "bf16 index vs its brute force")
+    return {"counts": counts, "documents_per_sec": out["documents_per_sec"],
+            "queries_per_sec": out["queries_per_sec"]}
+
+
+def phase_sparse_index(counters, splade) -> dict:
+    """SparseIndex on the SPLADE engine: the corpus through add()
+    (encode_sparse at k 256: K1 / K8 and K3 on the card; padded COO rows on
+    the card), 512 queries at k = 10, exact and candidates=256 (P = 8), and
+    candidates >= n, which must equal exact; the device search against the
+    host backend (device=False) on the same pairs: ids equal but for ties
+    within 1e-5, scores within 1e-5 relative.  Hybrid: the ContinuousBatcher's
+    hybrid index (the dense add on the same engine) and its rrf_fuse search,
+    equal to rrf_fuse of its two indexes' rankings."""
+    import torch
+
+    from embedding_cpp_tpu_torch.runtime.server import ContinuousBatcher
+    from embedding_cpp_tpu_torch.runtime.sparse_search import SparseIndex, rrf_fuse
+
+    texts, queries = synthetic_sentences(2758, seed=0), synthetic_sentences(512, seed=31)
+    index, counts = _counted(counters, lambda: _filled(SparseIndex(splade), texts))
+    check(counts["q4_matmul"] > 0 and counts["attn_bse_keybias"] > 0,
+          f"sparse index ingest launches {counts}")
+    check(index._didx.device.type == index._dval.device.type == "cuda",
+          "sparse corpus not on the card")
+    ingest_s = _best_s(lambda: _filled(SparseIndex(splade), texts), 2)
+    tokenize_s = _best_s(lambda: splade.tokenize_batch(texts), 1)
+    pairs = splade.encode_sparse(queries, k=256)
+    n = len(index)
+    exact = index.search_vectors(pairs, QUERY_K + 1)
+    every = index.search_vectors(pairs, QUERY_K, candidates=n)
+    cand = index.search_vectors(pairs, QUERY_K, candidates=256)
+    host = SparseIndex(device=False)
+    host.add_vectors(list(zip(index._indices, index._values)))
+    ref = host.search_vectors(pairs, QUERY_K + 1)
+    same_host = _ties_only(exact[0][:, :QUERY_K], *ref, 1e-5)
+    host_err = float(np.max(np.abs(exact[1] - ref[1]) / np.maximum(np.abs(ref[1]), 1e-12)))
+    same_every = _same_ranking(every, exact)
+    b = ContinuousBatcher(splade)
+    hyb_counts = _counted(counters, lambda: b.hybrid_index_texts(texts))[1]
+    fused = b.hybrid_search_texts(queries, QUERY_K)
+    want = rrf_fuse([b.index.search(queries, QUERY_K)[0],
+                     b.sparse_index.search(queries, QUERY_K)[0]], QUERY_K)
+    same_fused = all(np.array_equal(x, y) for x, y in zip(fused, want))
+    out = {"phase": "sparse_index", "model": splade.config.name, "documents": n,
+           "queries": len(queries), "k": QUERY_K, "nnz_width": index.nnz_width,
+           "launches": counts, "hybrid_launches": hyb_counts,
+           "documents_per_sec": n / ingest_s, "tokenize_s": tokenize_s,
+           "queries_per_sec": len(queries) / _best_s(lambda: index.search(queries, QUERY_K), 2),
+           "search_ms_512_queries": _event_ms(lambda: index.search_vectors(pairs, QUERY_K)),
+           "candidates_256_ms_512_queries": _event_ms(
+               lambda: index.search_vectors(pairs, QUERY_K, candidates=256)),
+           "candidates_256_recall_at_10": _recall(cand[0], exact[0][:, :QUERY_K]),
+           "candidates_n_equals_exact": same_every, "host_ids_equal": same_host,
+           "host_max_rel_score_err": host_err, "hybrid_equals_rrf_of_both": same_fused,
+           "hybrid_queries_per_sec": len(queries) / _best_s(
+               lambda: b.hybrid_search_texts(queries, QUERY_K), 2),
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    emit(out)
+    check(same_host and host_err <= 1e-5, f"sparse device vs host: {same_host} {host_err}")
+    check(same_every, "sparse candidates >= n differ from exact")
+    check(same_fused and len(b.index) == len(b.sparse_index) == n, "hybrid search")
+    total = {k: counts[k] + hyb_counts[k] for k in counts}
+    return {"counts": total, "documents_per_sec": out["documents_per_sec"],
+            "queries_per_sec": out["queries_per_sec"]}
+
+
+def phase_maxsim_index(counters, colbert) -> dict:
+    """MaxSimIndex on the ColBERT engine (doc_maxlen 256, bf16 corpus): the
+    corpus through add() (Engine.token_states_device: K1 and K3 on the
+    card, the [D] framing and the skiplist), 64 queries at k = 10, exact,
+    candidates=256, and candidates >= n, which must equal exact; an f32
+    index over PR 15's 32 ColBERT documents, whose exact scores must equal
+    Engine.maxsim's within 1e-5 relative.  Documents scored per second
+    stand beside maxsim_rerank's (the colbert phase)."""
+    import torch
+
+    from embedding_cpp_tpu_torch.runtime.maxsim_search import MaxSimIndex
+
+    texts, queries = synthetic_sentences(2758, seed=0), synthetic_sentences(64, seed=13)
+    index, counts = _counted(counters, lambda: _filled(MaxSimIndex(colbert), texts))
+    check(counts["q4_matmul"] > 0 and counts["attn_bse_keybias"] > 0,
+          f"MaxSim index ingest launches {counts}")
+    check(all(t.device.type == "cuda" for t in (index._corpus, index._cmask, index._pooled)),
+          "MaxSim corpus not on the card")
+    ingest_s = _best_s(lambda: _filled(MaxSimIndex(colbert), texts), 2)
+    tokenize_s = _best_s(lambda: colbert.colbert_doc_tokens(texts), 1)
+    qv = colbert.colbert_query_vectors(queries)
+    n = len(index)
+    exact = index.search_token_vectors(qv, QUERY_K + 1)
+    every = index.search_token_vectors(qv, QUERY_K, candidates=n)
+    cand = index.search_token_vectors(qv, QUERY_K, candidates=256)
+    same_every = _same_ranking(every, exact)
+    docs = _colbert_docs(32, seed=14)
+    f32 = MaxSimIndex(colbert, dtype="float32")
+    f32.add(docs)
+    rel = 0.0
+    for q in queries[:2]:
+        ids, scores = f32.search([q], len(docs))
+        want = colbert.maxsim(q, docs)[ids[0]]
+        rel = max(rel, float(np.max(np.abs(scores[0] - want) / np.abs(want))))
+    exact_ms = _event_ms(lambda: index.search_token_vectors(qv, QUERY_K))
+    out = {"phase": "maxsim_index", "model": colbert.config.name, "documents": n,
+           "doc_maxlen": index.doc_maxlen, "queries": len(queries), "k": QUERY_K,
+           "launches": counts, "documents_per_sec": n / ingest_s, "tokenize_s": tokenize_s,
+           "queries_per_sec": len(queries) / _best_s(lambda: index.search(queries, QUERY_K), 2),
+           "search_ms_64_queries": exact_ms,
+           "documents_scored_per_sec": len(queries) * n / exact_ms * 1e3,
+           "candidates_256_ms_64_queries": _event_ms(
+               lambda: index.search_token_vectors(qv, QUERY_K, candidates=256)),
+           "candidates_256_recall_at_10": _recall(cand[0], exact[0][:, :QUERY_K]),
+           "candidates_n_equals_exact": same_every,
+           "f32_max_rel_err_vs_maxsim": rel,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    emit(out)
+    check(same_every, "MaxSim candidates >= n differ from exact")
+    check(rel <= 1e-5, f"MaxSim f32 index vs Engine.maxsim: {rel}")
+    return {"counts": counts, "documents_per_sec": out["documents_per_sec"],
+            "queries_per_sec": out["queries_per_sec"]}
+
+
+def phase_index_scale(engine, colbert, peaks, f32_rate: float) -> dict:
+    """The indexes at deployment sizes, on synthetic vectors from a seed: 1M
+    unit vectors of 384 (bf16, 768 MB; and f32), 100,000 sparse documents of
+    256 terms over 30522 (205 MB), 10,000 MaxSim documents of 256 tokens x
+    128 (bf16, 655 MB).  One 64-query search of each timed with CUDA events
+    (k = 10; sparse and MaxSim also with candidates), the dense one also as
+    its device work alone beside its bound (the corpus read once).  Gates:
+    the 1M f32 index's top-10 equals an f64 numpy brute force over the
+    fetched vectors (ties within 1e-6 aside), and the bf16 index's top-10
+    recall against the f32 one, over 512 queries, is >= 0.99."""
+    import torch
+
+    from embedding_cpp_tpu_torch.runtime.maxsim_search import MaxSimIndex
+    from embedding_cpp_tpu_torch.runtime.search import (
+        VectorIndex,
+        exact_f32,
+        select_topk,
+        similarity,
+        unit,
+    )
+    from embedding_cpp_tpu_torch.runtime.sparse_search import SparseIndex
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    n, e, nq = 1_000_000, 384, 64
+    v = torch.randn(n, e, device=dev, generator=gen)
+    idx16, idx32 = VectorIndex(engine), VectorIndex(engine, dtype="float32")
+    t0 = time.perf_counter()
+    idx16.add_vectors(v)
+    torch.cuda.synchronize()
+    add_s = time.perf_counter() - t0
+    idx32.add_vectors(v)
+    del v
+    # 512 queries for the recall (its spread over 64 would be ~0.004), the
+    # first 64 for the timing and the brute force
+    q_all = torch.randn(512, e, device=dev, generator=gen).cpu().numpy()
+    q = q_all[:nq]
+    recall = _recall(idx16.search_vectors(q_all, QUERY_K)[0],
+                     idx32.search_vectors(q_all, QUERY_K)[0])
+    ids32, s32 = idx32.search_vectors(q, QUERY_K)
+    ref = _brute_force(q, idx32._corpus[:n].cpu().numpy(), QUERY_K + 1)
+    same = _ties_only(ids32, *ref, 1e-6)
+    qd = unit(torch.from_numpy(q).to(dev)).bfloat16()
+    corpus = idx16._corpus[:n]
+    with exact_f32():
+        device_ms = gpu_ms(lambda: select_topk(similarity(qd, corpus), QUERY_K), samples=10)
+        product_ms = gpu_ms(lambda: similarity(qd, corpus), samples=10)
+        scores = similarity(qd, corpus)
+        select_ms = gpu_ms(lambda: select_topk(scores, QUERY_K), samples=10)
+        del scores
+    dense_bound, dense_by = bound_ms(n * e * 2 + nq * e * 2 + nq * QUERY_K * 8,
+                                     2.0 * nq * e * n, peaks)
+    dense = {"vectors": n, "dim": e, "corpus_bytes": corpus.numel() * 2,
+             "add_vectors_s": add_s,
+             "search_ms_bf16": _event_ms(lambda: idx16.search_vectors(q, QUERY_K)),
+             "search_ms_f32": _event_ms(lambda: idx32.search_vectors(q, QUERY_K)),
+             "device_ms_bf16": device_ms, "product_ms_bf16": product_ms,
+             "select_ms": select_ms, "bound_ms": dense_bound, "bound_by": dense_by,
+             "f32_ids_equal_brute_force": same,
+             "f32_max_abs_score_err": float(np.abs(s32 - ref[1][:, :QUERY_K]).max()),
+             "bf16_recall_at_10_vs_f32_512_queries": recall}
+    del idx16, idx32, corpus, qd
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(0)
+    ns, kd, vocab = 100_000, 256, 30522
+    draws = np.sort(rng.integers(0, vocab, (ns, 320)), axis=1)
+    dup = np.zeros(draws.shape, bool)
+    dup[:, 1:] = draws[:, 1:] == draws[:, :-1]
+    check(int((~dup).sum(1).min()) >= kd, "sparse synthetic rows")
+    ids = np.take_along_axis(draws, np.argsort(dup, axis=1, kind="stable"), 1)[:, :kd]
+    ids = np.ascontiguousarray(ids, np.int32)
+    weights = rng.random((ns, kd), dtype=np.float32)
+    sp = SparseIndex(device=dev, nnz_width=kd)
+    t0 = time.perf_counter()
+    sp.add_vectors(list(zip(ids, weights)))
+    torch.cuda.synchronize()
+    sp_add_s = time.perf_counter() - t0
+    sq = [(rng.choice(vocab, 48, replace=False).astype(np.int32),
+           rng.random(48, dtype=np.float32)) for _ in range(nq)]
+    sp_bound, sp_by = bound_ms(ns * kd * 8 + nq * vocab * 4, 2.0 * nq * ns * kd, peaks)
+    sparse = {"documents": ns, "nnz_width": kd, "corpus_bytes": ns * kd * 8,
+              "add_vectors_s": sp_add_s,
+              "search_ms": _event_ms(lambda: sp.search_vectors(sq, QUERY_K), runs=3),
+              "candidates_1000_ms": _event_ms(
+                  lambda: sp.search_vectors(sq, QUERY_K, candidates=1000), runs=3),
+              "candidates_1000_recall_at_10": _recall(
+                  sp.search_vectors(sq, QUERY_K, candidates=1000)[0],
+                  sp.search_vectors(sq, QUERY_K)[0]),
+              "bound_ms": sp_bound, "bound_by": sp_by}
+    del sp, ids, weights, draws, dup
+    torch.cuda.empty_cache()
+
+    nm, sd, em = 10_000, 256, 128
+    ms = MaxSimIndex(colbert, doc_maxlen=sd, capacity=nm)
+    t0 = time.perf_counter()
+    for lo in range(0, nm, 2000):
+        ms.add_token_vectors(list(rng.standard_normal((2000, sd, em), dtype=np.float32)))
+    torch.cuda.synchronize()
+    ms_add_s = time.perf_counter() - t0
+    mq = list(rng.standard_normal((nq, 32, em), dtype=np.float32))
+    ms_bound, ms_by = bound_ms(nm * sd * (em * 2 + 1) + nq * 32 * em * 4,
+                               2.0 * nq * 32 * nm * sd * em, (peaks[0], f32_rate))
+    maxsim = {"documents": nm, "doc_maxlen": sd, "dim": em,
+              "corpus_bytes": ms._corpus.numel() * 2, "add_token_vectors_s": ms_add_s,
+              "search_ms": _event_ms(lambda: ms.search_token_vectors(mq, QUERY_K), runs=3),
+              "candidates_256_ms": _event_ms(
+                  lambda: ms.search_token_vectors(mq, QUERY_K, candidates=256), runs=3),
+              "bound_ms": ms_bound, "bound_by": ms_by, "bound_rate": "f32 (the similarity)"}
+    del ms
+    torch.cuda.empty_cache()
+    out = {"phase": "index_scale", "queries": nq, "k": QUERY_K, "dense": dense,
+           "sparse": sparse, "maxsim": maxsim,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    emit(out)
+    check(same and dense["f32_max_abs_score_err"] <= 1e-5,
+          f"1M f32 index vs brute force: {same} {dense['f32_max_abs_score_err']}")
+    check(recall >= 0.99, f"1M bf16 recall@10 vs f32: {recall}")
+    return out
+
+
+def phase_index_frames(engine, splade, colbert) -> None:
+    """The 8 index frames over TCP, each against the direct index call on
+    the same engine: \\x01TPB/\\x01TPS (VectorIndex, MiniLM), \\x01TPJ/\\x01TPK
+    (MaxSimIndex, ColBERT), \\x01TPY/\\x01TPZ (SparseIndex) and
+    \\x01TPF/\\x01TPG (hybrid, rrf_fuse) on the SPLADE engine: a search before
+    its index gets the error frame, the index frame's total, then `u32 n |
+    u32 k | ids | scores` equal to the direct call's."""
+    from embedding_cpp_tpu_torch.runtime import server as S
+    from embedding_cpp_tpu_torch.runtime.maxsim_search import MaxSimIndex
+    from embedding_cpp_tpu_torch.runtime.search import VectorIndex
+    from embedding_cpp_tpu_torch.runtime.sparse_search import SparseIndex
+
+    docs, queries = synthetic_sentences(64, seed=41), synthetic_sentences(8, seed=42)
+
+    def direct(cls, eng):
+        index = cls(eng)
+        index.add(docs)
+        return index.search(queries, QUERY_K)
+
+    def hybrid():
+        b = S.ContinuousBatcher(splade)
+        b.hybrid_index_texts(docs)
+        return b.hybrid_search_texts(queries, QUERY_K)
+
+    cases = [(engine, S.MAGIC_INDEX, S.MAGIC_SEARCH, lambda: direct(VectorIndex, engine)),
+             (colbert, S.MAGIC_MAXSIM_INDEX, S.MAGIC_MAXSIM_SEARCH,
+              lambda: direct(MaxSimIndex, colbert)),
+             (splade, S.MAGIC_SPARSE_INDEX, S.MAGIC_SPARSE_SEARCH,
+              lambda: direct(SparseIndex, splade)),
+             (splade, S.MAGIC_HYBRID_INDEX, S.MAGIC_HYBRID_SEARCH, hybrid)]
+    replies = []
+    for eng, index_magic, search_magic, want_fn in cases:
+        search = search_magic + struct.pack("<I", QUERY_K) + _texts_frame(queries)
+        with _serving(eng) as port, socket.create_connection(("127.0.0.1", port), 10) as s:
+            s.settimeout(120)
+            _recv(s, 4)
+            s.sendall(search)
+            flag, ln = struct.unpack("<II", _recv(s, 8))
+            error = _recv(s, ln).decode()
+            s.sendall(index_magic + _texts_frame(docs))
+            (total,) = struct.unpack("<I", _recv(s, 4))
+            s.sendall(search)
+            nrow, k = struct.unpack("<II", _recv(s, 8))
+            ids = np.frombuffer(_recv(s, 4 * nrow * k), np.int32).reshape(nrow, k)
+            scores = np.frombuffer(_recv(s, 4 * nrow * k), np.float32).reshape(nrow, k)
+        want_ids, want_scores = want_fn()
+        err = float(np.abs(scores - want_scores).max())
+        replies.append({"frames": [index_magic.decode("latin-1")[1:],
+                                   search_magic.decode("latin-1")[1:]],
+                        "before_index": error, "total": total, "shape": [nrow, k],
+                        "ids_equal": bool(np.array_equal(ids, want_ids)),
+                        "max_abs_score_err": err})
+        check(flag == 0xFFFFFFFF and ("no " in error or "both" in error),
+              f"{search_magic!r} before its index: {error!r}")
+        check(total == len(docs) and (nrow, k) == (len(queries), QUERY_K)
+              and np.array_equal(ids, want_ids) and err <= 1e-6,
+              f"{search_magic!r} reply differs from the direct call")
+    emit({"phase": "index_frames", "documents": len(docs), "queries": len(queries),
+          "frames": replies})
+
+
 def _entry(name: str, source: str, replaces: str, launches: int, c: dict, shape: str,
            **extra) -> dict:
     return {"name": name, "route": "cuda", "source": f"embedding_cpp_tpu_torch/csrc/{source}",
@@ -3354,6 +3807,11 @@ def main() -> None:
     phase_rerank_server(mpnet_rr)
     phase_rerank_server(albert_rr)
     phase_token_frames(splade, colbert)
+    vec_path = phase_vector_index(counters, engine)
+    sparse_path = phase_sparse_index(counters, splade)
+    maxsim_path = phase_maxsim_index(counters, colbert)
+    phase_index_scale(engine, colbert, peaks, F32_PEAKS[peaks_for(name)[0]])
+    phase_index_frames(engine, splade, colbert)
 
     # each model's launches beside the times at that model's shapes
     mb_total = {k: mb_launches[k] + long_launches[k] + mb_chunk_counts[k] for k in counters}
@@ -3374,7 +3832,8 @@ def main() -> None:
                      "mpnet": mpnet_total, "t5": t5_total, "albert": albert_total}
     paths = (launches, mb_total, de_total, nomic_total, bge_total, bge_f32_counts,
              *family_totals.values(), small_total, t5_gated_counts, rr_counts, nomic_2044,
-             splade_counts, colbert_counts)
+             splade_counts, colbert_counts, vec_path["counts"], sparse_path["counts"],
+             maxsim_path["counts"])
     # the fused residual/LayerNorm tail on every model path, bf16 and f32
     ln_on_paths = sum(t["q4_matmul_ln"] for t in paths)
     check(ln_on_paths == 0, f"the fused tail ran on a model path {ln_on_paths} times")
@@ -3623,6 +4082,30 @@ def main() -> None:
                 f"Q4_0 (route: {splade_dec_k['route']})", model="splade",
                 k8_forced_ms=splade_dec_k["k8_forced_ms"],
                 library="torch.addmm on the dequantized weight"))
+    # the indexes' ingest paths, each kernel timed at its model's entry above
+    sources = {"q4_matmul": ("q4_matmul.cu", "q4_matmul.py:126"),
+               "q4_matmul_2d": ("q4_matmul.cu", "q4_matmul.py:259"),
+               "attn_bse_packed": ("attention_bse.cu", "attention.py:213"),
+               "attn_bse_keybias": ("attention_bse.cu", "attention.py:213")}
+    retrieval = {
+        "vector-index": (vec_path["counts"], "MiniLM-L6 (VectorIndex.add over the corpus)",
+                         {"q4_matmul": k1_mini, "attn_bse_packed": attn["attn_bse_packed"],
+                          "attn_bse_keybias": attn["attn_bse_keybias"]}),
+        "sparse-index": (sparse_path["counts"], "SPLADE, BERT-base (SparseIndex.add and the "
+                         "hybrid index over the corpus; K1 counts the decoder's 1-D launches)",
+                         {"q4_matmul": k1_base, "q4_matmul_2d": splade_dec_k,
+                          "attn_bse_packed": attn_mb["attn_bse_packed"],
+                          "attn_bse_keybias": token_attn["splade"]}),
+        "maxsim-index": (maxsim_path["counts"], "ColBERT, BERT-base (MaxSimIndex.add over the "
+                         "corpus)", {"q4_matmul": k1_base,
+                                     "attn_bse_keybias": token_attn["colbert"]})}
+    for tag, (counts, label, timed) in retrieval.items():
+        for kname, c in timed.items():
+            if counts[kname]:
+                src, line = sources[kname]
+                kernels.append(_entry(f"{kname}/{tag}", src, line, counts[kname], c,
+                                      f"{label}: timed at the shape of that model's "
+                                      f"{kname} entry", model=tag))
     c = headpack["d32_hb4"]
     kernels.append({
         **_entry("attention_headpack", "attention_headpack.cu", "", headpack_on_paths, c,

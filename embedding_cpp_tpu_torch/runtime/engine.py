@@ -14,7 +14,10 @@ counts.  The token-level surfaces: `encode_token_states` (every family's
 final states), ColBERT late interaction (`maxsim`, `maxsim_tokens`,
 `maxsim_rerank`, with the checkpoint's [Q]/[D] framing, [MASK] query
 augmentation and punctuation skiplist) and SPLADE sparse vectors
-(`encode_sparse`, `sparse_tokens`).  The reference's bert.h surface rides
+(`encode_sparse`, `sparse_tokens`); they refuse a list past the context
+and batch as `token_plan` says.  `embed_tokens_device` and
+`token_states_device` leave their results on the device, for the
+retrieval indexes to ingest.  The reference's bert.h surface rides
 beside them: `tokenize`,
 `n_max_tokens`, `id_to_token` and `decode`; every `embed_tokens` call
 adds its sentences, tokens, batches and padded token slots to `stats` and
@@ -28,6 +31,7 @@ from __future__ import annotations
 import json
 import threading
 import time
+from dataclasses import replace
 from typing import Sequence
 
 import numpy as np
@@ -63,6 +67,7 @@ from .batching import (
     DEFAULT_BATCH_BUCKETS,
     DEFAULT_PACK_SEQ,
     DEFAULT_SEQ_BUCKETS,
+    PackedBatch,
     PackedSegBatch,
     bucket_for,
     pack_batches,
@@ -266,9 +271,12 @@ class Engine:
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
-    def _dispatch(self, token_lists: Sequence[Sequence[int]]) -> list:
+    def _dispatch(self, token_lists: Sequence[Sequence[int]],
+                  opts: ComputeOptions | None = None) -> list:
         """Plan and launch every batch; returns [(batch, device_result)].
+        `opts` overrides the engine's (embed_tokens_device: f32 output).
         Caller holds self._lock."""
+        opts = opts or self.opts
         n = len(token_lists)
         pack_idx = self._pack_plan(token_lists)
         pack_set = set(pack_idx)
@@ -294,7 +302,7 @@ class Engine:
             for pb in packed_batches:
                 out = bert_embed_packed(
                     self.params, self._tensor(pb.ids), self._tensor(pb.seg),
-                    self._tensor(pb.pos), self.config, self.opts, n_seg=pb.n_seg,
+                    self._tensor(pb.pos), self.config, opts, n_seg=pb.n_seg,
                     # the flat slots of real sentences: padding never leaves
                     gather_idx=self._tensor(pb.slots.astype(np.int64)),
                     max_seg_len=segment_bound(pb),
@@ -307,7 +315,7 @@ class Engine:
                     gidx = self._tensor(np.arange(n_real))
                 out = bert_embed_batch(
                     self.params, self._tensor(batch.ids), self._tensor(batch.mask),
-                    self.config, self.opts, gather_idx=gidx,
+                    self.config, opts, gather_idx=gidx,
                 )
                 pending.append((batch, out))
         return pending
@@ -333,6 +341,22 @@ class Engine:
                     out[rows] = host[off : off + len(rows)]
                     off += vecs.shape[0]
         self._count_stats(token_lists, len(pending), t0)
+        return out
+
+    def embed_tokens_device(self, token_lists: Sequence[Sequence[int]]) -> list:
+        """`embed_tokens` whose vectors stay on the device: [(positions,
+        [n, n_embd] f32 device vectors)] per launched batch, the rows of the
+        real sentences only.  An int8-output engine runs its float32-output
+        forward here (the codes exist only for the host transfer); the
+        on-device VectorIndex ingests through this."""
+        t0 = time.perf_counter()
+        out = []
+        opts = replace(self.opts, output_dtype="float32")
+        with self._lock, metrics.timer("eval"):
+            for batch, vecs in self._dispatch(token_lists, opts):
+                rows = batch.orig if isinstance(batch, PackedSegBatch) else batch.positions
+                out.append((np.asarray(rows, np.int64), vecs[: len(rows)]))
+        self._count_stats(token_lists, len(out), t0)
         return out
 
     def _count_stats(self, token_lists, n_batches: int, t0: float) -> None:
@@ -506,19 +530,59 @@ class Engine:
         return [{"index": int(i), "relevance_score": float(scores[i])} for i in order]
 
     # --- token states, ColBERT and SPLADE --------------------------------------
-    def _token_batches(self, token_lists: Sequence[Sequence[int]], forward, *,
-                       max_rows: int | None = None) -> list:
-        """Launch `forward(ids, mask, batch)` over the length buckets of the
-        lists (real rows only, at most `max_rows` a batch) under the lock;
-        returns [(batch, device result)], fetched by the caller outside it."""
-        with self._lock:
-            buckets = self.batch_buckets
-            if max_rows is not None:
-                buckets = tuple(b for b in buckets if b <= max_rows) or (max_rows,)
-            batches = pack_batches(
+    def _check_context(self, token_lists: Sequence[Sequence[int]]) -> None:
+        """Refuse a list longer than the context, as the JAX Engine's token
+        surfaces do (embed_tokens cuts such a list instead)."""
+        for i, ids in enumerate(token_lists):
+            if len(ids) > self.config.n_ctx:
+                raise ValueError(f"token list {i} has {len(ids)} ids, over the model's "
+                                 f"{self.config.n_ctx}-token context")
+
+    def _length_dependent(self) -> bool:
+        """Whether a row's states depend on the length it is padded to:
+        nomic's dynamic-NTK RoPE base grows with S past rope_max_trained."""
+        c = self.config
+        return c.arch == "nomic-bert" and c.rope_scaling_factor > 0 and c.rope_max_trained > 0
+
+    def token_plan(self, token_lists: Sequence[Sequence[int]], *,
+                   max_rows: int | None = None) -> list[PackedBatch]:
+        """The batches the token surfaces (token states, MaxSim documents,
+        SPLADE) launch for the lists: real rows only, at most `max_rows` a
+        batch.  Where states depend on the padded length (`_length_dependent`)
+        the lists go as the JAX Engine's `_padded_chunks` sends them: the
+        top row bucket's worth a chunk, in input order, padded to the length
+        bucket of the chunk's longest list (launched in row slices within the
+        token budget, which moves no row's S).  Elsewhere they go by length
+        bucket, which gives the same states."""
+        self._check_context(token_lists)
+        buckets = tuple(b for b in self.batch_buckets if b <= (max_rows or self.batch_buckets[-1]))
+        if not self._length_dependent():
+            return pack_batches(
                 token_lists, self.special_ids.pad, seq_buckets=self.seq_buckets,
                 batch_buckets=buckets, max_seq=self.config.n_ctx,
                 max_tokens=self.max_batch_tokens, pad_rows=False)
+        out = []
+        for lo in range(0, len(token_lists), buckets[-1]):
+            chunk = token_lists[lo: lo + buckets[-1]]
+            s = bucket_for(max(len(t) for t in chunk), self.seq_buckets)
+            step = max(1, self.max_batch_tokens // s)
+            for a in range(0, len(chunk), step):
+                rows = chunk[a: a + step]
+                ids = np.full((len(rows), s), self.special_ids.pad, np.int32)
+                mask = np.zeros((len(rows), s), np.int32)
+                for r, t in enumerate(rows):
+                    ids[r, : len(t)] = t
+                    mask[r, : len(t)] = 1
+                out.append(PackedBatch(ids, mask, list(range(lo + a, lo + a + len(rows)))))
+        return out
+
+    def _token_batches(self, token_lists: Sequence[Sequence[int]], forward, *,
+                       max_rows: int | None = None) -> list:
+        """Launch `forward(ids, mask, batch)` over `token_plan(token_lists)`
+        under the lock; returns [(batch, device result)], fetched by the
+        caller outside it."""
+        with self._lock:
+            batches = self.token_plan(token_lists, max_rows=max_rows)
             _check_ids([b.ids for b in batches], self.config.n_vocab, "token id")
             with torch.inference_mode():
                 return [(b, forward(self._tensor(b.ids), self._tensor(b.mask), b))
@@ -547,6 +611,19 @@ class Engine:
             for row, i in enumerate(batch.positions):
                 out[i] = host[row, : len(token_lists[i])]
         return out
+
+    def token_states_device(self, token_lists: Sequence[Sequence[int]]):
+        """`token_states_tokens` whose states stay on the device: yields
+        (positions, [B, S, E] f32 device states, mask [B, S] int32 numpy,
+        lens) per batch of `token_plan`, each launched as it is taken.  The
+        MaxSimIndex ingests through this."""
+        with self._lock:
+            batches = self.token_plan(token_lists)
+            _check_ids([b.ids for b in batches], self.config.n_vocab, "token id")
+        for b in batches:
+            with self._lock, torch.inference_mode():
+                dev = self._token_states(self._tensor(b.ids), self._tensor(b.mask))
+            yield b.positions, dev, b.mask, [len(token_lists[i]) for i in b.positions]
 
     def colbert_skiplist(self) -> frozenset[int]:
         """The document token ids ColBERT leaves out of scoring: the first
@@ -625,6 +702,7 @@ class Engine:
         else:
             if not q_tokens:
                 raise ValueError("empty query")
+            self._check_context([q_tokens])
             sq = bucket_for(len(q_tokens), self.seq_buckets)
             q_ids = np.zeros((1, sq), np.int32)
             q_ids[0, : len(q_tokens)] = q_tokens

@@ -1,0 +1,264 @@
+"""On-device late-interaction (MaxSim) retrieval index.
+
+The JAX package's `runtime/maxsim_search.py` on torch.  `Engine.maxsim`
+encodes every document again for every query; this index keeps the
+corpus's token states on the device and scores whole query batches:
+
+    score(q, d) = sum over real query tokens of
+                  max over real document tokens of cosine(q_i, d_j)
+
+(ColBERT's MaxSim, Khattab & Zaharia 2020).  Token vectors are unit rows
+from ingest on, documents are padded or cut to `doc_maxlen` tokens ([N, Sd,
+E] states and an [N, Sd] mask), and the exact search runs over blocks of
+documents whose [Q, Sq, NB, Sd] f32 similarity fits a 256 MiB budget, so
+the whole similarity never exists at once.  `candidates=C` ranks the corpus
+by its pooled rows (the unit mean of each document's token vectors, kept
+current by every commit) and scores only the C best with exact MaxSim.
+"""
+from __future__ import annotations
+
+import threading
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from .search import exact_f32, grown, index_dtype, pad_to_k, select_topk, unit
+
+# bytes of one [Q, Sq, NB, Sd] f32 similarity block (the JAX package's budget)
+_SIM_TILE_BUDGET = 256 << 20
+_HOST_BLOCK = 4096  # documents an add_token_vectors commit moves at once
+
+
+def _maxsim(qn: torch.Tensor, qm: torch.Tensor, docs: torch.Tensor, dmask: torch.Tensor,
+            pattern: str) -> torch.Tensor:
+    """Unit query tokens [Q, Sq, E] (mask [Q, Sq]) against document tokens
+    (`pattern` "qte,nse->qtns": [NB, Sd, E] shared by every query, or
+    "qte,qcse->qtcs": [Q, C, Sd, E] per query) -> [Q, NB or C] f32 MaxSim
+    scores; a document with no real token scores -inf."""
+    sim = torch.einsum(pattern, qn, docs.float())
+    mask = dmask[None, None] if pattern.endswith("qtns") else dmask[:, None]
+    best = sim.masked_fill_(~mask, -torch.inf).amax(dim=-1)
+    # the sum over query tokens runs along contiguous rows, so that equal
+    # documents get equal scores wherever they sit in the block
+    return torch.where(qm[:, :, None] > 0, best, 0.0).transpose(1, 2).contiguous().sum(dim=-1)
+
+
+class MaxSimIndex:
+    """Token-level corpus with batched MaxSim top-k search, resident on the
+    engine's device.
+
+    doc_maxlen: the document token budget Sd (ColBERT's doc_maxlen; longer
+    documents are cut).  dtype="bfloat16" halves the corpus bytes; the
+    similarities are f32.  `capacity` sizes the corpus ahead.  A
+    mesh-sharded corpus waits for the distribution layer.  Thread-safe: one
+    lock covers adds and searches."""
+
+    def __init__(self, engine, *, doc_maxlen: int = 256, dtype: str = "bfloat16",
+                 mesh=None, capacity: int = 0):
+        if mesh is not None:
+            raise NotImplementedError("a mesh-sharded index waits for the port's "
+                                      "distribution layer")
+        self.engine = engine
+        self.doc_maxlen = int(doc_maxlen)
+        if self.doc_maxlen < 1:
+            raise ValueError(f"doc_maxlen must be positive, got {doc_maxlen}")
+        self.dtype = index_dtype(dtype)
+        self.device = engine.device
+        self._corpus: torch.Tensor | None = None  # [capacity, Sd, E]
+        self._cmask: torch.Tensor | None = None  # [capacity, Sd] bool
+        self._pooled: torch.Tensor | None = None  # [capacity, E] f32
+        self._n = 0
+        self._lock = threading.Lock()
+        if capacity:
+            self._grow(int(capacity))
+
+    def __len__(self) -> int:
+        return self._n
+
+    @property
+    def n_embd(self) -> int:
+        """Token vector width: ColBERT's projection, else the encoder's."""
+        return self.engine.config.colbert_dim or self.engine.config.n_embd
+
+    def _grow(self, need: int) -> None:
+        sd, e, dev = self.doc_maxlen, self.n_embd, self.device
+        self._corpus = grown(self._corpus, need, (sd, e), self.dtype, dev)
+        self._cmask = grown(self._cmask, need, (sd,), torch.bool, dev)
+        self._pooled = grown(self._pooled, need, (e,), torch.float32, dev)
+
+    def _commit(self, rows: torch.Tensor, states: torch.Tensor, mask: torch.Tensor,
+                pooled: torch.Tensor) -> None:
+        """Write unit token rows [B, Sd, E], their mask [B, Sd] and pooled
+        rows [B, E] at corpus rows `rows` (caller holds the lock)."""
+        self._corpus.index_copy_(0, rows, states.to(self.dtype))
+        self._cmask.index_copy_(0, rows, mask)
+        self._pooled.index_copy_(0, rows, pooled)
+
+    # --- building -----------------------------------------------------------
+    def add(self, texts: Sequence[str]) -> int:
+        """Encode the documents and append their token states; returns the
+        corpus size.  The states go from the forward into the corpus on the
+        device (`Engine.token_states_device`).  ColBERT checkpoints frame
+        [CLS] [D] tokens [SEP] cut to doc_maxlen before the forward, and
+        leave their punctuation skiplist out of scoring; other models take
+        the document prompt, and their states are cut to doc_maxlen."""
+        texts = list(texts)
+        if self.engine.config.colbert_dim > 0:
+            token_lists = self.engine.colbert_doc_tokens(texts, cap=self.doc_maxlen)
+            skip = self.engine.colbert_skiplist()
+        else:
+            prefix = self.engine.document_prompt_prefix()
+            if prefix:
+                texts = [prefix + t for t in texts]
+            token_lists = self.engine.tokenize_batch(texts)
+            skip = frozenset()
+        keep_rows = [np.asarray([t not in skip for t in toks], bool) for toks in token_lists]
+        sd = self.doc_maxlen
+        with self._lock:
+            base = self._n
+            self._grow(base + len(texts))
+            for positions, dev, mask, lens in self.engine.token_states_device(token_lists):
+                keep = np.zeros(mask.shape, bool)
+                for r, p in enumerate(positions):
+                    keep[r, : lens[r]] = keep_rows[p]
+                keep = torch.from_numpy(keep).to(self.device)
+                s = min(dev.shape[1], sd)  # states cut or padded to Sd
+                sn = torch.zeros((len(positions), sd, self.n_embd), device=self.device)
+                sn[:, :s] = (unit(dev) * keep[..., None])[:, :s]
+                m = torch.zeros((len(positions), sd), dtype=torch.bool, device=self.device)
+                m[:, :s] = keep[:, :s]
+                rows = torch.as_tensor(np.asarray(positions) + base, device=self.device)
+                self._commit(rows, sn, m, unit(sn.sum(dim=1)))
+            self._n = base + len(texts)
+            return self._n
+
+    def add_token_vectors(self, states: Sequence[np.ndarray]) -> int:
+        """Append per-document token matrices ([len_i, E] each; rows are
+        made unit here, and cut to doc_maxlen)."""
+        states = [np.asarray(s, np.float32) for s in states]
+        for i, s in enumerate(states):
+            if s.ndim != 2 or s.shape[1] != self.n_embd:
+                raise ValueError(f"document {i}: expected [tokens, {self.n_embd}], "
+                                 f"got {s.shape}")
+            if s.shape[0] == 0:
+                raise ValueError(f"document {i} has no token vectors")
+        sd, e = self.doc_maxlen, self.n_embd
+        with self._lock:
+            base = self._n
+            self._grow(base + len(states))
+            for lo in range(0, len(states), _HOST_BLOCK):
+                chunk = states[lo: lo + _HOST_BLOCK]
+                blk = np.zeros((len(chunk), sd, e), np.float32)
+                msk = np.zeros((len(chunk), sd), bool)
+                for i, s in enumerate(chunk):
+                    s = s[:sd]
+                    blk[i, : len(s)] = s / np.maximum(np.linalg.norm(s, axis=-1, keepdims=True),
+                                                      1e-12)
+                    msk[i, : len(s)] = True
+                blk = torch.from_numpy(blk).to(self.device, self.dtype)
+                msk = torch.from_numpy(msk).to(self.device)
+                # pooled from the stored rows, summed in the corpus dtype
+                pooled = unit((blk * msk[..., None].to(blk.dtype)).sum(dim=1))
+                rows = torch.arange(base + lo, base + lo + len(chunk), device=self.device)
+                self._commit(rows, blk, msk, pooled)
+            self._n = base + len(states)
+            return self._n
+
+    # --- persistence ---------------------------------------------------------
+    def save(self, path: str) -> None:
+        """The token states as f16 (`token_states`) and their masks
+        (`token_masks`) in an .npz, the JAX package's layout."""
+        with self._lock:
+            n = self._n
+            if n == 0:
+                states = np.zeros((0, self.doc_maxlen, self.n_embd), np.float16)
+                masks = np.zeros((0, self.doc_maxlen), bool)
+            else:
+                states = self._corpus[:n].float().cpu().numpy().astype(np.float16)
+                masks = self._cmask[:n].cpu().numpy()
+        np.savez_compressed(path, token_states=states, token_masks=masks)
+
+    def load(self, path: str) -> int:
+        """Append the documents of a saved index (doc_maxlen may differ:
+        rows are cut again); returns the corpus size."""
+        with np.load(path) as data:
+            states = np.asarray(data["token_states"], np.float32)
+            masks = np.asarray(data["token_masks"], bool)
+        docs = [s[m] for s, m in zip(states, masks)]
+        if any(len(d) == 0 for d in docs):
+            raise ValueError("saved index contains an empty document")
+        return self.add_token_vectors(docs)
+
+    # --- querying ------------------------------------------------------------
+    def search(self, queries: Sequence[str], k: int = 10, candidates: int | None = None):
+        """Texts -> (ids [n, k] int32, scores [n, k] f32), id -1 / -inf past
+        the corpus.  ColBERT checkpoints frame queries with [Q] and [MASK]
+        augmentation (every query_maxlen vector scores); other models take
+        the query prompt.  `candidates` enables the two-stage mode."""
+        queries = list(queries)
+        if self.engine.config.colbert_dim:
+            states = self.engine.colbert_query_vectors(queries)
+        else:
+            prefix = self.engine.query_prompt_prefix()
+            if prefix:
+                queries = [prefix + t for t in queries]
+            states = self.engine.token_states_tokens(self.engine.tokenize_batch(queries))
+        return self.search_token_vectors(states, k, candidates=candidates)
+
+    def search_token_vectors(self, states: Sequence[np.ndarray], k: int = 10,
+                             candidates: int | None = None):
+        """Query token matrices [len_i, E] -> (ids, scores).  `candidates=C`:
+        the pooled rows' cosine picks C documents a query, and exact MaxSim
+        scores only those; every returned score is exact."""
+        if k <= 0:
+            raise ValueError(f"k must be positive, got {k}")
+        states = [np.asarray(s, np.float32) for s in states]
+        for i, s in enumerate(states):
+            if s.ndim != 2 or s.shape[1] != self.n_embd or not len(s):
+                raise ValueError(f"query {i}: expected [tokens>0, {self.n_embd}], "
+                                 f"got {s.shape}")
+        with self._lock:
+            n = self._n
+            if n == 0:
+                raise ValueError("index is empty")
+            kk = min(k, n)
+            sq = -(-max((len(s) for s in states), default=1) // 32) * 32
+            q = np.zeros((len(states), sq, self.n_embd), np.float32)
+            qm = np.zeros((len(states), sq), np.int32)
+            for i, s in enumerate(states):
+                q[i, : len(s)] = s
+                qm[i, : len(s)] = 1
+            qn = unit(torch.from_numpy(q).to(self.device))
+            qm = torch.from_numpy(qm).to(self.device)
+            corpus, cmask, sd = self._corpus[:n], self._cmask[:n], self.doc_maxlen
+            with exact_f32():
+                if candidates is None:
+                    nb = max(1, _SIM_TILE_BUDGET // (max(len(q), 1) * sq * sd * 4))
+                    scores = torch.cat([_maxsim(qn, qm, corpus[lo: lo + nb], cmask[lo: lo + nb],
+                                                "qte,nse->qtns")
+                                        for lo in range(0, n, nb)], dim=1)
+                    scores, ids = select_topk(scores, kk)
+                else:
+                    scores, ids = self._two_stage(qn, qm, corpus, cmask, kk,
+                                                  max(kk, min(int(candidates), n)))
+        return pad_to_k(ids, scores, k)
+
+    def _two_stage(self, qn, qm, corpus, cmask, k: int, c: int):
+        """The candidates mode: the pooled query (unit mean of its unit
+        tokens) against the pooled rows picks C documents (equal cosines by
+        the lower id), exact MaxSim scores them in query slices whose
+        gathered [Qc, C, Sd, E] tokens fit the budget, and the top k of
+        each slice's [Qc, C] (ties by the earlier candidate, as the JAX
+        package's `lax.top_k` there) map back to document ids."""
+        qpool = unit((qn * (qm[..., None] > 0)).sum(dim=1))
+        cand = select_topk(qpool @ self._pooled[: corpus.shape[0]].T, c)[1]
+        step = max(1, _SIM_TILE_BUDGET // (c * self.doc_maxlen * self.n_embd * 4))
+        scores, ids = [], []
+        for lo in range(0, max(len(qn), 1), step):
+            ci = cand[lo: lo + step]
+            s, j = select_topk(_maxsim(qn[lo: lo + step], qm[lo: lo + step], corpus[ci],
+                                       cmask[ci], "qte,qcse->qtcs"), k)
+            scores.append(s)
+            ids.append(torch.where(j >= 0, torch.gather(ci, 1, j.clamp_min(0)), -1))
+        return torch.cat(scores), torch.cat(ids)

@@ -31,17 +31,23 @@ The wire protocol of the JAX package's `runtime/server.py`, on one port:
    - b"\x01TPW" sparse encode (a SPLADE checkpoint): `u32 k | u32 count |
      count * (u32 len | utf8)` -> `u32 count | count * (u32 n | n * i32 term
      id | n * f32 weight)`, at most k terms each, by descending weight;
-   - the index, search and hybrid frames (b"\x01TPB", "\x01TPS",
-     "\x01TPY", "\x01TPZ", "\x01TPF", "\x01TPG", "\x01TPJ", "\x01TPK")
-     are not ported yet: each request is read to its end by its layout,
-     then answered with the error frame.
+   - the on-device indexes, each built by its first index frame and
+     shared by every connection: b"\x01TPB" (vector index), b"\x01TPY"
+     (sparse, a SPLADE checkpoint), b"\x01TPF" (hybrid: the same documents
+     into both, under one lock, the sparse encode first so that a failure
+     leaves both unchanged) and b"\x01TPJ" (MaxSim): texts -> `u32 total`
+     indexed; their searches b"\x01TPS", b"\x01TPZ", b"\x01TPG" (the two
+     rankings fused by reciprocal rank) and b"\x01TPK": `u32 k | texts` ->
+     `u32 n | u32 k | n * k * i32 id | n * k * f32 score` (id -1 and score
+     -inf past the corpus; RRF scores for hybrid, 0.0 past its candidates);
+     a search before its index gets the error frame.
    A head that starts with b"\x01" but is no magic desynchronizes the
    stream: it gets the error frame and the connection closes.
 
 Encode requests from all connections merge into device batches through
 one continuous batcher (a short micro-batching window); the other
-requests run on executor threads, reranks, MaxSim and sparse requests
-under the same pending budget.
+requests run on executor threads, reranks, MaxSim, sparse, index and
+search requests under the same pending budget.
 """
 from __future__ import annotations
 
@@ -50,6 +56,7 @@ import asyncio
 import json
 import struct
 import sys
+import threading
 import time
 from dataclasses import dataclass, field
 
@@ -68,21 +75,23 @@ MAGIC_ENCODE_I8 = b"\x01TP8"
 MAGIC_RERANK = b"\x01TPR"
 MAGIC_SPARSE = b"\x01TPW"
 MAGIC_MAXSIM = b"\x01TPX"
-# the reference's frames this server reads but does not serve yet: what it
-# is, and what follows the magic (texts; u32 k | texts)
-UNSERVED = {
-    b"\x01TPB": ("vector index", "texts"),
-    b"\x01TPS": ("vector search", "k_texts"),
-    b"\x01TPY": ("sparse index", "texts"),
-    b"\x01TPZ": ("sparse search", "k_texts"),
-    b"\x01TPF": ("hybrid index", "texts"),
-    b"\x01TPG": ("hybrid search", "k_texts"),
-    b"\x01TPJ": ("MaxSim index", "texts"),
-    b"\x01TPK": ("MaxSim search", "k_texts"),
-}
+MAGIC_INDEX = b"\x01TPB"
+MAGIC_SEARCH = b"\x01TPS"
+MAGIC_SPARSE_INDEX = b"\x01TPY"
+MAGIC_SPARSE_SEARCH = b"\x01TPZ"
+MAGIC_HYBRID_INDEX = b"\x01TPF"
+MAGIC_HYBRID_SEARCH = b"\x01TPG"
+MAGIC_MAXSIM_INDEX = b"\x01TPJ"
+MAGIC_MAXSIM_SEARCH = b"\x01TPK"
+_INDEX_FRAMES = {MAGIC_INDEX: "index_texts", MAGIC_SPARSE_INDEX: "sparse_index_texts",
+                 MAGIC_HYBRID_INDEX: "hybrid_index_texts",
+                 MAGIC_MAXSIM_INDEX: "maxsim_index_texts"}
+_SEARCH_FRAMES = {MAGIC_SEARCH: "search_texts", MAGIC_SPARSE_SEARCH: "sparse_search_texts",
+                  MAGIC_HYBRID_SEARCH: "hybrid_search_texts",
+                  MAGIC_MAXSIM_SEARCH: "maxsim_search_texts"}
 _MAGICS = (MAGIC, MAGIC_STATS, MAGIC_HEALTH, MAGIC_TOKENIZE, MAGIC_EVAL, MAGIC_META,
            MAGIC_VOCAB, MAGIC_ENCODE_I8, MAGIC_RERANK, MAGIC_SPARSE, MAGIC_MAXSIM,
-           *UNSERVED)
+           *_INDEX_FRAMES, *_SEARCH_FRAMES)
 RAW_CHUNK = 1 << 15  # the ggml-compat message cap
 # caps on what one frame may ask the server to read or allocate
 MAX_ITEMS = 1 << 16  # texts or id lists per request
@@ -156,6 +165,87 @@ class ContinuousBatcher:
         self.queue: asyncio.Queue = asyncio.Queue()
         self.stats = ServerStats()
         self._task: asyncio.Task | None = None
+        # the on-device indexes, built by their first index frame
+        self.index = None
+        self.sparse_index = None
+        self.maxsim_index = None
+        self._index_init_lock = threading.Lock()
+        # spans both adds of a hybrid frame: two of them must not interleave
+        # into different document ids in the two indexes
+        self._hybrid_lock = threading.Lock()
+
+    def _built(self, attr: str, make):
+        """The index in `attr`, built by `make()` on first use (once, when
+        two first index frames race on executor threads)."""
+        if getattr(self, attr) is None:
+            with self._index_init_lock:
+                if getattr(self, attr) is None:
+                    setattr(self, attr, make())
+        return getattr(self, attr)
+
+    def _sparse(self):
+        from .sparse_search import SparseIndex
+
+        return self._built("sparse_index", lambda: SparseIndex(self.engine))
+
+    def index_texts(self, texts: list[str]) -> int:
+        from .search import VectorIndex
+
+        return self._built("index", lambda: VectorIndex(self.engine)).add(texts)
+
+    def search_texts(self, texts: list[str], k: int):
+        if self.index is None:
+            raise RuntimeError("no index built (send an index frame first)")
+        return self.index.search(texts, k)
+
+    def sparse_index_texts(self, texts: list[str]) -> int:
+        return self._sparse().add(texts)
+
+    def sparse_search_texts(self, texts: list[str], k: int):
+        if self.sparse_index is None:
+            raise RuntimeError("no sparse index built (send a sparse index frame first)")
+        return self.sparse_index.search(texts, k)
+
+    def maxsim_index_texts(self, texts: list[str]) -> int:
+        from .maxsim_search import MaxSimIndex
+
+        return self._built("maxsim_index", lambda: MaxSimIndex(self.engine)).add(texts)
+
+    def maxsim_search_texts(self, texts: list[str], k: int):
+        if self.maxsim_index is None:
+            raise RuntimeError("no MaxSim index built (send a MaxSim index frame first)")
+        return self.maxsim_index.search(texts, k)
+
+    def hybrid_index_texts(self, texts: list[str]) -> int:
+        """The same documents into the dense and the sparse index (hybrid
+        search needs equal ids in both).  The sparse encode, which can fail
+        (a model without an MLM head), runs before either index changes,
+        and the sparse append, which cannot, runs last."""
+        with self._hybrid_lock:
+            sparse = self._sparse()
+            if self.index is not None and len(self.index) != len(sparse):
+                raise RuntimeError(f"hybrid corpus desync: dense {len(self.index)} != sparse "
+                                   f"{len(sparse)} docs (index and sparse index frames mixed "
+                                   "with hybrid ones?)")
+            pairs = sparse.engine.encode_sparse(texts, k=sparse.k_encode)
+            total = self.index_texts(texts)
+            sparse.add_vectors(pairs)
+            return total
+
+    def hybrid_search_texts(self, texts: list[str], k: int):
+        """Dense and sparse retrieval of k each, fused by reciprocal rank
+        (`rrf_fuse`) to the top k."""
+        from .sparse_search import rrf_fuse
+
+        if self.index is None or self.sparse_index is None:
+            raise RuntimeError("hybrid search needs both indexes (send a hybrid index "
+                               "frame first)")
+        if len(self.index) != len(self.sparse_index):
+            raise RuntimeError(f"hybrid corpus desync: dense {len(self.index)} != sparse "
+                               f"{len(self.sparse_index)} docs")
+        d_idx, _ = self.index.search(texts, k)
+        s_idx, _ = self.sparse_index.search(texts, k)
+        return rrf_fuse([d_idx, s_idx], k)
 
     async def start(self) -> None:
         self._task = asyncio.create_task(self._run())
@@ -201,7 +291,7 @@ class ContinuousBatcher:
             self.release(n)
 
     async def admitted(self, n: int, fn):
-        """`fn()` (a rerank, MaxSim or sparse call of the engine) on an
+        """`fn()` (a rerank, MaxSim, sparse, index or search call) on an
         executor thread, its `n` texts admitted against the pending
         budget."""
         self.try_reserve(n)
@@ -326,15 +416,6 @@ async def _read_ids(reader: asyncio.StreamReader) -> list[list[int]]:
     return id_lists
 
 
-async def _read_unserved(reader: asyncio.StreamReader, layout: str) -> None:
-    """Read an unserved frame's whole payload by its layout, so the next
-    frame on the connection starts where the client sent it."""
-    if layout != "texts":
-        k = await _read_u32(reader)
-        _check(0 < k <= MAX_TOPK, f"top-k {k}")
-    await _read_texts(reader)
-
-
 def _ranked_reply(writer: asyncio.StreamWriter, ranked: list[dict]) -> None:
     """`u32 m | m * i32 index | m * f32 score`."""
     writer.write(struct.pack("<I", len(ranked)))
@@ -418,10 +499,20 @@ async def _serve_frame(head: bytes, reader: asyncio.StreamReader,
         for idx, val in pairs:
             writer.write(struct.pack("<I", len(idx)) + np.ascontiguousarray(idx, np.int32).tobytes()
                          + np.ascontiguousarray(val, np.float32).tobytes())
+    elif head in _INDEX_FRAMES:
+        texts = await _read_texts(reader)
+        fn = getattr(batcher, _INDEX_FRAMES[head])
+        total = await batcher.admitted(len(texts), lambda: fn(texts))
+        writer.write(struct.pack("<I", total))
     else:
-        what, layout = UNSERVED[head]
-        await _read_unserved(reader, layout)
-        raise NotImplementedError(f"the {what} frame ({head!r}) is not ported to this server yet")
+        k = await _read_u32(reader)
+        _check(0 < k <= MAX_TOPK, f"top-k {k}")
+        texts = await _read_texts(reader)
+        fn = getattr(batcher, _SEARCH_FRAMES[head])
+        idx, scores = await batcher.admitted(len(texts), lambda: fn(texts, k))
+        writer.write(struct.pack("<II", *idx.shape))
+        writer.write(np.ascontiguousarray(idx, np.int32).tobytes())
+        writer.write(np.ascontiguousarray(scores, np.float32).tobytes())
 
 
 async def handle_client(reader: asyncio.StreamReader, writer: asyncio.StreamWriter,

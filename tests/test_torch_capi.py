@@ -8,8 +8,8 @@ test workers never race on one output file); the tests skip only where
 GGUF written by the JAX package: `tpe_connect` returns, `tpe_n_max_tokens`,
 `tpe_tokenize`, `tpe_eval_batch` (f32 bar) and `tpe_vocab_id_to_token` give
 the same results from both, as do `tpe_maxsim` and, on a tiny-splade GGUF,
-`tpe_encode_sparse`; the port answers `tpe_index` and the other unserved
-frames with an error while the context goes on encoding.
+`tpe_encode_sparse`, and the index calls (`tpe_index` / `tpe_search` and
+their sparse, hybrid and MaxSim forms) on fresh servers.
 """
 import asyncio
 import contextlib
@@ -84,15 +84,28 @@ def servers(tmp_path_factory):
     """{"port": (engine, port), "reference": (engine, port)}."""
     from embedding_cpp_tpu.cli.make_test_model import make_test_model
     from embedding_cpp_tpu.runtime.engine import Engine as JEngine
-    from embedding_cpp_tpu.runtime.server import serve as serve_reference
     from embedding_cpp_tpu_torch import Engine
-    from embedding_cpp_tpu_torch.runtime.server import serve as serve_port
 
     path = str(tmp_path_factory.mktemp("gguf") / "tiny-f32.gguf")
     make_test_model(path, "tiny", "f32", seed=0)
-    ours, theirs = Engine.from_gguf(path, device="cpu"), JEngine.from_gguf(path)
+    with _both_servers(Engine.from_gguf(path, device="cpu"), JEngine.from_gguf(path)) as out:
+        yield out
+
+
+@contextlib.contextmanager
+def _both_servers(ours, theirs):
+    from embedding_cpp_tpu.runtime.server import serve as serve_reference
+    from embedding_cpp_tpu_torch.runtime.server import serve as serve_port
+
     with _serve(serve_port, ours) as p1, _serve(serve_reference, theirs) as p2:
         yield {"port": (ours, p1), "reference": (theirs, p2)}
+
+
+@contextlib.contextmanager
+def _fresh(servers):
+    """New servers over the same engines: their indexes start empty."""
+    with _both_servers(servers["port"][0], servers["reference"][0]) as out:
+        yield out
 
 
 def _client(lib: str, port: int):
@@ -152,30 +165,55 @@ def test_eval_batch_and_encode_meet_the_f32_bar(replies, servers):
                                rtol=0, atol=1e-6)
 
 
-DOCS = ["a document", "another one"]
-UNSERVED_CALLS = {
-    "index": lambda m: m.index(DOCS),
-    "search": lambda m: m.search(DOCS, 3),
-    "sparse_index": lambda m: m.sparse_index(DOCS),
-    "sparse_search": lambda m: m.sparse_search(DOCS, 3),
-    "hybrid_index": lambda m: m.hybrid_index(DOCS),
-    "hybrid_search": lambda m: m.hybrid_search(DOCS, 3),
-    "maxsim_index": lambda m: m.maxsim_index(DOCS),
-    "maxsim_search": lambda m: m.maxsim_search(DOCS, 3),
+DOCS = ["a document", "another one", "the quick brown fox", "a document", "hello world"]
+QUERIES = ["a document", "a fox"]
+# each index call, and each search call after the index call it needs;
+# sparse and hybrid on the tiny-splade servers
+INDEX_CALLS = {
+    "index": ("index", None, "servers"),
+    "search": ("search", "index", "servers"),
+    "sparse_index": ("sparse_index", None, "splade_servers"),
+    "sparse_search": ("sparse_search", "sparse_index", "splade_servers"),
+    "hybrid_index": ("hybrid_index", None, "splade_servers"),
+    "hybrid_search": ("hybrid_search", "hybrid_index", "splade_servers"),
+    "maxsim_index": ("maxsim_index", None, "servers"),
+    "maxsim_search": ("maxsim_search", "maxsim_index", "servers"),
 }
 
 
-@pytest.mark.parametrize("call", sorted(UNSERVED_CALLS))
-def test_unserved_call_errors_and_the_context_still_encodes(capi_lib, servers, call):
-    engine, port = servers["port"]
-    model = _client(capi_lib, port)
-    try:
-        with pytest.raises(RuntimeError, match="NotImplementedError"):
-            UNSERVED_CALLS[call](model)
-        np.testing.assert_allclose(model.encode(TEXTS[:2]), engine.encode(TEXTS[:2]),
-                                   rtol=0, atol=1e-6)
-    finally:
-        model.close()
+@pytest.mark.parametrize("call", sorted(INDEX_CALLS))
+def test_index_call_is_equal_from_both_servers(capi_lib, request, call):
+    """tpe_index / tpe_search and the sparse, hybrid and MaxSim calls: a
+    search before its index fails with the server's message, then the
+    index totals and the search ids (k past the corpus: -1 there) are
+    equal from both servers, the scores at the f32 bar; the context still
+    encodes after the error.  Each call runs on fresh servers."""
+    fn, index_fn, fixture = INDEX_CALLS[call]
+    got = {}
+    with _fresh(request.getfixturevalue(fixture)) as fresh:
+        for side, (engine, port) in fresh.items():
+            model = _client(capi_lib, port)
+            try:
+                if index_fn is None:
+                    got[side] = [getattr(model, fn)(DOCS), getattr(model, fn)(DOCS[:2])]
+                    continue
+                with pytest.raises(RuntimeError, match="RuntimeError: .*(no .*index built|both)"):
+                    getattr(model, fn)(QUERIES, 3)
+                np.testing.assert_allclose(model.encode(TEXTS[:2]), engine.encode(TEXTS[:2]),
+                                           rtol=0, atol=1e-6)
+                getattr(model, index_fn)(DOCS)
+                got[side] = [getattr(model, fn)(QUERIES, k) for k in (3, 8)]
+            finally:
+                model.close()
+    if index_fn is None:
+        assert got["port"] == got["reference"] == [5, 7]
+        return
+    for (idx, scores), (idx_ref, scores_ref), k in zip(got["port"], got["reference"], (3, 8)):
+        assert idx.shape == (2, k)
+        np.testing.assert_array_equal(idx, idx_ref)
+        np.testing.assert_allclose(scores, scores_ref, rtol=0, atol=ATOL_F32)
+    if fn != "hybrid_search":
+        assert (got["port"][1][0][:, 5:] == -1).all()
 
 
 @pytest.mark.parametrize("top_n", [None, 1])
@@ -200,15 +238,12 @@ def test_maxsim_is_equal_from_both_servers(capi_lib, servers, top_n):
 def splade_servers(tmp_path_factory):
     from embedding_cpp_tpu.cli.make_test_model import make_test_model
     from embedding_cpp_tpu.runtime.engine import Engine as JEngine
-    from embedding_cpp_tpu.runtime.server import serve as serve_reference
     from embedding_cpp_tpu_torch import Engine
-    from embedding_cpp_tpu_torch.runtime.server import serve as serve_port
 
     path = str(tmp_path_factory.mktemp("gguf") / "tiny-splade.gguf")
     make_test_model(path, "tiny-splade", "f32", seed=0)
-    ours, theirs = Engine.from_gguf(path, device="cpu"), JEngine.from_gguf(path)
-    with _serve(serve_port, ours) as p1, _serve(serve_reference, theirs) as p2:
-        yield {"port": (ours, p1), "reference": (theirs, p2)}
+    with _both_servers(Engine.from_gguf(path, device="cpu"), JEngine.from_gguf(path)) as out:
+        yield out
 
 
 @pytest.mark.parametrize("k", [8, 64])

@@ -974,3 +974,147 @@ def test_relative_bias_kernel_at_the_relpos_shapes(dev, dtype, packed, b, s):
         mask = torch.where(torch.arange(s)[None] < lens[:, None], 0.0, MASK_BIAS).to(dev)
         got = flash_attention_bias_bse(q, k, v, mask, pb, h)
     _close(got, attention_bse_plain(q, k, v, mask, h, packed, pb), dtype)
+
+
+# --- the retrieval indexes: each on the card against its CPU path -------------
+
+def _index_engines(dev, **config_kw):
+    """One small f32 MiniLM-shaped engine's weights on the card and on the
+    CPU (the card's f32 path runs the kernels; the CPU their plain
+    versions)."""
+    from dataclasses import replace
+
+    from embedding_cpp_tpu_torch import Engine
+    from embedding_cpp_tpu_torch.models import MINILM_L6
+
+    config = replace(MINILM_L6, n_vocab=1000, n_layer=2, **config_kw)
+    card = Engine.synthetic(config, "q4_0", device=dev)
+    cpu = Engine(card.params, config, card.tokenizer, card.special_ids, device="cpu")
+    return card, cpu
+
+
+INDEX_TEXTS = [f"sentence number {i} about topic {i % 7} and more words" for i in range(60)]
+INDEX_QUERIES = ["sentence about topic 3", "totally different words here", INDEX_TEXTS[5]]
+
+
+@pytest.mark.parametrize("shape", [(3, 300, 7), (64, 4096, 10), (5, 70000, 100)])
+def test_select_topk_on_the_card_equals_the_cpu(dev, shape):
+    """Ties (equal columns, rounded rows, zeros, -0.0, -inf) keep the lower
+    index on the card as on the CPU."""
+    from embedding_cpp_tpu_torch.runtime.search import select_topk
+
+    q, n, k = shape
+    rng = np.random.default_rng(n)
+    x = rng.normal(size=(q, n)).astype(np.float32)
+    x[:, 5] = x[:, n // 2]
+    x[:, 7], x[:, 8], x[:, 9] = 0.0, -0.0, -np.inf
+    x[1] = np.round(x[1])
+    x[-1] = 0.0
+    s, i = select_topk(torch.from_numpy(x).to(dev), k)
+    s_cpu, i_cpu = select_topk(torch.from_numpy(x), k)
+    assert torch.equal(i.cpu(), i_cpu) and torch.equal(s.cpu(), s_cpu)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_vector_index_on_the_card_equals_the_cpu(dev, dtype):
+    """Device ingest of texts (K1 / K2 / K3) and add_vectors: the same ids
+    as the CPU index, scores at the f32 bar (bf16: exact products summed in
+    f32 by cuBLAS, 1e-5); the corpus stays on the card; an f32 search under
+    the TF32 setting still matches an f64 brute force."""
+    from embedding_cpp_tpu_torch.runtime.search import VectorIndex
+
+    card, cpu = _index_engines(dev)
+    a, b = VectorIndex(card, dtype=dtype), VectorIndex(cpu, dtype=dtype)
+    a.add(INDEX_TEXTS)
+    b.add(INDEX_TEXTS)
+    assert a._corpus.device.type == "cuda"
+    (ia, sa), (ib, sb) = a.search(INDEX_QUERIES, 8), b.search(INDEX_QUERIES, 8)
+    assert ia[2, 0] == ib[2, 0] == 5
+    np.testing.assert_allclose(sa, sb, rtol=0, atol=1e-3 if dtype == "bfloat16" else 1e-4)
+    rng = np.random.default_rng(0)
+    v = rng.normal(size=(3000, card.n_embd)).astype(np.float32)
+    v[[100, 2000]] = v[7]
+    q = np.concatenate([v[7:8], rng.normal(size=(15, card.n_embd)).astype(np.float32)])
+    a, b = VectorIndex(card, dtype=dtype), VectorIndex(cpu, dtype=dtype)
+    a.add_vectors(v)
+    b.add_vectors(v)
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        (ia, sa), (ib, sb) = a.search_vectors(q, 10), b.search_vectors(q, 10)
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    np.testing.assert_array_equal(ia, ib)
+    np.testing.assert_allclose(sa, sb, rtol=0, atol=1e-5)
+    assert ia[0, :3].tolist() == [7, 100, 2000]
+    if dtype == "float32":
+        vn = v / np.linalg.norm(v, axis=1, keepdims=True)
+        qn = q / np.linalg.norm(q, axis=1, keepdims=True)
+        want = np.sort(qn.astype(np.float64) @ vn.T.astype(np.float64), axis=1)[:, ::-1][:, :10]
+        np.testing.assert_allclose(sa, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("candidates", [None, 40, 3000])
+def test_sparse_index_on_the_card_equals_the_host_backend(dev, candidates):
+    from embedding_cpp_tpu_torch.runtime.sparse_search import SparseIndex
+
+    rng = np.random.default_rng(1)
+    docs = []
+    for _ in range(3000):
+        nnz = int(rng.integers(10, 200))
+        idx = rng.choice(30522, nnz, replace=False).astype(np.int32)
+        docs.append((idx, rng.random(nnz).astype(np.float32)))
+    queries = [docs[11]] + [(rng.choice(30522, 40, replace=False).astype(np.int32),
+                             rng.random(40).astype(np.float32)) for _ in range(15)]
+    card, cpu, host = (SparseIndex(device=dev), SparseIndex(device="cpu"),
+                       SparseIndex(device=False))
+    for index in (card, cpu, host):
+        index.add_vectors(docs)
+    assert card._didx.device.type == "cuda"
+    ia, sa = card.search_vectors(queries, 10, candidates=candidates)
+    ib, sb = cpu.search_vectors(queries, 10, candidates=candidates)
+    np.testing.assert_array_equal(ia, ib)
+    np.testing.assert_allclose(sa, sb, rtol=1e-5)
+    ih, sh = host.search_vectors(queries, 10)
+    if candidates in (None, 3000):
+        np.testing.assert_array_equal(ia, ih)
+        np.testing.assert_allclose(sa, sh, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_maxsim_index_on_the_card_equals_the_cpu(dev, dtype):
+    """add() through token_states_device on the card and add_token_vectors;
+    exact and candidates (C = n equals exact); the f32 index's scores equal
+    Engine.maxsim's."""
+    from embedding_cpp_tpu_torch.runtime.maxsim_search import MaxSimIndex
+
+    card, cpu = _index_engines(dev)
+    a, b = MaxSimIndex(card, dtype=dtype, doc_maxlen=32), MaxSimIndex(cpu, dtype=dtype,
+                                                                       doc_maxlen=32)
+    a.add(INDEX_TEXTS)
+    b.add(INDEX_TEXTS)
+    assert all(t.device.type == "cuda" for t in (a._corpus, a._cmask, a._pooled))
+    (ia, sa), (ib, sb) = a.search(INDEX_QUERIES, 6), b.search(INDEX_QUERIES, 6)
+    assert ia[2, 0] == ib[2, 0] == 5
+    np.testing.assert_allclose(sa, sb, rtol=1e-3 if dtype == "bfloat16" else 1e-4)
+    if dtype == "float32":
+        ids, scores = a.search(INDEX_QUERIES[:1], 60)
+        want = card.maxsim(INDEX_QUERIES[0], INDEX_TEXTS)
+        np.testing.assert_allclose(scores[0], want[ids[0]], rtol=1e-5)
+    rng = np.random.default_rng(2)
+    states = [rng.normal(size=(int(rng.integers(3, 40)), 384)).astype(np.float32)
+              for _ in range(500)]
+    states[300] = states[9]
+    a, b = MaxSimIndex(card, dtype=dtype, doc_maxlen=32), MaxSimIndex(cpu, dtype=dtype,
+                                                                       doc_maxlen=32)
+    a.add_token_vectors(states)
+    b.add_token_vectors(states)
+    qs = [states[9][:6]] + [rng.normal(size=(32, 384)).astype(np.float32) for _ in range(7)]
+    for c in (None, 50, 500):
+        (ia, sa), (ib, sb) = (a.search_token_vectors(qs, 10, candidates=c),
+                              b.search_token_vectors(qs, 10, candidates=c))
+        np.testing.assert_array_equal(ia, ib)
+        np.testing.assert_allclose(sa, sb, rtol=1e-5)
+    assert ia[0, :2].tolist() == [9, 300]
+    np.testing.assert_array_equal(a.search_token_vectors(qs, 10, candidates=500)[0],
+                                  a.search_token_vectors(qs, 10)[0])

@@ -6,8 +6,8 @@ equal to `engine.rerank`, and its error frames.  The reference's bert.h
 frames (meta, health, tokenize, vocab, eval, int8 encode, stats) against
 the reference's own server over one GGUF, the sparse (\x01TPW, on a
 tiny-splade GGUF) and MaxSim (\x01TPX) frames against the reference's
-server, and each frame the port does not serve yet answered by an error
-frame on a connection that stays usable."""
+server, and the index, search and hybrid frames against the reference's
+server and against the direct index calls."""
 import asyncio
 import contextlib
 import json
@@ -452,43 +452,214 @@ def test_sparse_frame_on_a_dense_model_errors_and_the_connection_stays(engine):
         np.testing.assert_allclose(_f32_reply(s), want, rtol=0, atol=1e-6)
 
 
-# each unserved magic with a payload of its documented layout
-_TEXTS = _texts_body(["a document", "another one"])
-UNSERVED_FRAMES = {
-    "index": b"\x01TPB" + _TEXTS,
-    "search": b"\x01TPS" + struct.pack("<I", 3) + _TEXTS,
-    "sparse_index": b"\x01TPY" + _TEXTS,
-    "sparse_search": b"\x01TPZ" + struct.pack("<I", 3) + _TEXTS,
-    "hybrid_index": b"\x01TPF" + _TEXTS,
-    "hybrid_search": b"\x01TPG" + struct.pack("<I", 3) + _TEXTS,
-    "maxsim_index": b"\x01TPJ" + _TEXTS,
-    "maxsim_search": b"\x01TPK" + struct.pack("<I", 3) + _TEXTS,
+# the index frames, and the search frames with the index frame each needs
+INDEX_DOCS = ["the quick brown fox jumps over the lazy dog", "hello world", "a",
+              "hello world again", "Hello, World!  Ünïcödé 中文", "hello world",
+              "partly cloudy skies over the town"]
+QUERIES = ["hello world", "a lazy fox", "skies"]
+SERVED_FRAMES = {  # frame -> (magic, the index magic its search needs, the pair)
+    "index": (b"\x01TPB", None, "engine_pair"),
+    "search": (b"\x01TPS", b"\x01TPB", "engine_pair"),
+    "sparse_index": (b"\x01TPY", None, "splade_pair"),
+    "sparse_search": (b"\x01TPZ", b"\x01TPY", "splade_pair"),
+    "hybrid_index": (b"\x01TPF", None, "splade_pair"),
+    "hybrid_search": (b"\x01TPG", b"\x01TPF", "splade_pair"),
+    "maxsim_index": (b"\x01TPJ", None, "engine_pair"),
+    "maxsim_search": (b"\x01TPK", b"\x01TPJ", "engine_pair"),
 }
 
 
-def test_the_unserved_frames_are_the_index_search_and_hybrid_ones():
-    from embedding_cpp_tpu_torch.runtime.server import UNSERVED
+def _search_reply(s) -> tuple[np.ndarray, np.ndarray]:
+    n, k = struct.unpack("<II", _recv(s, 8))
+    assert n != 0xFFFFFFFF, _recv(s, k)
+    ids = np.frombuffer(_recv(s, 4 * n * k), np.int32).reshape(n, k)
+    return ids, np.frombuffer(_recv(s, 4 * n * k), np.float32).reshape(n, k)
 
-    assert sorted(UNSERVED) == sorted(f[:4] for f in UNSERVED_FRAMES.values())
-    assert len(UNSERVED) == 8 and not {b"\x01TPW", b"\x01TPX"} & set(UNSERVED)
+
+def _u32(s) -> int:
+    (v,) = struct.unpack("<I", _recv(s, 4))
+    assert v != 0xFFFFFFFF, _error(s)
+    return v
 
 
-@pytest.mark.parametrize("frame", sorted(UNSERVED_FRAMES))
-def test_unserved_frame_gets_an_error_and_the_connection_stays(engine, frame):
-    from embedding_cpp_tpu_torch.runtime.server import UNSERVED, _MAGICS
+def test_every_frame_of_the_reference_is_served():
+    """The port's server reads every magic the reference's server reads,
+    and no other."""
+    from embedding_cpp_tpu.runtime import server as reference
+    from embedding_cpp_tpu_torch.runtime.server import _MAGICS
 
-    data = UNSERVED_FRAMES[frame]
-    assert data[:4] in UNSERVED and data[:4] in _MAGICS
-    want = engine.encode(TEXTS[:2])
-    with serve_in_thread(engine) as port, socket.create_connection(
-            ("127.0.0.1", port), 10) as s:
-        _recv(s, 4)
-        # the whole frame and a TPE2 frame behind it, in one send: the
-        # server must read the first to its end to find the second
-        s.sendall(data + b"TPE2" + _texts_body(TEXTS[:2]))
-        assert struct.unpack("<I", _recv(s, 4))[0] == 0xFFFFFFFF
-        assert _error(s).startswith(b"NotImplementedError: ")
-        np.testing.assert_allclose(_f32_reply(s), want, rtol=0, atol=1e-6)
+    theirs = {v for k, v in vars(reference).items() if k.startswith("MAGIC")}
+    assert set(_MAGICS) == theirs and len(_MAGICS) == len(theirs) == 19
+    assert {f[0] for f in SERVED_FRAMES.values()} <= set(_MAGICS)
+
+
+@pytest.mark.parametrize("frame", sorted(SERVED_FRAMES))
+def test_index_frame_matches_the_reference(request, frame):
+    """Each index, search and hybrid frame answered as the reference's
+    server answers it: an index frame's total (twice, and a TPE2 frame
+    behind it in the same send, so the frame is read to its end); a search
+    frame first the error frame (no index yet), then after its index frame
+    `u32 n | u32 k | ids | scores` at k 3 and at k past the corpus (id -1,
+    score -inf there), ids equal, scores at the f32 bar (RRF scores
+    exactly)."""
+    magic, index_magic, pair = SERVED_FRAMES[frame]
+    pair = request.getfixturevalue(pair)
+    with both_servers(pair) as socks:
+        replies = []
+        for s in socks:
+            got = []
+            if index_magic is None:
+                s.sendall(magic + _texts_body(INDEX_DOCS) + b"TPE2" + _texts_body(TEXTS[:2]))
+                got.append(_u32(s))
+                got.append(_f32_reply(s).shape)
+                s.sendall(magic + _texts_body(INDEX_DOCS[:3]))
+                got.append(_u32(s))
+            else:
+                s.sendall(magic + struct.pack("<I", 3) + _texts_body(QUERIES))
+                assert struct.unpack("<I", _recv(s, 4))[0] == 0xFFFFFFFF
+                got.append(_error(s).split(b":")[0])
+                s.sendall(index_magic + _texts_body(INDEX_DOCS))
+                got.append(_u32(s))
+                for k in (3, 10):
+                    s.sendall(magic + struct.pack("<I", k) + _texts_body(QUERIES))
+                    got.append(_search_reply(s))
+            replies.append(got)
+    ours, theirs = replies
+    if index_magic is None:
+        assert ours == theirs == [7, (2, 64), 10]
+        return
+    assert ours[:2] == theirs[:2] == [b"RuntimeError", 7]
+    atol = 0.0 if magic == b"\x01TPG" else ATOL_F32
+    for (ids, scores), (ids_ref, scores_ref), k in zip(ours[2:], theirs[2:], (3, 10)):
+        assert ids.shape == (3, k)
+        np.testing.assert_array_equal(ids, ids_ref)
+        np.testing.assert_allclose(scores, scores_ref, rtol=0, atol=atol)
+    ids, scores = ours[3]
+    if magic == b"\x01TPG":  # RRF: -1 / 0.0 past the fused candidates
+        assert np.all((ids >= 0) | (scores == 0.0))
+    else:
+        assert np.all(ids[:, 7:] == -1) and np.all(np.isneginf(scores[:, 7:]))
+        assert np.all(ids[:, :7] >= 0) and np.all(np.diff(scores[:, :7], axis=1) <= 0)
+
+
+def test_search_frames_equal_the_direct_index_calls(engine_pair, splade_pair):
+    """\x01TPS / \x01TPK / \x01TPZ / \x01TPG replies equal VectorIndex,
+    MaxSimIndex, SparseIndex and rrf_fuse called directly on the same
+    documents."""
+    from embedding_cpp_tpu_torch.runtime.maxsim_search import MaxSimIndex
+    from embedding_cpp_tpu_torch.runtime.search import VectorIndex
+    from embedding_cpp_tpu_torch.runtime.sparse_search import SparseIndex, rrf_fuse
+
+    dense, splade = engine_pair[0], splade_pair[0]
+    want = {}
+    for magic, cls, eng in ((b"\x01TPS", VectorIndex, dense), (b"\x01TPK", MaxSimIndex, dense),
+                            (b"\x01TPZ", SparseIndex, splade)):
+        index = cls(eng)
+        index.add(INDEX_DOCS)
+        want[magic] = index.search(QUERIES, 4)
+    d, sp = VectorIndex(splade), SparseIndex(splade)
+    d.add(INDEX_DOCS)
+    sp.add(INDEX_DOCS)
+    want[b"\x01TPG"] = rrf_fuse([d.search(QUERIES, 4)[0], sp.search(QUERIES, 4)[0]], 4)
+    for eng, index_magic, magic in ((dense, b"\x01TPB", b"\x01TPS"),
+                                    (dense, b"\x01TPJ", b"\x01TPK"),
+                                    (splade, b"\x01TPY", b"\x01TPZ"),
+                                    (splade, b"\x01TPF", b"\x01TPG")):
+        with serve_in_thread(eng) as port, socket.create_connection(("127.0.0.1", port), 30) as s:
+            _recv(s, 4)
+            s.sendall(index_magic + _texts_body(INDEX_DOCS))
+            assert _u32(s) == len(INDEX_DOCS)
+            s.sendall(magic + struct.pack("<I", 4) + _texts_body(QUERIES))
+            ids, scores = _search_reply(s)
+        np.testing.assert_array_equal(ids, want[magic][0])
+        np.testing.assert_array_equal(scores, want[magic][1])
+
+
+def test_hybrid_frames_refuse_a_desynced_corpus(splade_pair):
+    """An index frame after a hybrid one leaves the dense index longer than
+    the sparse one: \x01TPF and \x01TPG then refuse, as the reference's
+    server does, and the connection stays usable."""
+    with both_servers(splade_pair) as socks:
+        for s in socks:
+            s.sendall(b"\x01TPF" + _texts_body(INDEX_DOCS))
+            assert _u32(s) == 7
+            s.sendall(b"\x01TPB" + _texts_body(["one more"]))
+            assert _u32(s) == 8
+            for frame in (b"\x01TPF" + _texts_body(["x"]),
+                          b"\x01TPG" + struct.pack("<I", 2) + _texts_body(["hello"])):
+                s.sendall(frame)
+                assert struct.unpack("<I", _recv(s, 4))[0] == 0xFFFFFFFF
+                assert b"hybrid corpus desync" in _error(s)
+            s.sendall(b"\x01TPZ" + struct.pack("<I", 2) + _texts_body(["hello world"]))
+            ids, _ = _search_reply(s)
+            assert ids[0, 0] in (1, 5)
+
+
+def test_hybrid_index_fails_first_on_a_model_without_mlm_head(engine_pair):
+    """On a dense model the hybrid index frame fails before either index
+    changes: the dense index is not built, and a plain index frame after
+    it counts from 0."""
+    with both_servers(engine_pair) as socks:
+        for s in socks:
+            s.sendall(b"\x01TPF" + _texts_body(INDEX_DOCS))
+            assert struct.unpack("<I", _recv(s, 4))[0] == 0xFFFFFFFF
+            assert b"no MLM head" in _error(s)
+            s.sendall(b"\x01TPS" + struct.pack("<I", 2) + _texts_body(["hello"]))
+            assert struct.unpack("<I", _recv(s, 4))[0] == 0xFFFFFFFF
+            assert b"no index built" in _error(s)
+            s.sendall(b"\x01TPB" + _texts_body(INDEX_DOCS[:2]))
+            assert _u32(s) == 2
+
+
+def test_concurrent_hybrid_adds_keep_both_indexes_aligned(splade_pair):
+    """More threads than cores run hybrid index adds at once (a short switch
+    interval): both indexes end with every document once, and the dense row
+    at each id belongs to the text whose sparse vector sits at that id."""
+    import concurrent.futures
+    import os
+    import sys
+
+    from embedding_cpp_tpu_torch.runtime.server import ContinuousBatcher
+
+    ours, _ = splade_pair
+    workers = (os.cpu_count() or 4) + 4
+    texts = [f"document number {i} about topic {i % 5}" for i in range(2 * workers)]
+    b = ContinuousBatcher(ours)
+    prev = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with concurrent.futures.ThreadPoolExecutor(max_workers=workers) as ex:
+            futures = [ex.submit(b.hybrid_index_texts, [t]) for t in texts]
+            totals = sorted(f.result(timeout=120) for f in futures)
+    finally:
+        sys.setswitchinterval(prev)
+    assert totals == list(range(1, len(texts) + 1))
+    assert len(b.index) == len(b.sparse_index) == len(texts)
+    sparse = [tuple(i.tolist()) for i, _ in ours.encode_sparse(texts, k=256)]
+    dense = ours.encode_documents(texts)
+    rows = b.index._corpus[: len(texts)].float().numpy()
+    for doc_id, stored in enumerate(b.sparse_index._indices):
+        text = sparse.index(tuple(stored.tolist()))
+        assert int(np.argmax(dense @ rows[doc_id])) == text
+
+
+def test_hybrid_add_leaves_both_indexes_unchanged_when_the_encode_fails(splade_pair):
+    """The sparse encode runs before either append: when it raises, the
+    dense and the sparse index keep their documents."""
+    from embedding_cpp_tpu_torch.runtime.server import ContinuousBatcher
+
+    ours, _ = splade_pair
+    b = ContinuousBatcher(ours)
+    assert b.hybrid_index_texts(INDEX_DOCS[:3]) == 3
+    boom = RuntimeError("encode failed")
+
+    def failing(*a, **kw):
+        raise boom
+
+    b.sparse_index.engine = type("E", (), {"encode_sparse": staticmethod(failing)})()
+    with pytest.raises(RuntimeError, match="encode failed"):
+        b.hybrid_index_texts(INDEX_DOCS[3:])
+    assert len(b.index) == len(b.sparse_index) == 3
 
 
 def test_unknown_control_frame_is_refused_not_embedded(engine):

@@ -429,3 +429,171 @@ def test_sparse_bf16_tracks_f32(splade_engines):
     cos = np.sum(vecs[0] * vecs[1], -1) / np.linalg.norm(vecs[0], axis=-1) / np.linalg.norm(
         vecs[1], axis=-1)
     assert cos.min() >= 0.999
+
+
+# --- the token surfaces' batching: lists past n_ctx, and nomic's padded S ---
+
+LONG = 200  # ids in a list past tiny's and tiny-splade's 128-token context
+
+
+def _long_list(n: int = LONG) -> list[int]:
+    return [2] + np.random.default_rng(5).integers(5, 250, n - 2).tolist() + [3]
+
+
+@pytest.mark.parametrize("preset,surface", [
+    ("tiny", "token_states_tokens"), ("tiny", "maxsim_tokens"),
+    ("tiny", "maxsim_query"), ("tiny", "token_states_device"),
+    ("tiny-splade", "sparse_tokens")])
+def test_a_list_past_the_context_is_refused_as_the_reference_refuses_it(ggufs, preset,
+                                                                       surface):
+    """A 200-id list on a 128-token model: the JAX Engine raises ValueError,
+    and so does the port, naming the list's length, before any launch."""
+    path = ggufs(preset)
+    ours, theirs = Engine.from_gguf(path, device="cpu"), JEngine.from_gguf(path)
+    short = [2, 10, 11, 3]
+    calls = {
+        "token_states_tokens": lambda e: e.token_states_tokens([short, _long_list()]),
+        "maxsim_tokens": lambda e: e.maxsim_tokens(short, [short, _long_list()]),
+        "maxsim_query": lambda e: e.maxsim_tokens(_long_list(), [short]),
+        "token_states_device": lambda e: list(e.token_states_device([short, _long_list()])),
+        "sparse_tokens": lambda e: e.sparse_tokens([short, _long_list()], k=16),
+    }
+    with pytest.raises(ValueError):
+        calls[surface](theirs)
+    from embedding_cpp_tpu_torch.models import bert as port_bert
+
+    launched = []
+    real = port_bert.bert_embed_batch
+    port_bert.bert_embed_batch = lambda *a, **kw: launched.append(1) or real(*a, **kw)
+    try:
+        with pytest.raises(ValueError, match=f"has {LONG} ids, over the model's 128-token"):
+            calls[surface](ours)
+    finally:
+        port_bert.bert_embed_batch = real
+    assert not launched
+
+
+def test_embed_tokens_still_cuts_a_list_past_the_context(ggufs):
+    """embed_tokens cuts such a list in both packages (F4 leaves it)."""
+    path = ggufs("tiny")
+    ours, theirs = Engine.from_gguf(path, device="cpu"), JEngine.from_gguf(path)
+    lists = [_long_list(), [2, 10, 11, 3]]
+    np.testing.assert_allclose(ours.embed_tokens(lists), theirs.embed_tokens(lists),
+                               rtol=0, atol=ATOL)
+
+
+@pytest.fixture(scope="module")
+def nomic_pair(ggufs):
+    path = ggufs("tiny-nomic")
+    return Engine.from_gguf(path, device="cpu"), JEngine.from_gguf(path)
+
+
+def _nomic_lists(n_long: int = 129) -> list[list[int]]:
+    """[n_long random ids, its first 10]: padded together past tiny-nomic's
+    rope_max_trained (128), the short list's RoPE base is the long one's."""
+    long = np.random.default_rng(0).integers(5, 1000, n_long).tolist()
+    return [long, long[:10]]
+
+
+@pytest.mark.parametrize("n_long", [129, 200, 256])
+def test_nomic_token_states_of_mixed_lengths_match_jax(nomic_pair, n_long):
+    ours, theirs = nomic_pair
+    lists = _nomic_lists(n_long)
+    got, ref = ours.token_states_tokens(lists), theirs.token_states_tokens(lists)
+    for g, r, ids in zip(got, ref, lists):
+        assert g.shape == r.shape == (len(ids), 64)
+        np.testing.assert_allclose(g, r, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("n_long", [129, 200])
+def test_nomic_maxsim_of_mixed_lengths_matches_jax(nomic_pair, n_long):
+    ours, theirs = nomic_pair
+    long, short = _nomic_lists(n_long)
+    query = np.random.default_rng(1).integers(5, 1000, 129).tolist()
+    docs = [long[:50], short, long]
+    np.testing.assert_allclose(ours.maxsim_tokens(query, docs),
+                               theirs.maxsim_tokens(query, docs), rtol=0, atol=ATOL)
+
+
+def test_nomic_maxsim_frame_of_mixed_lengths_matches_the_reference(nomic_pair):
+    """\x01TPX on tiny-nomic: a document past 128 tokens beside short ones,
+    from both servers."""
+    import struct
+
+    from test_torch_server import _ranked, both_servers
+
+    from embedding_cpp_tpu_torch.tokenizer.testvocab import _COMMON_WORDS as words
+
+    ours, _ = nomic_pair
+    rng = np.random.default_rng(2)
+    query = " ".join(rng.choice(words, 140))
+    docs = [" ".join(rng.choice(words, 150)), "hello world", " ".join(rng.choice(words, 20))]
+    assert len(ours.tokenize(docs[0])) > 128 and len(ours.tokenize(query)) > 128
+    body = struct.pack("<I", len(docs)) + b"".join(
+        struct.pack("<I", len(d.encode())) + d.encode() for d in docs)
+    frame = b"\x01TPX" + struct.pack("<II", 0, len(query.encode())) + query.encode() + body
+    with both_servers(nomic_pair) as socks:
+        replies = []
+        for s in socks:
+            s.sendall(frame)
+            replies.append(_ranked(s))
+    (idx, scores), (idx_ref, scores_ref) = replies
+    assert idx == idx_ref
+    np.testing.assert_allclose(scores, scores_ref, rtol=0, atol=ATOL)
+
+
+def test_nomic_token_plan_pads_each_chunk_as_the_reference(nomic_pair):
+    """2100 lists of random lengths: every list gets the padded S the JAX
+    Engine's `_padded_chunks` gives it (chunks of 2048 in input order), and
+    the plan covers each list once."""
+    ours, theirs = nomic_pair
+    rng = np.random.default_rng(3)
+    lens = np.concatenate([rng.integers(1, 257, 2048), rng.integers(1, 101, 52)])
+    lists = [[7] * int(n) for n in lens]
+    want = []
+    for ids, _, lens in theirs._padded_chunks(lists, max(theirs.batch_buckets)):
+        want += [ids.shape[1]] * len(lens)
+    got = [0] * len(lists)
+    for b in ours.token_plan(lists):
+        for row, i in enumerate(b.positions):
+            assert b.mask[row].sum() == len(lists[i])
+            got[i] = b.ids.shape[1]
+    assert got == want and len(set(want)) > 1
+
+
+@pytest.mark.parametrize("preset", ["tiny", "tiny-roberta", "tiny-modernbert", "tiny-deberta",
+                                    "tiny-t5"])
+def test_length_buckets_and_padded_chunks_give_the_same_states(ggufs, preset, monkeypatch):
+    """Where states do not depend on the padded S, the port keeps the
+    length-bucket plan: forcing the reference's padded chunks instead gives
+    the same states for lists of mixed lengths."""
+    ours = Engine.from_gguf(ggufs(preset), device="cpu")
+    rng = np.random.default_rng(4)
+    top = min(250, ours.config.n_vocab)
+    lists = [[2] + rng.integers(5, top, int(n)).tolist() + [3] for n in (3, 100, 20, 60, 1)]
+    assert not ours._length_dependent()
+    bucketed = ours.token_states_tokens(lists)
+    monkeypatch.setattr(Engine, "_length_dependent", lambda self: True)
+    assert len({b.ids.shape[1] for b in ours.token_plan(lists)}) == 1
+    for a, b in zip(bucketed, ours.token_states_tokens(lists)):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("preset", ["tiny", "tiny-nomic"])
+def test_token_states_device_equals_token_states_tokens(ggufs, preset):
+    """Each yielded batch: its positions, the [B, S, E] states on the
+    engine's device, the mask and the lengths, equal to token_states_tokens
+    row for row."""
+    ours = Engine.from_gguf(ggufs(preset), device="cpu")
+    lists = _nomic_lists(129) + [[2, 9, 3]] if preset == "tiny-nomic" else \
+        [ours.tokenize(t) for t in TEXTS]
+    want = ours.token_states_tokens(lists)
+    seen = []
+    for positions, dev, mask, lens in ours.token_states_device(lists):
+        assert isinstance(dev, torch.Tensor) and dev.device == ours.device
+        assert dev.shape[:2] == mask.shape and dev.dtype == torch.float32
+        for row, (i, n) in enumerate(zip(positions, lens)):
+            assert n == len(lists[i]) and mask[row].sum() == n
+            np.testing.assert_array_equal(dev[row, :n].numpy(), want[i])
+            seen.append(i)
+    assert sorted(seen) == list(range(len(lists)))
