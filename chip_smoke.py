@@ -48,6 +48,20 @@ Phases, in order, each printing JSON lines:
             2758-sentence STSB-profile corpus, packed and plain, f32 and int8
             output, with the kernels' launch counts, the check against the
             port's own f32 CPU path, sentences/s and in-device forward ms
+  formats   the model-format path at MiniLM-L6's width: an HF directory
+            written by hand (config.json, the test vocabulary's
+            tokenizer.json, pytorch_model.bin of the main phase's seed-0
+            weights) converted to f32 and quantized to Q4_0 (the same kvs and
+            tensors as the one-step Q4_0 conversion); Engine.from_gguf of that
+            file: the main phase's parameters byte for byte and its corpus
+            embeddings, packed and plain, through the same K1/K2/K3 launches;
+            float16 / bfloat16 output (fetch bytes, sentences/s),
+            weight_mode="dequant" (no K1), q4_impl / attn_impl "plain" (no
+            launch of the matching kernels; the full forwards timed at
+            [32, 512]), custom seq / batch buckets (only their shapes
+            launched); the legacy .bin at f16 against the f16 GGUF; the
+            server started from the Q4_0 file in its own process: seconds to
+            its first reply, TPE2 replies against the int8-output Engine
   modernbert_main  the same corpus through ModernBERT-base at full width and
             depth (768 wide, 22 layers, 12 heads of 64, GeGLU 1152, window
             128), packed and plain: launch counts, sentences/s, in-device
@@ -1429,8 +1443,354 @@ def phase_main(counters) -> tuple:
     }
     emit(result)
     total = {name: sum(c[name] for c in launches.values()) for name in counters}
+    main = {"config": config, "base": base, "engines": engines, "outs": outs,
+            "launches": launches, "forward_ms": {"plain": plain_ms, "packed": packed_ms},
+            "forward_inputs": (ids, mask, pids, seg, pos)}
     return (engines[("auto", "float32")], (base.params, config, pids, seg, pos),
-            total, token_lists)
+            total, token_lists, main)
+
+
+# --- formats: convert -> quantize -> load -> serve, from files the port wrote ---
+
+def _hf_minilm_dir(d: Path, config) -> None:
+    """A MiniLM-L6 HF checkpoint directory written by hand (the card has no
+    `transformers`): a BertModel config.json, the WordPiece test
+    vocabulary's tokenizer.json and a pytorch_model.bin holding
+    random_state_dict(config, 0), the weights Engine.synthetic makes."""
+    import torch
+
+    from embedding_cpp_tpu_torch.models.params import random_state_dict
+    from embedding_cpp_tpu_torch.tokenizer.testvocab import build_tokenizer_json
+
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "config.json").write_text(json.dumps({
+        "architectures": ["BertModel"], "model_type": "bert", "vocab_size": config.n_vocab,
+        "hidden_size": config.n_embd, "num_hidden_layers": config.n_layer,
+        "num_attention_heads": config.n_head, "intermediate_size": config.n_ff,
+        "max_position_embeddings": config.n_ctx, "type_vocab_size": config.n_token_types,
+        "layer_norm_eps": config.layer_norm_eps, "hidden_act": "gelu"}))
+    (d / "tokenizer.json").write_bytes(build_tokenizer_json(config.n_vocab))
+    torch.save({k: torch.from_numpy(v) for k, v in random_state_dict(config, 0).items()},
+               d / "pytorch_model.bin")
+
+
+def _same_gguf(a: Path, b: Path) -> bool:
+    """The same kv pairs (values and types, in any order) and the same
+    tensor directory and data, byte for byte."""
+    from embedding_cpp_tpu_torch.gguf.reader import GGUFReader
+
+    with GGUFReader(a) as x, GGUFReader(b) as y:
+        if sorted(x.kv) != sorted(y.kv) or list(x.tensors) != list(y.tensors):
+            return False
+        for k, v in x.kv.items():
+            w = y.kv[k]
+            if isinstance(v, np.ndarray):
+                if not (isinstance(w, np.ndarray) and v.dtype == w.dtype
+                        and np.array_equal(v, w)):
+                    return False
+            elif type(v) is not type(w) or v != w:
+                return False
+        return all(x.tensors[n] == y.tensors[n]
+                   and np.array_equal(x.tensor_raw(n), y.tensor_raw(n)) for n in x.tensors)
+
+
+def _param_leaves(params: dict, prefix: str = ""):
+    from embedding_cpp_tpu_torch.ops.qtensor import QTensor
+
+    for k, v in params.items():
+        if isinstance(v, dict):
+            yield from _param_leaves(v, f"{prefix}{k}.")
+        elif isinstance(v, QTensor):
+            for f in ("qs", "scales", "mins"):
+                if getattr(v, f) is not None:
+                    yield f"{prefix}{k}.{f}", getattr(v, f)
+        else:
+            yield prefix + k, v
+
+
+def _same_params(a: dict, b: dict) -> bool:
+    import torch
+
+    x, y = dict(_param_leaves(a)), dict(_param_leaves(b))
+    return sorted(x) == sorted(y) and all(
+        x[k].dtype == y[k].dtype and x[k].shape == y[k].shape and torch.equal(x[k], y[k])
+        for k in x)
+
+
+def _counted_embed(counters, eng, token_lists) -> tuple[np.ndarray, dict]:
+    import torch
+
+    reset_counts(counters)
+    out = eng.embed_tokens(token_lists)
+    torch.cuda.synchronize()
+    return out, read_counts(counters)
+
+
+def _max_rel(got: np.ndarray, ref: np.ndarray) -> float:
+    return float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-30))
+
+
+def phase_formats(counters, main: dict, token_lists) -> dict:
+    """The model-format path on the card, at MiniLM-L6's full width: (a)
+    an HF directory written by hand, converted to f32 and quantized to
+    Q4_0 (the same tensors and kvs as the one-step Q4_0 conversion); (b)
+    that file through Engine.from_gguf on the card: the main phase's
+    parameters byte for byte and its embeddings of the corpus, packed and
+    plain, through the same K1/K2/K3 launches; (c) the Engine's switches:
+    float16 / bfloat16 output, weight_mode="dequant" (no K1), q4_impl /
+    attn_impl "plain" (no launch of the matching kernels; both full
+    forwards timed at [32, 512]), custom buckets (only their shapes
+    launched); (d) the legacy .bin at f16 against the f16 GGUF; (e) the
+    server started from the Q4_0 file as a subprocess: seconds to its first
+    reply, TPE2 replies against the int8-output Engine.  Returns the launch
+    counts of (b)."""
+    import tempfile
+
+    import torch
+
+    from embedding_cpp_tpu_torch import Engine
+    from embedding_cpp_tpu_torch.models import ComputeOptions
+    from embedding_cpp_tpu_torch.models.bert import bert_embed_batch
+    from embedding_cpp_tpu_torch.models.convert import convert_hf_dir, convert_hf_dir_to_legacy
+    from embedding_cpp_tpu_torch.models.quantize_tool import quantize_gguf
+    from embedding_cpp_tpu_torch.runtime import engine as engine_mod
+
+    config, base = main["config"], main["base"]
+    bf16 = ComputeOptions(dtype="bfloat16")
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_formats_")
+    root = Path(tmp.name)
+    hf, f32_path, q4_path = root / "minilm-l6-synthetic", root / "f32.gguf", root / "q4_0.gguf"
+
+    # (a) HF directory -> f32 -> Q4_0, beside the one-step conversion
+    t0 = time.perf_counter()
+    _hf_minilm_dir(hf, config)
+    t_dir = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    convert_hf_dir(hf, f32_path, "f32")
+    t_convert = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stats = quantize_gguf(str(f32_path), str(q4_path), "q4_0", verbose=False)
+    t_quantize = time.perf_counter() - t0
+    convert_hf_dir(hf, root / "q4_0_direct.gguf", "q4_0")
+    same_as_direct = _same_gguf(q4_path, root / "q4_0_direct.gguf")
+    emit({"phase": "formats_files", "hf_dir_s": t_dir, "convert_f32_s": t_convert,
+          "quantize_q4_0_s": t_quantize, "f32_bytes": f32_path.stat().st_size,
+          "q4_0_bytes": q4_path.stat().st_size, "quantized": stats.n_quantized,
+          "kept": stats.n_kept, "hist": stats.hist_all.tolist(),
+          "same_as_one_step_q4_0": same_as_direct,
+          "byte_identical_to_one_step": q4_path.read_bytes() == (
+              root / "q4_0_direct.gguf").read_bytes()})
+    check(same_as_direct, "quantize_gguf(f32) differs from convert_hf_dir(q4_0)")
+
+    # (b) the Q4_0 file on the card against the main phase
+    t0 = time.perf_counter()
+    loaded = Engine.from_gguf(str(q4_path), opts=bf16, device="cuda")
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    check(_same_params(loaded.params, base.params), "from_gguf params != Engine.synthetic's")
+    # the file holds eps as f32, which the forward adds as f32 either way
+    check(replace(loaded.config, name="", layer_norm_eps=float(np.float32(config.layer_norm_eps)))
+          == replace(config, name="", layer_norm_eps=float(np.float32(config.layer_norm_eps))),
+          f"config {loaded.config}")
+    # the main path's own run-to-run spread: the bar for "equal"
+    spread = max(float(np.abs(main["engines"][(p, "float32")].embed_tokens(token_lists)
+                              - main["outs"][(p, "float32")]).max())
+                 for p in ("auto", "never"))
+    gguf = {"auto": loaded, "never": Engine(loaded.params, loaded.config, loaded.tokenizer,
+                                            loaded.special_ids, opts=bf16, device="cuda",
+                                            packing="never")}
+    outs, counts, diffs = {}, {}, {}
+    for packing, eng in gguf.items():
+        outs[packing], counts[packing] = _counted_embed(counters, eng, token_lists)
+        want = main["launches"][(packing, "float32")]
+        diffs[packing] = float(np.abs(outs[packing] - main["outs"][(packing, "float32")]).max())
+        emit({"phase": "formats_gguf", "packing": packing, "launches": counts[packing],
+              "main_launches": want, "max_abs_diff_vs_main": diffs[packing],
+              "main_run_to_run": spread})
+        check(counts[packing] == want, f"gguf {packing}: launches {counts[packing]} != {want}")
+        check(diffs[packing] <= spread, f"gguf {packing}: {diffs[packing]} vs main, spread "
+                                        f"{spread}")
+    emit({"phase": "formats_load", "load_s": t_load, "params_equal": True,
+          "embeddings_equal_main": max(diffs.values()) == 0.0})
+
+    # (c) the switches on the loaded parameters
+    def variant(**kw):
+        packing = kw.pop("packing", "auto")
+        return Engine(loaded.params, loaded.config, loaded.tokenizer, loaded.special_ids,
+                      opts=ComputeOptions(dtype="bfloat16", **kw), device="cuda",
+                      packing=packing)
+
+    ref = outs["auto"]
+    out_engines = {od: variant(output_dtype=od) for od in ("float16", "bfloat16", "int8")}
+    dtype_err = {}
+    for od, bar in (("float16", 1e-3), ("bfloat16", 8e-3)):
+        got = out_engines[od].embed_tokens(token_lists)
+        dtype_err[od] = float(np.abs(got - ref).max())
+        check(dtype_err[od] <= bar, f"{od} output: max |diff| {dtype_err[od]} > {bar}")
+    rates = {od: float("inf") for od in ("float32", "float16", "bfloat16", "int8")}
+    timed = {"float32": loaded, **out_engines}
+    for _ in range(3):
+        for od, eng in timed.items():
+            t0 = time.perf_counter()
+            eng.embed_tokens(token_lists)
+            rates[od] = min(rates[od], time.perf_counter() - t0)
+    n = len(token_lists)
+    e = config.n_embd
+    fetch_bytes = {"float32": n * e * 4, "float16": n * e * 2, "bfloat16": n * e * 2,
+                   "int8": n * (e + 4)}
+    emit({"phase": "formats_output_dtypes", "max_abs_diff_vs_f32": dtype_err,
+          "bars": {"float16": 1e-3, "bfloat16": 8e-3}, "fetch_bytes": fetch_bytes,
+          "sentences_per_sec": {od: n / t for od, t in rates.items()}})
+
+    dequant = Engine.from_gguf(str(q4_path), weight_mode="dequant", opts=bf16, device="cuda")
+    got, c = _counted_embed(counters, dequant, token_lists)
+    attn = {k: v for k, v in c.items() if k in ATTENTION}
+    dequant_cos = _min_cos(got, ref)
+    check(c["q4_matmul"] == 0 and c["q4_matmul_2d"] == 0, f"dequant: K1 launched {c}")
+    check(attn == {k: v for k, v in counts["auto"].items() if k in ATTENTION},
+          f"dequant: attention {attn}")
+    check(dequant_cos >= 0.999, f"dequant cosine {dequant_cos}")
+    emit({"phase": "formats_dequant", "launches": c, "min_cosine_vs_q4": dequant_cos})
+
+    plains = {}
+    for tag, kw in (("q4_plain", dict(q4_impl="plain")), ("attn_plain", dict(attn_impl="plain")),
+                    ("both_plain", dict(q4_impl="plain", attn_impl="plain"))):
+        for packing in ("auto", "never"):
+            got, c = _counted_embed(counters, variant(packing=packing, **kw), token_lists)
+            k1 = c["q4_matmul"] + c["q4_matmul_2d"]
+            n_attn = sum(c[k] for k in ATTENTION)
+            want = counts[packing]
+            if "q4_impl" in kw:
+                check(k1 == 0, f"{tag}/{packing}: K1 launched {c}")
+            else:
+                check(k1 == want["q4_matmul"], f"{tag}/{packing}: K1 {c}")
+            if "attn_impl" in kw:
+                check(n_attn == 0, f"{tag}/{packing}: attention launched {c}")
+            else:
+                check(n_attn == sum(want[k] for k in ATTENTION), f"{tag}/{packing}: {c}")
+            rel = _max_rel(got, outs[packing])
+            plains[f"{tag}/{packing}"] = {"k1": k1, "attention": n_attn, "max_rel_err": rel,
+                                          "min_cosine": _min_cos(got, outs[packing])}
+            check(rel <= BF16_REL, f"{tag}/{packing}: max rel err {rel} > {BF16_REL}")
+    ids, mask = main["forward_inputs"][:2]
+    forward_ms = {}
+    with torch.inference_mode():
+        for tag, params, opts in (
+                ("kernels", loaded.params, bf16),
+                ("q4_plain", loaded.params, ComputeOptions(dtype="bfloat16", q4_impl="plain")),
+                ("attn_plain", loaded.params, ComputeOptions(dtype="bfloat16",
+                                                             attn_impl="plain")),
+                ("both_plain", loaded.params, ComputeOptions(dtype="bfloat16", q4_impl="plain",
+                                                             attn_impl="plain")),
+                ("dequant", dequant.params, bf16)):
+            forward_ms[tag] = gpu_ms(
+                lambda: bert_embed_batch(params, ids, mask, config, opts),
+                samples=5, reps=4, spin=200_000_000)
+    emit({"phase": "formats_switches", "plain": plains, "bar_max_rel_err": BF16_REL,
+          "forward_ms_in_device_b32_s512": forward_ms})
+
+    buckets = Engine(loaded.params, loaded.config, loaded.tokenizer, loaded.special_ids,
+                     opts=bf16, device="cuda", packing="never", seq_buckets=(32, 128),
+                     batch_buckets=(64,))
+    shapes = []
+    real = engine_mod.bert_embed_batch
+
+    def recorded(params, ids, *a, **kw):
+        shapes.append(tuple(ids.shape))
+        return real(params, ids, *a, **kw)
+
+    # the corpus and 64 lists of 33-120 tokens (four sentences joined), so
+    # both buckets are reached
+    long_lists = [[t for j in range(4 * i, 4 * i + 4) for t in token_lists[j][1:-1]][:118]
+                  for i in range(64)]
+    long_lists = [[token_lists[0][0], *ids, token_lists[0][-1]] for ids in long_lists]
+    lists = token_lists + long_lists
+    engine_mod.bert_embed_batch = recorded
+    try:
+        got, c = _counted_embed(counters, buckets, lists)
+    finally:
+        engine_mod.bert_embed_batch = real
+    bucket_cos = _min_cos(got, gguf["never"].embed_tokens(lists))
+    check(set(shapes) == {(64, 32), (64, 128)}, f"bucket shapes {set(shapes)}")
+    check(c["q4_matmul"] == 36 * len(shapes) and c["attn_bse_keybias"] == 6 * len(shapes),
+          f"buckets: {c} for {len(shapes)} forwards")
+    check(bucket_cos >= 0.999, f"custom buckets cosine {bucket_cos}")
+    emit({"phase": "formats_buckets", "seq_buckets": [32, 128], "batch_buckets": [64],
+          "lists": len(lists), "longest": max(map(len, lists)),
+          "shapes": sorted(set(shapes)), "forwards": len(shapes), "launches": c,
+          "min_cosine_vs_default": bucket_cos})
+
+    # (d) the legacy .bin at f16 against the f16 GGUF
+    t0 = time.perf_counter()
+    convert_hf_dir_to_legacy(hf, root / "m.bin", "f16")
+    t_legacy = time.perf_counter() - t0
+    convert_hf_dir(hf, root / "f16.gguf", "f16")
+    legacy = Engine.from_legacy_bin(str(root / "m.bin"), opts=bf16, device="cuda")
+    f16 = Engine.from_gguf(str(root / "f16.gguf"), opts=bf16, device="cuda")
+    check(_same_params(legacy.params, f16.params), "legacy params != f16 GGUF params")
+    a, b = legacy.embed_tokens(token_lists), f16.embed_tokens(token_lists)
+    legacy_diff = float(np.abs(a - b).max())
+    check(legacy_diff <= spread, f"legacy vs f16 GGUF: {legacy_diff}")
+    emit({"phase": "formats_legacy", "convert_s": t_legacy,
+          "bin_bytes": (root / "m.bin").stat().st_size, "max_abs_diff_vs_f16_gguf": legacy_diff,
+          "f16_min_cosine_vs_q4": _min_cos(b, ref)})
+    del legacy, f16, dequant, out_engines, buckets
+    torch.cuda.empty_cache()
+
+    # (e) the server from the Q4_0 file, in its own process
+    texts = ["hello world", "the quick brown fox jumps over the lazy dog",
+             "welcome back soon", "store buy apple banana", "partly cloudy outside"]
+    want = variant(output_dtype="int8").encode(texts)
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    body = b"".join(struct.pack("<I", len(t.encode())) + t.encode() for t in texts)
+    log = open(root / "server.log", "w")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "embedding_cpp_tpu_torch.runtime.server", "-m", str(q4_path),
+         "--host", "127.0.0.1", "--port", str(port)],
+        cwd=str(ROOT), stdout=log, stderr=subprocess.STDOUT)
+    try:
+        s = None
+        while s is None:
+            check(proc.poll() is None,
+                  f"server exited: {(root / 'server.log').read_text()[-2000:]}")
+            check(time.perf_counter() - t0 < 300, "server did not listen within 300 s")
+            try:
+                s = socket.create_connection(("127.0.0.1", port), 1.0)
+            except OSError:
+                time.sleep(0.1)
+        with s:
+            s.settimeout(120)
+            _recv(s, 4)
+            s.sendall(b"TPE2" + struct.pack("<I", len(texts)) + body)
+            (count,) = struct.unpack("<I", _recv(s, 4))
+            vecs = np.frombuffer(_recv(s, 4 * count * config.n_embd),
+                                 np.float32).reshape(count, -1)
+            first_reply_s = time.perf_counter() - t0
+            replies = [vecs]
+            for _ in range(2):
+                s.sendall(b"TPE2" + struct.pack("<I", len(texts)) + body)
+                (count,) = struct.unpack("<I", _recv(s, 4))
+                replies.append(np.frombuffer(_recv(s, 4 * count * config.n_embd),
+                                             np.float32).reshape(count, -1))
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+        log.close()
+    server_diff = max(float(np.abs(r - want).max()) for r in replies)
+    emit({"phase": "formats_server", "first_reply_s": first_reply_s, "replies": len(replies),
+          "texts": len(texts), "max_abs_diff_vs_int8_engine": server_diff,
+          "exit_code": proc.returncode})
+    check(server_diff <= spread, f"server replies differ from the int8 engine: {server_diff}")
+    tmp.cleanup()
+    return {k: counts["auto"][k] + counts["never"][k] for k in counters}
 
 
 def _modernbert_counts_ok(counts: dict, forwards: int, packing: str, what: str) -> None:
@@ -3752,7 +4112,8 @@ def main() -> None:
                 "attn_seg_window": (A.flash_attention_packed, "window_launches"),
                 "attn_seg_local": (A.flash_attention_packed_local, "launches"),
                 "attention_headpack": (A.attention_headpack, "launches")}
-    engine, forward_args, launches, token_lists = phase_main(counters)
+    engine, forward_args, launches, token_lists, main_path = phase_main(counters)
+    gguf_counts = phase_formats(counters, main_path, token_lists)
     mb, mb_outs, mb_launches, mb_forward_args = phase_modernbert_main(counters, token_lists)
     long_launches = phase_modernbert_long(counters, mb, out_dir)
     phase_modernbert_vs_cpu(counters, mb, mb_outs, token_lists)
@@ -4106,6 +4467,17 @@ def main() -> None:
                 kernels.append(_entry(f"{kname}/{tag}", src, line, counts[kname], c,
                                       f"{label}: timed at the shape of that model's "
                                       f"{kname} entry", model=tag))
+    # the formats phase: the main path loaded from a port-written Q4_0 GGUF
+    kernels.append(_entry("q4_matmul/gguf", "q4_matmul.cu", "q4_matmul.py:126",
+                          gguf_counts["q4_matmul"], k1_mini, "MiniLM-L6 loaded by "
+                          "Engine.from_gguf from a Q4_0 file the port converted and quantized: "
+                          "the linears of the q4_matmul entry, timed there", model="minilm-l6"))
+    for kname in ("attn_bse_packed", "attn_bse_keybias"):
+        c = attn[kname]
+        kernels.append(_entry(f"{kname}/gguf", "attention_bse.cu", "attention.py:213",
+                              gguf_counts[kname], c, f"[{c['b']}, {c['s']}, {c['h']}*{c['d']}] "
+                              "bf16, MiniLM-L6 from the port-written Q4_0 GGUF: the shape of "
+                              f"the {kname} entry, timed there", model="minilm-l6"))
     c = headpack["d32_hb4"]
     kernels.append({
         **_entry("attention_headpack", "attention_headpack.cu", "", headpack_on_paths, c,

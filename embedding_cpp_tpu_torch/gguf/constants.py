@@ -1,5 +1,5 @@
-"""GGUF format constants (the subset the BERT, ModernBERT, DeBERTa and
-nomic-bert paths read).
+"""GGUF format constants (the subset the BERT-family paths read and the
+writer, converter and quantizer write).
 
 The same format semantics as the JAX package's `gguf/constants.py`: key
 names follow the GGUF BERT convention, tensor types follow ggml's
@@ -13,6 +13,8 @@ import enum
 GGUF_MAGIC = b"GGUF"
 GGUF_DEFAULT_ALIGNMENT = 32
 GGUF_SUPPORTED_VERSIONS = (1, 2, 3)
+# the version written: v2, what the reference's pinned ggml reads
+GGUF_WRITE_VERSION = 2
 
 
 class GGUFValueType(enum.IntEnum):
@@ -64,6 +66,18 @@ GGML_TYPE_SIZES: dict[GGMLType, tuple[int, int]] = {
 }
 
 
+class GGUFTokenType(enum.IntEnum):
+    """Vocabulary token types (`tokenizer.ggml.token_type`)."""
+
+    UNDEFINED = 0
+    NORMAL = 1
+    UNKNOWN = 2
+    CONTROL = 3
+    USER_DEFINED = 4
+    UNUSED = 5
+    BYTE = 6
+
+
 class GGUFFileType(enum.IntEnum):
     """File-level quantization mode (`general.file_type`)."""
 
@@ -93,12 +107,16 @@ class Keys:
     ALIGNMENT = "general.alignment"
     NAME = "general.name"
     FILE_TYPE = "general.file_type"
+    SOURCE_HF_REPO = "general.source_hf_repo"
 
     CONTEXT_LENGTH = f"{ARCH}.context_length"
     EMBEDDING_LENGTH = f"{ARCH}.embedding_length"
     BLOCK_COUNT = f"{ARCH}.block_count"
     FEED_FORWARD_LENGTH = f"{ARCH}.feed_forward_length"
+    TENSOR_DATA_LAYOUT = f"{ARCH}.tensor_data_layout"
     HEAD_COUNT = f"{ARCH}.attention.head_count"
+    HEAD_COUNT_KV = f"{ARCH}.attention.head_count_kv"
+    ROPE_DIMENSION_COUNT = f"{ARCH}.rope.dimension_count"
     LAYER_NORM_EPS = f"{ARCH}.attention.layer_norm_epsilon"
     POOLING_TYPE = f"{ARCH}.pooling_type"
     NORMALIZE = f"{ARCH}.normalize_embeddings"
@@ -151,7 +169,10 @@ class Keys:
     PROMPTS = f"{ARCH}.prompts"
     DEFAULT_PROMPT = f"{ARCH}.default_prompt_name"
 
+    TOKENIZER_MODEL = "tokenizer.ggml.model"
     TOKENIZER_LIST = "tokenizer.ggml.tokens"
+    TOKENIZER_TOKEN_TYPE = "tokenizer.ggml.token_type"
+    TOKENIZER_SCORES = "tokenizer.ggml.scores"
     TOKENIZER_UNK_ID = "tokenizer.ggml.unknown_token_id"
     TOKENIZER_SEP_ID = "tokenizer.ggml.seperator_token_id"  # sic — GGUF spelling
     TOKENIZER_PAD_ID = "tokenizer.ggml.padding_token_id"

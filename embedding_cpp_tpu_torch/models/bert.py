@@ -24,6 +24,7 @@ with MPNet's position bias (K4) or without (K2/K3).
 from __future__ import annotations
 
 import functools
+import inspect
 import math
 from dataclasses import dataclass
 
@@ -37,28 +38,40 @@ from ..ops.attention import (
     flash_attention_bse,
     flash_attention_packed_bse,
 )
+from ..ops.dispatch import check_impl, kernel_impls
 from ..ops.linear import layer_norm, linear
 from ..ops.qtensor import QTensor, gather_rows
 from .config import BertConfig
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_OUTPUT_DTYPES = {"float32": torch.float32, "float16": torch.float16,
+                  "bfloat16": torch.bfloat16, "int8": None}
 
 
 @dataclass(frozen=True)
 class ComputeOptions:
-    """Activation dtype ("float32" | "bfloat16"), and the encoding of the
-    returned embeddings: "float32", or "int8" — per-vector int8 codes with
-    their f32 scale packed in one uint8 array (`pack_output_i8`), a quarter
-    of the bytes to fetch."""
+    """Activation dtype ("float32" | "bfloat16"); the encoding of the
+    returned embeddings: "float32", "float16" / "bfloat16" (cast on the
+    device, half the bytes to fetch; pooling and the L2 norm still run in
+    f32), or "int8" — per-vector int8 codes with their f32 scale packed in
+    one uint8 array (`pack_output_i8`), a quarter of the bytes; and which
+    version of the quantized matmul (`q4_impl`) and of the attention
+    (`attn_impl`) the forward runs: "auto" (the kernel on CUDA tensors, the
+    plain version on the CPU), "kernel" or "plain" (ops/dispatch.py)."""
 
     dtype: str = "float32"
     output_dtype: str = "float32"
+    q4_impl: str = "auto"
+    attn_impl: str = "auto"
 
     def __post_init__(self):
         if self.dtype not in _DTYPES:
             raise ValueError(f"dtype {self.dtype!r} not in {sorted(_DTYPES)}")
-        if self.output_dtype not in ("float32", "int8"):
-            raise ValueError(f"output_dtype {self.output_dtype!r} not float32/int8")
+        if self.output_dtype not in _OUTPUT_DTYPES:
+            raise ValueError(f"output_dtype {self.output_dtype!r} not in "
+                             f"{sorted(_OUTPUT_DTYPES)}")
+        check_impl("q4_impl", self.q4_impl)
+        check_impl("attn_impl", self.attn_impl)
 
     @property
     def tdtype(self) -> torch.dtype:
@@ -271,9 +284,41 @@ def unpack_output_i8(packed) -> np.ndarray:
 
 
 def _cast_output(out: torch.Tensor, opts: ComputeOptions) -> torch.Tensor:
-    return pack_output_i8(out) if opts.output_dtype == "int8" else out
+    """The output encoding: packed int8, or a cast to the output dtype."""
+    if opts.output_dtype == "int8":
+        return pack_output_i8(out)
+    return out.to(_OUTPUT_DTYPES[opts.output_dtype])
 
 
+def fetch_output(out: torch.Tensor) -> np.ndarray:
+    """Device result -> host f32 numpy: int8 codes decoded, f16 / bf16
+    values upcast exactly (numpy has no bfloat16: the cast runs in torch
+    on the host)."""
+    host = out.cpu()
+    if host.dtype == torch.uint8:
+        return unpack_output_i8(host.numpy())
+    return host.float().numpy()
+
+
+def _with_kernel_impls(fn):
+    """Run the forward `fn` with the kernel choices of its `opts`
+    argument (`dispatch.kernel_impls`): every kernel wrapper it reaches,
+    in every family's model code and the heads, runs as they say."""
+    sig = inspect.signature(fn)
+    default = sig.parameters["opts"].default
+
+    @functools.wraps(fn)
+    def run(*args, **kw):
+        opts = sig.bind_partial(*args, **kw).arguments.get("opts", default)
+        if opts is inspect.Parameter.empty:
+            opts = ComputeOptions()
+        with kernel_impls(opts.q4_impl, opts.attn_impl):
+            return fn(*args, **kw)
+
+    return run
+
+
+@_with_kernel_impls
 def bert_embed_batch(params: dict, ids: torch.Tensor, mask: torch.Tensor,
                      config: BertConfig, opts: ComputeOptions = ComputeOptions(),
                      gather_idx: torch.Tensor | None = None,
@@ -327,6 +372,7 @@ def check_pack_seq(config: BertConfig, s: int) -> None:
                          f"its attention kernel stops at {limit}")
 
 
+@_with_kernel_impls
 def bert_embed_packed(params: dict, ids: torch.Tensor, seg: torch.Tensor,
                       pos: torch.Tensor, config: BertConfig,
                       opts: ComputeOptions = ComputeOptions(), *, n_seg: int,
@@ -382,6 +428,7 @@ def classifier_head(h: torch.Tensor, head: dict, activation: str) -> torch.Tenso
     return y @ head["out_w"] + head["out_b"]
 
 
+@_with_kernel_impls
 def bert_score_batch(params: dict, ids: torch.Tensor, mask: torch.Tensor,
                      config: BertConfig, opts: ComputeOptions = ComputeOptions(),
                      type_ids: torch.Tensor | None = None) -> torch.Tensor:
@@ -424,6 +471,7 @@ def project_token_states(params: dict, x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.to(torch.float32), cb["w"])
 
 
+@_with_kernel_impls
 def maxsim_scores(params: dict, q_states: torch.Tensor, q_mask: torch.Tensor,
                   d_ids: torch.Tensor, d_mask: torch.Tensor, config: BertConfig,
                   opts: ComputeOptions = ComputeOptions(),
@@ -469,6 +517,7 @@ def unpack_sparse_topk(packed) -> tuple[np.ndarray, np.ndarray]:
     return packed[..., :k].view(np.int32), packed[..., k:].view(np.float32)
 
 
+@_with_kernel_impls
 def bert_sparse_batch(params: dict, ids: torch.Tensor, mask: torch.Tensor,
                       config: BertConfig, opts: ComputeOptions, k: int,
                       gather_idx: torch.Tensor | None = None,

@@ -8,7 +8,9 @@ GGUF kv metadata the same way: n_vocab from the token list length,
 everything else from `bert.*` keys, with per-family defaults for the keys a
 file leaves out.  An architecture name the reference does not know
 ("xlm-roberta", "jina-bert-v2", ...) reads as BERT, as the reference reads
-it.
+it.  `from_hf_config` reads a transformers config.json with the JAX
+package's per-family rules (the converter's input), `arch_defaults` fills
+a family's defaults.
 """
 from __future__ import annotations
 
@@ -180,6 +182,20 @@ class BertConfig:
                                  "[CLS] [Q] token [SEP]")
 
     @classmethod
+    def arch_defaults(cls, arch: str, **kw) -> "BertConfig":
+        """A config with the family's token-type, position-offset, eps and
+        bucket defaults (and ALBERT's tanh GELU) for the fields `kw` leaves
+        out."""
+        ntt, off, eps, buckets = _ARCH_DEFAULTS[arch]
+        kw.setdefault("n_token_types", ntt)
+        kw.setdefault("pos_offset", off)
+        kw.setdefault("layer_norm_eps", eps)
+        kw.setdefault("rel_attn_buckets", buckets)
+        if arch == "albert":
+            kw.setdefault("gelu", "tanh")
+        return cls(arch=arch, **kw)
+
+    @classmethod
     def from_gguf_kv(cls, kv: dict) -> "BertConfig":
         # reference files say "bert" or nothing at all; a name the reference
         # does not know reads as BERT there too
@@ -236,11 +252,208 @@ class BertConfig:
             name=str(kv.get(Keys.NAME, "")),
         )
 
+    @classmethod
+    def from_hf_config(cls, hf: dict, name: str = "") -> "BertConfig":
+        """From a transformers config.json dict, dispatched on model_type,
+        with the per-family rules of the JAX package's converter: a family
+        knob no published checkpoint sets is refused, not ignored."""
+        model_type = str(hf.get("model_type", "bert"))
+        reader = _HF_READERS.get(model_type)
+        if reader is not None:
+            return reader(cls, hf, name)
+        if model_type in ("roberta", "xlm-roberta", "camembert"):
+            # positions numbered from padding_idx + 1; the usable context
+            # leaves out those rows
+            pos_offset = int(hf.get("pad_token_id", 1)) + 1
+            return cls(**_hf_common(hf, "max_position_embeddings", 514, pos_offset),
+                       layer_norm_eps=float(hf.get("layer_norm_eps", 1e-5)),
+                       n_token_types=int(hf.get("type_vocab_size", 1)), arch="roberta",
+                       pos_offset=pos_offset, name=name)
+        return cls(**_hf_common(hf, "max_position_embeddings", 512),
+                   layer_norm_eps=float(hf.get("layer_norm_eps", 1e-12)),
+                   n_token_types=int(hf.get("type_vocab_size", 2)), name=name)
+
+
+def _hf_common(hf: dict, ctx_key: str, ctx_default: int, ctx_less: int = 0) -> dict:
+    """The BertConfig-named geometry of a config.json (hidden_size, ...)."""
+    return dict(n_vocab=int(hf["vocab_size"]),
+                n_ctx=int(hf.get(ctx_key, ctx_default)) - ctx_less,
+                n_embd=int(hf["hidden_size"]), n_layer=int(hf["num_hidden_layers"]),
+                n_head=int(hf["num_attention_heads"]), n_ff=int(hf["intermediate_size"]))
+
+
+def _hf_distilbert(cls, hf: dict, name: str) -> BertConfig:
+    # HF modeling_distilbert fixes the LayerNorm eps at 1e-12
+    return cls(n_vocab=int(hf["vocab_size"]),
+               n_ctx=int(hf.get("max_position_embeddings", 512)), n_embd=int(hf["dim"]),
+               n_layer=int(hf["n_layers"]), n_head=int(hf["n_heads"]),
+               n_ff=int(hf["hidden_dim"]), layer_norm_eps=1e-12, n_token_types=0,
+               arch="distilbert", name=name)
+
+
+def _hf_mpnet(cls, hf: dict, name: str) -> BertConfig:
+    # MPNetEmbeddings fixes padding_idx at 1, so positions start at 2; the
+    # relative bias is T5-bucketed (32 buckets in every checkpoint)
+    return cls(**_hf_common(hf, "max_position_embeddings", 514, 2),
+               layer_norm_eps=float(hf.get("layer_norm_eps", 1e-12)), n_token_types=0,
+               arch="mpnet", pos_offset=2,
+               rel_attn_buckets=int(hf.get("relative_attention_num_buckets", 32)), name=name)
+
+
+def _hf_modernbert(cls, hf: dict, name: str) -> BertConfig:
+    # bias-free linears and norms and a GELU MLP are the only published
+    # configuration: refuse the others rather than drop weights
+    if any(bool(hf.get(k, False)) for k in ("attention_bias", "mlp_bias", "norm_bias")):
+        raise ValueError("modernbert with attention_bias/mlp_bias/norm_bias=True "
+                         "is not supported (no published checkpoint uses biases)")
+    if str(hf.get("hidden_activation", "gelu")) != "gelu":
+        raise ValueError(f"modernbert hidden_activation {hf.get('hidden_activation')!r} "
+                         "!= 'gelu' unsupported")
+    local_theta = hf.get("local_rope_theta")  # None: the global theta
+    return cls(**_hf_common(hf, "max_position_embeddings", 8192),
+               layer_norm_eps=float(hf.get("norm_eps", 1e-5)), n_token_types=0,
+               arch="modernbert", rope_theta=float(hf.get("global_rope_theta", 160000.0)),
+               local_rope_theta=float(local_theta if local_theta is not None else 0.0),
+               global_attn_every=int(hf.get("global_attn_every_n_layers", 3)),
+               local_window=int(hf.get("local_attention", 128)), name=name)
+
+
+def _hf_t5(cls, hf: dict, name: str) -> BertConfig:
+    # feed_forward_proj "relu" (T5, sentence-t5, GTR) or "gated-<act>"
+    # (v1.1, flan); exactly "gated-gelu" means gelu_new (the tanh form) for
+    # HF's back-compat, a plain "gelu" the erf form
+    ff_proj = str(hf.get("feed_forward_proj", "relu"))
+    gated = ff_proj.startswith("gated-")
+    act = ff_proj.removeprefix("gated-")
+    if act not in ("relu", "gelu", "gelu_new"):
+        raise ValueError(f"unsupported t5 feed_forward_proj {ff_proj!r}")
+    if act == "gelu_new" or ff_proj == "gated-gelu":
+        ffn_act = "gelu_tanh"
+    else:
+        ffn_act = "gelu_erf" if act == "gelu" else "relu"
+    # no position table: n_positions records the trained length
+    return cls(n_vocab=int(hf["vocab_size"]), n_ctx=int(hf.get("n_positions", 512)),
+               n_embd=int(hf["d_model"]), n_layer=int(hf["num_layers"]),
+               n_head=int(hf["num_heads"]), n_ff=int(hf["d_ff"]),
+               layer_norm_eps=float(hf.get("layer_norm_epsilon", 1e-6)), n_token_types=0,
+               arch="t5", rel_attn_buckets=int(hf.get("relative_attention_num_buckets", 32)),
+               rel_attn_max_dist=int(hf.get("relative_attention_max_distance", 128)),
+               n_head_dim=int(hf.get("d_kv", 64)), ffn_act=ffn_act, ffn_gated=gated,
+               name=name)
+
+
+def _hf_deberta(cls, hf: dict, name: str) -> BertConfig:
+    # the v3 feature set only: relative attention with shared keys, no
+    # absolute positions or conv layer, LayerNormed relative embeddings,
+    # c2p + p2c, embedding_size == hidden_size, log buckets
+    refusals = (
+        (not bool(hf.get("relative_attention", False)),
+         "deberta-v2 without relative_attention is not supported"),
+        (not bool(hf.get("share_att_key", False)),
+         "deberta-v2 with share_att_key=False is not supported (v3 checkpoints share)"),
+        (bool(hf.get("position_biased_input", True)),
+         "deberta-v2 with position_biased_input (absolute positions) is not supported"),
+        (int(hf.get("conv_kernel_size", 0)) > 0, "deberta-v2 conv layer is not supported"),
+        ("layer_norm" not in str(hf.get("norm_rel_ebd", "none")),
+         "deberta-v2 without norm_rel_ebd=layer_norm is not supported"),
+    )
+    for bad, why in refusals:
+        if bad:
+            raise ValueError(why)
+    pos_att = str(hf.get("pos_att_type", "p2c|c2p"))
+    if "c2p" not in pos_att or "p2c" not in pos_att:
+        raise ValueError(f"pos_att_type {pos_att!r} != c2p+p2c is not supported")
+    if int(hf.get("embedding_size") or hf["hidden_size"]) != int(hf["hidden_size"]):
+        raise ValueError("deberta-v2 embedding_size != hidden_size is not supported")
+    n_ctx = int(hf.get("max_position_embeddings", 512))
+    max_rel = int(hf.get("max_relative_positions", -1))
+    buckets = int(hf.get("position_buckets", 256))
+    if buckets <= 0:
+        raise ValueError("deberta-v2 without position_buckets is not supported")
+    return cls(**_hf_common(hf, "max_position_embeddings", 512),
+               layer_norm_eps=float(hf.get("layer_norm_eps", 1e-7)),
+               n_token_types=int(hf.get("type_vocab_size", 0)), arch="deberta",
+               rel_attn_buckets=buckets, rel_attn_max_dist=max_rel if max_rel > 0 else n_ctx,
+               name=name)
+
+
+def _hf_albert(cls, hf: dict, name: str) -> BertConfig:
+    # every published checkpoint has one layer group of one layer
+    if int(hf.get("num_hidden_groups", 1)) != 1 or int(hf.get("inner_group_num", 1)) != 1:
+        raise ValueError("albert with num_hidden_groups/inner_group_num != 1 is not "
+                         "supported (no published checkpoint uses them)")
+    act = str(hf.get("hidden_act", "gelu_new"))
+    if act not in ("gelu_new", "gelu"):
+        raise ValueError(f"unsupported albert hidden_act {act!r}")
+    return cls(**_hf_common(hf, "max_position_embeddings", 512),
+               layer_norm_eps=float(hf.get("layer_norm_eps", 1e-12)),
+               n_token_types=int(hf.get("type_vocab_size", 2)), arch="albert",
+               gelu="tanh" if act == "gelu_new" else "erf",
+               n_embd_emb=int(hf.get("embedding_size", 128)), name=name)
+
+
+def _hf_electra(cls, hf: dict, name: str) -> BertConfig:
+    # BertModel's graph; the tables are factorized only where embedding_size
+    # differs from hidden_size (embeddings_project exists only then)
+    emb_size = int(hf.get("embedding_size", hf["hidden_size"]))
+    return cls(**_hf_common(hf, "max_position_embeddings", 512),
+               layer_norm_eps=float(hf.get("layer_norm_eps", 1e-12)),
+               n_token_types=int(hf.get("type_vocab_size", 2)), arch="electra",
+               n_embd_emb=0 if emb_size == int(hf["hidden_size"]) else emb_size, name=name)
+
+
+def _hf_nomic(cls, hf: dict, name: str) -> BertConfig:
+    # modeling_hf_nomic_bert.py: SwiGLU, full rotate-half RoPE, post-norm
+    # LayerNorm blocks; the knobs no published checkpoint sets are refused
+    refusals = (
+        (str(hf.get("activation_function", "swiglu")) != "swiglu",
+         f"nomic_bert activation_function {hf.get('activation_function')!r} != 'swiglu' "
+         "is not supported (every published nomic-embed/nomic-bert checkpoint is SwiGLU)"),
+        (float(hf.get("rotary_emb_fraction", 0.0)) != 1.0,
+         "nomic_bert needs rotary_emb_fraction == 1.0 (partial rotary / absolute-position "
+         "variants unsupported)"),
+        (bool(hf.get("rotary_emb_interleaved", False)),
+         "nomic_bert rotary_emb_interleaved=True is not supported (published checkpoints "
+         "use rotate-half)"),
+        (bool(hf.get("causal", False)) or bool(hf.get("prenorm", False)),
+         "nomic_bert with causal or prenorm set is not supported"),
+        (bool(hf.get("use_rms_norm", False)), "nomic_bert use_rms_norm is not supported"),
+        (bool(hf.get("mlp_fc1_bias", True)) != bool(hf.get("mlp_fc2_bias", True)),
+         "nomic_bert with mixed mlp_fc1_bias/mlp_fc2_bias is not supported"),
+    )
+    for bad, why in refusals:
+        if bad:
+            raise ValueError(why)
+    return cls(n_vocab=int(hf["vocab_size"]), n_ctx=int(hf.get("n_positions", 2048)),
+               n_embd=int(hf["n_embd"]), n_layer=int(hf["n_layer"]), n_head=int(hf["n_head"]),
+               n_ff=int(hf["n_inner"]), layer_norm_eps=float(hf.get("layer_norm_epsilon", 1e-12)),
+               n_token_types=int(hf.get("type_vocab_size", 2)), arch="nomic-bert",
+               rope_theta=float(hf.get("rotary_emb_base", 1000.0)),
+               rope_scaling_factor=float(hf.get("rotary_scaling_factor") or 0.0),
+               rope_max_trained=int(hf.get("max_trained_positions", 2048)),
+               ffn_act="silu", ffn_gated=True, attn_bias=bool(hf.get("qkv_proj_bias", True)),
+               ffn_bias=bool(hf.get("mlp_fc1_bias", True)), name=name)
+
+
+# config.json model_type -> reader (the BERT and RoBERTa graphs inline above)
+_HF_READERS = {"distilbert": _hf_distilbert, "mpnet": _hf_mpnet,
+               "modernbert": _hf_modernbert, "t5": _hf_t5, "deberta-v2": _hf_deberta,
+               "albert": _hf_albert, "electra": _hf_electra, "nomic_bert": _hf_nomic}
+
 
 # all-MiniLM-L6-v2 geometry (synthetic benchmarking without downloads)
 MINILM_L6 = BertConfig(
     n_vocab=30522, n_ctx=512, n_embd=384, n_layer=6, n_head=12, n_ff=1536,
     name="all-MiniLM-L6-v2",
+)
+# all-MiniLM-L12-v2 and bert-base-uncased geometry (synthetic presets)
+MINILM_L12 = BertConfig(
+    n_vocab=30522, n_ctx=512, n_embd=384, n_layer=12, n_head=12, n_ff=1536,
+    name="all-MiniLM-L12-v2",
+)
+BERT_BASE = BertConfig(
+    n_vocab=30522, n_ctx=512, n_embd=768, n_layer=12, n_head=12, n_ff=3072,
+    name="bert-base-uncased",
 )
 # BAAI/bge-large-en-v1.5 geometry (BertModel, CLS pooling, normalized),
 # which mxbai-embed-large-v1 shares and e5-large-v2 shares with mean

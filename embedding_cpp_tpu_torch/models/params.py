@@ -73,24 +73,25 @@ class _TensorSource:
         arr = gguf_dequantize(raw, gtype, int(np.prod(actual))).reshape(actual)
         return torch.from_numpy(arr).to(dtype)
 
-    def matmul_weight(self, name: str, shape: tuple, dtype):
-        """[out, in] weight -> contraction-major [in, out] QTensor or dense."""
+    def matmul_weight(self, name: str, shape: tuple, dtype, keep_q: bool = True):
+        """[out, in] weight -> contraction-major [in, out]: a QTensor where
+        the file is quantized and `keep_q`, else dense in `dtype`."""
         raw, gtype, actual = self._raw(name, shape)
-        if gtype in Q4_TYPES:
+        if keep_q and gtype in Q4_TYPES:
             return pack_q4_matmul(raw, actual, gtype)
-        if gtype == GGMLType.Q8_0:
+        if keep_q and gtype == GGMLType.Q8_0:
             return pack_q8_matmul(raw, actual)
         return self.dense(name, shape, dtype).T.contiguous()
 
     def matmul_weight_split(self, name: str, shape: tuple, dtype,
-                            sections: int) -> list:
+                            sections: int, keep_q: bool = True) -> list:
         """A fused [out, in] weight split into `sections` equal out-row
         groups, each in matmul orientation.  The quantized split is exact:
         ggml blocks run along the contraction (in) axis, so every out-row
         is a whole number of blocks."""
         raw, gtype, (out, k) = self._raw(name, shape)
         sub = out // sections
-        if gtype in Q4_TYPES or gtype == GGMLType.Q8_0:
+        if keep_q and (gtype in Q4_TYPES or gtype == GGMLType.Q8_0):
             rows = np.asarray(raw).reshape(out, ggml_nbytes(gtype, k))
             parts = [np.ascontiguousarray(rows[j * sub:(j + 1) * sub]).reshape(-1)
                      for j in range(sections)]
@@ -100,11 +101,11 @@ class _TensorSource:
         w = self.dense(name, shape, dtype)
         return [w[j * sub:(j + 1) * sub].T.contiguous() for j in range(sections)]
 
-    def gather_table(self, name: str, shape: tuple, dtype):
+    def gather_table(self, name: str, shape: tuple, dtype, keep_q: bool = True):
         raw, gtype, actual = self._raw(name, shape)
-        if gtype in Q4_TYPES:
+        if keep_q and gtype in Q4_TYPES:
             return pack_q4_rows(raw, actual, gtype)
-        if gtype == GGMLType.Q8_0:
+        if keep_q and gtype == GGMLType.Q8_0:
             return pack_q8_rows(raw, actual)
         return self.dense(name, shape, dtype)
 
@@ -136,17 +137,26 @@ def params_to(params: dict, device) -> dict:
     return out
 
 
-def build_params(source: _TensorSource, config: BertConfig, *,
+WEIGHT_MODES = ("auto", "dequant")
+
+
+def build_params(source: _TensorSource, config: BertConfig, *, weight_mode: str = "auto",
                  dense_dtype=torch.float32, device="cpu") -> dict:
-    """Assemble the parameter dict on `device`: quantized matmul weights
-    and the word table stay packed; dense weights and tables take
-    `dense_dtype`; LayerNorm parameters and biases stay f32."""
+    """Assemble the parameter dict on `device`.  weight_mode "auto":
+    quantized matmul weights and the word table stay packed (the fused
+    dequant-matmul kernel reads them); "dequant": they are dequantized at
+    load and stored dense in `dense_dtype` (their linears run a plain
+    matmul).  Dense weights and tables take `dense_dtype`; LayerNorm
+    parameters and biases stay f32."""
+    if weight_mode not in WEIGHT_MODES:
+        raise ValueError(f"weight_mode {weight_mode!r} not in {WEIGHT_MODES}")
+    keep_q = weight_mode == "auto"
     f32 = torch.float32
     emb = {}
     for name, (key, shape_fn) in schema.embedding_tensors(config).items():
         shape = shape_fn(config)
         if key == "word":
-            emb[key] = source.gather_table(name, shape, dense_dtype)
+            emb[key] = source.gather_table(name, shape, dense_dtype, keep_q)
         elif key in ("token_type", "position"):
             emb[key] = source.dense(name, shape, dense_dtype)
         elif key == "emb_proj_w":
@@ -160,7 +170,7 @@ def build_params(source: _TensorSource, config: BertConfig, *,
             if key in _SPLIT_KEYS:
                 subkeys = _SPLIT_KEYS[key]
                 parts = source.matmul_weight_split(name, shape, dense_dtype,
-                                                   len(subkeys))
+                                                   len(subkeys), keep_q)
                 for subkey, v in zip(subkeys, parts):
                     per_layer.setdefault(subkey, []).append(v)
                 continue
@@ -171,7 +181,7 @@ def build_params(source: _TensorSource, config: BertConfig, *,
                     per_layer.setdefault(subkey, []).append(v.contiguous())
                 continue
             if key in _MATMUL_KEYS:
-                v = source.matmul_weight(name, shape, dense_dtype)
+                v = source.matmul_weight(name, shape, dense_dtype, keep_q)
             else:  # LayerNorm scales/biases and linear biases
                 v = source.dense(name, shape, f32)
             per_layer.setdefault(key, []).append(v)
@@ -205,7 +215,7 @@ def build_params(source: _TensorSource, config: BertConfig, *,
             mlm[key.removeprefix("mlm_")] = t.T.contiguous() if key == "mlm_dense_w" else t
         mlm["decoder_w"] = source.matmul_weight("embeddings.word_embeddings.weight",
                                                 (config.n_vocab, config.emb_width),
-                                                dense_dtype)
+                                                dense_dtype, keep_q)
         params["mlm"] = mlm
     if config.n_labels:
         # classification head: small linears computed in f32 on the pooled
@@ -245,11 +255,11 @@ def source_from_arrays(arrays: dict[str, np.ndarray],
     return _TensorSource(get)
 
 
-def load_params(reader, config: BertConfig | None = None, *,
+def load_params(reader, config: BertConfig | None = None, *, weight_mode: str = "auto",
                 dense_dtype=torch.float32, device="cpu"):
     if config is None:
         config = BertConfig.from_gguf_kv(reader.kv)
-    params = build_params(source_from_gguf(reader), config,
+    params = build_params(source_from_gguf(reader), config, weight_mode=weight_mode,
                           dense_dtype=dense_dtype, device=device)
     return params, config
 
@@ -308,14 +318,15 @@ def random_state_dict(config: BertConfig, seed: int = 0) -> dict[str, np.ndarray
 
 
 def random_params(config: BertConfig, ftype="f32", seed: int = 0, *,
-                  dense_dtype=torch.float32, device="cpu") -> dict:
+                  weight_mode: str = "auto", dense_dtype=torch.float32,
+                  device="cpu") -> dict:
     """Parameters from `random_state_dict`, stored as a file of `ftype`
     ("f32" | "f16" | "q4_0" | "q4_1" | "q8_0", or a GGUFFileType) holds them."""
     if isinstance(ftype, str):
         ftype = FTYPE_NAMES[ftype]
     return build_params(
         source_from_arrays(random_state_dict(config, seed), ftype), config,
-        dense_dtype=dense_dtype, device=device,
+        weight_mode=weight_mode, dense_dtype=dense_dtype, device=device,
     )
 
 

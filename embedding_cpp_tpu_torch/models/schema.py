@@ -349,6 +349,23 @@ def mlm_tensors(config) -> dict:
     return _MLM_TENSORS_BY_ARCH[config.arch]
 
 
+# tied views of the MLM decoder that ForMaskedLM state dicts may carry beside
+# the names above: the converter checks the tie and drops them
+MLM_TIED_TENSORS = frozenset({
+    "cls.predictions.decoder.weight", "cls.predictions.decoder.bias",
+    "lm_head.decoder.weight", "lm_head.decoder.bias", "vocab_projector.weight",
+})
+
+# tensors the converter drops: position / token-type id buffers, the poolers
+# of embedding models (BERT's pooler.dense, ALBERT's bare pooler) and T5's
+# encoder.embed_tokens, a second name of `shared`
+SKIPPED_TENSORS = frozenset({
+    "embeddings.position_ids", "embeddings.token_type_ids",
+    "pooler.dense.weight", "pooler.dense.bias", "pooler.weight", "pooler.bias",
+    "encoder.embed_tokens.weight",
+})
+
+
 # ColBERT's per-token projection (present only when colbert_dim > 0): the
 # bias-free `linear` of HF_ColBERT over every final hidden state
 COLBERT_TENSORS = {

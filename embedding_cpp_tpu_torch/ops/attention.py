@@ -52,8 +52,9 @@ then exp / sum / PV), so nothing is rescaled.  What bounds each kernel on
 an H100 and what its first version does about it is noted in its source.
 
 Every wrapper launches its kernel for CUDA tensors, raises for what the
-kernel does not serve, and runs the plain version only for tensors on the
-CPU.  Each wrapper's `launches` counts its kernel launches; the two
+kernel does not serve, and runs the plain version for tensors on the CPU,
+or where the forward chose it (`attn_impl="plain"`, ops/dispatch.py).
+Each wrapper's `launches` counts its kernel launches; the two
 projection-layout wrappers count those with a position bias (K4) apart,
 in `bias_launches`, and `flash_attention_packed` its windowed launches
 in `window_launches`; `flash_attention_packed_local.launches` counts
@@ -66,6 +67,7 @@ import ctypes
 import torch
 
 from ._build import check, load
+from .dispatch import use_kernel
 
 MASK_BIAS = -1e9  # additive score for masked keys (finite, never -inf)
 MAX_SEQ = 1024  # the JAX route's envelope (a whole [S, S] f32 score tile in VMEM)
@@ -512,16 +514,6 @@ def _launch_long(q, k, v, mask, mode: int, pos_bias=None, window: int = 0,
     return out
 
 
-def _on_cuda(q: torch.Tensor, name: str) -> bool:
-    """False for CPU tensors (the plain version runs); True for CUDA
-    tensors (the kernel launches); raises for any other device."""
-    if q.device.type == "cpu":
-        return False
-    if q.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {q.device}")
-    return True
-
-
 def _count(fn, pos_bias) -> None:
     """One launch of `fn`'s kernel: `bias_launches` with a position bias
     (K4), else `launches` (K2/K3)."""
@@ -541,7 +533,7 @@ def flash_attention_bse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     mask_bias = mask_bias.to(torch.float32)
     if pos_bias is not None:
         pos_bias = pos_bias.to(torch.float32)
-    if not _on_cuda(q, "flash_attention_bse"):
+    if not use_kernel(q, "attn", "flash_attention_bse"):
         return attention_bse_plain(q, k, v, mask_bias, h, False, pos_bias)
     out = _launch_bse(q, k, v, mask_bias, h, False, pos_bias)
     _count(flash_attention_bse, pos_bias)
@@ -560,7 +552,7 @@ def flash_attention_packed_bse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     seg = seg.to(torch.int32)
     if pos_bias is not None:
         pos_bias = pos_bias.to(torch.float32)
-    if not _on_cuda(q, "flash_attention_packed_bse"):
+    if not use_kernel(q, "attn", "flash_attention_packed_bse"):
         return attention_bse_plain(q, k, v, seg, h, True, pos_bias)
     out = _launch_bse(q, k, v, seg, h, True, pos_bias)
     _count(flash_attention_packed_bse, pos_bias)
@@ -592,7 +584,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     mask_bias = mask_bias.to(torch.float32)
     if pos_bias is not None:
         pos_bias = pos_bias.to(torch.float32)
-    if not _on_cuda(q, "flash_attention"):
+    if not use_kernel(q, "attn", "flash_attention"):
         return attention_long_plain(q, k, v, mask_bias, pos_bias)
     out = _launch_long(q, k, v, mask_bias, _FULL, pos_bias)
     flash_attention.launches += 1
@@ -606,7 +598,7 @@ def flash_attention_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     over the TPU query tile's key slice.  q/k/v [B, S, H, d] with S a
     multiple of 128 and the slice narrower than S (local_window_tiles)."""
     mask_bias = mask_bias.to(torch.float32)
-    if not _on_cuda(q, "flash_attention_local"):
+    if not use_kernel(q, "attn", "flash_attention_local"):
         return attention_local_plain(q, k, v, mask_bias, window)
     if window <= 0:
         raise ValueError(f"window {window} must be positive")
@@ -639,7 +631,7 @@ def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_qkv(q, k, v, True)
     q, k, v, seg = pad_rows8(q, k, v, seg.to(torch.int32))
     windowed = packed_window_tiles(q.shape[1], max_seg_len)[1] is not None
-    if not _on_cuda(q, "flash_attention_packed"):
+    if not use_kernel(q, "attn", "flash_attention_packed"):
         if windowed:
             return attention_packed_window_plain(q, k, v, seg, max_seg_len)[:, :s]
         return attention_packed_plain(q, k, v, seg)[:, :s]
@@ -664,7 +656,7 @@ def flash_attention_packed_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
     if window <= 0:
         raise ValueError(f"window {window} must be positive")
     q, k, v, seg = pad_rows8(q, k, v, seg.to(torch.int32))
-    if not _on_cuda(q, "flash_attention_packed_local"):
+    if not use_kernel(q, "attn", "flash_attention_packed_local"):
         return attention_packed_local_plain(q, k, v, seg, window)[:, :s]
     out = _launch_long(q, k, v, seg, _SEG_LOCAL, window=window)
     flash_attention_packed_local.launches += 1
@@ -677,7 +669,7 @@ def attention_headpack(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bias [B, S] f32 (0 valid, -1e9 masked), hb heads per block -> [B, H,
     S, d]; (d, hb) in HEADPACK_SHAPES with hb dividing H."""
     bias = bias.to(torch.float32)
-    if not _on_cuda(q, "attention_headpack"):
+    if not use_kernel(q, "attn", "attention_headpack"):
         return attention_headpack_plain(q, k, v, bias, hb)
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"q/k/v shapes {tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")

@@ -26,8 +26,9 @@ as the TPU kernel's do; packed rows use the plain absolute-offset tables,
 since within a segment bucket(pos_q - pos_k) == bucket(q - k).
 
 Every wrapper launches its kernel for CUDA tensors, raises for what the
-kernel does not serve, and runs the plain version only for tensors on the
-CPU.  Each wrapper's `launches` counts its kernel launches.
+kernel does not serve, and runs the plain version for tensors on the CPU,
+or where the forward chose it (`attn_impl="plain"`, ops/dispatch.py).
+Each wrapper's `launches` counts its kernel launches.
 """
 from __future__ import annotations
 
@@ -39,7 +40,8 @@ import numpy as np
 import torch
 
 from ._build import check
-from .attention import MASK_BIAS, _bind, _on_cuda, _operands, _softmax_pv
+from .attention import MASK_BIAS, _bind, _operands, _softmax_pv
+from .dispatch import use_kernel
 
 MAX_SEQ = 512  # DeBERTa's context; a query tile's f32 score rows stay on chip
 HEAD_DIMS = (16, 32, 64, 128)
@@ -179,7 +181,7 @@ def disentangled_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the shared relative table.  -> [B, S, H, d]."""
     mask_bias = mask_bias.to(torch.float32)
     c2p_idx, p2c_idx = _device_tables(q.shape[1], span, max_dist, q.device)
-    if not _on_cuda(q, "disentangled_attention"):
+    if not use_kernel(q, "attn", "disentangled_attention"):
         return disentangled_attention_plain(q, k, v, mask_bias, pos_k, pos_q,
                                             c2p_idx, p2c_idx, False)
     out = _launch(q, k, v, mask_bias, pos_k, pos_q, c2p_idx, p2c_idx, False)
@@ -196,7 +198,7 @@ def disentangled_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
     tables of `disentangled_attention`.  -> [B, S, H, d]."""
     seg = seg.to(torch.int32)
     c2p_idx, p2c_idx = _device_tables(q.shape[1], span, max_dist, q.device)
-    if not _on_cuda(q, "disentangled_attention_packed"):
+    if not use_kernel(q, "attn", "disentangled_attention_packed"):
         return disentangled_attention_plain(q, k, v, seg, pos_k, pos_q,
                                             c2p_idx, p2c_idx, True)
     out = _launch(q, k, v, seg, pos_k, pos_q, c2p_idx, p2c_idx, True)

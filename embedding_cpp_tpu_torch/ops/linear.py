@@ -12,7 +12,9 @@ package's linear composes them outside its kernel too (ops/linear.py:84-94),
 and a residual added in f32 inside the kernel rounds differently in bf16
 from one added in the activation dtype.  A dense weight takes a plain matmul with f32
 accumulation (after the prologue multiply in the activation dtype), the
-bias in f32, then the cast and the activation.
+bias in f32, then the cast and the activation; in bf16 on the card that
+matmul runs on the tensor cores with an f32 output (`weight_mode="dequant"`
+puts every linear there).
 """
 from __future__ import annotations
 
@@ -61,7 +63,12 @@ def linear(x: torch.Tensor, w, b: torch.Tensor | None = None, *,
         y = y.reshape(*lead, -1).to(dtype)
     else:
         xx = prologue(x, prologue_mul)
-        y = torch.matmul(xx.to(torch.float32), w.to(dtype).to(torch.float32))
+        if xx.is_cuda and dtype == torch.bfloat16:
+            # bf16 products summed in f32 on the tensor cores, f32 out
+            y = torch.mm(xx.reshape(-1, xx.shape[-1]), w.to(dtype),
+                         out_dtype=torch.float32).reshape(*lead, -1)
+        else:
+            y = torch.matmul(xx.to(torch.float32), w.to(dtype).to(torch.float32))
         if b is not None:
             y = y + b.to(torch.float32)
         y = _activate(y.to(dtype), activation)

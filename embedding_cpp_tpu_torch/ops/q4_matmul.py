@@ -38,7 +38,8 @@ kernel, the port runs K8 into f32 and the same tail in plain PyTorch.
 
 The launchers `_q4_matmul_1d` / `_q4_matmul_2d` launch their kernel for a
 CUDA tensor and run the plain version, which repeats the kernels'
-arithmetic step by step, only for a tensor on the CPU.  K1 and K8 compute
+arithmetic step by step, for a tensor on the CPU, or where the forward
+chose it (`q4_impl="plain"`, ops/dispatch.py).  K1 and K8 compute
 one function, so `q4_matmul_plain` is the plain version of both.  Launch
 counts: `q4_matmul.launches` (K1, both forms), `q4_matmul.prologue_launches`
 (those with a prologue multiplicand), `q4_matmul.ln_launches` (K1 with the
@@ -54,6 +55,7 @@ import torch
 
 from ..gguf.constants import QK4, GGMLType
 from ._build import check, load
+from .dispatch import use_kernel
 from .qtensor import QUANT_TYPES, QTensor
 
 ACTIVATIONS = (None, "gelu_erf", "gelu_tanh", "silu")
@@ -296,7 +298,7 @@ def _q4_matmul_1d(x: torch.Tensor, w: QTensor, bias=None, residual=None, ln=None
     source does not name), f32 x the SIMT kernel; with `residual` / `ln`
     ((scale [N], bias [N], eps)) the kernel that owns whole rows and applies
     that tail before its one cast."""
-    if x.device.type == "cpu":
+    if not use_kernel(x, "q4", "q4_matmul"):
         return q4_matmul_plain(x, w, bias, activation, residual, ln, out_f32, prologue_mul)
     x, g, bias, out, f32_out, (qs, scales, mins) = _cuda_args(
         x, w, bias, prologue_mul, out_f32, activation, residual, ln)
@@ -339,7 +341,7 @@ def _q4_matmul_2d(x: torch.Tensor, w: QTensor, bias=None, prologue_mul=None, *,
     """K8: bf16 x streams K through output tiles (`tile`), at any K; f32 x
     holds one column slice of the dequantized weight in shared memory
     (`slice_width` columns) for every M tile it walks."""
-    if x.device.type == "cpu":
+    if not use_kernel(x, "q4", "q4_matmul_2d"):
         return q4_matmul_plain(x, w, bias, activation, out_f32=out_f32,
                                prologue_mul=prologue_mul)
     x, g, bias, out, f32_out, (qs, scales, mins) = _cuda_args(

@@ -49,7 +49,7 @@ from ..models.bert import (
     check_pack_seq,
     maxsim_scores,
     project_token_states,
-    unpack_output_i8,
+    fetch_output,
     unpack_sparse_topk,
 )
 from ..models.config import BertConfig
@@ -106,14 +106,16 @@ def truncate_normalize(vecs: np.ndarray, dimensions: int) -> np.ndarray:
     return v / np.maximum(np.linalg.norm(v, axis=-1, keepdims=True), 1e-12)
 
 
-def long_seq_buckets(n_ctx: int) -> tuple[int, ...]:
-    """The default length buckets up to n_ctx, extended in powers of two
-    past 512 for long-context encoders (ModernBERT: ..., 512, 1024, 2048,
-    4096, 8192), so long texts batch at their length instead of being cut
-    to the top default bucket."""
-    buckets = tuple(b for b in DEFAULT_SEQ_BUCKETS if b <= n_ctx) or (n_ctx,)
+def long_seq_buckets(n_ctx: int, seq_buckets: Sequence[int] = DEFAULT_SEQ_BUCKETS
+                     ) -> tuple[int, ...]:
+    """The length buckets up to n_ctx (n_ctx alone where none fits).  The
+    default buckets extend in powers of two past 512 for long-context
+    encoders (ModernBERT: ..., 512, 1024, 2048, 4096, 8192), so long texts
+    batch at their length instead of being cut to the top default bucket; a
+    caller's buckets are kept as given."""
+    buckets = tuple(b for b in seq_buckets if b <= n_ctx) or (n_ctx,)
     b = buckets[-1]
-    while b < n_ctx:
+    while seq_buckets is DEFAULT_SEQ_BUCKETS and b < n_ctx:
         b = min(b * 2, n_ctx)
         buckets += (b,)
     return buckets
@@ -150,6 +152,8 @@ class Engine:
         *,
         opts: ComputeOptions | None = None,
         device=None,
+        seq_buckets: Sequence[int] = DEFAULT_SEQ_BUCKETS,
+        batch_buckets: Sequence[int] = DEFAULT_BATCH_BUCKETS,
         packing: str = "auto",
         pack_seq: int | None = None,
         prompts: dict[str, str] | None = None,
@@ -158,6 +162,9 @@ class Engine:
         self.device = resolve_device(device)
         self.config = config
         self.opts = opts or ComputeOptions()
+        if self.device.type == "cpu" and "kernel" in (self.opts.q4_impl, self.opts.attn_impl):
+            raise ValueError(f"q4_impl / attn_impl 'kernel' on the CPU: no kernel runs there "
+                             f"(opts {self.opts})")
         self.tokenizer = tokenizer
         # named prompt prefixes ("search_query: ", ...), resolved once per
         # encode call (resolve_prompt); embed_tokens never applies them
@@ -167,11 +174,13 @@ class Engine:
                              f"prompts {sorted(self.prompts)}")
         self.default_prompt_name = default_prompt_name or ""
         self.special_ids = special_ids or SpecialIds(cls=101, sep=102, pad=0, unk=100)
-        self.seq_buckets = long_seq_buckets(config.n_ctx)
-        self.batch_buckets = DEFAULT_BATCH_BUCKETS
+        self.seq_buckets = long_seq_buckets(config.n_ctx, seq_buckets)
+        self.batch_buckets = tuple(batch_buckets)
         # per-dispatch token budget: longer sequence buckets get fewer rows
-        # (8192-token rows batch 128 at a time, not 2048)
-        self.max_batch_tokens = DEFAULT_BATCH_BUCKETS[-1] * 512
+        # (8192-token rows batch 128 at a time, not 2048); from the caller's
+        # top row bucket, so a larger one is reachable, and never below the
+        # default's
+        self.max_batch_tokens = max(max(batch_buckets), DEFAULT_BATCH_BUCKETS[-1]) * 512
         if packing not in ("auto", "always", "never"):
             raise ValueError(f"packing must be auto/always/never, got {packing!r}")
         self.packing = packing
@@ -189,12 +198,16 @@ class Engine:
 
     # --- constructors -------------------------------------------------------
     @classmethod
-    def from_gguf(cls, path: str, *, opts: ComputeOptions | None = None,
-                  device=None, **kw) -> "Engine":
+    def from_gguf(cls, path: str, *, weight_mode: str = "auto",
+                  opts: ComputeOptions | None = None, device=None, **kw) -> "Engine":
+        """weight_mode "auto" keeps quantized weights packed for the fused
+        dequant-matmul kernel; "dequant" stores them dense in the activation
+        dtype (models/params.py)."""
         device = resolve_device(device)
         opts = opts or ComputeOptions()
         with GGUFReader(path) as r:
-            params, config = load_params(r, dense_dtype=opts.tdtype, device=device)
+            params, config = load_params(r, weight_mode=weight_mode, dense_dtype=opts.tdtype,
+                                         device=device)
             blob = r.kv.get(Keys.TOKENIZER_JSON_BLOB)
             tokenizer = load_tokenizer(blob) if blob else None
             special = SpecialIds.from_gguf_kv(r.kv)
@@ -204,6 +217,31 @@ class Engine:
                 # a caller's default wins over the file's
                 kw.setdefault("default_prompt_name", str(r.kv.get(Keys.DEFAULT_PROMPT, "")))
         return cls(params, config, tokenizer, special, opts=opts, device=device, **kw)
+
+    @classmethod
+    def from_hf_dir(cls, model_dir: str, *, ftype: str = "f32", **kw) -> "Engine":
+        """A local HF checkpoint directory, converted to a temporary GGUF of
+        `ftype` and loaded from it (`from_gguf`'s keywords)."""
+        import tempfile
+
+        from ..models.convert import convert_hf_dir
+
+        with tempfile.NamedTemporaryFile(suffix=".gguf") as f:
+            convert_hf_dir(model_dir, f.name, ftype)
+            return cls.from_gguf(f.name, **kw)
+
+    @classmethod
+    def from_legacy_bin(cls, path: str, **kw) -> "Engine":
+        """A legacy pre-GGUF ggml-model*.bin (magic 'ggml'), upgraded to a
+        temporary GGUF of its own dtype and loaded from it, so every later
+        step is `from_gguf`'s."""
+        import tempfile
+
+        from ..gguf.legacy import upgrade_legacy_bin
+
+        with tempfile.NamedTemporaryFile(suffix=".gguf") as f:
+            upgrade_legacy_bin(path, f.name)
+            return cls.from_gguf(f.name, **kw)
 
     @classmethod
     def synthetic(cls, config: BertConfig, ftype="f32", *, seed: int = 0,
@@ -332,9 +370,7 @@ class Engine:
                 pending = self._dispatch(token_lists)
                 joined = torch.cat([v for _, v in pending], dim=0) if pending else None
             if joined is not None:
-                host = joined.cpu().numpy()
-                if host.dtype == np.uint8:  # int8 output: packed codes + scales
-                    host = unpack_output_i8(host)
+                host = fetch_output(joined)
                 off = 0
                 for batch, vecs in pending:
                     rows = batch.orig if isinstance(batch, PackedSegBatch) else batch.positions
@@ -532,11 +568,16 @@ class Engine:
     # --- token states, ColBERT and SPLADE --------------------------------------
     def _check_context(self, token_lists: Sequence[Sequence[int]]) -> None:
         """Refuse a list longer than the context, as the JAX Engine's token
-        surfaces do (embed_tokens cuts such a list instead)."""
+        surfaces do (embed_tokens cuts such a list instead), or than the top
+        length bucket, which custom buckets may put below the context."""
         for i, ids in enumerate(token_lists):
             if len(ids) > self.config.n_ctx:
                 raise ValueError(f"token list {i} has {len(ids)} ids, over the model's "
                                  f"{self.config.n_ctx}-token context")
+            if len(ids) > self.seq_buckets[-1]:
+                raise ValueError(f"token list {i} has {len(ids)} ids, over the top length "
+                                 f"bucket {self.seq_buckets[-1]} (seq_buckets "
+                                 f"{self.seq_buckets})")
 
     def _length_dependent(self) -> bool:
         """Whether a row's states depend on the length it is padded to:
@@ -777,6 +818,25 @@ class Engine:
         if self.device.type != "cuda":
             return SPARSE_TILE_BUDGET
         return torch.cuda.get_device_properties(self.device).total_memory // 64
+
+    def warmup(self, shapes: Sequence[tuple[int, int]] | None = None) -> None:
+        """Run the forward once at each (batch, seq) shape, the smallest
+        buckets' by default, under the lock.  On the card it first builds
+        every kernel not built yet (ops/_build.py), and the forward starts
+        cuBLAS, so no request pays for either."""
+        if shapes is None:
+            shapes = [(self.batch_buckets[0], self.seq_buckets[0])]
+        if self.device.type == "cuda":
+            from ..ops import _build
+
+            _build.build()  # every source not built yet, all nvcc at once
+        with self._lock, torch.inference_mode():
+            for b, s in shapes:
+                ids = np.full((b, s), self.special_ids.pad, dtype=np.int32)
+                mask = np.zeros((b, s), dtype=np.int32)
+                mask[:, 0] = 1
+                fetch_output(bert_embed_batch(self.params, self._tensor(ids),
+                                              self._tensor(mask), self.config, self.opts))
 
     # --- introspection (the reference's bert.h:87-90) ------------------------
     @property

@@ -597,7 +597,8 @@ def main(argv=None) -> None:
                    help="torch device (default: the GPU; 'cpu' runs the "
                         "plain PyTorch versions of the kernels)")
     p.add_argument("--dtype", choices=["float32", "bfloat16"], default="bfloat16")
-    p.add_argument("--output-dtype", choices=["float32", "int8"], default="int8",
+    p.add_argument("--output-dtype", choices=["float32", "float16", "bfloat16", "int8"],
+                   default="int8",
                    help="embedding transfer encoding off the device (replies stay f32)")
     p.add_argument("--packing", choices=["auto", "always", "never"], default="auto",
                    help="pack short sentences many to a row (auto), every text "
@@ -614,6 +615,7 @@ def main(argv=None) -> None:
         args.model, device=args.device, packing=args.packing,
         opts=ComputeOptions(dtype=args.dtype, output_dtype=args.output_dtype),
     )
+    engine.warmup()  # the kernels' build and the first forward, before listening
     asyncio.run(serve(engine, args.host, args.port, args.max_batch,
                       args.window_ms, max_pending=args.max_pending))
 

@@ -1118,3 +1118,111 @@ def test_maxsim_index_on_the_card_equals_the_cpu(dev, dtype):
     assert ia[0, :2].tolist() == [9, 300]
     np.testing.assert_array_equal(a.search_token_vectors(qs, 10, candidates=500)[0],
                                   a.search_token_vectors(qs, 10)[0])
+
+
+# --- the model-format path and the Engine's switches on the card -----------------
+
+def _minilm_file(tmp_path, ftype: str = "q4_0"):
+    """A port-written GGUF of MiniLM-L6's width, two layers deep, from
+    `random_state_dict(config, 0)`: the weights `Engine.synthetic` makes."""
+    from dataclasses import replace
+
+    from embedding_cpp_tpu_torch.models import MINILM_L6
+    from embedding_cpp_tpu_torch.models.convert import FTYPE_NAMES, write_bert_gguf
+    from embedding_cpp_tpu_torch.models.params import random_state_dict
+    from embedding_cpp_tpu_torch.tokenizer.testvocab import build_tokenizer_json
+
+    config = replace(MINILM_L6, n_vocab=1000, n_layer=2, name="minilm-2")
+    path = tmp_path / f"minilm-{ftype}.gguf"
+    write_bert_gguf(path, config, random_state_dict(config, 0),
+                    build_tokenizer_json(config.n_vocab), FTYPE_NAMES[ftype])
+    return str(path), config
+
+
+def _leaves(params: dict, prefix: str = ""):
+    from embedding_cpp_tpu_torch.ops.qtensor import QTensor
+
+    for k, v in params.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}.")
+        elif isinstance(v, QTensor):
+            for f in ("qs", "scales", "mins"):
+                if getattr(v, f) is not None:
+                    yield f"{prefix}{k}.{f}", getattr(v, f)
+        else:
+            yield prefix + k, v
+
+
+_SENTENCES = [" ".join(["the quick brown fox", "jumps over", "the lazy dog"][: 1 + i % 3])
+              + f" {i}" for i in range(48)]
+
+
+@pytest.mark.parametrize("ftype", ["q4_0", "q8_0", "f16"])
+def test_from_gguf_on_the_card_equals_synthetic(dev, tmp_path, ftype):
+    from embedding_cpp_tpu_torch import Engine
+    from embedding_cpp_tpu_torch.models import ComputeOptions
+
+    path, config = _minilm_file(tmp_path, ftype)
+    opts = ComputeOptions(dtype="bfloat16")
+    loaded = Engine.from_gguf(path, opts=opts, device=dev)
+    made = Engine.synthetic(config, ftype, seed=0, opts=opts, device=dev)
+    a, b = dict(_leaves(loaded.params)), dict(_leaves(made.params))
+    assert sorted(a) == sorted(b)
+    assert all(a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]) for k in a)
+    np.testing.assert_array_equal(loaded.encode(_SENTENCES), made.encode(_SENTENCES))
+
+
+@pytest.mark.parametrize("output_dtype,bar", [("float16", 1e-3), ("bfloat16", 8e-3)])
+def test_output_dtypes_on_the_card(dev, tmp_path, output_dtype, bar):
+    from embedding_cpp_tpu_torch import Engine
+    from embedding_cpp_tpu_torch.models import ComputeOptions
+
+    path, _ = _minilm_file(tmp_path)
+    f32 = Engine.from_gguf(path, opts=ComputeOptions(dtype="bfloat16"), device=dev)
+    half = Engine(f32.params, f32.config, f32.tokenizer, f32.special_ids, device=dev,
+                  opts=ComputeOptions(dtype="bfloat16", output_dtype=output_dtype))
+    ref, got = f32.encode(_SENTENCES), half.encode(_SENTENCES)
+    assert got.dtype == np.float32
+    assert np.abs(got - ref).max() <= bar
+
+
+@pytest.mark.parametrize("q4_impl,attn_impl", [("plain", "auto"), ("auto", "plain"),
+                                               ("plain", "plain")])
+@pytest.mark.parametrize("packing", ["auto", "never"])
+def test_plain_switches_launch_no_kernel(dev, tmp_path, q4_impl, attn_impl, packing):
+    from embedding_cpp_tpu_torch import Engine
+    from embedding_cpp_tpu_torch.models import ComputeOptions
+    from embedding_cpp_tpu_torch.ops import attention as A
+
+    path, _ = _minilm_file(tmp_path)
+    auto = Engine.from_gguf(path, opts=ComputeOptions(dtype="bfloat16"), device=dev,
+                            packing=packing)
+    plain = Engine(auto.params, auto.config, auto.tokenizer, auto.special_ids, device=dev,
+                   packing=packing, opts=ComputeOptions(dtype="bfloat16", q4_impl=q4_impl,
+                                                        attn_impl=attn_impl))
+    ref = auto.encode(_SENTENCES)
+    counters = [(q4_matmul, "launches"), (A.flash_attention_bse, "launches"),
+                (A.flash_attention_packed_bse, "launches")]
+    before = [getattr(f, n) for f, n in counters]
+    got = plain.encode(_SENTENCES)
+    torch.cuda.synchronize()
+    delta = [getattr(f, n) - b for (f, n), b in zip(counters, before)]
+    assert (delta[0] == 0) == (q4_impl == "plain") and delta[0] >= 0
+    assert (sum(delta[1:]) == 0) == (attn_impl == "plain")
+    cos = np.sum(got * ref, -1) / np.linalg.norm(got, axis=-1) / np.linalg.norm(ref, axis=-1)
+    assert cos.min() >= 0.999
+
+
+def test_dequant_weight_mode_launches_no_k1(dev, tmp_path):
+    from embedding_cpp_tpu_torch import Engine
+    from embedding_cpp_tpu_torch.models import ComputeOptions
+
+    path, _ = _minilm_file(tmp_path)
+    opts = ComputeOptions(dtype="bfloat16")
+    dense = Engine.from_gguf(path, opts=opts, device=dev, weight_mode="dequant")
+    before = q4_matmul.launches
+    got = dense.encode(_SENTENCES)
+    torch.cuda.synchronize()
+    assert q4_matmul.launches == before
+    ref = Engine.from_gguf(path, opts=opts, device=dev).encode(_SENTENCES)
+    assert (np.sum(got * ref, -1)).min() >= 0.999

@@ -85,8 +85,9 @@ def engine():
 
 @pytest.fixture(scope="module")
 def nomic_engine(tmp_path_factory):
-    """The JAX package's tiny-nomic preset in a Q4_0 GGUF (WordPiece vocab)."""
-    from embedding_cpp_tpu.cli.make_test_model import make_test_model
+    """The tiny-nomic preset in a Q4_0 GGUF (WordPiece vocab), written by
+    the port's make_test_model."""
+    from embedding_cpp_tpu_torch.cli.make_test_model import make_test_model
 
     path = str(tmp_path_factory.mktemp("gguf") / "tiny-nomic-q4_0.gguf")
     make_test_model(path, "tiny-nomic", "q4_0", seed=0)
@@ -96,14 +97,14 @@ def nomic_engine(tmp_path_factory):
 @pytest.fixture(scope="module")
 def q8_engine(tmp_path_factory):
     """A tiny CLS-pooled BERT in a Q8_0 GGUF (bge-large's pooling and
-    weight type at 64 wide), written by the JAX package."""
-    from embedding_cpp_tpu.models.config import BertConfig as JConfig
-    from embedding_cpp_tpu.models.convert import FTYPE_NAMES, write_bert_gguf
-    from embedding_cpp_tpu.models.params import random_state_dict
-    from embedding_cpp_tpu.tokenizer.testvocab import build_tokenizer_json
+    weight type at 64 wide), written by the port."""
+    from embedding_cpp_tpu_torch.models.config import BertConfig
+    from embedding_cpp_tpu_torch.models.convert import FTYPE_NAMES, write_bert_gguf
+    from embedding_cpp_tpu_torch.models.params import random_state_dict
+    from embedding_cpp_tpu_torch.tokenizer.testvocab import build_tokenizer_json
 
-    config = JConfig(n_vocab=1000, n_ctx=128, n_embd=64, n_layer=2, n_head=4, n_ff=256,
-                     pooling="cls", name="tiny-q8-cls")
+    config = BertConfig(n_vocab=1000, n_ctx=128, n_embd=64, n_layer=2, n_head=4, n_ff=256,
+                        pooling="cls", name="tiny-q8-cls")
     path = str(tmp_path_factory.mktemp("gguf") / "tiny-q8_0.gguf")
     write_bert_gguf(path, config, random_state_dict(config, seed=0),
                     build_tokenizer_json(config.n_vocab), FTYPE_NAMES["q8_0"])
