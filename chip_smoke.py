@@ -6,7 +6,10 @@
 
 Phases, in order, each printing JSON lines:
   device    the card (nvidia-smi name and power limit); TF32 switched off
-  build     every CUDA source compiled from csrc/ with nvcc (sm_90a), in parallel
+  build     every CUDA source compiled from csrc/ with nvcc (sm_90a), in parallel;
+            native_build: beside it, the three host libraries of native/
+            (tokenizer, quant codec, JSON renderer) compiled with the C++
+            compiler, whose path and version the line names
   kernels   each kernel against its plain PyTorch version on the card at the
             main paths' shapes, with CUDA-event times, bounds and the PyTorch
             library call that computes the same function: K1 q4_matmul at
@@ -47,7 +50,8 @@ Phases, in order, each printing JSON lines:
             12 heads; Q4_0 weights from a seed, bf16 activations) over the
             2758-sentence STSB-profile corpus, packed and plain, f32 and int8
             output, with the kernels' launch counts, the check against the
-            port's own f32 CPU path, sentences/s and in-device forward ms
+            port's own f32 CPU path, sentences/s and in-device forward ms;
+            the engine's tokenizer must be the native one
   formats   the model-format path at MiniLM-L6's width: an HF directory
             written by hand (config.json, the test vocabulary's
             tokenizer.json, pytorch_model.bin of the main phase's seed-0
@@ -60,8 +64,17 @@ Phases, in order, each printing JSON lines:
             launch of the matching kernels; the full forwards timed at
             [32, 512]), custom seq / batch buckets (only their shapes
             launched); the legacy .bin at f16 against the f16 GGUF; the
-            server started from the Q4_0 file in its own process: seconds to
-            its first reply, TPE2 replies against the int8-output Engine
+            server started from the Q4_0 file in its own process, with the
+            f16 file as a second model (-m NAME=PATH) and --http-port:
+            seconds to its first reply, TPE2 and HTTP replies against the
+            int8-output Engine, the second model's route, /v1/models
+  native    the STSB-profile corpus through the native tokenizer and the
+            pure-Python engine at a 30522-entry vocabulary (the same ids;
+            seconds each), the Q4_0 file's tensors to f16 through the
+            native codec and numpy (seconds; the same bytes but for the
+            sign of zero), [1024, 384] embeddings rendered to JSON natively
+            and in Python (ms; parsed back bit-equal); each library in use
+            is this run's build
   modernbert_main  the same corpus through ModernBERT-base at full width and
             depth (768 wide, 22 layers, 12 heads of 64, GeGLU 1152, window
             128), packed and plain: launch counts, sentences/s, in-device
@@ -174,6 +187,18 @@ Phases, in order, each printing JSON lines:
             bf16 recall@10 against it
   index_frames  the 8 index and search frames over TCP against the direct
             index calls
+  http      serve(http_port=, extra_engines=) over the Q4_0 file (and the
+            f16 file as a second model): /v1/embeddings with 256 texts a
+            request, float and base64, against engine.encode, requests/s
+            (the median of three 2 s windows an encoding) and response
+            bytes by encoding, K1/K2/K3 launches per request, the server's
+            engine time a request, a few requests under torch.profiler;
+            /v1/tokenize, /v1/index + /v1/search, /metrics, the second
+            model's route; VectorIndex ingest documents/s with the native
+            tokenizer and with the Python engine
+  cli       python -m embedding_cpp_tpu_torch.cli.main on the Q4_0 file as
+            its own process on the card: ids, tokens and the embedding head
+            against the engine's
   profile   torch.profiler kernel times of the packed [32, 512] forwards
             (MiniLM-L6, ModernBERT, DeBERTa, bge-large, XLM-R, MPNet, T5,
             ALBERT) and of the [8, 8192] ModernBERT forward
@@ -202,6 +227,7 @@ import asyncio
 import contextlib
 import json
 import socket
+import statistics
 import struct
 import subprocess
 import sys
@@ -254,6 +280,9 @@ LOGIT_ERR_BF16_VS_BF16 = 0.015
 # (tests/test_torch_families.py::test_bf16_noise_matches_the_pallas_path).
 BARS_LOGIT_STD = 0.026
 COSINE_SERVER = 0.9999  # wire replies vs engine.encode
+# the HTTP phase's rates: the median of HTTP_REPEATS windows of
+# HTTP_WINDOW_S seconds an encoding; HTTP_PROFILED requests each profiled
+HTTP_WINDOW_S, HTTP_REPEATS, HTTP_PROFILED = 2.0, 3, 4
 COSINE_INT8 = 0.999  # int8 wire codes (one step is 1/127 of a row's largest value)
 ATTENTION = ("attn_bse_packed", "attn_bse_keybias", "attn_bse_bias", "attn_bse_bias_packed",
              "attn_long", "attn_local", "deberta_attn", "deberta_attn_packed", "attn_seg",
@@ -1355,6 +1384,10 @@ def phase_main(counters) -> tuple:
     config = replace(MINILM_L6, n_vocab=1000, name="minilm-l6-synthetic")
     base = Engine.synthetic(config, "q4_0", seed=0,
                             opts=ComputeOptions(dtype="bfloat16"), device="cuda")
+    # the engine tokenizes natively: a fall-through to the Python engine
+    # would hide a library that did not build
+    check(type(base.tokenizer).__name__ == "NativeTokenizer",
+          f"the main engine's tokenizer is {type(base.tokenizer).__name__}")
     engines = {
         (packing, od): Engine(base.params, config, base.tokenizer, base.special_ids,
                               opts=ComputeOptions(dtype="bfloat16", output_dtype=od),
@@ -1448,6 +1481,110 @@ def phase_main(counters) -> tuple:
             "forward_inputs": (ids, mask, pids, seg, pos)}
     return (engines[("auto", "float32")], (base.params, config, pids, seg, pos),
             total, token_lists, main)
+
+
+def _caught(fn) -> dict:
+    """{"result": fn()} or {"error": the exception} (for a thread)."""
+    try:
+        return {"result": fn()}
+    except Exception as e:  # re-raised by the caller, on the main thread
+        return {"error": f"{type(e).__name__}: {e}"}
+
+
+def phase_native_build() -> dict:
+    """The three host libraries (tokenizer, quant codec, JSON renderer)
+    compiled from `native/` with the C++ compiler, all at once."""
+    from embedding_cpp_tpu_torch.utils import native_build
+
+    cxx = native_build.compiler()
+    version = native_build.compiler_version(cxx)
+    t0 = time.perf_counter()
+    built = native_build.build(force=True)
+    wall = time.perf_counter() - t0
+    check(set(built) == set(native_build.LIBRARIES.sources), f"native built {sorted(built)}")
+    return {"phase": "native_build", "compiler": cxx, "compiler_version": version,
+            "wall_s": wall,
+            "libraries": {k: {"seconds": v["seconds"],
+                              "library": native_build.lib_path(k).name}
+                          for k, v in built.items()}}
+
+
+def phase_native(main: dict, q4_path: Path) -> dict:
+    """The host libraries on the main path's data: (a) the STSB-profile
+    corpus through the native tokenizer and the pure-Python engine at
+    MiniLM's vocabulary size (30522 entries of the test vocabulary): the same
+    ids, and each one's seconds; (b) the Q4_0 GGUF's tensors to f16 through
+    the native codec and the numpy codecs: seconds, and the same bytes but
+    for the sign of zero (+0.0 native, -0.0 numpy, from a code of 8 under a
+    negative scale); (c) the HTTP float rendering of [1024, 384] embeddings,
+    native and Python: ms, and the numbers parse back bit-equal.  Each
+    library in use is the one this run built."""
+    from embedding_cpp_tpu_torch.gguf import GGMLType, native_codec
+    from embedding_cpp_tpu_torch.gguf.quant import dequantize, quantize
+    from embedding_cpp_tpu_torch.gguf.reader import GGUFReader
+    from embedding_cpp_tpu_torch.tokenizer import load_tokenizer
+    from embedding_cpp_tpu_torch.tokenizer.native import NativeTokenizer
+    from embedding_cpp_tpu_torch.tokenizer.testvocab import build_tokenizer_json
+    from embedding_cpp_tpu_torch.utils import jsonfmt, native_build
+
+    t_phase = time.perf_counter()
+    # (a)
+    texts = synthetic_sentences(2758, seed=0)
+    blob = build_tokenizer_json(30522)
+    nat, py = NativeTokenizer(blob), load_tokenizer(blob, "python")
+    nat_ids = nat.encode_batch(texts)
+    py_ids = py.encode_batch(texts)
+    ids_equal = [a.tolist() for a in nat_ids] == py_ids
+    nat_s = _best_s(lambda: nat.encode_batch(texts), 3)
+    py_s = _best_s(lambda: py.encode_batch(texts), 2)
+    # (b)
+    with GGUFReader(q4_path) as r:
+        tensors = [(np.array(r.tensor_raw(name)), info.n_elements)
+                   for name, info in r.tensors.items() if info.ggml_type == GGMLType.Q4_0]
+    t0 = time.perf_counter()
+    nat_f16 = [native_codec.requantize(raw, GGMLType.Q4_0, n, GGMLType.F16)
+               for raw, n in tensors]
+    codec_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    np_f16 = [quantize(dequantize(raw, GGMLType.Q4_0, n), GGMLType.F16) for raw, n in tensors]
+    numpy_s = time.perf_counter() - t0
+    n_values = sum(n for _, n in tensors)
+    diff = other = 0
+    for a, b in zip(nat_f16, np_f16):
+        a, b = a.view(np.uint16), b.view(np.uint16)
+        d = a != b
+        diff += int(d.sum())
+        other += int(np.sum(~((a[d] == 0) & (b[d] == 0x8000))))
+    # (c)
+    vecs = np.ascontiguousarray(main["outs"][("auto", "float32")][:1024])
+    rendered = jsonfmt.embedding_data_json(vecs)
+    back = np.array([d["embedding"] for d in json.loads(rendered)], np.float32)
+    bit_equal = back.shape == vecs.shape and np.array_equal(back.view(np.uint32),
+                                                            vecs.view(np.uint32))
+    native_ms = _best_s(lambda: jsonfmt.embedding_data_json(vecs), 5) * 1e3
+    python_ms = _best_s(lambda: jsonfmt._py_embedding_data(vecs), 3) * 1e3
+    in_use = native_build.loaded()
+    out = {"phase": "native", "sentences": len(texts), "vocab": 30522,
+           "tokens": int(sum(len(t) for t in py_ids)), "ids_equal": ids_equal,
+           "tokenize_s": {"native": nat_s, "python": py_s},
+           "main_engine_tokenizer": type(main["base"].tokenizer).__name__,
+           "codec_tensors": len(tensors), "codec_values": n_values,
+           "requantize_q4_0_to_f16_s": {"native": codec_s, "numpy": numpy_s},
+           "f16_values_differing": diff, "f16_differing_not_sign_of_zero": other,
+           "jsonfmt_shape": list(vecs.shape), "jsonfmt_bytes": len(rendered),
+           "jsonfmt_ms": {"native": native_ms, "python": python_ms},
+           "jsonfmt_bit_equal": bit_equal,
+           "libraries_in_use": {k: Path(v).name for k, v in in_use.items()},
+           "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    check(ids_equal, "native tokenizer ids differ from the Python engine's")
+    check(len(tensors) > 0 and other == 0, f"native codec differs from numpy beyond the sign of zero "
+                                  f"({other} values)")
+    check(jsonfmt.available() and bit_equal, "jsonfmt output does not parse back bit-equal")
+    check(sorted(in_use) == sorted(native_build.LIBRARIES.sources)
+          and all(Path(v) == native_build.lib_path(k) for k, v in in_use.items()),
+          f"libraries in use {in_use}")
+    return out
 
 
 # --- formats: convert -> quantize -> load -> serve, from files the port wrote ---
@@ -1728,6 +1865,12 @@ def phase_formats(counters, main: dict, token_lists) -> dict:
     legacy = Engine.from_legacy_bin(str(root / "m.bin"), opts=bf16, device="cuda")
     f16 = Engine.from_gguf(str(root / "f16.gguf"), opts=bf16, device="cuda")
     check(_same_params(legacy.params, f16.params), "legacy params != f16 GGUF params")
+    # what the server below answers for the f16 file, its second model
+    server_texts = ["hello world", "the quick brown fox jumps over the lazy dog",
+                    "welcome back soon", "store buy apple banana", "partly cloudy outside"]
+    want_f16 = Engine(f16.params, f16.config, f16.tokenizer, f16.special_ids, device="cuda",
+                      opts=ComputeOptions(dtype="bfloat16", output_dtype="int8")
+                      ).encode(server_texts)
     a, b = legacy.embed_tokens(token_lists), f16.embed_tokens(token_lists)
     legacy_diff = float(np.abs(a - b).max())
     check(legacy_diff <= spread, f"legacy vs f16 GGUF: {legacy_diff}")
@@ -1737,20 +1880,18 @@ def phase_formats(counters, main: dict, token_lists) -> dict:
     del legacy, f16, dequant, out_engines, buckets
     torch.cuda.empty_cache()
 
-    # (e) the server from the Q4_0 file, in its own process
-    texts = ["hello world", "the quick brown fox jumps over the lazy dog",
-             "welcome back soon", "store buy apple banana", "partly cloudy outside"]
+    # (e) the server from the Q4_0 file, in its own process, with the f16
+    # file as a second model on its HTTP port
+    texts = server_texts
     want = variant(output_dtype="int8").encode(texts)
-    sock = socket.socket()
-    sock.bind(("127.0.0.1", 0))
-    port = sock.getsockname()[1]
-    sock.close()
+    port, http_port = _free_port(), _free_port()
     body = b"".join(struct.pack("<I", len(t.encode())) + t.encode() for t in texts)
     log = open(root / "server.log", "w")
     t0 = time.perf_counter()
     proc = subprocess.Popen(
         [sys.executable, "-m", "embedding_cpp_tpu_torch.runtime.server", "-m", str(q4_path),
-         "--host", "127.0.0.1", "--port", str(port)],
+         "-m", f"minilm-f16={root / 'f16.gguf'}", "--host", "127.0.0.1", "--port", str(port),
+         "--http-port", str(http_port)],
         cwd=str(ROOT), stdout=log, stderr=subprocess.STDOUT)
     try:
         s = None
@@ -1776,6 +1917,15 @@ def phase_formats(counters, main: dict, token_lists) -> dict:
                 (count,) = struct.unpack("<I", _recv(s, 4))
                 replies.append(np.frombuffer(_recv(s, 4 * count * config.n_embd),
                                              np.float32).reshape(count, -1))
+        http_replies = {}
+        for model in (None, "minilm-f16"):
+            payload = {"input": texts, "encoding_format": "base64",
+                       **({"model": model} if model else {})}
+            status, body_out = _http(http_port, "POST", "/v1/embeddings", payload)
+            check(status == 200, f"HTTP {model}: {status} {body_out[:500]}")
+            http_replies[model] = _b64_vectors(json.loads(body_out))
+        status, models = _http(http_port, "GET", "/v1/models")
+        served = sorted(m["id"] for m in json.loads(models)["data"])
     finally:
         proc.terminate()
         try:
@@ -1785,12 +1935,20 @@ def phase_formats(counters, main: dict, token_lists) -> dict:
             proc.wait(timeout=30)
         log.close()
     server_diff = max(float(np.abs(r - want).max()) for r in replies)
+    http_diff = float(np.abs(http_replies[None] - want).max())
+    f16_cos = _min_cos(http_replies["minilm-f16"], want_f16)
     emit({"phase": "formats_server", "first_reply_s": first_reply_s, "replies": len(replies),
           "texts": len(texts), "max_abs_diff_vs_int8_engine": server_diff,
+          "http_max_abs_diff_vs_int8_engine": http_diff,
+          "http_second_model_min_cosine": f16_cos, "models_served": served,
           "exit_code": proc.returncode})
     check(server_diff <= spread, f"server replies differ from the int8 engine: {server_diff}")
-    tmp.cleanup()
-    return {k: counts["auto"][k] + counts["never"][k] for k in counters}
+    check(http_diff <= spread, f"HTTP replies differ from the int8 engine: {http_diff}")
+    check(f16_cos >= COSINE_SERVER, f"the second model's HTTP replies: cosine {f16_cos}")
+    check(len(served) == 2 and "minilm-f16" in served, f"models served {served}")
+    counts = {k: counts["auto"][k] + counts["never"][k] for k in counters}
+    # the Q4_0 and f16 files stay for the native, http and cli phases
+    return counts, {"tmp": tmp, "q4_0": q4_path, "f16": root / "f16.gguf"}
 
 
 def _modernbert_counts_ok(counts: dict, forwards: int, packing: str, what: str) -> None:
@@ -2803,6 +2961,8 @@ def _profiled(fn):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     averages = prof.key_averages()
+    if not len(averages):  # nothing ran on this thread, nor on the card
+        return wall_ms, [], ""
     attr = ("self_device_time_total" if hasattr(averages[0], "self_device_time_total")
             else "self_cuda_time_total")  # the name differs by torch version
     # kernel rows only: the aten:: rows repeat their kernels' time
@@ -2837,22 +2997,28 @@ def phase_profile(forward_args, engine, token_lists, out_dir, tag: str = "") -> 
           "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms)})
 
 
-@contextlib.contextmanager
-def _serving(engine):
-    """The TCP server over `engine` on a free local port, on its own event
-    loop thread; yields the port and stops the server on exit."""
-    from embedding_cpp_tpu_torch.runtime.server import serve
-
+def _free_port() -> int:
     sock = socket.socket()
     sock.bind(("127.0.0.1", 0))
     port = sock.getsockname()[1]
     sock.close()
+    return port
+
+
+@contextlib.contextmanager
+def _serving(engine, **serve_kw):
+    """The TCP server over `engine` on a free local port (with `serve`'s
+    keywords: an HTTP port, more models), on its own event loop thread;
+    yields the TCP port and stops the server on exit."""
+    from embedding_cpp_tpu_torch.runtime.server import serve
+
+    port = _free_port()
     loop = asyncio.new_event_loop()
     holder = {}
 
     def run():
         asyncio.set_event_loop(loop)
-        holder["task"] = loop.create_task(serve(engine, "127.0.0.1", port))
+        holder["task"] = loop.create_task(serve(engine, "127.0.0.1", port, **serve_kw))
         try:
             loop.run_until_complete(holder["task"])
         except asyncio.CancelledError:
@@ -2863,14 +3029,15 @@ def _serving(engine):
     thread = threading.Thread(target=run, daemon=True)
     thread.start()
     try:
-        for _ in range(200):
-            try:
-                socket.create_connection(("127.0.0.1", port), 1.0).close()
-                break
-            except OSError:
-                time.sleep(0.05)
-        else:
-            raise RuntimeError("server did not start")
+        for p in (port, serve_kw.get("http_port") or port):
+            for _ in range(200):
+                try:
+                    socket.create_connection(("127.0.0.1", p), 1.0).close()
+                    break
+                except OSError:
+                    time.sleep(0.05)
+            else:
+                raise RuntimeError("server did not start")
         yield port
     finally:
         loop.call_soon_threadsafe(holder["task"].cancel)
@@ -2885,6 +3052,29 @@ def _recv(s, n: int) -> bytes:
         check(bool(chunk), "server closed the connection")
         buf += chunk
     return buf
+
+
+def _http(port: int, method: str, path: str, payload=None, conn=None) -> tuple[int, bytes]:
+    """One HTTP request (on `conn`, kept alive, when given) -> (status, body)."""
+    import http.client
+
+    own = conn is None
+    conn = conn or http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request(method, path, None if payload is None else json.dumps(payload).encode(),
+                     {"Content-Type": "application/json"})
+        r = conn.getresponse()
+        return r.status, r.read()
+    finally:
+        if own:
+            conn.close()
+
+
+def _b64_vectors(body: dict) -> np.ndarray:
+    import base64
+
+    return np.stack([np.frombuffer(base64.b64decode(d["embedding"]), np.float32)
+                     for d in body["data"]])
 
 
 def phase_server(engine) -> None:
@@ -4038,6 +4228,207 @@ def phase_index_frames(engine, splade, colbert) -> None:
           "frames": replies})
 
 
+# --- the HTTP surface and the CLI -------------------------------------------
+
+def phase_http(counters, files: dict, index_docs_per_sec: float, out_dir) -> dict:
+    """The server's HTTP surface on the card: `serve(..., http_port=,
+    extra_engines=)` over the formats phase's port-written Q4_0 GGUF (the
+    server's defaults: bf16, int8 transfer), its f16 GGUF as a second model.
+    256 texts a request through /v1/embeddings, float and base64, each reply
+    against engine.encode at COSINE_SERVER.  Requests/s on one kept-alive
+    connection: windows of HTTP_WINDOW_S seconds, float and base64 in turn,
+    the median of HTTP_REPEATS windows each, the kernels' launches counted
+    over all of them (counts set to 0 just before, read just after); beside
+    them the server's engine time a request (the metrics' eval timer), and
+    outside the server the engine's own call, the tokenizer and the float
+    rendering on the same texts; a few requests of each encoding under
+    torch.profiler (device busy time a request against its wall time);
+    /v1/tokenize against engine.tokenize_batch;
+    /v1/index + /v1/search (each document its own top hit); /metrics; the
+    second model's route.  Then VectorIndex ingest of the corpus with the
+    native tokenizer and with the pure-Python engine, beside the
+    vector_index phase's rate."""
+    import http.client
+
+    import torch
+
+    from embedding_cpp_tpu_torch import Engine
+    from embedding_cpp_tpu_torch.models import ComputeOptions
+    from embedding_cpp_tpu_torch.runtime.search import VectorIndex
+    from embedding_cpp_tpu_torch.tokenizer import load_tokenizer
+    from embedding_cpp_tpu_torch.utils import jsonfmt
+    from embedding_cpp_tpu_torch.utils.metrics import GLOBAL as metrics
+
+    t_phase = time.perf_counter()
+    opts = ComputeOptions(dtype="bfloat16", output_dtype="int8")
+    engine = Engine.from_gguf(str(files["q4_0"]), opts=opts, device="cuda")
+    second = Engine.from_gguf(str(files["f16"]), opts=opts, device="cuda")
+    check(type(engine.tokenizer).__name__ == "NativeTokenizer",
+          f"the served engine's tokenizer is {type(engine.tokenizer).__name__}")
+    texts = synthetic_sentences(256, seed=41)
+    want = engine.encode(texts)
+    want_second = second.encode(texts[:16])
+    # where a request's time goes: the engine's own call, and the float
+    # rendering, both outside the server
+    encode_ms = _best_s(lambda: engine.encode_with_counts(texts), 5) * 1e3
+    tokenize_ms = _best_s(lambda: engine.tokenize_batch(texts), 5) * 1e3
+    render_ms = _best_s(lambda: jsonfmt.embedding_data_json(want), 5) * 1e3
+    corpus = synthetic_sentences(512, seed=43)
+    http_port = _free_port()
+    with _serving(engine, http_port=http_port, extra_engines={"minilm-f16": second},
+                  model_name="minilm-l6-q4_0"):
+        conn = http.client.HTTPConnection("127.0.0.1", http_port, timeout=300)
+        replies, cos = {}, {}
+        for fmt in ("float", "base64"):
+            status, raw = _http(http_port, "POST", "/v1/embeddings",
+                                {"input": texts, "encoding_format": fmt}, conn)
+            check(status == 200, f"/v1/embeddings {fmt}: {status} {raw[:300]}")
+            body = json.loads(raw)
+            vecs = (_b64_vectors(body) if fmt == "base64"
+                    else np.array([d["embedding"] for d in body["data"]], np.float32))
+            replies[fmt] = len(raw)
+            cos[fmt] = _min_cos(vecs, want)
+            check(body["model"] == "minilm-l6-q4_0" and vecs.shape == want.shape,
+                  f"{fmt}: {body['model']} {vecs.shape}")
+        payloads = {fmt: {"input": texts, "encoding_format": fmt}
+                    for fmt in ("float", "base64")}
+
+        def post(fmt):
+            status, _ = _http(http_port, "POST", "/v1/embeddings", payloads[fmt], conn)
+            check(status == 200, f"/v1/embeddings {fmt}: {status}")
+
+        windows = {fmt: [] for fmt in payloads}
+        n_requests = 0
+        timers0 = metrics.snapshot()
+        reset_counts(counters)
+        for _ in range(HTTP_REPEATS):
+            for fmt in payloads:
+                n, t0 = 0, time.perf_counter()
+                while (dt := time.perf_counter() - t0) < HTTP_WINDOW_S:
+                    post(fmt)
+                    n += 1
+                windows[fmt].append(n / dt)
+                n_requests += n
+        torch.cuda.synchronize()
+        counts = read_counts(counters)
+        timers1 = metrics.snapshot()
+        rates = {fmt: statistics.median(w) for fmt, w in windows.items()}
+        eval_n = timers1["timer_counts"]["eval"] - timers0["timer_counts"].get("eval", 0)
+        eval_ms = 1e3 * (timers1["timers_s"]["eval"]
+                         - timers0["timers_s"].get("eval", 0.0)) / max(eval_n, 1)
+        # where a request's time goes on the card: kernels against wall
+        # time, of the engine's call on this thread (the same forward a
+        # request runs) and of requests served on the server's threads
+        _, rows, table = _profiled(lambda: engine.encode_with_counts(texts))
+        _save(out_dir, "profile_http_engine_call.txt", table)
+        engine_busy_ms = sum(r[1] for r in rows) / 1e3
+        profiled = {}
+        for fmt in payloads:
+            wall_ms, rows, table = _profiled(lambda: [post(fmt) for _ in range(HTTP_PROFILED)])
+            _save(out_dir, f"profile_http_embeddings_{fmt}.txt", table)
+            busy_ms = sum(r[1] for r in rows) / 1e3 / HTTP_PROFILED
+            profiled[fmt] = {"requests": HTTP_PROFILED,
+                             "wall_ms_under_profiler": wall_ms / HTTP_PROFILED,
+                             "device_busy_ms": busy_ms if rows else None,
+                             "device_share_of_request": (busy_ms if rows else engine_busy_ms)
+                             * rates[fmt] / 1e3,
+                             "kernels_seen": len(rows),
+                             "top": [{"name": k[:60], "device_ms": us / 1e3 / HTTP_PROFILED}
+                                     for k, us, _ in rows[:5]]}
+        status, raw = _http(http_port, "POST", "/v1/tokenize", {"input": texts[:32]}, conn)
+        tok = json.loads(raw)
+        tokenize_ok = status == 200 and tok["ids"] == engine.tokenize_batch(texts[:32])
+        status, raw = _http(http_port, "POST", "/v1/index", {"input": corpus}, conn)
+        check(status == 200 and json.loads(raw)["total"] == len(corpus), f"/v1/index {raw}")
+        status, raw = _http(http_port, "POST", "/v1/search", {"input": corpus[:64], "k": 5},
+                            conn)
+        hits = json.loads(raw)["results"]
+        self_hits = sum(row[0]["index"] == i for i, row in enumerate(hits))
+        status_m, raw_m = _http(http_port, "GET", "/metrics", None, conn)
+        snap = json.loads(raw_m)
+        status, raw = _http(http_port, "POST", "/v1/embeddings",
+                            {"input": texts[:16], "model": "minilm-f16",
+                             "encoding_format": "base64"}, conn)
+        second_cos = _min_cos(_b64_vectors(json.loads(raw)), want_second)
+        conn.close()
+    # ingest: the native tokenizer (this engine) against the Python engine
+    py_engine = Engine(engine.params, engine.config,
+                       load_tokenizer(engine.tokenizer._blob, "python"), engine.special_ids,
+                       opts=opts, device="cuda")
+    docs = synthetic_sentences(2758, seed=0)
+    ingest = {name: len(docs) / _best_s(lambda: _filled(VectorIndex(eng), docs), 2)
+              for name, eng in (("native", engine), ("python", py_engine))}
+    k1 = counts["q4_matmul"] / n_requests
+    k2 = counts["attn_bse_packed"] / n_requests
+    k3 = counts["attn_bse_keybias"] / n_requests
+    out = {"phase": "http", "model": "minilm-l6-q4_0 (the formats phase's Q4_0 GGUF)",
+           "texts_per_request": len(texts), "requests_timed": n_requests,
+           "window_s": HTTP_WINDOW_S, "windows": windows,
+           "requests_per_sec": rates,
+           "request_ms": {k: 1e3 / v for k, v in rates.items()},
+           "server_eval_ms_per_request": eval_ms, "server_evals": eval_n,
+           "engine_encode_ms": encode_ms, "tokenize_ms": tokenize_ms,
+           "float_render_ms": render_ms, "engine_call_device_busy_ms": engine_busy_ms,
+           "profiled": profiled,
+           "sentences_per_sec": {k: v * len(texts) for k, v in rates.items()},
+           "response_bytes": replies, "min_cosine_vs_encode": cos,
+           "threshold": COSINE_SERVER, "launches": counts,
+           "launches_per_request": {"q4_matmul (K1)": k1, "attn_bse_packed (K2)": k2,
+                                    "attn_bse_keybias (K3)": k3},
+           "tokenize_ids_equal": tokenize_ok, "search_self_hits": f"{self_hits}/64",
+           "metrics_requests": snap["server"]["requests"],
+           "second_model_min_cosine": second_cos,
+           "ingest_documents_per_sec": {**ingest,
+                                        "vector_index_phase": index_docs_per_sec},
+           "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    check(min(cos.values()) >= COSINE_SERVER, f"HTTP replies vs encode {cos}")
+    check(second_cos >= COSINE_SERVER, f"second model route {second_cos}")
+    check(tokenize_ok, "/v1/tokenize ids differ from engine.tokenize_batch")
+    check(self_hits == 64, f"/v1/search self hits {self_hits}/64")
+    check(status_m == 200 and "minilm-f16" in snap["models"], "/metrics")
+    attn = counts["attn_bse_packed"] + counts["attn_bse_keybias"]
+    check(counts["q4_matmul"] == 6 * attn and counts["attn_bse_packed"] > 0
+          and counts["q4_matmul_2d"] == 0, f"HTTP launches {counts}")
+    return out
+
+
+def phase_cli(files: dict) -> dict:
+    """`python -m embedding_cpp_tpu_torch.cli.main` as its own process on
+    the card, on the formats phase's Q4_0 GGUF: its ids and tokens equal
+    engine.tokenize's, its embedding head engine.encode's (f32, the CLI's
+    default) to the 6 decimals it prints."""
+    from embedding_cpp_tpu_torch import Engine
+    from embedding_cpp_tpu_torch.cli.engine_io import format_embedding
+    from embedding_cpp_tpu_torch.models import ComputeOptions
+
+    text = "the quick brown fox jumps over the lazy dog, partly cloudy outside"
+    t_phase = t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "embedding_cpp_tpu_torch.cli.main", "-m", str(files["q4_0"]),
+         "-p", text], cwd=str(ROOT), capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"cli.main failed: {proc.stderr[-2000:]}")
+    lines = proc.stdout.splitlines()
+    engine = Engine.from_gguf(str(files["q4_0"]), device="cuda",
+                              opts=ComputeOptions(dtype="float32"))
+    ids = engine.tokenize(text)
+    vec = engine.encode([text], prompt="")[0]
+    head = next(line for line in lines if line.startswith("embedding["))
+    printed = np.array([float(x) for x in head.split("[", 2)[2].split(",")[:8]])
+    err = float(np.abs(printed - vec[:8]).max())
+    out = {"phase": "cli", "wall_s": wall, "printed": head,
+           "same_text_as_engine": head == format_embedding(vec),
+           "max_abs_diff_vs_engine": err,
+           "eval_lines": [line for line in lines if line.startswith(("load", "eval"))],
+           "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    check(f"ids: {ids}" in lines, "cli ids differ from engine.tokenize")
+    check(f"tokens: {[engine.id_to_token(i) for i in ids]}" in lines, "cli tokens differ")
+    check(err <= 1e-6, f"cli embedding head differs from engine.encode by {err}")
+    return out
+
+
 def _entry(name: str, source: str, replaces: str, launches: int, c: dict, shape: str,
            **extra) -> dict:
     return {"name": name, "route": "cuda", "source": f"embedding_cpp_tpu_torch/csrc/{source}",
@@ -4073,7 +4464,15 @@ def main() -> None:
     from embedding_cpp_tpu_torch.ops import deberta_attention as DA
     from embedding_cpp_tpu_torch.ops.q4_matmul import q4_matmul
 
+    # the host libraries compile while nvcc builds the kernels
+    native = {}
+    native_thread = threading.Thread(target=lambda: native.update(
+        _caught(phase_native_build)))
+    native_thread.start()
     phase_build(out_dir)
+    native_thread.join()
+    check("error" not in native, f"native build failed: {native.get('error')}")
+    emit(native["result"])
     k1 = phase_kernels_q4(peaks, "minilm-l6", ("qkvo", "up", "down"), seed=0)
     k1m = phase_kernels_q4(peaks, "modernbert-base", ("down",), seed=2)
     k1d = phase_kernels_q4(peaks, "deberta-v3-base", ("down",), seed=3)
@@ -4113,7 +4512,8 @@ def main() -> None:
                 "attn_seg_local": (A.flash_attention_packed_local, "launches"),
                 "attention_headpack": (A.attention_headpack, "launches")}
     engine, forward_args, launches, token_lists, main_path = phase_main(counters)
-    gguf_counts = phase_formats(counters, main_path, token_lists)
+    gguf_counts, files = phase_formats(counters, main_path, token_lists)
+    phase_native(main_path, files["q4_0"])
     mb, mb_outs, mb_launches, mb_forward_args = phase_modernbert_main(counters, token_lists)
     long_launches = phase_modernbert_long(counters, mb, out_dir)
     phase_modernbert_vs_cpu(counters, mb, mb_outs, token_lists)
@@ -4173,6 +4573,9 @@ def main() -> None:
     maxsim_path = phase_maxsim_index(counters, colbert)
     phase_index_scale(engine, colbert, peaks, F32_PEAKS[peaks_for(name)[0]])
     phase_index_frames(engine, splade, colbert)
+    http_path = phase_http(counters, files, vec_path["documents_per_sec"], out_dir)
+    phase_cli(files)
+    files["tmp"].cleanup()
 
     # each model's launches beside the times at that model's shapes
     mb_total = {k: mb_launches[k] + long_launches[k] + mb_chunk_counts[k] for k in counters}
@@ -4194,7 +4597,7 @@ def main() -> None:
     paths = (launches, mb_total, de_total, nomic_total, bge_total, bge_f32_counts,
              *family_totals.values(), small_total, t5_gated_counts, rr_counts, nomic_2044,
              splade_counts, colbert_counts, vec_path["counts"], sparse_path["counts"],
-             maxsim_path["counts"])
+             maxsim_path["counts"], http_path["launches"])
     # the fused residual/LayerNorm tail on every model path, bf16 and f32
     ln_on_paths = sum(t["q4_matmul_ln"] for t in paths)
     check(ln_on_paths == 0, f"the fused tail ran on a model path {ln_on_paths} times")
@@ -4448,10 +4851,13 @@ def main() -> None:
                "q4_matmul_2d": ("q4_matmul.cu", "q4_matmul.py:259"),
                "attn_bse_packed": ("attention_bse.cu", "attention.py:213"),
                "attn_bse_keybias": ("attention_bse.cu", "attention.py:213")}
+    minilm_timed = {"q4_matmul": k1_mini, "attn_bse_packed": attn["attn_bse_packed"],
+                    "attn_bse_keybias": attn["attn_bse_keybias"]}
     retrieval = {
         "vector-index": (vec_path["counts"], "MiniLM-L6 (VectorIndex.add over the corpus)",
-                         {"q4_matmul": k1_mini, "attn_bse_packed": attn["attn_bse_packed"],
-                          "attn_bse_keybias": attn["attn_bse_keybias"]}),
+                         minilm_timed),
+        "http": (http_path["launches"], "MiniLM-L6 from the port-written Q4_0 GGUF behind "
+                 "POST /v1/embeddings (256 texts a request)", minilm_timed),
         "sparse-index": (sparse_path["counts"], "SPLADE, BERT-base (SparseIndex.add and the "
                          "hybrid index over the corpus; K1 counts the decoder's 1-D launches)",
                          {"q4_matmul": k1_base, "q4_matmul_2d": splade_dec_k,

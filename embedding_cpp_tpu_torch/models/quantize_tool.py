@@ -8,7 +8,10 @@
 - every other tensor passes through as it is;
 - a 16-bin histogram of the codes written and the sizes are reported.
 
-The conversion runs the numpy block codecs of `gguf/quant.py`.
+A conversion runs the C++ codec (`gguf/native_codec.py`, multithreaded)
+where it is available, as the JAX tool does, else the numpy block codecs
+of `gguf/quant.py`; given the same codec, the two tools write the same
+bytes.
 """
 from __future__ import annotations
 
@@ -85,6 +88,16 @@ def _eligible(name: str, shape: tuple, target: GGMLType) -> bool:
     return target not in _BLOCK_TYPES or shape[-1] % QK4 == 0
 
 
+def _convert(raw, src_type: GGMLType, n_elements: int, target: GGMLType) -> np.ndarray:
+    """One tensor's bytes at `target`, by the native codec where it is
+    available."""
+    from ..gguf import native_codec
+
+    if native_codec.available():
+        return native_codec.requantize(raw, src_type, n_elements, target)
+    return quantize(dequantize(raw, src_type, n_elements), target)
+
+
 def quantize_gguf(in_path: str, out_path: str, ftype: GGUFFileType | str,
                   verbose: bool = True) -> QuantizeStats:
     """Rewrite `in_path` at `ftype` ("q4_0" | "q4_1" | "q8_0" | "f16" |
@@ -105,7 +118,7 @@ def quantize_gguf(in_path: str, out_path: str, ftype: GGUFFileType | str,
                 stats.n_kept += 1
                 stats.total_out_bytes += info.nbytes
                 continue
-            out = quantize(dequantize(raw, info.ggml_type, info.n_elements), target)
+            out = _convert(raw, info.ggml_type, info.n_elements, target)
             if target == GGMLType.F16:
                 w.add_tensor(name, out.view(np.float16).reshape(info.shape))
             else:

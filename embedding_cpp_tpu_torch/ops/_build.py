@@ -3,19 +3,18 @@
 Each `csrc/*.cu` compiles on first use, one nvcc process per source, into
 its own shared library with a plain C interface under `_build/` (a
 directory git ignores), named by a hash of the source, every shared header
-`csrc/*.cuh` and the flags, so an edited source or header rebuilds.  No PyTorch headers are compiled, which keeps a
-build to seconds.
+`csrc/*.cuh` and the flags (`utils/shared_libs.py`), so an edited source or
+header rebuilds.  No PyTorch headers are compiled, which keeps a build to
+seconds.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
-import subprocess
-import threading
-import time
 from pathlib import Path
+
+from ..utils.shared_libs import SharedLibraries, Source
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -26,9 +25,6 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
-
-_lock = threading.Lock()
-_libs: dict[str, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -44,13 +40,10 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def lib_path(name: str) -> Path:
-    h = hashlib.sha256((CSRC / name).read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):
-        h.update(header.name.encode() + header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    digest = h.hexdigest()[:16]
-    return BUILD_DIR / f"{Path(name).stem}-{digest}.so"
+_HEADERS = tuple(sorted(CSRC.glob("*.cuh")))
+LIBRARIES = SharedLibraries({name: Source(CSRC / name, _HEADERS, NVCC_FLAGS) for name in SOURCES},
+                            _nvcc, BUILD_DIR)
+lib_path = LIBRARIES.lib_path
 
 
 def build(names=SOURCES, *, force: bool = False,
@@ -59,42 +52,13 @@ def build(names=SOURCES, *, force: bool = False,
     `force`), all nvcc processes started together.  Returns {name:
     {"seconds", "log"}} for the sources compiled in this call; raises with
     nvcc's output on failure."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    procs = {}
-    for name in names:
-        out = lib_path(name)
-        if out.exists() and not force:
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if ptxas_verbose else []),
-               "-o", str(tmp), str(CSRC / name)]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out, time.perf_counter())
-    results, failures = {}, []
-    for name, (proc, tmp, out, t0) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failures.append(f"nvcc {name} failed ({proc.returncode}):\n{log}")
-            continue
-        os.replace(tmp, out)
-        results[name] = {"seconds": time.perf_counter() - t0, "log": log}
-    if failures:
-        raise RuntimeError("\n".join(failures))
-    return results
+    return LIBRARIES.build(names, force=force,
+                           extra_flags=("-Xptxas", "-v") if ptxas_verbose else ())
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of `csrc/<name>`, built first if missing."""
-    with _lock:
-        lib = _libs.get(name)
-        if lib is None:
-            path = lib_path(name)
-            if not path.exists():
-                build([name])
-            lib = _libs[name] = ctypes.CDLL(str(path))
-        return lib
+    return LIBRARIES.load(name)
 
 
 def check(err: int, what: str) -> None:

@@ -56,7 +56,6 @@ from ..models.config import BertConfig
 from ..models.params import load_params, params_to, random_params
 from ..tokenizer import (
     SpecialIds,
-    WordPieceTokenizer,
     frame_ids,
     frame_pair_ids,
     load_tokenizer,
@@ -199,17 +198,19 @@ class Engine:
     # --- constructors -------------------------------------------------------
     @classmethod
     def from_gguf(cls, path: str, *, weight_mode: str = "auto",
-                  opts: ComputeOptions | None = None, device=None, **kw) -> "Engine":
+                  opts: ComputeOptions | None = None, device=None,
+                  tokenizer_backend: str = "auto", **kw) -> "Engine":
         """weight_mode "auto" keeps quantized weights packed for the fused
         dequant-matmul kernel; "dequant" stores them dense in the activation
-        dtype (models/params.py)."""
+        dtype (models/params.py).  tokenizer_backend is `load_tokenizer`'s:
+        "auto" takes the native engines where they load the json."""
         device = resolve_device(device)
         opts = opts or ComputeOptions()
         with GGUFReader(path) as r:
             params, config = load_params(r, weight_mode=weight_mode, dense_dtype=opts.tdtype,
                                          device=device)
             blob = r.kv.get(Keys.TOKENIZER_JSON_BLOB)
-            tokenizer = load_tokenizer(blob) if blob else None
+            tokenizer = load_tokenizer(blob, tokenizer_backend) if blob else None
             special = SpecialIds.from_gguf_kv(r.kv)
             prompts = r.kv.get(Keys.PROMPTS)
             if prompts and "prompts" not in kw:
@@ -260,7 +261,7 @@ class Engine:
         except ValueError:  # vocab too small for the synthetic word list
             pass
         else:
-            tokenizer = WordPieceTokenizer(blob)
+            tokenizer = load_tokenizer(blob)
             special = SpecialIds(cls=2, sep=3, pad=0, unk=1)
         return cls(params, config, tokenizer, special, opts=opts, device=device, **kw)
 
@@ -676,7 +677,7 @@ class Engine:
             import string
 
             encoded = self.tokenizer.encode_batch(list(string.punctuation))
-            self._skiplist = frozenset(int(e[0]) for e in encoded if e)
+            self._skiplist = frozenset(int(e[0]) for e in encoded if len(e))
         return self._skiplist
 
     def _colbert_frame(self, texts: Sequence[str], marker: int, maxlen: int) -> list[list[int]]:

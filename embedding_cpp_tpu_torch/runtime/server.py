@@ -47,12 +47,19 @@ The wire protocol of the JAX package's `runtime/server.py`, on one port:
 Encode requests from all connections merge into device batches through
 one continuous batcher (a short micro-batching window); the other
 requests run on executor threads, reranks, MaxSim, sparse, index and
-search requests under the same pending budget.
+search requests under the same pending budget.  `--http-port` serves the
+HTTP/JSON surface (`runtime/http_server.py`) over the same batcher, and a
+repeated `-m NAME=PATH` serves more models there, routed by a request's
+"model" field.
+
+    python -m embedding_cpp_tpu_torch.runtime.server -m m.gguf --port 8080 \
+        [--http-port 8081 [-m other=o.gguf ...]] [--device cpu]
 """
 from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import json
 import struct
 import sys
@@ -201,20 +208,24 @@ class ContinuousBatcher:
     def sparse_index_texts(self, texts: list[str]) -> int:
         return self._sparse().add(texts)
 
-    def sparse_search_texts(self, texts: list[str], k: int):
+    def sparse_search_texts(self, texts: list[str], k: int, candidates: int | None = None):
+        """`candidates` asks for the two-stage mode, which only the device
+        backend has: the host backend searches exactly instead."""
         if self.sparse_index is None:
             raise RuntimeError("no sparse index built (send a sparse index frame first)")
-        return self.sparse_index.search(texts, k)
+        if not self.sparse_index.device:
+            candidates = None
+        return self.sparse_index.search(texts, k, candidates=candidates)
 
     def maxsim_index_texts(self, texts: list[str]) -> int:
         from .maxsim_search import MaxSimIndex
 
         return self._built("maxsim_index", lambda: MaxSimIndex(self.engine)).add(texts)
 
-    def maxsim_search_texts(self, texts: list[str], k: int):
+    def maxsim_search_texts(self, texts: list[str], k: int, candidates: int | None = None):
         if self.maxsim_index is None:
             raise RuntimeError("no MaxSim index built (send a MaxSim index frame first)")
-        return self.maxsim_index.search(texts, k)
+        return self.maxsim_index.search(texts, k, candidates=candidates)
 
     def hybrid_index_texts(self, texts: list[str]) -> int:
         """The same documents into the dense and the sparse index (hybrid
@@ -225,8 +236,8 @@ class ContinuousBatcher:
             sparse = self._sparse()
             if self.index is not None and len(self.index) != len(sparse):
                 raise RuntimeError(f"hybrid corpus desync: dense {len(self.index)} != sparse "
-                                   f"{len(sparse)} docs (index and sparse index frames mixed "
-                                   "with hybrid ones?)")
+                                   f"{len(sparse)} docs (mixed /v1/index|/v1/sparse_index and "
+                                   "/v1/hybrid_index calls?)")
             pairs = sparse.engine.encode_sparse(texts, k=sparse.k_encode)
             total = self.index_texts(texts)
             sparse.add_vectors(pairs)
@@ -238,8 +249,8 @@ class ContinuousBatcher:
         from .sparse_search import rrf_fuse
 
         if self.index is None or self.sparse_index is None:
-            raise RuntimeError("hybrid search needs both indexes (send a hybrid index "
-                               "frame first)")
+            raise RuntimeError("hybrid search needs both indexes (POST /v1/hybrid_index "
+                               "first)")
         if len(self.index) != len(self.sparse_index):
             raise RuntimeError(f"hybrid corpus desync: dense {len(self.index)} != sparse "
                                f"{len(self.sparse_index)} docs")
@@ -280,7 +291,25 @@ class ContinuousBatcher:
     def release(self, n: int) -> None:
         self._pending -= n
 
-    async def encode(self, texts: list[str]) -> np.ndarray:
+    async def encode(self, texts: list[str], prefix: str | None = None) -> np.ndarray:
+        return (await self.encode_with_counts(texts, prefix))[0]
+
+    async def encode_with_counts(self, texts: list[str], prefix: str | None = None,
+                                 truncate: bool = True) -> tuple[np.ndarray, list[int]]:
+        """encode() and each text's token count, from the tokenization that
+        fed the forward (the HTTP usage field).  `prefix` is this request's
+        prompt prefix (None: the engine's default prompt), put before the
+        texts here because one merged batch can carry requests with
+        different prompts.  truncate=False tokenizes the texts first, to
+        refuse one past the context as this request's error before it
+        joins a shared batch."""
+        if prefix is None:
+            prefix = self.engine.resolve_prompt()
+        if prefix:
+            texts = [prefix + t for t in texts]
+        if not truncate:
+            await asyncio.get_running_loop().run_in_executor(
+                None, lambda: self.engine.tokenize_batch(texts, truncate=False))
         n = len(texts)
         self.try_reserve(n)
         try:
@@ -332,13 +361,14 @@ class ContinuousBatcher:
     async def _run_batch(self, jobs, sem: asyncio.Semaphore) -> None:
         flat = [text for texts, _ in jobs for text in texts]
         try:
-            vecs = await asyncio.get_running_loop().run_in_executor(
-                None, self.engine.encode, flat
+            # the prompts went on at enqueue time: prompt="" adds none here
+            vecs, counts = await asyncio.get_running_loop().run_in_executor(
+                None, lambda: self.engine.encode_with_counts(flat, prompt="")
             )
             off = 0
             for texts, fut in jobs:
                 if not fut.cancelled():
-                    fut.set_result(vecs[off : off + len(texts)])
+                    fut.set_result((vecs[off : off + len(texts)], counts[off : off + len(texts)]))
                 off += len(texts)
             self.stats.batches += 1
             self.stats.sentences += len(flat)
@@ -572,25 +602,52 @@ async def handle_client(reader: asyncio.StreamReader, writer: asyncio.StreamWrit
 
 async def serve(engine, host: str = "0.0.0.0", port: int = 8080,
                 max_batch: int = 256, window_ms: float = 2.0,
-                max_pending: int = 16384) -> None:
+                max_pending: int = 16384, http_port: int | None = None,
+                extra_engines: dict | None = None, model_name: str | None = None) -> None:
+    """Serve TCP on `port` and, with `http_port`, the HTTP/JSON surface
+    (`runtime/http_server.py`) over the same batcher, so requests of both
+    merge into shared device batches.  `extra_engines` ({name: Engine})
+    serves more models over HTTP, each with its own batcher, routed by a
+    request's "model" field; TCP always speaks to `engine`.  `model_name`
+    is the name `engine` is served under (default: its config's name)."""
     batcher = ContinuousBatcher(engine, max_batch, window_ms, max_pending=max_pending)
     await batcher.start()
-    server = await asyncio.start_server(
+    registry: dict = {}
+    for name, eng in (extra_engines or {}).items():
+        registry[name] = ContinuousBatcher(eng, max_batch, window_ms, max_pending=max_pending)
+        await registry[name].start()
+    servers = [await asyncio.start_server(
         lambda r, w: handle_client(r, w, batcher, engine.n_embd), host, port
-    )
+    )]
+    if http_port is not None:
+        from .http_server import handle_http, served_name
+
+        name = model_name or served_name(engine)
+        servers.append(await asyncio.start_server(
+            lambda r, w: handle_http(r, w, batcher, name, registry=registry), host, http_port
+        ))
+        print(f"http server listening on {host}:{http_port} (POST /v1/embeddings)",
+              file=sys.stderr)
     print(f"server listening on {host}:{port} (n_embd={engine.n_embd})",
           file=sys.stderr)
     try:
-        async with server:
-            await server.serve_forever()
+        async with contextlib.AsyncExitStack() as stack:
+            for srv in servers:
+                await stack.enter_async_context(srv)
+            await asyncio.gather(*(srv.serve_forever() for srv in servers))
     finally:
         await batcher.stop()
+        for b in registry.values():
+            await b.stop()
 
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("-m", "--model", required=True, help="GGUF model path")
+    p.add_argument("-m", "--model", required=True, action="append",
+                   help="GGUF path, or NAME=PATH; repeat to serve several models (the "
+                        "first is the default and the only one on TCP; HTTP requests "
+                        "route by their 'model' field)")
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8080)
     p.add_argument("--device", default=None,
@@ -606,19 +663,44 @@ def main(argv=None) -> None:
     p.add_argument("--max-batch", type=int, default=256)
     p.add_argument("--window-ms", type=float, default=2.0)
     p.add_argument("--max-pending", type=int, default=16384)
+    p.add_argument("--http-port", type=int, default=None,
+                   help="also serve HTTP/JSON (OpenAI-compatible POST /v1/embeddings "
+                        "and the other /v1 routes) on this port, over the same batcher")
     args = p.parse_args(argv)
+    specs = []
+    for item in args.model:
+        name, sep, path = item.partition("=")
+        specs.append((name, path) if sep else (None, item))
+    if len(specs) > 1 and args.http_port is None:
+        p.error("serving several models requires --http-port "
+                "(extra models are HTTP-routed by their 'model' field)")
 
     from ..models.bert import ComputeOptions
     from .engine import Engine
 
-    engine = Engine.from_gguf(
-        args.model, device=args.device, packing=args.packing,
-        opts=ComputeOptions(dtype=args.dtype, output_dtype=args.output_dtype),
-    )
-    engine.warmup()  # the kernels' build and the first forward, before listening
+    def load(path):
+        engine = Engine.from_gguf(
+            path, device=args.device, packing=args.packing,
+            opts=ComputeOptions(dtype=args.dtype, output_dtype=args.output_dtype),
+        )
+        engine.warmup()  # the kernels' build and the first forward, before listening
+        return engine
+
+    engine = load(specs[0][1])
+    extra = {}
+    for name, path in specs[1:]:
+        eng = load(path)
+        extra[name or eng.config.name or path] = eng
     asyncio.run(serve(engine, args.host, args.port, args.max_batch,
-                      args.window_ms, max_pending=args.max_pending))
+                      args.window_ms, max_pending=args.max_pending,
+                      http_port=args.http_port, extra_engines=extra,
+                      model_name=specs[0][0]))
 
 
 if __name__ == "__main__":
-    main()
+    # run the package's module, not this `__main__` copy of it: the HTTP
+    # surface imports OverloadedError from `runtime.server`, and a second
+    # class of that name would turn its 429s into 500s
+    from embedding_cpp_tpu_torch.runtime.server import main as _main
+
+    _main()

@@ -42,7 +42,7 @@ def frame_ids(ids: Sequence[int], special: SpecialIds, n_max_tokens: int,
     for i in ids:
         if i == special.pad:  # padding from the json config: stop here
             break
-        out.append(i)
+        out.append(int(i))
         if len(out) >= n_max_tokens:
             break
     if len(out) >= n_max_tokens:

@@ -194,16 +194,21 @@ class WordPieceTokenizer:
         return self._id_to_token.get(token_id, "")
 
     def decode(self, ids) -> str:
-        """Ids -> text with the WordPiece decoder's rules: "##" continuations
-        fuse onto the previous token, other tokens join with a space, and
-        the cleanup rules de-space punctuation piece by piece."""
-        pieces: list[str] = []
-        for i in ids:
-            tok = self.id_to_token(int(i))
-            if not tok:
-                continue
-            piece = tok if not pieces else tok[2:] if tok.startswith("##") else " " + tok
-            for a, b in _WP_CLEANUP:
-                piece = piece.replace(a, b)
-            pieces.append(piece)
-        return "".join(pieces)
+        """Ids -> text (`decode_wordpiece`)."""
+        return decode_wordpiece(self.id_to_token, ids)
+
+
+def decode_wordpiece(id_to_token, ids) -> str:
+    """Ids -> text with the WordPiece decoder's rules: "##" continuations
+    fuse onto the previous token, other tokens join with a space, and the
+    cleanup rules de-space punctuation piece by piece."""
+    pieces: list[str] = []
+    for i in ids:
+        tok = id_to_token(int(i))
+        if not tok:
+            continue
+        piece = tok if not pieces else tok[2:] if tok.startswith("##") else " " + tok
+        for a, b in _WP_CLEANUP:
+            piece = piece.replace(a, b)
+        pieces.append(piece)
+    return "".join(pieces)

@@ -1,7 +1,9 @@
 """The port and chip_smoke.py import neither jax nor anything of the JAX
 package `embedding_cpp_tpu` nor its benchmark scripts (`benchmarks/`):
 checked in a fresh interpreter and by a scan of every import statement in
-their sources."""
+their sources.  No port source names `native/build` (the Makefile's
+output) or a `TPUEMBED_*_LIB` library path: the port builds its own host
+libraries."""
 import ast
 import json
 import subprocess
@@ -39,7 +41,10 @@ def test_importing_everything_loads_no_jax():
     for name in ("models.modernbert", "models.nomic", "models.bert", "models.t5",
                  "models.deberta", "runtime.engine", "tokenizer.bpe", "ops.attention",
                  "utils.metrics", "utils.profiling", "benchmarks.kernels",
-                 "benchmarks.profiles"):
+                 "benchmarks.profiles", "tokenizer.native", "tokenizer.hf",
+                 "gguf.native_codec", "utils.jsonfmt", "utils.logging", "utils.native_build",
+                 "utils.shared_libs", "runtime.http_server", "runtime.client", "cli.main",
+                 "cli.rerank", "cli.engine_io"):
         assert f"embedding_cpp_tpu_torch.{name}" in result["modules"]
 
 
@@ -63,3 +68,31 @@ def test_sources_import_no_jax():
     offenders = {str(f.relative_to(REPO)): sorted(_imported_roots(f) & set(FORBIDDEN))
                  for f in files}
     assert {f: r for f, r in offenders.items() if r} == {}
+
+
+def _native_build_refs(path: Path) -> list[str]:
+    """String constants naming the Makefile's output or a library path
+    variable, and `... / "native" / "build"` path joins."""
+    found = []
+    for node in ast.walk(ast.parse(path.read_text(encoding="utf-8"))):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            found += [w for w in ("native/build", "TPUEMBED_TOKENIZER_LIB", "TPUEMBED_CODEC_LIB",
+                                  "TPUEMBED_JSONFMT_LIB", "libtpuembed_capi")
+                      if w in node.value]
+        elif (isinstance(node, ast.BinOp) and isinstance(node.op, ast.Div)
+              and isinstance(node.right, ast.Constant) and node.right.value == "build"
+              and isinstance(node.left, ast.BinOp)
+              and isinstance(node.left.right, ast.Constant)
+              and node.left.right.value == "native"):
+            found.append('"native" / "build"')
+    return found
+
+
+def test_sources_load_no_library_from_native_build():
+    """The port compiles `native/`'s sources into its own `_build/`: no
+    source of it, nor chip_smoke.py, reads the Makefile's output directory
+    or reads the JAX package's library variables."""
+    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    offenders = {str(f.relative_to(REPO)): _native_build_refs(f) for f in files}
+    assert {f: r for f, r in offenders.items() if r} == {}
+    assert _native_build_refs(REPO / "embedding_cpp_tpu" / "tokenizer" / "native.py")

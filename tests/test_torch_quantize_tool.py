@@ -1,13 +1,16 @@
 """The port's GGUF requantizer against the JAX package's `quantize_gguf`:
 the same output bytes for f32 -> q4_0 / q4_1 / q8_0 / f16 and q4_0 ->
-q8_0 (every kv copied with its type, `general.file_type` updated; the
-eligibility rule; tensors passed through), the same stats and 16-bin
-histogram; and the quantize CLI with names and numeric codes."""
+q8_0 / f16 (every kv copied with its type, `general.file_type` updated;
+the eligibility rule; tensors passed through), the same stats and 16-bin
+histogram, with both tools on the native codec and both on numpy; and the
+quantize CLI with names and numeric codes."""
+import contextlib
 import dataclasses
 import filecmp
 
 import numpy as np
 import pytest
+from torch_native import has_compiler, jax_native
 
 from embedding_cpp_tpu.cli.make_test_model import make_test_model
 from embedding_cpp_tpu.gguf.reader import GGUFReader as JReader
@@ -39,16 +42,19 @@ CASES = [("f32", "q4_0"), ("f32", "q4_1"), ("f32", "q8_0"), ("f32", "f16"), ("q4
 @pytest.mark.parametrize("src,target", CASES, ids=[f"{a}-{b}" for a, b in CASES])
 def test_output_stats_and_histogram_match_jax(sources, tmp_path, preset, src, target,
                                               monkeypatch):
-    """Q4 -> f16 is held to the JAX package's numpy codec: its native codec
-    writes +0.0 where a code of 8 under a negative scale dequantizes to
-    -0.0 (same values, other bytes; see the test below)."""
+    """Both tools take the same codec: the native one where a C++ compiler
+    builds it, else numpy (the two differ in the sign of a zero from a Q4
+    code of 8 under a negative scale)."""
     from embedding_cpp_tpu.gguf import native_codec
 
-    if (src, target) == ("q4_0", "f16"):
-        monkeypatch.setattr(native_codec, "available", lambda: False)
     path = str(sources[(preset, src)])
-    got = tquantize(path, str(tmp_path / "t.gguf"), target, verbose=False)
-    want = jquantize(path, str(tmp_path / "j.gguf"), target, verbose=False)
+    with contextlib.ExitStack() as stack:
+        if has_compiler():
+            stack.enter_context(jax_native("codec"))
+        else:
+            monkeypatch.setattr(native_codec, "available", lambda: False)
+        got = tquantize(path, str(tmp_path / "t.gguf"), target, verbose=False)
+        want = jquantize(path, str(tmp_path / "j.gguf"), target, verbose=False)
     assert filecmp.cmp(tmp_path / "t.gguf", tmp_path / "j.gguf", shallow=False)
     assert dataclasses.astuple(got)[:4] == dataclasses.astuple(want)[:4]
     assert np.array_equal(got.hist_all, want.hist_all)
@@ -80,24 +86,32 @@ def test_kv_types_are_preserved(sources, tmp_path):
                 assert type(w) is type(v) and w == v
 
 
-def test_q4_to_f16_equals_the_native_codec_but_for_the_sign_of_zero(sources, tmp_path):
-    from embedding_cpp_tpu.gguf import native_codec
+CODECS = [pytest.param("native", marks=pytest.mark.skipif(not has_compiler(),
+                                                         reason="no C++ compiler")),
+          "numpy"]
 
-    if not native_codec.available():
-        pytest.skip("the JAX package's native codec is not built")
-    path = str(sources[("tiny", "q4_0")])
-    tquantize(path, str(tmp_path / "t.gguf"), "f16", verbose=False)
-    jquantize(path, str(tmp_path / "j.gguf"), "f16", verbose=False)
-    with GGUFReader(tmp_path / "t.gguf") as a, JReader(tmp_path / "j.gguf") as b:
-        for name in a.tensors:
-            x = np.asarray(a.tensor_raw(name)).view(np.uint8)
-            y = np.asarray(b.tensor_raw(name)).view(np.uint8)
-            if a.tensors[name].ggml_type.name != "F16":
-                assert np.array_equal(x, y)
-                continue
-            x, y = x.view(np.uint16), y.view(np.uint16)
-            differ = x != y
-            assert np.all(x[differ] == 0x8000) and np.all(y[differ] == 0)
+
+@pytest.mark.parametrize("codec", CODECS)
+@pytest.mark.parametrize("src,target", [("q4_0", "f16"), ("f32", "q4_0")],
+                         ids=["q4_0-f16", "f32-q4_0"])
+def test_both_tools_write_the_same_bytes_with_either_codec(sources, tmp_path, monkeypatch,
+                                                           codec, src, target):
+    """Given the same codec, the port's tool writes the JAX tool's bytes;
+    the native codec is each package's own build."""
+    from embedding_cpp_tpu.gguf import native_codec as jcodec
+    from embedding_cpp_tpu_torch.gguf import native_codec as tcodec
+
+    path = str(sources[("tiny", src)])
+    with contextlib.ExitStack() as stack:
+        if codec == "native":
+            stack.enter_context(jax_native("codec"))
+            assert jcodec.available() and tcodec.available()
+        else:
+            monkeypatch.setattr(jcodec, "available", lambda: False)
+            monkeypatch.setattr(tcodec, "available", lambda: False)
+        tquantize(path, str(tmp_path / "t.gguf"), target, verbose=False)
+        jquantize(path, str(tmp_path / "j.gguf"), target, verbose=False)
+    assert filecmp.cmp(tmp_path / "t.gguf", tmp_path / "j.gguf", shallow=False)
 
 
 @pytest.mark.parametrize("qtype", ["Q4_0", "Q4_1", "Q8_0"])

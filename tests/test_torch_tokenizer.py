@@ -97,18 +97,20 @@ def test_bpe_fuzzed_encodes_match_jax(add_prefix_space):
 
 
 def test_load_tokenizer_dispatches_on_model_type():
+    """The pure-Python backend picks its engine by model.type ("auto" puts
+    the native and HF backends first: test_torch_native_tokenizer.py)."""
     from embedding_cpp_tpu_torch.tokenizer import ByteLevelBPETokenizer, load_tokenizer
 
-    assert isinstance(load_tokenizer(jax_build_json(300)), WordPieceTokenizer)
+    assert isinstance(load_tokenizer(jax_build_json(300), "python"), WordPieceTokenizer)
     spec = json.loads(jax_build_json(300))
     spec["model"] = {"type": "BPE", "vocab": {"a": 0, "b": 1, "ab": 2}, "merges": ["a b"]}
     spec["normalizer"] = None
     spec["pre_tokenizer"] = {"type": "ByteLevel", "add_prefix_space": False}
-    bpe = load_tokenizer(json.dumps(spec))
+    bpe = load_tokenizer(json.dumps(spec), "python")
     assert isinstance(bpe, ByteLevelBPETokenizer) and bpe.encode("ab") == [2]
     spec["model"]["type"] = "Unigram"
     with pytest.raises(ValueError):
-        load_tokenizer(json.dumps(spec))
+        load_tokenizer(json.dumps(spec), "python")
 
 
 # --- SentencePiece Unigram (DeBERTa-v3 / XLM-R tokenizer.json) -----------------
@@ -152,7 +154,7 @@ def test_unigram_encodes_match_jax(blob):
     from embedding_cpp_tpu_torch.tokenizer import UnigramTokenizer, load_tokenizer
 
     data = _unigram_blobs()[blob]
-    ours, theirs = load_tokenizer(data), JUnigram(data)
+    ours, theirs = load_tokenizer(data, "python"), JUnigram(data)
     assert isinstance(ours, UnigramTokenizer)
     if blob == "precompiled":
         assert json.loads(data)["normalizer"]["type"] == "Precompiled"

@@ -62,3 +62,38 @@ def test_kernel_suite_refuses_to_run_without_a_gpu():
         pytest.skip("a GPU is present: the suite would run")
     with pytest.raises(SystemExit, match="no CUDA device"):
         kernels.main([])
+
+
+@pytest.mark.parametrize("json_lines", [True, False], ids=["json", "text"])
+def test_logging_matches_jax(capsys, monkeypatch, json_lines):
+    """`get_logger` / `log_event` (exported by `utils`) write what the JAX
+    package's write, as JSON lines with TPUEMBED_LOG_JSON=1 (the fields
+    beside "msg") or as text; both packages log under "tpuembed"."""
+    import json
+    import logging
+
+    from embedding_cpp_tpu.utils import logging as jlog
+    from embedding_cpp_tpu_torch.utils import get_logger, log_event
+
+    root = logging.getLogger("tpuembed")
+    monkeypatch.setattr(root, "handlers", [])
+    if json_lines:
+        monkeypatch.setenv("TPUEMBED_LOG_JSON", "1")
+    else:
+        monkeypatch.delenv("TPUEMBED_LOG_JSON", raising=False)
+    lines = []
+    for get, event in ((get_logger, log_event), (jlog.get_logger, jlog.log_event)):
+        root.handlers.clear()
+        logger = get("server")
+        assert logger.name == "tpuembed.server" and not root.propagate
+        event(logger, "batch done", sentences=4, tokens=37)
+        lines.append(capsys.readouterr().err.strip().splitlines()[-1])
+    if json_lines:
+        ours, theirs = (json.loads(line) for line in lines)
+        assert ours.pop("ts") > 0 and theirs.pop("ts") > 0
+        assert ours == theirs == {"level": "INFO", "logger": "tpuembed.server",
+                                  "msg": "batch done", "sentences": 4, "tokens": 37}
+    else:
+        assert [line.split(" ", 2)[2] for line in lines] == [
+            "INFO tpuembed.server: batch done"] * 2
+    root.handlers.clear()
