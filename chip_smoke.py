@@ -199,6 +199,22 @@ Phases, in order, each printing JSON lines:
   cli       python -m embedding_cpp_tpu_torch.cli.main on the Q4_0 file as
             its own process on the card: ids, tokens and the embedding head
             against the engine's
+  kernels_mesh  the kernels at the shapes a tp shard gives them: K1 at
+            MiniLM-L6's q/up (column-parallel, N / tp) and o/down
+            (row-parallel, K / tp, out_f32: K = 192 and 96 for o) at tp 2
+            and 4, K2/K3 at 6 and 3 heads of 32, K4 at MPNet's tp 2 shard (6
+            heads of 64, its [6, S, S] bias slice), each against its plain
+            version, timed
+  mesh      MiniLM-L6 on meshes of slots on the one card (dp 2 x tp 2, dp 1
+            x tp 4: parallel/mesh.py, repeatable devices), the corpus packed
+            and plain: every slot's launches, cosine against the
+            single-device engine, f32 within 2e-5 of it, sentences/s beside
+            its rate in this run; MPNet at tp 2 (K4 with the sliced bias)
+  distributed  the server as two processes on the card through its own
+            --coordinator / --num-processes / --process-id (gloo: NCCL
+            refuses two ranks on one card), 64 TPE2 frames and one
+            /v1/embeddings request against the single-device engine,
+            SIGTERM to the leader releases the follower
   profile   torch.profiler kernel times of the packed [32, 512] forwards
             (MiniLM-L6, ModernBERT, DeBERTa, bge-large, XLM-R, MPNet, T5,
             ALBERT) and of the [8, 8192] ModernBERT forward
@@ -3894,7 +3910,8 @@ def phase_vector_index(counters, engine) -> dict:
           and counts["attn_bse_packed"] > 0, f"vector index ingest launches {counts}")
     ingest_s = _best_s(lambda: _filled(VectorIndex(engine), texts), 3)
     f32 = _filled(VectorIndex(engine, dtype="float32"), texts)
-    check(index._corpus.device.type == f32._corpus.device.type == "cuda", "corpus not on the card")
+    check(index._rows.bufs[0]["vectors"].device.type == f32._rows.bufs[0]["vectors"].device.type
+          == "cuda", "corpus not on the card")
     qvecs = engine.encode_queries(queries)
     prev = torch.get_float32_matmul_precision()
     torch.set_float32_matmul_precision("high")  # TF32 allowed: the index must not use it
@@ -3904,10 +3921,10 @@ def phase_vector_index(counters, engine) -> dict:
         torch.set_float32_matmul_precision(prev)
     ids16, s16 = index.search_vectors(qvecs, QUERY_K)
     n = len(texts)
-    ref32 = _brute_force(qvecs, f32._corpus[:n].cpu().numpy(), QUERY_K + 1)
+    ref32 = _brute_force(qvecs, f32._rows.gather(n, "vectors").cpu().numpy(), QUERY_K + 1)
     q16 = torch.from_numpy(qvecs / np.linalg.norm(qvecs, axis=1, keepdims=True)).bfloat16()
-    ref16 = _brute_force(q16.float().numpy(), index._corpus[:n].float().cpu().numpy(),
-                         QUERY_K + 1)
+    ref16 = _brute_force(q16.float().numpy(),
+                         index._rows.gather(n, "vectors").float().cpu().numpy(), QUERY_K + 1)
     ok32 = _ties_only(ids32, *ref32, 1e-6)
     ok16 = _ties_only(ids16, *ref16, 1e-6)
     err32 = float(np.abs(s32 - ref32[1][:, :QUERY_K]).max())
@@ -3948,7 +3965,7 @@ def phase_sparse_index(counters, splade) -> dict:
     index, counts = _counted(counters, lambda: _filled(SparseIndex(splade), texts))
     check(counts["q4_matmul"] > 0 and counts["attn_bse_keybias"] > 0,
           f"sparse index ingest launches {counts}")
-    check(index._didx.device.type == index._dval.device.type == "cuda",
+    check(all(t.device.type == "cuda" for t in index._rows.bufs[0].values()),
           "sparse corpus not on the card")
     ingest_s = _best_s(lambda: _filled(SparseIndex(splade), texts), 2)
     tokenize_s = _best_s(lambda: splade.tokenize_batch(texts), 1)
@@ -4008,7 +4025,7 @@ def phase_maxsim_index(counters, colbert) -> dict:
     index, counts = _counted(counters, lambda: _filled(MaxSimIndex(colbert), texts))
     check(counts["q4_matmul"] > 0 and counts["attn_bse_keybias"] > 0,
           f"MaxSim index ingest launches {counts}")
-    check(all(t.device.type == "cuda" for t in (index._corpus, index._cmask, index._pooled)),
+    check(all(t.device.type == "cuda" for t in index._rows.bufs[0].values()),
           "MaxSim corpus not on the card")
     ingest_s = _best_s(lambda: _filled(MaxSimIndex(colbert), texts), 2)
     tokenize_s = _best_s(lambda: colbert.colbert_doc_tokens(texts), 1)
@@ -4086,10 +4103,10 @@ def phase_index_scale(engine, colbert, peaks, f32_rate: float) -> dict:
     recall = _recall(idx16.search_vectors(q_all, QUERY_K)[0],
                      idx32.search_vectors(q_all, QUERY_K)[0])
     ids32, s32 = idx32.search_vectors(q, QUERY_K)
-    ref = _brute_force(q, idx32._corpus[:n].cpu().numpy(), QUERY_K + 1)
+    ref = _brute_force(q, idx32._rows.gather(n, "vectors").cpu().numpy(), QUERY_K + 1)
     same = _ties_only(ids32, *ref, 1e-6)
     qd = unit(torch.from_numpy(q).to(dev)).bfloat16()
-    corpus = idx16._corpus[:n]
+    corpus = idx16._rows.gather(n, "vectors")
     with exact_f32():
         device_ms = gpu_ms(lambda: select_topk(similarity(qd, corpus), QUERY_K), samples=10)
         product_ms = gpu_ms(lambda: similarity(qd, corpus), samples=10)
@@ -4150,7 +4167,8 @@ def phase_index_scale(engine, colbert, peaks, f32_rate: float) -> dict:
     ms_bound, ms_by = bound_ms(nm * sd * (em * 2 + 1) + nq * 32 * em * 4,
                                2.0 * nq * 32 * nm * sd * em, (peaks[0], f32_rate))
     maxsim = {"documents": nm, "doc_maxlen": sd, "dim": em,
-              "corpus_bytes": ms._corpus.numel() * 2, "add_token_vectors_s": ms_add_s,
+              "corpus_bytes": ms._rows.bufs[0]["corpus"].numel() * 2,
+              "add_token_vectors_s": ms_add_s,
               "search_ms": _event_ms(lambda: ms.search_token_vectors(mq, QUERY_K), runs=3),
               "candidates_256_ms": _event_ms(
                   lambda: ms.search_token_vectors(mq, QUERY_K, candidates=256), runs=3),
@@ -4429,6 +4447,297 @@ def phase_cli(files: dict) -> dict:
     return out
 
 
+def _k1_case(peaks, k: int, n: int, act, bias: bool, out_f32: bool, seed: int,
+             what: str) -> dict:
+    """K1 at one tp shard's linear, M = 16384 tokens, bf16 x, Q4_0: a
+    column-parallel q/k/v/up (bias and activation in the epilogue) or a
+    row-parallel o/down (`out_f32`, no bias: the partial product the tp
+    slots sum), against its plain version, timed beside `mm` and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from embedding_cpp_tpu_torch.ops.q4_matmul import dequant_weight, q4_matmul, q4_matmul_plain
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    w = _q4_weight("Q4_0", k, n, seed)
+    x = torch.randn(M_TOKENS, k, generator=gen).to(dev, torch.bfloat16)
+    b = (torch.randn(n, generator=gen) * 0.1).to(dev) if bias else None
+    before = (q4_matmul.launches, q4_matmul.n_tiled_launches)
+    got = q4_matmul(x, w, bias=b, activation=act, out_f32=out_f32)
+    check((q4_matmul.launches, q4_matmul.n_tiled_launches) == (before[0] + 1, before[1]),
+          f"{what}: K1's route")
+    ref = q4_matmul_plain(x, w, b, act, out_f32=out_f32)
+    torch.cuda.synchronize()
+    err, rel = _rel_err(got, ref)
+    ok = rel <= BF16_REL and bool(torch.isfinite(got).all())
+    check(got.dtype == (torch.float32 if out_f32 else torch.bfloat16), f"{what}: {got.dtype}")
+    wd = dequant_weight(w, torch.bfloat16)
+
+    def lib():
+        y = torch.mm(x, wd, out_dtype=torch.float32) if out_f32 else (
+            torch.mm(x, wd) if b is None else torch.addmm(b.to(torch.bfloat16), x, wd))
+        return F.gelu(y) if act == "gelu_erf" else y
+
+    nbytes = (x.numel() * 2 + w.qs.numel() + w.scales.numel() * 4 + (n * 4 if bias else 0)
+              + M_TOKENS * n * (4 if out_f32 else 2))
+    case = {"shape": what, "m": M_TOKENS, "k": k, "n": n, "act": act, "out_f32": out_f32,
+            "qtype": "Q4_0", "dtype": "bfloat16", "tile": _k1_tile(M_TOKENS, k, n, False),
+            "max_abs_err": err, "rel_err": rel, "tolerance": _tolerance(torch.bfloat16),
+            "ok": ok,
+            "ms": gpu_ms(lambda: q4_matmul(x, w, bias=b, activation=act, out_f32=out_f32)),
+            "plain_ms": gpu_ms(lambda: q4_matmul_plain(x, w, b, act, out_f32=out_f32),
+                               samples=5, reps=1),
+            "library_ms": gpu_ms(lib)}
+    case["bound_ms"], case["bound_by"] = bound_ms(nbytes, 2.0 * M_TOKENS * k * n, peaks)
+    emit({"phase": "kernel_check", "kernel": "q4_matmul", "model": "minilm-l6/mesh", **case})
+    check(ok, f"q4_matmul {what}: err {err} rel {rel}")
+    return case
+
+
+def phase_kernels_mesh(peaks) -> dict:
+    """The kernels at the shapes a tp shard gives them: K1 at MiniLM-L6's
+    linears at tp = 2 and 4 (q 384 -> 192 / 96 with bias, up 384 -> 768 /
+    384 + gelu, o and down row-parallel with `out_f32`: K = 192 and 96 for
+    o, one and a half of the bf16 body's 64-deep K steps at 96; K = 768 and
+    384 for down), K2/K3 at 6 and 3 heads of 32 ([32, 512] packed and key
+    padded), K4 at MPNet's tp = 2 shard: 6 heads of 64 with a [6, S, S]
+    bias, plain and packed.  Each against its plain version, timed."""
+    import torch
+    import torch.nn.functional as F
+
+    from embedding_cpp_tpu_torch.ops.attention import (
+        MASK_BIAS,
+        attention_bse_plain,
+        flash_attention_bse,
+        flash_attention_packed_bse,
+    )
+
+    out = {"k1": {}}
+    for tp in (2, 4):
+        for name, k, n, act, bias, f32 in (("q", 384, 384 // tp, None, True, False),
+                                           ("up", 384, 1536 // tp, "gelu_erf", True, False),
+                                           ("o", 384 // tp, 384, None, False, True),
+                                           ("down", 1536 // tp, 384, None, False, True)):
+            out["k1"][f"{name}/tp{tp}"] = _k1_case(peaks, k, n, act, bias, f32, seed=k * n + tp,
+                                                   what=f"{name} {k}->{n} at tp={tp}")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    rng = np.random.default_rng(11)
+    seg_np = serving_segments(rng, 32, 512)[0]
+    seg = torch.from_numpy(seg_np).to(dev)
+    pairs = segment_pairs(seg_np)
+    lens = rng.integers(1, 513, size=32)
+    keyb = torch.where(torch.arange(512)[None, :] < torch.from_numpy(lens)[:, None], 0.0,
+                       MASK_BIAS).to(torch.float32).to(dev)
+    bias6 = (torch.randn(6, 512, 512, generator=gen) * 0.5).to(dev)
+    for kname, h, d, pbias in (("attn_bse_packed", 6, 32, None), ("attn_bse_packed", 3, 32, None),
+                               ("attn_bse_keybias", 6, 32, None),
+                               ("attn_bse_keybias", 3, 32, None),
+                               ("attn_bse_bias", 6, 64, bias6),
+                               ("attn_bse_bias_packed", 6, 64, bias6)):
+        packed = kname.endswith("packed")
+        mask = seg if packed else keyb
+        fn = flash_attention_packed_bse if packed else flash_attention_bse
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (torch.randn(32, 512, h * d, generator=gen).to(dev, dtype)
+                       for _ in range(3))
+            heads = [_bse_heads(t, h) for t in (q, k, v)]
+            lmask = ((seg[:, :, None] == seg[:, None, :])[:, None] if packed
+                     else keyb.to(dtype)[:, None, None, :])
+            if pbias is not None:
+                lmask = (torch.where(lmask, 0.0, MASK_BIAS) if packed else lmask.float()) \
+                    + pbias[None]
+                lmask = lmask.to(dtype)
+            nbytes = (4 * q.numel() * q.element_size() + mask.numel() * 4
+                      + (pbias.numel() * 4 if pbias is not None else 0))
+            flops = 4.0 * h * d * pairs if packed else 4.0 * 32 * h * 512 * 512 * d
+            c = _attention_case(
+                kname, lambda *a, fn=fn, h=h, pb=pbias: fn(*a, h, pb),
+                lambda *a, h=h, packed=packed, pb=pbias: attention_bse_plain(*a, h, packed, pb),
+                lambda: F.scaled_dot_product_attention(*heads, attn_mask=lmask),
+                (q, k, v, mask), nbytes, flops, peaks, dtype == torch.bfloat16,
+                model="mesh", b=32, s=512, h=h, d=d)
+            if dtype == torch.bfloat16:
+                out[f"{kname}/h{h}"] = c
+    return out
+
+
+def phase_mesh(counters, main: dict, token_lists, mpnet) -> dict:
+    """MiniLM-L6 (the main phase's weights, Q4_0, bf16) on meshes of slots
+    on the one card: dp 2 x tp 2 and dp 1 x tp 4, the corpus packed ("auto")
+    and in plain buckets ("never"): every slot's K1/K2/K3 launches, the
+    outputs against the single-device engine's by cosine (the main phase's
+    bf16 bar) and, with f32 activations on 256 sentences, within 2e-5;
+    sentences/s beside the single-device engine's in this call (the slots
+    of one card run one after another: no gain is claimed).  MPNet at tp 2:
+    K4 with each slot's [6, S, S] slice of the relative bias, against the
+    single-device MPNet engine.  Returns the launches."""
+    import torch
+
+    from embedding_cpp_tpu_torch import Engine
+    from embedding_cpp_tpu_torch.models import ComputeOptions
+    from embedding_cpp_tpu_torch.parallel.mesh import make_mesh
+
+    config, base = main["config"], main["base"]
+    cards = ["cuda:0"] * 4
+    meshes = {"dp2xtp2": make_mesh(dp=2, tp=2, devices=cards),
+              "dp1xtp4": make_mesh(dp=1, tp=4, devices=cards)}
+    bf16 = ComputeOptions(dtype="bfloat16")
+    total = {k: 0 for k in counters}
+    result = {"phase": "mesh", "model": config.name, "devices": "4 slots on cuda:0",
+              "cosine_threshold": COSINE_VS_CPU, "f32_atol": 2e-5}
+    rates = {"single/" + p: len(token_lists) / _best_s(
+        lambda e=main["engines"][(p, "float32")]: e.embed_tokens(token_lists), 3)
+        for p in ("auto", "never")}
+    for tag, mesh in meshes.items():
+        slots = mesh.dp * mesh.tp
+        for packing in ("auto", "never"):
+            eng = Engine(base.params, config, base.tokenizer, base.special_ids, opts=bf16,
+                         packing=packing, mesh=mesh)
+            out, counts = _counted(counters, lambda e=eng: e.embed_tokens(token_lists))
+            forwards = _expected_forwards(eng, token_lists)
+            attn = counts["attn_bse_packed"] + counts["attn_bse_keybias"]
+            emit({"phase": "mesh_launches", "mesh": tag, "packing": packing,
+                  "forwards": forwards, "slots": slots, "launches": counts})
+            check(counts["q4_matmul"] == 36 * forwards * slots
+                  and counts["q4_matmul_2d"] == 0 and counts["q4_matmul_ln"] == 0,
+                  f"mesh {tag} {packing}: K1 {counts}")
+            check(attn == 6 * forwards * slots
+                  and sum(counts[k] for k in ATTENTION) == attn, f"mesh {tag} {packing}: {counts}")
+            check(counts["attn_bse_packed" if packing == "auto" else "attn_bse_keybias"] > 0,
+                  f"mesh {tag} {packing}: {counts}")
+            for k in total:
+                total[k] += counts[k]
+            single = main["outs"][(packing, "float32")]
+            check(np.isfinite(out).all() and out.shape == single.shape, f"mesh {tag}: output")
+            result[f"min_cosine/{tag}/{packing}"] = _min_cos(out, single)
+            check(result[f"min_cosine/{tag}/{packing}"] >= COSINE_VS_CPU,
+                  f"mesh {tag} {packing}: cosine {result[f'min_cosine/{tag}/{packing}']}")
+            rates[f"{tag}/{packing}"] = len(token_lists) / _best_s(
+                lambda e=eng: e.embed_tokens(token_lists), 3)
+            result[f"forwards/{tag}/{packing}"] = forwards
+        # f32 activations: the sharded sums against one device's, 256 sentences
+        f32 = ComputeOptions(dtype="float32")
+        one = Engine(base.params, config, base.tokenizer, base.special_ids, opts=f32,
+                     device="cuda").embed_tokens(token_lists[:256])
+        sharded, counts = _counted(counters, lambda: Engine(
+            base.params, config, base.tokenizer, base.special_ids, opts=f32,
+            mesh=mesh).embed_tokens(token_lists[:256]))
+        for k in total:
+            total[k] += counts[k]
+        result[f"f32_max_abs_err/{tag}"] = float(np.abs(sharded - one).max())
+        check(result[f"f32_max_abs_err/{tag}"] <= 2e-5,
+              f"mesh {tag} f32: {result[f'f32_max_abs_err/{tag}']}")
+    # MPNet at tp 2: K4 with each slot's slice of the [12, S, S] bias
+    mp_mesh = make_mesh(dp=1, tp=2, devices=["cuda:0"] * 2)
+    mp_lists = token_lists[:256]
+    mp_total = {k: 0 for k in counters}
+    for packing in ("auto", "never"):
+        one = Engine(mpnet.params, mpnet.config, mpnet.tokenizer, mpnet.special_ids,
+                     opts=bf16, device="cuda", packing=packing).embed_tokens(mp_lists)
+        eng = Engine(mpnet.params, mpnet.config, mpnet.tokenizer, mpnet.special_ids,
+                     opts=bf16, packing=packing, mesh=mp_mesh)
+        out, counts = _counted(counters, lambda e=eng: e.embed_tokens(mp_lists))
+        forwards = _expected_forwards(eng, mp_lists)
+        kname = "attn_bse_bias_packed" if packing == "auto" else "attn_bse_bias"
+        check(counts[kname] == 12 * forwards * 2 and counts["q4_matmul"] == 72 * forwards * 2,
+              f"mesh mpnet {packing}: {counts}")
+        for k in mp_total:
+            mp_total[k] += counts[k]
+        result[f"min_cosine/mpnet-tp2/{packing}"] = _min_cos(out, one)
+        check(result[f"min_cosine/mpnet-tp2/{packing}"] >= COSINE_VS_CPU,
+              f"mesh mpnet {packing}: cosine {result[f'min_cosine/mpnet-tp2/{packing}']}")
+    result["sentences_per_sec"] = rates
+    result["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    emit(result)
+    return {"minilm": total, "mpnet": mp_total}
+
+
+def _server_proc(model: Path, port: int, http_port: int, extra: list, log_path: Path):
+    log = open(log_path, "w")
+    return subprocess.Popen(
+        [sys.executable, "-m", "embedding_cpp_tpu_torch.runtime.server", "-m", str(model),
+         "--host", "127.0.0.1", "--port", str(port), "--http-port", str(http_port),
+         "--output-dtype", "float32", *extra],
+        cwd=str(ROOT), stdout=log, stderr=subprocess.STDOUT)
+
+
+def phase_distributed(files: dict, texts: list[str]) -> dict:
+    """The server as two processes sharing cuda:0 (`--device cuda:0` on
+    both: without it each process would take a card of its own) through its
+    own --coordinator / --num-processes / --process-id (a mesh of dp 2, one
+    row a process; the data plane must be gloo: NCCL refuses two ranks on
+    one card): 64 TPE2 frames of 32 corpus texts and one /v1/embeddings
+    request, each against the single-device engine's encode of the same
+    texts (cosine >= COSINE_SERVER); SIGTERM to the leader must release the
+    follower, and both must exit 0."""
+    import torch
+
+    from embedding_cpp_tpu_torch import Engine
+    from embedding_cpp_tpu_torch.models import ComputeOptions
+
+    root = Path(files["tmp"].name)
+    model = files["q4_0"]
+    one = Engine.from_gguf(str(model), opts=ComputeOptions(dtype="bfloat16"), device="cuda")
+    port, http_port, coord = _free_port(), _free_port(), _free_port()
+    t0 = time.perf_counter()
+    procs = [_server_proc(model, port, http_port,
+                          ["--device", "cuda:0", "--coordinator", f"127.0.0.1:{coord}",
+                           "--num-processes", "2", "--process-id", str(pid)],
+                          root / f"dist{pid}.log")
+             for pid in (0, 1)]
+    logs = lambda: [(root / f"dist{pid}.log").read_text()[-3000:] for pid in (0, 1)]  # noqa: E731
+    try:
+        s = None
+        while s is None:
+            check(all(p.poll() is None for p in procs), f"a server process exited: {logs()}")
+            check(time.perf_counter() - t0 < 300, "the 2-process server did not listen in 300 s")
+            try:
+                s = socket.create_connection(("127.0.0.1", port), 1.0)
+            except OSError:
+                time.sleep(0.2)
+        ready_s = time.perf_counter() - t0
+        worst, frames = 1.0, 64
+        with s:
+            s.settimeout(120)
+            (n_embd,) = struct.unpack("<i", _recv(s, 4))
+            t1 = time.perf_counter()
+            for i in range(frames):
+                batch = texts[32 * i: 32 * (i + 1)]
+                body = b"".join(struct.pack("<I", len(t.encode())) + t.encode() for t in batch)
+                s.sendall(b"TPE2" + struct.pack("<I", len(batch)) + body)
+                (count,) = struct.unpack("<I", _recv(s, 4))
+                vecs = np.frombuffer(_recv(s, 4 * count * n_embd), np.float32).reshape(count, -1)
+                worst = min(worst, _min_cos(vecs, one.encode(batch)))
+            frames_s = time.perf_counter() - t1
+        status, body_out = _http(http_port, "POST", "/v1/embeddings", {"input": texts[:64]})
+        check(status == 200, f"distributed HTTP: {status} {body_out[:300]}")
+        http_vecs = np.array([d["embedding"] for d in json.loads(body_out)["data"]], np.float32)
+        http_cos = _min_cos(http_vecs, one.encode(texts[:64]))
+        procs[0].terminate()
+        rcs = [p.wait(timeout=120) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    text = logs()
+    backend = "gloo" if "data plane gloo" in text[0] else ("nccl" if "data plane nccl" in
+                                                           text[0] else None)
+    result = {"phase": "distributed", "model": "minilm-l6 (the formats phase's Q4_0 file)",
+              "processes": 2, "device": torch.cuda.get_device_name(0), "backend": backend,
+              "seconds_to_listen": ready_s, "tpe2_frames": frames, "texts_per_frame": 32,
+              "tpe2_seconds": frames_s, "min_cosine_tpe2": worst, "min_cosine_http": http_cos,
+              "threshold": COSINE_SERVER, "exit_codes": rcs,
+              "follower_ready": "follower process 1 of 2 ready" in text[1]}
+    emit(result)
+    check(backend == "gloo", f"distributed: data plane {backend}: {text[0][-500:]}")
+    check(worst >= COSINE_SERVER and http_cos >= COSINE_SERVER, f"distributed replies: {result}")
+    check(rcs == [0, 0] and result["follower_ready"], f"distributed exits {rcs}: {text}")
+    return result
+
+
 def _entry(name: str, source: str, replaces: str, launches: int, c: dict, shape: str,
            **extra) -> dict:
     return {"name": name, "route": "cuda", "source": f"embedding_cpp_tpu_torch/csrc/{source}",
@@ -4441,6 +4750,31 @@ def _entry(name: str, source: str, replaces: str, launches: int, c: dict, shape:
 def _timing(c: dict) -> dict:
     return {k: c[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                               "library_ms")}
+
+
+def launch_counters() -> dict:
+    """Every kernel wrapper's launch counter, by the name the kernels line
+    gives it."""
+    from embedding_cpp_tpu_torch.ops import attention as A
+    from embedding_cpp_tpu_torch.ops import deberta_attention as DA
+    from embedding_cpp_tpu_torch.ops.q4_matmul import q4_matmul
+
+    return {"q4_matmul": (q4_matmul, "launches"),
+            "q4_matmul_prologue": (q4_matmul, "prologue_launches"),
+            "q4_matmul_2d": (q4_matmul, "n_tiled_launches"),
+            "q4_matmul_ln": (q4_matmul, "ln_launches"),
+            "attn_bse_packed": (A.flash_attention_packed_bse, "launches"),
+            "attn_bse_keybias": (A.flash_attention_bse, "launches"),
+            "attn_bse_bias": (A.flash_attention_bse, "bias_launches"),
+            "attn_bse_bias_packed": (A.flash_attention_packed_bse, "bias_launches"),
+            "attn_long": (A.flash_attention, "launches"),
+            "attn_local": (A.flash_attention_local, "launches"),
+            "deberta_attn": (DA.disentangled_attention, "launches"),
+            "deberta_attn_packed": (DA.disentangled_attention_packed, "launches"),
+            "attn_seg": (A.flash_attention_packed, "launches"),
+            "attn_seg_window": (A.flash_attention_packed, "window_launches"),
+            "attn_seg_local": (A.flash_attention_packed_local, "launches"),
+            "attention_headpack": (A.attention_headpack, "launches")}
 
 
 def main() -> None:
@@ -4460,10 +4794,6 @@ def main() -> None:
         MULTI_QA_DISTILBERT,
         MULTILINGUAL_E5_BASE,
     )
-    from embedding_cpp_tpu_torch.ops import attention as A
-    from embedding_cpp_tpu_torch.ops import deberta_attention as DA
-    from embedding_cpp_tpu_torch.ops.q4_matmul import q4_matmul
-
     # the host libraries compile while nvcc builds the kernels
     native = {}
     native_thread = threading.Thread(target=lambda: native.update(
@@ -4495,22 +4825,8 @@ def main() -> None:
     attn_bge = phase_kernels_attention(peaks, "bge-large-en-v1.5", 16, 64, seed=5)
     attn_es = phase_kernels_attention(peaks, "electra-small", 4, 64, seed=6)
     headpack = phase_kernels_headpack(peaks)
-    counters = {"q4_matmul": (q4_matmul, "launches"),
-                "q4_matmul_prologue": (q4_matmul, "prologue_launches"),
-                "q4_matmul_2d": (q4_matmul, "n_tiled_launches"),
-                "q4_matmul_ln": (q4_matmul, "ln_launches"),
-                "attn_bse_packed": (A.flash_attention_packed_bse, "launches"),
-                "attn_bse_keybias": (A.flash_attention_bse, "launches"),
-                "attn_bse_bias": (A.flash_attention_bse, "bias_launches"),
-                "attn_bse_bias_packed": (A.flash_attention_packed_bse, "bias_launches"),
-                "attn_long": (A.flash_attention, "launches"),
-                "attn_local": (A.flash_attention_local, "launches"),
-                "deberta_attn": (DA.disentangled_attention, "launches"),
-                "deberta_attn_packed": (DA.disentangled_attention_packed, "launches"),
-                "attn_seg": (A.flash_attention_packed, "launches"),
-                "attn_seg_window": (A.flash_attention_packed, "window_launches"),
-                "attn_seg_local": (A.flash_attention_packed_local, "launches"),
-                "attention_headpack": (A.attention_headpack, "launches")}
+    k_mesh = phase_kernels_mesh(peaks)
+    counters = launch_counters()
     engine, forward_args, launches, token_lists, main_path = phase_main(counters)
     gguf_counts, files = phase_formats(counters, main_path, token_lists)
     phase_native(main_path, files["q4_0"])
@@ -4575,6 +4891,8 @@ def main() -> None:
     phase_index_frames(engine, splade, colbert)
     http_path = phase_http(counters, files, vec_path["documents_per_sec"], out_dir)
     phase_cli(files)
+    mesh_counts = phase_mesh(counters, main_path, token_lists, mpnet)
+    phase_distributed(files, synthetic_sentences(2048, seed=3))
     files["tmp"].cleanup()
 
     # each model's launches beside the times at that model's shapes
@@ -4597,7 +4915,7 @@ def main() -> None:
     paths = (launches, mb_total, de_total, nomic_total, bge_total, bge_f32_counts,
              *family_totals.values(), small_total, t5_gated_counts, rr_counts, nomic_2044,
              splade_counts, colbert_counts, vec_path["counts"], sparse_path["counts"],
-             maxsim_path["counts"], http_path["launches"])
+             maxsim_path["counts"], http_path["launches"], *mesh_counts.values())
     # the fused residual/LayerNorm tail on every model path, bf16 and f32
     ln_on_paths = sum(t["q4_matmul_ln"] for t in paths)
     check(ln_on_paths == 0, f"the fused tail ran on a model path {ln_on_paths} times")
@@ -4884,6 +5202,27 @@ def main() -> None:
                               gguf_counts[kname], c, f"[{c['b']}, {c['s']}, {c['h']}*{c['d']}] "
                               "bf16, MiniLM-L6 from the port-written Q4_0 GGUF: the shape of "
                               f"the {kname} entry, timed there", model="minilm-l6"))
+    # the mesh phase: each tp shard's shapes, every slot's launches
+    mesh_k1 = k_mesh["k1"]
+    kernels.append(_entry(
+        "q4_matmul/mesh", "q4_matmul.cu", "q4_matmul.py:126",
+        mesh_counts["minilm"]["q4_matmul"] + mesh_counts["mpnet"]["q4_matmul"], mesh_k1["o/tp2"],
+        "MiniLM-L6's o projection at tp=2: a row-parallel shard 192->384, out_f32, no bias, "
+        "at M=16384, bf16, Q4_0 (launches: every slot of the mesh phase, MiniLM-L6 at dp 2 x "
+        "tp 2 and dp 1 x tp 4, MPNet at tp 2)", model="minilm-l6/mesh",
+        **{k.replace("/", "_"): _timing(c) | {"k": c["k"], "n": c["n"], "tile": c["tile"]}
+           for k, c in mesh_k1.items() if k != "o/tp2"}))
+    for kname, model in (("attn_bse_packed", "minilm"), ("attn_bse_keybias", "minilm"),
+                         ("attn_bse_bias", "mpnet"), ("attn_bse_bias_packed", "mpnet")):
+        c = k_mesh[f"{kname}/h6"]
+        extra = ({"h3": _timing(k_mesh[f"{kname}/h3"]) | {"shape": "[32, 512, 3*32] bf16"}}
+                 if f"{kname}/h3" in k_mesh else {})
+        what = ("MPNet's tp=2 shard, the [6, S, S] slice of its relative bias"
+                if model == "mpnet" else "MiniLM-L6's tp=2 shard (h3: its tp=4 shard)")
+        kernels.append(_entry(f"{kname}/mesh", "attention_bse.cu", "attention.py:213",
+                              mesh_counts[model][kname], c,
+                              f"[{c['b']}, {c['s']}, {c['h']}*{c['d']}] bf16: {what}",
+                              model=f"{model}/mesh", **extra))
     c = headpack["d32_hb4"]
     kernels.append({
         **_entry("attention_headpack", "attention_headpack.cu", "", headpack_on_paths, c,

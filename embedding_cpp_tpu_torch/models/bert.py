@@ -41,6 +41,7 @@ from ..ops.attention import (
 from ..ops.dispatch import check_impl, kernel_impls
 from ..ops.linear import layer_norm, linear
 from ..ops.qtensor import QTensor, gather_rows
+from ..parallel.group import current_tp
 from .config import BertConfig
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -157,17 +158,32 @@ def _pos_bias(params: dict, s: int) -> torch.Tensor | None:
     return None if table is None else rel_attn_bias(table, s)
 
 
+def local_heads(pos_bias: torch.Tensor | None, h: int) -> torch.Tensor | None:
+    """A per-head position bias [H, S, S] cut to the h heads of the running
+    tp slot, [rank*h, (rank+1)*h) (the column-parallel q/k/v hold those
+    heads); a head-invariant [1, S, S] bias, or one of h heads, unchanged."""
+    if pos_bias is None or pos_bias.shape[0] in (1, h):
+        return pos_bias
+    tp = current_tp()
+    r = 0 if tp is None else tp.rank
+    return pos_bias[r * h:(r + 1) * h]
+
+
 def _attention(x: torch.Tensor, lp: dict, mask_bias: torch.Tensor,
                config: BertConfig, seg: torch.Tensor | None = None,
                pos_bias: torch.Tensor | None = None) -> torch.Tensor:
     """softmax(q k^T / sqrt(d) [+ pos_bias]) v over the projection layout,
-    masked by the key bias, or block-diagonal by segment for packed rows."""
+    masked by the key bias, or block-diagonal by segment for packed rows.
+    The head count comes from the projection's width: a tp slot holds
+    n_head / tp of them."""
     q = linear(x, lp["q_w"], lp["q_b"])
     k = linear(x, lp["k_w"], lp["k_b"])
     v = linear(x, lp["v_w"], lp["v_b"])
+    h = q.shape[-1] // config.head_dim
+    pos_bias = local_heads(pos_bias, h)
     if seg is not None:
-        return flash_attention_packed_bse(q, k, v, seg, config.n_head, pos_bias)
-    return flash_attention_bse(q, k, v, mask_bias, config.n_head, pos_bias)
+        return flash_attention_packed_bse(q, k, v, seg, h, pos_bias)
+    return flash_attention_bse(q, k, v, mask_bias, h, pos_bias)
 
 
 def encoder_layer(x: torch.Tensor, lp: dict, mask_bias: torch.Tensor,
@@ -176,11 +192,11 @@ def encoder_layer(x: torch.Tensor, lp: dict, mask_bias: torch.Tensor,
     """One transformer block: attention + add&norm, GELU FFN + add&norm."""
     att = _attention(x, lp, mask_bias, config, seg=seg, pos_bias=pos_bias)
     eps = config.layer_norm_eps
-    x = linear(att, lp["o_w"], lp["o_b"], residual=x,
+    x = linear(att, lp["o_w"], lp["o_b"], residual=x, row_parallel=True,
                ln=(lp["ln_att_scale"], lp["ln_att_bias"], eps))
     h = linear(x, lp["ffn_up_w"], lp["ffn_up_b"],
                activation="gelu_tanh" if config.gelu == "tanh" else "gelu_erf")
-    return linear(h, lp["ffn_down_w"], lp["ffn_down_b"], residual=x,
+    return linear(h, lp["ffn_down_w"], lp["ffn_down_b"], residual=x, row_parallel=True,
                   ln=(lp["ln_out_scale"], lp["ln_out_bias"], eps))
 
 

@@ -39,9 +39,12 @@ def _attention(x: torch.Tensor, lp: dict, rel_table: torch.Tensor, mask: torch.T
                config: BertConfig, packed: bool) -> torch.Tensor:
     """Disentangled self-attention -> [B, S, E].  mask: the [B, S] f32 key
     bias, or the [B, S] int32 segment ids of packed rows."""
-    b, s, e = x.shape
-    h, d = config.n_head, config.head_dim
-    q = linear(x, lp["q_w"], lp["q_b"]).view(b, s, h, d)
+    b, s, _ = x.shape
+    d = config.head_dim
+    q = linear(x, lp["q_w"], lp["q_b"])
+    e = q.shape[-1]  # n_head / tp heads on a tp slot
+    h = e // d
+    q = q.view(b, s, h, d)
     k = linear(x, lp["k_w"], lp["k_b"]).view(b, s, h, d)
     v = linear(x, lp["v_w"], lp["v_b"]).view(b, s, h, d)
     # share_att_key: the table goes through this layer's q/k projections
@@ -59,11 +62,11 @@ def _encoder_layer(x: torch.Tensor, lp: dict, rel_table: torch.Tensor, mask: tor
     add&norm — BERT's residual layout."""
     eps = config.layer_norm_eps
     att = _attention(x, lp, rel_table, mask, config, packed)
-    x = linear(att, lp["o_w"], lp["o_b"], residual=x,
+    x = linear(att, lp["o_w"], lp["o_b"], residual=x, row_parallel=True,
                ln=(lp["ln_att_scale"], lp["ln_att_bias"], eps))
     hid = linear(x, lp["ffn_up_w"], lp["ffn_up_b"],
                  activation="gelu_tanh" if config.gelu == "tanh" else "gelu_erf")
-    return linear(hid, lp["ffn_down_w"], lp["ffn_down_b"], residual=x,
+    return linear(hid, lp["ffn_down_w"], lp["ffn_down_b"], residual=x, row_parallel=True,
                   ln=(lp["ln_out_scale"], lp["ln_out_bias"], eps))
 
 

@@ -128,9 +128,12 @@ class _Ctx:
 def _attention(xn: torch.Tensor, lp: dict, i: int, ctx: _Ctx,
                config: BertConfig) -> torch.Tensor:
     """Pre-normed input -> attention output [B, S, E] (pre-residual)."""
-    b, s, e = xn.shape
-    h, d = config.n_head, config.head_dim
-    q = linear(xn, lp["q_w"]).view(b, s, h, d)
+    b, s, _ = xn.shape
+    d = config.head_dim
+    q = linear(xn, lp["q_w"])
+    e = q.shape[-1]  # n_head / tp heads on a tp slot
+    h = e // d
+    q = q.view(b, s, h, d)
     k = linear(xn, lp["k_w"]).view(b, s, h, d)
     v = linear(xn, lp["v_w"]).view(b, s, h, d)
     cos, sin = ctx.rope[i]
@@ -161,12 +164,12 @@ def encoder_layer(x: torch.Tensor, lp: dict, i: int, ctx: _Ctx,
     x += Wo_mlp(gelu(up(hn)) * gate(hn)) over hn = mlp_norm(x)."""
     eps = config.layer_norm_eps
     xn = x if i == 0 else _ln(x, lp["ln_att_scale"], eps, x.dtype)
-    x = linear(_attention(xn, lp, i, ctx, config), lp["o_w"], residual=x)
+    x = linear(_attention(xn, lp, i, ctx, config), lp["o_w"], residual=x, row_parallel=True)
     hn = _ln(x, lp["ln_out_scale"], eps, x.dtype)
     u = linear(hn, lp["ffn_up_w"],
                activation="gelu_tanh" if config.gelu == "tanh" else "gelu_erf")
     g = linear(hn, lp["ffn_gate_w"])
-    return linear(u, lp["ffn_down_w"], residual=x, prologue_mul=g)
+    return linear(u, lp["ffn_down_w"], residual=x, prologue_mul=g, row_parallel=True)
 
 
 def _embed(params: dict, ids: torch.Tensor, config: BertConfig, dtype) -> torch.Tensor:

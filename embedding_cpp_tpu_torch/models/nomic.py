@@ -74,9 +74,12 @@ class _Ctx:
 
 def _attention(x: torch.Tensor, lp: dict, ctx: _Ctx, config: BertConfig) -> torch.Tensor:
     """RoPE attention over a padded or packed batch -> [B, S, E]."""
-    b, s, e = x.shape
-    h, d = config.n_head, config.head_dim
-    q = linear(x, lp["q_w"], lp.get("q_b")).view(b, s, h, d)
+    b, s, _ = x.shape
+    d = config.head_dim
+    q = linear(x, lp["q_w"], lp.get("q_b"))
+    e = q.shape[-1]  # n_head / tp heads on a tp slot
+    h = e // d
+    q = q.view(b, s, h, d)
     k = linear(x, lp["k_w"], lp.get("k_b")).view(b, s, h, d)
     v = linear(x, lp["v_w"], lp.get("v_b")).view(b, s, h, d)
     cos, sin = ctx.rope
@@ -99,11 +102,11 @@ def encoder_layer(x: torch.Tensor, lp: dict, ctx: _Ctx, config: BertConfig) -> t
     fc2(silu(fc12(x)) * fc11(x)))."""
     eps = config.layer_norm_eps
     x = linear(_attention(x, lp, ctx, config), lp["o_w"], lp.get("o_b"), residual=x,
-               ln=(lp["ln_att_scale"], lp["ln_att_bias"], eps))
+               row_parallel=True, ln=(lp["ln_att_scale"], lp["ln_att_bias"], eps))
     u = linear(x, lp["ffn_up_w"], lp.get("ffn_up_b"), activation="silu")
     g = linear(x, lp["ffn_gate_w"], lp.get("ffn_gate_b"))
     return linear(u, lp["ffn_down_w"], lp.get("ffn_down_b"), residual=x, prologue_mul=g,
-                  ln=(lp["ln_out_scale"], lp["ln_out_bias"], eps))
+                  row_parallel=True, ln=(lp["ln_out_scale"], lp["ln_out_bias"], eps))
 
 
 def _run_layers(x: torch.Tensor, layers: dict, ctx: _Ctx, config: BertConfig) -> torch.Tensor:

@@ -57,12 +57,16 @@ def _attention(xn: torch.Tensor, lp: dict, pos_bias: torch.Tensor, mask: torch.T
                config: BertConfig, packed: bool) -> torch.Tensor:
     """Attention output (before the o projection) of the normed input:
     mask is the [B, S] key bias, or the segment ids when `packed`."""
+    from .bert import local_heads
+
     q = unscale_q(linear(xn, lp["q_w"]), config.head_dim)
     k = linear(xn, lp["k_w"])
     v = linear(xn, lp["v_w"])
+    h = q.shape[-1] // config.head_dim  # n_head / tp on a tp slot
+    pos_bias = local_heads(pos_bias, h)
     if packed:
-        return flash_attention_packed_bse(q, k, v, mask, config.n_head, pos_bias)
-    return flash_attention_bse(q, k, v, mask, config.n_head, pos_bias)
+        return flash_attention_packed_bse(q, k, v, mask, h, pos_bias)
+    return flash_attention_bse(q, k, v, mask, h, pos_bias)
 
 
 def _ffn(xn: torch.Tensor, lp: dict, config: BertConfig):
@@ -86,9 +90,9 @@ def _run_layers(x: torch.Tensor, params: dict, pos_bias: torch.Tensor, mask: tor
         lp = {k: v[i] for k, v in layers.items()}
         att = _attention(rms_norm(x, lp["ln_att_scale"], eps, x.dtype), lp, pos_bias, mask,
                          config, packed)
-        x = linear(att, lp["o_w"], residual=x)
+        x = linear(att, lp["o_w"], residual=x, row_parallel=True)
         h, gate = _ffn(rms_norm(x, lp["ln_out_scale"], eps, x.dtype), lp, config)
-        x = linear(h, lp["ffn_down_w"], residual=x, prologue_mul=gate)
+        x = linear(h, lp["ffn_down_w"], residual=x, prologue_mul=gate, row_parallel=True)
     return rms_norm(x, params["final_ln_scale"], eps, torch.float32)
 
 

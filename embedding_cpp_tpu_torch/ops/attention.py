@@ -67,7 +67,7 @@ import ctypes
 import torch
 
 from ._build import check, load
-from .dispatch import use_kernel
+from .dispatch import count, use_kernel
 
 MASK_BIAS = -1e9  # additive score for masked keys (finite, never -inf)
 MAX_SEQ = 1024  # the JAX route's envelope (a whole [S, S] f32 score tile in VMEM)
@@ -518,9 +518,9 @@ def _count(fn, pos_bias) -> None:
     """One launch of `fn`'s kernel: `bias_launches` with a position bias
     (K4), else `launches` (K2/K3)."""
     if pos_bias is None:
-        fn.launches += 1
+        count(fn)
     else:
-        fn.bias_launches += 1
+        count(fn, "bias_launches")
 
 
 def flash_attention_bse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -587,7 +587,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not use_kernel(q, "attn", "flash_attention"):
         return attention_long_plain(q, k, v, mask_bias, pos_bias)
     out = _launch_long(q, k, v, mask_bias, _FULL, pos_bias)
-    flash_attention.launches += 1
+    count(flash_attention)
     return out
 
 
@@ -603,7 +603,7 @@ def flash_attention_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if window <= 0:
         raise ValueError(f"window {window} must be positive")
     out = _launch_long(q, k, v, mask_bias, _LOCAL, window=window)
-    flash_attention_local.launches += 1
+    count(flash_attention_local)
     return out
 
 
@@ -637,9 +637,9 @@ def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return attention_packed_plain(q, k, v, seg)[:, :s]
     out = _launch_long(q, k, v, seg, _SEG, max_seg_len=max_seg_len)
     if windowed:
-        flash_attention_packed.window_launches += 1
+        count(flash_attention_packed, "window_launches")
     else:
-        flash_attention_packed.launches += 1
+        count(flash_attention_packed)
     return out[:, :s]
 
 
@@ -659,7 +659,7 @@ def flash_attention_packed_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
     if not use_kernel(q, "attn", "flash_attention_packed_local"):
         return attention_packed_local_plain(q, k, v, seg, window)[:, :s]
     out = _launch_long(q, k, v, seg, _SEG_LOCAL, window=window)
-    flash_attention_packed_local.launches += 1
+    count(flash_attention_packed_local)
     return out[:, :s]
 
 
@@ -690,7 +690,7 @@ def attention_headpack(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
         b, s, h, d, hb, 1.0 / (d**0.5), torch.cuda.current_stream(q.device).cuda_stream)
     check(err, "attn_headpack_launch")
-    attention_headpack.launches += 1
+    count(attention_headpack)
     return out
 
 

@@ -41,7 +41,7 @@ import torch
 
 from ._build import check
 from .attention import MASK_BIAS, _bind, _operands, _softmax_pv
-from .dispatch import use_kernel
+from .dispatch import count, use_kernel
 
 MAX_SEQ = 512  # DeBERTa's context; a query tile's f32 score rows stay on chip
 HEAD_DIMS = (16, 32, 64, 128)
@@ -185,7 +185,7 @@ def disentangled_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return disentangled_attention_plain(q, k, v, mask_bias, pos_k, pos_q,
                                             c2p_idx, p2c_idx, False)
     out = _launch(q, k, v, mask_bias, pos_k, pos_q, c2p_idx, p2c_idx, False)
-    disentangled_attention.launches += 1
+    count(disentangled_attention)
     return out
 
 
@@ -202,7 +202,7 @@ def disentangled_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
         return disentangled_attention_plain(q, k, v, seg, pos_k, pos_q,
                                             c2p_idx, p2c_idx, True)
     out = _launch(q, k, v, seg, pos_k, pos_q, c2p_idx, p2c_idx, True)
-    disentangled_attention_packed.launches += 1
+    count(disentangled_attention_packed)
     return out
 
 

@@ -10,17 +10,30 @@ tensor.  A forward sets the choice for every call it makes with
 `kernel_impls` (models/bert.py's entry points do, from `ComputeOptions`),
 so the switch reaches each kernel wrapper the forward reaches; outside
 such a block every call is "auto".
+
+Every wrapper counts its launches through `count`, under one lock, so the
+counts stay exact when a mesh's shard threads launch at the same time.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import threading
 
 import torch
 
 IMPLS = ("auto", "kernel", "plain")
 _CHOICE: contextvars.ContextVar[tuple[str, str]] = contextvars.ContextVar(
     "kernel_impls", default=("auto", "auto"))
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count(fn, attr: str = "launches") -> None:
+    """Add one launch to the counter `attr` of the wrapper `fn`."""
+    with _COUNT_LOCK:
+        setattr(fn, attr, getattr(fn, attr) + 1)
 
 
 def check_impl(what: str, impl: str) -> None:

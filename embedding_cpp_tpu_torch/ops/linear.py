@@ -15,12 +15,22 @@ accumulation (after the prologue multiply in the activation dtype), the
 bias in f32, then the cast and the activation; in bf16 on the card that
 matmul runs on the tensor cores with an f32 output (`weight_mode="dequant"`
 puts every linear there).
+
+Under tensor parallelism (`parallel.group.current_tp()` set), a
+row-parallel linear (`row_parallel=True`: o and down, whose K is split over
+the tp slots) keeps its f32 partial product, K1 with `out_f32` and no
+bias or epilogue for a quantized weight, sums it over the slots
+(`all_reduce`), and only then adds the bias, once, applies the activation
+on the cast and the residual and LayerNorm tail, in the JAX package's order
+(ops/linear.py:95-113): a bf16 round before the sum would degrade it.  The
+column-parallel q/k/v/up/gate keep K1's fused bias / GELU / prologue.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from ..parallel.group import current_tp
 from .q4_matmul import prologue, q4_matmul
 from .qtensor import QTensor
 
@@ -47,28 +57,46 @@ def _activate(y: torch.Tensor, activation: str | None) -> torch.Tensor:
     raise ValueError(f"unknown activation {activation!r}")
 
 
+def _f32_product(x: torch.Tensor, w, prologue_mul: torch.Tensor | None) -> torch.Tensor:
+    """(x [* prologue_mul]) @ w [..., N] in f32, no bias: K1 with `out_f32`
+    for a quantized weight, a matmul with f32 accumulation for a dense one."""
+    lead = x.shape[:-1]
+    if isinstance(w, QTensor):
+        return q4_matmul(x.reshape(-1, x.shape[-1]), w, out_f32=True,
+                         prologue_mul=None if prologue_mul is None
+                         else prologue_mul.reshape(-1, x.shape[-1])).reshape(*lead, -1)
+    xx = prologue(x, prologue_mul)
+    if xx.is_cuda and x.dtype == torch.bfloat16:
+        # bf16 products summed in f32 on the tensor cores, f32 out
+        return torch.mm(xx.reshape(-1, xx.shape[-1]), w.to(x.dtype),
+                        out_dtype=torch.float32).reshape(*lead, -1)
+    return torch.matmul(xx.to(torch.float32), w.to(x.dtype).to(torch.float32))
+
+
 def linear(x: torch.Tensor, w, b: torch.Tensor | None = None, *,
            activation: str | None = None, residual: torch.Tensor | None = None,
            ln: tuple | None = None,
-           prologue_mul: torch.Tensor | None = None) -> torch.Tensor:
+           prologue_mul: torch.Tensor | None = None,
+           row_parallel: bool = False) -> torch.Tensor:
     """y = act((x [* prologue_mul]) @ w + b) [+ residual] [-> LayerNorm].
     x, prologue_mul: [..., K]; w: [K, N] dense or QTensor; b: [N]; ln:
-    (scale [N], bias [N], eps)."""
+    (scale [N], bias [N], eps).  `row_parallel`: w holds this tp slot's
+    rows of K, so under a tp group the partial products are summed first."""
     dtype = x.dtype
     lead = x.shape[:-1]
-    if isinstance(w, QTensor):
+    tp = current_tp() if row_parallel else None
+    if tp is not None:
+        y = tp.all_reduce(_f32_product(x, w, prologue_mul))
+        if b is not None:
+            y = y + b.to(torch.float32)
+        y = _activate(y.to(dtype), activation)
+    elif isinstance(w, QTensor):
         y = q4_matmul(x.reshape(-1, x.shape[-1]), w, bias=b, activation=activation,
                       prologue_mul=None if prologue_mul is None
                       else prologue_mul.reshape(-1, x.shape[-1]))
         y = y.reshape(*lead, -1).to(dtype)
     else:
-        xx = prologue(x, prologue_mul)
-        if xx.is_cuda and dtype == torch.bfloat16:
-            # bf16 products summed in f32 on the tensor cores, f32 out
-            y = torch.mm(xx.reshape(-1, xx.shape[-1]), w.to(dtype),
-                         out_dtype=torch.float32).reshape(*lead, -1)
-        else:
-            y = torch.matmul(xx.to(torch.float32), w.to(dtype).to(torch.float32))
+        y = _f32_product(x, w, prologue_mul)
         if b is not None:
             y = y + b.to(torch.float32)
         y = _activate(y.to(dtype), activation)

@@ -55,7 +55,7 @@ import torch
 
 from ..gguf.constants import QK4, GGMLType
 from ._build import check, load
-from .dispatch import use_kernel
+from .dispatch import count, use_kernel
 from .qtensor import QUANT_TYPES, QTensor
 
 ACTIVATIONS = (None, "gelu_erf", "gelu_tanh", "silu")
@@ -329,10 +329,10 @@ def _q4_matmul_1d(x: torch.Tensor, w: QTensor, bias=None, residual=None, ln=None
             *common, _ptr(res), _ptr(ln_sb), 0.0 if eps is None else eps, _ptr(out), f32_out,
             m, k, n, _QTYPE_CODE[w.qtype], ACTIVATIONS.index(activation), stream)
         check(err, "q4_matmul_ln_launch")
-        q4_matmul.ln_launches += 1
-    q4_matmul.launches += 1
+        count(q4_matmul, "ln_launches")
+    count(q4_matmul)
     if g is not None:
-        q4_matmul.prologue_launches += 1
+        count(q4_matmul, "prologue_launches")
     return out
 
 
@@ -355,7 +355,7 @@ def _q4_matmul_2d(x: torch.Tensor, w: QTensor, bias=None, prologue_mul=None, *,
         _ptr(bias), _ptr(out), f32_out, m, k, w.shape[1], _QTYPE_CODE[w.qtype],
         ACTIVATIONS.index(activation), torch.cuda.current_stream(x.device).cuda_stream)
     check(err, "q4_matmul_2d_launch")
-    q4_matmul.n_tiled_launches += 1
+    count(q4_matmul, "n_tiled_launches")
     return out
 
 

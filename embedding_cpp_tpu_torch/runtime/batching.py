@@ -144,13 +144,15 @@ def pack_segments(
     seq_len: int = DEFAULT_PACK_SEQ,
     n_seg: int = DEFAULT_PACK_SEGS,
     batch_buckets: Sequence[int] = DEFAULT_PACK_ROW_BUCKETS,
+    row_multiple: int = 1,
     max_pad_rows: int = 64,
 ) -> list[PackedSegBatch]:
     """First-fit-decreasing bin packing of sentences into [B, seq_len] rows.
 
     `indices[i]` is the original position of `token_lists[i]` (the caller may
     pack a subset).  Every sentence must have len <= seq_len; each row holds
-    at most n_seg sentences.
+    at most n_seg sentences.  `row_multiple` rounds each batch's row count up
+    (to the mesh's dp size, so a batch splits evenly over its slots).
 
     `max_pad_rows` trades padded compute for dispatch count: a chunk pads to
     its power-of-two bucket when that wastes <= max_pad_rows rows, otherwise
@@ -197,6 +199,7 @@ def pack_segments(
     batches: list[PackedSegBatch] = []
     for chunk in chunks:
         b = bucket_for(len(chunk), batch_buckets)
+        b = -(-b // row_multiple) * row_multiple
         ids = np.full((b, seq_len), pad_id, dtype=np.int32)
         seg = np.full((b, seq_len), -1, dtype=np.int32)
         pos = np.zeros((b, seq_len), dtype=np.int32)

@@ -24,7 +24,11 @@ adds its sentences, tokens, batches and padded token slots to `stats` and
 to the process's metrics (`utils/metrics.GLOBAL`, the server's TPES
 frame).  The engine runs on the GPU unless the caller passes
 `device="cpu"`; with no device given and no GPU present it raises instead
-of falling back.
+of falling back.  `mesh=` (parallel/mesh.py) runs every forward over a
+[dp, tp] mesh instead: the weights are split Megatron-style over tp, each
+batch's rows over dp (parallel/sharding.py), and the outputs come back in
+order; on a multi-process mesh every process must make the same calls
+(parallel/distributed.py).
 """
 from __future__ import annotations
 
@@ -157,8 +161,10 @@ class Engine:
         pack_seq: int | None = None,
         prompts: dict[str, str] | None = None,
         default_prompt_name: str = "",
+        mesh=None,
     ):
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device(0, 0) if mesh is not None else resolve_device(device)
         self.config = config
         self.opts = opts or ComputeOptions()
         if self.device.type == "cpu" and "kernel" in (self.opts.q4_impl, self.opts.attn_impl):
@@ -175,6 +181,10 @@ class Engine:
         self.special_ids = special_ids or SpecialIds(cls=101, sep=102, pad=0, unk=100)
         self.seq_buckets = long_seq_buckets(config.n_ctx, seq_buckets)
         self.batch_buckets = tuple(batch_buckets)
+        if mesh is not None:
+            # every dispatched batch must split evenly over dp
+            self.batch_buckets = tuple(b for b in self.batch_buckets
+                                       if b % mesh.dp == 0) or (mesh.dp,)
         # per-dispatch token budget: longer sequence buckets get fewer rows
         # (8192-token rows batch 128 at a time, not 2048); from the caller's
         # top row bucket, so a larger one is reachable, and never below the
@@ -193,18 +203,28 @@ class Engine:
         # executor threads share one engine)
         self._lock = threading.Lock()
         self.stats = {"sentences": 0, "tokens": 0, "batches": 0, "eval_time": 0.0}
-        self.params = params_to(params, self.device)
+        self._sharded = None
+        if mesh is not None:
+            from ..parallel.sharding import shard_params
+
+            self._sharded = shard_params(params, config, mesh)
+            # slot (0, 0)'s weights: what the engine reads of them (tables'
+            # shapes) is the same on every slot
+            self.params = self._sharded[0, 0]
+        else:
+            self.params = params_to(params, self.device)
 
     # --- constructors -------------------------------------------------------
     @classmethod
     def from_gguf(cls, path: str, *, weight_mode: str = "auto",
                   opts: ComputeOptions | None = None, device=None,
-                  tokenizer_backend: str = "auto", **kw) -> "Engine":
+                  tokenizer_backend: str = "auto", mesh=None, **kw) -> "Engine":
         """weight_mode "auto" keeps quantized weights packed for the fused
         dequant-matmul kernel; "dequant" stores them dense in the activation
         dtype (models/params.py).  tokenizer_backend is `load_tokenizer`'s:
-        "auto" takes the native engines where they load the json."""
-        device = resolve_device(device)
+        "auto" takes the native engines where they load the json.  With a
+        `mesh` the weights load on the host and go to its slots."""
+        device = torch.device("cpu") if mesh is not None else resolve_device(device)
         opts = opts or ComputeOptions()
         with GGUFReader(path) as r:
             params, config = load_params(r, weight_mode=weight_mode, dense_dtype=opts.tdtype,
@@ -217,7 +237,8 @@ class Engine:
                 kw["prompts"] = json.loads(prompts)
                 # a caller's default wins over the file's
                 kw.setdefault("default_prompt_name", str(r.kv.get(Keys.DEFAULT_PROMPT, "")))
-        return cls(params, config, tokenizer, special, opts=opts, device=device, **kw)
+        return cls(params, config, tokenizer, special, opts=opts, device=device, mesh=mesh,
+                   **kw)
 
     @classmethod
     def from_hf_dir(cls, model_dir: str, *, ftype: str = "f32", **kw) -> "Engine":
@@ -246,12 +267,13 @@ class Engine:
 
     @classmethod
     def synthetic(cls, config: BertConfig, ftype="f32", *, seed: int = 0,
-                  opts: ComputeOptions | None = None, device=None, **kw) -> "Engine":
+                  opts: ComputeOptions | None = None, device=None, mesh=None,
+                  **kw) -> "Engine":
         """Random-weight engine with the synthetic WordPiece vocab (needs
         n_vocab >= 242; smaller vocabs get no tokenizer)."""
         from ..tokenizer.testvocab import build_tokenizer_json
 
-        device = resolve_device(device)
+        device = torch.device("cpu") if mesh is not None else resolve_device(device)
         opts = opts or ComputeOptions()
         params = random_params(config, ftype, seed=seed, dense_dtype=opts.tdtype,
                                device=device)
@@ -263,7 +285,8 @@ class Engine:
         else:
             tokenizer = load_tokenizer(blob)
             special = SpecialIds(cls=2, sep=3, pad=0, unk=1)
-        return cls(params, config, tokenizer, special, opts=opts, device=device, **kw)
+        return cls(params, config, tokenizer, special, opts=opts, device=device, mesh=mesh,
+                   **kw)
 
     # --- tokenize -----------------------------------------------------------
     def tokenize(self, text: str) -> list[int]:
@@ -310,6 +333,48 @@ class Engine:
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
+    @property
+    def _dp(self) -> int:
+        return self.mesh.dp if self.mesh is not None else 1
+
+    def _run(self, fn, rows: Sequence, **kw) -> torch.Tensor:
+        """fn(params, *rows, **kw) on the engine's device, or over the mesh:
+        `rows` (numpy or tensors) split over dp, the outputs back in row
+        order on the engine's device (parallel/sharding.py)."""
+        if self._sharded is None:
+            return fn(self.params, *(self._tensor(r) if isinstance(r, np.ndarray) else r
+                                     for r in rows), **kw)
+        return self._sharded.run(fn, rows, kw)
+
+    def _embed_batch(self, ids: np.ndarray, mask: np.ndarray, opts: ComputeOptions,
+                     n_real: int | None = None) -> torch.Tensor:
+        """The vectors of a plain batch's first `n_real` rows (all by
+        default), gathered on the device: on the engine's device, or over
+        the mesh (`ShardedForward.gather`, every row on every process)."""
+        n_real = len(ids) if n_real is None else n_real
+        if self._sharded is None:
+            gidx = self._tensor(np.arange(n_real)) if n_real < len(ids) else None
+            return bert_embed_batch(self.params, self._tensor(ids), self._tensor(mask),
+                                    self.config, opts, gather_idx=gidx)
+        from ..parallel.sharding import ShardedForward
+
+        return ShardedForward(self.config, opts).gather(self._sharded, ids, mask,
+                                                        np.arange(n_real))
+
+    def _embed_packed(self, pb: PackedSegBatch, opts: ComputeOptions) -> torch.Tensor:
+        """The vectors of a packed batch's real sentences (its flat slots),
+        gathered on the device: padding never leaves it."""
+        gidx = pb.slots.astype(np.int64)
+        kw = dict(n_seg=pb.n_seg, max_seg_len=segment_bound(pb))
+        if self._sharded is None:
+            return bert_embed_packed(self.params, self._tensor(pb.ids), self._tensor(pb.seg),
+                                     self._tensor(pb.pos), self.config, opts,
+                                     gather_idx=self._tensor(gidx), **kw)
+        from ..parallel.sharding import make_packed_forward
+
+        return make_packed_forward(self.mesh, self.config, opts)(
+            self._sharded, pb.ids, pb.seg, pb.pos, gidx, **kw)
+
     def _dispatch(self, token_lists: Sequence[Sequence[int]],
                   opts: ComputeOptions | None = None) -> list:
         """Plan and launch every batch; returns [(batch, device_result)].
@@ -323,7 +388,7 @@ class Engine:
         packed_batches = (
             pack_segments([token_lists[i] for i in pack_idx], pack_idx,
                           self.special_ids.pad, seq_len=self.pack_seq,
-                          n_seg=self.pack_segs)
+                          n_seg=self.pack_segs, row_multiple=self._dp)
             if pack_idx else []
         )
         batches = pack_batches(
@@ -339,24 +404,10 @@ class Engine:
         pending = []
         with torch.inference_mode():
             for pb in packed_batches:
-                out = bert_embed_packed(
-                    self.params, self._tensor(pb.ids), self._tensor(pb.seg),
-                    self._tensor(pb.pos), self.config, opts, n_seg=pb.n_seg,
-                    # the flat slots of real sentences: padding never leaves
-                    gather_idx=self._tensor(pb.slots.astype(np.int64)),
-                    max_seg_len=segment_bound(pb),
-                )
-                pending.append((pb, out))
+                pending.append((pb, self._embed_packed(pb, opts)))
             for batch in batches:
-                n_real = len(batch.positions)
-                gidx = None
-                if n_real < batch.ids.shape[0]:
-                    gidx = self._tensor(np.arange(n_real))
-                out = bert_embed_batch(
-                    self.params, self._tensor(batch.ids), self._tensor(batch.mask),
-                    self.config, opts, gather_idx=gidx,
-                )
-                pending.append((batch, out))
+                pending.append((batch, self._embed_batch(batch.ids, batch.mask, opts,
+                                                         len(batch.positions))))
         return pending
 
     def embed_tokens(self, token_lists: Sequence[Sequence[int]]) -> np.ndarray:
@@ -386,6 +437,11 @@ class Engine:
         real sentences only.  An int8-output engine runs its float32-output
         forward here (the codes exist only for the host transfer); the
         on-device VectorIndex ingests through this."""
+        if self.opts.output_dtype == "int8" and self.mesh is not None:
+            # as the JAX Engine, whose mesh forwards are built once with the
+            # engine's output encoding
+            raise ValueError("embed_tokens_device on a mesh needs a float output_dtype "
+                             "(int8 results are packed for host transfer)")
         t0 = time.perf_counter()
         out = []
         opts = replace(self.opts, output_dtype="float32")
@@ -511,6 +567,8 @@ class Engine:
         if self.config.n_labels == 0:
             raise RuntimeError("model has no classification head (embedding model); "
                                "rerank/score needs a *ForSequenceClassification checkpoint")
+        if self.mesh is not None and self.mesh.multiprocess:
+            raise RuntimeError("cross-encoder scoring on a multi-host mesh is not supported")
         out = np.empty((len(token_lists), self.config.n_labels), np.float32)
         with self._lock:
             batches = self.score_plan(token_lists)
@@ -528,10 +586,10 @@ class Engine:
             pending = []
             with torch.inference_mode():
                 for batch, types in zip(batches, type_arrays):
-                    logits = bert_score_batch(
-                        self.params, self._tensor(batch.ids), self._tensor(batch.mask),
-                        self.config, self.opts, type_ids=self._tensor(types),
-                    )
+                    logits = self._run(
+                        lambda p, ids, mask, types: bert_score_batch(
+                            p, ids, mask, self.config, self.opts, type_ids=types),
+                        (batch.ids, batch.mask, types))
                     pending.append((batch, logits))
             if not pending:
                 return out[:, 0] if self.config.n_labels == 1 else out
@@ -632,9 +690,12 @@ class Engine:
 
     def _token_states(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """[B, S, E] f32 final states, ColBERT-projected where the model has
-        the projection."""
-        return project_token_states(self.params, bert_embed_batch(
-            self.params, ids, mask, self.config, self.opts, token_states=True))
+        the projection.  Refused on a multi-process mesh, whose followers
+        replay only embed and sparse calls (parallel/distributed.py)."""
+        if self.mesh is not None and self.mesh.multiprocess:
+            raise RuntimeError("token states on a multi-host mesh are not supported")
+        return self._run(lambda p, ids, mask: project_token_states(p, bert_embed_batch(
+            p, ids, mask, self.config, self.opts, token_states=True)), (ids, mask))
 
     def encode_token_states(self, texts: Sequence[str]) -> list[np.ndarray]:
         """Per-token final hidden states (HF last_hidden_state; ColBERT
@@ -760,8 +821,10 @@ class Engine:
 
         def forward(ids, mask, _):
             keep = mask if not skip.numel() else mask * ~torch.isin(ids, skip)
-            return maxsim_scores(self.params, q_dev, q_mask, ids, mask, self.config,
-                                 self.opts, d_keep=keep)
+            return self._run(
+                lambda p, ids, mask, keep, q_states, q_mask: maxsim_scores(
+                    p, q_states, q_mask, ids, mask, self.config, self.opts, d_keep=keep),
+                (ids, mask, keep), q_states=q_dev, q_mask=q_mask)
 
         out = np.empty(len(doc_token_lists), np.float32)
         for batch, dev in self._token_batches(doc_token_lists, forward):
@@ -801,8 +864,8 @@ class Engine:
         row_cap = max(1, budget // (8 * self.config.n_vocab * 4))
 
         def forward(ids, mask, _):
-            return bert_sparse_batch(self.params, ids, mask, self.config, self.opts, k_run,
-                                     budget=budget)
+            return self._run(lambda p, ids, mask: bert_sparse_batch(
+                p, ids, mask, self.config, self.opts, k_run, budget=budget), (ids, mask))
 
         out: list = [None] * len(token_lists)
         for batch, dev in self._token_batches(token_lists, forward, max_rows=row_cap):
@@ -826,7 +889,7 @@ class Engine:
         every kernel not built yet (ops/_build.py), and the forward starts
         cuBLAS, so no request pays for either."""
         if shapes is None:
-            shapes = [(self.batch_buckets[0], self.seq_buckets[0])]
+            shapes = [(max(self.batch_buckets[0], self._dp), self.seq_buckets[0])]
         if self.device.type == "cuda":
             from ..ops import _build
 
@@ -836,8 +899,7 @@ class Engine:
                 ids = np.full((b, s), self.special_ids.pad, dtype=np.int32)
                 mask = np.zeros((b, s), dtype=np.int32)
                 mask[:, 0] = 1
-                fetch_output(bert_embed_batch(self.params, self._tensor(ids),
-                                              self._tensor(mask), self.config, self.opts))
+                fetch_output(self._embed_batch(ids, mask, self.opts))
 
     # --- introspection (the reference's bert.h:87-90) ------------------------
     @property

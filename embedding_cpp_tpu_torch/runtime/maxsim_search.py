@@ -14,6 +14,11 @@ documents whose [Q, Sq, NB, Sd] f32 similarity fits a 256 MiB budget, so
 the whole similarity never exists at once.  `candidates=C` ranks the corpus
 by its pooled rows (the unit mean of each document's token vectors, kept
 current by every commit) and scores only the C best with exact MaxSim.
+The corpus rows are runtime/search.py's `ShardedRows`: dp-sharded over
+`mesh`, else one shard on the engine's device.  The exact search keeps
+each shard's top-k and merges them (`merge_topk`); the candidates mode
+merges the shards' pooled-row candidates, and each candidate is scored on
+the shard that holds it.
 """
 from __future__ import annotations
 
@@ -23,7 +28,14 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from .search import exact_f32, grown, index_dtype, pad_to_k, select_topk, unit
+from .search import (
+    ShardedRows,
+    exact_f32,
+    index_dtype,
+    pad_to_k,
+    select_topk,
+    unit,
+)
 
 # bytes of one [Q, Sq, NB, Sd] f32 similarity block (the JAX package's budget)
 _SIM_TILE_BUDGET = 256 << 20
@@ -50,28 +62,31 @@ class MaxSimIndex:
 
     doc_maxlen: the document token budget Sd (ColBERT's doc_maxlen; longer
     documents are cut).  dtype="bfloat16" halves the corpus bytes; the
-    similarities are f32.  `capacity` sizes the corpus ahead.  A
-    mesh-sharded corpus waits for the distribution layer.  Thread-safe: one
-    lock covers adds and searches."""
+    similarities are f32.  `capacity` sizes the corpus ahead.  `mesh`
+    dp-shards the corpus rows; a multi-process mesh is refused, as the JAX
+    package does (its followers would each add every request again).
+    Thread-safe: one lock covers adds and searches."""
 
     def __init__(self, engine, *, doc_maxlen: int = 256, dtype: str = "bfloat16",
                  mesh=None, capacity: int = 0):
-        if mesh is not None:
-            raise NotImplementedError("a mesh-sharded index waits for the port's "
-                                      "distribution layer")
+        if mesh is not None and mesh.multiprocess:
+            raise RuntimeError("MaxSimIndex is single-controller only")
         self.engine = engine
+        self.mesh = mesh
         self.doc_maxlen = int(doc_maxlen)
         if self.doc_maxlen < 1:
             raise ValueError(f"doc_maxlen must be positive, got {doc_maxlen}")
         self.dtype = index_dtype(dtype)
-        self.device = engine.device
-        self._corpus: torch.Tensor | None = None  # [capacity, Sd, E]
-        self._cmask: torch.Tensor | None = None  # [capacity, Sd] bool
-        self._pooled: torch.Tensor | None = None  # [capacity, E] f32
+        self.device = mesh.device(0, 0) if mesh is not None else engine.device
+        sd, e = self.doc_maxlen, self.n_embd
+        # token states [Sd, E], their mask [Sd] and the pooled row [E] f32
+        self._rows = ShardedRows(mesh, {"corpus": ((sd, e), self.dtype),
+                                        "cmask": ((sd,), torch.bool),
+                                        "pooled": ((e,), torch.float32)}, self.device)
         self._n = 0
         self._lock = threading.Lock()
         if capacity:
-            self._grow(int(capacity))
+            self._rows.reserve(int(capacity))
 
     def __len__(self) -> int:
         return self._n
@@ -81,19 +96,6 @@ class MaxSimIndex:
         """Token vector width: ColBERT's projection, else the encoder's."""
         return self.engine.config.colbert_dim or self.engine.config.n_embd
 
-    def _grow(self, need: int) -> None:
-        sd, e, dev = self.doc_maxlen, self.n_embd, self.device
-        self._corpus = grown(self._corpus, need, (sd, e), self.dtype, dev)
-        self._cmask = grown(self._cmask, need, (sd,), torch.bool, dev)
-        self._pooled = grown(self._pooled, need, (e,), torch.float32, dev)
-
-    def _commit(self, rows: torch.Tensor, states: torch.Tensor, mask: torch.Tensor,
-                pooled: torch.Tensor) -> None:
-        """Write unit token rows [B, Sd, E], their mask [B, Sd] and pooled
-        rows [B, E] at corpus rows `rows` (caller holds the lock)."""
-        self._corpus.index_copy_(0, rows, states.to(self.dtype))
-        self._cmask.index_copy_(0, rows, mask)
-        self._pooled.index_copy_(0, rows, pooled)
 
     # --- building -----------------------------------------------------------
     def add(self, texts: Sequence[str]) -> int:
@@ -117,7 +119,7 @@ class MaxSimIndex:
         sd = self.doc_maxlen
         with self._lock:
             base = self._n
-            self._grow(base + len(texts))
+            self._rows.reserve(base + len(texts))
             for positions, dev, mask, lens in self.engine.token_states_device(token_lists):
                 keep = np.zeros(mask.shape, bool)
                 for r, p in enumerate(positions):
@@ -128,8 +130,8 @@ class MaxSimIndex:
                 sn[:, :s] = (unit(dev) * keep[..., None])[:, :s]
                 m = torch.zeros((len(positions), sd), dtype=torch.bool, device=self.device)
                 m[:, :s] = keep[:, :s]
-                rows = torch.as_tensor(np.asarray(positions) + base, device=self.device)
-                self._commit(rows, sn, m, unit(sn.sum(dim=1)))
+                self._rows.put(np.asarray(positions) + base, corpus=sn, cmask=m,
+                               pooled=unit(sn.sum(dim=1)))
             self._n = base + len(texts)
             return self._n
 
@@ -146,7 +148,7 @@ class MaxSimIndex:
         sd, e = self.doc_maxlen, self.n_embd
         with self._lock:
             base = self._n
-            self._grow(base + len(states))
+            self._rows.reserve(base + len(states))
             for lo in range(0, len(states), _HOST_BLOCK):
                 chunk = states[lo: lo + _HOST_BLOCK]
                 blk = np.zeros((len(chunk), sd, e), np.float32)
@@ -160,8 +162,8 @@ class MaxSimIndex:
                 msk = torch.from_numpy(msk).to(self.device)
                 # pooled from the stored rows, summed in the corpus dtype
                 pooled = unit((blk * msk[..., None].to(blk.dtype)).sum(dim=1))
-                rows = torch.arange(base + lo, base + lo + len(chunk), device=self.device)
-                self._commit(rows, blk, msk, pooled)
+                self._rows.put(range(base + lo, base + lo + len(chunk)), corpus=blk,
+                               cmask=msk, pooled=pooled)
             self._n = base + len(states)
             return self._n
 
@@ -175,8 +177,8 @@ class MaxSimIndex:
                 states = np.zeros((0, self.doc_maxlen, self.n_embd), np.float16)
                 masks = np.zeros((0, self.doc_maxlen), bool)
             else:
-                states = self._corpus[:n].float().cpu().numpy().astype(np.float16)
-                masks = self._cmask[:n].cpu().numpy()
+                states = self._rows.gather(n, "corpus").float().cpu().numpy().astype(np.float16)
+                masks = self._rows.gather(n, "cmask").cpu().numpy()
         np.savez_compressed(path, token_states=states, token_masks=masks)
 
     def load(self, path: str) -> int:
@@ -231,34 +233,58 @@ class MaxSimIndex:
                 qm[i, : len(s)] = 1
             qn = unit(torch.from_numpy(q).to(self.device))
             qm = torch.from_numpy(qm).to(self.device)
-            corpus, cmask, sd = self._corpus[:n], self._cmask[:n], self.doc_maxlen
             with exact_f32():
-                if candidates is None:
-                    nb = max(1, _SIM_TILE_BUDGET // (max(len(q), 1) * sq * sd * 4))
-                    scores = torch.cat([_maxsim(qn, qm, corpus[lo: lo + nb], cmask[lo: lo + nb],
-                                                "qte,nse->qtns")
-                                        for lo in range(0, n, nb)], dim=1)
-                    scores, ids = select_topk(scores, kk)
-                else:
-                    scores, ids = self._two_stage(qn, qm, corpus, cmask, kk,
-                                                  max(kk, min(int(candidates), n)))
+                scores, ids = self._search_shards(qn, qm, kk, candidates)
         return pad_to_k(ids, scores, k)
 
-    def _two_stage(self, qn, qm, corpus, cmask, k: int, c: int):
-        """The candidates mode: the pooled query (unit mean of its unit
-        tokens) against the pooled rows picks C documents (equal cosines by
-        the lower id), exact MaxSim scores them in query slices whose
-        gathered [Qc, C, Sd, E] tokens fit the budget, and the top k of
-        each slice's [Qc, C] (ties by the earlier candidate, as the JAX
-        package's `lax.top_k` there) map back to document ids."""
+    def _exact(self, qn, qm, corpus, cmask) -> torch.Tensor:
+        """[Q, N] exact MaxSim scores over blocks of the similarity budget."""
+        nb = max(1, _SIM_TILE_BUDGET // (max(len(qn), 1) * qn.shape[1] * self.doc_maxlen * 4))
+        return torch.cat([_maxsim(qn, qm, corpus[lo: lo + nb], cmask[lo: lo + nb],
+                                  "qte,nse->qtns")
+                          for lo in range(0, len(corpus), nb)], dim=1)
+
+    def _search_shards(self, qn, qm, k: int, candidates: int | None):
+        """Every shard's top-k merged.  With `candidates` (C): the pooled
+        query (unit mean of its unit tokens) against the pooled rows picks
+        C documents (the shards' candidates merged: equal cosines by the
+        lower id), exact MaxSim scores each on the shard that holds it
+        (`_candidate_scores`), and the top k of each query's [C] (ties by
+        the earlier candidate, as the JAX package's `lax.top_k` there) map
+        back to document ids.  Any mesh gives the one-shard result."""
+        rows, n = self._rows, self._n
+        dev = lambda f: f["corpus"].device  # noqa: E731
+        if candidates is None:
+            return rows.top_k(n, k, len(qn), lambda f, kk: select_topk(self._exact(
+                qn.to(dev(f)), qm.to(dev(f)), f["corpus"], f["cmask"]), kk))
+        c = max(k, min(int(candidates), n))
         qpool = unit((qn * (qm[..., None] > 0)).sum(dim=1))
-        cand = select_topk(qpool @ self._pooled[: corpus.shape[0]].T, c)[1]
+        cand = rows.top_k(n, c, len(qn), lambda f, kk: select_topk(
+            qpool.to(dev(f)) @ f["pooled"].T, kk))[1]
+        scores = torch.full(cand.shape, -torch.inf, device=qn.device)
+        dp = rows.dp
+        for g, f in rows.shards(n):
+            if f["corpus"] is None:
+                continue
+            own = (cand % dp == g).to(dev(f))
+            local = torch.where(own, cand.to(dev(f)) // dp, 0)
+            s = self._candidate_scores(qn.to(dev(f)), qm.to(dev(f)), local, f["corpus"],
+                                       f["cmask"])
+            scores = torch.where(own.to(qn.device), s.to(qn.device), scores)
+        return _pick(scores, cand, k)
+
+    def _candidate_scores(self, qn, qm, cand, corpus, cmask) -> torch.Tensor:
+        """[Q, C] exact MaxSim of each query's candidate rows `cand`, in
+        query slices whose gathered [Qc, C, Sd, E] tokens fit the budget."""
+        c = cand.shape[1]
         step = max(1, _SIM_TILE_BUDGET // (c * self.doc_maxlen * self.n_embd * 4))
-        scores, ids = [], []
-        for lo in range(0, max(len(qn), 1), step):
-            ci = cand[lo: lo + step]
-            s, j = select_topk(_maxsim(qn[lo: lo + step], qm[lo: lo + step], corpus[ci],
-                                       cmask[ci], "qte,qcse->qtcs"), k)
-            scores.append(s)
-            ids.append(torch.where(j >= 0, torch.gather(ci, 1, j.clamp_min(0)), -1))
-        return torch.cat(scores), torch.cat(ids)
+        return torch.cat([_maxsim(qn[lo: lo + step], qm[lo: lo + step], corpus[ci], cmask[ci],
+                                  "qte,qcse->qtcs")
+                          for lo in range(0, max(len(qn), 1), step)
+                          for ci in (cand[lo: lo + step],)])
+
+
+def _pick(scores: torch.Tensor, cand: torch.Tensor, k: int):
+    """The top k of candidate scores [Q, C] -> (scores, document ids)."""
+    s, j = select_topk(scores, k)
+    return s, torch.where(j >= 0, torch.gather(cand, 1, j.clamp_min(0)), -1)

@@ -190,15 +190,28 @@ class ContinuousBatcher:
                     setattr(self, attr, make())
         return getattr(self, attr)
 
+    def _mesh(self):
+        return getattr(self.engine, "mesh", None)
+
+    def _index(self, attr: str, cls, leader):
+        """The index in `attr`, over the engine's mesh; on a multi-process
+        mesh the leader's (`leader`), whose device ops the followers replay."""
+        mesh = self._mesh()
+        if mesh is not None and mesh.multiprocess:
+            return self._built(attr, lambda: leader(self.engine))
+        return self._built(attr, lambda: cls(self.engine, mesh=mesh))
+
     def _sparse(self):
+        from ..parallel import distributed as dist
         from .sparse_search import SparseIndex
 
-        return self._built("sparse_index", lambda: SparseIndex(self.engine))
+        return self._index("sparse_index", SparseIndex, dist.make_leader_sparse_index)
 
     def index_texts(self, texts: list[str]) -> int:
+        from ..parallel import distributed as dist
         from .search import VectorIndex
 
-        return self._built("index", lambda: VectorIndex(self.engine)).add(texts)
+        return self._index("index", VectorIndex, dist.make_leader_index).add(texts)
 
     def search_texts(self, texts: list[str], k: int):
         if self.index is None:
@@ -213,14 +226,15 @@ class ContinuousBatcher:
         backend has: the host backend searches exactly instead."""
         if self.sparse_index is None:
             raise RuntimeError("no sparse index built (send a sparse index frame first)")
-        if not self.sparse_index.device:
-            candidates = None
+        if not self.sparse_index.device or self.sparse_index.mesh is not None:
+            candidates = None  # the two-stage mode is one device's
         return self.sparse_index.search(texts, k, candidates=candidates)
 
     def maxsim_index_texts(self, texts: list[str]) -> int:
         from .maxsim_search import MaxSimIndex
 
-        return self._built("maxsim_index", lambda: MaxSimIndex(self.engine)).add(texts)
+        return self._built("maxsim_index",
+                           lambda: MaxSimIndex(self.engine, mesh=self._mesh())).add(texts)
 
     def maxsim_search_texts(self, texts: list[str], k: int, candidates: int | None = None):
         if self.maxsim_index is None:
@@ -641,6 +655,32 @@ async def serve(engine, host: str = "0.0.0.0", port: int = 8080,
             await b.stop()
 
 
+def _mesh_from_args(p, args):
+    """The serving mesh of --dp / --tp (None for one device): over this
+    process's cards (`distributed.local_devices`: on a multi-process run,
+    its own share of them), or slots on the one --device named."""
+    from ..parallel import distributed as dist
+    from ..parallel.mesh import make_mesh
+
+    procs = dist.process_count()
+    if not (args.dp or args.tp > 1 or procs > 1):
+        return None
+    if args.device is not None:
+        # slots on the one device named, as many as the mesh asks
+        local = ((args.dp or procs) // procs or 1) * args.tp
+        devices = [args.device] * local
+    else:
+        devices = dist.local_devices()
+    n_dev = len(devices) * procs
+    if args.tp > n_dev:
+        p.error(f"--tp {args.tp} exceeds the {n_dev} available device(s)")
+    dp = args.dp or (n_dev // args.tp)
+    if dp < 1 or dp * args.tp > n_dev:
+        p.error(f"mesh dp={dp} x tp={args.tp} needs {dp * args.tp} "
+                f"devices, have {n_dev}")
+    return make_mesh(dp=dp, tp=args.tp, devices=devices[: dp // procs * args.tp])
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -652,7 +692,8 @@ def main(argv=None) -> None:
     p.add_argument("--port", type=int, default=8080)
     p.add_argument("--device", default=None,
                    help="torch device (default: the GPU; 'cpu' runs the "
-                        "plain PyTorch versions of the kernels)")
+                        "plain PyTorch versions of the kernels); with --dp / --tp "
+                        "every mesh slot on it")
     p.add_argument("--dtype", choices=["float32", "bfloat16"], default="bfloat16")
     p.add_argument("--output-dtype", choices=["float32", "float16", "bfloat16", "int8"],
                    default="int8",
@@ -666,6 +707,13 @@ def main(argv=None) -> None:
     p.add_argument("--http-port", type=int, default=None,
                    help="also serve HTTP/JSON (OpenAI-compatible POST /v1/embeddings "
                         "and the other /v1 routes) on this port, over the same batcher")
+    p.add_argument("--dp", type=int, default=0,
+                   help="data-parallel mesh size (0 = single device)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel mesh size (Megatron sharding)")
+    from ..parallel import distributed as dist
+
+    dist.add_args(p)
     args = p.parse_args(argv)
     specs = []
     for item in args.model:
@@ -674,23 +722,55 @@ def main(argv=None) -> None:
     if len(specs) > 1 and args.http_port is None:
         p.error("serving several models requires --http-port "
                 "(extra models are HTTP-routed by their 'model' field)")
+    if args.coordinator is not None and len(specs) > 1:
+        p.error("multi-model serving is single-process only")
+    # multi-process: join the process group before any device work
+    multiprocess = dist.init_from_args(
+        args, devices=None if args.device is None else [args.device])
+    mesh = _mesh_from_args(p, args)
 
     from ..models.bert import ComputeOptions
     from .engine import Engine
 
-    def load(path):
+    def load(path, mesh=None):
         engine = Engine.from_gguf(
-            path, device=args.device, packing=args.packing,
+            path, device=args.device, packing=args.packing, mesh=mesh,
             opts=ComputeOptions(dtype=args.dtype, output_dtype=args.output_dtype),
         )
         engine.warmup()  # the kernels' build and the first forward, before listening
         return engine
 
-    engine = load(specs[0][1])
+    engine = load(specs[0][1], mesh)  # every process warms identically (lockstep)
     extra = {}
     for name, path in specs[1:]:
         eng = load(path)
         extra[name or eng.config.name or path] = eng
+    if multiprocess:
+        try:
+            if dist.process_index() == 0:
+                # the leader owns the sockets and broadcasts every device
+                # dispatch first; SIGTERM unwinds (it does not kill), so the
+                # finally releases the followers from their broadcast
+                import signal
+
+                def _terminate(signum, frame):
+                    raise SystemExit(0)
+
+                signal.signal(signal.SIGTERM, _terminate)
+                dist.make_leader(engine)
+                try:
+                    asyncio.run(serve(engine, args.host, args.port, args.max_batch,
+                                      args.window_ms, max_pending=args.max_pending,
+                                      http_port=args.http_port))
+                finally:
+                    dist.broadcast_stop()
+            else:
+                print(f"follower process {dist.process_index()} of "
+                      f"{dist.process_count()} ready", file=sys.stderr, flush=True)
+                dist.follower_loop(engine)
+        finally:
+            dist.shutdown()
+        return
     asyncio.run(serve(engine, args.host, args.port, args.max_batch,
                       args.window_ms, max_pending=args.max_pending,
                       http_port=args.http_port, extra_engines=extra,

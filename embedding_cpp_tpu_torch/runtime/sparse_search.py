@@ -20,6 +20,9 @@ Scores are exact dot products in both; results follow the dense
 VectorIndex contract (k columns, id -1 and -inf past the corpus, `.npz`
 files).  Equal scores come by the lower id on the device backend, and in
 the JAX package's host order (numpy's argpartition) on the host one.
+The device rows are runtime/search.py's `ShardedRows`: dp-sharded over
+`mesh`, else one shard on the backend's device.  Every shard scores its
+rows and keeps its top-k, and `merge_topk` merges the shards' candidates.
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ import numpy as np
 import torch
 
 from .engine import resolve_device
-from .search import exact_f32, grown, pad_to_k, select_topk
+from .search import ShardedRows, exact_f32, pad_to_k, select_topk
 
 # bytes of one block's [NB, Kd, Q] f32 gather (the JAX package's budget)
 _GATHER_TILE_BUDGET = 256 << 20
@@ -87,17 +90,17 @@ class SparseIndex:
     GPU without an engine); a device name or `torch.device` the device
     backend there ("cpu" runs the device backend's torch code on the CPU).
     `nnz_width` caps the terms a document keeps on the device backend (its
-    heaviest; default k_encode).  A mesh-sharded corpus waits for the
-    distribution layer.  Thread-safe: one lock covers adds and searches."""
+    heaviest; default k_encode).  `mesh` dp-shards the device backend's rows
+    (it needs the device backend); on a multi-process mesh every process
+    makes the same calls (parallel/distributed.py's serving plane).
+    Thread-safe: one lock covers adds and searches."""
 
     def __init__(self, engine=None, *, k_encode: int = 256, device=None,
                  nnz_width: int | None = None, mesh=None):
         if engine is not None and not engine.config.mlm_head:
             raise ValueError("model has no MLM head (not a SPLADE checkpoint)")
-        if mesh is not None:
-            raise NotImplementedError("a mesh-sharded index waits for the port's "
-                                      "distribution layer")
         self.engine = engine
+        self.mesh = mesh
         self.k_encode = int(k_encode)
         self.n_vocab = int(engine.config.n_vocab) if engine is not None else 0
         if device is None:
@@ -108,9 +111,16 @@ class SparseIndex:
             self.torch_device = engine.device if engine is not None else resolve_device()
         elif self.device:
             self.torch_device = torch.device(device)
+        if mesh is not None and not self.device:
+            raise ValueError("mesh sharding requires device=True")
+        if mesh is not None:
+            self.torch_device = mesh.device(0, 0)
         self.nnz_width = int(nnz_width or self.k_encode)
-        self._didx: torch.Tensor | None = None  # [capacity, Kd] int32
-        self._dval: torch.Tensor | None = None  # [capacity, Kd] f32
+        kd = (self.nnz_width,)
+        # the device backend's padded rows: term ids [Kd] int32, weights [Kd] f32
+        self._rows = (ShardedRows(mesh, {"idx": (kd, torch.int32), "val": (kd, torch.float32)},
+                                  self.torch_device) if self.device else None)
+        self._n_dev = 0  # rows committed to the device backend
         self._lock = threading.Lock()
         self._indices: list[np.ndarray] = []  # per-document int32 term ids
         self._values: list[np.ndarray] = []  # per-document f32 weights
@@ -145,13 +155,7 @@ class SparseIndex:
         with self._lock:
             base = len(self._indices)
             if self.device and clean:
-                di, dv = self._pad_pairs(clean)
-                need = base + len(clean)
-                kd = (self.nnz_width,)
-                self._didx = grown(self._didx, need, kd, torch.int32, self.torch_device)
-                self._dval = grown(self._dval, need, kd, torch.float32, self.torch_device)
-                self._didx[base:need] = torch.from_numpy(di).to(self.torch_device)
-                self._dval[base:need] = torch.from_numpy(dv).to(self.torch_device)
+                self._commit_device(self._pad_pairs(clean), base)
             for idx, val in clean:
                 if idx.size:
                     self.n_vocab = max(self.n_vocab, int(idx.max()) + 1)
@@ -159,6 +163,15 @@ class SparseIndex:
                 self._values.append(val)
             self._flat = None
             return len(self._indices)
+
+    def _commit_device(self, padded: tuple[np.ndarray, np.ndarray], base: int) -> None:
+        """Write padded rows (ids, weights [m, Kd]) at device rows base..
+        (caller holds the lock).  The multi-process leader broadcasts them
+        first, and its followers replay this with the same rows."""
+        di, dv = (torch.from_numpy(np.ascontiguousarray(a)) for a in padded)
+        need = base + len(di)
+        self._rows.put(range(base, need), idx=di, val=dv)
+        self._n_dev = max(self._n_dev, need)
 
     def _pad_pairs(self, pairs) -> tuple[np.ndarray, np.ndarray]:
         """Pairs -> padded [n, Kd] rows sorted by weight, descending (the
@@ -211,6 +224,9 @@ class SparseIndex:
             raise ValueError(f"k must be positive, got {k}")
         if candidates is not None and not self.device:
             raise ValueError("two-stage candidates mode needs the device index")
+        if candidates is not None and self.mesh is not None:
+            raise ValueError("two-stage candidates mode is single-device; use exact "
+                             "search on a mesh")
         if self.device:
             return self._search_device(pairs, k, candidates, prefix)
         with self._lock:
@@ -240,36 +256,53 @@ class SparseIndex:
         return out_i, out_s
 
     def _search_device(self, pairs, k: int, candidates: int | None, prefix: int):
-        dev = self.torch_device
         with self._lock:
-            n = len(self._indices)
-            if n == 0:
+            if self._n_dev == 0:
                 raise RuntimeError("empty index")
-            vocab = self._vocab_pad()
-            rows, cols, vals = [], [], []
+            w = max([len(np.asarray(idx)) for idx, _ in pairs], default=0)
+            q_idx = np.full((len(pairs), w), -1, np.int32)
+            q_val = np.zeros((len(pairs), w), np.float32)
             for qi, (idx, val) in enumerate(pairs):
-                idx = np.asarray(idx, np.int64)
-                val = np.asarray(val, np.float32)
-                keep = (idx >= 0) & (idx < vocab)
-                rows.append(np.full(int(keep.sum()), qi, np.int64))
-                cols.append(idx[keep])
-                vals.append(val[keep])
-            qd = torch.zeros(len(pairs), vocab, dtype=torch.float32, device=dev)
-            if pairs:
-                qd.index_put_((torch.from_numpy(np.concatenate(rows)).to(dev),
-                               torch.from_numpy(np.concatenate(cols)).to(dev)),
-                              torch.from_numpy(np.concatenate(vals)).to(dev), accumulate=True)
-            didx, dval = self._didx[:n], self._dval[:n]
-            kk = min(k, n)
-            with exact_f32():
-                if candidates is None:
-                    scores, ids = select_topk(_gathered_scores(qd.T, didx, dval), kk)
-                else:
-                    c = max(kk, min(int(candidates), n))
-                    p = max(1, min(int(prefix), self.nnz_width))
-                    first = _gathered_scores(qd.T, didx[:, :p], dval[:, :p])
-                    scores, ids = self._rescore(qd, select_topk(first, c)[1], didx, dval, kk)
+                q_idx[qi, : len(idx)] = np.asarray(idx, np.int64).clip(-1, 2**31 - 1)
+                q_val[qi, : len(idx)] = val
+            scores, ids = self._run_device_search(q_idx, q_val, k, candidates, prefix)
         return pad_to_k(ids, scores, k)
+
+    def _dense_queries(self, q_idx: np.ndarray, q_val: np.ndarray, dev) -> torch.Tensor:
+        """The [Q, vocab] f32 queries of padded terms (ids [Q, W], -1 on the
+        pad slots; terms past the vocabulary match nothing)."""
+        vocab = self._vocab_pad()
+        qi = torch.from_numpy(np.ascontiguousarray(q_idx, np.int64))
+        keep = (qi >= 0) & (qi < vocab)
+        rows = torch.arange(len(qi))[:, None].expand_as(qi)[keep]
+        qd = torch.zeros(len(qi), vocab, dtype=torch.float32, device=dev)
+        qd.index_put_((rows.to(dev), qi[keep].to(dev)),
+                      torch.from_numpy(np.ascontiguousarray(q_val, np.float32))[keep].to(dev),
+                      accumulate=True)
+        return qd
+
+    def _run_device_search(self, q_idx: np.ndarray, q_val: np.ndarray, k: int,
+                           candidates: int | None = None, prefix: int = 8):
+        """Padded query terms -> (scores, ids) [Q, min(k, n)] on the device
+        (caller holds the lock).  The multi-process leader broadcasts the
+        terms first."""
+        n = self._n_dev
+        kk = min(k, n)
+        with exact_f32():
+            if candidates is None:
+                def top(f, k):
+                    qd = self._dense_queries(q_idx, q_val, f["idx"].device)
+                    return select_topk(_gathered_scores(qd.T, f["idx"], f["val"]), k)
+
+                return self._rows.top_k(n, kk, len(q_idx), top)
+            # the candidates mode runs on one shard (a mesh refuses it)
+            ((_, f),) = self._rows.shards(n)
+            didx, dval = f["idx"], f["val"]
+            qd = self._dense_queries(q_idx, q_val, didx.device)
+            c = max(kk, min(int(candidates), n))
+            p = max(1, min(int(prefix), self.nnz_width))
+            first = _gathered_scores(qd.T, didx[:, :p], dval[:, :p])
+            return self._rescore(qd, select_topk(first, c)[1], didx, dval, kk)
 
     @staticmethod
     def _rescore(qd, cand, didx, dval, k: int):

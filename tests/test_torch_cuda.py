@@ -1027,7 +1027,7 @@ def test_vector_index_on_the_card_equals_the_cpu(dev, dtype):
     a, b = VectorIndex(card, dtype=dtype), VectorIndex(cpu, dtype=dtype)
     a.add(INDEX_TEXTS)
     b.add(INDEX_TEXTS)
-    assert a._corpus.device.type == "cuda"
+    assert a._rows.bufs[0]["vectors"].device.type == "cuda"
     (ia, sa), (ib, sb) = a.search(INDEX_QUERIES, 8), b.search(INDEX_QUERIES, 8)
     assert ia[2, 0] == ib[2, 0] == 5
     np.testing.assert_allclose(sa, sb, rtol=0, atol=1e-3 if dtype == "bfloat16" else 1e-4)
@@ -1070,7 +1070,7 @@ def test_sparse_index_on_the_card_equals_the_host_backend(dev, candidates):
                        SparseIndex(device=False))
     for index in (card, cpu, host):
         index.add_vectors(docs)
-    assert card._didx.device.type == "cuda"
+    assert card._rows.bufs[0]["idx"].device.type == "cuda"
     ia, sa = card.search_vectors(queries, 10, candidates=candidates)
     ib, sb = cpu.search_vectors(queries, 10, candidates=candidates)
     np.testing.assert_array_equal(ia, ib)
@@ -1093,7 +1093,7 @@ def test_maxsim_index_on_the_card_equals_the_cpu(dev, dtype):
                                                                        doc_maxlen=32)
     a.add(INDEX_TEXTS)
     b.add(INDEX_TEXTS)
-    assert all(t.device.type == "cuda" for t in (a._corpus, a._cmask, a._pooled))
+    assert all(t.device.type == "cuda" for t in a._rows.bufs[0].values())
     (ia, sa), (ib, sb) = a.search(INDEX_QUERIES, 6), b.search(INDEX_QUERIES, 6)
     assert ia[2, 0] == ib[2, 0] == 5
     np.testing.assert_allclose(sa, sb, rtol=1e-3 if dtype == "bfloat16" else 1e-4)

@@ -44,7 +44,8 @@ def test_importing_everything_loads_no_jax():
                  "benchmarks.profiles", "tokenizer.native", "tokenizer.hf",
                  "gguf.native_codec", "utils.jsonfmt", "utils.logging", "utils.native_build",
                  "utils.shared_libs", "runtime.http_server", "runtime.client", "cli.main",
-                 "cli.rerank", "cli.engine_io"):
+                 "cli.rerank", "cli.engine_io", "parallel", "parallel.mesh",
+                 "parallel.group", "parallel.sharding", "parallel.distributed"):
         assert f"embedding_cpp_tpu_torch.{name}" in result["modules"]
 
 
@@ -65,6 +66,8 @@ def _imported_roots(path: Path) -> set[str]:
 def test_sources_import_no_jax():
     files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 15
+    assert {f.name for f in files if f.parent.name == "parallel"} >= {
+        "mesh.py", "group.py", "sharding.py", "distributed.py"}
     offenders = {str(f.relative_to(REPO)): sorted(_imported_roots(f) & set(FORBIDDEN))
                  for f in files}
     assert {f: r for f, r in offenders.items() if r} == {}

@@ -117,7 +117,7 @@ def test_every_commit_refreshes_the_pooled_rows(pairs, order):
     steps = [lambda: ours.add(DOCS), lambda: ours.add_token_vectors(states)]
     for step in steps if order == "add_first" else steps[::-1]:
         step()
-    assert torch.all(torch.linalg.vector_norm(ours._pooled[:22], dim=1) > 0.5)
+    assert torch.all(torch.linalg.vector_norm(ours._rows.gather(22, "pooled"), dim=1) > 0.5)
     queries = [states[3], rng.normal(size=(6, 64)).astype(np.float32)]
     _same(ours.search_token_vectors(queries, k=22, candidates=22),
           ours.search_token_vectors(queries, k=22), 0)
@@ -129,8 +129,9 @@ def test_doc_maxlen_cuts_documents_as_the_reference(pairs):
         ours, theirs = _both(pairs(preset), doc_maxlen=5)
         ours.add(DOCS)
         theirs.add(DOCS)
-        np.testing.assert_array_equal(ours._cmask[:12].numpy(), np.asarray(theirs._cmask[:12]))
-        assert ours._cmask.shape[1] == 5
+        np.testing.assert_array_equal(ours._rows.gather(12, "cmask").numpy(),
+                                      np.asarray(theirs._cmask[:12]))
+        assert ours._rows.bufs[0]["cmask"].shape[1] == 5
         _same(ours.search(QUERIES, k=4), theirs.search(QUERIES, k=4), ATOL["float32"])
 
 
@@ -140,7 +141,7 @@ def test_colbert_skiplist_leaves_punctuation_out(pairs):
     ours, theirs = _both(pairs("tiny-colbert"))
     ours.add(DOCS[:2])
     theirs.add(DOCS[:2])
-    mask = ours._cmask[:2].numpy()
+    mask = ours._rows.gather(2, "cmask").numpy()
     np.testing.assert_array_equal(mask, np.asarray(theirs._cmask[:2]))
     framed = pairs("tiny-colbert")[0].colbert_doc_tokens(DOCS[:2], cap=256)
     skip = pairs("tiny-colbert")[0].colbert_skiplist()
@@ -148,7 +149,7 @@ def test_colbert_skiplist_leaves_punctuation_out(pairs):
         assert row.sum() == sum(t not in skip for t in ids) < len(ids)
     plain = MaxSimIndex(pairs("tiny")[0])
     plain.add(DOCS[:1])
-    assert plain._cmask[0].sum() == len(pairs("tiny")[0].tokenize(DOCS[0]))
+    assert plain._rows.gather(1, "cmask")[0].sum() == len(pairs("tiny")[0].tokenize(DOCS[0]))
 
 
 @pytest.mark.parametrize("preset", ["tiny", "tiny-colbert"])
@@ -217,8 +218,12 @@ def test_bad_inputs_are_refused_as_the_reference_refuses_them(pairs):
     for kw in ({"doc_maxlen": 0},):
         with pytest.raises(ValueError, match="doc_maxlen"):
             MaxSimIndex(pairs("tiny")[0], **kw)
-    with pytest.raises(NotImplementedError, match="distribution layer"):
-        MaxSimIndex(pairs("tiny")[0], mesh=object())
+    from embedding_cpp_tpu_torch.parallel.mesh import Mesh, make_mesh
+
+    # a mesh of two processes, as the JAX package refuses one
+    two = Mesh(make_mesh(dp=1, tp=1, devices=["cpu"]).devices, dp=2, process_count=2)
+    with pytest.raises(RuntimeError, match="single-controller only"):
+        MaxSimIndex(pairs("tiny")[0], mesh=two)
 
 
 def test_presized_and_grown_corpora_agree(pairs):
@@ -226,12 +231,12 @@ def test_presized_and_grown_corpora_agree(pairs):
     rows; the tensors live on the engine's device."""
     engine = pairs("tiny")[0]
     pre, grow = MaxSimIndex(engine, capacity=64), MaxSimIndex(engine)
-    assert pre._corpus.shape[0] == 64 and grow._corpus is None
+    assert pre._rows.bufs[0]["corpus"].shape[0] == 64 and grow._rows.bufs[0]["corpus"] is None
     for index in (pre, grow):
         for lo in range(0, 12, 5):
             index.add(DOCS[lo: lo + 5])
         assert len(index) == 12
-        assert all(t.device == engine.device for t in (index._corpus, index._cmask,
-                                                       index._pooled))
-    assert pre._corpus.dtype == torch.bfloat16 and grow._corpus.shape[0] >= 12
+        assert all(t.device == engine.device for t in index._rows.bufs[0].values())
+    assert pre._rows.bufs[0]["corpus"].dtype == torch.bfloat16
+    assert grow._rows.bufs[0]["corpus"].shape[0] >= 12
     _same(pre.search(QUERIES, k=6), grow.search(QUERIES, k=6), 0)

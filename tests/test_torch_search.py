@@ -116,7 +116,7 @@ def test_incremental_add_and_growth(pair):
         assert ours.add(CORPUS[lo: lo + 9]) == theirs.add(CORPUS[lo: lo + 9])
     v, q = _vectors(n=70)
     assert ours.add_vectors(v) == theirs.add_vectors(v) == 113
-    assert ours._corpus.shape[0] >= 113 and len(ours) == 113
+    assert ours._rows.bufs[0]["vectors"].shape[0] >= 113 and len(ours) == 113
     _same(ours.search(QUERIES, k=6), theirs.search(QUERIES, k=6), ATOL["float32"])
     _same(ours.search_vectors(q, k=6), theirs.search_vectors(q, k=6), ATOL["float32"])
 
@@ -143,7 +143,7 @@ def test_max_index_rows_is_refused_as_the_reference_refuses_it(pair):
         with pytest.raises(ValueError, match=f"exceed {MAX_INDEX_ROWS} rows"):
             index.add_vectors(v)
         assert index._n == MAX_INDEX_ROWS - 1
-    assert ours._corpus.shape[0] == 2
+    assert ours._rows.bufs[0]["vectors"].shape[0] == 2
 
 
 def test_k_past_the_corpus_pads_with_minus_one(pair):
@@ -239,7 +239,8 @@ def test_device_ingest_with_an_int8_transfer_engine(pair):
     a, b = VectorIndex(i8, dtype="float32"), VectorIndex(engine, dtype="float32")
     a.add(CORPUS[:12])
     b.add(CORPUS[:12])
-    torch.testing.assert_close(a._corpus[:12], b._corpus[:12], rtol=0, atol=0)
+    torch.testing.assert_close(a._rows.gather(12, "vectors"), b._rows.gather(12, "vectors"),
+                               rtol=0, atol=0)
     assert not np.array_equal(i8.encode(CORPUS[:1]), engine.encode(CORPUS[:1]))
 
 
@@ -267,7 +268,7 @@ def test_a_model_that_does_not_normalize_is_indexed_as_unit_rows(pair):
     a, b = VectorIndex(o, dtype="float32"), jsearch.VectorIndex(t, dtype="float32")
     a.add(CORPUS[:20])
     b.add(CORPUS[:20])
-    np.testing.assert_allclose(torch.linalg.vector_norm(a._corpus[:20], dim=1).numpy(), 1.0,
+    np.testing.assert_allclose(torch.linalg.vector_norm(a._rows.gather(20, "vectors"), dim=1).numpy(), 1.0,
                                atol=1e-6)
     _same(a.search(QUERIES, k=5), b.search(QUERIES, k=5), ATOL["float32"])
 
@@ -289,9 +290,19 @@ def test_document_and_query_prompts(pair):
     assert not np.allclose(got[1], plain.search(QUERIES, k=5)[1])
 
 
-def test_a_mesh_is_refused_until_the_distribution_layer():
-    with pytest.raises(NotImplementedError, match="distribution layer"):
-        VectorIndex(None, mesh=object())
+def test_a_mesh_is_refused_until_the_distribution_layer(pair):
+    """A mesh is not refused (the name is from before the distribution
+    layer): a corpus sharded over a 2-slot mesh searches as one device's."""
+    from embedding_cpp_tpu_torch.parallel.mesh import make_mesh
+
+    vecs = np.random.default_rng(3).standard_normal((19, 64)).astype(np.float32)
+    one = VectorIndex(pair[0], dtype="float32")
+    sharded = VectorIndex(pair[0], dtype="float32",
+                          mesh=make_mesh(dp=2, tp=1, devices=["cpu", "cpu"]))
+    for index in (one, sharded):
+        index.add_vectors(vecs)
+    assert np.array_equal(sharded.search_vectors(vecs[:4], k=5)[0],
+                          one.search_vectors(vecs[:4], k=5)[0])
 
 
 def test_f32_search_runs_without_tf32_and_restores_the_setting(pair):

@@ -638,7 +638,7 @@ def test_concurrent_hybrid_adds_keep_both_indexes_aligned(splade_pair):
     assert len(b.index) == len(b.sparse_index) == len(texts)
     sparse = [tuple(i.tolist()) for i, _ in ours.encode_sparse(texts, k=256)]
     dense = ours.encode_documents(texts)
-    rows = b.index._corpus[: len(texts)].float().numpy()
+    rows = b.index._rows.gather(len(texts), "vectors").float().numpy()
     for doc_id, stored in enumerate(b.sparse_index._indices):
         text = sparse.index(tuple(stored.tolist()))
         assert int(np.argmax(dense @ rows[doc_id])) == text

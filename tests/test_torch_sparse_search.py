@@ -145,7 +145,7 @@ def test_nnz_width_keeps_the_heaviest_terms():
         _same(ours.search_vectors(q, k=1), theirs.search_vectors(q, k=1))
     assert ours.search_vectors([(np.array([0], np.int32), np.ones(1, np.float32))],
                                k=1)[1][0, 0] == 0.0
-    np.testing.assert_array_equal(ours._didx[0].numpy(), [9, 8, 7, 6])
+    np.testing.assert_array_equal(ours._rows.bufs[0]["idx"][0].numpy(), [9, 8, 7, 6])
 
 
 @pytest.mark.parametrize("backend", ["device", "host"])
@@ -222,9 +222,10 @@ DOCS = ["the dog sat", "hello world", "partly cloudy skies", "hello world", "a c
 def test_engine_backed_index_matches_jax(splade_pair, candidates):
     ours, theirs = splade_pair
     a, b = SparseIndex(ours, k_encode=64), jsparse.SparseIndex(theirs, k_encode=64)
-    assert a.device and a.torch_device == ours.device and a._didx is None
+    assert a.device and a.torch_device == ours.device and a._rows.bufs[0]["idx"] is None
     assert a.add(DOCS) == b.add(DOCS) == 5
-    assert a._didx.device == ours.device and a._didx.shape[1] == 64
+    didx = a._rows.bufs[0]["idx"]
+    assert didx.device == ours.device and didx.shape[1] == 64
     got = a.search(["hello world", "sat dog"], k=3, candidates=candidates)
     _same(got, b.search(["hello world", "sat dog"], k=3, candidates=candidates))
     assert got[0][0, :2].tolist() == [1, 3]
@@ -249,8 +250,11 @@ def test_a_model_without_mlm_head_or_a_mesh_is_refused(tmp_path):
     make_test_model(path, "tiny", "f32", seed=0)
     with pytest.raises(ValueError, match="no MLM head"):
         SparseIndex(Engine.from_gguf(path, device="cpu"))
-    with pytest.raises(NotImplementedError, match="distribution layer"):
-        SparseIndex(mesh=object())
+    from embedding_cpp_tpu_torch.parallel.mesh import make_mesh
+
+    # a mesh shards the device backend's rows: the host backend refuses one
+    with pytest.raises(ValueError, match="mesh sharding requires device=True"):
+        SparseIndex(mesh=make_mesh(dp=2, tp=1, devices=["cpu", "cpu"]))
     assert not SparseIndex().device and SparseIndex(device="cpu").torch_device == \
         torch.device("cpu")
 
