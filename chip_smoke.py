@@ -215,6 +215,22 @@ Phases, in order, each printing JSON lines:
             refuses two ranks on one card), 64 TPE2 frames and one
             /v1/embeddings request against the single-device engine,
             SIGTERM to the leader releases the follower
+  eval      benchmarks/run_eval.py --synthetic --preset minilm-l6 on the card
+            in every engine mode (f32, f16, q4_0, q4_1, q8_0), at f32 and at
+            the default bf16, against one f32 run on the CPU (in its own
+            process, started before the build): Spearman and nDCG@10 within
+            1e-3 (accuracy 0.01) at f32, every score within SCORE_TOLERANCE
+            at bf16, every retrieval gate held
+  headline  benchmarks/bench.py: run_headline (int8 and f32 sentences/s,
+            their cosine; the in-device [32, 512] forwards within 2% of the
+            main phase's, the same weights, inputs and timer) and
+            run_ab_transfer
+  serving   benchmarks/serving.py: 4 clients x 2048 texts in requests of 64
+            over TCP (f32 and int8 wire) and HTTP (base64), and the serving
+            tax A/B; every run's replies against Engine.encode
+  scaling   benchmarks/scaling.py on dp 1, 2 and 4 slots of the card
+  retrieval_scripts  benchmarks/search.py, sparse.py (and --search at
+            100,000 documents) and maxsim_bench.py at their default sizes
   profile   torch.profiler kernel times of the packed [32, 512] forwards
             (MiniLM-L6, ModernBERT, DeBERTa, bge-large, XLM-R, MPNet, T5,
             ALBERT) and of the [8, 8192] ModernBERT forward
@@ -239,8 +255,6 @@ With --out-dir, the ptxas log and the profiler tables are written there.
 from __future__ import annotations
 
 import argparse
-import asyncio
-import contextlib
 import json
 import socket
 import statistics
@@ -254,7 +268,10 @@ from pathlib import Path
 
 import numpy as np
 
+from embedding_cpp_tpu_torch.benchmarks.bench import forward_inputs, synthetic_sentences
 from embedding_cpp_tpu_torch.benchmarks.profiles import packed_rows, segment_pairs, serving_segments
+from embedding_cpp_tpu_torch.benchmarks.serving import free_port as _free_port
+from embedding_cpp_tpu_torch.benchmarks.serving import serving as _serving
 from embedding_cpp_tpu_torch.utils.profiling import (
     F32_PEAKS,
     bound_ms,
@@ -328,21 +345,6 @@ def reset_counts(counters) -> None:
 
 def read_counts(counters) -> dict:
     return {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
-
-
-# --- serving-shaped inputs (packed rows: benchmarks/profiles.py) -------------
-
-def synthetic_sentences(n: int, seed: int = 0) -> list[str]:
-    """The STSB-profile corpus (11 +- 4 words per sentence)."""
-    from embedding_cpp_tpu_torch.tokenizer.testvocab import _COMMON_WORDS
-
-    rng = np.random.default_rng(seed)
-    words = np.array(_COMMON_WORDS)
-    out = []
-    for _ in range(n):
-        k = max(3, int(rng.normal(11, 4)))
-        out.append(" ".join(rng.choice(words, size=k)))
-    return out
 
 
 # --- phases ------------------------------------------------------------------
@@ -1460,16 +1462,10 @@ def phase_main(counters) -> tuple:
             best[key] = min(best[key], time.perf_counter() - t0)
     sps = {f"{p}/{o}": len(texts) / t for (p, o), t in best.items()}
 
-    # in-device forward at [32, 512], plain and packed
-    rng = np.random.default_rng(0)
-    dev = torch.device("cuda")
+    # in-device forward at [32, 512], plain and packed (the headline bench's
+    # inputs: benchmarks/bench.forward_inputs)
     opts = ComputeOptions(dtype="bfloat16")
-    ids = torch.from_numpy(rng.integers(0, config.n_vocab, (32, 512)).astype(np.int32)).to(dev)
-    mask = torch.ones(32, 512, dtype=torch.int32, device=dev)
-    seg_np, pos_np = serving_segments(rng, 32, 512)
-    pids = rng.integers(1, config.n_vocab, (32, 512)).astype(np.int32)
-    pids[seg_np < 0] = 0
-    pids, seg, pos = (torch.from_numpy(a).to(dev) for a in (pids, seg_np, pos_np))
+    ids, mask, pids, seg, pos = forward_inputs(config.n_vocab, torch.device("cuda"))
     with torch.inference_mode():
         # a forward is ~240 launches: spin long enough to queue all of them
         plain_ms = gpu_ms(lambda: bert_embed_batch(base.params, ids, mask, config, opts),
@@ -1494,6 +1490,7 @@ def phase_main(counters) -> tuple:
     total = {name: sum(c[name] for c in launches.values()) for name in counters}
     main = {"config": config, "base": base, "engines": engines, "outs": outs,
             "launches": launches, "forward_ms": {"plain": plain_ms, "packed": packed_ms},
+            "sentences_per_sec": sps,
             "forward_inputs": (ids, mask, pids, seg, pos)}
     return (engines[("auto", "float32")], (base.params, config, pids, seg, pos),
             total, token_lists, main)
@@ -3011,54 +3008,6 @@ def phase_profile(forward_args, engine, token_lists, out_dir, tag: str = "") -> 
           "what": "embed_tokens, 2758 sentences, packed",
           "wall_ms_under_profiler": wall_ms, "device_busy_ms": busy_ms,
           "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms)})
-
-
-def _free_port() -> int:
-    sock = socket.socket()
-    sock.bind(("127.0.0.1", 0))
-    port = sock.getsockname()[1]
-    sock.close()
-    return port
-
-
-@contextlib.contextmanager
-def _serving(engine, **serve_kw):
-    """The TCP server over `engine` on a free local port (with `serve`'s
-    keywords: an HTTP port, more models), on its own event loop thread;
-    yields the TCP port and stops the server on exit."""
-    from embedding_cpp_tpu_torch.runtime.server import serve
-
-    port = _free_port()
-    loop = asyncio.new_event_loop()
-    holder = {}
-
-    def run():
-        asyncio.set_event_loop(loop)
-        holder["task"] = loop.create_task(serve(engine, "127.0.0.1", port, **serve_kw))
-        try:
-            loop.run_until_complete(holder["task"])
-        except asyncio.CancelledError:
-            pass
-        finally:
-            loop.close()
-
-    thread = threading.Thread(target=run, daemon=True)
-    thread.start()
-    try:
-        for p in (port, serve_kw.get("http_port") or port):
-            for _ in range(200):
-                try:
-                    socket.create_connection(("127.0.0.1", p), 1.0).close()
-                    break
-                except OSError:
-                    time.sleep(0.05)
-            else:
-                raise RuntimeError("server did not start")
-        yield port
-    finally:
-        loop.call_soon_threadsafe(holder["task"].cancel)
-        thread.join(timeout=30)
-    check(not thread.is_alive(), "server thread did not stop")
 
 
 def _recv(s, n: int) -> bytes:
@@ -4738,6 +4687,184 @@ def phase_distributed(files: dict, texts: list[str]) -> dict:
     return result
 
 
+# --- the user-level scripts (benchmarks/: eval, headline, serving, ...) ------
+
+EVAL_MODES = ("f32", "f16", "q4_0", "q4_1", "q8_0")
+# the card's f32 eval against the CPU's f32 run: Spearman and nDCG@10 within
+# 1e-3; accuracy within 0.01, since one of the 128 test texts moves it 0.0078
+EVAL_F32_BAR, EVAL_ACCURACY_BAR = 1e-3, 0.01
+
+
+def start_eval_reference(out_dir: Path) -> subprocess.Popen:
+    """The eval phase's reference, `run_eval --synthetic --preset
+    minilm-l6` on the CPU at f32 in every engine mode, in its own process
+    (no card visible to it); its JSON line goes to out_dir/reference.json."""
+    import os
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    cmd = [sys.executable, "-m", "embedding_cpp_tpu_torch.benchmarks.run_eval", "--synthetic",
+           "--preset", "minilm-l6", "--device", "cpu", "--dtype", "float32",
+           "--modes", *EVAL_MODES, "--results", str(out_dir / "cpu")]
+    return subprocess.Popen(cmd, cwd=str(ROOT), env=env, stdout=open(out_dir / "reference.json",
+                                                                      "w"),
+                            stderr=open(out_dir / "reference.log", "w"))
+
+
+def _score_gaps(got: dict, ref: dict, bar: float, acc_bar: float) -> list[str]:
+    """Every score of `got` ({mode: {task: score}}) farther than its bar
+    from `ref`'s, and every score `ref` has that `got` lacks."""
+    gaps = []
+    for mode, scores in ref.items():
+        for task, want in scores.items():
+            have = got.get(mode, {}).get(task)
+            lim = acc_bar if task == "EmotionClassification" else bar
+            if have is None or abs(have - want) > lim:
+                gaps.append(f"{mode}/{task}: {have} vs {want} (bar {lim})")
+    return gaps
+
+
+def phase_eval(counters, reference: subprocess.Popen, out_dir: Path) -> dict:
+    """`run_eval --synthetic --preset minilm-l6` on the card at f32 and at
+    the default bf16, in every engine mode, against the CPU's f32 run."""
+    import torch
+
+    from embedding_cpp_tpu_torch.benchmarks import run_eval
+
+    check(reference.wait(timeout=900) == 0, f"eval reference exited {reference.returncode}: "
+          f"{(out_dir / 'reference.log').read_text()[-2000:]}")
+    cpu = json.loads((out_dir / "reference.json").read_text().strip().splitlines()[-1])
+    card, counts, seconds = {}, {}, {}
+    for dtype in ("float32", "bfloat16"):
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        card[dtype] = run_eval.main(["--synthetic", "--preset", "minilm-l6", "--device", "cuda",
+                                     "--dtype", dtype, "--modes", *EVAL_MODES,
+                                     "--results", str(out_dir / dtype)])
+        torch.cuda.synchronize()
+        seconds[dtype] = time.perf_counter() - t0
+        counts[dtype] = read_counts(counters)
+    gaps = {"float32": _score_gaps(card["float32"]["scores"], cpu["scores"], EVAL_F32_BAR,
+                                   EVAL_ACCURACY_BAR),
+            "bfloat16": _score_gaps(card["bfloat16"]["scores"], cpu["scores"],
+                                    run_eval.SCORE_TOLERANCE, run_eval.SCORE_TOLERANCE)}
+    total = {k: counts["float32"][k] + counts["bfloat16"][k] for k in counters}
+    result = {"phase": "eval", "model": "minilm-l6 (synthetic, make_test_model)",
+              "modes": EVAL_MODES, "cpu_f32": cpu["scores"],
+              "card_f32": card["float32"]["scores"], "card_bf16": card["bfloat16"]["scores"],
+              "card_seconds": seconds,
+              "bars": {"float32": [EVAL_F32_BAR, EVAL_ACCURACY_BAR],
+                       "bfloat16": run_eval.SCORE_TOLERANCE},
+              "gaps": gaps, "gate_failures": {d: card[d]["failures"] for d in card},
+              "launches": {"float32": counts["float32"], "bfloat16": counts["bfloat16"]}}
+    emit(result)
+    check(cpu["failures"] == [], f"eval reference gates: {cpu['failures']}")
+    check(not gaps["float32"] and not gaps["bfloat16"], f"eval scores, card vs CPU: {gaps}")
+    check(all(card[d]["device"] != "cpu" for d in card), "the card's eval ran on the CPU")
+    check(min(total[k] for k in ("q4_matmul", "attn_bse_packed", "attn_bse_keybias")) > 0,
+          f"eval launches {total}")
+    return total
+
+
+def phase_headline(counters, main: dict) -> dict:
+    """benchmarks/bench.py's run_headline and run_ab_transfer on the card:
+    the in-device [32, 512] forwards against the main phase's (the same
+    weights, inputs and timer), its rate beside the main phase's."""
+    import torch
+
+    from embedding_cpp_tpu_torch.benchmarks import bench
+
+    reset_counts(counters)
+    head = bench.run_headline(device="cuda")
+    ab = bench.run_ab_transfer(device="cuda")
+    torch.cuda.synchronize()
+    counts = read_counts(counters)
+    fwd = {"plain": head["forward_ms_in_device_b32_s512"],
+           "packed": head["packed_forward_ms_in_device_b32_s512"]}
+    vs_main = {k: fwd[k] / main["forward_ms"][k] - 1.0 for k in fwd}
+    result = {"phase": "headline", "headline": head, "ab_transfer": ab,
+              "main_forward_ms": main["forward_ms"], "forward_vs_main": vs_main,
+              "rate_vs_main_int8": head["value"] / main["sentences_per_sec"]["auto/int8"],
+              "rate_vs_main_f32": (head["f32_sentences_per_sec"]
+                                   / main["sentences_per_sec"]["auto/float32"]),
+              "launches": counts}
+    emit(result)
+    check(head["int8_cosine_vs_f32_min"] >= COSINE_INT8, f"headline int8 cosine {head}")
+    check(max(abs(v) for v in vs_main.values()) <= 0.02,
+          f"headline forward vs the main phase's: {vs_main}")
+    check(min(counts[k] for k in ("q4_matmul", "attn_bse_packed", "attn_bse_keybias")) > 0,
+          f"headline launches {counts}")
+    return counts
+
+
+def phase_serving(counters) -> dict:
+    """benchmarks/serving.py on the card: 4 clients of 2048 texts in
+    requests of 64 over TCP (f32 and int8 wire) and HTTP (base64), and the
+    serving-tax A/B; each run's replies against Engine.encode."""
+    import torch
+
+    from embedding_cpp_tpu_torch.benchmarks import serving
+
+    runs = {}
+    reset_counts(counters)
+    for tag, argv in (("tcp_f32", []), ("tcp_int8", ["--wire", "int8"]),
+                      ("http_base64", ["--protocol", "http", "--http-encoding", "base64"]),
+                      ("overhead_ab", ["--overhead-ab"])):
+        runs[tag] = serving.main(["--device", "cuda", *argv])
+    torch.cuda.synchronize()
+    counts = read_counts(counters)
+    result = {"phase": "serving", "runs": runs, "launches": counts}
+    emit(result)
+    for tag, r in runs.items():
+        bar = COSINE_INT8 if tag == "tcp_int8" else COSINE_SERVER
+        check(r["min_cosine_vs_encode"] >= bar, f"serving {tag} replies: {r}")
+    check(counts["q4_matmul"] > 0 and counts["attn_bse_packed"] > 0,
+          f"serving launches {counts}")
+    return counts
+
+
+def phase_scaling(counters) -> dict:
+    """benchmarks/scaling.py on dp 1, 2 and 4 slots of the one card."""
+    import torch
+
+    from embedding_cpp_tpu_torch.benchmarks import scaling
+
+    reset_counts(counters)
+    out = scaling.main(["--device", "cuda:0", "--dp", "1", "2", "4"])
+    torch.cuda.synchronize()
+    counts = read_counts(counters)
+    emit({"phase": "scaling", "result": out, "launches": counts})
+    check(set(out["results"]) == {1, 2, 4} and counts["q4_matmul"] > 0
+          and counts["attn_bse_keybias"] > 0, f"scaling {out} {counts}")
+    return counts
+
+
+def phase_retrieval_scripts(counters) -> dict:
+    """benchmarks/search.py, sparse.py and maxsim_bench.py on the card at
+    their default sizes (sparse.py --search at 100,000 documents)."""
+    import torch
+
+    from embedding_cpp_tpu_torch.benchmarks import maxsim_bench, search, sparse
+
+    counts = {}
+    runs = {}
+    for tag, fn, argv in (("search", search.main, []), ("sparse", sparse.main, []),
+                          ("sparse_search", sparse.main, ["--search", "--docs", "100000"]),
+                          ("maxsim", maxsim_bench.main, [])):
+        reset_counts(counters)
+        runs[tag] = fn(["--device", "cuda", *argv])
+        torch.cuda.synchronize()
+        counts[tag] = read_counts(counters)
+        torch.cuda.empty_cache()
+    emit({"phase": "retrieval_scripts", "runs": runs, "launches": counts})
+    check(runs["sparse_search"]["topk_agreement"] == 1.0, f"sparse search {runs}")
+    check(counts["search"]["attn_bse_packed"] + counts["search"]["attn_bse_keybias"] > 0,
+          f"search ingest launches {counts['search']}")
+    check(counts["sparse"]["q4_matmul"] > 0 and counts["sparse"]["attn_bse_keybias"] > 0,
+          f"sparse launches {counts['sparse']}")
+    return counts
+
+
 def _entry(name: str, source: str, replaces: str, launches: int, c: dict, shape: str,
            **extra) -> dict:
     return {"name": name, "route": "cuda", "source": f"embedding_cpp_tpu_torch/csrc/{source}",
@@ -4785,7 +4912,14 @@ def main() -> None:
     out_dir = p.parse_args().out_dir
     sys.path.insert(0, str(ROOT))
     name, smi, peaks = phase_device()
+    import tempfile
+
     import torch
+
+    # the eval phase's CPU reference runs in its own process from here on
+    scripts_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_scripts_")
+    eval_dir = Path(scripts_tmp.name) / "eval"
+    eval_reference = start_eval_reference(eval_dir)
 
     from embedding_cpp_tpu_torch.models import (
         ALBERT_BASE,
@@ -4827,6 +4961,12 @@ def main() -> None:
     headpack = phase_kernels_headpack(peaks)
     k_mesh = phase_kernels_mesh(peaks)
     counters = launch_counters()
+    # the eval reference (started before the build) ends before the first
+    # phase timed on the host's clock
+    t0 = time.perf_counter()
+    check(eval_reference.wait(timeout=900) == 0,
+          f"eval reference: {(eval_dir / 'reference.log').read_text()[-2000:]}")
+    emit({"phase": "eval_reference", "waited_s": time.perf_counter() - t0})
     engine, forward_args, launches, token_lists, main_path = phase_main(counters)
     gguf_counts, files = phase_formats(counters, main_path, token_lists)
     phase_native(main_path, files["q4_0"])
@@ -4894,6 +5034,12 @@ def main() -> None:
     mesh_counts = phase_mesh(counters, main_path, token_lists, mpnet)
     phase_distributed(files, synthetic_sentences(2048, seed=3))
     files["tmp"].cleanup()
+    eval_counts = phase_eval(counters, eval_reference, eval_dir)
+    headline_counts = phase_headline(counters, main_path)
+    serving_counts = phase_serving(counters)
+    scaling_counts = phase_scaling(counters)
+    script_counts = phase_retrieval_scripts(counters)
+    scripts_tmp.cleanup()
 
     # each model's launches beside the times at that model's shapes
     mb_total = {k: mb_launches[k] + long_launches[k] + mb_chunk_counts[k] for k in counters}
@@ -4915,7 +5061,8 @@ def main() -> None:
     paths = (launches, mb_total, de_total, nomic_total, bge_total, bge_f32_counts,
              *family_totals.values(), small_total, t5_gated_counts, rr_counts, nomic_2044,
              splade_counts, colbert_counts, vec_path["counts"], sparse_path["counts"],
-             maxsim_path["counts"], http_path["launches"], *mesh_counts.values())
+             maxsim_path["counts"], http_path["launches"], *mesh_counts.values(), eval_counts,
+             headline_counts, serving_counts, scaling_counts, *script_counts.values())
     # the fused residual/LayerNorm tail on every model path, bf16 and f32
     ln_on_paths = sum(t["q4_matmul_ln"] for t in paths)
     check(ln_on_paths == 0, f"the fused tail ran on a model path {ln_on_paths} times")
@@ -5183,7 +5330,25 @@ def main() -> None:
                           "attn_bse_keybias": token_attn["splade"]}),
         "maxsim-index": (maxsim_path["counts"], "ColBERT, BERT-base (MaxSimIndex.add over the "
                          "corpus)", {"q4_matmul": k1_base,
-                                     "attn_bse_keybias": token_attn["colbert"]})}
+                                     "attn_bse_keybias": token_attn["colbert"]}),
+        # the user-level scripts (benchmarks/): MiniLM-L6 shapes unless named
+        "eval": (eval_counts, "MiniLM-L6 through benchmarks/run_eval.py --synthetic (the card's "
+                 "f32 and bf16 runs, every engine mode; K1 in q4_0, q4_1 and q8_0)",
+                 minilm_timed),
+        "headline": (headline_counts, "MiniLM-L6 through benchmarks/bench.py (run_headline with "
+                     "its in-device forwards, run_ab_transfer)", minilm_timed),
+        "serving": (serving_counts, "MiniLM-L6 behind benchmarks/serving.py (TCP f32 and int8, "
+                    "HTTP base64, the serving-tax A/B)", minilm_timed),
+        "scaling": (scaling_counts, "benchmarks/scaling.py's MiniLM-L6-shaped f32 forward on dp "
+                    "1, 2 and 4 slots of the card (the f32 kernels; timed at the bf16 entries)",
+                    minilm_timed),
+        "search-bench": (script_counts["search"], "benchmarks/search.py's one-layer f32 "
+                         "ingest model (384 wide)", minilm_timed),
+        "sparse-bench": (script_counts["sparse"], "benchmarks/sparse.py's splade-base forward "
+                         "and Engine.encode_sparse / maxsim (K1 counts the decoder's 1-D "
+                         "launches)", {"q4_matmul": k1_base, "q4_matmul_2d": splade_dec_k,
+                                       "attn_bse_packed": attn_mb["attn_bse_packed"],
+                                       "attn_bse_keybias": token_attn["splade"]})}
     for tag, (counts, label, timed) in retrieval.items():
         for kname, c in timed.items():
             if counts[kname]:

@@ -26,13 +26,14 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 import time
 from types import SimpleNamespace
 
 import numpy as np
 import torch
+
+from ..utils.profiling import device_block
 
 K = 10
 
@@ -127,15 +128,6 @@ def bench_maxsim(dev, runs: int, seed: int, nm: int = 10_000, sd: int = 256, e: 
     return out
 
 
-def _device() -> dict:
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
-    name, _, limit = smi.partition(",")
-    return {"platform": "gpu", "name": torch.cuda.get_device_name(0),
-            "nvidia_smi_name": name.strip(), "power_limit": limit.strip()}
-
-
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -146,7 +138,7 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: the index timings run only on the GPU")
     dev = torch.device("cuda")
-    results = {"device": _device()}
+    results = {"device": device_block()}
     for key, fn in (
         ("dense_small", lambda: bench_dense(dev, 3000, 512, ("bfloat16",), args.runs,
                                             args.seed)),

@@ -44,7 +44,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 
 import numpy as np
@@ -70,7 +69,7 @@ from ..ops.deberta_attention import (
 )
 from ..ops.deberta_attention import work as deberta_work
 from ..ops.q4_matmul import _q4_matmul_1d, _q4_matmul_2d, dequant_weight, q4_matmul, route
-from ..utils.profiling import bound_ms, gpu_ms, peaks_for
+from ..utils.profiling import bound_ms, device_block, gpu_ms, peaks_for
 from .profiles import packed_rows, segment_pairs, serving_segments
 
 # --- the A/B suite -------------------------------------------------------------
@@ -624,16 +623,6 @@ def bench_deberta_attention(peaks, b: int = 16, s: int = 512, h: int = 12, d: in
             "library": _timed(_sdpa(*heads, mask, scale=scale), nbytes, flops, peaks)}
 
 
-def _device() -> dict:
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
-    name, _, limit = smi.partition(",")
-    return {"platform": "gpu", "name": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count(), "nvidia_smi_name": name.strip(),
-            "power_limit": limit.strip(), "torch": torch.__version__, "cuda": torch.version.cuda}
-
-
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -645,7 +634,7 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: the kernel suite runs only on the GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
-    device = _device()
+    device = device_block()
     _, peaks = peaks_for(device["name"])
 
     def log(line: str) -> None:

@@ -11,6 +11,7 @@ profiles, times and bounds are taken and computed one way.
 """
 from __future__ import annotations
 
+import subprocess
 from contextlib import contextmanager
 from pathlib import Path
 
@@ -76,9 +77,46 @@ def gpu_ms(fn, samples: int = 20, reps: int = 3, spin: int = 2_000_000) -> float
     return float(np.median(times))
 
 
+
+def device_ms(fn, device, samples: int = 20, spin: int = 2_000_000) -> float:
+    """ms per call of `fn` on `device`: on a card `gpu_ms` with one call a
+    sample (a call that waits on the host is timed up to its end); on the
+    CPU the least host-clock time of `samples` calls after a warmup."""
+    import time
+
+    import torch
+
+    if torch.device(device).type == "cuda":
+        return gpu_ms(fn, samples=samples, reps=1, spin=spin)
+    fn()
+    best = float("inf")
+    for _ in range(samples):
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, time.perf_counter() - t0)
+    return best * 1e3
+
 def bound_ms(nbytes: float, flops: float, peaks: tuple[float, float]) -> tuple[float, str]:
     """The least time for work that moves `nbytes` and does `flops`: the
     larger of bytes / memory rate and flops / peak rate, with which one."""
     bw, flop_rate = peaks
     t_bytes, t_ops = nbytes / bw * 1e3, flops / flop_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def device_block(device=None):
+    """What a measurement ran on: "cpu" for a CPU run; for the card, its
+    name and power limit as `nvidia-smi --query-gpu=name,power.limit` gives
+    them, beside torch's name, the card count and the torch and CUDA
+    versions, so no time stands without its card."""
+    import torch
+
+    if device is not None and torch.device(device).type == "cpu":
+        return "cpu"
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    name, _, limit = smi.partition(",")
+    return {"platform": "gpu", "name": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(), "nvidia_smi_name": name.strip(),
+            "power_limit": limit.strip(), "torch": torch.__version__, "cuda": torch.version.cuda}

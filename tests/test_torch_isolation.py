@@ -45,7 +45,13 @@ def test_importing_everything_loads_no_jax():
                  "gguf.native_codec", "utils.jsonfmt", "utils.logging", "utils.native_build",
                  "utils.shared_libs", "runtime.http_server", "runtime.client", "cli.main",
                  "cli.rerank", "cli.engine_io", "parallel", "parallel.mesh",
-                 "parallel.group", "parallel.sharding", "parallel.distributed"):
+                 "parallel.group", "parallel.sharding", "parallel.distributed",
+                 "benchmarks.tasks", "benchmarks.run_eval", "benchmarks.print_tables",
+                 "benchmarks.bench", "benchmarks.serving", "benchmarks.scaling",
+                 "benchmarks.search", "benchmarks.sparse", "benchmarks.maxsim_bench",
+                 "benchmarks.indexes", "examples", "examples.semantic_search",
+                 "examples.sparse_retrieval", "examples.late_interaction_search",
+                 "examples.sample_client"):
         assert f"embedding_cpp_tpu_torch.{name}" in result["modules"]
 
 
@@ -68,6 +74,12 @@ def test_sources_import_no_jax():
     assert len(files) > 15
     assert {f.name for f in files if f.parent.name == "parallel"} >= {
         "mesh.py", "group.py", "sharding.py", "distributed.py"}
+    assert {f.name for f in files if f.parent.name == "benchmarks"} >= {
+        "tasks.py", "run_eval.py", "print_tables.py", "bench.py", "serving.py", "scaling.py",
+        "search.py", "sparse.py", "maxsim_bench.py"}
+    assert {f.name for f in files if f.parent.name == "examples"} >= {
+        "semantic_search.py", "sparse_retrieval.py", "late_interaction_search.py",
+        "sample_client.py"}
     offenders = {str(f.relative_to(REPO)): sorted(_imported_roots(f) & set(FORBIDDEN))
                  for f in files}
     assert {f: r for f, r in offenders.items() if r} == {}
