@@ -229,8 +229,35 @@ Phases, in order, each printing JSON lines:
             over TCP (f32 and int8 wire) and HTTP (base64), and the serving
             tax A/B; every run's replies against Engine.encode
   scaling   benchmarks/scaling.py on dp 1, 2 and 4 slots of the card
-  retrieval_scripts  benchmarks/search.py, sparse.py (and --search at
-            100,000 documents) and maxsim_bench.py at their default sizes
+  retrieval_scripts  benchmarks/search.py (its ingest model 384 wide with 4
+            heads of 96), sparse.py (and --search at 100,000 documents) and
+            maxsim_bench.py at their default sizes
+  head_dims  head dims outside 16/32/64/128: K2/K3 checked against
+            their plain versions at 4 heads of 96 (`kernels_attention` at
+            [32, 512, 4x96] and the short buckets, bf16 and f32), then a
+            MiniLM-L6-shaped Q4_0 Engine 384 wide with 4 heads of 96 in bf16
+            over the corpus, packed (K2) and plain (K3), against the same
+            Engine with attn_impl "plain" (cosine >= 0.999), no plain route
+            taken; tiny-modernbert at 2 heads of 24 packed "always" at 2048,
+            whose every attention call takes the plain version (no kernel
+            has d 24), counted in the wrappers' `plain_routes`, against the
+            f32 CPU path
+  scripts   the breakdown and A/B scripts at their production shapes (the
+            1000-word vocabulary cut of the main phase; fewer samples than
+            their defaults): forward_breakdown (the q4_0 MiniLM-L6 [32, 512]
+            forward and its pieces, accounted_pct), modernbert_breakdown
+            (ModernBERT-base's pieces and the attn_impl A/B at [32, 512] and
+            [8, 1024], plain and packed), packed_bse_ab (K2 against K6a and
+            SDPA at [32, 512, 12x32], the packed-forward route A/Bs),
+            attn_bias_smoke (every case within 0.06 of its einsum
+            reference), the kernel suite's five full-forward modes, and the
+            C ABI example (examples/sample_dylib.py: the library built with
+            make, the port's server over the formats phase's Q4_0 file,
+            tpe_connect, dylib.cpp built with g++ and run): each script's
+            launches and seconds
+  plain_routes  every attention wrapper's count of calls that took the plain
+            version because no kernel instance serves their head dim: 0 on
+            every path but the head_dims phase's d 24 engine
   profile   torch.profiler kernel times of the packed [32, 512] forwards
             (MiniLM-L6, ModernBERT, DeBERTa, bge-large, XLM-R, MPNet, T5,
             ALBERT) and of the [8, 8192] ModernBERT forward
@@ -317,6 +344,16 @@ COSINE_SERVER = 0.9999  # wire replies vs engine.encode
 # HTTP_WINDOW_S seconds an encoding; HTTP_PROFILED requests each profiled
 HTTP_WINDOW_S, HTTP_REPEATS, HTTP_PROFILED = 2.0, 3, 4
 COSINE_INT8 = 0.999  # int8 wire codes (one step is 1/127 of a row's largest value)
+# each counter's TPU kernel (file:line under embedding_cpp_tpu/ops/) for the
+# kernels line
+KERNEL_LINES = {"q4_matmul": "q4_matmul.py:126", "q4_matmul_prologue": "q4_matmul.py:214",
+                "q4_matmul_2d": "q4_matmul.py:259", "attn_bse_packed": "attention.py:213",
+                "attn_bse_keybias": "attention.py:213", "attn_bse_bias": "attention.py:213",
+                "attn_bse_bias_packed": "attention.py:213", "attn_long": "attention.py:26",
+                "attn_local": "attention.py:597", "attn_seg": "attention.py:418",
+                "attn_seg_window": "attention.py:500", "attn_seg_local": "",
+                "deberta_attn": "deberta_attention.py:76",
+                "deberta_attn_packed": "deberta_attention.py:185"}
 ATTENTION = ("attn_bse_packed", "attn_bse_keybias", "attn_bse_bias", "attn_bse_bias_packed",
              "attn_long", "attn_local", "deberta_attn", "deberta_attn_packed", "attn_seg",
              "attn_seg_window", "attn_seg_local")
@@ -4865,6 +4902,169 @@ def phase_retrieval_scripts(counters) -> dict:
     return counts
 
 
+# --- head dims outside the kernels' instances, and the breakdown scripts ------
+
+def plain_routes() -> dict:
+    """Every attention wrapper's count of calls that "auto" sent to the
+    plain version because no kernel instance serves their head dim (never
+    reset: the run's total)."""
+    from embedding_cpp_tpu_torch.ops import attention as A
+    from embedding_cpp_tpu_torch.ops import deberta_attention as DA
+
+    fns = (A.flash_attention_bse, A.flash_attention_packed_bse, A.flash_attention,
+           A.flash_attention_local, A.flash_attention_packed, A.flash_attention_packed_local,
+           DA.disentangled_attention, DA.disentangled_attention_packed)
+    return {fn.__name__: fn.plain_routes for fn in fns}
+
+
+def phase_head_dims(counters, token_lists) -> dict:
+    """A 384-wide Q4_0 Engine of 4 heads of 96 (MiniLM-L6's shape
+    otherwise) in bf16 over the corpus, packed (K2) and plain (K3), against
+    the same weights with attn_impl "plain", and no plain route; then
+    tiny-modernbert at 2 heads of 24, packed "always" at 2048, through the
+    counted plain route, against the f32 CPU path."""
+    import torch
+
+    from embedding_cpp_tpu_torch import Engine
+    from embedding_cpp_tpu_torch.cli.make_test_model import PRESETS
+    from embedding_cpp_tpu_torch.models import MINILM_L6, ComputeOptions
+
+    config = replace(MINILM_L6, n_vocab=1000, n_head=4, name="minilm-l6-4x96")
+    base = Engine.synthetic(config, "q4_0", seed=21, opts=ComputeOptions(dtype="bfloat16"),
+                            device="cuda")
+    result = {"phase": "head_dims", "model": config.name, "head_dim": config.head_dim,
+              "sentences": len(token_lists)}
+    total = {k: 0 for k in counters}
+    for packing in ("auto", "never"):
+        eng, plain = (Engine(base.params, config, base.tokenizer, base.special_ids,
+                             opts=ComputeOptions(dtype="bfloat16", attn_impl=impl),
+                             device="cuda", packing=packing) for impl in ("auto", "plain"))
+        routes = plain_routes()
+        reset_counts(counters)
+        got = eng.embed_tokens(token_lists)
+        torch.cuda.synchronize()
+        counts = read_counts(counters)
+        ref = plain.embed_tokens(token_lists)
+        cos = _min_cos(got, ref)
+        used = "attn_bse_packed" if packing == "auto" else "attn_bse_keybias"
+        forwards = _expected_forwards(eng, token_lists)
+        result[packing] = {"launches": counts, "forwards": forwards,
+                           "min_cosine_vs_plain": cos}
+        attn = counts["attn_bse_packed"] + counts["attn_bse_keybias"]
+        check(counts[used] > 0 and attn == 6 * forwards
+              and sum(counts[k] for k in ATTENTION) == attn
+              and counts["q4_matmul"] == 36 * forwards,
+              f"head_dims {packing}: launches {counts} over {forwards} forwards")
+        check(plain_routes() == routes, f"head_dims {packing}: a plain route at d 96")
+        check(cos >= COSINE_VS_CPU, f"head_dims {packing}: cosine vs plain {cos}")
+        total = {k: total[k] + counts[k] for k in counters}
+
+    tiny = replace(PRESETS["tiny-modernbert"], n_embd=48, n_head=2, n_ctx=2048)
+    kw = dict(packing="always", pack_seq=2048)
+    rng = np.random.default_rng(24)
+    lists = [rng.integers(5, tiny.n_vocab, size=int(n)).tolist()
+             for n in (12, 700, 1500, 64, 300, 900)]
+    card = Engine.synthetic(tiny, "f32", device="cuda", **kw)
+    routes = plain_routes()
+    reset_counts(counters)
+    got = card.embed_tokens(lists)
+    torch.cuda.synchronize()
+    counts = read_counts(counters)
+    card_routes = {k: v - routes[k] for k, v in plain_routes().items()}
+    # the CPU path's calls count too: the route is decided from the shape
+    err = float(np.abs(got - Engine.synthetic(tiny, "f32", device="cpu", **kw)
+                       .embed_tokens(lists)).max())
+    taken = {k: v - routes[k] for k, v in plain_routes().items()}
+    result["d24"] = {"model": "tiny-modernbert 48 wide, 2 heads of 24, packed always at 2048",
+                     "lists": len(lists), "plain_routes_card": card_routes,
+                     "plain_routes_card_and_cpu": taken, "max_abs_err_vs_cpu": err,
+                     "attention_launches": sum(counts[k] for k in ATTENTION)}
+    emit(result)
+    check(card_routes["flash_attention_packed"] > 0
+          and card_routes["flash_attention_packed_local"] > 0
+          and 2 * card_routes["flash_attention_packed"] == taken["flash_attention_packed"],
+          f"d 24: the plain routes {card_routes}, with the CPU path's {taken}")
+    check(sum(counts[k] for k in ATTENTION) == 0, f"d 24 launched a kernel: {counts}")
+    check(err <= 1e-4, f"d 24 vs the CPU path: {err}")
+    return total, taken
+
+
+def phase_scripts(counters, files: dict, out_dir) -> dict:
+    """The breakdown and A/B scripts, the kernel suite's full-forward modes
+    and the C ABI example on the card, each as a user runs it (its main):
+    launches and seconds per script, and the checks each one's output
+    allows."""
+    import tempfile
+
+    import torch
+
+    from embedding_cpp_tpu_torch import Engine
+    from embedding_cpp_tpu_torch.benchmarks import (
+        attn_bias_smoke,
+        forward_breakdown,
+        modernbert_breakdown,
+        packed_bse_ab,
+    )
+    from embedding_cpp_tpu_torch.benchmarks import kernels as suite
+    from embedding_cpp_tpu_torch.examples import sample_dylib
+    from embedding_cpp_tpu_torch.models import ComputeOptions
+
+    results = str(out_dir / "bench_results") if out_dir is not None else ""
+    cut = ["--device", "cuda", "--vocab", "1000", "--results", results]
+    build = tempfile.TemporaryDirectory(prefix="chip_smoke_capi_")
+    modes = [f"--{m.replace('_', '-')}" for m in suite.FORWARD_MODES]
+    jobs = (("forward_breakdown", forward_breakdown.main, [*cut, "--samples", "10"]),
+            ("modernbert_breakdown", modernbert_breakdown.main,
+             [*cut, "--samples", "5", "--ab-samples", "3"]),
+            ("packed_bse_ab", packed_bse_ab.main,
+             [*cut, "--samples", "10", "--forward-samples", "3"]),
+            ("attn_bias_smoke", attn_bias_smoke.main, ["--device", "cuda", "--results", results]),
+            ("kernels_forward_modes", suite.main, [*cut, *modes, "--samples", "3"]),
+            ("sample_dylib", sample_dylib.main,
+             [str(files["q4_0"]), "--device", "cuda", "--demo", "--build-dir", build.name]))
+    runs, counts, seconds = {}, {}, {}
+    try:
+        for tag, fn, argv in jobs:
+            reset_counts(counters)
+            t0 = time.perf_counter()
+            runs[tag] = fn(argv)  # attn_bias_smoke exits 1 where a case misses
+            torch.cuda.synchronize()
+            seconds[tag] = time.perf_counter() - t0
+            counts[tag] = read_counts(counters)
+            torch.cuda.empty_cache()
+    finally:
+        build.cleanup()
+    fb, mb, ab = runs["forward_breakdown"], runs["modernbert_breakdown"], runs["packed_bse_ab"]
+    dyl = runs["sample_dylib"]
+    ref = Engine.from_gguf(str(files["q4_0"]), opts=ComputeOptions(dtype="bfloat16"),
+                           device="cuda").encode(sample_dylib.SENTENCES)
+    dyl_cos = _min_cos(np.asarray(dyl["embeddings"], np.float32), ref)
+    emit({"phase": "scripts", "seconds": seconds, "launches": counts,
+          "forward_breakdown": {k: fb[k] for k in ("full_forward_us", "per_layer_us",
+                                                   "accounted_us", "accounted_pct")},
+          "modernbert_breakdown": {k: mb[k] for k in ("full_forward_us", "per_layer_us",
+                                                      "accounted_us", "accounted_pct")},
+          "packed_kernel": ab["packed_kernel_b32_s512_minilm_geom"],
+          "attn_bias_smoke_ok": runs["attn_bias_smoke"]["ok"],
+          "sample_dylib": {"n_embd": dyl["n_embd"], "min_cosine_vs_encode": dyl_cos,
+                           "demo": dyl["demo"]}})
+    check(runs["attn_bias_smoke"]["ok"], "attn_bias_smoke missed a case")
+    check(0 < fb["accounted_pct"] and 0 < mb["accounted_pct"],
+          f"breakdowns: {fb['accounted_pct']} {mb['accounted_pct']}")
+    check(ab["packed_kernel_b32_s512_minilm_geom"]["bse_vs_plain"] <= 0.06,
+          f"packed_bse_ab parity {ab['packed_kernel_b32_s512_minilm_geom']}")
+    check(dyl["n_embd"] == 384 and dyl_cos >= COSINE_SERVER and "search" in dyl["demo"],
+          f"sample_dylib: cosine {dyl_cos}, demo {dyl['demo']!r}")
+    for r in (fb, mb, ab, runs["attn_bias_smoke"], runs["kernels_forward_modes"], dyl):
+        check(isinstance(r["device"], dict) and "power_limit" in r["device"],
+              f"a script's device entry: {r['device']}")
+    total = {k: sum(c[k] for c in counts.values()) for k in counters}
+    launched = ("q4_matmul", "attn_bse_packed", "attn_bse_keybias", "attn_bse_bias",
+                "attn_long", "attn_seg", "attn_local", "deberta_attn")
+    check(all(total[k] > 0 for k in launched), f"the scripts' launches {total}")
+    return total
+
+
 def _entry(name: str, source: str, replaces: str, launches: int, c: dict, shape: str,
            **extra) -> dict:
     return {"name": name, "route": "cuda", "source": f"embedding_cpp_tpu_torch/csrc/{source}",
@@ -4958,6 +5158,8 @@ def main() -> None:
     attn.update(phase_kernels_seg_local(peaks))
     attn_bge = phase_kernels_attention(peaks, "bge-large-en-v1.5", 16, 64, seed=5)
     attn_es = phase_kernels_attention(peaks, "electra-small", 4, 64, seed=6)
+    # head dim 96: benchmarks/search.py's ingest model, the head_dims phase
+    attn_d96 = phase_kernels_attention(peaks, "384 wide, 4 heads of 96", 4, 96, seed=21)
     headpack = phase_kernels_headpack(peaks)
     k_mesh = phase_kernels_mesh(peaks)
     counters = launch_counters()
@@ -4968,6 +5170,9 @@ def main() -> None:
           f"eval reference: {(eval_dir / 'reference.log').read_text()[-2000:]}")
     emit({"phase": "eval_reference", "waited_s": time.perf_counter() - t0})
     engine, forward_args, launches, token_lists, main_path = phase_main(counters)
+    check(sum(plain_routes().values()) == 0, f"a plain route before head_dims: "
+          f"{plain_routes()}")
+    head_counts, head_routes = phase_head_dims(counters, token_lists)
     gguf_counts, files = phase_formats(counters, main_path, token_lists)
     phase_native(main_path, files["q4_0"])
     mb, mb_outs, mb_launches, mb_forward_args = phase_modernbert_main(counters, token_lists)
@@ -5033,6 +5238,7 @@ def main() -> None:
     phase_cli(files)
     mesh_counts = phase_mesh(counters, main_path, token_lists, mpnet)
     phase_distributed(files, synthetic_sentences(2048, seed=3))
+    scripts_counts = phase_scripts(counters, files, out_dir)
     files["tmp"].cleanup()
     eval_counts = phase_eval(counters, eval_reference, eval_dir)
     headline_counts = phase_headline(counters, main_path)
@@ -5062,7 +5268,8 @@ def main() -> None:
              *family_totals.values(), small_total, t5_gated_counts, rr_counts, nomic_2044,
              splade_counts, colbert_counts, vec_path["counts"], sparse_path["counts"],
              maxsim_path["counts"], http_path["launches"], *mesh_counts.values(), eval_counts,
-             headline_counts, serving_counts, scaling_counts, *script_counts.values())
+             headline_counts, serving_counts, scaling_counts, *script_counts.values(),
+             head_counts, scripts_counts)
     # the fused residual/LayerNorm tail on every model path, bf16 and f32
     ln_on_paths = sum(t["q4_matmul_ln"] for t in paths)
     check(ln_on_paths == 0, f"the fused tail ran on a model path {ln_on_paths} times")
@@ -5343,7 +5550,8 @@ def main() -> None:
                     "1, 2 and 4 slots of the card (the f32 kernels; timed at the bf16 entries)",
                     minilm_timed),
         "search-bench": (script_counts["search"], "benchmarks/search.py's one-layer f32 "
-                         "ingest model (384 wide)", minilm_timed),
+                         "ingest model (384 wide, 4 heads of 96)",
+                         {k: attn_d96[k] for k in ("attn_bse_packed", "attn_bse_keybias")}),
         "sparse-bench": (script_counts["sparse"], "benchmarks/sparse.py's splade-base forward "
                          "and Engine.encode_sparse / maxsim (K1 counts the decoder's 1-D "
                          "launches)", {"q4_matmul": k1_base, "q4_matmul_2d": splade_dec_k,
@@ -5356,6 +5564,31 @@ def main() -> None:
                 kernels.append(_entry(f"{kname}/{tag}", src, line, counts[kname], c,
                                       f"{label}: timed at the shape of that model's "
                                       f"{kname} entry", model=tag))
+    # head dim 96 (the head_dims phase's Engine; search.py's entry above)
+    for kname in ("attn_bse_packed", "attn_bse_keybias"):
+        c = attn_d96[kname]
+        kernels.append(_entry(f"{kname}/d96", "attention_bse.cu", "attention.py:213",
+                              head_counts[kname], c, f"[{c['b']}, {c['s']}, {c['h']}*{c['d']}] "
+                              "bf16: the head_dims phase's Engine, 384 wide with 4 heads of 96",
+                              model="minilm-l6-4x96"))
+    # the breakdown and A/B scripts, each kernel timed at its main-path entry
+    scripts_timed = {"q4_matmul": k1_mini, "q4_matmul_prologue": k1m["prologue"],
+                     "q4_matmul_2d": k8_layer,
+                     **{k: attn[k] for k in ATTENTION}}
+    for kname, n in scripts_counts.items():
+        if n and kname not in ("q4_matmul_ln", "attention_headpack"):
+            check(kname in scripts_timed, f"the scripts launched {kname}, timed nowhere")
+            c = scripts_timed[kname]
+            src = ("q4_matmul.cu" if kname.startswith("q4") else "deberta_attention.cu"
+                   if kname.startswith("deberta") else "attention_bse.cu"
+                   if kname.startswith("attn_bse") else "attention_long.cu")
+            kernels.append({**_entry(
+                f"{kname}/scripts", src, KERNEL_LINES[kname], n, c,
+                "benchmarks/{forward_breakdown,modernbert_breakdown,packed_bse_ab,"
+                "attn_bias_smoke}.py and the kernel suite's full-forward modes: timed at "
+                f"the shape of the {kname} entry", model="scripts"),
+                **({"replaces": "embedding_cpp_tpu/models/modernbert.py:360 (XLA; no TPU "
+                                "kernel)"} if kname == "attn_seg_local" else {})})
     # the formats phase: the main path loaded from a port-written Q4_0 GGUF
     kernels.append(_entry("q4_matmul/gguf", "q4_matmul.cu", "q4_matmul.py:126",
                           gguf_counts["q4_matmul"], k1_mini, "MiniLM-L6 loaded by "
@@ -5406,6 +5639,9 @@ def main() -> None:
     check(all(k["launches"] > 0 for k in kernels
               if k["name"] not in ("q4_matmul_ln", "attention_headpack")),
           f"a kernel was never launched: {[(k['name'], k['launches']) for k in kernels]}")
+    totals = plain_routes()
+    emit({"phase": "plain_routes", "totals": totals, "head_dims_d24": head_routes})
+    check(totals == head_routes, f"a plain route outside the head_dims phase's d 24: {totals}")
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

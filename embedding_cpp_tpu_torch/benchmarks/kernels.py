@@ -39,6 +39,27 @@ suite's bench of that name (`ops/attention.attention_headpack`, kernel
 `csrc/attention_headpack.cu`).  No model path runs B1: it measures
 whether packing heads into one wide product pays on the card's tensor
 cores.
+
+The full-forward modes of the JAX suite each time a whole forward of a
+preset (random weights, seed 0, bf16) with a family of kernels on and off
+(`q4_impl` / `attn_impl`, ops/dispatch.py: "kernel" against "plain", where
+the JAX suite set "pallas" against "xla"), in ms and tokens/s, and the
+largest difference of the two outputs:
+    --forward-only   q4_impl, q4_0 MiniLM-L6 at [32, 512] and [128, 128]
+    --mpnet-forward  attn_impl, MPNet at [32, 512]
+    --bias-ab        K4 against SDPA at [32, 512, 12x64], then attn_impl for
+                     mpnet-base and gtr-base at [32, 512] and modernbert-base
+                     at [32, 512] and [8, 1024]
+    --nomic-ab       attn_impl, nomic-embed-text at [32, 512] and [1, 8192]
+    --deberta-ab     K9 against SDPA, then attn_impl for deberta-base at
+                     [32, 512] and [32, 256]
+The attn_impl forwards keep dense bf16 weights (`random_params` at f32, as
+the JAX suite's), so the two arms differ in the attention alone.  These
+modes also run on the CPU (`--device cpu`, where the two arms are "auto"
+and "plain", both the plain versions: the run checks the code path, not a
+speed), cut with `--layers`, `--vocab` and `--shape`; a kernel-against-
+library entry runs on the card only.  Without `--device` every mode needs
+a card.
 """
 from __future__ import annotations
 
@@ -69,7 +90,7 @@ from ..ops.deberta_attention import (
 )
 from ..ops.deberta_attention import work as deberta_work
 from ..ops.q4_matmul import _q4_matmul_1d, _q4_matmul_2d, dequant_weight, q4_matmul, route
-from ..utils.profiling import bound_ms, device_block, gpu_ms, peaks_for
+from ..utils.profiling import bound_ms, device_block, device_ms, gpu_ms, peaks_for
 from .profiles import packed_rows, segment_pairs, serving_segments
 
 # --- the A/B suite -------------------------------------------------------------
@@ -623,22 +644,262 @@ def bench_deberta_attention(peaks, b: int = 16, s: int = 512, h: int = 12, d: in
             "library": _timed(_sdpa(*heads, mask, scale=scale), nbytes, flops, peaks)}
 
 
-def main(argv=None) -> None:
+# --- the full-forward A/Bs -----------------------------------------------------
+
+# GPU spin (cycles) queued before each sample of a whole forward: ~25 ms on
+# an H100, long enough for the host to queue a forward's few hundred launches
+FORWARD_SPIN = 50_000_000
+
+
+def ab_impls(device) -> tuple[str, str]:
+    """The two arms of a forward A/B: the kernel and its plain version on
+    the card; on the CPU, where no kernel runs, "auto" (the plain version
+    chosen by the device) and "plain"."""
+    return ("kernel", "plain") if torch.device(device).type == "cuda" else ("auto", "plain")
+
+
+def forward_ms(fn, device, samples: int = 5, warmup: int = 2) -> float:
+    """ms per call of `fn`, a whole forward or a piece of one: on the card
+    CUDA events around one call queued behind a GPU spin (`gpu_ms`, after
+    `warmup` calls), the median of `samples`; on the CPU the least
+    host-clock time."""
+    if torch.device(device).type == "cuda":
+        return gpu_ms(fn, samples=samples, reps=1, spin=FORWARD_SPIN, warmup=warmup)
+    return device_ms(fn, device, samples)
+
+
+def preset_config(preset: str, layers: int | None = None, vocab: int | None = None):
+    """The preset's config, its depth cut to `layers` and its vocabulary to
+    `vocab` where given (widths and heads stay the published ones)."""
+    from dataclasses import replace
+
+    from ..cli.make_test_model import PRESETS
+
+    config = PRESETS[preset]
+    cut = {k: v for k, v in (("n_layer", layers), ("n_vocab", vocab)) if v}
+    return replace(config, **cut) if cut else config
+
+
+def forward_case(config, b: int, s: int, device, ftype: str = "q4_0", seed: int = 0,
+                 params: dict | None = None) -> dict:
+    """Parameters of `config` stored as `ftype` (random, `seed`; dense
+    weights in bf16), or the `params` given, and the in-device forward's
+    inputs at [b, s] (`bench.forward_inputs`: full rows, and packed rows
+    of the corpus's length profile) on `device`."""
+    from ..models import random_params
+    from .bench import forward_inputs
+
+    if params is None:
+        params = random_params(config, ftype, seed=seed, dense_dtype=torch.bfloat16,
+                               device=device)
+    ids, mask, pids, seg, pos = forward_inputs(config.n_vocab, device, b, s, seed)
+    return {"params": params, "config": config, "ids": ids, "mask": mask, "pids": pids,
+            "seg": seg, "pos": pos}
+
+
+def forward_fn(case: dict, opts, packed: bool = False):
+    """A no-argument call of the case's forward under `opts`: plain
+    buckets (`bert_embed_batch`) or packed rows (`bert_embed_packed`, 64
+    segment slots a row)."""
+    from ..models import bert_embed_batch, bert_embed_packed
+
+    c = case
+    if packed:
+        return lambda: bert_embed_packed(c["params"], c["pids"], c["seg"], c["pos"],
+                                         c["config"], opts, n_seg=64)
+    return lambda: bert_embed_batch(c["params"], c["ids"], c["mask"], c["config"], opts)
+
+
+def bench_forward_impl(family: str, case: dict, device, samples: int = 5,
+                       packed: bool = False) -> dict:
+    """A whole forward with `family` ("q4" | "attn") of kernels on and off
+    (`ab_impls`), everything else "auto": {arm: {ms, tokens_per_sec}},
+    `max_abs_diff` between the two arms' outputs.  Each arm runs once for
+    that output (its warmup), then `samples` times timed."""
+    from ..models import ComputeOptions
+
+    tokens = int((case["seg"] >= 0).sum()) if packed else case["ids"].numel()
+    out, ys = {}, []
+    with torch.inference_mode():
+        for impl in ab_impls(device):
+            fn = forward_fn(case, ComputeOptions(dtype="bfloat16", **{f"{family}_impl": impl}),
+                            packed)
+            ys.append(fn().float())
+            ms = forward_ms(fn, device, samples, warmup=0)
+            out[impl] = {"ms": ms, "tokens_per_sec": tokens / ms * 1e3}
+    out["max_abs_diff"] = (ys[0] - ys[1]).abs().max().item()
+    out.update(shape=list(case["ids"].shape), packed=packed, tokens=tokens)
+    return out
+
+
+def bench_forward_q4_impl(b: int = 32, s: int = 512, preset: str = "minilm-l6", *,
+                          device="cuda", ftype: str = "q4_0", samples: int = 5,
+                          layers: int | None = None, vocab: int | None = None,
+                          params: dict | None = None) -> dict:
+    """The whole forward with the quantized matmul as K1/K8 ("kernel") and
+    as its plain version (dequantize, then matmul): the JAX suite's
+    bench_forward_q4_impl.  `params` reuses weights built for the preset
+    (at `ftype`, seed 0)."""
+    case = forward_case(preset_config(preset, layers, vocab), b, s, device, ftype,
+                        params=params)
+    return {"preset": preset, "ftype": ftype,
+            **bench_forward_impl("q4", case, device, samples)}
+
+
+def bench_forward_attn_impl(b: int = 32, s: int = 512, preset: str = "mpnet-base", *,
+                            device="cuda", ftype: str = "f32", samples: int = 5,
+                            packed: bool = False, layers: int | None = None,
+                            vocab: int | None = None, params: dict | None = None) -> dict:
+    """The whole forward with the attention kernels on ("kernel") and as
+    their plain versions: the JAX suite's bench_forward_attn_impl (dense
+    bf16 weights by default, as there); `params` as bench_forward_q4_impl."""
+    case = forward_case(preset_config(preset, layers, vocab), b, s, device, ftype,
+                        params=params)
+    return {"preset": preset, "ftype": ftype,
+            **bench_forward_impl("attn", case, device, samples, packed)}
+
+
+# mode: (family, the JAX suite's key of a forward A/B, [(preset, b, s,
+# samples)]) at the JAX suite's shapes; `samples` 1 for the [1, 8192] plain
+# attention (~0.5 s a forward)
+FORWARD_MODES = {
+    "forward_only": ("q4", "forward_b{b}_s{s}",
+                     [("minilm-l6", 32, 512, 5), ("minilm-l6", 128, 128, 5)]),
+    "mpnet_forward": ("attn", "mpnet_forward_b{b}_s{s}", [("mpnet-base", 32, 512, 5)]),
+    "bias_ab": ("attn", "{preset}_forward_b{b}_s{s}",
+                [("mpnet-base", 32, 512, 5), ("gtr-base", 32, 512, 5),
+                 ("modernbert-base", 32, 512, 5), ("modernbert-base", 8, 1024, 5)]),
+    "nomic_ab": ("attn", "nomic_forward_b{b}_s{s}",
+                 [("nomic-embed-text", 32, 512, 5), ("nomic-embed-text", 1, 8192, 1)]),
+    "deberta_ab": ("attn", "{preset}_forward_b{b}_s{s}",
+                   [("deberta-base", 32, 512, 5), ("deberta-base", 32, 256, 5)]),
+}
+
+
+def run_forward_mode(mode: str, device, *, samples: int | None = None,
+                     layers: int | None = None, vocab: int | None = None,
+                     shape: tuple[int, int] | None = None, log=print) -> dict:
+    """One full-forward mode: its kernel-against-library entry on the card
+    (K4 for --bias-ab, K9 for --deberta-ab), then each preset's forward
+    A/B, keyed as the JAX suite keys them (`FORWARD_MODES`).  `shape`
+    replaces every [B, S]; `samples` caps every sample count."""
+    family, key, cases = FORWARD_MODES[mode]
+    results = {}
+    if torch.device(device).type == "cuda":
+        _, peaks = peaks_for(torch.cuda.get_device_name(0))
+        if mode == "bias_ab":
+            results["attention_bias_b32_s512_d64"] = r = bench_attention_bias(peaks)
+            log(f"bias kernel K4 B=32 S=512 d=64: kernel {r['kernel']['us']:.1f}us | "
+                f"library {r['library']['us']:.1f}us")
+        if mode == "deberta_ab":
+            results["deberta_attention_b16_s512_d64"] = r = bench_deberta_attention(peaks)
+            log(f"deberta attention K9 B=16 S=512 d=64: kernel {r['kernel']['us']:.1f}us | "
+                f"library {r['library']['us']:.1f}us")
+    from ..models import random_params
+
+    bench = bench_forward_q4_impl if family == "q4" else bench_forward_attn_impl
+    ftype = "q4_0" if family == "q4" else "f32"
+    built = {}  # one set of weights a preset
+    for preset, b, s, n in cases:
+        b, s = shape or (b, s)
+        name = key.format(preset=preset, b=b, s=s)
+        if name in results:  # `shape` made two cases one
+            continue
+        if preset not in built:
+            built[preset] = random_params(preset_config(preset, layers, vocab), ftype, seed=0,
+                                          dense_dtype=torch.bfloat16, device=device)
+        r = bench(b, s, preset, device=device, samples=min(samples or n, n), layers=layers,
+                  vocab=vocab, ftype=ftype, params=built[preset])
+        results[name] = r
+        a, p = ab_impls(device)
+        log(f"{preset} forward {family}_impl A/B b={b} s={s}: {a} {r[a]['ms']:.3f}ms | "
+            f"{p} {r[p]['ms']:.3f}ms | max|diff| {r['max_abs_diff']:.3g}")
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    return results
+
+
+def write_result(results_dir, name: str, result: dict) -> None:
+    """The JSON line also to <results_dir>/<name>.json, where a directory
+    is given (the scripts' default `RESULTS`, which git ignores)."""
+    from pathlib import Path
+
+    if results_dir is not None:
+        path = Path(results_dir)
+        path.mkdir(parents=True, exist_ok=True)
+        (path / f"{name}.json").write_text(json.dumps(result, indent=1) + "\n")
+
+
+def time_piece(name: str, fn, device, samples: int, count: float, peaks=None,
+               flops: float | None = None, nbytes: float | None = None,
+               library=None) -> dict:
+    """One piece of a forward breakdown, logged under `name`: {us,
+    per_layer_count, tflops} of `fn` (`forward_ms`), and on the card
+    (`peaks` given) its bound where `nbytes` is given and the time of
+    `library`, one PyTorch call of the same function, where one is given."""
+    us = forward_ms(fn, device, samples) * 1e3
+    piece = {"us": us, "per_layer_count": count,
+             "tflops": flops / us / 1e6 if flops and peaks else None}
+    if peaks is not None and nbytes is not None:
+        bound, by = bound_ms(nbytes, flops, peaks)
+        piece.update(bound_us=bound * 1e3, bound_by=by)
+    if peaks is not None and library is not None:
+        piece["library_us"] = forward_ms(library, device, samples) * 1e3
+    print(f"{name:>18}: {piece['us']:10.1f} us" + (f"  bound {piece['bound_us']:.1f} us, library "
+                                                     f"{piece['library_us']:.1f} us"
+                                                     if "library_us" in piece else ""),
+          file=sys.stderr, flush=True)
+    return piece
+
+
+def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--m", type=int, nargs="+", default=[512, 4096, 32768])
     p.add_argument("--out", default=None, help="also write the JSON result to this file")
     p.add_argument("--only", nargs="+", default=None, metavar="SECTION",
                    help="run only these sections (keys of the JSON result, e.g. k8_ffn)")
+    for mode in FORWARD_MODES:
+        p.add_argument(f"--{mode.replace('_', '-')}", dest=mode, action="store_true",
+                       help=f"only the full-forward A/B of {mode} (see above)")
+    p.add_argument("--device", default=None,
+                   help="torch device of the full-forward modes (default: the GPU)")
+    p.add_argument("--samples", type=int, default=None,
+                   help="at most this many samples of each forward (default: 5; 1 at "
+                        "[1, 8192])")
+    p.add_argument("--layers", type=int, default=None, help="cut each preset's depth")
+    p.add_argument("--vocab", type=int, default=None, help="cut each preset's vocabulary")
+    p.add_argument("--shape", type=int, nargs=2, default=None, metavar=("B", "S"),
+                   help="run every forward at [B, S]")
+    p.add_argument("--results", default=None,
+                   help="also write <mode>.json there (a mode's run)")
     args = p.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("no CUDA device: the kernel suite runs only on the GPU")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    device = device_block()
-    _, peaks = peaks_for(device["name"])
 
     def log(line: str) -> None:
         print(line, file=sys.stderr, flush=True)
+
+    modes = [m for m in FORWARD_MODES if getattr(args, m)]
+    if modes:
+        from ..runtime.engine import resolve_device
+
+        dev = resolve_device(args.device)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        results = {"platform": dev.type, "device": device_block(dev)}
+        for mode in modes:
+            results[mode] = run_forward_mode(mode, dev, samples=args.samples,
+                                             layers=args.layers, vocab=args.vocab,
+                                             shape=args.shape, log=log)
+            write_result(args.results or None, mode, results[mode])
+        print(json.dumps(results))
+        return results
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: the kernel suite runs only on the GPU")
+    if args.device is not None and torch.device(args.device).type != "cuda":
+        raise SystemExit("the kernel sections run only on the GPU; --device cpu takes a "
+                         "full-forward mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = device_block()
+    _, peaks = peaks_for(device["name"])
 
     def ab(r: dict) -> str:
         return (f"kernel {r['kernel']['us']:9.1f}us {r['kernel']['tflops']:6.1f} TF/s | "
@@ -723,6 +984,7 @@ def main(argv=None) -> None:
         with open(args.out, "w") as f:
             f.write(line + "\n")
     print(line)
+    return results
 
 
 if __name__ == "__main__":

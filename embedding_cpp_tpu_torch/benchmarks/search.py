@@ -67,11 +67,8 @@ def main(argv=None) -> dict:
     per_approx = device_ms(search_once, dev, args.iters) / 1e3  # the same exact selection
     qps_kernel = q_n / per
 
-    # the ingest model: one layer, heads of 32 (the JAX script's 4 heads of
-    # e / 4 = 96 take no kernel of the port's: its attention is built for
-    # head dims 16, 32, 64 and 128)
-    cfg = BertConfig(n_vocab=512, n_ctx=64, n_embd=e, n_layer=1, n_head=max(1, e // 32),
-                     n_ff=4 * e)
+    # the ingest model: one layer, 4 heads
+    cfg = BertConfig(n_vocab=512, n_ctx=64, n_embd=e, n_layer=1, n_head=4, n_ff=4 * e)
     engine = Engine.synthetic(cfg, opts=ComputeOptions(dtype="float32"), device=dev)
 
     # ingest rate: the vectors go from the forward into the index on the device

@@ -271,10 +271,12 @@ constexpr int SHORT_S = 32;  // at S <= SHORT_S a block takes several batch rows
 constexpr int PB_LD = TILE_K + 4;  // f32 row stride of a position-bias tile
 constexpr int NW = 4;
 constexpr int NT = NW * 32;
-// blocks per SM the register budget is sized for (d = 16/32, 64, 128): more
+// blocks per SM the register budget is sized for (d = 16/32, 64, 96/128): more
 // resident warps hide the latency of the short per-tile chains better than
-// the registers the compiler would otherwise spend on hoisting
-__host__ __device__ constexpr int min_blocks(int D) { return D <= 32 ? 4 : D == 64 ? 3 : 2; }
+// the registers the compiler would otherwise spend on hoisting.  d = 96 holds
+// 24 A-fragment and 48 output registers a thread, 24 more than d = 64; it
+// takes d = 128's 2 blocks (255 registers a thread), so that nothing spills.
+__host__ __device__ constexpr int min_blocks(int D) { return D <= 32 ? 4 : D <= 64 ? 3 : 2; }
 static_assert(TILE_Q == TILE_K && TILE_Q == 16 * NW,
               "a key tile and the query tile index the same 64 positions");
 
@@ -708,6 +710,11 @@ int dispatch_d(bool bf16, const void* q, const void* k, const void* v, const voi
     case 16: return run(tc::launch<16, SEG>, simt::launch<16, SEG>);
     case 32: return run(tc::launch<32, SEG>, simt::launch<32, SEG>);
     case 64: return run(tc::launch<64, SEG>, simt::launch<64, SEG>);
+    // d 96: 384 wide with 4 heads.  48, 80 and 112 are served by the same
+    // code (swz / load_b take every d % 16 == 0) but not built: with them
+    // this file's nvcc time is 64.2 s against 43.7 s, and 33.4 s without d 96
+    // (benchmarks/nvcc_cost.py, medians, on the H100's host)
+    case 96: return run(tc::launch<96, SEG>, simt::launch<96, SEG>);
     case 128: return run(tc::launch<128, SEG>, simt::launch<128, SEG>);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -717,7 +724,7 @@ int dispatch_d(bool bf16, const void* q, const void* k, const void* v, const voi
 
 // q/k/v/o [B, S, H*D] (bf16 when is_bf16, else f32), contiguous and 16-byte
 // aligned.  mask: f32 key bias [B, S], or int32 segment ids [B, S] when
-// seg_mask.  pbias: f32 [PH, S, S] or null.  D in {16, 32, 64, 128},
+// seg_mask.  pbias: f32 [PH, S, S] or null.  D in {16, 32, 64, 96, 128},
 // S <= 1024; `scale` multiplies the raw scores (1/sqrt(D) rounded to f32 by
 // the caller, as the reference rounds it).  Returns cudaGetLastError()
 // after the launch.

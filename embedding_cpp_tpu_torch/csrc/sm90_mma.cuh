@@ -13,16 +13,21 @@
 
 namespace sm90 {
 
-// Element offset of (row r, 16-byte chunk c) in a tile of D-wide bf16 rows:
-// the chunk index is XORed with row bits so that the 8 rows one ldmatrix
-// phase reads at one logical chunk fall in 8 distinct bank groups.
+// Element offset of (row r, 16-byte chunk c) in a tile of D-wide bf16 rows
+// (D % 16 == 0): the chunk index is XORed with row bits so that the 8 rows
+// one ldmatrix phase reads at one logical chunk fall in distinct bank groups
+// (8 of them where CPR % 4 == 0).  The XOR touches only the chunk's low
+// bits that CPR's alignment leaves free, so c ^ x stays below CPR: with 12
+// chunks a row (D = 96) the rows' 4-chunk offsets alternate 0 and 4 bank
+// groups, and XORing the low two bits with (r >> 1) & 3 fills the other four.
 template <int D>
 __device__ __forceinline__ int swz(int r, int c) {
   constexpr int CPR = D / 8;
+  static_assert(CPR % 2 == 0, "rows of whole 16-element k-steps");
   int x;
-  if constexpr (CPR >= 8) {
+  if constexpr (CPR % 8 == 0) {
     x = r & 7;
-  } else if constexpr (CPR == 4) {
+  } else if constexpr (CPR % 4 == 0) {
     x = (r >> 1) & 3;
   } else {
     x = (r >> 2) & 1;
@@ -86,22 +91,22 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[D / 16][4], const __nv_bflo
 }
 
 // B fragments (8 columns from n0 of B = tile^T, all D of depth) of a
-// swizzled tile whose rows are B's columns.
+// swizzled tile whose rows are B's columns: two k-steps a 4-matrix load, an
+// odd last one (D = 16, 48, 80, 112) by a 2-matrix load.
 template <int D>
 __device__ __forceinline__ void load_b(uint32_t (&b)[D / 16][2], const __nv_bfloat16* tile,
                                        int n0, int lane) {
-  if constexpr (D == 16) {
-    ldsm_x2(b[0], tile + swz<D>(n0 + (lane & 7), (lane >> 3) & 1));
-  } else {
 #pragma unroll
-    for (int kp = 0; kp < D / 32; ++kp) {
-      uint32_t r[4];
-      ldsm_x4(r, tile + swz<D>(n0 + (lane & 7), 4 * kp + (lane >> 3)));
-      b[2 * kp][0] = r[0];
-      b[2 * kp][1] = r[1];
-      b[2 * kp + 1][0] = r[2];
-      b[2 * kp + 1][1] = r[3];
-    }
+  for (int kp = 0; kp < D / 32; ++kp) {
+    uint32_t r[4];
+    ldsm_x4(r, tile + swz<D>(n0 + (lane & 7), 4 * kp + (lane >> 3)));
+    b[2 * kp][0] = r[0];
+    b[2 * kp][1] = r[1];
+    b[2 * kp + 1][0] = r[2];
+    b[2 * kp + 1][1] = r[3];
+  }
+  if constexpr (D / 16 % 2) {
+    ldsm_x2(b[D / 16 - 1], tile + swz<D>(n0 + (lane & 7), D / 8 - 2 + ((lane >> 3) & 1)));
   }
 }
 

@@ -54,7 +54,10 @@ an H100 and what its first version does about it is noted in its source.
 Every wrapper launches its kernel for CUDA tensors, raises for what the
 kernel does not serve, and runs the plain version for tensors on the CPU,
 or where the forward chose it (`attn_impl="plain"`, ops/dispatch.py).
-Each wrapper's `launches` counts its kernel launches; the two
+A head dim that the body has no instance for (`HEAD_DIM_INSTANCES`) takes
+the plain version under "auto" on any device, decided from the shape
+before any launch and counted in the wrapper's `plain_routes`; "kernel"
+raises there.  Each wrapper's `launches` counts its kernel launches; the two
 projection-layout wrappers count those with a position bias (K4) apart,
 in `bias_launches`, and `flash_attention_packed` its windowed launches
 in `window_launches`; `flash_attention_packed_local.launches` counts
@@ -71,7 +74,16 @@ from .dispatch import count, use_kernel
 
 MASK_BIAS = -1e9  # additive score for masked keys (finite, never -inf)
 MAX_SEQ = 1024  # the JAX route's envelope (a whole [S, S] f32 score tile in VMEM)
-HEAD_DIMS = (16, 32, 64, 128)
+# The head dims each CUDA body has instances for: the D switch of its launch
+# entry (`dispatch_d` in attention_bse.cu and attention_long.cu, `dispatch`
+# in deberta_attention.cu).  Any other d takes the plain version.
+HEAD_DIM_INSTANCES = {
+    "attention_bse.cu": (16, 32, 64, 96, 128),
+    "attention_long.cu": (16, 32, 64, 128),
+    "deberta_attention.cu": (16, 32, 64, 128),
+}
+_BSE_DIMS = HEAD_DIM_INSTANCES["attention_bse.cu"]
+_LONG_DIMS = HEAD_DIM_INSTANCES["attention_long.cu"]
 _PLAIN_CHUNK = 1 << 26  # score elements per chunk of the long plain version
 
 
@@ -79,7 +91,7 @@ def fits_bias_bse(s: int, d: int) -> bool:
     """True when the projection-layout kernel serves sequence length `s`
     and head dim `d` (its bias rows stream from device memory, so the bias
     adds no limit)."""
-    return 1 <= s <= MAX_SEQ and d in HEAD_DIMS
+    return 1 <= s <= MAX_SEQ and d in _BSE_DIMS
 
 
 # The bf16 body's tiling, as csrc/attention_bse.cu names it (`tc::TILE_Q`,
@@ -415,7 +427,8 @@ def _operands(ts, device):
 
 def _check_qkv(q, k, v, heads_last: bool, h: int | None = None) -> tuple[int, int, int, int]:
     """(B, S, H, d) of q/k/v in [B, S, H*d] (heads_last False) or
-    [B, S, H, d] layout; raises on what the kernels do not serve."""
+    [B, S, H, d] layout; raises on what the kernel of that layout does not
+    serve."""
     want = 4 if heads_last else 3
     if q.shape != k.shape or q.shape != v.shape or q.dim() != want:
         raise ValueError(f"q/k/v shapes {q.shape} {k.shape} {v.shape}")
@@ -426,8 +439,9 @@ def _check_qkv(q, k, v, heads_last: bool, h: int | None = None) -> tuple[int, in
         if e % h:
             raise ValueError(f"width {e} not divisible by {h} heads")
         d = e // h
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    dims = _LONG_DIMS if heads_last else _BSE_DIMS
+    if d not in dims:
+        raise ValueError(f"head dim {d} not in {dims}")
     if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise ValueError(f"q/k/v dtypes {q.dtype} {k.dtype} {v.dtype}")
@@ -514,6 +528,15 @@ def _launch_long(q, k, v, mask, mode: int, pos_bias=None, window: int = 0,
     return out
 
 
+def _served(q: torch.Tensor, dims: tuple, h: int | None = None) -> bool:
+    """Whether a kernel instance of `dims` serves q's head dim: q [B, S,
+    H*d] with `h` heads, or [B, S, H, d] without.  A shape that no kernel
+    takes counts as served, so that the kernel branch's checks name it."""
+    if h is None:
+        return q.dim() != 4 or q.shape[-1] in dims
+    return q.dim() != 3 or h <= 0 or q.shape[-1] % h != 0 or q.shape[-1] // h in dims
+
+
 def _count(fn, pos_bias) -> None:
     """One launch of `fn`'s kernel: `bias_launches` with a position bias
     (K4), else `launches` (K2/K3)."""
@@ -533,7 +556,8 @@ def flash_attention_bse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     mask_bias = mask_bias.to(torch.float32)
     if pos_bias is not None:
         pos_bias = pos_bias.to(torch.float32)
-    if not use_kernel(q, "attn", "flash_attention_bse"):
+    if not use_kernel(q, "attn", "flash_attention_bse", flash_attention_bse,
+                      _served(q, _BSE_DIMS, h)):
         return attention_bse_plain(q, k, v, mask_bias, h, False, pos_bias)
     out = _launch_bse(q, k, v, mask_bias, h, False, pos_bias)
     _count(flash_attention_bse, pos_bias)
@@ -552,7 +576,8 @@ def flash_attention_packed_bse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     seg = seg.to(torch.int32)
     if pos_bias is not None:
         pos_bias = pos_bias.to(torch.float32)
-    if not use_kernel(q, "attn", "flash_attention_packed_bse"):
+    if not use_kernel(q, "attn", "flash_attention_packed_bse", flash_attention_packed_bse,
+                      _served(q, _BSE_DIMS, h)):
         return attention_bse_plain(q, k, v, seg, h, True, pos_bias)
     out = _launch_bse(q, k, v, seg, h, True, pos_bias)
     _count(flash_attention_packed_bse, pos_bias)
@@ -584,7 +609,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     mask_bias = mask_bias.to(torch.float32)
     if pos_bias is not None:
         pos_bias = pos_bias.to(torch.float32)
-    if not use_kernel(q, "attn", "flash_attention"):
+    if not use_kernel(q, "attn", "flash_attention", flash_attention, _served(q, _LONG_DIMS)):
         return attention_long_plain(q, k, v, mask_bias, pos_bias)
     out = _launch_long(q, k, v, mask_bias, _FULL, pos_bias)
     count(flash_attention)
@@ -598,7 +623,8 @@ def flash_attention_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     over the TPU query tile's key slice.  q/k/v [B, S, H, d] with S a
     multiple of 128 and the slice narrower than S (local_window_tiles)."""
     mask_bias = mask_bias.to(torch.float32)
-    if not use_kernel(q, "attn", "flash_attention_local"):
+    if not use_kernel(q, "attn", "flash_attention_local", flash_attention_local,
+                      _served(q, _LONG_DIMS)):
         return attention_local_plain(q, k, v, mask_bias, window)
     if window <= 0:
         raise ValueError(f"window {window} must be positive")
@@ -628,10 +654,10 @@ def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scores only its wmax keys (`window_launches`), else every key
     (`launches`).  Rows of S % 8 != 0 run padded (`pad_rows8`)."""
     s = q.shape[1]
-    _check_qkv(q, k, v, True)
     q, k, v, seg = pad_rows8(q, k, v, seg.to(torch.int32))
     windowed = packed_window_tiles(q.shape[1], max_seg_len)[1] is not None
-    if not use_kernel(q, "attn", "flash_attention_packed"):
+    if not use_kernel(q, "attn", "flash_attention_packed", flash_attention_packed,
+                      _served(q, _LONG_DIMS)):
         if windowed:
             return attention_packed_window_plain(q, k, v, seg, max_seg_len)[:, :s]
         return attention_packed_plain(q, k, v, seg)[:, :s]
@@ -652,11 +678,11 @@ def flash_attention_packed_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
     positions' distances), over K7's key slices, or every key where S has
     none.  Rows of S % 8 != 0 run padded (`pad_rows8`)."""
     s = q.shape[1]
-    _check_qkv(q, k, v, True)
     if window <= 0:
         raise ValueError(f"window {window} must be positive")
     q, k, v, seg = pad_rows8(q, k, v, seg.to(torch.int32))
-    if not use_kernel(q, "attn", "flash_attention_packed_local"):
+    if not use_kernel(q, "attn", "flash_attention_packed_local", flash_attention_packed_local,
+                      _served(q, _LONG_DIMS)):
         return attention_packed_local_plain(q, k, v, seg, window)[:, :s]
     out = _launch_long(q, k, v, seg, _SEG_LOCAL, window=window)
     count(flash_attention_packed_local)
@@ -697,6 +723,6 @@ def attention_headpack(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 for _fn in (flash_attention_bse, flash_attention_packed_bse, flash_attention,
             flash_attention_local, flash_attention_packed, flash_attention_packed_local,
             attention_headpack):
-    _fn.launches = 0
+    _fn.launches = _fn.plain_routes = 0
 flash_attention_bse.bias_launches = flash_attention_packed_bse.bias_launches = 0
 flash_attention_packed.window_launches = 0

@@ -27,7 +27,9 @@ since within a segment bucket(pos_q - pos_k) == bucket(q - k).
 
 Every wrapper launches its kernel for CUDA tensors, raises for what the
 kernel does not serve, and runs the plain version for tensors on the CPU,
-or where the forward chose it (`attn_impl="plain"`, ops/dispatch.py).
+or where the forward chose it (`attn_impl="plain"`, ops/dispatch.py).  A
+head dim without an instance (`attention.HEAD_DIM_INSTANCES`) takes the
+plain version under "auto", counted in the wrapper's `plain_routes`.
 Each wrapper's `launches` counts its kernel launches.
 """
 from __future__ import annotations
@@ -40,11 +42,11 @@ import numpy as np
 import torch
 
 from ._build import check
-from .attention import MASK_BIAS, _bind, _operands, _softmax_pv
+from .attention import HEAD_DIM_INSTANCES, MASK_BIAS, _bind, _operands, _served, _softmax_pv
 from .dispatch import count, use_kernel
 
 MAX_SEQ = 512  # DeBERTa's context; a query tile's f32 score rows stay on chip
-HEAD_DIMS = (16, 32, 64, 128)
+_DIMS = HEAD_DIM_INSTANCES["deberta_attention.cu"]
 
 
 def deberta_log_bucket(rel, bucket_size: int, max_position: int) -> np.ndarray:
@@ -142,8 +144,8 @@ def _launch(q, k, v, mask, pos_k, pos_q, c2p_idx, p2c_idx, seg_mask: bool) -> to
     if q.shape != k.shape or q.shape != v.shape or q.dim() != 4:
         raise ValueError(f"q/k/v shapes {q.shape} {k.shape} {v.shape}")
     b, s, h, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    if d not in _DIMS:
+        raise ValueError(f"head dim {d} not in {_DIMS}")
     if not 1 <= s <= MAX_SEQ:
         raise ValueError(f"sequence length {s} outside 1..{MAX_SEQ}")
     dtypes = {t.dtype for t in (q, k, v, pos_k, pos_q)}
@@ -181,7 +183,8 @@ def disentangled_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the shared relative table.  -> [B, S, H, d]."""
     mask_bias = mask_bias.to(torch.float32)
     c2p_idx, p2c_idx = _device_tables(q.shape[1], span, max_dist, q.device)
-    if not use_kernel(q, "attn", "disentangled_attention"):
+    if not use_kernel(q, "attn", "disentangled_attention", disentangled_attention,
+                      _served(q, _DIMS)):
         return disentangled_attention_plain(q, k, v, mask_bias, pos_k, pos_q,
                                             c2p_idx, p2c_idx, False)
     out = _launch(q, k, v, mask_bias, pos_k, pos_q, c2p_idx, p2c_idx, False)
@@ -198,7 +201,8 @@ def disentangled_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
     tables of `disentangled_attention`.  -> [B, S, H, d]."""
     seg = seg.to(torch.int32)
     c2p_idx, p2c_idx = _device_tables(q.shape[1], span, max_dist, q.device)
-    if not use_kernel(q, "attn", "disentangled_attention_packed"):
+    if not use_kernel(q, "attn", "disentangled_attention_packed",
+                      disentangled_attention_packed, _served(q, _DIMS)):
         return disentangled_attention_plain(q, k, v, seg, pos_k, pos_q,
                                             c2p_idx, p2c_idx, True)
     out = _launch(q, k, v, seg, pos_k, pos_q, c2p_idx, p2c_idx, True)
@@ -206,4 +210,5 @@ def disentangled_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
     return out
 
 
-disentangled_attention.launches = disentangled_attention_packed.launches = 0
+for _fn in (disentangled_attention, disentangled_attention_packed):
+    _fn.launches = _fn.plain_routes = 0

@@ -11,6 +11,12 @@ tensor.  A forward sets the choice for every call it makes with
 so the switch reaches each kernel wrapper the forward reaches; outside
 such a block every call is "auto".
 
+A kernel built for a set of shapes (the attention bodies' head dims) is
+asked whether it serves the call's shape before any launch: where it does
+not, "auto" runs the plain version on any device and counts the call in
+the wrapper's `plain_routes` (so a run shows the route, the CPU's as the
+card's), and "kernel" raises.
+
 Every wrapper counts its launches through `count`, under one lock, so the
 counts stay exact when a mesh's shard threads launch at the same time.
 """
@@ -54,15 +60,24 @@ def kernel_impls(q4: str = "auto", attn: str = "auto"):
         _CHOICE.reset(token)
 
 
-def use_kernel(t: torch.Tensor, family: str, name: str) -> bool:
+def use_kernel(t: torch.Tensor, family: str, name: str, fn=None, served: bool = True) -> bool:
     """Whether the wrapper `name` of `family` ("q4" | "attn") launches its
     kernel on `t`: False for the plain version; raises for "kernel" on a
-    CPU tensor and for a device that is neither."""
+    CPU tensor and for a device that is neither.  `served` False (no
+    kernel instance for the call's shape): "auto" gives False and counts
+    the call in `fn.plain_routes`, "kernel" raises."""
     impl = _CHOICE.get()[0 if family == "q4" else 1]
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    if not served:
+        if impl == "kernel":
+            raise ValueError(f"{name}: impl 'kernel' has no instance for this shape "
+                             f"{tuple(t.shape)}")
+        if impl == "auto":
+            count(fn, "plain_routes")
+        return False
     if t.device.type == "cpu":
         if impl == "kernel":
             raise ValueError(f"{name}: impl 'kernel' needs a CUDA tensor, got one on the CPU")
         return False
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {t.device}")
     return impl != "plain"

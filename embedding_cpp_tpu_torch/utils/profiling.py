@@ -55,13 +55,15 @@ def trace(log_dir: str | None = None):
         prof.export_chrome_trace(str(Path(log_dir) / "trace.json"))
 
 
-def gpu_ms(fn, samples: int = 20, reps: int = 3, spin: int = 2_000_000) -> float:
+def gpu_ms(fn, samples: int = 20, reps: int = 3, spin: int = 2_000_000,
+           warmup: int = 2) -> float:
     """Median over `samples` of CUDA-event time per call, each sample `reps`
     back-to-back calls queued behind a GPU spin of `spin` cycles, so the
-    host's launch overhead stays out of the device time."""
+    host's launch overhead stays out of the device time; `warmup` calls
+    first."""
     import torch
 
-    for _ in range(2):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []

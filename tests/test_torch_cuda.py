@@ -78,6 +78,7 @@ from embedding_cpp_tpu_torch.ops.deberta_attention import (
     disentangled_attention_packed,
     disentangled_attention_plain,
 )
+from embedding_cpp_tpu_torch.ops.dispatch import kernel_impls
 from embedding_cpp_tpu_torch.ops.q4_matmul import (
     TC_TILES,
     _q4_matmul_1d,
@@ -198,7 +199,8 @@ def _qkv(b, s, h, d, dtype, dev, seed=0):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("s,h,d", [(8, 2, 16), (16, 12, 32), (24, 4, 16), (32, 12, 32),
                                    (40, 12, 32), (128, 4, 64), (512, 12, 32), (512, 16, 64),
-                                   (1024, 2, 128)])
+                                   (1024, 2, 128), (16, 4, 96), (40, 4, 96), (512, 4, 96),
+                                   (1024, 2, 96)])
 def test_key_bias_kernel_matches_plain(dev, dtype, s, h, d):
     b = 3
     q, k, v = _qkv(b, s, h, d, dtype, dev)
@@ -211,7 +213,8 @@ def test_key_bias_kernel_matches_plain(dev, dtype, s, h, d):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("s,h,d", [(16, 4, 32), (24, 4, 16), (128, 4, 32), (512, 12, 32),
-                                   (512, 16, 64), (1000, 2, 64), (1024, 2, 128)])
+                                   (512, 16, 64), (1000, 2, 64), (1024, 2, 128), (32, 4, 96),
+                                   (512, 4, 96), (1000, 2, 96)])
 @pytest.mark.parametrize("ids", ["contiguous", "shuffled"])
 def test_segment_kernel_matches_plain(dev, dtype, s, h, d, ids):
     """Contiguous segments with a -1 tail, or ids in no order with padding
@@ -236,9 +239,17 @@ def test_segment_kernel_matches_plain(dev, dtype, s, h, d, ids):
 
 
 def test_attention_rejects_what_it_does_not_serve(dev):
+    """d = 24 has no instance: "auto" takes the plain version, counted in
+    `plain_routes` with no launch; "kernel" raises."""
     q, k, v = _qkv(1, 16, 2, 24, torch.bfloat16, dev)
-    with pytest.raises(ValueError):
-        flash_attention_bse(q, k, v, torch.zeros(1, 16, device=dev), 2)  # d = 24
+    mask = torch.zeros(1, 16, device=dev)
+    before = (flash_attention_bse.launches, flash_attention_bse.plain_routes)
+    got = flash_attention_bse(q, k, v, mask, 2)
+    assert (flash_attention_bse.launches, flash_attention_bse.plain_routes) == \
+        (before[0], before[1] + 1)
+    _close(got, attention_bse_plain(q, k, v, mask, 2, False), torch.bfloat16)
+    with kernel_impls(attn="kernel"), pytest.raises(ValueError):
+        flash_attention_bse(q, k, v, mask, 2)  # d = 24
     q, k, v = _qkv(1, 1032, 1, 32, torch.bfloat16, dev)
     with pytest.raises(ValueError):
         flash_attention_bse(q, k, v, torch.zeros(1, 1032, device=dev), 1)  # S > 1024
@@ -485,7 +496,11 @@ def test_long_kernels_reject_what_they_do_not_serve(dev):
     with pytest.raises(ValueError):  # S % 128 != 0: no window slice
         flash_attention_local(q, k, v, torch.zeros(1, 1100, device=dev), 128)
     q, k, v = _long_qkv(1, 64, 2, 24, torch.bfloat16, dev)
-    with pytest.raises(ValueError):  # d = 24
+    before = flash_attention.plain_routes
+    got = flash_attention(q, k, v, torch.zeros(1, 64, device=dev))  # d = 24: plain
+    assert flash_attention.plain_routes == before + 1
+    _close(got, attention_long_plain(q, k, v, torch.zeros(1, 64, device=dev)), torch.bfloat16)
+    with kernel_impls(attn="kernel"), pytest.raises(ValueError):  # d = 24
         flash_attention(q, k, v, torch.zeros(1, 64, device=dev))
     q, k, v = _qkv(1, 128, 2, 32, torch.bfloat16, dev)
     with pytest.raises(ValueError):  # a [3, S, S] bias for 2 heads
@@ -679,9 +694,13 @@ def test_packed_segment_kernel_rejects_what_it_does_not_serve(dev):
     with pytest.raises(ValueError):  # window 0
         flash_attention_packed_local(q, k, v, seg, 0)
     q, k, v = _long_qkv(1, 1024, 2, 24, torch.bfloat16, dev)
-    with pytest.raises(ValueError):  # d = 24
-        flash_attention_packed(q, k, v, torch.zeros(1, 1024, dtype=torch.int32, device=dev),
-                               128)
+    zeros = torch.zeros(1, 1024, dtype=torch.int32, device=dev)
+    before = flash_attention_packed.plain_routes
+    got = flash_attention_packed(q, k, v, zeros)  # d = 24: the plain version
+    assert flash_attention_packed.plain_routes == before + 1
+    _close(got, attention_packed_plain(q, k, v, zeros), torch.bfloat16)
+    with kernel_impls(attn="kernel"), pytest.raises(ValueError):  # d = 24
+        flash_attention_packed(q, k, v, zeros, 128)
 
 
 def _deberta_inputs(b, s, h, d, span, dtype, dev, seed=0):
@@ -733,8 +752,16 @@ def test_deberta_kernel_rejects_what_it_does_not_serve(dev):
     with pytest.raises(ValueError):  # S > 512
         disentangled_attention(q, k, v, torch.zeros(1, 520, device=dev), pk, pq, 32, 128)
     q, k, v, pk, pq = _deberta_inputs(1, 64, 2, 24, 32, torch.bfloat16, dev)
-    with pytest.raises(ValueError):  # d = 24
-        disentangled_attention(q, k, v, torch.zeros(1, 64, device=dev), pk, pq, 32, 128)
+    keyb = torch.zeros(1, 64, device=dev)
+    before = (disentangled_attention.launches, disentangled_attention.plain_routes)
+    got = disentangled_attention(q, k, v, keyb, pk, pq, 32, 128)  # d = 24: the plain version
+    assert (disentangled_attention.launches, disentangled_attention.plain_routes) == \
+        (before[0], before[1] + 1)
+    c2p, p2c = (torch.from_numpy(t).to(dev) for t in delta_tables(64, 32, 128))
+    _close(got, disentangled_attention_plain(q, k, v, keyb, pk, pq, c2p, p2c, False),
+           torch.bfloat16)
+    with kernel_impls(attn="kernel"), pytest.raises(ValueError):  # d = 24
+        disentangled_attention(q, k, v, keyb, pk, pq, 32, 128)
     q, k, v, pk, pq = _deberta_inputs(1, 64, 2, 32, 32, torch.bfloat16, dev)
     with pytest.raises(ValueError):  # f32 tables beside bf16 q/k/v
         disentangled_attention(q, k, v, torch.zeros(1, 64, device=dev), pk.float(),
@@ -770,6 +797,58 @@ def test_headpack_kernel_rejects_what_it_does_not_serve(dev):
     q16 = torch.zeros(1, 4, 64, 16, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError):  # d = 16
         attention_headpack(q16, q16, q16, bias, 4)
+
+
+def _min_cosine(a: np.ndarray, b: np.ndarray) -> float:
+    return float(np.min(np.sum(a * b, -1) / (np.linalg.norm(a, axis=-1)
+                                             * np.linalg.norm(b, axis=-1))))
+
+
+@pytest.mark.parametrize("packing", ["always", "never"])
+def test_engine_of_four_heads_of_96(dev, packing):
+    """An Engine 384 wide with 4 heads (benchmarks/search.py's ingest
+    model, two layers deep), Q4_0 in bf16: packed rows through K2 and plain
+    buckets through K3 at d 96, no plain route, within cosine 0.999 of the
+    port's f32 CPU path."""
+    from embedding_cpp_tpu_torch import Engine
+    from embedding_cpp_tpu_torch.models import BertConfig, ComputeOptions
+
+    config = BertConfig(n_vocab=1000, n_ctx=512, n_embd=384, n_layer=2, n_head=4, n_ff=1536)
+    card = Engine.synthetic(config, "q4_0", device=dev, packing=packing,
+                            opts=ComputeOptions(dtype="bfloat16"))
+    cpu = Engine.synthetic(config, "q4_0", device="cpu", packing=packing)
+    rng = np.random.default_rng(96)
+    lists = [rng.integers(5, 1000, size=int(n)).tolist() for n in rng.integers(4, 120, 48)]
+    fn = flash_attention_packed_bse if packing == "always" else flash_attention_bse
+    before = (fn.launches, fn.plain_routes)
+    got = card.embed_tokens(lists)
+    torch.cuda.synchronize()
+    assert fn.launches > before[0] and fn.plain_routes == before[1]
+    assert _min_cosine(got, cpu.embed_tokens(lists)) >= 0.999
+
+
+def test_engine_at_head_dim_24_takes_the_counted_plain_route(dev):
+    """tiny-modernbert 48 wide with 2 heads of 24, packed "always" at 2048:
+    no kernel has d 24, so each attention call takes its plain version on
+    the card, counted, and the result is the CPU path's."""
+    from dataclasses import replace
+
+    from embedding_cpp_tpu_torch import Engine
+    from embedding_cpp_tpu_torch.cli.make_test_model import PRESETS
+
+    config = replace(PRESETS["tiny-modernbert"], n_embd=48, n_head=2, n_ctx=2048)
+    kw = dict(packing="always", pack_seq=2048)
+    card = Engine.synthetic(config, "f32", device=dev, **kw)
+    cpu = Engine.synthetic(config, "f32", device="cpu", **kw)
+    rng = np.random.default_rng(24)
+    lists = [rng.integers(5, config.n_vocab, size=n).tolist() for n in (12, 700, 1500)]
+    fns = (flash_attention_packed, flash_attention_packed_local)
+    before = [(f.launches, f.plain_routes) for f in fns]
+    got = card.embed_tokens(lists)
+    torch.cuda.synchronize()
+    for f, (launches, routes) in zip(fns, before):
+        assert f.launches == launches and f.plain_routes > routes, f.__name__
+    np.testing.assert_allclose(got, cpu.embed_tokens(lists), rtol=0, atol=1e-4)
 
 
 @pytest.mark.parametrize("n_lists", [2, 40], ids=["plain", "packed"])

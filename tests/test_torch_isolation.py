@@ -51,7 +51,9 @@ def test_importing_everything_loads_no_jax():
                  "benchmarks.search", "benchmarks.sparse", "benchmarks.maxsim_bench",
                  "benchmarks.indexes", "examples", "examples.semantic_search",
                  "examples.sparse_retrieval", "examples.late_interaction_search",
-                 "examples.sample_client"):
+                 "examples.sample_client", "benchmarks.forward_breakdown",
+                 "benchmarks.modernbert_breakdown", "benchmarks.packed_bse_ab",
+                 "benchmarks.attn_bias_smoke", "examples.sample_dylib"):
         assert f"embedding_cpp_tpu_torch.{name}" in result["modules"]
 
 
@@ -76,10 +78,11 @@ def test_sources_import_no_jax():
         "mesh.py", "group.py", "sharding.py", "distributed.py"}
     assert {f.name for f in files if f.parent.name == "benchmarks"} >= {
         "tasks.py", "run_eval.py", "print_tables.py", "bench.py", "serving.py", "scaling.py",
-        "search.py", "sparse.py", "maxsim_bench.py"}
+        "search.py", "sparse.py", "maxsim_bench.py", "forward_breakdown.py",
+        "modernbert_breakdown.py", "packed_bse_ab.py", "attn_bias_smoke.py"}
     assert {f.name for f in files if f.parent.name == "examples"} >= {
         "semantic_search.py", "sparse_retrieval.py", "late_interaction_search.py",
-        "sample_client.py"}
+        "sample_client.py", "sample_dylib.py"}
     offenders = {str(f.relative_to(REPO)): sorted(_imported_roots(f) & set(FORBIDDEN))
                  for f in files}
     assert {f: r for f, r in offenders.items() if r} == {}
