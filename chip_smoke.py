@@ -37,11 +37,14 @@ Phases, in order, each printing JSON lines:
             relative-table projection is timed; the N-tiled K8 at its
             FFN (every qtype, bf16 and f32, beside the same call forced
             through K1) and forced at its q/k/v/o beside K1, K1's residual +
-            LayerNorm epilogue at N = 384, 768,
-            1024, and K2/K3 at 16 heads of 64; B1, the kernel suite's
-            head-packed attention (benchmark code, on no model path), at
-            [32, 512, 12x32] hb 4 and [32, 512, 12x64] hb 2 beside K5, K3
-            and SDPA at the same shape, and with -1e9 padding tails; mode 3
+            LayerNorm epilogue (a row's N tiles one cluster) at N = 384,
+            768, 1024 and 4096, a ragged N and M, every qtype, bf16 and
+            f32, timed beside K1 alone and the models' composed `linear`,
+            and rows of 8192 on its split route, and K2/K3 at 16 heads of
+            64; B1, the kernel suite's head-packed attention (benchmark
+            code, on no model path), at every (d, hb) it is built for,
+            [32, 512, 12xd], beside K5, K3 and SDPA at the same shape, and
+            with -1e9 padding tails and a ragged S; mode 3
             of the long-row kernel (segments and the sliding window) at
             ModernBERT's chunk rows [8, 2048, 12x64], at S = 1032 (no
             slice), [2, 8192] with four documents a row and with segments
@@ -778,18 +781,26 @@ def phase_kernels_k8(peaks, f32_rate: float) -> dict:
 
 def phase_kernels_ln(peaks) -> dict:
     """K1's residual + LayerNorm epilogue (bias, gelu_erf, residual,
-    LayerNorm over whole rows) through q4_matmul's fused route against the
-    plain version at M = 16384, N = K = 384, 768 and 1024 (MiniLM's, the
-    base models' and bge-large's o projection), Q8_0, bf16 and f32, and at
-    a ragged M.  Timed at N = 1024 bf16, beside K1 without the tail and the
-    port's `linear` (K1, then the residual and the LayerNorm in PyTorch,
-    the path the models run).  No one PyTorch call computes this function:
-    library_ms is null."""
+    LayerNorm over whole rows; the N tiles of a row one thread-block
+    cluster) against the plain version at M = 16384, bf16 and f32, every
+    qtype: N = K = 384, 768 and 1024 (MiniLM's, the base models' and
+    bge-large's o projection), N = 4096 (K = 1024, 16 blocks of 256
+    columns), a ragged N (1000) and a ragged M; and rows of 8192, past one
+    cluster, through `q4_matmul`'s split route (K1 into f32, the tail in
+    PyTorch), counted apart.  Timed in bf16 Q8_0 at every width, beside K1
+    without the tail (`k1_ms`) and the port's `linear` (`linear_ms`: K1,
+    then the residual and the LayerNorm in PyTorch, the path the models
+    run).  No one PyTorch call computes this function: library_ms is
+    null."""
     import torch
 
     from embedding_cpp_tpu_torch.ops.linear import linear
     from embedding_cpp_tpu_torch.ops.q4_matmul import (
+        _ln_cluster_cap,
         _q4_matmul_1d,
+        _sms,
+        ln_active_clusters,
+        ln_tile,
         q4_matmul,
         q4_matmul_plain,
         route,
@@ -797,47 +808,65 @@ def phase_kernels_ln(peaks) -> dict:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(14)
-    result, launches = {}, 0
-    for n, m in ((384, M_TOKENS), (768, M_TOKENS), (1024, M_TOKENS), (1024, M_TOKENS - 37)):
-        w = _q4_weight("Q8_0", n, n, n + 14)
-        for dtype in (torch.bfloat16, torch.float32):
-            x = torch.randn(m, n, generator=gen).to(dev, dtype)
-            res = torch.randn(m, n, generator=gen).to(dev, dtype)
-            b = (torch.randn(n, generator=gen) * 0.1).to(dev)
-            ln = (1 + 0.1 * torch.randn(n, generator=gen).to(dev),
-                  0.1 * torch.randn(n, generator=gen).to(dev), 1e-12)
-            if m == M_TOKENS:  # q4_matmul fuses the tail here (ragged M takes K1 + PyTorch)
-                check(route(m, n, n, w.qtype, dtype, residual=True, ln=True).kernel == "1d",
-                      f"LN epilogue route at N={n}")
-            before = q4_matmul.ln_launches
+    sms = _sms(0)
+    widths, launches = {}, 0
+    cases = [(m, k, n, qtype, dtype)
+             for m, k, n in ((M_TOKENS, 384, 384), (M_TOKENS, 768, 768), (M_TOKENS, 1024, 1024),
+                             (M_TOKENS, 1024, 4096))
+             for qtype in ("Q8_0", "Q4_0", "Q4_1")
+             for dtype in (torch.bfloat16, torch.float32)]
+    cases += [(m, k, n, "Q4_1", dtype) for m, k, n in ((M_TOKENS, 1024, 1000),
+                                                       (M_TOKENS - 37, 768, 768), (64, 256, 8192))
+              for dtype in (torch.bfloat16, torch.float32)]
+    for m, k, n, qtype, dtype in cases:
+        w = _q4_weight(qtype, k, n, k + n + 14)
+        x = torch.randn(m, k, generator=gen).to(dev, dtype)
+        res = torch.randn(m, n, generator=gen).to(dev, dtype)
+        b = (torch.randn(n, generator=gen) * 0.1).to(dev)
+        ln = (1 + 0.1 * torch.randn(n, generator=gen).to(dev),
+              0.1 * torch.randn(n, generator=gen).to(dev), 1e-12)
+        r = route(m, k, n, w.qtype, dtype, residual=True, ln=True)
+        split = n > 4096
+        before = (q4_matmul.launches, q4_matmul.ln_launches, q4_matmul.ln_split_launches)
+        if r.kernel == "1d":
+            got = q4_matmul(x, w, b, "gelu_erf", residual=res, ln=ln)
+        else:  # a ragged M or N, which the TPU's 1-D kernel does not tile
             got = _q4_matmul_1d(x, w, b, res, ln, activation="gelu_erf")
-            check(q4_matmul.ln_launches == before + 1, f"LN epilogue count at N={n}")
-            launches += 1
-            ref = q4_matmul_plain(x, w, b, "gelu_erf", residual=res, ln=ln)
-            torch.cuda.synchronize()
-            err, rel = _rel_err(got, ref)
-            ok = _within(dtype, err, rel) and bool(torch.isfinite(got).all())
-            case = {"qtype": "Q8_0", "dtype": str(dtype).split(".")[-1], "m": m, "k": n,
-                    "n": n, "act": "gelu_erf", "max_abs_err": err, "rel_err": rel,
-                    "tolerance": _tolerance(dtype), "ok": ok}
-            if n == 1024 and m == M_TOKENS and dtype == torch.bfloat16:
-                case["ms"] = gpu_ms(lambda: _q4_matmul_1d(x, w, b, res, ln, activation="gelu_erf"))
-                case["plain_ms"] = gpu_ms(
-                    lambda: q4_matmul_plain(x, w, b, "gelu_erf", residual=res, ln=ln),
-                    samples=5, reps=1)
-                case["library_ms"] = None
-                case["k1_ms"] = gpu_ms(lambda: q4_matmul(x, w, b, "gelu_erf"))
-                case["linear_ms"] = gpu_ms(
-                    lambda: linear(x, w, b, activation="gelu_erf", residual=res, ln=ln))
-                nbytes = (3 * x.numel() * 2 + w.qs.numel() + w.scales.numel() * 4
-                          + 3 * n * 4)
-                case["bound_ms"], case["bound_by"] = bound_ms(nbytes, 2.0 * m * n * n, peaks)
-                result = case
-            emit({"phase": "kernel_check", "kernel": "q4_matmul_ln", **case})
-            check(ok, f"LN epilogue N={n} M={m} {dtype}: err {err} rel {rel}")
-            del x, res, got, ref
+        after = (q4_matmul.launches, q4_matmul.ln_launches, q4_matmul.ln_split_launches)
+        counts = [a - c for a, c in zip(after, before)]
+        check(counts == ([1, 0, 1] if split else [1, 1, 0]),
+              f"LN epilogue counts at {m}x{k}x{n}: {counts}")
+        launches += counts[1]
+        ref = q4_matmul_plain(x, w, b, "gelu_erf", residual=res, ln=ln)
+        torch.cuda.synchronize()
+        err, rel = _rel_err(got, ref)
+        ok = _within(dtype, err, rel) and bool(torch.isfinite(got).all())
+        bf16 = dtype == torch.bfloat16
+        tile = ln_tile(m, k, n, bf16, sms, lambda t: _ln_cluster_cap(0, bf16, t, False))
+        case = {"qtype": qtype, "dtype": str(dtype).split(".")[-1], "m": m, "k": k, "n": n,
+                "act": "gelu_erf", "route": r.kernel, "tile": tile, "split": split,
+                "cluster_blocks": None if tile is None else -(-n // tile[1]),
+                "max_abs_err": err, "rel_err": rel, "tolerance": _tolerance(dtype), "ok": ok}
+        if m == M_TOKENS and qtype == "Q8_0" and bf16:
+            case["ms"] = gpu_ms(lambda: _q4_matmul_1d(x, w, b, res, ln, activation="gelu_erf"))
+            case["plain_ms"] = gpu_ms(
+                lambda: q4_matmul_plain(x, w, b, "gelu_erf", residual=res, ln=ln),
+                samples=5, reps=1)
+            case["library_ms"] = None
+            case["k1_ms"] = gpu_ms(lambda: _q4_matmul_1d(x, w, b, activation="gelu_erf"))
+            case["linear_ms"] = gpu_ms(
+                lambda: linear(x, w, b, activation="gelu_erf", residual=res, ln=ln))
+            # how many clusters of this size the card runs at once
+            case["active_clusters"] = ln_active_clusters(True, tile, case["cluster_blocks"])
+            nbytes = (x.numel() * 2 + 2 * m * n * 2 + w.qs.numel() + w.scales.numel() * 4
+                      + 3 * n * 4)
+            case["bound_ms"], case["bound_by"] = bound_ms(nbytes, 2.0 * m * k * n, peaks)
+            widths[n] = case
+        emit({"phase": "kernel_check", "kernel": "q4_matmul_ln", **case})
+        check(ok, f"LN epilogue {m}x{k}x{n} {qtype} {dtype}: err {err} rel {rel}")
+        del x, res, got, ref
     torch.cuda.empty_cache()
-    return {**result, "check_launches": launches}
+    return {**widths[1024], "widths": widths, "check_launches": launches}
 
 
 def _attention_case(kernel: str, fn, plain, lib, args, nbytes: float, flops: float,
@@ -1346,17 +1375,19 @@ def phase_kernels_segment(peaks) -> dict:
 
 def phase_kernels_headpack(peaks) -> dict:
     """B1, the head-packed attention of the kernel suite, against its plain
-    version (divide before PV) in bf16: timed at [32, 512, 12x32] with hb 4
-    and [32, 512, 12x64] with hb 2 (zero bias, as the JAX suite), beside
-    K5 (`flash_attention`, [B, S, H, d]) and K3 (`flash_attention_bse`,
-    [B, S, H*d]) at the same shape and SDPA (the library call, B1's own
-    [B, H, S, d] layout); checked untimed at both shapes with a -1e9 padding
-    tail on every row but the first and one row all padding, and at a
-    ragged S.  No model path runs B1: its launches here are check launches."""
+    version (divide before PV) in bf16 at every (d, hb) of HEADPACK_SHAPES:
+    timed at [32, 512, 12xd] (zero bias, as the JAX suite), beside K5
+    (`flash_attention`, [B, S, H, d]) and K3 (`flash_attention_bse`, [B, S,
+    H*d]) at the same shape and SDPA (the library call, B1's own [B, H, S,
+    d] layout); checked untimed with a -1e9 padding tail on every row but
+    the first and one row all padding, at [32, 512] and at a ragged S
+    ([4, 300]).  No model path runs B1: its launches here are check
+    launches."""
     import torch
     import torch.nn.functional as F
 
     from embedding_cpp_tpu_torch.ops.attention import (
+        HEADPACK_SHAPES,
         MASK_BIAS,
         attention_headpack,
         attention_headpack_plain,
@@ -1367,37 +1398,39 @@ def phase_kernels_headpack(peaks) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(15)
     rng = np.random.default_rng(15)
-    results, before = {}, attention_headpack.launches
-    for b, s, h, d, hb, tail, timed in ((32, 512, 12, 32, 4, False, True),
-                                        (32, 512, 12, 64, 2, False, True),
-                                        (32, 512, 12, 32, 4, True, False),
-                                        (32, 512, 12, 64, 2, True, False),
-                                        (4, 300, 12, 64, 2, True, False)):
-        q, k, v = (torch.randn(b, h, s, d, generator=gen).to(dev, torch.bfloat16)
-                   for _ in range(3))
-        bias = torch.zeros(b, s)
-        if tail:
-            lens = torch.from_numpy(rng.integers(1, s + 1, size=b))
-            lens[0], lens[-1] = s, 0
-            bias = torch.where(torch.arange(s)[None, :] < lens[:, None], 0.0, MASK_BIAS)
-        bias = bias.to(torch.float32).to(dev)
-        c = _attention_case(
-            "attention_headpack", lambda *a: attention_headpack(*a, hb),
-            lambda *a: attention_headpack_plain(*a, hb),
-            lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=bias[:, None, None, :].to(q.dtype)),
-            (q, k, v, bias), 4 * q.numel() * 2 + bias.numel() * 4, 4.0 * b * h * s * s * d,
-            peaks, timed, b=b, s=s, h=h, d=d, hb=hb, padding_tail=tail)
-        if timed:
-            rows = [t.transpose(1, 2).contiguous() for t in (q, k, v)]  # [B, S, H, d]
-            proj = [t.view(b, s, h * d) for t in rows]
-            c["k5_ms"] = gpu_ms(lambda: flash_attention(*rows, bias))
-            c["k3_ms"] = gpu_ms(lambda: flash_attention_bse(*proj, bias, h))
-            emit({"phase": "kernel_time", "kernel": "attention_headpack", "b": b, "s": s,
-                  "h": h, "d": d, "hb": hb, "k5_ms": c["k5_ms"], "k3_ms": c["k3_ms"]})
-            results[f"d{d}_hb{hb}"] = c
-            del rows, proj
-        del q, k, v
+    results, before, yardsticks = {}, attention_headpack.launches, {}
+    for d, hb in HEADPACK_SHAPES:
+        for b, s, h, tail, timed in ((32, 512, 12, False, True), (32, 512, 12, True, False),
+                                     (4, 300, 12, True, False)):
+            q, k, v = (torch.randn(b, h, s, d, generator=gen).to(dev, torch.bfloat16)
+                       for _ in range(3))
+            bias = torch.zeros(b, s)
+            if tail:
+                lens = torch.from_numpy(rng.integers(1, s + 1, size=b))
+                lens[0], lens[-1] = s, 0
+                bias = torch.where(torch.arange(s)[None, :] < lens[:, None], 0.0, MASK_BIAS)
+            bias = bias.to(torch.float32).to(dev)
+            c = _attention_case(
+                "attention_headpack", lambda *a: attention_headpack(*a, hb),
+                lambda *a: attention_headpack_plain(*a, hb),
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=bias[:, None, None, :].to(q.dtype)),
+                (q, k, v, bias), 4 * q.numel() * 2 + bias.numel() * 4,
+                4.0 * b * h * s * s * d, peaks, timed, b=b, s=s, h=h, d=d, hb=hb,
+                padding_tail=tail)
+            if timed:
+                if d not in yardsticks:  # K5 and K3 at the same shape, once per d
+                    rows = [t.transpose(1, 2).contiguous() for t in (q, k, v)]  # [B, S, H, d]
+                    proj = [t.view(b, s, h * d) for t in rows]
+                    yardsticks[d] = {
+                        "k5_ms": gpu_ms(lambda: flash_attention(*rows, bias)),
+                        "k3_ms": gpu_ms(lambda: flash_attention_bse(*proj, bias, h))}
+                    del rows, proj
+                c.update(yardsticks[d])
+                emit({"phase": "kernel_time", "kernel": "attention_headpack", "b": b, "s": s,
+                      "h": h, "d": d, "hb": hb, "ms": c["ms"], **yardsticks[d]})
+                results[f"d{d}_hb{hb}"] = c
+            del q, k, v
     torch.cuda.empty_cache()
     return {**results, "check_launches": attention_headpack.launches - before}
 
@@ -5331,7 +5364,14 @@ def main() -> None:
                    "max_abs_err", "ms", "k1_ms", "library_ms", "bound_ms", "bound_by")}),
         {**_entry("q4_matmul_ln", "q4_matmul.cu", "q4_matmul.py:219", ln_on_paths,
                   k1ln, "o projection 1024->1024 + gelu_erf + residual + LayerNorm at "
-                  "M=16384, bf16, Q8_0", k1_ms=k1ln["k1_ms"], linear_ms=k1ln["linear_ms"]),
+                  "M=16384, bf16, Q8_0 (the N tiles of a row one cluster)",
+                  k1_ms=k1ln["k1_ms"], linear_ms=k1ln["linear_ms"], tile=k1ln["tile"],
+                  cluster_blocks=k1ln["cluster_blocks"],
+                  active_clusters=k1ln["active_clusters"],
+                  **{f"n{n}": _timing(c) | {k: c[k] for k in ("k", "k1_ms", "linear_ms", "tile",
+                                                                "cluster_blocks",
+                                                                "active_clusters")}
+                     for n, c in k1ln["widths"].items() if n != 1024}),
          "launches_on_model_paths": ln_on_paths,
          "why": "JAX's linear composes the tail outside the kernel, ops/linear.py:84-94",
          "check_launches": k1ln["check_launches"]}]
@@ -5627,10 +5667,11 @@ def main() -> None:
                  f"[{c['b']}, {c['h']}, {c['s']}, {c['d']}] bf16 head-major, hb {c['hb']}, "
                  "zero bias", k5_ms=c["k5_ms"], k3_ms=c["k3_ms"],
                  library="SDPA with the additive mask, [B, H, S, d]",
-                 d64_hb2={**_timing(headpack["d64_hb2"]),
-                          "k5_ms": headpack["d64_hb2"]["k5_ms"],
-                          "k3_ms": headpack["d64_hb2"]["k3_ms"],
-                          "shape": "[32, 12, 512, 64] bf16 head-major, hb 2, zero bias"}),
+                 **{key: {**_timing(o), "k5_ms": o["k5_ms"], "k3_ms": o["k3_ms"],
+                          "shape": f"[{o['b']}, {o['h']}, {o['s']}, {o['d']}] bf16 head-major, "
+                                   f"hb {o['hb']}, zero bias"}
+                    for key, o in headpack.items()
+                    if key.startswith("d") and key != "d32_hb4"}),
         "replaces": "benchmarks/kernels.py:234",
         "launches_on_model_paths": headpack_on_paths,
         "why": "benchmark code: the kernel suite's head-packing A/B, on no model path",

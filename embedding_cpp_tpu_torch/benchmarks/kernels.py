@@ -23,8 +23,15 @@ torch.addmm on the dequantized weight (+ the activation, x * g outside
 the kernel for a prologue) and the bound, summed per layer.
 `bench_k1_tiles` forces each of K1's bf16 tile instances (`TC_TILES`) at
 every distinct K1 shape of those layers over several M, beside the one
-`k1_tile` picks: the times its rule is decided from.  `--only` runs the
-named sections alone (e.g. `--only k8_ffn k1_layers`).
+`k1_tile` picks: the times its rule is decided from.  `bench_ln_tiles`
+runs K1's residual + LayerNorm epilogue (the N tiles of a row one
+thread-block cluster) at the models' widths and at rows of 4096, M =
+16384 and M = 512 (one wave), Q8_0 bf16: each instance of `LN_TILES`
+whose cluster holds the row, fused, with the residual alone (no cluster)
+and with the LayerNorm alone, beside K1 without the tail, the port's
+composed `linear`, `ln_tile`'s pick and how many of its clusters the card
+runs at once.  `--only` runs the named sections alone (e.g. `--only k8_ffn
+k1_layers`).
 
 `bench_bse` runs the projection-layout kernel (K2, K3, K4 plain and
 packed with PH = 1 and H) at every model's heads at [32, 512], K3 at
@@ -36,9 +43,9 @@ K6a, K7) at the main paths' shapes, at the source's query-tile rule and
 with each query tile forced: the times the rule is decided from.
 `bench_attention_headpack` runs B1, the head-packed attention of the JAX
 suite's bench of that name (`ops/attention.attention_headpack`, kernel
-`csrc/attention_headpack.cu`).  No model path runs B1: it measures
-whether packing heads into one wide product pays on the card's tensor
-cores.
+`csrc/attention_headpack.cu`), at every (d, hb) of `HEADPACK_SHAPES`.  No
+model path runs B1: it measures whether serving several heads per block
+pays on the card.
 
 The full-forward modes of the JAX suite each time a whole forward of a
 preset (random weights, seed 0, bf16) with a family of kernels on and off
@@ -75,6 +82,7 @@ from ..gguf import GGMLType
 from ..gguf.quant import quantize
 from ..ops import qtensor as tqt
 from ..ops.attention import (
+    HEADPACK_SHAPES,
     attention_headpack,
     attention_headpack_plain,
     flash_attention,
@@ -321,6 +329,57 @@ def bench_k1_tiles(peaks, ms=(512, 5376, 8192, 16384, 22016, 65536)) -> dict:
     return out
 
 
+def bench_ln_tiles(peaks, ms=(16384, 512)) -> dict:
+    """K1's residual + LayerNorm epilogue, Q8_0 bf16 + gelu_erf, at N = K
+    = 384, 768, 1024 and at 1024 -> 4096: {"KxN": {M: {"BMxBN": us fused,
+    "BMxBN/residual": us, "BMxBN/ln": us, ..., "k1": us, "linear": us,
+    "rule": "BMxBN", "cluster_blocks", "active_clusters", "bound_us"}}}
+    for each instance of `LN_TILES` whose ceil(N / BN) blocks fit one
+    cluster."""
+    from ..ops.linear import linear
+    from ..ops.q4_matmul import LN_TILES, _ln_cluster_cap, _sms, ln_active_clusters, ln_tile
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2)
+    out = {}
+    for k, n in ((384, 384), (768, 768), (1024, 1024), (1024, 4096)):
+        out[f"{k}x{n}"] = {}
+        for m in ms:
+            x, w, _, b, _ = _k1_case(m, k, n, "Q8_0", True, False, rng, dev)
+            res = torch.from_numpy(rng.normal(size=(m, n))).to(dev, torch.bfloat16)
+            ln = (torch.from_numpy(1 + 0.1 * rng.normal(size=n)).to(dev, torch.float32),
+                  torch.from_numpy(0.1 * rng.normal(size=n)).to(dev, torch.float32), 1e-12)
+            nbytes, flops = _k1_work(m, k, n, w, False, True)
+            nbytes += m * n * 2 + 2 * n * 4  # the residual and the LayerNorm's rows
+
+            def us(fn):
+                return _timed(fn, nbytes, flops, peaks, samples=10)["us"]
+
+            row = {}
+            for t in LN_TILES:
+                if -(-n // t[1]) > _ln_cluster_cap(0, True, t, False):
+                    continue
+                key = f"{t[0]}x{t[1]}"
+                row[key] = us(lambda t=t: _q4_matmul_1d(x, w, b, res, ln, activation="gelu_erf",
+                                                        tile=t))
+                row[key + "/residual"] = us(lambda t=t: _q4_matmul_1d(
+                    x, w, b, res, activation="gelu_erf", tile=t))
+                row[key + "/ln"] = us(lambda t=t: _q4_matmul_1d(
+                    x, w, b, ln=ln, activation="gelu_erf", tile=t))
+            row["k1"] = us(lambda: _q4_matmul_1d(x, w, b, activation="gelu_erf"))
+            row["linear"] = us(lambda: linear(x, w, b, activation="gelu_erf", residual=res,
+                                              ln=ln))
+            rule = ln_tile(m, k, n, True, _sms(0), lambda t: _ln_cluster_cap(0, True, t, False))
+            row["rule"] = f"{rule[0]}x{rule[1]}"
+            row["cluster_blocks"] = -(-n // rule[1])
+            row["active_clusters"] = ln_active_clusters(True, rule, row["cluster_blocks"])
+            row["bound_us"] = bound_ms(nbytes, flops, peaks)[0] * 1e3
+            out[f"{k}x{n}"][m] = row
+            del x, w, b, res
+        torch.cuda.empty_cache()
+    return out
+
+
 def _qkv(shape, seed: int = 0):
     rng = np.random.default_rng(seed)
     return [torch.from_numpy(rng.normal(size=shape)).to("cuda", torch.bfloat16)
@@ -368,8 +427,8 @@ def bench_attention_bias(peaks, b: int = 32, s: int = 512, h: int = 12, d: int =
 
 def bench_attention_headpack(peaks, b: int = 32, s: int = 512, h: int = 12, d: int = 32,
                              hb: int = 4) -> dict:
-    """B1, hb heads packed into one product per stage over block-diagonal
-    K/V tiles, beside the per-head kernels at the same shape: K5
+    """B1, hb heads a block (the TPU kernel's product over block-diagonal
+    K/V tiles), beside the per-head kernels at the same shape: K5
     (`flash_attention`, [B, S, H, d]) and K3 (`flash_attention_bse`,
     [B, S, H*d]), SDPA (the library call, [B, H, S, d]) and the plain
     version.  The bias is zero, as in the JAX suite; max_err_vs_per_head is
@@ -948,9 +1007,17 @@ def main(argv=None) -> dict:
     if want("attention_bias"):
         results["attention_bias"] = {"b32_s512_d64": (r := bench_attention_bias(peaks))}
         log(f"attention K4 + pos-bias B=32 S=512 d=64: {ab(r)}")
+    if want("ln_tiles"):
+        results["ln_tiles"] = r = bench_ln_tiles(peaks)
+        for key, rows in r.items():
+            for m, row in rows.items():
+                log(f"K1 LN epilogue {key} M={m}: " + "  ".join(
+                    f"{t}={v:.1f}" for t, v in row.items() if isinstance(v, float))
+                    + f"  rule={row['rule']} ({row['cluster_blocks']} blocks, "
+                    f"{row['active_clusters']} clusters at once)")
     if want("attention_headpack"):
         results["attention_headpack"] = {}
-        for d, hb in ((32, 4), (64, 2)):
+        for d, hb in HEADPACK_SHAPES:
             key = f"b32_s512_d{d}_hb{hb}"
             results["attention_headpack"][key] = r = bench_attention_headpack(peaks, d=d, hb=hb)
             log(f"attention head-pack B1 {key}: {ab(r)} | K5 {r['per_head']['us']:.1f}us | "

@@ -8,7 +8,9 @@
 // tile and multiplied in before the product: in f32, rounded once to x's
 // dtype (a bf16 x bf16 product is exact in f32, so this is the TPU's bf16
 // multiply).  K1's residual + LayerNorm epilogue (TPU `residual`, `ln_sb`)
-// is a second kernel below, because the LayerNorm needs whole rows.
+// is an instance of the same bodies whose N tiles of a row run as one
+// thread-block cluster, because the LayerNorm needs whole rows (its section
+// below).
 // K8 replaces `_q4_matmul_2d`, the N-tiled form for weights too large for
 // the TPU kernel to hold whole (see its section).
 //
@@ -34,14 +36,14 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+#include <cooperative_groups.h>
 #include <stdint.h>
 
 #include <mutex>
+#include <type_traits>
+#include <utility>
 
 #include "sm90_mma.cuh"
-
-using namespace nvcuda;
 
 namespace {
 
@@ -102,26 +104,6 @@ __device__ __forceinline__ void dequant_block(
   }
 }
 
-// Eight bf16 values of row gm of x from element offset `off` (times g's when
-// g is given: f32 product, one rounding); zeros past the ragged M edge.
-__device__ __forceinline__ uint4 load_x8(const __nv_bfloat16* __restrict__ x,
-                                         const __nv_bfloat16* __restrict__ g, int gm, int M,
-                                         size_t off) {
-  uint4 v = make_uint4(0, 0, 0, 0);
-  if (gm < M) {
-    v = *reinterpret_cast<const uint4*>(x + off);
-    if (g != nullptr) {
-      const uint4 gv = *reinterpret_cast<const uint4*>(g + off);
-      __nv_bfloat16* xe = reinterpret_cast<__nv_bfloat16*>(&v);
-      const __nv_bfloat16* ge = reinterpret_cast<const __nv_bfloat16*>(&gv);
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        xe[j] = __float2bfloat16_rn(__fmul_rn(__bfloat162float(xe[j]), __bfloat162float(ge[j])));
-    }
-  }
-  return v;
-}
-
 // One f32 value of x (times g's), or 0 past the ragged M edge.
 __device__ __forceinline__ float load_x1(const float* __restrict__ x, const float* __restrict__ g,
                                          int gm, int M, size_t off) {
@@ -129,212 +111,309 @@ __device__ __forceinline__ float load_x1(const float* __restrict__ x, const floa
   return g != nullptr ? __fmul_rn(x[off], g[off]) : x[off];
 }
 
-constexpr int BK = QK;  // the f32 and LN bodies' K step: one quant block
-
-// ---- f32 activations: SIMT FMAs --------------------------------------------
-constexpr int FBM = 64, FBN = 64;  // 256 threads, 4x4 outputs each
-
-__global__ void __launch_bounds__(256) q4_matmul_f32_kernel(
-    const float* __restrict__ x, const float* __restrict__ g, const uint8_t* __restrict__ qs,
-    const float* __restrict__ scales, const float* __restrict__ mins,
-    const float* __restrict__ bias, float* __restrict__ out, int M, int K, int N,
-    int qtype, int act) {
-  __shared__ float As[BK][FBM + 1];  // transposed: As[k][m]
-  __shared__ float Bs[BK * (FBN + 4)];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * FBM, n0 = blockIdx.x * FBN;
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int i = tid; i < FBM * BK; i += 256) {
-      const int r = i / BK, c = i % BK, gm = m0 + r;
-      As[c][r] = load_x1(x, g, gm, M, (size_t)gm * K + k0 + c);
-    }
-    dequant_block<float, FBN, 256>(Bs, FBN + 4, qs, scales, mins, k0 / QK, n0, N, qtype);
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk * (FBN + 4) + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gm = m0 + ty + 16 * i;
-    if (gm >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = n0 + tx + 16 * j;
-      if (gn < N) out[(size_t)gm * N + gn] = epilogue(acc[i][j], bias, gn, act);
-    }
-  }
-}
-
-// ---- K1's residual + LayerNorm epilogue -------------------------------------
-//
-// The TPU kernel's `_epilogue` with `residual` and `ln_sb` (q4_matmul.py
-// :113-119, :219-227): y = act(acc + bias); y += residual in f32; then
-// (y - mean) * rsqrt(var + eps) * scale + bias_ln with the row statistics in
-// f32 over all N; one cast.  The LayerNorm needs whole rows, which K1's
-// output tiles do not hold, so a block here owns LN_BM full rows: it walks N
-// in 64-column sub-tiles (staging the x tile and one dequantized weight block
-// at a time in shared memory, WMMA products in bf16), keeps each
-// sub-tile's f32 accumulator in a shared-memory row buffer [LN_BM, N], then
-// one warp per row adds the bias, activation and residual, reduces the row
-// and writes it once.  The buffer caps N at what a block's shared memory
-// holds (about 3500 columns); past that the launch is refused.  No model
-// path runs this kernel: the JAX package's `linear` composes the tail
-// outside its kernel (ops/linear.py:84-94), and the port's does the same.
-constexpr int LN_BM = 16, LN_BN = 64, LN_THREADS = 128;
-constexpr int A_LD = BK + 8;     // bf16 elements; rows stay 16-byte aligned
-constexpr int B_LD = LN_BN + 8;
-
-__host__ __device__ constexpr int ln_y_ld(int N) { return (N + LN_BN - 1) / LN_BN * LN_BN + 4; }
+constexpr int BK = QK;  // the f32 body's K step: one quant block
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+// ---- K1's residual + LayerNorm epilogue ---------------------------------------
+//
+// The TPU kernel's `_epilogue` with `residual` and `ln_sb` (q4_matmul.py
+// :113-119, :219-227): y = act(acc + bias); y += residual in f32; then
+// (y - mean) * rsqrt(var + eps) * scale + bias_ln with the row statistics in
+// f32 over all N (the two-pass variance: the mean first, then the mean of
+// (y - mean)^2); one cast.  The TPU kernel holds whole rows in one tile.  On
+// the card the product runs K1's own bodies unchanged (the bf16 tile kernel
+// with its ring and mma.sync, the f32 SIMT kernel), each block holding a TBM
+// x TBN output tile, and the rows are made whole across a thread-block
+// cluster: the grid's N tiles of one M panel are one cluster (ceil(N / TBN)
+// blocks, up to 16 with the non-portable size), and the statistics cross it
+// through distributed shared memory.  In each block (`ln_tail`), after the
+// bias and activation on the accumulators, staged as f32 in shared memory:
+//   1. every thread adds the residual to its float4s of the tile, all of
+//      their copies in flight at once, consecutive lanes on consecutive
+//      float4s of a row (free of shared-memory bank conflicts); TPR =
+//      threads / TBM adjacent threads a row each sum every TPR-th float4 of
+//      it in order, then combine by an xor butterfly: the block's partial;
+//   2. cluster barrier; each row's mean is the blocks' partials read through
+//      distributed shared memory (map_shared_rank, every read in flight at
+//      once) and summed in rank order, which is N-tile order, so every block
+//      gets the same, deterministic mean; divided by N;
+//   3. the same for sum((y - mean)^2), giving rstd = rsqrt(var + eps);
+//   4. the block normalizes its own tile (the LayerNorm's scale and shift
+//      for its columns staged in shared memory), casts once and writes it
+//      once, 16 bytes a thread.
+// Columns past N add nothing to a sum and rows past M take part in none.
+// A third cluster barrier, arrived at after the reads and waited on at
+// the kernel's end, keeps every block alive until its peers have read its
+// partials while the normalize and the store run.  Without `ln_sb` (the
+// residual alone) no statistics are needed: no cluster, the same epilogue.  Past the widest cluster the card
+// schedules (`q4_matmul_ln_cluster_cap`), the wrapper runs K1 into f32 and
+// the same tail in PyTorch, from the shape, before any launch.
+//
+// What bounds it on an H100: at the main-path shapes (M = 16384, K = N =
+// 384 .. 1024) the product is K1's (near the ridge point: 2*M*K*N flops over
+// ~2*M*(K + 2N) bytes of bf16 x, residual and output); the tail adds the
+// residual's read and the cluster barriers, and nothing else goes to device
+// memory (the row statistics live in shared memory).  On the card the tail
+// is exposed: the 256 x 128 and 128 x 256 instances run one block an SM,
+// so no other block's products hide its barriers and remote reads (the
+// kernel suite's `ln_tiles` times the tail's parts), and a cluster of 8
+// such blocks runs 15 at a time (120 of 132 SMs), of 16 only 7.  The first
+// version of this epilogue (PR 5) was a
+// kernel of its own that owned 16 whole rows a block and dequantized the
+// whole weight again for every 16 rows (1024 blocks at M = 16384), with
+// synchronous WMMA products; here each weight tile is dequantized once per
+// TBM rows, as in K1.
+
+// The two halves of a cluster barrier: arrive (after this thread's reads of
+// the peers' shared memory), and wait (before the block exits).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// The tail on the row buffer Y [LN_BM, yld] (f32 products): bias, activation,
-// residual, LayerNorm (when ln_sb is given), one cast, one write per element.
-template <typename T>
-__device__ void ln_rows(float* Y, int yld, int m0, int M, int N, const float* __restrict__ bias,
-                        int act, const T* __restrict__ residual,
-                        const float* __restrict__ ln_sb, float eps, void* __restrict__ out,
-                        int out_f32) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < LN_BM; r += LN_THREADS / 32) {
-    const int gm = m0 + r;
-    if (gm >= M) continue;
-    float* y = Y + r * yld;
-    const size_t row = (size_t)gm * N;
-    float sum = 0.0f;
-    for (int c = lane; c < N; c += 32) {
-      float v = epilogue(y[c], bias, c, act);
-      if (residual != nullptr) v = __fadd_rn(v, to_f32(residual[row + c]));
-      y[c] = v;
-      sum += v;
-    }
-    if (ln_sb != nullptr) {
-      const float mean = warp_sum(sum) / N;
-      float sq = 0.0f;
-      for (int c = lane; c < N; c += 32) {
-        const float d = y[c] - mean;
-        sq = fmaf(d, d, sq);
+// The tail on a staged output tile Cs [TBM, LD] (f32, the bias and
+// activation applied, zeros past N) of rows m0.., columns n0..: the residual
+// (of x's type R), then, with ln_sb, the LayerNorm with the row statistics
+// over the cluster; in place.  `stat` holds ln_stat_floats(TBM, TBN) floats
+// of shared memory; the caller syncs the block before and after, and with
+// ln_sb calls `cluster_wait` before it exits.
+__host__ __device__ constexpr int ln_stat_floats(int tbm, int tbn) { return 4 * tbm + 2 * tbn; }
+
+template <int TBM, int TBN, int LD, int NT, typename R>
+__device__ void ln_tail(float* Cs, float* stat, const R* __restrict__ residual,
+                        const float* __restrict__ ln_sb, float eps, int M, int N, int m0,
+                        int n0) {
+  namespace cg = cooperative_groups;
+  constexpr int TPR = NT / TBM;          // threads per row for the row sums
+  constexpr int RUN = TBN / TPR;         // the columns each sums
+  constexpr int MAXC = 16;               // the widest cluster
+  static_assert(NT % TBM == 0 && TPR <= 32 && (TPR & (TPR - 1)) == 0, "threads per row");
+  static_assert(RUN % 4 == 0 && LD % 4 == 0, "whole float4s");
+  float* bsum = stat;              // the block's partial row sums
+  float* bsq = stat + TBM;         // its partial sums of (y - mean)^2
+  float* mean_s = stat + 2 * TBM;
+  float* rstd_s = stat + 3 * TBM;
+  float* scale_s = stat + 4 * TBM;  // ln_sb's columns n0 .. n0 + TBN - 1 (0 past N)
+  float* shift_s = scale_s + TBN;
+  const int tid = threadIdx.x;
+  static_assert(TBN <= NT, "one thread a column stages the LayerNorm's scale and shift");
+  // the LayerNorm's scale and shift of this block's columns, read beside
+  // the residual
+  float scale = 0.0f, shift = 0.0f;
+  if (ln_sb != nullptr && tid < TBN && n0 + tid < N) {
+    scale = ln_sb[n0 + tid];
+    shift = ln_sb[N + n0 + tid];
+  }
+  // 1. the residual, 4 values a copy (8 bytes of bf16, 16 of f32), lane after
+  // lane along a row of the tile (coalesced copies, conflict-free float4s in
+  // shared memory), every copy of the tile in flight at once
+  if (residual != nullptr) {
+    constexpr int CH = TBM * TBN / 4 / NT;  // copies per thread
+    static_assert(TBM * TBN % (4 * NT) == 0, "whole copies per thread");
+    using Vec = typename std::conditional<sizeof(R) == 2, uint2, uint4>::type;
+    if (N % 4 == 0) {  // rows start aligned to the copy
+      Vec u[CH];
+#pragma unroll
+      for (int t = 0; t < CH; ++t) {
+        const int i = tid + t * NT, r = i / (TBN / 4), c = i % (TBN / 4) * 4;
+        const bool ok = m0 + r < M && n0 + c < N;
+        u[t] = ok ? *reinterpret_cast<const Vec*>(residual + (size_t)(m0 + r) * N + n0 + c)
+                  : Vec{};
       }
-      const float rstd = rsqrtf(warp_sum(sq) / N + eps);
-      for (int c = lane; c < N; c += 32)
-        y[c] = __fadd_rn(__fmul_rn(__fmul_rn(y[c] - mean, rstd), ln_sb[c]), ln_sb[N + c]);
-    }
-    for (int c = lane; c < N; c += 32) {
-      if (out_f32)
-        static_cast<float*>(out)[row + c] = y[c];
-      else
-        static_cast<__nv_bfloat16*>(out)[row + c] = __float2bfloat16_rn(y[c]);
+#pragma unroll
+      for (int t = 0; t < CH; ++t) {
+        const int i = tid + t * NT, r = i / (TBN / 4), c = i % (TBN / 4) * 4;
+        if (m0 + r >= M || n0 + c >= N) continue;
+        const R* e = reinterpret_cast<const R*>(&u[t]);
+        float4* y = reinterpret_cast<float4*>(Cs + r * LD + c);
+        float4 v = *y;
+        v.x = __fadd_rn(v.x, to_f32(e[0]));
+        v.y = __fadd_rn(v.y, to_f32(e[1]));
+        v.z = __fadd_rn(v.z, to_f32(e[2]));
+        v.w = __fadd_rn(v.w, to_f32(e[3]));
+        *y = v;
+      }
+    } else {
+      for (int i = tid; i < TBM * TBN; i += NT) {
+        const int r = i / TBN, c = i % TBN, gm = m0 + r, gn = n0 + c;
+        if (gm < M && gn < N)
+          Cs[r * LD + c] = __fadd_rn(Cs[r * LD + c], to_f32(residual[(size_t)gm * N + gn]));
+      }
     }
   }
-}
-
-size_t ln_smem_bytes(int x_bf16, int N) {
-  const size_t y = (size_t)LN_BM * ln_y_ld(N) * 4;
-  return x_bf16 ? y + LN_BM * A_LD * 2 + BK * B_LD * 2
-                : y + BK * (LN_BM + 1) * 4 + BK * (LN_BN + 4) * 4;
-}
-
-__global__ void __launch_bounds__(LN_THREADS) q4_matmul_ln_bf16_kernel(
-    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ g,
-    const uint8_t* __restrict__ qs, const float* __restrict__ scales,
-    const float* __restrict__ mins, const float* __restrict__ bias,
-    const __nv_bfloat16* __restrict__ residual, const float* __restrict__ ln_sb, float eps,
-    void* __restrict__ out, int M, int K, int N, int qtype, int act, int out_f32) {
-  extern __shared__ __align__(128) unsigned char ln_smem[];
-  const int yld = ln_y_ld(N);
-  float* Y = reinterpret_cast<float*>(ln_smem);
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(Y + LN_BM * yld);  // [LN_BM, A_LD]
-  __nv_bfloat16* Bs = As + LN_BM * A_LD;                                 // [BK, B_LD]
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int m0 = blockIdx.x * LN_BM;
-  for (int n0 = 0; n0 < N; n0 += LN_BN) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int k0 = 0; k0 < K; k0 += BK) {
-      if (tid < LN_BM * BK / 8) {
-        const int r = tid / (BK / 8), c = (tid % (BK / 8)) * 8, gm = m0 + r;
-        *reinterpret_cast<uint4*>(&As[r * A_LD + c]) =
-            load_x8(x, g, gm, M, (size_t)gm * K + k0 + c);
-      }
-      dequant_block<__nv_bfloat16, LN_BN, LN_THREADS>(Bs, B_LD, qs, scales, mins, k0 / QK, n0,
-                                                      N, qtype);
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-        wmma::load_matrix_sync(a, As + kk, A_LD);
-        wmma::load_matrix_sync(b, Bs + kk * B_LD + warp * 16, B_LD);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      __syncthreads();
-    }
-    wmma::store_matrix_sync(Y + n0 + warp * 16, acc, yld, wmma::mem_row_major);
+  if (ln_sb == nullptr) return;
+  if (tid < TBN) {
+    scale_s[tid] = scale;
+    shift_s[tid] = shift;
   }
   __syncthreads();
-  ln_rows(Y, yld, m0, M, N, bias, act, residual, ln_sb, eps, out, out_f32);
+  // each row's partial over this block's columns: TPR adjacent threads, each
+  // summing in order its columns 4 (j TPR + p) .. 4 (j TPR + p) + 3, j =
+  // 0, 1, .. (p its place among the TPR), then an xor butterfly
+  const int row = tid / TPR, p = tid % TPR;
+  const bool mine = m0 + row < M;
+  auto row_partial = [&](auto f) {
+    float s = 0.0f;
+#pragma unroll
+    for (int j = 0; j < RUN / 4; ++j) {
+      const int c = 4 * (j * TPR + p);
+      const float4 v = *reinterpret_cast<const float4*>(Cs + row * LD + c);
+      const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (n0 + c + k < N) s = f(s, e[k]);
+    }
+#pragma unroll
+    for (int o = 1; o < TPR; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    return s;
+  };
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned blocks = cluster.num_blocks();
+  // the blocks' partials of row r, every remote read in flight at once, then
+  // summed in rank (N-tile) order
+  auto cluster_total = [&](float* part, int r) {
+    float v[MAXC];
+#pragma unroll
+    for (int b = 0; b < MAXC; ++b)
+      v[b] = b < (int)blocks ? cluster.map_shared_rank(part, b)[r] : 0.0f;
+    float tot = 0.0f;
+#pragma unroll
+    for (int b = 0; b < MAXC; ++b)
+      if (b < (int)blocks) tot = __fadd_rn(tot, v[b]);
+    return tot;
+  };
+  // 2. the row means
+  {
+    const float s = row_partial([](float acc, float y) { return __fadd_rn(acc, y); });
+    if (tid % TPR == 0 && mine) bsum[row] = s;
+  }
+  cluster.sync();  // every block's partial sums are written
+  for (int r = tid; r < TBM; r += NT)
+    if (m0 + r < M) mean_s[r] = cluster_total(bsum, r) / N;
+  __syncthreads();
+  // 3. the row variances: the partials of (y - mean)^2
+  {
+    const float mean = mine ? mean_s[row] : 0.0f;
+    const float s = row_partial([mean](float acc, float y) {
+      const float d = y - mean;
+      return fmaf(d, d, acc);
+    });
+    if (tid % TPR == 0 && mine) bsq[row] = s;
+  }
+  cluster.sync();  // every block's partial squares are written
+  for (int r = tid; r < TBM; r += NT)
+    if (m0 + r < M) rstd_s[r] = rsqrtf(cluster_total(bsq, r) / N + eps);
+  // this block has read its peers' partials: it arrives at the cluster
+  // barrier that the kernel waits on before it exits (`cluster_wait`), so
+  // that no block leaves while a peer may still read its partials
+  cluster_arrive();
+  __syncthreads();  // this block's statistics are written
+  // 4. normalize the tile in place, 4 columns a step
+  for (int i = tid; i < TBM * TBN / 4; i += NT) {
+    const int r = i / (TBN / 4), c = i % (TBN / 4) * 4;
+    if (m0 + r >= M) continue;
+    float4* p = reinterpret_cast<float4*>(Cs + r * LD + c);
+    const float4 v = *p, sc = *reinterpret_cast<const float4*>(scale_s + c),
+                 sh = *reinterpret_cast<const float4*>(shift_s + c);
+    const float mean = mean_s[r], rstd = rstd_s[r];
+    auto norm = [&](float y, float a, float b) {
+      return __fadd_rn(__fmul_rn(__fmul_rn(y - mean, rstd), a), b);
+    };
+    *p = make_float4(norm(v.x, sc.x, sh.x), norm(v.y, sc.y, sh.y), norm(v.z, sc.z, sh.z),
+                     norm(v.w, sc.w, sh.w));
+  }
 }
 
-__global__ void __launch_bounds__(LN_THREADS) q4_matmul_ln_f32_kernel(
+// ---- f32 activations: SIMT FMAs --------------------------------------------
+//
+// `q4_matmul_f32_kernel<FBN, LN>`: 256 threads, each 4 x 4 outputs of an FBM
+// x FBN tile (FBM = 4096 / FBN), K in quant blocks: the x tile staged
+// transposed, one 32-row weight block dequantized into shared memory (f32
+// math, as the TPU's `_dequant_tile`), then FMAs in f32 (no TF32).  K1 runs
+// FBN = 64; with the residual + LayerNorm epilogue (LN) the tile is staged
+// for `ln_tail` at FBN = 64 or 256 (the wrapper's `ln_tile`), so that one
+// cluster of 16 holds rows of 1024 or 4096.
+constexpr int F32_THREADS = 256;
+__host__ __device__ constexpr int f32_bm(int fbn) { return 4 * F32_THREADS / (fbn / 4); }
+__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
+// the kernel's shared floats: the x and weight tiles, with LN the staged
+// output tile over them, then the row statistics
+__host__ __device__ constexpr int f32_smem_floats(int fbn, bool ln) {
+  return ln ? cmax(BK * (f32_bm(fbn) + 1) + BK * (fbn + 4), f32_bm(fbn) * (fbn + 4)) +
+                  ln_stat_floats(f32_bm(fbn), fbn)
+            : BK * (f32_bm(fbn) + 1) + BK * (fbn + 4);
+}
+
+template <int FBN, bool LN>
+__global__ void __launch_bounds__(F32_THREADS) q4_matmul_f32_kernel(
     const float* __restrict__ x, const float* __restrict__ g, const uint8_t* __restrict__ qs,
     const float* __restrict__ scales, const float* __restrict__ mins,
     const float* __restrict__ bias, const float* __restrict__ residual,
     const float* __restrict__ ln_sb, float eps, float* __restrict__ out, int M, int K, int N,
     int qtype, int act) {
-  extern __shared__ __align__(128) unsigned char ln_smem[];
-  const int yld = ln_y_ld(N);
-  float* Y = reinterpret_cast<float*>(ln_smem);
-  float* As = Y + LN_BM * yld;           // transposed: As[k * (LN_BM + 1) + m]
-  float* Bs = As + BK * (LN_BM + 1);     // [BK, LN_BN + 4]
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;  // rows 2ty, 2ty+1; cols tx+16j
-  const int m0 = blockIdx.x * LN_BM;
-  for (int n0 = 0; n0 < N; n0 += LN_BN) {
-    float acc[2][4] = {};
-    for (int k0 = 0; k0 < K; k0 += BK) {
-      for (int i = tid; i < LN_BM * BK; i += LN_THREADS) {
-        const int r = i / BK, c = i % BK, gm = m0 + r;
-        As[c * (LN_BM + 1) + r] = load_x1(x, g, gm, M, (size_t)gm * K + k0 + c);
-      }
-      dequant_block<float, LN_BN, LN_THREADS>(Bs, LN_BN + 4, qs, scales, mins, k0 / QK, n0, N,
-                                              qtype);
-      __syncthreads();
-      for (int kk = 0; kk < BK; ++kk) {
-        const float a0 = As[kk * (LN_BM + 1) + 2 * ty], a1 = As[kk * (LN_BM + 1) + 2 * ty + 1];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float b = Bs[kk * (LN_BN + 4) + tx + 16 * j];
-          acc[0][j] = fmaf(a0, b, acc[0][j]);
-          acc[1][j] = fmaf(a1, b, acc[1][j]);
-        }
-      }
-      __syncthreads();
+  constexpr int FBM = f32_bm(FBN), TX = FBN / 4, TY = F32_THREADS / TX, ALD = FBM + 1;
+  constexpr int BLD = FBN + 4;
+  __shared__ __align__(16) float fsm[f32_smem_floats(FBN, LN)];
+  float* As = fsm;             // transposed: As[k * ALD + m]
+  float* Bs = fsm + BK * ALD;  // [BK, BLD]
+  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;  // cols tx+TX*j, rows ty+TY*i
+  const int m0 = blockIdx.y * FBM, n0 = blockIdx.x * FBN;
+  float acc[4][4] = {};
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    for (int i = tid; i < FBM * BK; i += F32_THREADS) {
+      const int r = i / BK, c = i % BK, gm = m0 + r;
+      As[c * ALD + r] = load_x1(x, g, gm, M, (size_t)gm * K + k0 + c);
     }
+    dequant_block<float, FBN, F32_THREADS>(Bs, BLD, qs, scales, mins, k0 / QK, n0, N, qtype);
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < BK; ++kk) {
+      float av[4], bv[4];
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+      for (int i = 0; i < 4; ++i) av[i] = As[kk * ALD + ty + TY * i];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) Y[(2 * ty + i) * yld + n0 + tx + 16 * j] = acc[i][j];
+      for (int j = 0; j < 4; ++j) bv[j] = Bs[kk * BLD + tx + TX * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
   }
-  __syncthreads();
-  ln_rows(Y, yld, m0, M, N, bias, act, residual, ln_sb, eps, out, 1);
+  if constexpr (!LN) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int gm = m0 + ty + TY * i;
+      if (gm >= M) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int gn = n0 + tx + TX * j;
+        if (gn < N) out[(size_t)gm * N + gn] = epilogue(acc[i][j], bias, gn, act);
+      }
+    }
+  } else {
+    float* Cs = fsm;  // [FBM, BLD] over the x and weight tiles (free after the last barrier)
+    float* stat = fsm + f32_smem_floats(FBN, true) - ln_stat_floats(FBM, FBN);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tx + TX * j, gn = n0 + c;
+        Cs[(ty + TY * i) * BLD + c] = gn < N ? epilogue(acc[i][j], bias, gn, act) : 0.0f;
+      }
+    __syncthreads();
+    ln_tail<FBM, FBN, BLD, F32_THREADS>(Cs, stat, residual, ln_sb, eps, M, N, m0, n0);
+    __syncthreads();
+    for (int i = tid; i < FBM * FBN; i += F32_THREADS) {
+      const int r = i / FBN, c = i % FBN, gm = m0 + r, gn = n0 + c;
+      if (gm < M && gn < N) out[(size_t)gm * N + gn] = Cs[r * BLD + c];
+    }
+    if (ln_sb != nullptr) cluster_wait();  // the peers have read this block's partials
+  }
 }
 
 // ---- K8: the N-tiled form, and the bf16 tile kernel of K1 and K8 ------------
@@ -425,6 +504,10 @@ size_t k8_smem_bytes(int tn, int K) { return (size_t)K * tn * 4 + BK * (k8f_bm(t
   X(256, 128, 64, 32, 3, 1)  \
   X(128, 64, 32, 32, 3, 2)
 constexpr int K8_TBM = 256, K8_TBN = 128;
+// The instances only the residual + LayerNorm epilogue runs, beside those of
+// TC_TILES: 128 x 256 (16 warps of 64 x 32, 172 KB, one block per SM), so
+// that one cluster of 16 blocks holds rows of 4096.
+#define LN_ONLY_TILES(X) X(128, 256, 64, 32, 3, 1)
 
 namespace tc {
 
@@ -469,6 +552,9 @@ struct Args {
   const float* scales;
   const float* mins;
   const float* bias;
+  const bf16* residual;  // the LN epilogue's (null when absent)
+  const float* ln_sb;
+  float eps;
   void* out;
   int M, K, N, qtype, act, out_f32, aligned;
 };
@@ -624,7 +710,10 @@ constexpr int smem_bytes() {
   return T::SMEM + (PRO ? T::A_BYTES : 0);
 }
 
-template <class T, bool PRO>
+// LN: the residual + LayerNorm epilogue (`ln_tail`) between the staging of
+// the output tile and its store; the row statistics' 4 * TBM floats follow
+// the staged tile.
+template <class T, bool PRO, bool LN>
 __global__ void __launch_bounds__(T::NT, T::MINB) q4_matmul_tc_kernel(const Args a) {
   constexpr int TBM = T::TBM, TBN = T::TBN, WM = T::WM, WN = T::WN, STAGES = T::STAGES;
   constexpr int MI = T::MI, NI = T::NI, NT = T::NT, SB = T::SB;
@@ -729,6 +818,13 @@ __global__ void __launch_bounds__(T::NT, T::MINB) q4_matmul_tc_kernel(const Args
     }
   }
   __syncthreads();
+  if constexpr (LN) {
+    static_assert(TBM * OUT_LD * 4 + ln_stat_floats(TBM, TBN) * 4 <= T::SMEM,
+                  "the row statistics fit beside the staged tile");
+    ln_tail<TBM, TBN, OUT_LD, NT>(Cs, Cs + TBM * OUT_LD, a.residual, a.ln_sb, a.eps, a.M, a.N,
+                                  m0, n0);
+    __syncthreads();
+  }
   const int vec = a.out_f32 ? 4 : 8;  // outputs per 16 bytes
   const bool whole = a.N % vec == 0;  // rows start 16-byte aligned
   for (int i = threadIdx.x; i < TBM * TBN / vec; i += NT) {
@@ -759,6 +855,9 @@ __global__ void __launch_bounds__(T::NT, T::MINB) q4_matmul_tc_kernel(const Args
           out[j] = __float2bfloat16_rn(Cs[r * OUT_LD + c + j]);
       }
     }
+  }
+  if constexpr (LN) {
+    if (a.ln_sb != nullptr) cluster_wait();  // the peers have read this block's partials
   }
 }
 
@@ -905,55 +1004,166 @@ int k8_grid(Kernel kernel, Occupancy& seen, size_t smem, int M, int N, int tn, i
   return 0;
 }
 
+// How many clusters of `c` blocks along x of `kernel` the card runs at once
+// at `smem` bytes of dynamic shared memory (0 when it cannot run one).
+template <typename Kernel>
+cudaError_t active_clusters(Kernel kernel, int threads, size_t smem, int c, int* n) {
+  cudaLaunchAttribute at;
+  at.id = cudaLaunchAttributeClusterDimension;
+  at.val.clusterDim.x = c;
+  at.val.clusterDim.y = 1;
+  at.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(c);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = &at;
+  cfg.numAttrs = 1;
+  *n = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveClusters(n, kernel, &cfg);
+  if (e != cudaSuccess) cudaGetLastError();
+  return e;
+}
+
+// The widest cluster of blocks (at most 16) along x of which the card can
+// schedule one at `smem` bytes of dynamic shared memory; the non-portable
+// sizes past 8 are opted in first.  A failure of every size is returned.
+template <typename Kernel>
+int cluster_cap(Kernel kernel, int threads, size_t smem, int* cap) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) cudaGetLastError();
+  for (int c = 16; c >= 1; --c) {
+    int n = 0;
+    e = active_clusters(kernel, threads, smem, c, &n);
+    if (e == cudaSuccess && n >= 1) {
+      *cap = c;
+      return 0;
+    }
+  }
+  return static_cast<int>(e != cudaSuccess ? e : cudaErrorInvalidConfiguration);
+}
+
+// `cluster_cap` of one kernel, asked of the driver once per device.
+struct ClusterCap {
+  std::mutex mu;
+  int cap[kMaxDevices] = {};
+};
+
+template <typename Kernel>
+int cached_cluster_cap(Kernel kernel, ClusterCap& seen, int threads, size_t smem, int* cap) {
+  int dev = 0;
+  DeviceLimits lim;
+  int err = device_limits(&dev, &lim);
+  if (err) return err;
+  std::lock_guard<std::mutex> lock(seen.mu);
+  if (seen.cap[dev] == 0) {
+    err = cluster_cap(kernel, threads, smem, &seen.cap[dev]);
+    if (err) return err;
+  }
+  *cap = seen.cap[dev];
+  return 0;
+}
+
+// kernel<<<grid, threads, smem, st>>>(args...) with clusters of `cluster`
+// blocks along x.
+template <typename... P, typename... A>
+int launch_cluster(void (*kernel)(P...), dim3 grid, int threads, size_t smem, cudaStream_t st,
+                   int cluster, A&&... args) {
+  cudaLaunchAttribute at;
+  at.id = cudaLaunchAttributeClusterDimension;
+  at.val.clusterDim.x = cluster;
+  at.val.clusterDim.y = 1;
+  at.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = &at;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, std::forward<A>(args)...);
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(e != cudaSuccess ? e : last);
+}
+
 namespace tc {
 
-template <class T, bool PRO>
+template <class T, bool PRO, bool LN>
 int occupancy(int* occ) {
   static Occupancy seen;
   DeviceLimits lim;
-  return kernel_occupancy(q4_matmul_tc_kernel<T, PRO>, seen, T::NT, smem_bytes<T, PRO>(), occ,
-                          &lim);
+  return kernel_occupancy(q4_matmul_tc_kernel<T, PRO, LN>, seen, T::NT, smem_bytes<T, PRO>(),
+                          occ, &lim);
 }
 
-// One block per output tile, N tiles fastest.
+// The widest cluster of the instance's LN kernel the card schedules.
 template <class T, bool PRO>
+int ln_cluster_cap(int* cap) {
+  static ClusterCap seen;
+  int occ = 0;
+  const int err = occupancy<T, PRO, true>(&occ);  // the shared-memory opt-in first
+  if (err) return err;
+  return cached_cluster_cap(q4_matmul_tc_kernel<T, PRO, true>, seen, T::NT,
+                            smem_bytes<T, PRO>(), cap);
+}
+
+// One block per output tile, N tiles fastest.  The LayerNorm epilogue
+// launches the N tiles of each M panel as one cluster (refused past the
+// widest the card schedules).
+template <class T, bool PRO, bool LN>
 int launch(const Args& a, cudaStream_t st) {
   int occ = 0;
-  const int err = occupancy<T, PRO>(&occ);
+  int err = occupancy<T, PRO, LN>(&occ);
   if (err) return err;
-  const int m_tiles = (a.M + T::TBM - 1) / T::TBM;
+  const int m_tiles = (a.M + T::TBM - 1) / T::TBM, n_tiles = (a.N + T::TBN - 1) / T::TBN;
   if (m_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((a.N + T::TBN - 1) / T::TBN, m_tiles);
-  q4_matmul_tc_kernel<T, PRO><<<grid, T::NT, smem_bytes<T, PRO>(), st>>>(a);
+  const dim3 grid(n_tiles, m_tiles);
+  constexpr size_t smem = smem_bytes<T, PRO>();
+  if constexpr (LN) {
+    if (a.ln_sb != nullptr) {
+      int cap = 0;
+      err = ln_cluster_cap<T, PRO>(&cap);
+      if (err) return err;
+      if (n_tiles > cap) return static_cast<int>(cudaErrorInvalidValue);
+      return launch_cluster(q4_matmul_tc_kernel<T, PRO, true>, grid, T::NT, smem, st, n_tiles,
+                            a);
+    }
+  }
+  q4_matmul_tc_kernel<T, PRO, LN><<<grid, T::NT, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-// f(Tile<...>{}) for the instance of output tile bm x bn; a tile that
-// TC_TILES does not name is refused.
-template <class F>
+// f(Tile<...>{}) for the instance of output tile bm x bn: one of TC_TILES,
+// or with LN one of LN_ONLY_TILES too; any other tile is refused.
+template <bool LN, class F>
 int with_tile(int bm, int bn, F&& f) {
 #define TC_CASE(TBM, TBN, WM, WN, STAGES, MINB) \
   if (bm == TBM && bn == TBN) return f(Tile<TBM, TBN, WM, WN, STAGES, MINB>{});
   TC_TILES(TC_CASE)
+  if constexpr (LN) {
+    LN_ONLY_TILES(TC_CASE)
+  }
 #undef TC_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The bm x bn instance, with the prologue's g tile when a.g is given.
+template <bool LN>
 int launch_tile(int bm, int bn, const Args& a, cudaStream_t st) {
-  return with_tile(bm, bn, [&](auto t) {
+  return with_tile<LN>(bm, bn, [&](auto t) {
     using T = decltype(t);
-    return a.g != nullptr ? launch<T, true>(a, st) : launch<T, false>(a, st);
+    return a.g != nullptr ? launch<T, true, LN>(a, st) : launch<T, false, LN>(a, st);
   });
 }
 
 // The instance's tile into tile[7]: BM, BN, BK, the ring's stages, the warp
 // tile WM x WN and the blocks per SM on the current device.
 int tile_info(int bm, int bn, int prologue, int* tile) {
-  return with_tile(bm, bn, [&](auto t) {
+  return with_tile<false>(bm, bn, [&](auto t) {
     using T = decltype(t);
     int occ = 0;
-    const int err = prologue ? occupancy<T, true>(&occ) : occupancy<T, false>(&occ);
+    const int err =
+        prologue ? occupancy<T, true, false>(&occ) : occupancy<T, false, false>(&occ);
     if (err) return err;
     const int v[7] = {T::TBM, T::TBN, TBK, T::STAGES, T::WM, T::WN, occ};
     for (int i = 0; i < 7; ++i) tile[i] = v[i];
@@ -964,11 +1174,13 @@ int tile_info(int bm, int bn, int prologue, int* tile) {
 // The kernel's arguments; 16-byte copies of the weight rows need N % 16 == 0
 // and aligned bases.
 Args args(const void* x, const void* g, const void* qs, const float* scales, const float* mins,
-          const float* bias, void* out, int out_f32, int M, int K, int N, int qtype, int act) {
+          const float* bias, void* out, int out_f32, int M, int K, int N, int qtype, int act,
+          const void* residual = nullptr, const float* ln_sb = nullptr, float eps = 0.0f) {
   const uintptr_t bases = reinterpret_cast<uintptr_t>(qs) | reinterpret_cast<uintptr_t>(scales) |
                           reinterpret_cast<uintptr_t>(mins);
   return Args{static_cast<const bf16*>(x), static_cast<const bf16*>(g),
-              static_cast<const uint8_t*>(qs), scales, mins, bias, out, M, K, N, qtype, act,
+              static_cast<const uint8_t*>(qs), scales, mins, bias,
+              static_cast<const bf16*>(residual), ln_sb, eps, out, M, K, N, qtype, act,
               out_f32, N % 16 == 0 && bases % 16 == 0};
 }
 
@@ -990,6 +1202,34 @@ int k8_f32_launch(const void* x, const void* g, const uint8_t* qs, const float* 
   return static_cast<int>(cudaGetLastError());
 }
 
+// The f32 SIMT kernel at column tile FBN (64, or with LN 64 or 256); with
+// LN and ln_sb, the N tiles of an M panel as one cluster (refused past the
+// widest the card schedules).
+template <int FBN, bool LN>
+int f32_launch(const float* x, const float* g, const uint8_t* qs, const float* scales,
+               const float* mins, const float* bias, const float* residual,
+               const float* ln_sb, float eps, float* out, int M, int K, int N, int qtype,
+               int act, cudaStream_t st) {
+  const int n_tiles = (N + FBN - 1) / FBN, m_tiles = (M + f32_bm(FBN) - 1) / f32_bm(FBN);
+  if (m_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(n_tiles, m_tiles);
+  auto kernel = q4_matmul_f32_kernel<FBN, LN>;
+  if constexpr (LN) {
+    if (ln_sb != nullptr) {
+      static ClusterCap seen;
+      int cap = 0;
+      const int err = cached_cluster_cap(kernel, seen, F32_THREADS, 0, &cap);
+      if (err) return err;
+      if (n_tiles > cap) return static_cast<int>(cudaErrorInvalidValue);
+      return launch_cluster(kernel, grid, F32_THREADS, 0, st, n_tiles, x, g, qs, scales, mins,
+                            bias, residual, ln_sb, eps, out, M, K, N, qtype, act);
+    }
+  }
+  kernel<<<grid, F32_THREADS, 0, st>>>(x, g, qs, scales, mins, bias, residual, ln_sb, eps, out,
+                                       M, K, N, qtype, act);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // K1.  x [M, K] (bf16 when x_bf16, else f32), optional prologue multiplicand
@@ -1006,47 +1246,85 @@ extern "C" int q4_matmul_launch(const void* x, const void* g, int x_bf16, const 
                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (x_bf16)
-    return tc::launch_tile(
+    return tc::launch_tile<false>(
         bm, bn, tc::args(x, g, qs, scales, mins, bias, out, out_f32, M, K, N, qtype, act), st);
-  dim3 grid((N + FBN - 1) / FBN, (M + FBM - 1) / FBM);
-  q4_matmul_f32_kernel<<<grid, 256, 0, st>>>(static_cast<const float*>(x),
-                                              static_cast<const float*>(g),
-                                              static_cast<const uint8_t*>(qs), scales, mins,
-                                              bias, static_cast<float*>(out), M, K, N,
-                                              qtype, act);
-  return static_cast<int>(cudaGetLastError());
+  return f32_launch<64, false>(static_cast<const float*>(x), static_cast<const float*>(g),
+                               static_cast<const uint8_t*>(qs), scales, mins, bias, nullptr,
+                               nullptr, 0.0f, static_cast<float*>(out), M, K, N, qtype, act, st);
 }
 
 // K1 with the residual + LayerNorm epilogue: the arguments of
-// q4_matmul_launch (no tile), plus residual [M, N] of x's type and ln_sb
-// f32 [2, N] (scale row, then bias row), each null when absent, and the
-// LayerNorm's eps.  N is capped by the row buffer's shared memory (a
-// refusal is returned).  Returns cudaGetLastError() after the launch.
+// q4_matmul_launch, plus residual [M, N] of x's type and ln_sb f32 [2, N]
+// (scale row, then bias row), each null when absent, and the LayerNorm's
+// eps.  bf16 x runs the tile kernel's bm x bn instance (TC_TILES or
+// LN_ONLY_TILES), f32 x the SIMT kernel at column tile bn (64 or 256; bm
+// unread).  With ln_sb the ceil(N / bn) N tiles of an M panel run as one
+// cluster, refused past q4_matmul_ln_cluster_cap.  Returns a CUDA error code
+// (cudaErrorInvalidValue for a tile no instance has).
 extern "C" int q4_matmul_ln_launch(const void* x, const void* g, int x_bf16, const void* qs,
                                    const float* scales, const float* mins, const float* bias,
                                    const void* residual, const float* ln_sb, float eps,
                                    void* out, int out_f32, int M, int K, int N, int qtype,
-                                   int act, void* stream) {
+                                   int act, int bm, int bn, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const uint8_t* q = static_cast<const uint8_t*>(qs);
-  const size_t smem = ln_smem_bytes(x_bf16, N);
-  const dim3 grid((M + LN_BM - 1) / LN_BM);
-  if (x_bf16) {
-    const int err = opt_in(q4_matmul_ln_bf16_kernel, smem);
-    if (err) return err;
-    q4_matmul_ln_bf16_kernel<<<grid, LN_THREADS, smem, st>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(g), q, scales,
-        mins, bias, static_cast<const __nv_bfloat16*>(residual), ln_sb, eps, out, M, K, N,
-        qtype, act, out_f32);
-  } else {
-    const int err = opt_in(q4_matmul_ln_f32_kernel, smem);
-    if (err) return err;
-    q4_matmul_ln_f32_kernel<<<grid, LN_THREADS, smem, st>>>(
-        static_cast<const float*>(x), static_cast<const float*>(g), q, scales, mins, bias,
-        static_cast<const float*>(residual), ln_sb, eps, static_cast<float*>(out), M, K, N,
-        qtype, act);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (x_bf16)
+    return tc::launch_tile<true>(bm, bn,
+                                 tc::args(x, g, qs, scales, mins, bias, out, out_f32, M, K, N,
+                                          qtype, act, residual, ln_sb, eps),
+                                 st);
+  auto go = [&](auto launch) {
+    return launch(static_cast<const float*>(x), static_cast<const float*>(g),
+                  static_cast<const uint8_t*>(qs), scales, mins, bias,
+                  static_cast<const float*>(residual), ln_sb, eps, static_cast<float*>(out), M,
+                  K, N, qtype, act, st);
+  };
+  if (bn == 64) return go(f32_launch<64, true>);
+  if (bn == 256) return go(f32_launch<256, true>);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The widest cluster (at most 16 blocks) of the LN epilogue's kernel the
+// current card schedules, into *cap: the bf16 tile instance bm x bn (with
+// the prologue's g tile when `prologue`), or the f32 kernel at column tile
+// bn.  Rows of up to cap * bn columns fit one cluster.  Returns a CUDA error
+// code.
+extern "C" int q4_matmul_ln_cluster_cap(int x_bf16, int bm, int bn, int prologue, int* cap) {
+  if (x_bf16)
+    return tc::with_tile<true>(bm, bn, [&](auto t) {
+      using T = decltype(t);
+      return prologue ? tc::ln_cluster_cap<T, true>(cap) : tc::ln_cluster_cap<T, false>(cap);
+    });
+  static ClusterCap seen64, seen256;
+  if (bn == 64)
+    return cached_cluster_cap(q4_matmul_f32_kernel<64, true>, seen64, F32_THREADS, 0, cap);
+  if (bn == 256)
+    return cached_cluster_cap(q4_matmul_f32_kernel<256, true>, seen256, F32_THREADS, 0, cap);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// How many clusters of `cluster` blocks of the LN epilogue's kernel (as in
+// q4_matmul_ln_cluster_cap, at most its cap) the current card runs at once,
+// into *n.  Returns a CUDA error code.
+extern "C" int q4_matmul_ln_active_clusters(int x_bf16, int bm, int bn, int prologue,
+                                            int cluster, int* n) {
+  int cap = 0;
+  int err = q4_matmul_ln_cluster_cap(x_bf16, bm, bn, prologue, &cap);
+  if (err) return err;
+  if (cluster < 1 || cluster > cap) return static_cast<int>(cudaErrorInvalidValue);
+  if (x_bf16)
+    return tc::with_tile<true>(bm, bn, [&](auto t) {
+      using T = decltype(t);
+      auto kernel = prologue ? tc::q4_matmul_tc_kernel<T, true, true>
+                             : tc::q4_matmul_tc_kernel<T, false, true>;
+      return static_cast<int>(active_clusters(
+          kernel, T::NT, prologue ? tc::smem_bytes<T, true>() : tc::smem_bytes<T, false>(),
+          cluster, n));
+    });
+  if (bn == 64)
+    return static_cast<int>(
+        active_clusters(q4_matmul_f32_kernel<64, true>, F32_THREADS, 0, cluster, n));
+  return static_cast<int>(
+      active_clusters(q4_matmul_f32_kernel<256, true>, F32_THREADS, 0, cluster, n));
 }
 
 // K8's f32 column-slice width at this K: the widest of 32, 16, 8 whose slice
@@ -1080,7 +1358,7 @@ extern "C" int q4_matmul_2d_launch(const void* x, const void* g, int x_bf16, con
                                    int N, int qtype, int act, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (x_bf16)
-    return tc::launch_tile(
+    return tc::launch_tile<false>(
         K8_TBM, K8_TBN,
         tc::args(x, g, qs, scales, mins, bias, out, out_f32, M, K, N, qtype, act), st);
   const uint8_t* q = static_cast<const uint8_t*>(qs);

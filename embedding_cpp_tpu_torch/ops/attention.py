@@ -44,11 +44,13 @@ Head-major rows (q/k/v/o [B, H, S, d]), kernel
 `csrc/attention_headpack.cu`, the Hopper port of B1, the head-packed
 kernel of the JAX suite's `bench_attention_headpack`
 (benchmarks/kernels.py); no model path runs it:
-  `attention_headpack`     hb heads per block, each product one MMA over a
-                           block-diagonal operand tile; unlike every kernel
-                           above, p is divided by the row sum before PV
-The same order of operations in two passes over the key tiles (row max,
-then exp / sum / PV), so nothing is rescaled.  What bounds each kernel on
+  `attention_headpack`     hb heads per block of 64 query rows, each head's
+                           products its own (no block-diagonal operands);
+                           unlike every kernel above, p is divided by the
+                           row sum before PV
+Two passes over the key tiles: the row max and the f32 sum (rescaled as the
+max grows), then p = e / sum in bf16 and PV, so the output is never
+rescaled.  What bounds each kernel on
 an H100 and what its first version does about it is noted in its source.
 
 Every wrapper launches its kernel for CUDA tensors, raises for what the
@@ -368,8 +370,8 @@ def attention_packed_window_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
     return out.permute(0, 1, 3, 2, 4).reshape(b, s, h, d)
 
 
-# (head dim, heads per block) B1 is built for: the packed width hb * d
-# stays within one 128-column tile
+# (head dim, heads per block) B1 is built for: the TPU kernel's packed
+# width hb * d stays within one 128-lane tile
 HEADPACK_SHAPES = ((32, 1), (32, 2), (32, 4), (64, 1), (64, 2))
 
 

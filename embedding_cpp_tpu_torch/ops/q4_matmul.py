@@ -6,9 +6,12 @@ kernels of embedding_cpp_tpu/ops/q4_matmul.py:
 
 - K1 (`_q4_matmul_1d`, the TPU's 1-D kernel): y = act((x [* g]) @
   dequant(W) + bias), the epilogue in f32 on the accumulator, then one
-  cast.  With `residual` and/or `ln` a second kernel of the same source
-  adds the residual in f32 and applies the LayerNorm over whole rows before
-  the cast (the TPU kernel's `residual` / `ln_sb` epilogue).
+  cast.  With `residual` and/or `ln` the same bodies add the residual in
+  f32 and apply the LayerNorm over whole rows before the cast (the TPU
+  kernel's `residual` / `ln_sb` epilogue): the N tiles of each row run as
+  one thread-block cluster that sums the row statistics across its blocks
+  (`ln_tile` names the instance).  Rows wider than one cluster holds take
+  K1 into f32 and the same tail in plain PyTorch (the split route).
 - K8 (`_q4_matmul_2d`, the TPU's N-tiled kernel): the same y without the
   residual/LayerNorm tail.
 
@@ -43,7 +46,9 @@ chose it (`q4_impl="plain"`, ops/dispatch.py).  K1 and K8 compute
 one function, so `q4_matmul_plain` is the plain version of both.  Launch
 counts: `q4_matmul.launches` (K1, both forms), `q4_matmul.prologue_launches`
 (those with a prologue multiplicand), `q4_matmul.ln_launches` (K1 with the
-residual/LayerNorm epilogue), `q4_matmul.n_tiled_launches` (K8).
+residual/LayerNorm epilogue), `q4_matmul.ln_split_launches` (calls with that
+tail that took the split route: one K1 launch each), `q4_matmul.n_tiled_launches`
+(K8).
 """
 from __future__ import annotations
 
@@ -71,6 +76,12 @@ K8_TILE = (256, 128)
 # Outputs per SM per unit time of each instance over whole waves, relative
 # to 256 x 128, from the card's times at K1's shapes (PERF.md).
 _TILE_RATE = {(256, 128): 1.0, (128, 64): 0.72}
+# The bf16 instances K1's residual + LayerNorm epilogue runs: those of
+# TC_TILES and of `LN_ONLY_TILES` (csrc/q4_matmul.cu), by blocks per SM;
+# the f32 epilogue's column tiles (the SIMT kernel's FBN).
+LN_TILES = {**TC_TILES, (128, 256): 1}
+LN_F32_WIDTHS = (64, 256)
+LN_MAX_CLUSTER = 16  # Hopper's widest thread-block cluster (non-portable)
 
 
 class Route(NamedTuple):
@@ -133,6 +144,23 @@ def k1_tile(m: int, k: int, n: int, sms: int) -> tuple[int, int]:
         return waves * bm * bn * TC_TILES[t] / _TILE_RATE[t]
 
     return min(TC_TILES, key=cost)
+
+
+def ln_tile(m: int, k: int, n: int, x_bf16: bool, sms: int,
+            cap=lambda tile: LN_MAX_CLUSTER) -> tuple[int, int] | None:
+    """The instance (bm, bn) of K1's LayerNorm epilogue for x [m, k]
+    times a [k, n] weight: its ceil(n / bn) N tiles of a row form one
+    cluster, which must not pass `cap(tile)` blocks (the card's widest for
+    that instance).  f32 x: (0, the narrowest width of LN_F32_WIDTHS that
+    fits).  bf16 x: `k1_tile`'s instance where it fits, else the fitting
+    instance with the widest tile.  None where none fits: the split route."""
+    if not x_bf16:
+        return next(((0, w) for w in LN_F32_WIDTHS if -(-n // w) <= cap((0, w))), None)
+    fits = [t for t in LN_TILES if -(-n // t[1]) <= cap(t)]
+    if not fits:
+        return None
+    k1 = k1_tile(m, k, n, sms)
+    return k1 if k1 in fits else max(fits, key=lambda t: (t[1], t[0]))
 
 
 def dequant_weight(w: QTensor, dtype) -> torch.Tensor:
@@ -290,14 +318,40 @@ def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+@functools.lru_cache(maxsize=None)
+def _ln_cluster_cap(index: int, x_bf16: bool, tile: tuple[int, int], prologue: bool) -> int:
+    """The widest cluster of the LN epilogue's instance `tile` the card
+    `index` schedules (at most LN_MAX_CLUSTER)."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        check(_fn("q4_matmul_ln_cluster_cap", [_I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)])(
+            int(x_bf16), tile[0], tile[1], int(prologue), ctypes.byref(out)),
+            "q4_matmul_ln_cluster_cap")
+    return out.value
+
+
+def ln_active_clusters(x_bf16: bool, tile: tuple[int, int], cluster: int,
+                       prologue: bool = False) -> int:
+    """How many clusters of `cluster` blocks of the LN epilogue's instance
+    `tile` the current card runs at once (builds the kernels' library)."""
+    out = ctypes.c_int(0)
+    check(_fn("q4_matmul_ln_active_clusters", [_I, _I, _I, _I, _I,
+                                               ctypes.POINTER(ctypes.c_int)])(
+        int(x_bf16), tile[0], tile[1], int(prologue), cluster, ctypes.byref(out)),
+        "q4_matmul_ln_active_clusters")
+    return out.value
+
+
 def _q4_matmul_1d(x: torch.Tensor, w: QTensor, bias=None, residual=None, ln=None,
                   prologue_mul=None, *, activation=None, out_f32: bool = False,
                   tile: tuple[int, int] | None = None) -> torch.Tensor:
     """K1: bf16 x runs the tile kernel at `k1_tile`'s instance for this
     shape (`tile` forces another of `TC_TILES`; the launch refuses one the
-    source does not name), f32 x the SIMT kernel; with `residual` / `ln`
-    ((scale [N], bias [N], eps)) the kernel that owns whole rows and applies
-    that tail before its one cast."""
+    source does not name), f32 x the SIMT kernel.  With `residual` / `ln`
+    ((scale [N], bias [N], eps)) the same bodies apply that tail before
+    their one cast, at `ln_tile`'s instance (`tile` forces one of LN_TILES,
+    or (0, width) in f32); with `ln`, rows too wide for one cluster take
+    K1 into f32 and `ln_tail` (counted in `ln_split_launches`)."""
     if not use_kernel(x, "q4", "q4_matmul"):
         return q4_matmul_plain(x, w, bias, activation, residual, ln, out_f32, prologue_mul)
     x, g, bias, out, f32_out, (qs, scales, mins) = _cuda_args(
@@ -306,12 +360,13 @@ def _q4_matmul_1d(x: torch.Tensor, w: QTensor, bias=None, residual=None, ln=None
         return out
     m, k = x.shape
     n = w.shape[1]
+    bf16 = x.dtype == torch.bfloat16
+    index = x.device.index if x.device.index is not None else torch.cuda.current_device()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    common = (_ptr(x), _ptr(g), int(x.dtype == torch.bfloat16), _ptr(qs), _ptr(scales),
-              _ptr(mins), _ptr(bias))
+    common = (_ptr(x), _ptr(g), int(bf16), _ptr(qs), _ptr(scales), _ptr(mins), _ptr(bias))
     if residual is None and ln is None:
-        if x.dtype == torch.bfloat16 and tile is None:
-            tile = k1_tile(m, k, n, _sms(x.device.index or 0))
+        if bf16 and tile is None:
+            tile = k1_tile(m, k, n, _sms(index))
         bm, bn = tile or (0, 0)
         err = _fn("q4_matmul_launch", [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                        _I, _I, _P])(
@@ -319,15 +374,32 @@ def _q4_matmul_1d(x: torch.Tensor, w: QTensor, bias=None, residual=None, ln=None
             ACTIVATIONS.index(activation), bm, bn, stream)
         check(err, "q4_matmul_launch")
     else:
+        def cap(t):
+            return _ln_cluster_cap(index, bf16, t, g is not None)
+
+        if ln is None:  # the residual alone needs no whole rows: no cluster
+            tile = tile or (k1_tile(m, k, n, _sms(index)) if bf16 else (0, LN_F32_WIDTHS[0]))
+        elif tile is None:
+            tile = ln_tile(m, k, n, bf16, _sms(index), cap)
+            if tile is None:  # past one cluster: K1 into f32, the f32 tail, one cast
+                y = _q4_matmul_1d(x, w, bias, prologue_mul=g, activation=activation,
+                                  out_f32=True)
+                count(q4_matmul, "ln_split_launches")
+                y = ln_tail(y, residual, ln)
+                return y if f32_out else y.to(x.dtype)
+        elif -(-n // tile[1]) > cap(tile):
+            raise ValueError(f"q4_matmul: rows of {n} need {-(-n // tile[1])} blocks of "
+                             f"{tile}, past the {cap(tile)} of one cluster")
         res = None if residual is None else _operand(residual, x, "residual")
         ln_sb = eps = None
         if ln is not None:
             ln_sb = torch.stack([ln[0], ln[1]]).to(device=x.device, dtype=torch.float32)
             eps = float(ln[2])
         err = _fn("q4_matmul_ln_launch", [_P, _P, _I, _P, _P, _P, _P, _P, _P, ctypes.c_float,
-                                          _P, _I, _I, _I, _I, _I, _I, _P])(
+                                          _P, _I, _I, _I, _I, _I, _I, _I, _I, _P])(
             *common, _ptr(res), _ptr(ln_sb), 0.0 if eps is None else eps, _ptr(out), f32_out,
-            m, k, n, _QTYPE_CODE[w.qtype], ACTIVATIONS.index(activation), stream)
+            m, k, n, _QTYPE_CODE[w.qtype], ACTIVATIONS.index(activation), tile[0], tile[1],
+            stream)
         check(err, "q4_matmul_ln_launch")
         count(q4_matmul, "ln_launches")
     count(q4_matmul)
@@ -409,4 +481,5 @@ def q4_matmul(x: torch.Tensor, w: QTensor, bias: torch.Tensor | None = None,
 q4_matmul.launches = 0
 q4_matmul.prologue_launches = 0  # the launches that multiplied in a prologue
 q4_matmul.ln_launches = 0  # K1 launches with the residual/LayerNorm epilogue
+q4_matmul.ln_split_launches = 0  # calls with that tail past one cluster: K1, then ln_tail
 q4_matmul.n_tiled_launches = 0  # K8 launches

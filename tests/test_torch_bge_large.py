@@ -51,6 +51,7 @@ from embedding_cpp_tpu_torch.models import (
 )
 from embedding_cpp_tpu_torch.ops import qtensor as tqt
 from embedding_cpp_tpu_torch.ops.q4_matmul import (
+    Route,
     _q4_matmul_1d,
     _q4_matmul_2d,
     q4_matmul,
@@ -310,6 +311,18 @@ def test_composed_epilogue_matches_jax(dtype):
     large for the 1-D kernel, so JAX composes the tail in f32 after an XLA
     product and the port after K8's f32 output."""
     assert _epilogue_case("Q8_0", dtype, 64, 4096, 1024, True, True).kernel == "composed"
+
+
+def test_wide_rows_take_the_fused_route_and_match_the_pallas_kernel():
+    """F6: `route` sends a residual + LayerNorm tail on rows of 4096 to
+    the 1-D kernel, as the JAX dispatch does (e.g. [16384, 1024] x [1024,
+    4096] Q4_0 bf16 at tm 32), and the JAX `q4_matmul` answers there
+    through its fused Pallas kernel (interpret mode): the port's
+    `q4_matmul` on the CPU matches it within the f32 bar.  On the card
+    those rows run the cluster epilogue (tests/test_torch_cuda.py)."""
+    assert route(16384, 1024, 4096, GGMLType.Q4_0, torch.bfloat16, residual=True,
+                 ln=True) == Route("1d", 32)
+    assert _epilogue_case("Q8_0", "float32", 64, 256, 4096, True, True) == Route("1d", 64)
 
 
 def test_epilogue_on_a_shape_no_kernel_tiles_matches_jax():

@@ -6,7 +6,8 @@ Edge shapes live here (ragged M, sequence lengths that are not multiples of
 the 16- and 64-row tiles, S = 1025, fully padded rows, head dims 32 and
 64, f32 and bf16) for K1 (with and without its prologue multiply, each bf16
 tile instance forced at a model shape and at ragged M / N with out_f32,
-and its residual + LayerNorm epilogue up to and past the cap on N), the N-tiled
+and its residual + LayerNorm epilogue at every instance, up to rows of 4096
+in one cluster and past them on the split route), the N-tiled
 K8 (ragged M, K = 32, K % 64 == 32, N below and not a multiple of the
 128-column tile or of 16, every activation and qtype, the prologue,
 out_f32, the corpus's packed M = 65536, bf16 at K = 8192, every f32 slice
@@ -80,6 +81,8 @@ from embedding_cpp_tpu_torch.ops.deberta_attention import (
 )
 from embedding_cpp_tpu_torch.ops.dispatch import kernel_impls
 from embedding_cpp_tpu_torch.ops.q4_matmul import (
+    LN_F32_WIDTHS,
+    LN_TILES,
     TC_TILES,
     _q4_matmul_1d,
     _q4_matmul_2d,
@@ -381,11 +384,11 @@ def test_n_tiled_slice_past_shared_memory_raises(dev, dtype):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("m,k,n,qtype", [
     (16384 - 37, 1024, 1024, "Q8_0"), (77, 384, 384, "Q4_0"), (333, 768, 768, "Q4_1"),
-    (16, 1024, 1000, "Q8_0"), (1, 64, 96, "Q4_0")])
+    (16, 1024, 1000, "Q8_0"), (1, 64, 96, "Q4_0"), (300, 256, 4096, "Q4_1")])
 @pytest.mark.parametrize("parts", ["residual+ln", "residual", "ln"])
 def test_fused_epilogue_kernel_matches_plain(dev, dtype, m, k, n, qtype, parts):
     """K1's residual + LayerNorm epilogue: ragged M, N = 384 / 768 / 1024
-    and N not a multiple of the 64-column sub-tile, bf16 and f32 residual."""
+    / 4096 and N not a multiple of any tile, bf16 and f32 residual."""
     w = _weight(qtype, k, n, dev, seed=10)
     gen = torch.Generator(device="cpu").manual_seed(m + n)
     x = torch.randn(m, k, generator=gen).to(dev, dtype)
@@ -404,16 +407,52 @@ def test_fused_epilogue_kernel_matches_plain(dev, dtype, m, k, n, qtype, parts):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_fused_epilogue_past_its_cap_raises(dev, dtype):
-    """The row buffer caps N (about 3500 columns): N = 4096 is refused."""
-    w = _weight("Q8_0", 256, 4096, dev)
-    ln = (torch.ones(4096, device=dev), torch.zeros(4096, device=dev), 1e-5)
-    with pytest.raises(RuntimeError, match="q4_matmul_ln_launch"):
-        _q4_matmul_1d(torch.zeros(64, 256, device=dev, dtype=dtype), w, ln=ln)
-    small = _weight("Q8_0", 128, 384, dev)
-    x = torch.randn(32, 128, device=dev).to(dtype)
-    ln = (torch.ones(384, device=dev), torch.zeros(384, device=dev), 1e-5)
-    _close(_q4_matmul_1d(x, small, ln=ln), q4_matmul_plain(x, small, ln=ln), dtype)
+@pytest.mark.parametrize("n,split", [(4096, False), (8192, True)])
+def test_fused_epilogue_wide_rows_answer(dev, dtype, n, split):
+    """F6: rows of 4096 that `route` sends to the 1-D kernel run the
+    cluster epilogue (16 blocks of 256 columns); rows past one cluster
+    ([64, 256] x [256, 8192]) take K1 into f32 and the tail in PyTorch,
+    counted in `ln_split_launches`.  Both through `q4_matmul`, both equal to
+    the plain version."""
+    w = _weight("Q8_0", 256, n, dev, seed=n)
+    gen = torch.Generator(device="cpu").manual_seed(n)
+    x = torch.randn(64, 256, generator=gen).to(dev, dtype)
+    res = torch.randn(64, n, generator=gen).to(dev, dtype)
+    ln = (1 + 0.1 * torch.randn(n, generator=gen).to(dev),
+          0.1 * torch.randn(n, generator=gen).to(dev), 1e-5)
+    assert route(64, 256, n, GGMLType.Q8_0, dtype, residual=True, ln=True).kernel == "1d"
+    before = (q4_matmul.launches, q4_matmul.ln_launches, q4_matmul.ln_split_launches)
+    got = q4_matmul(x, w, residual=res, ln=ln)
+    after = (q4_matmul.launches, q4_matmul.ln_launches, q4_matmul.ln_split_launches)
+    assert [a - b for a, b in zip(after, before)] == ([1, 0, 1] if split else [1, 1, 0])
+    assert got.dtype == dtype
+    _close(got, q4_matmul_plain(x, w, residual=res, ln=ln), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_epilogue_every_instance(dev, dtype):
+    """Each instance the epilogue may run (`LN_TILES`; f32: each width),
+    forced at a ragged M and N with the prologue, out_f32 and the residual,
+    against the plain version; a forced tile whose cluster cannot hold the
+    row is refused before any launch."""
+    m, k, n = 333, 192, 1000
+    w = _weight("Q4_1", k, n, dev, seed=3)
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    x, g = (torch.randn(m, k, generator=gen).to(dev, dtype) for _ in range(2))
+    res = torch.randn(m, n, generator=gen).to(dev, dtype)
+    ln = (1 + 0.1 * torch.randn(n, generator=gen).to(dev),
+          0.1 * torch.randn(n, generator=gen).to(dev), 1e-12)
+    ref = q4_matmul_plain(x, w, None, "gelu_tanh", res, ln, True, g)
+    tiles = LN_TILES if dtype == torch.bfloat16 else [(0, fbn) for fbn in LN_F32_WIDTHS]
+    for tile in tiles:
+        got = _q4_matmul_1d(x, w, None, res, ln, g, activation="gelu_tanh", out_f32=True,
+                            tile=tile)
+        _close(got, ref, torch.float32 if dtype == torch.float32 else torch.bfloat16)
+    wide = _weight("Q8_0", 64, 8192, dev, seed=4)
+    lnw = (torch.ones(8192, device=dev), torch.zeros(8192, device=dev), 1e-5)
+    with pytest.raises(ValueError, match="past the"):
+        _q4_matmul_1d(torch.zeros(16, 64, device=dev, dtype=dtype), wide, ln=lnw,
+                      tile=(128, 256) if dtype == torch.bfloat16 else (0, 256))
 
 
 def _pos_bias(ph, s, dev, seed=0):

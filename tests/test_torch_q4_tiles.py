@@ -27,6 +27,12 @@ qtype, bf16 and f32.  The rule: the port's table of instances is the
 source's, and for every K1 shape of the five models' planned batches it
 names one of them with a launchable grid that keeps every SM busy where
 any instance can.
+
+K1's residual + LayerNorm epilogue is walked too (`ln_walk`, below): each
+row's statistics formed from the partial sums of the blocks of one
+thread-block cluster, in rank order, at N = 384, 768, 1024, 1000 and 4096
+and a ragged M, against `q4_matmul_plain` and the JAX package's fused 1-D
+kernel; and the rule that names its instance (`ln_tile`).
 """
 import functools
 import re
@@ -46,10 +52,13 @@ from embedding_cpp_tpu_torch.ops import qtensor as tqt
 from embedding_cpp_tpu_torch.benchmarks.kernels import K1_LAYERS
 from embedding_cpp_tpu_torch.ops.q4_matmul import (
     K8_TILE,
+    LN_F32_WIDTHS,
+    LN_TILES,
     TC_TILES,
     dequant_weight,
     epilogue,
     k1_tile,
+    ln_tile,
     q4_matmul_plain,
     route,
 )
@@ -62,16 +71,21 @@ BF16_REL = 1e-2
 _SRC = Path(__file__).resolve().parents[1] / "embedding_cpp_tpu_torch" / "csrc" / "q4_matmul.cu"
 
 
-def _kernel_tiles() -> dict[tuple[int, int], int]:
-    """{(TBM, TBN): blocks per SM} of every instance `TC_TILES` names in
-    the kernel source, in its order."""
-    block = re.search(r"#define TC_TILES\(X\)\s*\\\n((?:.*\\\n)*.*)", _SRC.read_text())[1]
+def _kernel_tiles(macro: str = "TC_TILES") -> dict[tuple[int, int], int]:
+    """{(TBM, TBN): blocks per SM} of every instance the macro `macro`
+    (TC_TILES, or LN_ONLY_TILES) names in the kernel source, in its order."""
+    block = re.search(rf"#define {macro}\(X\)((?:.*\\\n)*.*)", _SRC.read_text())[1]
     rows = re.findall(r"X\((\d+), (\d+), \d+, \d+, \d+, (\d+)\)", block)
     return {(int(bm), int(bn)): int(mb) for bm, bn, mb in rows}
 
 
+def _constant(name: str) -> int:
+    return int(re.search(rf"constexpr int {name} = (\d+);", _SRC.read_text())[1])
+
+
 TILES = _kernel_tiles()
-TBK = int(re.search(r"constexpr int TBK = (\d+);", _SRC.read_text())[1])
+TBK = _constant("TBK")
+F32_THREADS = _constant("F32_THREADS")
 
 
 def _codes(b: torch.Tensor, off: float) -> torch.Tensor:
@@ -276,3 +290,189 @@ def test_k1_tile_rule_names_a_compiled_instance():
 @pytest.mark.parametrize("m,k,n", list(CARD_FASTEST), ids=lambda v: str(v))
 def test_k1_tile_rule_picks_what_the_card_ran_fastest(m, k, n):
     assert k1_tile(m, k, n, SMS) == CARD_FASTEST[m, k, n]
+
+
+# --- K1's residual + LayerNorm epilogue across a cluster ------------------------
+#
+# The kernel's tail (`ln_tail`, csrc/q4_matmul.cu) walked on the tile walk's
+# f32 output tiles: the N tiles of an M panel are one cluster; each block
+# adds the residual to its tile and forms each row's partial sum (TPR =
+# threads / TBM threads a row, each summing every TPR-th float4 of the row
+# in order, then an xor butterfly over the TPR), the partials are
+# summed in cluster-rank (N-tile) order for the mean (divided by N), then
+# the same for sum((y - mean)^2) and rsqrt(var + eps); columns past N add
+# nothing, rows past M are their own.  Tolerances: against
+# `q4_matmul_plain`, f32 1e-5 absolute (the same products and sums in
+# another order; the normalized outputs are O(1)) and bf16 relative 1e-2
+# (one rounding); against the JAX fused 1-D kernel in interpret mode, f32
+# 2e-5 (its erf polynomial).
+
+
+@pytest.fixture
+def one_thread():
+    """The walks are many small tensor ops: one intra-op thread runs them
+    as fast as many on an idle host, and keeps them from stalling on a busy
+    one."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _block_threads(tile: tuple[int, int]) -> int:
+    """Threads of a block at output tile `tile`: (TBM / WM) x (TBN / WN)
+    warps of the tile kernel's instance, or F32_THREADS for the f32 body's
+    tiles."""
+    text = _SRC.read_text()
+    for macro in ("TC_TILES", "LN_ONLY_TILES"):
+        block = re.search(rf"#define {macro}\(X\)((?:.*\\\n)*.*)", text)[1]
+        for bm, bn, wm, wn in re.findall(r"X\((\d+), (\d+), (\d+), (\d+), \d+, \d+\)", block):
+            if (int(bm), int(bn)) == tile:
+                return int(bm) // int(wm) * (int(bn) // int(wn)) * 32
+    return F32_THREADS
+
+
+def _block_partial(v: torch.Tensor, tpr: int) -> torch.Tensor:
+    """One block's partial row sums of v [rows, TBN] as `ln_tail` forms
+    them: thread p of a row sums its float4s j * tpr + p (j = 0, 1, ..), each
+    one's 4 columns in order, then s_p += s_(p ^ o) for o = 1, 2, .. tpr / 2."""
+    rows, tbn = v.shape
+    parts = v.reshape(rows, tbn // (4 * tpr), tpr, 4).permute(0, 2, 1, 3).reshape(rows, tpr, -1)
+    s = torch.zeros((rows, tpr), dtype=torch.float32)
+    for j in range(parts.shape[-1]):
+        s = s + parts[:, :, j]
+    o = 1
+    while o < tpr:
+        s = s + s[:, torch.arange(tpr) ^ o]
+        o *= 2
+    return s[:, 0]
+
+
+def ln_walk(x, w, tile, bias, activation, residual, ln, prologue_mul=None,
+            out_f32: bool = False) -> torch.Tensor:
+    """The kernel's epilogue at output tile `tile` (TBM, TBN): the tile walk
+    (products, bias, activation, in f32), the residual, then the LayerNorm
+    with the statistics of each row formed over its cluster's blocks."""
+    tbm, tbn = tile
+    y = tile_walk(x, w, tile, bias, activation, prologue_mul, out_f32=True)
+    if residual is not None:
+        y = y + residual.to(torch.float32)
+    m, n = y.shape
+    tpr = _block_threads(tile) // tbm
+    ranks = -(-n // tbn)
+    out = y.clone()
+    for m0 in range(0, m, tbm):
+        rows = y[m0:m0 + tbm]
+        r = rows.shape[0]
+        padded = torch.zeros((r, ranks * tbn), dtype=torch.float32)
+        padded[:, :n] = rows
+        tot = torch.zeros(r, dtype=torch.float32)
+        for b in range(ranks):  # rank order
+            tot = tot + _block_partial(padded[:, b * tbn:(b + 1) * tbn], tpr)
+        mean = tot / n
+        d = padded - mean[:, None]
+        d[:, n:] = 0.0  # columns past N add nothing
+        tot = torch.zeros(r, dtype=torch.float32)
+        for b in range(ranks):
+            tot = tot + _block_partial(torch.square(d[:, b * tbn:(b + 1) * tbn]), tpr)
+        rstd = torch.rsqrt(tot / n + ln[2])
+        out[m0:m0 + tbm] = ((rows - mean[:, None]) * rstd[:, None] * ln[0].to(torch.float32)
+                            + ln[1].to(torch.float32))
+    return out if out_f32 else out.to(x.dtype)
+
+
+def _walk_tile(m: int, k: int, n: int, dtype: str) -> tuple[int, int]:
+    """The output tile the epilogue runs at: `ln_tile`'s bf16 instance, or
+    the f32 body's (4 * F32_THREADS / (FBN / 4)) x FBN."""
+    tile = ln_tile(m, k, n, dtype == "bfloat16", SMS)
+    assert tile is not None
+    if dtype == "bfloat16":
+        assert tile in LN_TILES
+        return tile
+    fbn = tile[1]
+    assert fbn in LN_F32_WIDTHS
+    return 4 * F32_THREADS // (fbn // 4), fbn
+
+
+def _ln_inputs(qtype: str, m: int, k: int, n: int, dtype: str, seed: int):
+    jw, tw = _weights(qtype, k, n, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    b = (rng.standard_normal(n) * 0.1).astype(np.float32)
+    res = rng.standard_normal((m, n)).astype(np.float32)
+    scale = (1.0 + 0.1 * rng.standard_normal(n)).astype(np.float32)
+    lnb = (0.1 * rng.standard_normal(n)).astype(np.float32)
+    td = getattr(torch, dtype)
+    port = (torch.from_numpy(x).to(td), tw, torch.from_numpy(b), torch.from_numpy(res).to(td),
+            (torch.from_numpy(scale), torch.from_numpy(lnb), 1e-12))
+    return port, (jw, x, b, res, scale, lnb)
+
+
+# (M, K, N): the model widths 384 / 768 / 1024 (one cluster of 3-16 blocks),
+# N = 1000 (a ragged last tile), 4096 (16 blocks of 256 columns; f32: 16 of
+# 256), and a ragged M over two M tiles
+LN_SHAPES = [(37, 64, 384), (37, 64, 768), (20, 64, 1024), (37, 96, 1000), (20, 64, 4096),
+             (300, 64, 384)]
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("m,k,n", LN_SHAPES, ids=lambda v: str(v))
+def test_ln_walk_matches_plain(m, k, n, dtype):
+    qtype = ("Q4_0", "Q4_1", "Q8_0")[n % 3]
+    (x, w, b, res, ln), _ = _ln_inputs(qtype, m, k, n, dtype, seed=n + m)
+    tile = _walk_tile(m, k, n, dtype)
+    got = ln_walk(x, w, tile, b, "gelu_erf", res, ln)
+    assert got.dtype == x.dtype
+    ref = q4_matmul_plain(x, w, b, "gelu_erf", residual=res, ln=ln)
+    _close(got, ref.to(torch.float32).numpy(), dtype, F32_ATOL)
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_ln_walk_matches_the_fused_pallas_kernel(dtype):
+    """The JAX package's `_q4_matmul_1d` with `residual` and `ln_sb` (its
+    whole rows in one tile of all M rows), interpret mode."""
+    m, k, n = 16, 64, 384
+    (x, w, b, res, ln), (jw, xn, bn, rn, sn, lbn) = _ln_inputs("Q4_1", m, k, n, dtype, seed=9)
+    jd = getattr(jnp, dtype)
+    ref = jq4._q4_matmul_1d(jnp.asarray(xn, jd), jw.qs, jw.scales, jw.mins, jnp.asarray(bn),
+                            jnp.asarray(rn, jd), jnp.stack([jnp.asarray(sn), jnp.asarray(lbn)]),
+                            tm=m, activation="gelu_erf", ln_eps=1e-12)
+    got = ln_walk(x, w, _walk_tile(m, k, n, dtype), b, "gelu_erf", res, ln)
+    _close(got, np.asarray(jnp.asarray(ref, jnp.float32)), dtype, JAX_F32_ATOL)
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_ln_walk_prologue_and_residual_alone():
+    """The prologue multiply before the product, and the residual without
+    a LayerNorm (no statistics, no cluster)."""
+    m, k, n = 45, 160, 1152
+    (x, w, b, res, ln), _ = _ln_inputs("Q8_0", m, k, n, "float32", seed=4)
+    g = torch.from_numpy(np.random.default_rng(5).standard_normal((m, k)).astype(np.float32))
+    tile = _walk_tile(m, k, n, "float32")
+    got = ln_walk(x, w, tile, b, "silu", res, ln, prologue_mul=g)
+    ref = q4_matmul_plain(x, w, b, "silu", residual=res, ln=ln, prologue_mul=g)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0, atol=F32_ATOL)
+    alone = tile_walk(x, w, tile, b, "silu", g, out_f32=True) + res
+    ref = q4_matmul_plain(x, w, b, "silu", residual=res, prologue_mul=g)
+    np.testing.assert_allclose(alone.numpy(), ref.numpy(), rtol=0, atol=F32_ATOL)
+
+
+def test_ln_tile_rule_names_an_instance_whose_cluster_holds_the_row():
+    """The port's LN instances are the source's (TC_TILES and
+    LN_ONLY_TILES); at the models' widths the rule names an instance whose
+    ceil(N / TBN) blocks fit one cluster of 16; rows past 16 x 256 (f32: 16
+    x 256) take the split route (None), as do rows past a smaller cap."""
+    assert LN_TILES == {**TILES, **_kernel_tiles("LN_ONLY_TILES")}
+    for m in PLANNED_M:
+        for k, n in ((384, 384), (768, 768), (1024, 1024), (1024, 4096), (3072, 768)):
+            for bf16 in (True, False):
+                bm, bn = ln_tile(m, k, n, bf16, SMS)
+                assert -(-n // bn) <= 16 and (not bf16 or (bm, bn) in LN_TILES)
+    assert ln_tile(16384, 1024, 4096, True, SMS) == (128, 256)
+    assert ln_tile(16384, 1024, 4096, False, SMS) == (0, 256)
+    assert ln_tile(16384, 1024, 1024, False, SMS) == (0, 64)
+    for bf16 in (True, False):
+        assert ln_tile(64, 256, 8192, bf16, SMS) is None
+        assert ln_tile(16384, 1024, 4096, bf16, SMS, cap=lambda t: 8) is None
