@@ -19,7 +19,10 @@ accumulate in f32.  Every layer's six projections go through `linear`
 (quantized weights: the fused dequant-matmul kernel), and attention goes
 through the projection-layout kernel: its segment-masked form for packed
 rows, its key-bias form for plain padded batches, at every sequence length,
-with MPNet's position bias (K4) or without (K2/K3).
+with MPNet's position bias (K4) or without (K2/K3).  While a profiler
+records, the embeddings run in the range `op.embed` and pooling, the
+output head, the row gather and the output encoding in `op.pool`
+(`utils/metrics.op_range`; the linears, norms and attention in theirs).
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ from ..ops.dispatch import check_impl, kernel_impls
 from ..ops.linear import layer_norm, linear
 from ..ops.qtensor import QTensor, gather_rows
 from ..parallel.group import current_tp
+from ..utils.metrics import in_op_range
 from .config import BertConfig
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -79,6 +83,7 @@ class ComputeOptions:
         return _DTYPES[self.dtype]
 
 
+@in_op_range("op.embed")
 def embed_tokens(params: dict, ids: torch.Tensor, config: BertConfig,
                  opts: ComputeOptions, positions: torch.Tensor | None = None,
                  type_ids: torch.Tensor | None = None) -> torch.Tensor:
@@ -216,6 +221,7 @@ def _l2_normalize(x: torch.Tensor) -> torch.Tensor:
     return x / torch.clamp(norm, min=1e-12)
 
 
+@in_op_range("op.pool")
 def pool_normalize(x: torch.Tensor, mask: torch.Tensor, pooling: str = "mean",
                    normalize: bool = True) -> torch.Tensor:
     """Masked pooling over tokens (mean / cls / max) + optional L2 norm."""
@@ -233,6 +239,7 @@ def pool_normalize(x: torch.Tensor, mask: torch.Tensor, pooling: str = "mean",
     return _l2_normalize(pooled) if normalize else pooled
 
 
+@in_op_range("op.pool")
 def pool_normalize_packed(x: torch.Tensor, seg: torch.Tensor, pos: torch.Tensor,
                           n_seg: int, pooling: str = "mean",
                           normalize: bool = True) -> torch.Tensor:
@@ -262,6 +269,7 @@ def pool_normalize_packed(x: torch.Tensor, seg: torch.Tensor, pos: torch.Tensor,
     return _l2_normalize(pooled) if normalize else pooled
 
 
+@in_op_range("op.pool")
 def _output_head(pooled: torch.Tensor, params: dict, config: BertConfig) -> torch.Tensor:
     """Optional sentence-transformers Dense projection (f32), then the L2
     norm when the config asks for it."""
@@ -299,8 +307,13 @@ def unpack_output_i8(packed) -> np.ndarray:
     return q.astype(np.float32) * scale[..., None]
 
 
-def _cast_output(out: torch.Tensor, opts: ComputeOptions) -> torch.Tensor:
-    """The output encoding: packed int8, or a cast to the output dtype."""
+@in_op_range("op.pool")
+def _cast_output(out: torch.Tensor, opts: ComputeOptions,
+                 gather_idx: torch.Tensor | None = None) -> torch.Tensor:
+    """The output encoding (packed int8, or a cast to the output dtype) of
+    the vectors [..., E], of their flat rows `gather_idx` when given."""
+    if gather_idx is not None:
+        out = out.reshape(-1, out.shape[-1])[gather_idx]
     if opts.output_dtype == "int8":
         return pack_output_i8(out)
     return out.to(_OUTPUT_DTYPES[opts.output_dtype])
@@ -368,9 +381,7 @@ def bert_embed_batch(params: dict, ids: torch.Tensor, mask: torch.Tensor,
         return x.to(torch.float32)
     pooled = pool_normalize(x, mask, config.pooling, normalize=False)
     out = _output_head(pooled, params, config)
-    if gather_idx is not None:
-        out = out[gather_idx]
-    return _cast_output(out, opts)
+    return _cast_output(out, opts, gather_idx)
 
 
 def check_pack_seq(config: BertConfig, s: int) -> None:
@@ -425,9 +436,7 @@ def bert_embed_packed(params: dict, ids: torch.Tensor, seg: torch.Tensor,
                     pos_bias=_pos_bias(params, ids.shape[-1]))
     pooled = pool_normalize_packed(x, seg, pos, n_seg, config.pooling, normalize=False)
     out = _output_head(pooled, params, config)
-    if gather_idx is not None:
-        out = out.reshape(-1, out.shape[-1])[gather_idx]
-    return _cast_output(out, opts)
+    return _cast_output(out, opts, gather_idx)
 
 
 def classifier_head(h: torch.Tensor, head: dict, activation: str) -> torch.Tensor:

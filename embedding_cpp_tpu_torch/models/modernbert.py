@@ -51,6 +51,7 @@ from ..ops.attention import (
 )
 from ..ops.linear import layer_norm, linear
 from ..ops.qtensor import QTensor, gather_rows
+from ..utils.metrics import in_op_range
 from .config import BertConfig
 
 
@@ -65,6 +66,7 @@ def layer_kinds(config: BertConfig) -> tuple[list[bool], np.ndarray]:
     return is_local, (thetas[:, None] ** -exponents[None, :]).astype(np.float32)
 
 
+@in_op_range("op.rope")
 def rope_cos_sin(pos: torch.Tensor, inv_freq: torch.Tensor, dtype):
     """cos/sin [..., S, d] for rotate-half RoPE: f32 angles from
     concat(freqs, freqs), cast to the activation dtype."""
@@ -73,6 +75,7 @@ def rope_cos_sin(pos: torch.Tensor, inv_freq: torch.Tensor, dtype):
     return torch.cos(emb).to(dtype), torch.sin(emb).to(dtype)
 
 
+@in_op_range("op.rope")
 def apply_rope(t: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """t [B, S, H, d] rotated by cos/sin [S, d] or [B, S, d]: t*cos +
     rotate_half(t)*sin, the first d/2 dims paired with the last d/2."""
@@ -172,6 +175,7 @@ def encoder_layer(x: torch.Tensor, lp: dict, i: int, ctx: _Ctx,
     return linear(u, lp["ffn_down_w"], residual=x, prologue_mul=g, row_parallel=True)
 
 
+@in_op_range("op.embed")
 def _embed(params: dict, ids: torch.Tensor, config: BertConfig, dtype) -> torch.Tensor:
     """LN(tok_embeddings[ids]): no token-type or position table."""
     emb = params["embeddings"]
@@ -217,9 +221,7 @@ def modernbert_embed_batch(params: dict, ids: torch.Tensor, mask: torch.Tensor,
         return x
     out = _output_head(pool_normalize(x, mask, config.pooling, normalize=False),
                        params, config)
-    if gather_idx is not None:
-        out = out[gather_idx]
-    return _cast_output(out, opts)
+    return _cast_output(out, opts, gather_idx)
 
 
 def modernbert_score_batch(params: dict, ids: torch.Tensor, mask: torch.Tensor,
@@ -259,6 +261,4 @@ def modernbert_embed_packed(params: dict, ids: torch.Tensor, seg: torch.Tensor,
     x = _run_layers(x, params, ctx, config)
     pooled = pool_normalize_packed(x, seg, pos, n_seg, config.pooling, normalize=False)
     out = _output_head(pooled, params, config)
-    if gather_idx is not None:
-        out = out.reshape(-1, out.shape[-1])[gather_idx]
-    return _cast_output(out, opts)
+    return _cast_output(out, opts, gather_idx)

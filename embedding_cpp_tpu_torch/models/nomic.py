@@ -135,9 +135,7 @@ def nomic_embed_batch(params: dict, ids: torch.Tensor, mask: torch.Tensor,
         return x.to(torch.float32)
     out = _output_head(pool_normalize(x, mask, config.pooling, normalize=False),
                        params, config)
-    if gather_idx is not None:
-        out = out[gather_idx]
-    return _cast_output(out, opts)
+    return _cast_output(out, opts, gather_idx)
 
 
 def nomic_embed_packed(params: dict, ids: torch.Tensor, seg: torch.Tensor,
@@ -158,6 +156,4 @@ def nomic_embed_packed(params: dict, ids: torch.Tensor, seg: torch.Tensor,
     x = _run_layers(x, params["layers"], ctx, config)
     pooled = pool_normalize_packed(x, seg, pos, n_seg, config.pooling, normalize=False)
     out = _output_head(pooled, params, config)
-    if gather_idx is not None:
-        out = out.reshape(-1, out.shape[-1])[gather_idx]
-    return _cast_output(out, opts)
+    return _cast_output(out, opts, gather_idx)

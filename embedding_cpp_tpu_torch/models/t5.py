@@ -28,9 +28,11 @@ import torch
 from ..ops.attention import MASK_BIAS, flash_attention_bse, flash_attention_packed_bse
 from ..ops.linear import linear
 from ..ops.qtensor import QTensor, gather_rows
+from ..utils.metrics import in_op_range
 from .config import BertConfig
 
 
+@in_op_range("op.norm")
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float, out_dtype) -> torch.Tensor:
     """x * rsqrt(mean(x^2) + eps) * scale, computed in f32."""
     xf = x.to(torch.float32)
@@ -44,6 +46,7 @@ def unscale_q(q: torch.Tensor, d: int) -> torch.Tensor:
     return q * torch.tensor(math.sqrt(d), dtype=q.dtype, device=q.device)
 
 
+@in_op_range("op.embed")
 def _embed(params: dict, ids: torch.Tensor, opts) -> torch.Tensor:
     word = params["embeddings"]["word"]
     if isinstance(word, QTensor):
@@ -113,9 +116,7 @@ def t5_embed_batch(params: dict, ids: torch.Tensor, mask: torch.Tensor, config: 
         return x
     pooled = pool_normalize(x, mask, config.pooling, normalize=False)
     out = _output_head(pooled, params, config)
-    if gather_idx is not None:
-        out = out[gather_idx]
-    return _cast_output(out, opts)
+    return _cast_output(out, opts, gather_idx)
 
 
 def t5_embed_packed(params: dict, ids: torch.Tensor, seg: torch.Tensor, pos: torch.Tensor,
@@ -131,6 +132,4 @@ def t5_embed_packed(params: dict, ids: torch.Tensor, seg: torch.Tensor, pos: tor
     x = _run_layers(x, params, pos_bias, seg.to(torch.int32), config, packed=True)
     pooled = pool_normalize_packed(x, seg, pos, n_seg, config.pooling, normalize=False)
     out = _output_head(pooled, params, config)
-    if gather_idx is not None:
-        out = out.reshape(-1, out.shape[-1])[gather_idx]
-    return _cast_output(out, opts)
+    return _cast_output(out, opts, gather_idx)

@@ -63,7 +63,8 @@ raises there.  Each wrapper's `launches` counts its kernel launches; the two
 projection-layout wrappers count those with a position bias (K4) apart,
 in `bias_launches`, and `flash_attention_packed` its windowed launches
 in `window_launches`; `flash_attention_packed_local.launches` counts
-mode 3.
+mode 3.  While a profiler records, every wrapper's call is the range
+`op.attention` (`utils/metrics.op_range`).
 """
 from __future__ import annotations
 
@@ -71,6 +72,7 @@ import ctypes
 
 import torch
 
+from ..utils.metrics import in_op_range
 from ._build import check, load
 from .dispatch import count, use_kernel
 
@@ -548,6 +550,7 @@ def _count(fn, pos_bias) -> None:
         count(fn, "bias_launches")
 
 
+@in_op_range("op.attention")
 def flash_attention_bse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         mask_bias: torch.Tensor, h: int,
                         pos_bias: torch.Tensor | None = None) -> torch.Tensor:
@@ -566,6 +569,7 @@ def flash_attention_bse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+@in_op_range("op.attention")
 def flash_attention_packed_bse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                seg: torch.Tensor, h: int,
                                pos_bias: torch.Tensor | None = None) -> torch.Tensor:
@@ -602,6 +606,7 @@ def flash_attention_bias_packed_bse(q: torch.Tensor, k: torch.Tensor, v: torch.T
     return flash_attention_packed_bse(q, k, v, seg, h, pos_bias)
 
 
+@in_op_range("op.attention")
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     mask_bias: torch.Tensor,
                     pos_bias: torch.Tensor | None = None) -> torch.Tensor:
@@ -618,6 +623,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+@in_op_range("op.attention")
 def flash_attention_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           mask_bias: torch.Tensor, window: int) -> torch.Tensor:
     """Sliding-window attention (ModernBERT's local layers): key k is
@@ -647,6 +653,7 @@ def pad_rows8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return q, k, v, torch.nn.functional.pad(seg, (0, pad), value=-1)
 
 
+@in_op_range("op.attention")
 def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            seg: torch.Tensor, max_seg_len: int | None = None) -> torch.Tensor:
     """Segment-masked attention for packed rows in the [B, S, H, d] layout:
@@ -671,6 +678,7 @@ def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out[:, :s]
 
 
+@in_op_range("op.attention")
 def flash_attention_packed_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                  seg: torch.Tensor, window: int) -> torch.Tensor:
     """Segment-masked sliding-window attention for packed rows (mode 3,
@@ -691,6 +699,7 @@ def flash_attention_packed_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
     return out[:, :s]
 
 
+@in_op_range("op.attention")
 def attention_headpack(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        bias: torch.Tensor, hb: int) -> torch.Tensor:
     """Head-packed attention (B1): q/k/v [B, H, S, d] bf16 (head-major),

@@ -30,7 +30,8 @@ kernel does not serve, and runs the plain version for tensors on the CPU,
 or where the forward chose it (`attn_impl="plain"`, ops/dispatch.py).  A
 head dim without an instance (`attention.HEAD_DIM_INSTANCES`) takes the
 plain version under "auto", counted in the wrapper's `plain_routes`.
-Each wrapper's `launches` counts its kernel launches.
+Each wrapper's `launches` counts its kernel launches; while a profiler
+records, each wrapper's call is the range `op.attention`.
 """
 from __future__ import annotations
 
@@ -41,6 +42,7 @@ import math
 import numpy as np
 import torch
 
+from ..utils.metrics import in_op_range
 from ._build import check
 from .attention import HEAD_DIM_INSTANCES, MASK_BIAS, _bind, _operands, _served, _softmax_pv
 from .dispatch import count, use_kernel
@@ -174,6 +176,7 @@ def _launch(q, k, v, mask, pos_k, pos_q, c2p_idx, p2c_idx, seg_mask: bool) -> to
     return out
 
 
+@in_op_range("op.attention")
 def disentangled_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            mask_bias: torch.Tensor, pos_k: torch.Tensor,
                            pos_q: torch.Tensor, span: int, max_dist: int) -> torch.Tensor:
@@ -192,6 +195,7 @@ def disentangled_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+@in_op_range("op.attention")
 def disentangled_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                   seg: torch.Tensor, pos_k: torch.Tensor,
                                   pos_q: torch.Tensor, span: int,

@@ -24,6 +24,10 @@ bias or epilogue for a quantized weight, sums it over the slots
 on the cast and the residual and LayerNorm tail, in the JAX package's order
 (ops/linear.py:95-113): a bf16 round before the sum would degrade it.  The
 column-parallel q/k/v/up/gate keep K1's fused bias / GELU / prologue.
+
+While a profiler records, the product with its bias, activation and cast
+runs in the range `op.linear`, the residual add in `op.residual` and the
+LayerNorm in `op.norm` (`utils/metrics.op_range`).
 """
 from __future__ import annotations
 
@@ -31,10 +35,12 @@ import torch
 import torch.nn.functional as F
 
 from ..parallel.group import current_tp
+from ..utils.metrics import in_op_range, op_range
 from .q4_matmul import prologue, q4_matmul
 from .qtensor import QTensor
 
 
+@in_op_range("op.norm")
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                eps: float, out_dtype) -> torch.Tensor:
     """(x - mean) / sqrt(var + eps) * scale + bias, computed in f32."""
@@ -85,23 +91,25 @@ def linear(x: torch.Tensor, w, b: torch.Tensor | None = None, *,
     dtype = x.dtype
     lead = x.shape[:-1]
     tp = current_tp() if row_parallel else None
-    if tp is not None:
-        y = tp.all_reduce(_f32_product(x, w, prologue_mul))
-        if b is not None:
-            y = y + b.to(torch.float32)
-        y = _activate(y.to(dtype), activation)
-    elif isinstance(w, QTensor):
-        y = q4_matmul(x.reshape(-1, x.shape[-1]), w, bias=b, activation=activation,
-                      prologue_mul=None if prologue_mul is None
-                      else prologue_mul.reshape(-1, x.shape[-1]))
-        y = y.reshape(*lead, -1).to(dtype)
-    else:
-        y = _f32_product(x, w, prologue_mul)
-        if b is not None:
-            y = y + b.to(torch.float32)
-        y = _activate(y.to(dtype), activation)
+    with op_range("op.linear"):
+        if tp is not None:
+            y = tp.all_reduce(_f32_product(x, w, prologue_mul))
+            if b is not None:
+                y = y + b.to(torch.float32)
+            y = _activate(y.to(dtype), activation)
+        elif isinstance(w, QTensor):
+            y = q4_matmul(x.reshape(-1, x.shape[-1]), w, bias=b, activation=activation,
+                          prologue_mul=None if prologue_mul is None
+                          else prologue_mul.reshape(-1, x.shape[-1]))
+            y = y.reshape(*lead, -1).to(dtype)
+        else:
+            y = _f32_product(x, w, prologue_mul)
+            if b is not None:
+                y = y + b.to(torch.float32)
+            y = _activate(y.to(dtype), activation)
     if residual is not None:
-        y = y + residual
+        with op_range("op.residual"):
+            y = y + residual
     if ln is not None:
         y = layer_norm(y, ln[0], ln[1], ln[2], dtype)
     return y

@@ -22,7 +22,13 @@ beside them: `tokenize`,
 `n_max_tokens`, `id_to_token` and `decode`; every `embed_tokens` call
 adds its sentences, tokens, batches and padded token slots to `stats` and
 to the process's metrics (`utils/metrics.GLOBAL`, the server's TPES
-frame).  The engine runs on the GPU unless the caller passes
+frame).  Each phase of a call is a span there (`timers_s` /
+`timer_counts`), and a profiler range while a profiler records:
+`encode` (the whole `encode_with_counts`) over `tokenize`, then `eval`
+over `plan` (packing, buckets, id checks), `launch` (every batch's forward
+enqueued) and `fetch` (the join and the one host copy), then `finish` (the
+scatter to input order and the stats; again for `dimensions`' cut).  The
+engine runs on the GPU unless the caller passes
 `device="cpu"`; with no device given and no GPU present it raises instead
 of falling back.  `mesh=` (parallel/mesh.py) runs every forward over a
 [dp, tp] mesh instead: the weights are split Megatron-style over tp, each
@@ -32,6 +38,7 @@ order; on a multi-process mesh every process must make the same calls
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import threading
 import time
@@ -302,19 +309,20 @@ class Engine:
         ids pass the context."""
         if self.tokenizer is None:
             raise RuntimeError("engine has no tokenizer (model without blob kv)")
-        raw = self.tokenizer.encode_batch(list(texts))
-        # T5 frames ids + [</s>], with no CLS
-        add_cls = self.config.arch != "t5"
-        if not truncate:
-            cap = self.config.n_ctx
-            for i, ids in enumerate(raw):
-                need = len(_strip_pad(ids, self.special_ids.pad)) + 1 + add_cls
-                if need > cap:
-                    raise ValueError(f"input {i} is {need} tokens framed, over the model's "
-                                     f"{cap}-token context (set truncate=true to cut, "
-                                     "or split the text)")
-        return [frame_ids(ids, self.special_ids, self.config.n_ctx, add_cls=add_cls)
-                for ids in raw]
+        with metrics.timer("tokenize"):
+            raw = self.tokenizer.encode_batch(list(texts))
+            # T5 frames ids + [</s>], with no CLS
+            add_cls = self.config.arch != "t5"
+            if not truncate:
+                cap = self.config.n_ctx
+                for i, ids in enumerate(raw):
+                    need = len(_strip_pad(ids, self.special_ids.pad)) + 1 + add_cls
+                    if need > cap:
+                        raise ValueError(f"input {i} is {need} tokens framed, over the "
+                                         f"model's {cap}-token context (set truncate=true "
+                                         "to cut, or split the text)")
+            return [frame_ids(ids, self.special_ids, self.config.n_ctx, add_cls=add_cls)
+                    for ids in raw]
 
     # --- forward ------------------------------------------------------------
     def _pack_plan(self, token_lists: Sequence[Sequence[int]]) -> list[int]:
@@ -382,27 +390,28 @@ class Engine:
         Caller holds self._lock."""
         opts = opts or self.opts
         n = len(token_lists)
-        pack_idx = self._pack_plan(token_lists)
-        pack_set = set(pack_idx)
-        rest = [i for i in range(n) if i not in pack_set]
-        packed_batches = (
-            pack_segments([token_lists[i] for i in pack_idx], pack_idx,
-                          self.special_ids.pad, seq_len=self.pack_seq,
-                          n_seg=self.pack_segs, row_multiple=self._dp)
-            if pack_idx else []
-        )
-        batches = pack_batches(
-            [token_lists[i] for i in rest], self.special_ids.pad,
-            seq_buckets=self.seq_buckets, batch_buckets=self.batch_buckets,
-            max_seq=self.config.n_ctx, max_tokens=self.max_batch_tokens,
-        )
-        for batch in batches:
-            batch.positions = [rest[i] for i in batch.positions]
-        _check_ids([b.ids for b in (*packed_batches, *batches)], self.config.n_vocab,
-                   "token id")
+        with metrics.timer("plan"):
+            pack_idx = self._pack_plan(token_lists)
+            pack_set = set(pack_idx)
+            rest = [i for i in range(n) if i not in pack_set]
+            packed_batches = (
+                pack_segments([token_lists[i] for i in pack_idx], pack_idx,
+                              self.special_ids.pad, seq_len=self.pack_seq,
+                              n_seg=self.pack_segs, row_multiple=self._dp)
+                if pack_idx else []
+            )
+            batches = pack_batches(
+                [token_lists[i] for i in rest], self.special_ids.pad,
+                seq_buckets=self.seq_buckets, batch_buckets=self.batch_buckets,
+                max_seq=self.config.n_ctx, max_tokens=self.max_batch_tokens,
+            )
+            for batch in batches:
+                batch.positions = [rest[i] for i in batch.positions]
+            _check_ids([b.ids for b in (*packed_batches, *batches)], self.config.n_vocab,
+                       "token id")
         metrics.inc("padded_slots", sum(b.ids.size for b in (*packed_batches, *batches)))
         pending = []
-        with torch.inference_mode():
+        with metrics.timer("launch"), torch.inference_mode():
             for pb in packed_batches:
                 pending.append((pb, self._embed_packed(pb, opts)))
             for batch in batches:
@@ -417,18 +426,20 @@ class Engine:
         queue behind this call's work meanwhile."""
         out = np.empty((len(token_lists), self.n_embd), dtype=np.float32)
         t0 = time.perf_counter()
-        with metrics.timer("eval"):
+        with metrics.timer("eval"), contextlib.ExitStack() as fetch:
             with self._lock:
                 pending = self._dispatch(token_lists)
+                # the fetch span runs on past the lock, to the host copy's end
+                fetch.enter_context(metrics.timer("fetch"))
                 joined = torch.cat([v for _, v in pending], dim=0) if pending else None
-            if joined is not None:
-                host = fetch_output(joined)
-                off = 0
-                for batch, vecs in pending:
-                    rows = batch.orig if isinstance(batch, PackedSegBatch) else batch.positions
-                    out[rows] = host[off : off + len(rows)]
-                    off += vecs.shape[0]
-        self._count_stats(token_lists, len(pending), t0)
+            host = fetch_output(joined) if joined is not None else None
+        with metrics.timer("finish"):
+            off = 0
+            for batch, vecs in pending:
+                rows = batch.orig if isinstance(batch, PackedSegBatch) else batch.positions
+                out[rows] = host[off : off + len(rows)]
+                off += vecs.shape[0]
+            self._count_stats(token_lists, len(pending), t0)
         return out
 
     def embed_tokens_device(self, token_lists: Sequence[Sequence[int]]) -> list:
@@ -446,10 +457,12 @@ class Engine:
         out = []
         opts = replace(self.opts, output_dtype="float32")
         with self._lock, metrics.timer("eval"):
-            for batch, vecs in self._dispatch(token_lists, opts):
+            pending = self._dispatch(token_lists, opts)
+        with metrics.timer("finish"):
+            for batch, vecs in pending:
                 rows = batch.orig if isinstance(batch, PackedSegBatch) else batch.positions
                 out.append((np.asarray(rows, np.int64), vecs[: len(rows)]))
-        self._count_stats(token_lists, len(out), t0)
+            self._count_stats(token_lists, len(out), t0)
         return out
 
     def _count_stats(self, token_lists, n_batches: int, t0: float) -> None:
@@ -522,16 +535,18 @@ class Engine:
         """encode() plus each text's framed token count ([CLS] and [SEP]
         and the prompt's tokens included), from the tokenization that fed
         the forward: what a usage report counts."""
-        if isinstance(texts, str):
-            texts = [texts]
-        prefix = self.resolve_prompt(prompt_name, prompt)
-        if prefix:
-            texts = [prefix + t for t in texts]
-        ids = self.tokenize_batch(texts, truncate=truncate)
-        out = self.embed_tokens(ids)
-        if dimensions is not None:
-            out = truncate_normalize(out, dimensions)
-        return out, [len(t) for t in ids]
+        with metrics.timer("encode"):
+            if isinstance(texts, str):
+                texts = [texts]
+            prefix = self.resolve_prompt(prompt_name, prompt)
+            if prefix:
+                texts = [prefix + t for t in texts]
+            ids = self.tokenize_batch(texts, truncate=truncate)
+            out = self.embed_tokens(ids)
+            if dimensions is not None:
+                with metrics.timer("finish"):
+                    out = truncate_normalize(out, dimensions)
+            return out, [len(t) for t in ids]
 
     # --- cross-encoder scoring ----------------------------------------------
     def tokenize_pairs(self, pairs: Sequence[tuple[str, str]]
@@ -541,12 +556,13 @@ class Engine:
         frame <s> a </s></s> b </s> with one segment."""
         if self.tokenizer is None:
             raise RuntimeError("engine has no tokenizer (model without blob kv)")
-        raw = self.tokenizer.encode_batch([t for pair in pairs for t in pair])
-        double_sep = self.config.arch in ("roberta", "mpnet")
-        framed = [frame_pair_ids(raw[i], raw[i + 1], self.special_ids, self.config.n_ctx,
-                                 double_sep=double_sep)
-                  for i in range(0, len(raw), 2)]
-        return [f[0] for f in framed], [f[1] for f in framed]
+        with metrics.timer("tokenize"):
+            raw = self.tokenizer.encode_batch([t for pair in pairs for t in pair])
+            double_sep = self.config.arch in ("roberta", "mpnet")
+            framed = [frame_pair_ids(raw[i], raw[i + 1], self.special_ids, self.config.n_ctx,
+                                     double_sep=double_sep)
+                      for i in range(0, len(raw), 2)]
+            return [f[0] for f in framed], [f[1] for f in framed]
 
     def score_plan(self, token_lists: Sequence[Sequence[int]]) -> list:
         """The batches `score_token_pairs` launches for the lists: length
@@ -570,35 +586,39 @@ class Engine:
         if self.mesh is not None and self.mesh.multiprocess:
             raise RuntimeError("cross-encoder scoring on a multi-host mesh is not supported")
         out = np.empty((len(token_lists), self.config.n_labels), np.float32)
-        with self._lock:
-            batches = self.score_plan(token_lists)
-            type_arrays = []
-            for batch in batches:
-                types = np.zeros_like(batch.ids)
-                for row, idx in enumerate(batch.positions):
-                    t = list(type_lists[idx])[: types.shape[1]]
-                    types[row, : len(t)] = t
-                type_arrays.append(types)
-            _check_ids([b.ids for b in batches], self.config.n_vocab, "token id")
-            type_table = self.params["embeddings"].get("token_type")
-            if type_table is not None:
-                _check_ids(type_arrays, type_table.shape[0], "token type id")
-            pending = []
-            with torch.inference_mode():
-                for batch, types in zip(batches, type_arrays):
-                    logits = self._run(
-                        lambda p, ids, mask, types: bert_score_batch(
-                            p, ids, mask, self.config, self.opts, type_ids=types),
-                        (batch.ids, batch.mask, types))
-                    pending.append((batch, logits))
-            if not pending:
-                return out[:, 0] if self.config.n_labels == 1 else out
-            joined = torch.cat([v for _, v in pending], dim=0)
-        host = joined.cpu().numpy()
-        off = 0
-        for batch, _ in pending:
-            out[batch.positions] = host[off: off + len(batch.positions)]
-            off += len(batch.positions)
+        with contextlib.ExitStack() as fetch:
+            with self._lock:
+                with metrics.timer("plan"):
+                    batches = self.score_plan(token_lists)
+                    type_arrays = []
+                    for batch in batches:
+                        types = np.zeros_like(batch.ids)
+                        for row, idx in enumerate(batch.positions):
+                            t = list(type_lists[idx])[: types.shape[1]]
+                            types[row, : len(t)] = t
+                        type_arrays.append(types)
+                    _check_ids([b.ids for b in batches], self.config.n_vocab, "token id")
+                    type_table = self.params["embeddings"].get("token_type")
+                    if type_table is not None:
+                        _check_ids(type_arrays, type_table.shape[0], "token type id")
+                pending = []
+                with metrics.timer("launch"), torch.inference_mode():
+                    for batch, types in zip(batches, type_arrays):
+                        logits = self._run(
+                            lambda p, ids, mask, types: bert_score_batch(
+                                p, ids, mask, self.config, self.opts, type_ids=types),
+                            (batch.ids, batch.mask, types))
+                        pending.append((batch, logits))
+                if not pending:
+                    return out[:, 0] if self.config.n_labels == 1 else out
+                fetch.enter_context(metrics.timer("fetch"))
+                joined = torch.cat([v for _, v in pending], dim=0)
+            host = joined.cpu().numpy()
+        with metrics.timer("finish"):
+            off = 0
+            for batch, _ in pending:
+                out[batch.positions] = host[off: off + len(batch.positions)]
+                off += len(batch.positions)
         return out[:, 0] if self.config.n_labels == 1 else out
 
     def score_pairs(self, pairs: Sequence[tuple[str, str]], *,
@@ -682,9 +702,10 @@ class Engine:
         under the lock; returns [(batch, device result)], fetched by the
         caller outside it."""
         with self._lock:
-            batches = self.token_plan(token_lists, max_rows=max_rows)
-            _check_ids([b.ids for b in batches], self.config.n_vocab, "token id")
-            with torch.inference_mode():
+            with metrics.timer("plan"):
+                batches = self.token_plan(token_lists, max_rows=max_rows)
+                _check_ids([b.ids for b in batches], self.config.n_vocab, "token id")
+            with metrics.timer("launch"), torch.inference_mode():
                 return [(b, forward(self._tensor(b.ids), self._tensor(b.mask), b))
                         for b in batches]
 

@@ -160,7 +160,16 @@ class ServerStats:
 
 
 class ContinuousBatcher:
-    """Merge pending encode requests across connections into device batches."""
+    """Merge pending encode requests across connections into device batches.
+
+    Its spans (the process's metrics, `timers_s` / `timer_counts`):
+    `queue_wait` per request, from its enqueue to `_run` taking it;
+    `batch_form` per merged batch, from its first request taken to its task
+    created (the merge window and the wait for a pipeline slot);
+    `executor_wait` per batch, from its hand-off to the executor to the
+    start of `encode_with_counts` on the worker thread.  None of them opens
+    a profiler range: each crosses awaits, where other tasks run on the
+    loop's thread, or threads."""
 
     def __init__(self, engine, max_batch: int = 256, window_ms: float = 2.0,
                  max_pending: int = 16384):
@@ -328,7 +337,7 @@ class ContinuousBatcher:
         self.try_reserve(n)
         try:
             fut = asyncio.get_running_loop().create_future()
-            await self.queue.put((texts, fut))
+            await self.queue.put((texts, fut, time.perf_counter()))
             return await fut
         finally:
             self.release(n)
@@ -350,7 +359,9 @@ class ContinuousBatcher:
         loop = asyncio.get_running_loop()
         try:
             while True:
-                texts, fut = await self.queue.get()
+                texts, fut, t_put = await self.queue.get()
+                t_first = time.perf_counter()
+                metrics.add_time("queue_wait", t_first - t_put)
                 jobs = [(texts, fut)]
                 total = len(texts)
                 deadline = loop.time() + self.window
@@ -359,13 +370,15 @@ class ContinuousBatcher:
                     if timeout <= 0:
                         break
                     try:
-                        t, f = await asyncio.wait_for(self.queue.get(), timeout)
+                        t, f, t_put = await asyncio.wait_for(self.queue.get(), timeout)
                     except asyncio.TimeoutError:
                         break
+                    metrics.add_time("queue_wait", time.perf_counter() - t_put)
                     jobs.append((t, f))
                     total += len(t)
                 await sem.acquire()
                 task = asyncio.create_task(self._run_batch(jobs, sem))
+                metrics.add_time("batch_form", time.perf_counter() - t_first)
                 inflight.add(task)
                 task.add_done_callback(inflight.discard)
         finally:
@@ -374,11 +387,15 @@ class ContinuousBatcher:
 
     async def _run_batch(self, jobs, sem: asyncio.Semaphore) -> None:
         flat = [text for texts, _ in jobs for text in texts]
-        try:
+
+        def encode(t_handed: float):
+            metrics.add_time("executor_wait", time.perf_counter() - t_handed)
             # the prompts went on at enqueue time: prompt="" adds none here
+            return self.engine.encode_with_counts(flat, prompt="")
+
+        try:
             vecs, counts = await asyncio.get_running_loop().run_in_executor(
-                None, lambda: self.engine.encode_with_counts(flat, prompt="")
-            )
+                None, encode, time.perf_counter())
             off = 0
             for texts, fut in jobs:
                 if not fut.cancelled():
