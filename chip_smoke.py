@@ -44,7 +44,12 @@ Phases, in order, each printing JSON lines:
             64; B1, the kernel suite's head-packed attention (benchmark
             code, on no model path), at every (d, hb) it is built for,
             [32, 512, 12xd], beside K5, K3 and SDPA at the same shape, and
-            with -1e9 padding tails and a ragged S; mode 3
+            with -1e9 padding tails and a ragged S; N1, the residual add +
+            LayerNorm pass, at bge-large's [262144, 1024] rows with the
+            residual and ModernBERT's [524288, 768] into bf16 and into f32,
+            within one bf16 ulp + 2e-5 of its plain version (f32: 2e-5),
+            timed beside `x + r` then F.layer_norm, and untimed on the
+            scalar path, from f32 rows and at a transposed x; mode 3
             of the long-row kernel (segments and the sliding window) at
             ModernBERT's chunk rows [8, 2048, 12x64], at S = 1032 (no
             slice), [2, 8192] with four documents a row and with segments
@@ -259,8 +264,9 @@ Phases, in order, each printing JSON lines:
             tpe_connect, dylib.cpp built with g++ and run): each script's
             launches and seconds
   plain_routes  every attention wrapper's count of calls that took the plain
-            version because no kernel instance serves their head dim: 0 on
-            every path but the head_dims phase's d 24 engine
+            version because no kernel instance serves their head dim, and
+            N1's `layer_norm.plain_calls` (rows past its widest instance):
+            0 on every path but the head_dims phase's d 24 engine
   profile   torch.profiler kernel times of the packed [32, 512] forwards
             (MiniLM-L6, ModernBERT, DeBERTa, bge-large, XLM-R, MPNet, T5,
             ALBERT) and of the [8, 8192] ModernBERT forward
@@ -274,7 +280,8 @@ Phases, in order, each printing JSON lines:
             before any index, whose error frame leaves the connection usable
 then the card's name and power limit, the `kernels` summary line (one entry
 per kernel and model or index ingest: the launches beside the times at its
-shapes),
+shapes; N1's `layer_norm` entries: 2L + 1 launches a bge-large and a
+ModernBERT forward, none under q4_impl "plain"),
 and last {"ok": true, "device": {...}}.  Launch counts are set to 0 just before each
 path is driven and read just after; every kernel but K1's fused tail and
 B1, which no model path runs, must have launched on its path (those two
@@ -356,7 +363,8 @@ KERNEL_LINES = {"q4_matmul": "q4_matmul.py:126", "q4_matmul_prologue": "q4_matmu
                 "attn_local": "attention.py:597", "attn_seg": "attention.py:418",
                 "attn_seg_window": "attention.py:500", "attn_seg_local": "",
                 "deberta_attn": "deberta_attention.py:76",
-                "deberta_attn_packed": "deberta_attention.py:185"}
+                "deberta_attn_packed": "deberta_attention.py:185",
+                "layer_norm": "linear.py:31"}
 ATTENTION = ("attn_bse_packed", "attn_bse_keybias", "attn_bse_bias", "attn_bse_bias_packed",
              "attn_long", "attn_local", "deberta_attn", "deberta_attn_packed", "attn_seg",
              "attn_seg_window", "attn_seg_local")
@@ -789,12 +797,14 @@ def phase_kernels_ln(peaks) -> dict:
     cluster, through `q4_matmul`'s split route (K1 into f32, the tail in
     PyTorch), counted apart.  Timed in bf16 Q8_0 at every width, beside K1
     without the tail (`k1_ms`) and the port's `linear` (`linear_ms`: K1,
-    then the residual and the LayerNorm in PyTorch, the path the models
-    run).  No one PyTorch call computes this function: library_ms is
-    null."""
+    then N1's residual add + LayerNorm pass, the path the models run; at
+    N = 4096, past N1's widest instance, its plain version, whose calls
+    are counted in `layer_norm.plain_calls` and returned as
+    `n1_plain_calls`).  No one PyTorch call computes this function:
+    library_ms is null."""
     import torch
 
-    from embedding_cpp_tpu_torch.ops.linear import linear
+    from embedding_cpp_tpu_torch.ops.linear import LN_MAX_WIDTH, layer_norm, linear
     from embedding_cpp_tpu_torch.ops.q4_matmul import (
         _ln_cluster_cap,
         _q4_matmul_1d,
@@ -809,7 +819,7 @@ def phase_kernels_ln(peaks) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(14)
     sms = _sms(0)
-    widths, launches = {}, 0
+    widths, launches, n1_plain_calls = {}, 0, 0
     cases = [(m, k, n, qtype, dtype)
              for m, k, n in ((M_TOKENS, 384, 384), (M_TOKENS, 768, 768), (M_TOKENS, 1024, 1024),
                              (M_TOKENS, 1024, 4096))
@@ -854,8 +864,15 @@ def phase_kernels_ln(peaks) -> dict:
                 samples=5, reps=1)
             case["library_ms"] = None
             case["k1_ms"] = gpu_ms(lambda: _q4_matmul_1d(x, w, b, activation="gelu_erf"))
+            n1_plain = layer_norm.plain_calls
             case["linear_ms"] = gpu_ms(
                 lambda: linear(x, w, b, activation="gelu_erf", residual=res, ln=ln))
+            # linear's norm is N1, which has no instance past 2048 wide: the
+            # plain version, counted
+            case["linear_n1_plain_calls"] = layer_norm.plain_calls - n1_plain
+            check((case["linear_n1_plain_calls"] > 0) == (n > LN_MAX_WIDTH),
+                  f"N1's plain route at N = {n}: {case['linear_n1_plain_calls']} calls")
+            n1_plain_calls += case["linear_n1_plain_calls"]
             # how many clusters of this size the card runs at once
             case["active_clusters"] = ln_active_clusters(True, tile, case["cluster_blocks"])
             nbytes = (x.numel() * 2 + 2 * m * n * 2 + w.qs.numel() + w.scales.numel() * 4
@@ -866,7 +883,83 @@ def phase_kernels_ln(peaks) -> dict:
         check(ok, f"LN epilogue {m}x{k}x{n} {qtype} {dtype}: err {err} rel {rel}")
         del x, res, got, ref
     torch.cuda.empty_cache()
-    return {**widths[1024], "widths": widths, "check_launches": launches}
+    return {**widths[1024], "widths": widths, "check_launches": launches,
+            "n1_plain_calls": n1_plain_calls}
+
+
+def phase_kernels_layer_norm(peaks) -> dict:
+    """N1 (`ops/linear.layer_norm`, csrc/layer_norm.cu) against its plain
+    version on the card at the main paths' shapes: bge-large's residual add
+    + LayerNorm over [262144, 1024] bf16 rows (48 a forward at a bulk
+    call's slots), ModernBERT's norms over [524288, 768] into bf16 (its
+    pre-norms) and into f32 (its final norm), each timed beside the plain
+    version and `x + r` then `F.layer_norm` (the library's bar); untimed:
+    the scalar path (rows of 100, and a row stride 2 bytes off 16), f32
+    rows into bf16 (ModernBERT's embedding norm), a transposed x.  bf16
+    outputs within one bf16 ulp of the plain version's + 2e-5, f32 outputs
+    within 2e-5 (the statistics are summed in another order).  Each call
+    launches the kernel once and takes no plain route."""
+    import torch
+    import torch.nn.functional as F
+
+    from embedding_cpp_tpu_torch.ops.linear import layer_norm, layer_norm_plain
+
+    dev = torch.device("cuda")
+    g = torch.Generator(dev).manual_seed(26)
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (m, n, in dtype, out dtype, residual, bias, timed)
+    cases = {"bge_large_add_ln": (262144, 1024, bf16, bf16, True, True, True),
+             "modernbert_ln": (524288, 768, bf16, bf16, False, False, True),
+             "modernbert_final_ln": (524288, 768, bf16, f32, False, False, True),
+             "scalar_100": (M_TOKENS, 100, bf16, bf16, True, True, False),
+             "stride_off_16_bytes": (M_TOKENS, 768, bf16, bf16, True, True, False),
+             "f32_rows_into_bf16": (M_TOKENS, 768, f32, bf16, False, False, False),
+             "transposed": (768, 64, bf16, bf16, False, True, False)}
+    out = {}
+    for key, (m, n, idt, odt, residual, has_bias, timed) in cases.items():
+        off = key == "stride_off_16_bytes"
+        x = (0.3 + torch.randn((m, n + off), device=dev, generator=g)).to(idt)[:, off:]
+        if key == "transposed":
+            x = x.T.contiguous().T
+        r = torch.randn(x.shape, device=dev, generator=g).to(idt) if residual else None
+        scale = 1 + 0.1 * torch.randn(n, device=dev, generator=g)
+        bias = 0.1 * torch.randn(n, device=dev, generator=g) if has_bias else None
+        args = (x, scale, bias, 1e-12, odt)
+        before = (layer_norm.launches, layer_norm.plain_calls)
+        got = layer_norm(*args, residual=r)
+        torch.cuda.synchronize()
+        counts = [layer_norm.launches - before[0], layer_norm.plain_calls - before[1]]
+        ref = layer_norm_plain(*args, residual=r).float()
+        err = (got.float() - ref).abs()
+        tol = 2e-5 + (torch.ldexp(torch.ones_like(ref), torch.frexp(ref)[1] - 8)
+                      if odt == bf16 else 0.0)
+        ok = bool(torch.isfinite(got).all() and (err <= tol).all()) and counts == [1, 0]
+        case = {"m": m, "n": n, "in": str(idt).split(".")[-1], "out": str(odt).split(".")[-1],
+                "residual": residual, "bias": has_bias, "launches": counts[0],
+                "plain_calls": counts[1], "max_abs_err": err.max().item(),
+                "worst_over_tolerance": (err - tol).max().item(),
+                "tolerance": ("2e-5 + one bf16 ulp of the plain version's output"
+                              if odt == bf16 else "2e-5"), "ok": ok}
+        del got, ref, err, tol
+        if timed:
+            def library(x=x, r=r, scale=scale, bias=bias, n=n, odt=odt):
+                t = x if r is None else x + r
+                return F.layer_norm(t, (n,), scale.to(t.dtype),
+                                    None if bias is None else bias.to(t.dtype), 1e-12).to(odt)
+
+            case["ms"] = gpu_ms(lambda: layer_norm(*args, residual=r))
+            case["plain_ms"] = gpu_ms(lambda: layer_norm_plain(*args, residual=r),
+                                      samples=3, reps=1)
+            case["library_ms"] = gpu_ms(library)
+            nbytes = (m * n * (idt.itemsize * (2 if residual else 1) + odt.itemsize)
+                      + n * 4 * (1 + has_bias))
+            case["bound_ms"], case["bound_by"] = bound_ms(nbytes, 0.0, peaks)
+        emit({"phase": "kernel_check", "kernel": "layer_norm", "case": key, **case})
+        check(ok, f"N1 {key}: {case}")
+        out[key] = case
+        del x, r, args
+        torch.cuda.empty_cache()
+    return {**out["bge_large_add_ln"], "cases": out}
 
 
 def _attention_case(kernel: str, fn, plain, lib, args, nbytes: float, flops: float,
@@ -1880,16 +1973,19 @@ def phase_formats(counters, main: dict, token_lists) -> dict:
             k1 = c["q4_matmul"] + c["q4_matmul_2d"]
             n_attn = sum(c[k] for k in ATTENTION)
             want = counts[packing]
-            if "q4_impl" in kw:
-                check(k1 == 0, f"{tag}/{packing}: K1 launched {c}")
+            if "q4_impl" in kw:  # K1 and N1, the residual add + LayerNorm pass
+                check(k1 == 0 and c["layer_norm"] == 0,
+                      f"{tag}/{packing}: K1 or N1 launched {c}")
             else:
-                check(k1 == want["q4_matmul"], f"{tag}/{packing}: K1 {c}")
+                check(k1 == want["q4_matmul"] and c["layer_norm"] == want["layer_norm"] > 0,
+                      f"{tag}/{packing}: K1 / N1 {c}")
             if "attn_impl" in kw:
                 check(n_attn == 0, f"{tag}/{packing}: attention launched {c}")
             else:
                 check(n_attn == sum(want[k] for k in ATTENTION), f"{tag}/{packing}: {c}")
             rel = _max_rel(got, outs[packing])
-            plains[f"{tag}/{packing}"] = {"k1": k1, "attention": n_attn, "max_rel_err": rel,
+            plains[f"{tag}/{packing}"] = {"k1": k1, "attention": n_attn,
+                                          "layer_norm": c["layer_norm"], "max_rel_err": rel,
                                           "min_cosine": _min_cos(got, outs[packing])}
             check(rel <= BF16_REL, f"{tag}/{packing}: max rel err {rel} > {BF16_REL}")
     ids, mask = main["forward_inputs"][:2]
@@ -2072,6 +2168,8 @@ def phase_modernbert_main(counters, token_lists) -> tuple:
         emit({"phase": "modernbert_launches", "packing": packing, "forwards": forwards,
               "launches": counts})
         _modernbert_counts_ok(counts, forwards, packing, f"modernbert {packing}")
+        # N1: the embedding norm, 21 attention and 22 MLP pre-norms, the final norm
+        check(counts["layer_norm"] == 45 * forwards, f"modernbert {packing}: N1 {counts}")
         out = outs[packing]
         norms = np.linalg.norm(out, axis=-1)
         check(np.isfinite(out).all() and out.shape == (len(token_lists), 768),
@@ -2666,6 +2764,8 @@ def phase_bge_main(counters, token_lists) -> tuple:
                                            f"bge {packing}")
         emit({"phase": "bge_launches", "packing": packing, "forwards": forwards[packing],
               "launches": counts})
+        # N1: the embedding norm and two residual add + LayerNorm passes a layer
+        check(counts["layer_norm"] == 49 * forwards[packing], f"bge {packing}: N1 {counts}")
         check(counts["attn_bse_packed" if packing == "auto" else "attn_bse_keybias"] > 0,
               f"bge {packing}: {counts}")
         out = outs[packing]
@@ -4939,15 +5039,18 @@ def phase_retrieval_scripts(counters) -> dict:
 
 def plain_routes() -> dict:
     """Every attention wrapper's count of calls that "auto" sent to the
-    plain version because no kernel instance serves their head dim (never
-    reset: the run's total)."""
+    plain version because no kernel instance serves their head dim, and
+    N1's for rows past its widest instance (never reset: the run's
+    total)."""
     from embedding_cpp_tpu_torch.ops import attention as A
     from embedding_cpp_tpu_torch.ops import deberta_attention as DA
+    from embedding_cpp_tpu_torch.ops.linear import layer_norm
 
     fns = (A.flash_attention_bse, A.flash_attention_packed_bse, A.flash_attention,
            A.flash_attention_local, A.flash_attention_packed, A.flash_attention_packed_local,
            DA.disentangled_attention, DA.disentangled_attention_packed)
-    return {fn.__name__: fn.plain_routes for fn in fns}
+    return {**{fn.__name__: fn.plain_routes for fn in fns},
+            "layer_norm": layer_norm.plain_calls}
 
 
 def phase_head_dims(counters, token_lists) -> dict:
@@ -5117,6 +5220,7 @@ def launch_counters() -> dict:
     gives it."""
     from embedding_cpp_tpu_torch.ops import attention as A
     from embedding_cpp_tpu_torch.ops import deberta_attention as DA
+    from embedding_cpp_tpu_torch.ops.linear import layer_norm
     from embedding_cpp_tpu_torch.ops.q4_matmul import q4_matmul
 
     return {"q4_matmul": (q4_matmul, "launches"),
@@ -5134,7 +5238,8 @@ def launch_counters() -> dict:
             "attn_seg": (A.flash_attention_packed, "launches"),
             "attn_seg_window": (A.flash_attention_packed, "window_launches"),
             "attn_seg_local": (A.flash_attention_packed_local, "launches"),
-            "attention_headpack": (A.attention_headpack, "launches")}
+            "attention_headpack": (A.attention_headpack, "launches"),
+            "layer_norm": (layer_norm, "launches")}
 
 
 def main() -> None:
@@ -5181,6 +5286,7 @@ def main() -> None:
     k1t = phase_kernels_k1_tiles(peaks)
     k8 = phase_kernels_k8(peaks, F32_PEAKS[peaks_for(name)[0]])
     k1ln = phase_kernels_ln(peaks)
+    n1 = phase_kernels_layer_norm(peaks)
     attn = phase_kernels_attention(peaks, "minilm-l6", 12, 32, seed=0)
     # ModernBERT's global layers and nomic share this shape: [32, 512, 12x64]
     attn_mb = phase_kernels_attention(peaks, "modernbert-base", 12, 64, seed=2)
@@ -5203,8 +5309,11 @@ def main() -> None:
           f"eval reference: {(eval_dir / 'reference.log').read_text()[-2000:]}")
     emit({"phase": "eval_reference", "waited_s": time.perf_counter() - t0})
     engine, forward_args, launches, token_lists, main_path = phase_main(counters)
-    check(sum(plain_routes().values()) == 0, f"a plain route before head_dims: "
-          f"{plain_routes()}")
+    # the one plain route before head_dims: N1's, in the K1 epilogue phase's
+    # `linear` timing at N = 4096
+    check(plain_routes() == {**{k: 0 for k in plain_routes()},
+                             "layer_norm": k1ln["n1_plain_calls"]},
+          f"a plain route before head_dims: {plain_routes()}")
     head_counts, head_routes = phase_head_dims(counters, token_lists)
     gguf_counts, files = phase_formats(counters, main_path, token_lists)
     phase_native(main_path, files["q4_0"])
@@ -5613,13 +5722,14 @@ def main() -> None:
                               model="minilm-l6-4x96"))
     # the breakdown and A/B scripts, each kernel timed at its main-path entry
     scripts_timed = {"q4_matmul": k1_mini, "q4_matmul_prologue": k1m["prologue"],
-                     "q4_matmul_2d": k8_layer,
+                     "q4_matmul_2d": k8_layer, "layer_norm": n1,
                      **{k: attn[k] for k in ATTENTION}}
     for kname, n in scripts_counts.items():
         if n and kname not in ("q4_matmul_ln", "attention_headpack"):
             check(kname in scripts_timed, f"the scripts launched {kname}, timed nowhere")
             c = scripts_timed[kname]
-            src = ("q4_matmul.cu" if kname.startswith("q4") else "deberta_attention.cu"
+            src = ("q4_matmul.cu" if kname.startswith("q4") else "layer_norm.cu"
+                   if kname == "layer_norm" else "deberta_attention.cu"
                    if kname.startswith("deberta") else "attention_bse.cu"
                    if kname.startswith("attn_bse") else "attention_long.cu")
             kernels.append({**_entry(
@@ -5661,6 +5771,25 @@ def main() -> None:
                               mesh_counts[model][kname], c,
                               f"[{c['b']}, {c['s']}, {c['h']}*{c['d']}] bf16: {what}",
                               model=f"{model}/mesh", **extra))
+    # N1 on every model path; it replaces no TPU kernel (XLA fuses the norm)
+    n1_replaces = "embedding_cpp_tpu/ops/linear.py:31 (XLA-fused LayerNorm; no TPU kernel)"
+    kernels.append({**_entry(
+        "layer_norm", "layer_norm.cu", "linear.py:31", bge_total["layer_norm"], n1,
+        "bge-large-en-v1.5: residual add + LayerNorm over [262144, 1024] bf16 rows, f32 "
+        "scale and bias (launches: the bge_main phase, 49 a forward)",
+        model="bge-large-en-v1.5", library="x + r, then F.layer_norm in bf16",
+        launches_all_paths=sum(t["layer_norm"] for t in paths),
+        untimed={k: {"max_abs_err": c["max_abs_err"], "n": c["n"], "in": c["in"],
+                     "out": c["out"]} for k, c in n1["cases"].items() if "ms" not in c}),
+        "replaces": n1_replaces})
+    for key, what in (("modernbert_ln", "bf16 out (its pre-norms)"),
+                      ("modernbert_final_ln", "f32 out (its final norm)")):
+        kernels.append({**_entry(
+            f"layer_norm/{key}", "layer_norm.cu", "linear.py:31", mb_total["layer_norm"],
+            n1["cases"][key], "ModernBERT-base: LayerNorm without a bias over [524288, 768] "
+            f"bf16 rows, {what} (launches: its main, long and chunk phases, 45 a forward)",
+            model="modernbert-base", library="F.layer_norm in bf16"),
+            "replaces": n1_replaces})
     c = headpack["d32_hb4"]
     kernels.append({
         **_entry("attention_headpack", "attention_headpack.cu", "", headpack_on_paths, c,
@@ -5681,8 +5810,11 @@ def main() -> None:
               if k["name"] not in ("q4_matmul_ln", "attention_headpack")),
           f"a kernel was never launched: {[(k['name'], k['launches']) for k in kernels]}")
     totals = plain_routes()
-    emit({"phase": "plain_routes", "totals": totals, "head_dims_d24": head_routes})
-    check(totals == head_routes, f"a plain route outside the head_dims phase's d 24: {totals}")
+    emit({"phase": "plain_routes", "totals": totals, "head_dims_d24": head_routes,
+          "k1_ln_phase_n1": k1ln["n1_plain_calls"]})
+    check(totals == {**head_routes, "layer_norm": head_routes["layer_norm"]
+                     + k1ln["n1_plain_calls"]},
+          f"a plain route outside the head_dims phase's d 24 and N1's at N = 4096: {totals}")
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -41,6 +41,9 @@ is held to.
 `bench_long` runs the long-row body (K5, K5 with a [1, S, S] bias, K6b,
 K6a, K7) at the main paths' shapes, at the source's query-tile rule and
 with each query tile forced: the times the rule is decided from.
+`bench_layer_norm` runs the norm layer's one-pass residual add +
+LayerNorm (`csrc/layer_norm.cu`) at the benchmark cells' shapes
+(`LAYER_NORM_CASES`) beside its plain version and `F.layer_norm`.
 `bench_attention_headpack` runs B1, the head-packed attention of the JAX
 suite's bench of that name (`ops/attention.attention_headpack`, kernel
 `csrc/attention_headpack.cu`), at every (d, hb) of `HEADPACK_SHAPES`.  No
@@ -376,6 +379,56 @@ def bench_ln_tiles(peaks, ms=(16384, 512)) -> dict:
             row["bound_us"] = bound_ms(nbytes, flops, peaks)[0] * 1e3
             out[f"{k}x{n}"][m] = row
             del x, w, b, res
+        torch.cuda.empty_cache()
+    return out
+
+
+# The norm layer's shapes in the benchmark's cells: (M, N, residual, out
+# dtype) of bge-large.corpus's add + LayerNorm and ModernBERT's pre-norm
+# and final norm at docs8k's [64, 8192] slots.
+LAYER_NORM_CASES = {"bge_large_add_ln": (262144, 1024, True, torch.bfloat16),
+                    "modernbert_ln": (524288, 768, False, torch.bfloat16),
+                    "modernbert_final_ln": (524288, 768, False, torch.float32)}
+
+
+def bench_layer_norm(peaks) -> dict:
+    """csrc/layer_norm.cu at the cells' shapes (bf16 rows, f32 scale and
+    bias; ModernBERT's norms without a bias): {case: {"kernel", "plain",
+    "library", "bound_us", "gbps"}}: the kernel, its plain version (the
+    composition the port ran before it) and `F.layer_norm` after a separate
+    add (the library's bar), in us; the bound reads x and the residual and
+    writes the output once."""
+    from ..ops.linear import layer_norm, layer_norm_plain
+
+    dev = torch.device("cuda")
+    g = torch.Generator(dev).manual_seed(0)
+    out = {}
+    for name, (m, n, residual, odt) in LAYER_NORM_CASES.items():
+        x = (0.3 + torch.randn((m, n), device=dev, generator=g)).to(torch.bfloat16)
+        r = torch.randn((m, n), device=dev, generator=g).to(torch.bfloat16) if residual else None
+        scale = 1 + 0.1 * torch.randn(n, device=dev, generator=g)
+        bias = 0.1 * torch.randn(n, device=dev, generator=g) if residual else None
+        nbytes = (m * n * (2 * (2 if residual else 1) + odt.itemsize)
+                  + (1 + (bias is not None)) * n * 4)
+
+        def library(x=x, r=r, scale=scale, bias=bias, n=n, odt=odt):
+            t = x if r is None else x + r
+            return F.layer_norm(t, (n,), scale.to(t.dtype),
+                                None if bias is None else bias.to(t.dtype), 1e-12).to(odt)
+
+        row = {}
+        for key, fn in (("kernel", lambda: layer_norm(x, scale, bias, 1e-12, odt, residual=r)),
+                        ("plain", lambda: layer_norm_plain(x, scale, bias, 1e-12, odt,
+                                                           residual=r)),
+                        ("library", library)):
+            row[key] = gpu_ms(fn, samples=10) * 1e3
+        row["bound_us"] = bound_ms(nbytes, 0.0, peaks)[0] * 1e3
+        row["gbps"] = nbytes / row["kernel"] / 1e3
+        row["max_err_vs_plain"] = (layer_norm(x, scale, bias, 1e-12, odt, residual=r).float()
+                                   - layer_norm_plain(x, scale, bias, 1e-12, odt, residual=r)
+                                   .float()).abs().max().item()
+        out[name] = row
+        del x, r
         torch.cuda.empty_cache()
     return out
 
@@ -1015,6 +1068,12 @@ def main(argv=None) -> dict:
                     f"{t}={v:.1f}" for t, v in row.items() if isinstance(v, float))
                     + f"  rule={row['rule']} ({row['cluster_blocks']} blocks, "
                     f"{row['active_clusters']} clusters at once)")
+    if want("layer_norm"):
+        results["layer_norm"] = r = bench_layer_norm(peaks)
+        for key, row in r.items():
+            log(f"layer_norm {key}: kernel {row['kernel']:.1f}us ({row['gbps']:.0f} GB/s) | "
+                f"plain {row['plain']:.1f}us | library {row['library']:.1f}us | "
+                f"bound {row['bound_us']:.1f}us | max_err {row['max_err_vs_plain']:.3g}")
     if want("attention_headpack"):
         results["attention_headpack"] = {}
         for d, hb in HEADPACK_SHAPES:

@@ -60,9 +60,10 @@ class ComputeOptions:
     device, half the bytes to fetch; pooling and the L2 norm still run in
     f32), or "int8" — per-vector int8 codes with their f32 scale packed in
     one uint8 array (`pack_output_i8`), a quarter of the bytes; and which
-    version of the quantized matmul (`q4_impl`) and of the attention
-    (`attn_impl`) the forward runs: "auto" (the kernel on CUDA tensors, the
-    plain version on the CPU), "kernel" or "plain" (ops/dispatch.py)."""
+    version of the quantized matmul and the residual + LayerNorm pass
+    (`q4_impl`) and of the attention (`attn_impl`) the forward runs: "auto"
+    (the kernel on CUDA tensors, the plain version on the CPU), "kernel" or
+    "plain" (ops/dispatch.py)."""
 
     dtype: str = "float32"
     output_dtype: str = "float32"

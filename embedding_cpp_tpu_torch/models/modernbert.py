@@ -96,7 +96,7 @@ def window_bias(s: int, window: int, device) -> torch.Tensor:
 
 def _ln(x: torch.Tensor, scale: torch.Tensor, eps: float, out_dtype) -> torch.Tensor:
     """Bias-free LayerNorm."""
-    return layer_norm(x, scale, 0.0, eps, out_dtype)
+    return layer_norm(x, scale, None, eps, out_dtype)
 
 
 class _Ctx:

@@ -20,7 +20,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("q4_matmul.cu", "attention_bse.cu", "attention_long.cu", "deberta_attention.cu",
-           "attention_headpack.cu")
+           "attention_headpack.cu", "layer_norm.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

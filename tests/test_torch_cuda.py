@@ -1311,6 +1311,7 @@ def test_plain_switches_launch_no_kernel(dev, tmp_path, q4_impl, attn_impl, pack
     from embedding_cpp_tpu_torch import Engine
     from embedding_cpp_tpu_torch.models import ComputeOptions
     from embedding_cpp_tpu_torch.ops import attention as A
+    from embedding_cpp_tpu_torch.ops.linear import layer_norm
 
     path, _ = _minilm_file(tmp_path)
     auto = Engine.from_gguf(path, opts=ComputeOptions(dtype="bfloat16"), device=dev,
@@ -1319,14 +1320,16 @@ def test_plain_switches_launch_no_kernel(dev, tmp_path, q4_impl, attn_impl, pack
                    packing=packing, opts=ComputeOptions(dtype="bfloat16", q4_impl=q4_impl,
                                                         attn_impl=attn_impl))
     ref = auto.encode(_SENTENCES)
-    counters = [(q4_matmul, "launches"), (A.flash_attention_bse, "launches"),
-                (A.flash_attention_packed_bse, "launches")]
+    counters = [(q4_matmul, "launches"), (layer_norm, "launches"),
+                (A.flash_attention_bse, "launches"), (A.flash_attention_packed_bse, "launches")]
     before = [getattr(f, n) for f, n in counters]
     got = plain.encode(_SENTENCES)
     torch.cuda.synchronize()
     delta = [getattr(f, n) - b for (f, n), b in zip(counters, before)]
+    # q4_impl covers K1 and N1, the residual add + LayerNorm pass
     assert (delta[0] == 0) == (q4_impl == "plain") and delta[0] >= 0
-    assert (sum(delta[1:]) == 0) == (attn_impl == "plain")
+    assert (delta[1] == 0) == (q4_impl == "plain") and delta[1] >= 0
+    assert (sum(delta[2:]) == 0) == (attn_impl == "plain")
     cos = np.sum(got * ref, -1) / np.linalg.norm(got, axis=-1) / np.linalg.norm(ref, axis=-1)
     assert cos.min() >= 0.999
 
